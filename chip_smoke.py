@@ -15,6 +15,11 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 3. flash    — the flash-attention kernel against its plain version:
               (B, 24, S, 128) q over (B, 8, S, 128) k/v, causal and not,
               S in {512, 1000}, bf16.
+   expert_gemm — the grouped GEMM kernel (the same source, the expert axis
+              in the grid) against its plain version: qwen3-moe's three
+              prefill expert GEMMs at capacity 40 and 32 with their
+              epilogues, bias and residual at one shape each, ragged
+              capacity 24, padded ragged K/N, forced corner configs, f32.
 4. serve    — ``run_serving`` for phi4-mini-3.8b at full width and depth
               (random weights from a seed), 8 ragged requests of 256-512
               prompt tokens, batch 4, 16 generated tokens each, on the
@@ -26,7 +31,17 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               replaced by its plain version) on the card.
    trace    — one prefill and four decode steps under torch.profiler:
               device kernel time by kernel and the device's idle share.
-5. times    — each kernel at the main-path shapes: kernel, plain and
+5. serve_moe — phi4-mini's params freed, the same traffic served by
+              qwen3-moe-30b-a3b at full width and depth (48 layers, 128
+              experts top-8; 61 GB of bf16 random weights from a seed).
+              All three kernels must have launched in the run, the grouped
+              GEMM exactly 3 x 48 times per prefill and never in decode;
+              no fallback rung or retry; every request finishes.  Logits:
+              kernel path vs plain path vs plain f32 on the first 4 layers
+              (the f32 yardstick as in phase 4), and kernel vs plain at
+              full depth within ``MOE_FULL_REL_CAP``.
+   moe_trace — the trace phase for qwen3-moe, grouped GEMM time apart.
+6. times    — each kernel at the main-path shapes: kernel, plain and
               one-call library times (CUDA graphs and events) and
               the bound max(flop / 989e12, bytes / 3.35e12).
 
@@ -53,6 +68,14 @@ HBM_BW = 3.35e12            # H100 SXM HBM3 bytes/s
 # from its f32 run; two independent roundings of that size differ by ~1.4x.
 LOGITS_REL_FACTOR = 2.0
 LOGITS_REL_CAP = 0.1
+# qwen3-moe at full depth has no f32 yardstick (an f32 copy of 61 GB of
+# params does not fit beside them).  Top-8 of 128 routing flips where bf16
+# noise moves a router logit across the 8th/9th gap, and each flip swaps
+# an expert out of a token's sum, so the kernel and plain paths drift
+# further apart than rounding alone would take them (predicted relative L2
+# 0.1-0.3 over all positions' logits; a wrong kernel gives ~1).
+MOE_FULL_REL_CAP = 0.5
+MOE_CUT_LAYERS = 4
 FLASH_ATOL, FLASH_RTOL = 1e-2, 2e-2
 
 
@@ -143,11 +166,19 @@ def main() -> int:
           "sources": summary})
 
     max_err = {"matmul": gemm_phase(torch, dev, kmm),
-               "flash_attention": flash_phase(torch, dev, kfa)}
+               "flash_attention": flash_phase(torch, dev, kfa),
+               "expert_matmul": expert_gemm_phase(torch, dev, kmm)}
     model, params, launches, edges = serve_phase(torch, dev, kmm, kfa)
     trace_phase(torch, dev, model, params)
     del model, params
-    times = times_phase(torch, dev, kmm, kfa, edges)
+    _free(torch)
+    model, params, moe_launches, moe_capacity = serve_moe_phase(
+        torch, dev, kmm, kfa)
+    trace_phase(torch, dev, model, params, phase="moe_trace")
+    del model, params
+    _free(torch)
+    times = times_phase(torch, dev, kmm, kfa, edges, moe_capacity)
+    launches["expert_matmul"] = moe_launches["expert_matmul"]
 
     entries = []
     for key, base, source, replaces in (
@@ -157,7 +188,10 @@ def main() -> int:
              "src/repro/kernels/matmul.py:108"),
             ("flash_attention@prefill", "flash_attention",
              "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:136")):
+             "src/repro/kernels/flash_attention.py:136"),
+            ("expert_matmul@prefill", "expert_matmul",
+             "src/repro_torch/csrc/matmul.cu",
+             "src/repro/kernels/ops.py:308")):
         t = times[key]
         entries.append({"name": key, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[base],
@@ -170,6 +204,14 @@ def main() -> int:
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _free(torch) -> None:
+    """Return a finished model's memory to the card before the next."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -305,12 +347,97 @@ def flash_phase(torch, dev, kfa) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Phase 3b: the grouped (expert) GEMM kernel against its plain version.
+# ---------------------------------------------------------------------------
+
+def _expert_inputs(torch, dev, E, M, N, K, ep, dt, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev,
+                           dtype=torch.float32).to(dt)
+    kw = {}
+    if ep.bias:
+        kw["bias"] = rnd(E, N)
+    if ep.activation == "swiglu_gate":
+        kw["gate"] = rnd(E, M, N)
+    if ep.residual:
+        kw["residual"] = rnd(E, M, N)
+    return rnd(E, M, K), rnd(E, K, N), kw
+
+
+def expert_gemm_phase(torch, dev, kmm) -> float:
+    from repro_torch.core.hardware import GPU_H100_LIKE
+    from repro_torch.core.latency import Epilogue, TileConfig
+    from repro_torch.core.selector import select_gemm_config
+    from repro_torch.kernels.ops import _dtype_name, _model_dtype_name
+
+    bf, f32 = torch.bfloat16, torch.float32
+    none, swi = Epilogue(), Epilogue(activation="swiglu_gate")
+    cases = []
+    for C in (40, 32):                # qwen3-moe prefill capacities
+        cases += [(128, C, 768, 2048, none, bf, bf, None),    # wu
+                  (128, C, 768, 2048, swi, bf, bf, None),     # wg + gate
+                  (128, C, 2048, 768, none, bf, bf, None)]    # wd
+    cases += [
+        (128, 40, 768, 2048, Epilogue(bias=True), bf, bf, None),
+        (128, 32, 2048, 768, Epilogue(residual=True), bf, bf, None),
+        (128, 24, 768, 2048, swi, bf, bf, None),              # ragged C
+        (4, 17, 100, 77, Epilogue(residual=True), bf, bf, None),  # pads K, N
+        # forced configs at the menu's corners
+        (16, 40, 768, 2048, swi, bf, bf, TileConfig(256, 256, 32, group_m=4)),
+        (128, 40, 2048, 768, none, bf, bf, TileConfig(32, 32, 32)),
+        (128, 40, 768, 2048, none, bf, f32,
+         TileConfig(128, 128, 128, schedule="stream_k")),
+        # f32 inputs (SIMT path)
+        (8, 24, 200, 264, Epilogue(bias=True), f32, f32,
+         TileConfig(32, 32, 32)),
+        (8, 40, 768, 512, swi, f32, f32, None),
+    ]
+    worst = 0.0
+    rows = []
+    for i, (E, M, N, K, ep, dt, odt, cfg) in enumerate(cases):
+        if cfg is None:
+            cfg = select_gemm_config(M, N, K, in_dtype=_dtype_name(dt),
+                                     out_dtype=_model_dtype_name(odt),
+                                     epilogue=ep, hw=GPU_H100_LIKE).config
+        x, w, kw = _expert_inputs(torch, dev, E, M, N, K, ep, dt, seed=50 + i)
+        n0 = kmm.tiled_expert_matmul.launches
+        got = kmm.tiled_expert_matmul(x, w, cfg, out_dtype=odt, epilogue=ep,
+                                      **kw)
+        want = kmm.expert_matmul_plain(x, w, cfg, out_dtype=odt,
+                                       epilogue=ep, **kw)
+        torch.cuda.synchronize()
+        rtol, atol = gemm_tol(dt, K)
+        err = (got.float() - want.float()).abs()
+        bound = atol + rtol * want.float().abs()
+        ok = bool((err <= bound).all()) and bool(torch.isfinite(got).all())
+        ok = ok and kmm.tiled_expert_matmul.launches == n0 + 1
+        rel = float(torch.linalg.vector_norm(got.float() - want.float())
+                    / torch.linalg.vector_norm(want.float()))
+        rows.append({"shape": [E, M, N, K], "epilogue": str(ep),
+                     "in": str(dt)[6:], "out": str(odt)[6:],
+                     "config": str(cfg), "max_abs_err": float(err.max()),
+                     "rel_l2": rel, "ok": ok})
+        if not ok:
+            emit({"phase": "expert_gemm", "cases": rows})
+            fail(f"expert gemm {E}x{M}x{N}x{K} {ep} {cfg} disagrees with "
+                 f"its plain version (max abs err {float(err.max())}, atol "
+                 f"{atol}, rtol {rtol})")
+        worst = max(worst, float(err.max()))
+    emit({"phase": "expert_gemm", "tolerance": "tests/test_kernels.py:26-27:"
+          " f32 rtol 1e-5 atol 1e-4*sqrt(K); bf16 rtol 3e-2 atol "
+          "0.3*sqrt(K)", "cases": rows})
+    return worst
+
+
+# ---------------------------------------------------------------------------
 # Phase 4: serve phi4-mini-3.8b at full width and depth.
 # ---------------------------------------------------------------------------
 
-SERVE_ARGS = ["--arch", "phi4-mini-3.8b", "--batch", "4", "--prompt-len",
-              "512", "--gen", "16", "--ragged", "--requests", "8",
-              "--temperature", "0", "--seed", "0", "--quiet"]
+SERVE_ARGS = ["--batch", "4", "--prompt-len", "512", "--gen", "16",
+              "--ragged", "--requests", "8", "--temperature", "0", "--seed",
+              "0", "--quiet"]
 
 
 def plain_path(kmm, kfa):
@@ -321,44 +448,55 @@ def plain_path(kmm, kfa):
                                 epilogue=epilogue, bias=bias, gate=gate,
                                 residual=residual)
 
+    def expert(x, w, cfg, *, out_dtype, epilogue, bias, gate, residual):
+        return kmm.expert_matmul_plain(x, w, cfg, out_dtype=out_dtype,
+                                       epilogue=epilogue, bias=bias,
+                                       gate=gate, residual=residual)
+
     def attn(q, k, v, *, block_q, block_kv, causal, scale):
         return kfa.attention_plain(q, k, v, block_q=block_q,
                                    block_kv=block_kv, causal=causal,
                                    scale=scale)
     return (mock.patch.object(kmm, "_launch_cuda", gemm),
+            mock.patch.object(kmm, "_launch_expert_cuda", expert),
             mock.patch.object(kfa, "_launch_cuda", attn))
 
 
-def serve_phase(torch, dev, kmm, kfa):
-    import numpy as np
+def _serve(torch, dev, kmm, kfa, arch):
+    """Random params from the seed, then ``run_serving`` on the phase's
+    traffic with every launch count zeroed right before and read right
+    after.  Fails unless every request finished with in-vocabulary tokens,
+    with no fallback rung and no launch retry."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import build_parser, run_serving
     from repro_torch.nn.model import Model
     from repro_torch.obs import metrics as obs_metrics
 
-    args = build_parser().parse_args(SERVE_ARGS)
+    args = build_parser().parse_args(["--arch", arch, *SERVE_ARGS])
     cfg = get_config(args.arch)
     model = Model(cfg, device=dev)
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model.init(gen)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    emit({"phase": "serve_init", "params": n_params,
+    emit({"phase": "serve_init", "arch": cfg.name,
+          "params": sum(t.numel() for t in _leaves(params)),
           "param_bytes": sum(t.numel() * t.element_size()
                              for t in _leaves(params)),
           "seconds": time.perf_counter() - t0})
 
     prev_metrics = obs_metrics.enable_metrics(True)
     obs_metrics.get_registry().clear()
-    kmm.tiled_matmul.launches = 0
-    kfa.flash_attention_kernel.launches = 0
+    counters = {"matmul": kmm.tiled_matmul,
+                "expert_matmul": kmm.tiled_expert_matmul,
+                "flash_attention": kfa.flash_attention_kernel}
+    for fn in counters.values():
+        fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     out = run_serving(args, params=params)
     wall = time.perf_counter() - t0
-    n_mm = kmm.tiled_matmul.launches
-    n_fa = kfa.flash_attention_kernel.launches
+    launches = {k: fn.launches for k, fn in counters.items()}
     reg = obs_metrics.get_registry()
     fallback = sum(m.value for m in reg.metrics()
                    if m.name == "fallback_rungs")
@@ -366,12 +504,12 @@ def serve_phase(torch, dev, kmm, kfa):
                   if m.name == "launch_retries")
     obs_metrics.enable_metrics(prev_metrics)
     results = out["results"]
-    n_steps = out["steps"]
-    emit({"phase": "serve", "arch": cfg.name, "layers": cfg.num_layers,
+    emit({"phase": "serve" if not cfg.is_moe else "serve_moe",
+          "arch": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "requests": len(results),
           "edges": out["edges"], "bucket_hits": out["bucket_hits"],
           "prompt_lens": [results[r].prompt_len for r in sorted(results)],
-          "steps": n_steps, "tokens_emitted": out["tokens_emitted"],
+          "steps": out["steps"], "tokens_emitted": out["tokens_emitted"],
           "tokens_per_s": out["tokens_per_s"],
           "prefill_ms_total": out["t_prefill_s"] * 1e3,
           "prefill_ms_per_request": out["t_prefill_s"] * 1e3 / len(results),
@@ -379,34 +517,53 @@ def serve_phase(torch, dev, kmm, kfa):
           "dispatch_ms_per_step": out["dispatch_s_mean"] * 1e3,
           "t_decode_s": out["t_decode_s"], "wall_s": wall,
           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
-          "launches": {"matmul": n_mm, "flash_attention": n_fa},
+          "launches": launches,
           "fallback_rungs": fallback, "launch_retries": retries,
-          "sample": [results[r].tokens[:8].tolist() for r in sorted(results)][:2]})
-    if n_mm <= 0 or n_fa <= 0:
-        fail(f"main path did not launch both kernels (matmul {n_mm}, "
-             f"flash {n_fa})")
+          "sample": [results[r].tokens[:8].tolist()
+                     for r in sorted(results)][:2]})
+    if launches["matmul"] <= 0 or launches["flash_attention"] <= 0:
+        fail(f"{cfg.name}: main path did not launch the dense GEMM and "
+             f"flash kernels ({launches})")
     if fallback or retries:
-        fail(f"fallback rungs {fallback}, launch retries {retries}")
+        fail(f"{cfg.name}: fallback rungs {fallback}, launch retries "
+             f"{retries}")
     if len(results) != 8 or not all(r.finished for r in results.values()):
-        fail("not every request finished")
+        fail(f"{cfg.name}: not every request finished")
     for r in results.values():
         if len(r.tokens) != 16 or not ((r.tokens >= 0)
                                        & (r.tokens < cfg.vocab_size)).all():
-            fail(f"request {r.rid}: bad tokens {r.tokens.tolist()}")
+            fail(f"{cfg.name} request {r.rid}: bad tokens "
+                 f"{r.tokens.tolist()}")
+    return args, model, params, out, launches
 
-    # One request's prefill logits: kernel path vs plain path on the card.
-    rid = 0
-    r0 = results[rid]
+
+def _request_tokens(torch, dev, args, cfg, r):
+    """Request ``r``'s prompt as served: right-padded to its bucket edge,
+    with its last real position."""
+    import numpy as np
     prompts = np.random.default_rng(args.seed).integers(
         0, cfg.vocab_size, size=(8, args.prompt_len)).astype(np.int64)
-    tokens = torch.zeros((1, r0.padded_len), dtype=torch.int64, device=dev)
-    tokens[0, :r0.prompt_len] = torch.from_numpy(
-        prompts[rid, :r0.prompt_len]).to(dev)
-    last = torch.tensor([r0.prompt_len - 1], device=dev)
+    tokens = torch.zeros((1, r.padded_len), dtype=torch.int64, device=dev)
+    tokens[0, :r.prompt_len] = torch.from_numpy(
+        prompts[r.rid, :r.prompt_len]).to(dev)
+    return tokens, torch.tensor([r.prompt_len - 1], device=dev)
+
+
+def _rel(torch, x, y) -> float:
+    return float(torch.linalg.vector_norm(x - y)
+                 / torch.linalg.vector_norm(y))
+
+
+def serve_phase(torch, dev, kmm, kfa):
+    args, model, params, out, launches = _serve(torch, dev, kmm, kfa,
+                                                "phi4-mini-3.8b")
+    # One request's prefill logits: kernel path vs plain path on the card.
+    r0 = out["results"][0]
+    tokens, last = _request_tokens(torch, dev, args, model.cfg, r0)
     with torch.inference_mode():
         got, _ = model.prefill(params, tokens, last)
-        p1, p2 = plain_path(kmm, kfa)
-        with p1, p2:
+        p1, p2, p3 = plain_path(kmm, kfa)
+        with p1, p2, p3:
             want, _ = model.prefill(params, tokens, last)
             # The same plain path in f32: how far bf16 rounding alone moves
             # the logits, the yardstick for the kernel-vs-plain distance.
@@ -415,15 +572,12 @@ def serve_phase(torch, dev, kmm, kfa):
             del params32
     torch.cuda.synchronize()
 
-    def rel(x, y):
-        return float(torch.linalg.vector_norm(x - y)
-                     / torch.linalg.vector_norm(y))
-
-    d_kp, d_p32, d_k32 = rel(got, want), rel(want, ref32), rel(got, ref32)
-    emit({"phase": "serve_logits", "rid": rid, "prompt_len": r0.prompt_len,
-          "padded_len": r0.padded_len, "rel_l2_kernel_vs_plain": d_kp,
+    d_kp, d_p32 = _rel(torch, got, want), _rel(torch, want, ref32)
+    emit({"phase": "serve_logits", "rid": r0.rid,
+          "prompt_len": r0.prompt_len, "padded_len": r0.padded_len,
+          "rel_l2_kernel_vs_plain": d_kp,
           "rel_l2_plain_bf16_vs_plain_f32": d_p32,
-          "rel_l2_kernel_vs_plain_f32": d_k32,
+          "rel_l2_kernel_vs_plain_f32": _rel(torch, got, ref32),
           "max_abs_err": float((got - want).abs().max()),
           "plain_absmax": float(want.abs().max()),
           "argmax_equal": int(got.argmax()) == int(want.argmax()),
@@ -436,31 +590,128 @@ def serve_phase(torch, dev, kmm, kfa):
             or d_kp > LOGITS_REL_FACTOR * d_p32:
         fail(f"prefill logits disagree with the plain path (rel {d_kp}, "
              f"bf16 rounding alone {d_p32})")
-    return (model, params, {"matmul": n_mm, "flash_attention": n_fa},
-            out["edges"])
+    return model, params, launches, out["edges"]
 
 
 # ---------------------------------------------------------------------------
-# Phase 4b: where a step's time goes (torch.profiler device kernel time).
+# Phase 5: serve qwen3-moe-30b-a3b at full width and depth.
+# ---------------------------------------------------------------------------
+
+def serve_moe_phase(torch, dev, kmm, kfa):
+    import dataclasses
+    from repro_torch.nn.model import Model
+    from repro_torch.nn.moe import _capacity
+
+    args, model, params, out, launches = _serve(torch, dev, kmm, kfa,
+                                                "qwen3-moe-30b-a3b")
+    cfg = model.cfg
+    per_prefill = 3 * cfg.num_layers       # wu, wg + gate, wd in each layer
+    n_prefills = len(out["results"])
+    if launches["expert_matmul"] != per_prefill * n_prefills:
+        fail(f"grouped GEMM launched {launches['expert_matmul']} times, "
+             f"expected {per_prefill} per prefill x {n_prefills} prefills "
+             f"and none in decode")
+
+    r0 = out["results"][0]
+    tokens, _ = _request_tokens(torch, dev, args, cfg, r0)
+    tokens = tokens[:, :r0.prompt_len]
+    row = {"phase": "serve_moe_logits", "rid": r0.rid,
+           "prompt_len": r0.prompt_len}
+    with torch.inference_mode():
+        # Full depth: kernel path vs plain path over every position.
+        got = model.forward(params, tokens)[0]
+        p1, p2, p3 = plain_path(kmm, kfa)
+        with p1, p2, p3:
+            want = model.forward(params, tokens)[0]
+        torch.cuda.synchronize()
+        d_full = _rel(torch, got, want)
+        row.update({
+            "full_layers": cfg.num_layers,
+            "full_rel_l2_kernel_vs_plain": d_full,
+            "full_argmax_agreement": float(
+                (got.argmax(-1) == want.argmax(-1)).float().mean()),
+            "full_last_argmax_equal":
+                int(got[-1].argmax()) == int(want[-1].argmax()),
+            "first_token_matches_served":
+                int(got[-1].argmax()) == int(r0.tokens[0]),
+            "full_tolerance": f"finite, relative L2 <= {MOE_FULL_REL_CAP}"})
+        full_ok = bool(torch.isfinite(got).all()) and d_full <= \
+            MOE_FULL_REL_CAP
+        del got, want
+
+        # The first MOE_CUT_LAYERS layers (views of the served params):
+        # the f32 yardstick of phase 4 fits at this depth.
+        cut = Model(dataclasses.replace(cfg, num_layers=MOE_CUT_LAYERS),
+                    device=dev)
+        p_cut = dict(params, layers=_tree_map(
+            params["layers"], lambda t: t[:MOE_CUT_LAYERS]))
+        got = cut.forward(p_cut, tokens)[0]
+        with p1, p2, p3:
+            want = cut.forward(p_cut, tokens)[0]
+            p32 = _tree_map(p_cut, lambda t: t.float())
+            ref32 = cut.forward(p32, tokens)[0]
+            del p32
+        torch.cuda.synchronize()
+    d_kp, d_p32 = _rel(torch, got, want), _rel(torch, want, ref32)
+    row.update({
+        "cut_layers": MOE_CUT_LAYERS,
+        "cut_rel_l2_kernel_vs_plain": d_kp,
+        "cut_rel_l2_plain_bf16_vs_plain_f32": d_p32,
+        "cut_rel_l2_kernel_vs_plain_f32": _rel(torch, got, ref32),
+        "cut_argmax_agreement": float(
+            (got.argmax(-1) == want.argmax(-1)).float().mean()),
+        "cut_tolerance": f"kernel vs plain relative L2 <= "
+                         f"{LOGITS_REL_FACTOR} x (plain bf16 vs plain f32) "
+                         f"and <= {LOGITS_REL_CAP}",
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
+    emit(row)
+    if not full_ok:
+        fail(f"qwen3-moe full-depth logits disagree with the plain path "
+             f"(rel {d_full})")
+    if not bool(torch.isfinite(got).all()) or d_kp > LOGITS_REL_CAP \
+            or d_kp > LOGITS_REL_FACTOR * d_p32:
+        fail(f"qwen3-moe {MOE_CUT_LAYERS}-layer logits disagree with the "
+             f"plain path (rel {d_kp}, bf16 rounding alone {d_p32})")
+    return model, params, launches, _capacity(cfg, max(out["edges"]))
+
+
+# ---------------------------------------------------------------------------
+# Phase 4b / 5b: where a step's time goes (torch.profiler device time).
 # ---------------------------------------------------------------------------
 
 def _kernel_ms(prof):
     """Device time (ms) and launch count of every kernel in a profile,
-    grouped by kernel."""
-    groups = {"matmul": 0.0, "flash_attention": 0.0, "other": 0.0}
+    grouped by kernel: the grouped GEMM is the GEMM kernel launched with
+    more than one grid row (read from the exported trace's grid)."""
+    import os
+    import tempfile
+    groups = {"matmul": 0.0, "expert_matmul": 0.0, "flash_attention": 0.0,
+              "other": 0.0}
     counts = dict.fromkeys(groups, 0)
-    for ev in prof.key_averages():
-        us = ev.self_device_time_total
-        if not us:
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    for ev in events:
+        if str(ev.get("cat", "")).lower() != "kernel":
             continue
-        key = ("matmul" if "gemm_kernel" in ev.key else
-               "flash_attention" if "flash_fwd_kernel" in ev.key else "other")
-        groups[key] += us / 1e3
-        counts[key] += ev.count
+        name = ev.get("name", "")
+        grid = ev.get("args", {}).get("grid", [1, 1, 1])
+        key = ("flash_attention" if "flash_fwd_kernel" in name else
+               "other" if "gemm_kernel" not in name else
+               "expert_matmul" if grid[1] > 1 else "matmul")
+        groups[key] += ev.get("dur", 0.0) / 1e3
+        counts[key] += 1
+    if not any(counts.values()):
+        fail("the profiler's trace holds no device kernel events")
     return groups, counts
 
 
-def trace_phase(torch, dev, model, params) -> None:
+def trace_phase(torch, dev, model, params, phase="trace") -> None:
     """One prefill (the largest served prompt) and four decode steps at
     batch 4 under torch.profiler: device kernel time by kernel against the
     host wall time, so the device's busy and idle shares are measured."""
@@ -495,9 +746,11 @@ def trace_phase(torch, dev, model, params) -> None:
                           "kernels_per_call": {k: v / n
                                                for k, v in counts.items()},
                           "busy_ms": busy, "idle_share": 1 - busy / wall}
-    emit({"phase": "trace", "what": "torch.profiler device kernel time per "
-          "call vs host wall time per call (profiler on)", "batch": B,
-          "prompt_len": S, **rows})
+    del cache
+    emit({"phase": phase, "arch": model.cfg.name,
+          "what": "torch.profiler device kernel time per call vs host wall "
+          "time per call (profiler on)", "batch": B, "prompt_len": S,
+          **rows})
 
 
 def _tree_map(tree, fn):
@@ -514,7 +767,7 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: times at the main-path shapes.
+# Phase 6: times at the main-path shapes.
 # ---------------------------------------------------------------------------
 
 PATH_GEMMS = [  # (name, N, K, epilogue) of one phi4-mini layer
@@ -524,15 +777,20 @@ PATH_GEMMS = [  # (name, N, K, epilogue) of one phi4-mini layer
     ("wd", 3072, 8192, "residual")]
 
 
+EXPERT_GEMMS = [  # (name, N, K, epilogue) of one qwen3-moe layer's experts
+    ("wu", 768, 2048, "none"), ("wg", 768, 2048, "swiglu_gate"),
+    ("wd", 2048, 768, "none")]
+
+
 def _gemm_bytes_flops(M, N, K, ep):
     extra = M * N * 2 if ep in ("residual", "swiglu_gate") else 0
     return 2 * (M * K + K * N + M * N) + extra, 2.0 * M * N * K
 
 
-def times_phase(torch, dev, kmm, kfa, edges):
+def times_phase(torch, dev, kmm, kfa, edges, moe_capacity):
     """Per-call times of each kernel at the main-path shapes; returns the
-    kernels-line numbers keyed matmul@decode, matmul@prefill and
-    flash_attention@prefill."""
+    kernels-line numbers keyed matmul@decode, matmul@prefill,
+    flash_attention@prefill and expert_matmul@prefill."""
     import torch.nn.functional as F
     from repro_torch.core.hardware import GPU_H100_LIKE
     from repro_torch.core.latency import Epilogue
@@ -623,6 +881,59 @@ def times_phase(torch, dev, kmm, kfa, edges):
     per_shape.append(row)
     times["flash_attention@prefill"] = {k_: row[k_] for k_ in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+
+    # The three expert GEMMs of one qwen3-moe prefill layer at the capacity
+    # of the largest served bucket edge.
+    E, C = 128, moe_capacity
+    tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes", "flops"),
+                        0.0)
+    for name, N, K, epn in EXPERT_GEMMS:
+        ep = eps[epn]
+        x, w, kw = _expert_inputs(torch, dev, E, C, N, K, ep, torch.bfloat16,
+                                  seed=13)
+        x = x * 0.1
+        w = w * 0.02
+        cfg = select_gemm_config(C, N, K, in_dtype="bfloat16",
+                                 out_dtype="bfloat16", epilogue=ep,
+                                 hw=GPU_H100_LIKE).config
+        bf = torch.bfloat16
+
+        def kern():
+            return kmm._launch_expert_cuda(x, w, cfg, out_dtype=bf,
+                                           epilogue=ep, bias=None,
+                                           gate=kw.get("gate"),
+                                           residual=None)
+
+        def plain():
+            return kmm.expert_matmul_plain(x, w, cfg, out_dtype=bf,
+                                           epilogue=ep, **kw)
+
+        def library():
+            y = torch.bmm(x, w)
+            return F.silu(y) * kw["gate"] if epn == "swiglu_gate" else y
+
+        n0 = kmm.tiled_expert_matmul.launches
+        row = {"phase": "prefill", "expert_gemm": name, "E": E, "C": C,
+               "N": N, "K": K, "epilogue": epn, "config": str(cfg),
+               "ms": time_ms(kern), "plain_ms": time_ms(plain),
+               "library_ms": time_ms(library)}
+        kmm.tiled_expert_matmul.launches = n0
+        nbytes, flops = _gemm_bytes_flops(C, N, K, epn)
+        nbytes, flops = E * nbytes, E * flops
+        row["bound_ms"] = max(nbytes / HBM_BW, flops / BF16_PEAK) * 1e3
+        row["bound_by"] = ("bytes" if nbytes / HBM_BW >= flops / BF16_PEAK
+                           else "operations")
+        per_shape.append(row)
+        for key in ("ms", "plain_ms", "library_ms"):
+            tot[key] += row[key]
+        tot["bytes"] += nbytes
+        tot["flops"] += flops
+    t_b, t_f = tot["bytes"] / HBM_BW, tot["flops"] / BF16_PEAK
+    times["expert_matmul@prefill"] = {
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "library_ms": tot["library_ms"], "bound_ms": max(t_b, t_f) * 1e3,
+        "bound_by": "bytes" if t_b >= t_f else "operations",
+        "what": f"sum over one layer's 3 expert GEMMs at E={E}, C={C}"}
     emit({"phase": "times", "timing": "CUDA graph of 10 calls after 3 "
           "warm-up calls, median of 5 replays between CUDA events, per "
           "call", "rows": per_shape,

@@ -1,16 +1,17 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-Only the dense phi4-mini path is ported so far; other architectures join
-as their model families are ported."""
+Architectures join as their model families are ported: the dense
+phi4-mini and the MoE qwen3-moe-30b-a3b."""
 from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import phi4_mini
+from repro_torch.configs import phi4_mini, qwen3_moe_30b_a3b
 from repro_torch.nn.config import ModelConfig
 
 _MODULES = {
     "phi4-mini-3.8b": phi4_mini,
+    "qwen3-moe-30b-a3b": qwen3_moe_30b_a3b,
 }
 
 ARCH_IDS: List[str] = sorted(_MODULES)

@@ -42,6 +42,19 @@
 // float32 inputs take a SIMT FMA path with the same tiling (tensor-core TF32
 // would miss the f32 tolerance); outputs and epilogue operands may be bf16 or
 // f32 independently of the inputs.
+//
+// Grouped GEMM (replaces src/repro/kernels/ops.py::expert_matmul, a jax.vmap
+// of matmul_pallas over the expert axis, ops.py:349-361): G independent
+// problems of one shape, out[g] = epilogue(a[g] @ b[g]) with bias[g],
+// gate[g], residual[g], all on one selected config.  blockIdx.y is the
+// group; every operand is offset by its own per-group element stride, and
+// the tile swizzle and passes run per group exactly as in the dense case,
+// which is the launch with gridDim.y = 1 and zero strides.  At qwen3-moe
+// prefill (E = 128 experts, M = capacity C ~ 40, K/N 2048 <-> 768) each
+// expert's weight is read once per row tile and the call is bound by the
+// 0.4 GB of expert weights it streams; the grid holds E * Tm * Tn CTAs
+// (384 to 4,096 on the selected tiles of those shapes), so every SM is fed
+// where the dense decode GEMMs leave most of them idle.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -69,6 +82,9 @@ struct Params {
   int group_m;
   int out_f32, ep_f32;
   int has_bias, act, has_res;
+  int groups;
+  // Element strides between consecutive groups (0 for the dense case).
+  size_t sa, sb, so, sbias, sgate, sres;
 };
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
@@ -93,37 +109,42 @@ __device__ __forceinline__ float load_ep(const void* p, size_t i, int f32) {
              : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
 }
 
-// The flush of one output element (matmul.py::_apply_epilogue).
+// The flush of one output element (matmul.py::_apply_epilogue) of this
+// CTA's group.
 __device__ __forceinline__ void epilogue_store(const Params& p, int row,
                                                int col, float acc) {
+  const size_t g = blockIdx.y;
   const size_t idx = static_cast<size_t>(row) * p.N + col;
-  if (p.has_bias) acc += load_ep(p.bias, col, p.ep_f32);
+  if (p.has_bias) acc += load_ep(p.bias, g * p.sbias + col, p.ep_f32);
   if (p.act == kActGelu) {
     const float u = 0.7978845608028654f * (acc + 0.044715f * acc * acc * acc);
     acc = 0.5f * acc * (1.0f + tanhf(u));
   } else if (p.act == kActSilu) {
     acc = acc / (1.0f + expf(-acc));
   } else if (p.act == kActSwiglu) {
-    acc = acc / (1.0f + expf(-acc)) * load_ep(p.gate, idx, p.ep_f32);
+    acc = acc / (1.0f + expf(-acc)) *
+          load_ep(p.gate, g * p.sgate + idx, p.ep_f32);
   }
-  if (p.has_res) acc += load_ep(p.residual, idx, p.ep_f32);
+  if (p.has_res) acc += load_ep(p.residual, g * p.sres + idx, p.ep_f32);
+  const size_t o = g * p.so + idx;
   if (p.out_f32) {
-    static_cast<float*>(p.out)[idx] = acc;
+    static_cast<float*>(p.out)[o] = acc;
   } else {
-    static_cast<__nv_bfloat16*>(p.out)[idx] = __float2bfloat16(acc);
+    static_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16(acc);
   }
 }
 
-// Stage A[row0:row0+PM, k0:k0+bk] and B[k0:k0+bk, col0:col0+PN] into shared
-// memory with 16-byte cp.async copies; out-of-range chunks are zero-filled.
+// Stage A[row0:row0+PM, k0:k0+bk] and B[k0:k0+bk, col0:col0+PN] of this
+// CTA's group into shared memory with 16-byte cp.async copies; out-of-range
+// chunks are zero-filled.
 template <typename T, int PM, int PN>
 __device__ __forceinline__ void load_tiles(const Params& p, T* As, T* Bs,
                                            int row0, int col0, int k0) {
   constexpr int kVec = 16 / sizeof(T);
   const int bk = p.bk;
   const int lda = bk + kVec, ldb = PN + kVec;
-  const T* A = static_cast<const T*>(p.a);
-  const T* B = static_cast<const T*>(p.b);
+  const T* A = static_cast<const T*>(p.a) + blockIdx.y * p.sa;
+  const T* B = static_cast<const T*>(p.b) + blockIdx.y * p.sb;
   const int a_cpr = bk / kVec;
   for (int c = threadIdx.x; c < PM * a_cpr; c += kThreads) {
     const int r = c / a_cpr, cc = (c - r * a_cpr) * kVec;
@@ -284,8 +305,9 @@ __global__ void __launch_bounds__(kThreads) gemm_kernel(Params p) {
   T* As = reinterpret_cast<T*>(smem);
   T* Bs = As + 2 * PM * (p.bk + kVec);
 
-  // Flattened tile id -> (pid_m, pid_n) under the grouped order
-  // (matmul.py::_swizzle), ragged final group included.
+  // Flattened tile id -> (pid_m, pid_n) under the group_m row swizzle
+  // (matmul.py::_swizzle), ragged final row group included; the same for
+  // every blockIdx.y (GEMM group).
   const int Tm = (p.M + p.bm - 1) / p.bm, Tn = (p.N + p.bn - 1) / p.bn;
   const int pid = blockIdx.x;
   int pid_m, pid_n;
@@ -338,8 +360,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   }
   const long long tiles =
       static_cast<long long>((p.M + p.bm - 1) / p.bm) * ((p.N + p.bn - 1) / p.bn);
-  gemm_kernel<T, PM, PN><<<static_cast<unsigned>(tiles), kThreads, smem,
-                           stream>>>(p);
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(p.groups));
+  gemm_kernel<T, PM, PN><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -366,19 +388,48 @@ bool tile_ok(int v) { return v == 32 || v == 64 || v == 128 || v == 256; }
 
 }  // namespace
 
-extern "C" int repro_gemm(const void* a, const void* b, void* out,
-                          const void* bias, const void* gate,
-                          const void* residual, int M, int N, int K, int bm,
-                          int bn, int bk, int group_m, int in_f32, int out_f32,
-                          int ep_f32, int has_bias, int act, int has_res,
-                          void* stream) {
+// groups GEMMs of one shape in one launch; operand g starts sa * g (a),
+// sb * g (b), so * g (out), ... elements past its base pointer.  The dense
+// GEMM is groups = 1 with zero strides.
+extern "C" int repro_gemm(
+    const void* a, const void* b, void* out, const void* bias,
+    const void* gate, const void* residual, int M, int N, int K, int bm,
+    int bn, int bk, int group_m, int in_f32, int out_f32, int ep_f32,
+    int has_bias, int act, int has_res, int groups, long long sa,
+    long long sb, long long so, long long sbias, long long sgate,
+    long long sres, void* stream) {
   const int vec = in_f32 ? 4 : 8;
   if (M <= 0 || N <= 0 || K <= 0 || N % vec || K % vec || !tile_ok(bm) ||
       !tile_ok(bn) || bk <= 0 || bk % 16 || group_m < 1 || act < 0 ||
-      act > kActSwiglu)
+      act > kActSwiglu || groups < 1 || groups > 65535 || sa < 0 || sb < 0 ||
+      so < 0 || sbias < 0 || sgate < 0 || sres < 0 || sa % vec || sb % vec)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{a,  b,  out, bias,    gate,    residual, M,        N,   K,
-           bm, bn, bk,  group_m, out_f32, ep_f32,   has_bias, act, has_res};
+  Params p{};
+  p.a = a;
+  p.b = b;
+  p.out = out;
+  p.bias = bias;
+  p.gate = gate;
+  p.residual = residual;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.bm = bm;
+  p.bn = bn;
+  p.bk = bk;
+  p.group_m = group_m;
+  p.out_f32 = out_f32;
+  p.ep_f32 = ep_f32;
+  p.has_bias = has_bias;
+  p.act = act;
+  p.has_res = has_res;
+  p.groups = groups;
+  p.sa = static_cast<size_t>(sa);
+  p.sb = static_cast<size_t>(sb);
+  p.so = static_cast<size_t>(so);
+  p.sbias = static_cast<size_t>(sbias);
+  p.sgate = static_cast<size_t>(sgate);
+  p.sres = static_cast<size_t>(sres);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(in_f32 ? dispatch<float>(p, s)
                                  : dispatch<__nv_bfloat16>(p, s));

@@ -1,10 +1,11 @@
 """Public kernel ops: selector-driven GEMM and attention on PyTorch tensors.
 
 The device of the operands decides the route.  On a CUDA tensor each op
-launches its hand-written Hopper kernel (``kernels/matmul.py``,
-``kernels/flash_attention.py``); on a CPU tensor the same selection, launch
-validation, fault injection and fallback ladder run, and the launch
-computes with the kernel's plain version.  There is no backend switch.
+launches its hand-written Hopper kernel (``kernels/matmul.py`` for
+:func:`matmul` and :func:`expert_matmul`, ``kernels/flash_attention.py``);
+on a CPU tensor the same selection, launch validation, fault injection and
+fallback ladder run, and the launch computes with the kernel's plain
+version.  There is no backend switch.
 
 Selection happens per call from the static shapes via
 ``repro_torch.core.selector.select_gemm_config`` — the tritonBLAS contract:
@@ -189,13 +190,70 @@ def matmul(
                                       epilogue=ep,
                                       hw=hw)
         config = selected.config
+    return _launch_fail_soft(
+        lambda cfg: _shape(kmm.tiled_matmul(a2, b, cfg, out_dtype=out_dtype,
+                                            epilogue=ep, bias=bias,
+                                            gate=gate2, residual=res2)),
+        lambda: _shape(ref.matmul_ref(a2, b, out_dtype, epilogue=ep,
+                                      bias=bias, gate=gate2, residual=res2)),
+        config, selected, hw, (M, N, K), a.device)
+
+
+def expert_matmul(
+    x: torch.Tensor,
+    w: torch.Tensor,
+    *,
+    out_dtype: Optional[torch.dtype] = None,
+    hw: Optional[HardwareSpec] = None,
+    epilogue: Optional[Union[str, Epilogue]] = None,
+    bias: Optional[torch.Tensor] = None,
+    gate: Optional[torch.Tensor] = None,
+    residual: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Grouped GEMM with per-group weights: x (E, M, K) @ w (E, K, N) ->
+    (E, M, N), with the same fused epilogue as :func:`matmul`; epilogue
+    operands carry the leading E dim: bias (E, N), gate/residual (E, M, N).
+
+    The selector prices the per-expert (M, N, K) problem once and every
+    expert runs that config, as the reference's ``jax.vmap`` of ``matmul``
+    does; on the card all experts run in one launch of the grouped kernel
+    (``kernels/matmul.py::tiled_expert_matmul``)."""
+    hw = hw if hw is not None else get_default_hardware()
+    out_dtype = out_dtype or x.dtype
+    ep = _normalize_epilogue(epilogue, bias, gate, residual)
+    _, M, K = x.shape
+    N = w.shape[2]
+    x, w = x.contiguous(), w.contiguous()
+    bias, gate, residual = (t.contiguous() if t is not None else None
+                            for t in (bias, gate, residual))
+    selected = select_gemm_config(M, N, K, in_dtype=_dtype_name(x.dtype),
+                                  out_dtype=_model_dtype_name(out_dtype),
+                                  epilogue=ep, hw=hw)
+    kw = dict(out_dtype=out_dtype, epilogue=ep, bias=bias, gate=gate,
+              residual=residual)
+    return _launch_fail_soft(
+        lambda cfg: kmm.tiled_expert_matmul(x, w, cfg, **kw),
+        lambda: kmm.expert_matmul_plain(x, w, selected.config, **kw),
+        selected.config, selected, hw, (M, N, K), x.device)
+
+
+def _launch_fail_soft(launch: Callable[[TileConfig], torch.Tensor],
+                      reference: Callable[[], torch.Tensor],
+                      config: TileConfig, selected: Optional[Selection],
+                      hw: HardwareSpec, shape: Tuple[int, int, int],
+                      device: torch.device) -> torch.Tensor:
+    """Run ``launch(config)`` behind the fault injector and the transient
+    retry.  An explicit config (``selected`` None) is the caller's
+    contract: no ladder, deterministic failures propagate.  A selected
+    config is re-validated first and, on rejection or a failed launch, the
+    fallback ladder is walked (DESIGN.md §9); past its last tiled rung a
+    CPU launch serves ``reference()`` and a CUDA launch raises."""
+    M, N, K = shape
 
     def _launch(cfg: TileConfig) -> torch.Tensor:
         if _launch_fault_injector is not None:
             _launch_fault_injector(cfg)
-        return _shape(kmm.tiled_matmul(a2, b, cfg, out_dtype=out_dtype,
-                                       epilogue=ep, bias=bias, gate=gate2,
-                                       residual=res2))
+        return launch(cfg)
 
     def _on_retry(attempt: int, e: Exception) -> None:
         obs_metrics.inc("launch_retries")
@@ -232,7 +290,7 @@ def matmul(
     obs_metrics.inc("selection_rejected")
     warnings.warn(
         f"selected config {config} rejected ({reason}); "
-        f"walking fallback ladder", DegradedModeWarning, stacklevel=2)
+        f"walking fallback ladder", DegradedModeWarning, stacklevel=3)
     for sel_f, rung in fallback_ladder(p, hw, config):
         if _validate(p, sel_f.config, hw) is not None:
             continue
@@ -245,10 +303,10 @@ def matmul(
         except Exception as e:                      # noqa: BLE001
             first_err = first_err or e
             continue
-    if a.device.type != "cpu":
+    if device.type != "cpu":
         raise RuntimeError(
             f"all tiled fallbacks failed for {p.M}x{p.N}x{p.K} on "
-            f"{a.device}; the card never serves the plain version "
+            f"{device}; the card never serves the plain version "
             f"(first error: {first_err!r})") from first_err
     # On the CPU every launch is the plain version already; serving it as
     # the final rung is semantically identical and cannot mis-tile.
@@ -259,9 +317,8 @@ def matmul(
     warnings.warn(
         f"all tiled fallbacks failed for {p.M}x{p.N}x{p.K} "
         f"(first error: {first_err!r}); serving reference kernel",
-        DegradedModeWarning, stacklevel=2)
-    return _shape(ref.matmul_ref(a2, b, out_dtype, epilogue=ep, bias=bias,
-                                 gate=gate2, residual=res2))
+        DegradedModeWarning, stacklevel=3)
+    return reference()
 
 
 def flash_attention(

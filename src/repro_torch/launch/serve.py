@@ -8,15 +8,24 @@ uniform requests, on the GPU by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
         --smoke --device cpu
 
+    # the MoE family (qwen3-moe-30b-a3b: 61 GB of bf16 weights on the card)
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen3-moe-30b-a3b --batch 4 --prompt-len 512 --gen 16 \\
+        --ragged --requests 8
+
 Requests flow through :class:`repro_torch.launch.engine.ServingEngine`;
 ragged lengths are right-padded to the edges of a model-priced
 :class:`~repro_torch.core.bucketing.BucketPlan`, every bucket edge's step
 GEMMs are warm-selected in one batched call, and on the card every layer
 projection runs the hand-written Hopper GEMM and prefill attention the
-hand-written flash kernel.  ``--topology`` loads a calibrated-topology
-artifact through the guarded loader (corrupt artifacts quarantine, serving
-continues on the stock preset).  ``run_serving`` is the library entry point;
-``main`` is the CLI shim.
+hand-written flash kernel; an MoE layer's expert GEMMs run the grouped
+Hopper GEMM, one launch for all experts.  As in the reference, the bucket
+plan prices every family's step with ``step_gemms`` (a d_model-wide q
+projection and a d_ff MLP), and MoE prompts are admitted into buckets: pad
+tokens raise the token count and so the expert capacity.  ``--topology``
+loads a calibrated-topology artifact through the guarded loader (corrupt
+artifacts quarantine, serving continues on the stock preset).
+``run_serving`` is the library entry point; ``main`` is the CLI shim.
 
 Not ported yet: ``--tp``, ``--trace-dir`` and ``--residual``.
 """

@@ -1,4 +1,4 @@
-"""Building blocks of the dense decoder, on PyTorch tensors.
+"""Building blocks of the decoder (attention, MLP), on PyTorch tensors.
 
 Params are plain nested dicts of tensors with the JAX package's structure
 (``repro/nn/layers.py``), so one converted param tree serves both.  Dense
@@ -59,10 +59,29 @@ def mlp_defs(cfg: ModelConfig) -> Dict:
     }
 
 
+# f32 elements drawn at once when a normal leaf is materialised: bounds the
+# f32 temporary (a whole stacked expert leaf of qwen3-moe would need 38.6 GB).
+_DRAW_ELEMS = 1 << 26
+
+
+def _draw_normal(shape, generator, *, dtype, device) -> torch.Tensor:
+    """N(0, 0.02²) drawn in f32 and cast, in slices along axis 0 of at most
+    ``_DRAW_ELEMS`` elements (one row at least)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    row = out[0].numel() if out.dim() > 1 else 1
+    step = max(1, _DRAW_ELEMS // row)
+    for i in range(0, shape[0], step):
+        part = out[i:i + step]
+        t = torch.empty(part.shape, dtype=torch.float32, device=device)
+        part.copy_(t.normal_(0.0, 0.02, generator=generator))
+    return out
+
+
 def init_tree(defs: Dict, generator: torch.Generator, *,
               dtype: torch.dtype, device: torch.device) -> Dict:
     """Materialise a def tree, leaves in insertion order, from one
-    generator: normal leaves are N(0, 0.02²) drawn in f32 then cast."""
+    generator: normal leaves are N(0, 0.02²) drawn in f32 then cast, a
+    slice of axis 0 at a time."""
     out = {}
     for name, d in defs.items():
         if isinstance(d, dict):
@@ -74,9 +93,8 @@ def init_tree(defs: Dict, generator: torch.Generator, *,
         elif rule == "zeros":
             out[name] = torch.zeros(shape, dtype=dtype, device=device)
         else:
-            t = torch.empty(shape, dtype=torch.float32, device=device)
-            t.normal_(0.0, 0.02, generator=generator)
-            out[name] = t.to(dtype)
+            out[name] = _draw_normal(shape, generator, dtype=dtype,
+                                     device=device)
     return out
 
 

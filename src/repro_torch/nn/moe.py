@@ -1,0 +1,171 @@
+"""Mixture-of-Experts layer on PyTorch tensors: top-k routing with
+sort-based capacity dispatch (the port of ``repro/nn/moe.py``).
+
+Token copies are sorted by expert id, placed into a fixed-capacity
+(E, C, D) buffer, the three expert GEMMs run on that buffer through
+``kernels.ops.expert_matmul`` (on the card one launch of the grouped Hopper
+GEMM each, the swiglu gate fused into the wg GEMM's flush), and results are
+gathered back with gate weighting.  Decode runs the reference's plain
+einsums: a weight gather of the selected experts, or every expert under
+``cfg.moe_dense_decode``.
+
+Where the port departs from the reference's operations, the result does not
+change: the dispatch buffer is filled by ``index_copy_`` (every kept copy
+owns its slot; the reference scatter-adds into zeros), and the combine sums
+each token's K copies over a (T, K, D) view instead of scatter-adding them,
+so it is deterministic on the card, where ``index_add_`` uses atomics.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+from repro_torch.nn.config import ModelConfig
+from repro_torch.nn.layers import norm, norm_defs
+
+
+def moe_defs(cfg: ModelConfig) -> Dict:
+    D, E, Fd = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    return {
+        "norm": norm_defs(cfg),
+        "router": ((D, E), "normal"),
+        "wg": ((E, D, Fd), "normal"),
+        "wu": ((E, D, Fd), "normal"),
+        "wd": ((E, Fd, D), "normal"),
+    }
+
+
+def _capacity(cfg: ModelConfig, tokens: int) -> int:
+    """Slots per expert.  The round-up to 8 is semantics, not padding: it
+    decides which copies drop."""
+    c = int(tokens * cfg.experts_per_token * cfg.capacity_factor
+            / cfg.num_experts)
+    return max(8, -(-c // 8) * 8)
+
+
+def _route(flat: torch.Tensor, router: torch.Tensor, k: int
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(probs (T, E), gate_vals (T, K), gate_ids (T, K)): top-k of the f32
+    softmax of an f32 router product, gates renormalised over the k."""
+    probs = torch.softmax(flat.float() @ router.float(), dim=-1)
+    gate_vals, gate_ids = torch.topk(probs, k, dim=-1)
+    return probs, gate_vals / gate_vals.sum(-1, keepdim=True), gate_ids
+
+
+def dispatch_plan(gate_ids: torch.Tensor, num_experts: int, capacity: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(order, keep, slot) of the T·K token copies, in expert-sorted order.
+
+    ``order`` sorts the copies (token-major, ``gate_ids.reshape(-1)``) by
+    expert id, stably, as ``jnp.argsort`` does: within an expert, earlier
+    tokens take the slots and the rest drop.  ``keep`` marks the copies
+    that fit, ``slot`` is each copy's row of the flat (E·C) buffer, and
+    E·C (the overflow row) for every dropped copy."""
+    E, C = num_experts, capacity
+    eids = gate_ids.reshape(-1)
+    eids_s, order = torch.sort(eids, stable=True)
+    starts = torch.searchsorted(
+        eids_s, torch.arange(E, device=eids.device, dtype=eids_s.dtype),
+        right=False)
+    pos_in_e = torch.arange(eids.numel(), device=eids.device) \
+        - starts[eids_s]
+    keep = pos_in_e < C
+    slot = torch.where(keep, eids_s * C + pos_in_e,
+                       torch.full_like(pos_in_e, E * C))
+    return order, keep, slot
+
+
+def _dispatch_compute(p: Dict, flat: torch.Tensor, cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort-based capacity dispatch + expert GEMMs for (T, D) tokens;
+    returns (y (T, D) in flat's dtype, aux loss)."""
+    T, D = flat.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    C = _capacity(cfg, T)
+
+    probs, gate_vals, gate_ids = _route(flat, p["router"], K)
+    # Load-balancing auxiliary loss (Switch Transformer eq. 4).
+    me = probs.mean(0)
+    ce = F.one_hot(gate_ids, E).float().sum(1).mean(0)
+    aux = E * (me * ce).sum()
+
+    order, keep, slot = dispatch_plan(gate_ids, E, C)
+    tids_s = order // K                       # token of each sorted copy
+    gvals_s = gate_vals.reshape(-1)[order]
+
+    # Every kept copy owns its slot; dropped copies all land in the
+    # overflow row E·C, which is cut off before the GEMMs.
+    buf = torch.zeros((E * C + 1, D), dtype=flat.dtype, device=flat.device)
+    buf.index_copy_(0, slot, flat[tids_s])
+    xe = buf[:-1].view(E, C, D)
+
+    u = kops.expert_matmul(xe, p["wu"])
+    act = kops.expert_matmul(xe, p["wg"], epilogue="swiglu_gate", gate=u)
+    ye = kops.expert_matmul(act, p["wd"])
+
+    y_copies = ye.reshape(E * C, D)
+    safe_slot = torch.where(keep, slot, torch.zeros_like(slot))
+    gw = torch.where(keep, gvals_s, torch.zeros_like(gvals_s))
+    gathered = (y_copies[safe_slot] * gw[:, None].to(y_copies.dtype)
+                ).to(flat.dtype)
+    # Back to token-major order: each token's K copies are adjacent.
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.numel(), device=order.device)
+    y = gathered[inv].view(T, K, D).sum(1)
+    return y, aux
+
+
+def moe_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y, aux_loss).  Tokens over capacity are dropped
+    (Switch/GShard semantics; capacity_factor sets the rate)."""
+    if cfg.moe_local_dispatch:
+        return _moe_forward_grouped(p, x, cfg)
+    return _moe_forward_flat(p, x, cfg)
+
+
+def _moe_forward_grouped(p: Dict, x: torch.Tensor, cfg: ModelConfig):
+    raise NotImplementedError(
+        f"{cfg.name}: moe_local_dispatch (per-data-shard dispatch) needs a "
+        f"device mesh; the distributed path is not ported")
+
+
+def _moe_forward_flat(p: Dict, x: torch.Tensor, cfg: ModelConfig
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    B, S, D = x.shape
+    h = norm(x, p["norm"], cfg)
+    y, aux = _dispatch_compute(p, h.reshape(B * S, D), cfg)
+    return y.reshape(B, S, D).to(x.dtype), aux
+
+
+def moe_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Decode-step MoE for x (B, 1, D), plain einsums as in the reference.
+
+    Default: gather the K selected experts' weights per token (B·K·D·F
+    bytes copied per weight).  ``cfg.moe_dense_decode``: run every expert
+    on every token and mask the sum with the gates."""
+    B, _, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    h = norm(x, p["norm"], cfg).reshape(B, D)
+    _, gate_vals, gate_ids = _route(h, p["router"], K)
+
+    if cfg.moe_dense_decode:
+        gates = torch.einsum("bke,bk->be",
+                             F.one_hot(gate_ids, E).float(), gate_vals)
+        g = torch.einsum("bd,edf->ebf", h, p["wg"])
+        u = torch.einsum("bd,edf->ebf", h, p["wu"])
+        ye = torch.einsum("ebf,efd->ebd", F.silu(g) * u, p["wd"])
+        y = torch.einsum("ebd,be->bd", ye, gates.to(ye.dtype))
+        return y.reshape(B, 1, D).to(x.dtype)
+
+    wg = p["wg"][gate_ids]                    # (B, K, D, F) gather
+    wu = p["wu"][gate_ids]
+    wd = p["wd"][gate_ids]
+    g = torch.einsum("bd,bkdf->bkf", h, wg)
+    u = torch.einsum("bd,bkdf->bkf", h, wu)
+    y = torch.einsum("bkf,bkfd->bkd", F.silu(g) * u, wd)
+    y = torch.einsum("bkd,bk->bd", y, gate_vals.to(y.dtype))
+    return y.reshape(B, 1, D).to(x.dtype)

@@ -1,9 +1,10 @@
-"""Dense decoder-LM assembly on PyTorch tensors.
+"""Decoder-LM assembly on PyTorch tensors, for the dense and MoE families.
 
 The param tree keeps the JAX package's layout: layer parameters stacked on
 a leading "layers" axis (``repro/nn/transformer.py:59``).  Where the
 reference scans over that axis, the port runs a Python loop over views of
-it.  Only the dense family is ported.
+it.  A dense layer is attention + MLP, an MoE layer attention + MoE
+(``repro/nn/transformer.py:36-41``); the other families are not ported.
 """
 from __future__ import annotations
 
@@ -12,14 +13,21 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.nn import layers as L
+from repro_torch.nn import moe
 from repro_torch.nn.config import ModelConfig
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.is_moe:
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense family is ported, not "
+            f"{cfg.name}: only the dense and moe families are ported, not "
             f"{cfg.family!r}")
+
+
+def layer_defs(cfg: ModelConfig) -> Dict:
+    if cfg.is_moe:
+        return {"attn": L.attn_defs(cfg), "moe": moe.moe_defs(cfg)}
+    return {"attn": L.attn_defs(cfg), "mlp": L.mlp_defs(cfg)}
 
 
 def _stack(defs, n: int):
@@ -32,8 +40,7 @@ def model_defs(cfg: ModelConfig) -> Dict:
     D, V = cfg.d_model, cfg.vocab_size
     defs = {
         "embed": ((V, D), "normal"),
-        "layers": _stack({"attn": L.attn_defs(cfg), "mlp": L.mlp_defs(cfg)},
-                         cfg.num_layers),
+        "layers": _stack(layer_defs(cfg), cfg.num_layers),
         "final_norm": L.norm_defs(cfg),
     }
     if not cfg.tie_embeddings:
@@ -81,6 +88,17 @@ def _kv_for_cache(attn_p, h, positions, cfg):
     return k, v
 
 
+def _block(lp: Dict, x: torch.Tensor, positions: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """One layer of a full pass.  The attention residual fuses into the wo
+    GEMM's flush, a dense MLP's into wd's; the MoE output is added after
+    the combine, as in the reference (``transformer.py:156-157``)."""
+    x = L.attn_forward(lp["attn"], x, cfg, positions=positions, residual=x)
+    if cfg.is_moe:
+        return x + moe.moe_forward(lp["moe"], x, cfg)[0]
+    return L.mlp_forward(lp["mlp"], x, cfg, residual=x)
+
+
 def forward_hidden(params: Dict, tokens: torch.Tensor, cfg: ModelConfig
                    ) -> torch.Tensor:
     """Final normed hidden states (B, S, D) of a full causal pass."""
@@ -89,10 +107,7 @@ def forward_hidden(params: Dict, tokens: torch.Tensor, cfg: ModelConfig
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
-        # Residual adds fuse into the wo / wd GEMM flushes.
-        x = L.attn_forward(lp["attn"], x, cfg, positions=positions,
-                           residual=x)
-        x = L.mlp_forward(lp["mlp"], x, cfg, residual=x)
+        x = _block(lp, x, positions, cfg)
     return L.norm(x, params["final_norm"], cfg)
 
 
@@ -119,9 +134,7 @@ def prefill_forward(
         k, v = _kv_for_cache(lp["attn"], x, positions, cfg)
         ks.append(k)
         vs.append(v)
-        x = L.attn_forward(lp["attn"], x, cfg, positions=positions,
-                           residual=x)
-        x = L.mlp_forward(lp["mlp"], x, cfg, residual=x)
+        x = _block(lp, x, positions, cfg)
     x = L.norm(x, params["final_norm"], cfg)
     last = (x[:, -1] if last_pos is None
             else x[torch.arange(B, device=x.device), last_pos])
@@ -154,6 +167,9 @@ def decode_step(
         lp = _layer(params["layers"], i)
         c = {"k": cache["k"][i], "v": cache["v"][i]}
         x = x + L.attn_decode(lp["attn"], x, c, cfg, pos=pos)
-        x = x + L.mlp_forward(lp["mlp"], x, cfg)
+        if cfg.is_moe:
+            x = x + moe.moe_decode(lp["moe"], x, cfg)
+        else:
+            x = x + L.mlp_forward(lp["mlp"], x, cfg)
     x = L.norm(x, params["final_norm"], cfg)
     return logits(x[:, 0], params, cfg), cache

@@ -4,7 +4,9 @@ the port's package rules.
 Token equality runs in f32 (params cast to f32, and an f32 decode cache on
 both sides): in bf16 the two frameworks round activations in different
 orders, which can flip an argmax between near-tied logits, while in f32 the
-logits agree to ~1e-6 and greedy tokens must be identical.
+logits agree to ~1e-6 and greedy tokens must be identical.  Every engine
+case runs for each ported family: phi4-mini (pair) and qwen3-moe-30b-a3b
+(MoE), at smoke size.
 """
 import ast
 import pathlib
@@ -28,6 +30,7 @@ from repro_torch.launch.serve import build_parser, run_serving
 from repro_torch.nn.model import Model, params_from_jax
 
 ARCH = "phi4-mini-3.8b"
+ARCHS = [ARCH, "qwen3-moe-30b-a3b"]
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
@@ -43,13 +46,13 @@ class _F32Cache(Model):
                                                             max_len).items()}
 
 
-@pytest.fixture(scope="module")
-def dense():
-    jcfg = jget_config(ARCH, smoke=True)
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    jcfg = jget_config(request.param, smoke=True)
     jp = JModel(jcfg).init(jax.random.PRNGKey(0))
     jp32 = jax.tree_util.tree_map(lambda x: x.astype(jnp.float32), jp)
     tree = jax.tree_util.tree_map(np.asarray, jp32)
-    cfg = get_config(ARCH, smoke=True)
+    cfg = get_config(request.param, smoke=True)
     return {"jm": _JF32Cache(jcfg), "jp": jp32, "cfg": cfg,
             "m": _F32Cache(cfg, device="cpu"),
             "tp": params_from_jax(tree, cfg, dtype=torch.float32,
@@ -76,11 +79,11 @@ def _serve(engine_cls, model, params, prompts, n, **kw):
     return eng.run()
 
 
-def test_ragged_bucketed_tokens_match_jax_and_isolated(dense):
+def test_ragged_bucketed_tokens_match_jax_and_isolated(pair):
     """The test_engine.py case: ragged prompts padded to priced bucket
     edges in a slot-reusing batch.  The port's tokens equal the JAX
     engine's, and each request's equal its solo run's."""
-    cfg = dense["cfg"]
+    cfg = pair["cfg"]
     lens = [5, 9, 13, 7]
     prompts = _prompts(cfg, lens)
     plan = plan_buckets(lens, gemms=_gemms(cfg), hw=GPU_H100_LIKE,
@@ -89,9 +92,9 @@ def test_ragged_bucketed_tokens_match_jax_and_isolated(dense):
                           max_buckets=2)
     assert plan.edges == jplan.edges
     kw = dict(max_batch=2, max_len=64, sync_every=4)
-    got = _serve(ServingEngine, dense["m"], dense["tp"], prompts, 4,
+    got = _serve(ServingEngine, pair["m"], pair["tp"], prompts, 4,
                  plan=plan, **kw)
-    want = _serve(JEngine, dense["jm"], dense["jp"], prompts, 4,
+    want = _serve(JEngine, pair["jm"], pair["jp"], prompts, 4,
                   plan=jplan, **kw)
     assert got["steps"] == want["steps"] and not got["drained"]
     assert got["bucket_hits"] == want["bucket_hits"]
@@ -100,7 +103,7 @@ def test_ragged_bucketed_tokens_match_jax_and_isolated(dense):
         g, w = got["results"][i], want["results"][i]
         assert np.array_equal(g.tokens, w.tokens), (i, g.tokens, w.tokens)
         assert g.finished and g.padded_len == plan.bucket_for(lens[i])
-        solo = _serve(ServingEngine, dense["m"], dense["tp"], [p], 4,
+        solo = _serve(ServingEngine, pair["m"], pair["tp"], [p], 4,
                       max_batch=1, max_len=64)["results"][0].tokens
         assert np.array_equal(solo, g.tokens)
 
@@ -122,17 +125,17 @@ def _faulted(engine_cls, model, params, prompts, temperature=0.0):
     return eng.run(), fired
 
 
-def test_fault_retry_and_drain_prefix_matches_jax(dense):
+def test_fault_retry_and_drain_prefix_matches_jax(pair):
     """One injected transient (retried against the intact cache) plus a
     preemption drain: the faulted run's tokens are a prefix of the clean
     run's, and both equal the JAX engine's under the same hook."""
-    prompts = _prompts(dense["cfg"], [8, 8])
-    clean = _serve(ServingEngine, dense["m"], dense["tp"], prompts, 6,
+    prompts = _prompts(pair["cfg"], [8, 8])
+    clean = _serve(ServingEngine, pair["m"], pair["tp"], prompts, 6,
                    max_batch=2, max_len=64)
     assert clean["steps"] == 5 and not clean["drained"]
-    faulted, fired = _faulted(ServingEngine, dense["m"], dense["tp"],
+    faulted, fired = _faulted(ServingEngine, pair["m"], pair["tp"],
                               prompts)
-    jfaulted, _ = _faulted(JEngine, dense["jm"], dense["jp"], prompts)
+    jfaulted, _ = _faulted(JEngine, pair["jm"], pair["jp"], prompts)
     assert faulted["retries"] == 1 and fired == [1]
     assert faulted["drained"] and faulted["steps"] == 4
     for rid in (0, 1):
@@ -142,22 +145,22 @@ def test_fault_retry_and_drain_prefix_matches_jax(dense):
         assert not faulted["results"][rid].finished
 
 
-def test_temperature_sampling_seeded_and_prefix_under_faults(dense):
+def test_temperature_sampling_seeded_and_prefix_under_faults(pair):
     """temperature > 0: per-step seeds from a pre-split table make runs
     reproducible, and a retry or drain never shifts the stream."""
-    prompts = _prompts(dense["cfg"], [6, 6], seed=3)
+    prompts = _prompts(pair["cfg"], [6, 6], seed=3)
 
     def clean():
-        eng = ServingEngine(dense["m"], dense["tp"], max_batch=2,
+        eng = ServingEngine(pair["m"], pair["tp"], max_batch=2,
                             max_len=64, temperature=0.9, seed=5)
         for p in prompts:
             eng.submit(p, max_new_tokens=6)
         return eng.run()
 
     a, b = clean(), clean()
-    faulted, _ = _faulted(ServingEngine, dense["m"], dense["tp"], prompts,
+    faulted, _ = _faulted(ServingEngine, pair["m"], pair["tp"], prompts,
                           temperature=0.9)
-    greedy = _serve(ServingEngine, dense["m"], dense["tp"], prompts, 6,
+    greedy = _serve(ServingEngine, pair["m"], pair["tp"], prompts, 6,
                     max_batch=2, max_len=64)
     differs = False
     for rid in (0, 1):
@@ -169,8 +172,8 @@ def test_temperature_sampling_seeded_and_prefix_under_faults(dense):
     assert differs
 
 
-def test_submit_validation(dense):
-    eng = ServingEngine(dense["m"], dense["tp"], max_batch=1, max_len=16)
+def test_submit_validation(pair):
+    eng = ServingEngine(pair["m"], pair["tp"], max_batch=1, max_len=16)
     with pytest.raises(ValueError, match="empty prompt"):
         eng.submit(np.zeros(0, np.int32), max_new_tokens=4)
     with pytest.raises(ValueError, match="max_new_tokens"):
@@ -186,9 +189,10 @@ STATS_KEYS = {"tokens", "steps", "drained", "retries", "stragglers",
               "degraded"}
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("ragged", [False, True])
-def test_run_serving_smoke_on_cpu(ragged):
-    argv = ["--arch", ARCH, "--smoke", "--device", "cpu", "--batch", "2",
+def test_run_serving_smoke_on_cpu(ragged, arch):
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
             "--prompt-len", "12", "--gen", "3", "--quiet",
             "--temperature", "0"]
     if ragged:

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels (dense and grouped GEMM, flash attention)
+against their plain versions, on the card.
 
 Marked ``gpu``; each test skips on a host without CUDA.  The file imports
 only torch and the port, so it runs where JAX is not installed:
@@ -15,6 +16,7 @@ import math
 import pytest
 import torch
 
+from repro_torch.core.hardware import GPU_H100_LIKE
 from repro_torch.core.latency import Epilogue, TileConfig
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import matmul as kmm
@@ -68,6 +70,81 @@ def test_gemm_kernel_on_card(cuda, M, N, K, cfg, ep, dtype):
     rtol, atol = _tol(dtype, K)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+
+
+# The qwen3-moe-30b-a3b prefill expert GEMMs (E 128, C 40 and 32, d_model
+# 2048, expert d_ff 768) with their epilogues, then bias, residual, ragged
+# C, a forced corner config and f32 inputs.
+EXPERT_CASES = [
+    (128, 40, 768, 2048, None, Epilogue(), torch.bfloat16),
+    (128, 40, 768, 2048, None, Epilogue(activation="swiglu_gate"),
+     torch.bfloat16),
+    (128, 40, 2048, 768, None, Epilogue(), torch.bfloat16),
+    (128, 32, 768, 2048, None, Epilogue(activation="swiglu_gate"),
+     torch.bfloat16),
+    (128, 32, 2048, 768, None, Epilogue(), torch.bfloat16),
+    (128, 40, 768, 2048, None, Epilogue(bias=True), torch.bfloat16),
+    (128, 32, 2048, 768, None, Epilogue(residual=True), torch.bfloat16),
+    (128, 24, 768, 2048, None, Epilogue(activation="swiglu_gate"),
+     torch.bfloat16),
+    (16, 40, 768, 2048, TileConfig(256, 256, 32, group_m=4),
+     Epilogue(activation="swiglu_gate"), torch.bfloat16),
+    (8, 24, 200, 264, TileConfig(32, 32, 32), Epilogue(bias=True),
+     torch.float32),
+]
+
+
+def _expert_operands(dev, E, M, N, K, ep, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    kw = {}
+    if ep.bias:
+        kw["bias"] = rnd(E, N)
+    if ep.activation == "swiglu_gate":
+        kw["gate"] = rnd(E, M, N)
+    if ep.residual:
+        kw["residual"] = rnd(E, M, N)
+    return rnd(E, M, K), rnd(E, K, N), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("E,M,N,K,cfg,ep,dtype", EXPERT_CASES, ids=str)
+def test_expert_kernel_on_card(cuda, E, M, N, K, cfg, ep, dtype):
+    from repro_torch.core.selector import select_gemm_config
+    if cfg is None:
+        cfg = select_gemm_config(M, N, K, in_dtype=str(dtype)[6:],
+                                 out_dtype=str(dtype)[6:], epilogue=ep,
+                                 hw=GPU_H100_LIKE).config
+    x, w, kw = _expert_operands(cuda, E, M, N, K, ep, dtype, seed=M + N)
+    n0 = kmm.tiled_expert_matmul.launches
+    got = kmm.tiled_expert_matmul(x, w, cfg, out_dtype=dtype, epilogue=ep,
+                                  **kw)
+    want = kmm.expert_matmul_plain(x, w, cfg, out_dtype=dtype, epilogue=ep,
+                                   **kw)
+    torch.cuda.synchronize()
+    assert kmm.tiled_expert_matmul.launches == n0 + 1
+    rtol, atol = _tol(dtype, K)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.gpu
+def test_selected_expert_matmul_launches_the_kernel(cuda):
+    """The selector-driven grouped op on CUDA tensors is one launch of the
+    grouped kernel for all experts."""
+    x, w, _ = _expert_operands(cuda, 128, 40, 768, 2048, Epilogue(),
+                               torch.bfloat16, seed=3)
+    w = w * 0.02
+    n0, d0 = kmm.tiled_expert_matmul.launches, kmm.tiled_matmul.launches
+    got = ops.expert_matmul(x, w)
+    torch.cuda.synchronize()
+    assert kmm.tiled_expert_matmul.launches == n0 + 1
+    assert kmm.tiled_matmul.launches == d0
+    want = torch.einsum("emk,ekn->emn", x.float(), w.float())
+    rtol, atol = _tol(torch.bfloat16, 2048)
+    torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
 
 
 @pytest.mark.gpu

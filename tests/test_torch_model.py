@@ -1,12 +1,15 @@
-"""The port's phi4-mini model against the JAX package's, from the same
-params (JAX ``Model.init`` converted through numpy by ``params_from_jax``).
+"""The port's models against the JAX package's, from the same params (JAX
+``Model.init`` converted through numpy by ``params_from_jax``), for each
+ported family: phi4-mini (dense) and qwen3-moe-30b-a3b (MoE), at smoke
+size.
 
 The JAX side runs on its CPU ``reference`` backend.  f32 params are held
 tight (atol 1e-5 + rtol 1e-5 on logits of magnitude ~0.7; the two sides
 differ only in summation order and in libm ulps of exp/cos/sin/rsqrt, and
 measured 1.5e-7 apart); bf16 params loose (atol 2e-2 + rtol 2e-2: every
 layer rounds its activations to bf16 in each framework's own order, and
-measured 2e-3 apart).
+measured 2e-3 apart on phi4-mini).  The MoE routes on an f32 softmax of an
+f32 router product on both sides, so the same experts are chosen.
 """
 import jax
 import jax.numpy as jnp
@@ -19,19 +22,20 @@ from repro.nn.model import Model as JModel
 from repro_torch.configs.registry import get_config
 from repro_torch.nn.model import Model, params_from_jax
 
-ARCH = "phi4-mini-3.8b"
+ARCHS = ["phi4-mini-3.8b", "qwen3-moe-30b-a3b"]
 TIGHT = dict(rtol=1e-5, atol=1e-5)
 LOOSE = dict(rtol=2e-2, atol=2e-2)
 
 
-@pytest.fixture(scope="module")
-def pair():
-    jcfg = jget_config(ARCH, smoke=True)
+@pytest.fixture(scope="module", params=ARCHS)
+def pair(request):
+    arch = request.param
+    jcfg = jget_config(arch, smoke=True)
     jm = JModel(jcfg)
     jp = jm.init(jax.random.PRNGKey(0))
     tree = jax.tree_util.tree_map(
         lambda x: np.asarray(x.astype(jnp.float32)), jp)
-    m = Model(get_config(ARCH, smoke=True), device="cpu")
+    m = Model(get_config(arch, smoke=True), device="cpu")
     return {
         "jm": jm, "m": m,
         "jp": {"float32": jax.tree_util.tree_map(
@@ -56,13 +60,14 @@ def _close(got, want, dtype):
                                **(TIGHT if dtype == "float32" else LOOSE))
 
 
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
-def test_config_copy_matches_reference(smoke):
+def test_config_copy_matches_reference(smoke, arch):
     """The port's copied ModelConfig and registry entry equal the JAX
     package's, field for field, at full size and at smoke size."""
     import dataclasses
-    want = dataclasses.asdict(jget_config(ARCH, smoke=smoke))
-    got = dataclasses.asdict(get_config(ARCH, smoke=smoke))
+    want = dataclasses.asdict(jget_config(arch, smoke=smoke))
+    got = dataclasses.asdict(get_config(arch, smoke=smoke))
     assert got == want
 
 
@@ -72,7 +77,11 @@ def test_params_from_jax_structure(pair):
     assert tuple(tp["embed"].shape) == (cfg.vocab_size, cfg.d_model)
     assert tuple(tp["layers"]["attn"]["wq"].shape) == (
         cfg.num_layers, cfg.d_model, cfg.num_heads * cfg.head_dim)
-    assert tp["layers"]["mlp"]["wd"].dtype == torch.bfloat16
+    block = tp["layers"]["moe" if cfg.is_moe else "mlp"]
+    assert block["wd"].dtype == torch.bfloat16
+    if cfg.is_moe:
+        assert tuple(block["wg"].shape) == (cfg.num_layers, cfg.num_experts,
+                                            cfg.d_model, cfg.moe_d_ff)
     leaves = jax.tree_util.tree_leaves(pair["jp"]["bfloat16"])
     n = 0
     stack = [tp]
@@ -153,8 +162,9 @@ def test_decode_step_logits(pair, dtype, per_slot):
         _close(tc2[name], jc2[name].astype(jnp.float32), dtype)
 
 
-def test_init_cache_is_bf16_and_init_is_seeded():
-    m = Model(get_config(ARCH, smoke=True), device="cpu")
+@pytest.mark.parametrize("arch", ARCHS)
+def test_init_cache_is_bf16_and_init_is_seeded(arch):
+    m = Model(get_config(arch, smoke=True), device="cpu")
     c = m.init_cache(2, 8)
     assert c["k"].dtype == torch.bfloat16 and c["v"].dtype == torch.bfloat16
     p1 = m.init(torch.Generator().manual_seed(3), dtype=torch.float32)
@@ -163,3 +173,24 @@ def test_init_cache_is_bf16_and_init_is_seeded():
     assert float(p1["layers"]["attn"]["wq"].std()) == pytest.approx(0.02,
                                                                      rel=0.1)
     assert bool((p1["final_norm"]["scale"] == 1).all())
+
+
+def test_init_draws_large_leaves_in_slices(monkeypatch):
+    """A normal leaf is drawn a slice of axis 0 at a time, each slice at
+    most the draw bound (one row at least), from the one generator."""
+    from repro_torch.nn import layers as L
+    monkeypatch.setattr(L, "_DRAW_ELEMS", 40)
+    drawn = []
+    real = torch.Tensor.normal_
+
+    def spy(t, *a, **kw):
+        drawn.append(tuple(t.shape))
+        return real(t, *a, **kw)
+    monkeypatch.setattr(torch.Tensor, "normal_", spy)
+    g = torch.Generator().manual_seed(0)
+    tree = L.init_tree({"w": ((5, 4, 3), "normal"), "v": ((7, 8), "normal"),
+                        "s": ((9,), "normal")}, g, dtype=torch.bfloat16,
+                       device=torch.device("cpu"))
+    assert drawn == [(3, 4, 3), (2, 4, 3), (5, 8), (2, 8), (9,)]
+    assert all(t.dtype == torch.bfloat16 for t in tree.values())
+    assert tuple(tree["w"].shape) == (5, 4, 3)
