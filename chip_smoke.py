@@ -10,16 +10,20 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 2. gemm     — the GEMM kernel against its plain version on the card: the
               phi4-mini step shapes at M = 4 and 512 with the path's
               epilogues, gelu/silu/bias at one shape each, forced configs
-              at the menu's corners, group_m > 1 on ragged M/N/K, split-K,
-              and f32 inputs/outputs.
+              at the menu's corners, group_m > 1 on ragged M/N/K, stream-K
+              strips and split-K shard ranges that do not line up with
+              tiles, and f32 inputs/outputs.  Every case launches twice and
+              must repeat bitwise (``deterministic``) with every fixup flag
+              down again; one split launch replays in a CUDA graph.
 3. flash    — the flash-attention kernel against its plain version:
               (B, 24, S, 128) q over (B, 8, S, 128) k/v, causal and not,
               S in {512, 1000}, bf16.
    expert_gemm — the grouped GEMM kernel (the same source, the expert axis
-              in the grid) against its plain version: qwen3-moe's three
-              prefill expert GEMMs at capacity 40 and 32 with their
+              in the work space) against its plain version: qwen3-moe's
+              three prefill expert GEMMs at capacity 40 and 32 with their
               epilogues, bias and residual at one shape each, ragged
-              capacity 24, padded ragged K/N, forced corner configs, f32.
+              capacity 24, padded ragged K/N, forced corner configs,
+              grouped stream-K and split-K, f32; bitwise repeat as above.
 4. serve    — ``run_serving`` for phi4-mini-3.8b at full width and depth
               (random weights from a seed), 8 ragged requests of 256-512
               prompt tokens, batch 4, 16 generated tokens each, on the
@@ -43,7 +47,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    moe_trace — the trace phase for qwen3-moe, grouped GEMM time apart.
 6. times    — each kernel at the main-path shapes: kernel, plain and
               one-call library times (CUDA graphs and events) and
-              the bound max(flop / 989e12, bytes / 3.35e12).
+              the bound max(flop / 989e12, bytes / 3.35e12); each GEMM row
+              also gives its grid (``ctas``), its split tiles, the latency
+              model's prediction (``model_ms``) and the wrapper's host
+              microseconds per call.
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or run from a
@@ -264,8 +271,19 @@ def gemm_phase(torch, dev, kmm) -> float:
         (333, 200, 264, swi, bf, bf, TileConfig(64, 64, 64, group_m=4)),
         (1000, 1000, 1000, none, bf, bf,
          TileConfig(128, 64, 64, group_m=8, schedule="stream_k")),
-        # split_k > 1 lowers to the in-CTA K loop
+        # stream-K strips and split-K shard ranges that do not line up with
+        # tiles: several CTAs' partials summed into one tile
         (64, 128, 2048, none, bf, f32, TileConfig(64, 128, 64, split_k=4)),
+        (512, 3072, 8192, res, bf, bf,
+         TileConfig(256, 128, 128, group_m=2, schedule="stream_k")),
+        (300, 1000, 1000, Epilogue(bias=True), bf, bf,
+         TileConfig(128, 64, 64, group_m=4, schedule="stream_k")),
+        (100, 1000, 1000, Epilogue(activation="gelu"), bf, bf,
+         TileConfig(64, 128, 64, split_k=4)),
+        (384, 4096, 1024, none, bf, bf, TileConfig(128, 128, 64, split_k=4)),
+        (4, 8192, 3072, res, bf, bf, TileConfig(32, 128, 32, split_k=8)),
+        (100, 300, 1000, res, f32, f32,
+         TileConfig(64, 64, 32, schedule="stream_k")),
         # f32 inputs (SIMT path) and bf16 -> f32 outputs
         (128, 256, 512, none, f32, f32, None),
         (100, 300, 77, Epilogue(bias=True, activation="gelu"), f32, f32,
@@ -281,28 +299,88 @@ def gemm_phase(torch, dev, kmm) -> float:
                                      epilogue=ep, hw=GPU_H100_LIKE).config
         a, b, kw = _gemm_inputs(torch, dev, M, N, K, ep, dt, seed=i)
         got = kmm.tiled_matmul(a, b, cfg, out_dtype=odt, epilogue=ep, **kw)
+        again = kmm.tiled_matmul(a, b, cfg, out_dtype=odt, epilogue=ep, **kw)
         want = kmm.matmul_plain(a, b, cfg, out_dtype=odt, epilogue=ep, **kw)
         torch.cuda.synchronize()
         rtol, atol = gemm_tol(dt, K)
         err = (got.float() - want.float()).abs()
         bound = atol + rtol * want.float().abs()
+        det = _deterministic(torch, dev, kmm, got, again)
         ok = bool((err <= bound).all()) and bool(torch.isfinite(got).all())
         rel = float(torch.linalg.vector_norm(got.float() - want.float())
                     / torch.linalg.vector_norm(want.float()))
+        plan = _plan(kmm, dev, M, N, K, cfg, 1)
         rows.append({"shape": [M, N, K], "epilogue": str(ep),
                      "in": str(dt)[6:], "out": str(odt)[6:],
-                     "config": str(cfg), "max_abs_err": float(err.max()),
-                     "rel_l2": rel, "ok": ok})
-        if not ok:
+                     "config": str(cfg), "ctas": plan.ctas,
+                     "split_tiles": plan.split_tiles,
+                     "max_abs_err": float(err.max()), "rel_l2": rel,
+                     "deterministic": det, "ok": ok and det})
+        if not ok or not det:
             emit({"phase": "gemm", "cases": rows})
             fail(f"gemm {M}x{N}x{K} {ep} {cfg} disagrees with its plain "
                  f"version (max abs err {float(err.max())}, atol {atol}, "
-                 f"rtol {rtol})")
+                 f"rtol {rtol}) or does not repeat (deterministic {det})")
         worst = max(worst, float(err.max()))
+    graph = _graph_case(torch, dev, kmm)
     emit({"phase": "gemm", "tolerance": "tests/test_kernels.py:26-27: f32 "
           "rtol 1e-5 atol 1e-4*sqrt(K); bf16 rtol 3e-2 atol 0.3*sqrt(K)",
-          "cases": rows})
+          "deterministic": "two launches bitwise equal, every fixup flag "
+          "down after them", "cases": rows, "cuda_graph": graph})
+    if not graph["ok"]:
+        fail(f"a split GEMM launch replayed in a CUDA graph differs from "
+             f"its eager launch ({graph})")
     return worst
+
+
+def _plan(kmm, dev, M, N, K, cfg, groups):
+    """The work plan the wrapper launches (K and N padded to 8)."""
+    return kmm.work_plan(M, N + (-N) % 8, K + (-K) % 8, cfg, groups,
+                         kmm._sm_count(dev.index))
+
+
+def _deterministic(torch, dev, kmm, got, again) -> bool:
+    """Two launches on the same inputs are bitwise equal and leave every
+    fixup flag down."""
+    return bool(torch.equal(got, again)) and _flags_down(kmm)
+
+
+def _flags_down(kmm) -> bool:
+    """Every stream's fixup flags are zero again."""
+    return all(int(f.abs().sum()) == 0 for _, _, f in kmm._SCRATCH.values())
+
+
+def _graph_case(torch, dev, kmm):
+    """A split stream-K launch (phi4's decode wo + residual) captured in a
+    CUDA graph and replayed twice: both replays equal the eager launch."""
+    from repro_torch.core.latency import Epilogue, TileConfig
+    cfg = TileConfig(32, 256, 128, schedule="stream_k")
+    ep = Epilogue(residual=True)
+    a, b, kw = _gemm_inputs(torch, dev, 4, 3072, 3072, ep, torch.bfloat16,
+                            seed=99)
+    bf = torch.bfloat16
+    n0 = kmm.tiled_matmul.launches
+    eager = kmm.tiled_matmul(a, b, cfg, out_dtype=bf, epilogue=ep, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kmm.tiled_matmul(a, b, cfg, out_dtype=bf, epilogue=ep, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kmm.tiled_matmul(a, b, cfg, out_dtype=bf, epilogue=ep, **kw)
+    equal = []
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        equal.append(bool(torch.equal(out, eager)))
+    kmm.tiled_matmul.launches = n0
+    down = _flags_down(kmm)
+    return {"config": str(cfg), "shape": [4, 3072, 3072],
+            "split_tiles": _plan(kmm, dev, 4, 3072, 3072, cfg, 1).split_tiles,
+            "replays_equal_eager": equal, "flags_down": down,
+            "ok": all(equal) and down}
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +467,12 @@ def expert_gemm_phase(torch, dev, kmm) -> float:
         (128, 40, 2048, 768, none, bf, bf, TileConfig(32, 32, 32)),
         (128, 40, 768, 2048, none, bf, f32,
          TileConfig(128, 128, 128, schedule="stream_k")),
+        # grouped stream-K and split-K: strips cross expert boundaries
+        (16, 40, 768, 2048, swi, bf, bf,
+         TileConfig(64, 128, 128, schedule="stream_k")),
+        (16, 40, 768, 2048, swi, bf, bf, TileConfig(64, 128, 128, split_k=8)),
+        (16, 40, 2048, 768, none, bf, bf,
+         TileConfig(32, 256, 128, schedule="stream_k")),
         # f32 inputs (SIMT path)
         (8, 24, 200, 264, Epilogue(bias=True), f32, f32,
          TileConfig(32, 32, 32)),
@@ -405,29 +489,38 @@ def expert_gemm_phase(torch, dev, kmm) -> float:
         n0 = kmm.tiled_expert_matmul.launches
         got = kmm.tiled_expert_matmul(x, w, cfg, out_dtype=odt, epilogue=ep,
                                       **kw)
+        ok = kmm.tiled_expert_matmul.launches == n0 + 1
+        again = kmm.tiled_expert_matmul(x, w, cfg, out_dtype=odt,
+                                        epilogue=ep, **kw)
         want = kmm.expert_matmul_plain(x, w, cfg, out_dtype=odt,
                                        epilogue=ep, **kw)
         torch.cuda.synchronize()
         rtol, atol = gemm_tol(dt, K)
         err = (got.float() - want.float()).abs()
         bound = atol + rtol * want.float().abs()
-        ok = bool((err <= bound).all()) and bool(torch.isfinite(got).all())
-        ok = ok and kmm.tiled_expert_matmul.launches == n0 + 1
+        det = _deterministic(torch, dev, kmm, got, again)
+        ok = ok and bool((err <= bound).all()) \
+            and bool(torch.isfinite(got).all())
         rel = float(torch.linalg.vector_norm(got.float() - want.float())
                     / torch.linalg.vector_norm(want.float()))
+        plan = _plan(kmm, dev, M, N, K, cfg, E)
         rows.append({"shape": [E, M, N, K], "epilogue": str(ep),
                      "in": str(dt)[6:], "out": str(odt)[6:],
-                     "config": str(cfg), "max_abs_err": float(err.max()),
-                     "rel_l2": rel, "ok": ok})
-        if not ok:
+                     "config": str(cfg), "ctas": plan.ctas,
+                     "split_tiles": plan.split_tiles,
+                     "max_abs_err": float(err.max()), "rel_l2": rel,
+                     "deterministic": det, "ok": ok and det})
+        if not ok or not det:
             emit({"phase": "expert_gemm", "cases": rows})
             fail(f"expert gemm {E}x{M}x{N}x{K} {ep} {cfg} disagrees with "
                  f"its plain version (max abs err {float(err.max())}, atol "
-                 f"{atol}, rtol {rtol})")
+                 f"{atol}, rtol {rtol}) or does not repeat (deterministic "
+                 f"{det})")
         worst = max(worst, float(err.max()))
     emit({"phase": "expert_gemm", "tolerance": "tests/test_kernels.py:26-27:"
           " f32 rtol 1e-5 atol 1e-4*sqrt(K); bf16 rtol 3e-2 atol "
-          "0.3*sqrt(K)", "cases": rows})
+          "0.3*sqrt(K)", "deterministic": "two launches bitwise equal, "
+          "every fixup flag down after them", "cases": rows})
     return worst
 
 
@@ -681,8 +774,8 @@ def serve_moe_phase(torch, dev, kmm, kfa):
 
 def _kernel_ms(prof):
     """Device time (ms) and launch count of every kernel in a profile,
-    grouped by kernel: the grouped GEMM is the GEMM kernel launched with
-    more than one grid row (read from the exported trace's grid)."""
+    grouped by kernel name: the dense GEMM's kernels are gemm_dense_*, the
+    grouped GEMM's gemm_grouped_* (csrc/matmul.cu)."""
     import os
     import tempfile
     groups = {"matmul": 0.0, "expert_matmul": 0.0, "flash_attention": 0.0,
@@ -700,10 +793,9 @@ def _kernel_ms(prof):
         if str(ev.get("cat", "")).lower() != "kernel":
             continue
         name = ev.get("name", "")
-        grid = ev.get("args", {}).get("grid", [1, 1, 1])
         key = ("flash_attention" if "flash_fwd_kernel" in name else
-               "other" if "gemm_kernel" not in name else
-               "expert_matmul" if grid[1] > 1 else "matmul")
+               "expert_matmul" if "gemm_grouped" in name else
+               "matmul" if "gemm_dense" in name else "other")
         groups[key] += ev.get("dur", 0.0) / 1e3
         counts[key] += 1
     if not any(counts.values()):
@@ -787,13 +879,27 @@ def _gemm_bytes_flops(M, N, K, ep):
     return 2 * (M * K + K * N + M * N) + extra, 2.0 * M * N * K
 
 
+def host_us(torch, fn, calls: int = 50) -> float:
+    """Host time of one call: ``calls`` calls issued back to back without a
+    device sync (the wrapper's checks, plan, allocations, the ctypes call,
+    the tensor-map encoding and the launch), in microseconds."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def times_phase(torch, dev, kmm, kfa, edges, moe_capacity):
     """Per-call times of each kernel at the main-path shapes; returns the
     kernels-line numbers keyed matmul@decode, matmul@prefill,
     flash_attention@prefill and expert_matmul@prefill."""
     import torch.nn.functional as F
     from repro_torch.core.hardware import GPU_H100_LIKE
-    from repro_torch.core.latency import Epilogue
+    from repro_torch.core.latency import Epilogue, GemmProblem, gemm_latency
     from repro_torch.core.selector import select_gemm_config
 
     eps = {"none": Epilogue(), "residual": Epilogue(residual=True),
@@ -802,8 +908,8 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity):
     per_shape = []
     for phase, M, extra in (("decode", 4, ()),
                             ("prefill", 512, ("wk", "wv"))):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-               "flops": 0.0}
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "model_ms": 0.0, "bytes": 0, "flops": 0.0}
         # A prefill also recomputes wk/wv for the cache (transformer.py:111).
         for name, N, K, epn in PATH_GEMMS + [g for g in PATH_GEMMS
                                              if g[0] in extra]:
@@ -812,9 +918,11 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity):
                                     seed=7)
             a = a * 0.1
             b = b * 0.02
-            cfg = select_gemm_config(M, N, K, in_dtype="bfloat16",
+            sel = select_gemm_config(M, N, K, in_dtype="bfloat16",
                                      out_dtype="bfloat16", epilogue=ep,
-                                     hw=GPU_H100_LIKE).config
+                                     hw=GPU_H100_LIKE)
+            cfg = sel.config
+            plan = _plan(kmm, dev, M, N, K, cfg, 1)
             bf = torch.bfloat16
 
             def kern():
@@ -834,23 +942,27 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity):
 
             n0 = kmm.tiled_matmul.launches
             row = {"phase": phase, "gemm": name, "M": M, "N": N, "K": K,
-                   "epilogue": epn, "config": str(cfg),
+                   "epilogue": epn, "config": str(cfg), "ctas": plan.ctas,
+                   "split_tiles": plan.split_tiles,
+                   "model_ms": sel.predicted.total * 1e3,
                    "ms": time_ms(kern), "plain_ms": time_ms(plain),
-                   "library_ms": time_ms(library)}
+                   "library_ms": time_ms(library),
+                   "host_us": host_us(torch, kern)}
             kmm.tiled_matmul.launches = n0     # timing launches do not count
             nbytes, flops = _gemm_bytes_flops(M, N, K, epn)
             row["bound_ms"] = max(nbytes / HBM_BW, flops / BF16_PEAK) * 1e3
             row["bound_by"] = ("bytes" if nbytes / HBM_BW
                                >= flops / BF16_PEAK else "operations")
             per_shape.append(row)
-            for key in ("ms", "plain_ms", "library_ms"):
+            for key in ("ms", "plain_ms", "library_ms", "model_ms"):
                 tot[key] += row[key]
             tot["bytes"] += nbytes
             tot["flops"] += flops
         t_b, t_f = tot["bytes"] / HBM_BW, tot["flops"] / BF16_PEAK
         times[f"matmul@{phase}"] = {
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "library_ms": tot["library_ms"], "bound_ms": max(t_b, t_f) * 1e3,
+            "library_ms": tot["library_ms"], "model_ms": tot["model_ms"],
+            "bound_ms": max(t_b, t_f) * 1e3,
             "bound_by": "bytes" if t_b >= t_f else "operations",
             "what": f"sum over one layer's {phase} GEMMs at M={M}"}
 
@@ -885,8 +997,8 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity):
     # The three expert GEMMs of one qwen3-moe prefill layer at the capacity
     # of the largest served bucket edge.
     E, C = 128, moe_capacity
-    tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes", "flops"),
-                        0.0)
+    tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "model_ms", "bytes",
+                         "flops"), 0.0)
     for name, N, K, epn in EXPERT_GEMMS:
         ep = eps[epn]
         x, w, kw = _expert_inputs(torch, dev, E, C, N, K, ep, torch.bfloat16,
@@ -896,6 +1008,12 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity):
         cfg = select_gemm_config(C, N, K, in_dtype="bfloat16",
                                  out_dtype="bfloat16", epilogue=ep,
                                  hw=GPU_H100_LIKE).config
+        plan = _plan(kmm, dev, C, N, K, cfg, E)
+        # The selection prices one expert; the model of the whole launch
+        # is the same problem at batch E.
+        model = gemm_latency(GemmProblem(C, N, K, in_dtype="bfloat16",
+                                         out_dtype="bfloat16", batch=E,
+                                         epilogue=ep), cfg, GPU_H100_LIKE)
         bf = torch.bfloat16
 
         def kern():
@@ -915,8 +1033,11 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity):
         n0 = kmm.tiled_expert_matmul.launches
         row = {"phase": "prefill", "expert_gemm": name, "E": E, "C": C,
                "N": N, "K": K, "epilogue": epn, "config": str(cfg),
+               "ctas": plan.ctas, "split_tiles": plan.split_tiles,
+               "model_ms": model.total * 1e3,
                "ms": time_ms(kern), "plain_ms": time_ms(plain),
-               "library_ms": time_ms(library)}
+               "library_ms": time_ms(library),
+               "host_us": host_us(torch, kern)}
         kmm.tiled_expert_matmul.launches = n0
         nbytes, flops = _gemm_bytes_flops(C, N, K, epn)
         nbytes, flops = E * nbytes, E * flops
@@ -924,14 +1045,15 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity):
         row["bound_by"] = ("bytes" if nbytes / HBM_BW >= flops / BF16_PEAK
                            else "operations")
         per_shape.append(row)
-        for key in ("ms", "plain_ms", "library_ms"):
+        for key in ("ms", "plain_ms", "library_ms", "model_ms"):
             tot[key] += row[key]
         tot["bytes"] += nbytes
         tot["flops"] += flops
     t_b, t_f = tot["bytes"] / HBM_BW, tot["flops"] / BF16_PEAK
     times["expert_matmul@prefill"] = {
         "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-        "library_ms": tot["library_ms"], "bound_ms": max(t_b, t_f) * 1e3,
+        "library_ms": tot["library_ms"], "model_ms": tot["model_ms"],
+        "bound_ms": max(t_b, t_f) * 1e3,
         "bound_by": "bytes" if t_b >= t_f else "operations",
         "what": f"sum over one layer's 3 expert GEMMs at E={E}, C={C}"}
     emit({"phase": "times", "timing": "CUDA graph of 10 calls after 3 "

@@ -1,72 +1,86 @@
-// Selector-tiled GEMM with a fused epilogue, hand-written for Hopper (sm_90a).
+// Selector-tiled GEMM with a fused epilogue, hand-written for Hopper (sm_90a):
+// a persistent stream-K / split-K kernel on wgmma and TMA.
 //
 // Replaces src/repro/kernels/matmul.py::matmul_pallas (pallas_call at :181,
-// body _make_kernel :77, _swizzle :48, _apply_epilogue :62).
+// body _make_kernel :77, _swizzle :48, _apply_epilogue :62) and, as the
+// grouped launch, src/repro/kernels/ops.py::expert_matmul (a jax.vmap of
+// matmul_pallas over the expert axis, ops.py:349-361).
 //
-//   C = epilogue(A @ B),  A (M, K) row-major, B (K, N) row-major.
+//   C[g] = epilogue(A[g] @ B[g]),  A (M, K) row-major, B (K, N) row-major,
 //   epilogue = +bias (N) -> gelu(tanh) | silu | silu(y) * gate (M, N)
 //              -> +residual (M, N) -> cast to the output type,
-//   applied once, on the f32 accumulator, in DESIGN.md §3's order.
+//   applied once per output element, on the full f32 sum, in DESIGN.md §3's
+//   order.  The dense GEMM is the launch with one group and zero strides.
 //
-// What it honours of the selected TileConfig:
-//   * bm x bn is the output tile one CTA owns; the grid is Tm * Tn CTAs and
-//     the CTA's tile comes out of the same group_m row swizzle as the TPU
-//     kernel's index maps, ragged final group included.
-//   * bk is the depth of one staged K step (A: pass_m x bk, B: bk x pass_n in
-//     shared memory, double-buffered with cp.async).
-//   * split_k and schedule (data_parallel / stream_k) lower, as on the TPU
-//     (matmul.py:24-32), to one in-CTA loop over the whole of K and a single
-//     flush.  The sum runs over the same K blocks in order, so the result is
-//     the one the k-sharded grid computes.  A persistent 132-SM stream-K and a
-//     cross-CTA split-K combine are the redesign this kernel is queued for.
+// What bounds it on the H100.  At decode (M = 4) every GEMM streams its
+// weight once: bound by HBM bytes, it needs loads in flight on every SM.  At
+// prefill (M = 474-512) the projections are bound by tensor-core operations
+// and need wgmma fed from shared memory without stalls.  The TPU kernel walks
+// one sequential grid, so its split-K and stream-K are the same in-core loop;
+// a Hopper grid runs in parallel, and a kernel that gives each output tile
+// one CTA leaves most of the 132 SMs idle on the small-M tiles the selector
+// picks (12 CTAs for a 4 x 3072 x 3072 decode GEMM).
 //
-// What bounds it on the H100: at prefill (M = 512) the projections are
-// compute-bound (arithmetic intensity ~ M / 2 flop per weight byte) and want
-// the tensor cores; at decode (M = 4) every GEMM streams its weight once and
-// is bound by HBM bytes.  The design answers the first with WMMA bf16 tensor
-// cores (m16n8k16 mma.sync underneath) fed from padded, bank-conflict-free
-// shared tiles, and the second by reading each weight element exactly once
-// per CTA row-block with 16-byte cp.async loads; at M = 4 a 32-row tile
-// wastes 7/8 of the tensor-core work but none of the bytes.
-//
-// Register capacity caps one pass at 128 x 128 accumulators (8 warps, 64 f32
-// per thread).  A larger selected tile (256 x 128, 256 x 256) is walked in
-// passes of up to 128 x 128, each running the full K loop; the flush order
-// and result are unchanged.
-//
-// Ragged edges: M rows, N columns and K depth are masked in the kernel
-// (zero-filled loads via cp.async src-size 0, guarded stores).  The wrapper
-// pads only K and N up to a multiple of 8 elements so every 16-byte load is
-// either wholly inside or wholly outside the matrix.
-//
-// float32 inputs take a SIMT FMA path with the same tiling (tensor-core TF32
-// would miss the f32 tolerance); outputs and epilogue operands may be bf16 or
-// f32 independently of the inputs.
-//
-// Grouped GEMM (replaces src/repro/kernels/ops.py::expert_matmul, a jax.vmap
-// of matmul_pallas over the expert axis, ops.py:349-361): G independent
-// problems of one shape, out[g] = epilogue(a[g] @ b[g]) with bias[g],
-// gate[g], residual[g], all on one selected config.  blockIdx.y is the
-// group; every operand is offset by its own per-group element stride, and
-// the tile swizzle and passes run per group exactly as in the dense case,
-// which is the launch with gridDim.y = 1 and zero strides.  At qwen3-moe
-// prefill (E = 128 experts, M = capacity C ~ 40, K/N 2048 <-> 768) each
-// expert's weight is read once per row tile and the call is bound by the
-// 0.4 GB of expert weights it streams; the grid holds E * Tm * Tn CTAs
-// (384 to 4,096 on the selected tiles of those shapes), so every SM is fed
-// where the dense decode GEMMs leave most of them idle.
+// What the design does about it:
+//  * One persistent scheduler for every schedule (kernels/matmul.py::
+//    work_plan computes the same partition).  The grid is at most one CTA
+//    per SM; the iteration space (group, swizzled tile, k-step) is cut into
+//    units -- one k-step under stream_k, one (tile, k-shard) under
+//    data_parallel -- and CTA c walks units [c q, (c + 1) q), q = ceil(units
+//    / min(SMs, units)), the strip the latency model prices
+//    (core/latency.py: wave_model, schedule_extra_classes).  Consecutive
+//    units of one tile in one CTA ("a piece") share one accumulator.
+//  * Deterministic fixup.  A CTA whose range starts inside a tile writes its
+//    f32 partial of that tile to its workspace slot and raises its flag; the
+//    CTA holding the tile's first k-step keeps its own sum in registers,
+//    waits for the flags of the CTAs after it, adds their partials in k order
+//    and applies the epilogue once.  No float atomics: the same inputs give
+//    bitwise-equal outputs.  The spin-wait is safe because every CTA is
+//    resident at once (a cooperative launch: the hardware schedules the
+//    whole grid together, whatever else runs on the card) and a CTA only
+//    waits on CTAs after it, whose pieces of the tile come first in their
+//    ranges.  The waiter lowers each flag it consumed, so the flags are
+//    zero again when the launch ends (a CUDA graph replays it unchanged);
+//    launches that share flags must run in order (the wrapper keeps one
+//    buffer per stream).
+//  * bf16 inputs run on wgmma fed by TMA, warp-specialised: one producer
+//    thread (of a warp, or of a warpgroup that gives its registers to the
+//    consumers for a 256-row tile) keeps cp.async.bulk.tensor loads in
+//    flight in a ring of up to 8 mbarrier-guarded stages, each a 64-deep
+//    (or bk-deep) slice of the k-step, so a 256 x 128 x 128 tile has a
+//    4-deep ring in 192 KB; one or
+//    two consumer warpgroups issue wgmma.mma_async with the accumulators in
+//    registers (a 256-row tile is held whole by two warpgroups, 128 f32 a
+//    thread).  The epilogue stages 32 columns of a 64-row block at a time
+//    through a small shared-memory buffer per warpgroup, so that one
+//    compact loop with coalesced, batched loads and stores serves every
+//    register of every tile shape: unrolled per register, the epilogue's
+//    code outweighed the mainloop's time.  A 32-row (decode) tile
+//    runs the 64-row instruction with TMA filling only its 32 rows: at
+//    M = 4 the MMA is idle anyway, and what the decode GEMMs need -- every
+//    SM streaming the weight with several TMA loads in flight -- is what the
+//    scheduler and the ring give.  TMA zero-fills out-of-range rows, columns
+//    and depth (per group: the descriptors are 3-D), so only stores are
+//    guarded.  A 256 x 256 tile is walked as two 256 x 128 passes (registers
+//    cap a thread at 128 accumulators).
+//  * f32 inputs take a SIMT FMA path under the same scheduler (64 x 64
+//    passes, double-buffered cp.async); tensor-core TF32 would miss the f32
+//    tolerance.  Outputs and epilogue operands may be bf16 or f32
+//    independently of the inputs.
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include <mutex>
 
-namespace {
+#include "wgmma_bf16.cuh"
 
-constexpr int kThreads = 256;
-constexpr int kMaxPass = 128;
+namespace repro {
+
 constexpr size_t kMaxSmem = 232448;  // 227 KB opt-in dynamic shared memory
+constexpr int kMaxStages = 8;
 
 enum Act { kActNone = 0, kActGelu = 1, kActSilu = 2, kActSwiglu = 3 };
 
@@ -77,21 +91,567 @@ struct Params {
   const void* bias;
   const void* gate;
   const void* residual;
+  float* ws;   // one partial slot per CTA (null when no tile is split)
+  int* flags;  // one flag per CTA, zero between launches
   int M, N, K;
   int bm, bn, bk;
   int group_m;
   int out_f32, ep_f32;
   int has_bias, act, has_res;
   int groups;
+  int Tm, Tn;             // output tiles of one group
+  int steps_per_unit;     // k-steps of bk in one unit
+  int units_per_tile;
+  int units_per_cta;      // q
+  int ctas;               // the grid
+  long long units;        // groups * Tm * Tn * units_per_tile
+  int ks;                 // depth of one shared-memory stage (tensor-core path)
+  int stages;
+  size_t slot_floats;     // one CTA's workspace slot
   // Element strides between consecutive groups (0 for the dense case).
   size_t sa, sb, so, sbias, sgate, sres;
 };
 
+// ---------------------------------------------------------------------------
+// The work plan (kernels/matmul.py::WorkPlan.pieces walks the same way).
+// ---------------------------------------------------------------------------
+
+struct Piece {
+  int tile;      // flattened (group, tile)
+  int s0, s1;    // k-steps [s0, s1) of the tile
+  bool first;    // holds the tile's first k-step: owns fixup and epilogue
+  bool last;     // holds the tile's last k-step
+  int last_cta;  // the CTA holding the tile's last k-step
+};
+
+__device__ __forceinline__ bool next_piece(const Params& p, long long& u,
+                                           long long u_end, Piece& pc) {
+  if (u >= u_end) return false;
+  const long long t = u / p.units_per_tile;
+  const long long tu0 = t * p.units_per_tile, tu1 = tu0 + p.units_per_tile;
+  const long long pe = u_end < tu1 ? u_end : tu1;
+  pc.tile = static_cast<int>(t);
+  pc.s0 = static_cast<int>(u - tu0) * p.steps_per_unit;
+  pc.s1 = static_cast<int>(pe - tu0) * p.steps_per_unit;
+  pc.first = u == tu0;
+  pc.last = pe == tu1;
+  pc.last_cta = static_cast<int>((tu1 - 1) / p.units_per_cta);
+  u = pe;
+  return true;
+}
+
+// Flattened tile -> (group, first row, first column) under the group_m row
+// swizzle (matmul.py::_swizzle), ragged final row group included.
+__device__ __forceinline__ void tile_origin(const Params& p, int tile, int& g,
+                                            int& row0, int& col0) {
+  const int per_group = p.Tm * p.Tn;
+  g = tile / per_group;
+  const int pid = tile - g * per_group;
+  int pid_m, pid_n;
+  if (p.group_m <= 1) {
+    pid_m = pid / p.Tn;
+    pid_n = pid % p.Tn;
+  } else {
+    const int group_size = p.group_m * p.Tn;
+    const int first_m = (pid / group_size) * p.group_m;
+    const int rows = min(p.Tm - first_m, p.group_m);
+    const int local = pid % group_size;
+    pid_m = first_m + local % rows;
+    pid_n = local / rows;
+  }
+  row0 = pid_m * p.bm;
+  col0 = pid_n * p.bn;
+}
+
+// The real depth [k_lo, k_hi) of a piece: k-steps past K (the tail of the
+// last split-K shard) hold nothing to load.
+__device__ __forceinline__ void piece_depth(const Params& p, const Piece& pc,
+                                            int& k_lo, int& k_hi) {
+  k_lo = pc.s0 * p.bk;
+  k_hi = min(pc.s1 * p.bk, p.K);
+}
+
+// ---------------------------------------------------------------------------
+// Cross-CTA flags (release / acquire at GPU scope).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void raise_flag(int* f) {
+  __threadfence();
+  asm volatile("st.release.gpu.global.b32 [%0], %1;\n" ::"l"(f), "r"(1)
+               : "memory");
+}
+
+__device__ __forceinline__ void await_and_lower_flag(int* f) {
+  int v;
+  do {
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+                 : "=r"(v)
+                 : "l"(f)
+                 : "memory");
+  } while (v == 0);
+  asm volatile("st.relaxed.gpu.global.b32 [%0], %1;\n" ::"l"(f), "r"(0)
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The epilogue (matmul.py::_apply_epilogue) of one output element.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float load_ep(const void* p, size_t i, int f32) {
+  return f32 ? static_cast<const float*>(p)[i]
+             : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
+}
+
+// The activation of DESIGN.md §3 (gelu is the tanh form, as jax.nn.gelu);
+// gate is read only by swiglu.
+__device__ __forceinline__ float activate(int act, float x, float gate) {
+  if (act == kActGelu)
+    return 0.5f * x *
+           (1.0f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
+  if (act == kActSilu) return x / (1.0f + expf(-x));
+  if (act == kActSwiglu) return x / (1.0f + expf(-x)) * gate;
+  return x;
+}
+
+__device__ __forceinline__ void epilogue_store(const Params& p, int g_,
+                                               int row, int col, float acc) {
+  const size_t g = static_cast<size_t>(g_);
+  const size_t idx = static_cast<size_t>(row) * p.N + col;
+  if (p.has_bias) acc += load_ep(p.bias, g * p.sbias + col, p.ep_f32);
+  const float gate =
+      p.act == kActSwiglu ? load_ep(p.gate, g * p.sgate + idx, p.ep_f32) : 0.0f;
+  acc = activate(p.act, acc, gate);
+  if (p.has_res) acc += load_ep(p.residual, g * p.sres + idx, p.ep_f32);
+  const size_t o = g * p.so + idx;
+  if (p.out_f32) {
+    static_cast<float*>(p.out)[o] = acc;
+  } else {
+    static_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16(acc);
+  }
+}
+
+// Two neighbouring columns (col even; N is a multiple of 8, so col + 1 < N).
+__device__ __forceinline__ float2 load_ep2(const void* p, size_t i, int f32) {
+  if (f32) return *reinterpret_cast<const float2*>(static_cast<const float*>(p) + i);
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+      static_cast<const __nv_bfloat16*>(p) + i));
+}
+
+// ---------------------------------------------------------------------------
+// Hopper primitives: mbarriers, TMA, wgmma.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_3d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units) and the swizzle of the rows (128, 64 or 32 bytes).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, int row_bytes) {
+  const uint64_t layout = row_bytes == 128 ? 1 : (row_bytes == 64 ? 2 : 3);
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins the accumulators across wgmma's asynchronous writes.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int PN>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[PN / 2], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (PN == 32) wgmma_m64n32(d, da, db);
+  if constexpr (PN == 64) wgmma_m64n64(d, da, db);
+  if constexpr (PN == 128) wgmma_m64n128(d, da, db);
+  if constexpr (PN == 256) wgmma_m64n256(d, da, db);
+}
+
+__device__ __forceinline__ void consumer_sync(int threads) {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
+}
+
+// The epilogue's staging buffer: one per consumer warpgroup, 64 rows of
+// kEpiCols f32; the row stride of 40 floats keeps the fragment writes (8
+// rows x 4 column pairs a half-warp) free of bank conflicts.
+constexpr int kEpiCols = 32;
+constexpr int kEpiStride = kEpiCols + 8;
+constexpr int kEpiBytes = 64 * kEpiStride * 4;
+
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+
+// The epilogue of rows x kEpiCols outputs staged in epi (the first rows of
+// a 64-row block starting at row0, columns from col0), by the 128 threads
+// of one warpgroup: thread t takes column pair t % 16 of rows t / 16 + 8 s.
+// Each round issues the gate and residual loads of kBatch rows before their
+// first use, so their latencies overlap.  A 256-row tile keeps 128
+// accumulators live through its epilogue and has no registers to spare
+// for a batch: it takes one row a round.
+template <int kBatch>
+__device__ __forceinline__ void epilogue_block(const Params& p,
+                                               const float* epi, int g_,
+                                               int row0, int rows, int col0,
+                                               int t) {
+  constexpr int kPairs = kEpiCols / 2;
+  const size_t g = static_cast<size_t>(g_);
+  const int c = (t % kPairs) * 2, col = col0 + c;
+  if (col >= p.N) return;
+  float2 bias = make_float2(0.0f, 0.0f);
+  if (p.has_bias) bias = load_ep2(p.bias, g * p.sbias + col, p.ep_f32);
+#pragma unroll 1
+  for (int r0 = t / kPairs; r0 < rows; r0 += kBatch * (128 / kPairs)) {
+    float2 v[kBatch], gate[kBatch], res[kBatch];
+#pragma unroll
+    for (int s = 0; s < kBatch; ++s) {
+      const int r = r0 + s * (128 / kPairs);
+      v[s] = gate[s] = res[s] = make_float2(0.0f, 0.0f);
+      if (r >= rows) continue;
+      const size_t idx = static_cast<size_t>(row0 + r) * p.N + col;
+      v[s] = *reinterpret_cast<const float2*>(epi + r * kEpiStride + c);
+      if (p.act == kActSwiglu)
+        gate[s] = load_ep2(p.gate, g * p.sgate + idx, p.ep_f32);
+      if (p.has_res)
+        res[s] = load_ep2(p.residual, g * p.sres + idx, p.ep_f32);
+    }
+#pragma unroll
+    for (int s = 0; s < kBatch; ++s) {
+      const int r = r0 + s * (128 / kPairs);
+      if (r >= rows) continue;
+      const float x =
+          activate(p.act, v[s].x + bias.x, gate[s].x) + res[s].x;
+      const float y =
+          activate(p.act, v[s].y + bias.y, gate[s].y) + res[s].y;
+      const size_t o = g * p.so + static_cast<size_t>(row0 + r) * p.N + col;
+      if (p.out_f32) {
+        *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
+            make_float2(x, y);
+      } else {
+        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) +
+                                           o) = __floats2bfloat162_rn(x, y);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core kernel.  NWG consumer warpgroups of MB 64-row blocks each
+// cover the tile's rows (NWG * MB * 64 >= bm); PN columns per pass.
+// ---------------------------------------------------------------------------
+
+template <int NWG, int MB, int PN>
+struct Sm90 {
+  static constexpr int kConsumers = NWG * 128;
+  // A 256-row tile keeps 128 accumulators a consumer thread: its producer
+  // is a whole warpgroup that hands its registers to the consumers
+  // (setmaxnreg), which removes their spills.  Other tiles have room, and
+  // one producer warp costs less there: with a producer warpgroup the
+  // 32 x 256 decode tiles ran 17-20 % slower (tools/gemm_ab.py).
+  static constexpr bool kRebalance = MB == 2;
+  static constexpr int kThreads = kConsumers + (kRebalance ? 128 : 32);
+  static constexpr int kRows = NWG * MB * 64;       // rows of the A stage
+  static constexpr int kCW = PN < 64 ? PN : 64;     // B chunk width
+  static constexpr int kChunks = PN / kCW;
+  static constexpr int kAcc = PN / 2;               // f32 a thread, per block
+};
+
+template <int NWG, int MB, int PN>
+__device__ __forceinline__ void sm90_body(const CUtensorMap& tma_a,
+                                          const CUtensorMap& tma_b,
+                                          const Params& p) {
+  using S = Sm90<NWG, MB, PN>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [stages x (A slice, B chunks)] [NWG epilogue buffers] [mbarriers]
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const int ks = p.ks;
+  const uint32_t a_bytes = S::kRows * ks * 2;
+  const uint32_t b_chunk = ks * S::kCW * 2;
+  const uint32_t stage_bytes = a_bytes + S::kChunks * b_chunk;
+  const uint32_t epi_at = base + p.stages * stage_bytes;
+  const uint32_t bars = epi_at + NWG * kEpiBytes;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (kMaxStages + s); };
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), S::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const long long u_begin =
+      static_cast<long long>(blockIdx.x) * p.units_per_cta;
+  const long long u_end =
+      u_begin + p.units_per_cta < p.units ? u_begin + p.units_per_cta
+                                          : p.units;
+  const int passes = p.bn / PN;
+  // The warpgroup index, broadcast from lane 0 so that the compiler sees
+  // the role split as warp-uniform; otherwise it serialises every wgmma.
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (wg == NWG) {
+    if constexpr (S::kRebalance)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    // Producer: one thread issues every TMA load of the CTA's pieces.
+    if (tid == S::kConsumers) {
+      const uint32_t tx = p.bm * ks * 2 + S::kChunks * b_chunk;
+      int stage = 0;
+      uint32_t phase = 0;
+      long long u = u_begin;
+      Piece pc;
+      while (next_piece(p, u, u_end, pc)) {
+        int g, row0, col0, k_lo, k_hi;
+        tile_origin(p, pc.tile, g, row0, col0);
+        piece_depth(p, pc, k_lo, k_hi);
+        for (int ps = 0; ps < passes; ++ps) {
+          for (int k = k_lo; k < k_hi; k += ks) {
+            mbar_wait(empty(stage), phase ^ 1);
+            mbar_expect_tx(full(stage), tx);
+            const uint32_t sa = base + stage * stage_bytes;
+            tma_load_3d(sa, &tma_a, full(stage), k, row0, g);
+#pragma unroll
+            for (int j = 0; j < S::kChunks; ++j)
+              tma_load_3d(sa + a_bytes + j * b_chunk, &tma_b, full(stage),
+                          col0 + ps * PN + j * S::kCW, k, g);
+            if (++stage == p.stages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers.
+  if constexpr (S::kRebalance)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int warp = __shfl_sync(0xffffffffu, (tid % 128) / 32, 0);
+  const int lane = tid % 32;
+  float* epi = reinterpret_cast<float*>(
+      smem_raw + (epi_at - smem_u32(smem_raw)) + wg * kEpiBytes);
+  float acc[MB][S::kAcc];
+  int stage = 0;
+  uint32_t phase = 0;
+  long long u = u_begin;
+  Piece pc;
+  while (next_piece(p, u, u_end, pc)) {
+    int g, row0, col0, k_lo, k_hi;
+    tile_origin(p, pc.tile, g, row0, col0);
+    piece_depth(p, pc, k_lo, k_hi);
+    for (int ps = 0; ps < passes; ++ps) {
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) {
+#pragma unroll
+        for (int i = 0; i < S::kAcc; ++i) acc[mb][i] = 0.0f;
+        fence_acc(acc[mb]);
+      }
+      int prev = -1;
+      for (int k = k_lo; k < k_hi; k += ks) {
+        mbar_wait(full(stage), phase);
+        const uint32_t sa = base + stage * stage_bytes;
+        wgmma_fence();
+        for (int kk = 0; kk < ks / 16; ++kk) {
+          const uint64_t db =
+              smem_desc(sa + a_bytes + kk * 16 * S::kCW * 2, b_chunk,
+                        8 * S::kCW * 2, S::kCW * 2);
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb) {
+            const uint64_t da =
+                smem_desc(sa + (wg * MB + mb) * 64 * ks * 2 + kk * 32, 16,
+                          8 * ks * 2, ks * 2);
+            wgmma_bf16<PN>(acc[mb], da, db);
+          }
+        }
+        wgmma_commit();
+        if (prev >= 0) {
+          wgmma_wait<1>();
+          mbar_arrive(empty(prev));
+        }
+        prev = stage;
+        if (++stage == p.stages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (prev >= 0) {
+        wgmma_wait<0>();
+        mbar_arrive(empty(prev));
+      }
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) fence_acc(acc[mb]);
+
+      // Partial slot of this pass: [block][register / 4][consumer thread],
+      // four registers a float4, so a warp moves 512 contiguous bytes.
+      const size_t region = static_cast<size_t>(ps) * S::kRows * PN / 4;
+      if (!pc.first) {
+        float4* slot = reinterpret_cast<float4*>(p.ws + blockIdx.x * p.slot_floats) + region;
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) {
+          if ((wg * MB + mb) * 64 + warp * 16 >= p.bm) continue;
+#pragma unroll
+          for (int i = 0; i < S::kAcc / 4; ++i)
+            __stcg(slot + ((wg * MB + mb) * S::kAcc / 4 + i) * 128 + tid % 128,
+                   make_float4(acc[mb][4 * i], acc[mb][4 * i + 1],
+                               acc[mb][4 * i + 2], acc[mb][4 * i + 3]));
+        }
+        if (ps == passes - 1) {
+          consumer_sync(S::kConsumers);
+          if (tid == 0) raise_flag(p.flags + blockIdx.x);
+        }
+        continue;
+      }
+      if (!pc.last) {
+        if (ps == 0 && tid == 0)
+          for (int c = blockIdx.x + 1; c <= pc.last_cta; ++c)
+            await_and_lower_flag(p.flags + c);
+        consumer_sync(S::kConsumers);
+        for (int c = blockIdx.x + 1; c <= pc.last_cta; ++c) {
+          const float4* slot = reinterpret_cast<const float4*>(p.ws + c * p.slot_floats) + region;
+#pragma unroll
+          for (int mb = 0; mb < MB; ++mb) {
+            if ((wg * MB + mb) * 64 + warp * 16 >= p.bm) continue;
+#pragma unroll
+            for (int i = 0; i < S::kAcc / 4; ++i) {
+              const float4 v = __ldcg(
+                  slot + ((wg * MB + mb) * S::kAcc / 4 + i) * 128 + tid % 128);
+              acc[mb][4 * i] += v.x;
+              acc[mb][4 * i + 1] += v.y;
+              acc[mb][4 * i + 2] += v.z;
+              acc[mb][4 * i + 3] += v.w;
+            }
+          }
+        }
+      }
+      // The epilogue, 32 columns of one 64-row block at a time: the
+      // registers go to this warpgroup's staging buffer, then one rolled
+      // loop applies the epilogue with coalesced loads and stores.
+#pragma unroll
+      for (int mb = 0; mb < MB; ++mb) {
+        const int blk = (wg * MB + mb) * 64;
+        const int rows = min(min(64, p.bm - blk), p.M - row0 - blk);
+        if (rows <= 0) continue;
+        // A rolled loop over the chunks, each staged by a case with constant
+        // register indices: one copy of the epilogue code per block.
+#pragma unroll 1
+        for (int jc = 0; jc < PN / kEpiCols; ++jc) {
+#pragma unroll
+          for (int cc = 0; cc < PN / kEpiCols; ++cc) {
+            if (cc != jc) continue;
+#pragma unroll
+            for (int jj = 0; jj < kEpiCols / 8; ++jj) {
+              const int j = cc * (kEpiCols / 8) + jj;
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                *reinterpret_cast<float2*>(
+                    epi + (warp * 16 + lane / 4 + 8 * h) * kEpiStride +
+                    jj * 8 + (lane % 4) * 2) =
+                    make_float2(acc[mb][j * 4 + 2 * h],
+                                acc[mb][j * 4 + 2 * h + 1]);
+            }
+          }
+          warpgroup_sync(wg);
+          epilogue_block<MB == 2 ? 1 : 4>(p, epi, g, row0 + blk, rows,
+                         col0 + ps * PN + jc * kEpiCols, tid % 128);
+          warpgroup_sync(wg);
+        }
+      }
+    }
+  }
+}
+
+template <int NWG, int MB, int PN>
+__global__ void __launch_bounds__(Sm90<NWG, MB, PN>::kThreads, 1)
+    gemm_dense_sm90(const __grid_constant__ CUtensorMap tma_a,
+                    const __grid_constant__ CUtensorMap tma_b,
+                    const __grid_constant__ Params p) {
+  sm90_body<NWG, MB, PN>(tma_a, tma_b, p);
+}
+
+template <int NWG, int MB, int PN>
+__global__ void __launch_bounds__(Sm90<NWG, MB, PN>::kThreads, 1)
+    gemm_grouped_sm90(const __grid_constant__ CUtensorMap tma_a,
+                      const __grid_constant__ CUtensorMap tma_b,
+                      const __grid_constant__ Params p) {
+  sm90_body<NWG, MB, PN>(tma_a, tma_b, p);
+}
+
+// ---------------------------------------------------------------------------
+// The f32 (SIMT) kernel: 256 threads, 64 x 64 passes of a tile, each thread
+// owning rows ty + 16 i and columns tx + 16 j of the pass.
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Threads = 256;
+constexpr int kF32Pass = 64;
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
                                            bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+  const int n = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(smem)),
                "l"(gmem), "r"(n));
 }
 
@@ -104,305 +664,340 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ float load_ep(const void* p, size_t i, int f32) {
-  return f32 ? static_cast<const float*>(p)[i]
-             : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-}
-
-// The flush of one output element (matmul.py::_apply_epilogue) of this
-// CTA's group.
-__device__ __forceinline__ void epilogue_store(const Params& p, int row,
-                                               int col, float acc) {
-  const size_t g = blockIdx.y;
-  const size_t idx = static_cast<size_t>(row) * p.N + col;
-  if (p.has_bias) acc += load_ep(p.bias, g * p.sbias + col, p.ep_f32);
-  if (p.act == kActGelu) {
-    const float u = 0.7978845608028654f * (acc + 0.044715f * acc * acc * acc);
-    acc = 0.5f * acc * (1.0f + tanhf(u));
-  } else if (p.act == kActSilu) {
-    acc = acc / (1.0f + expf(-acc));
-  } else if (p.act == kActSwiglu) {
-    acc = acc / (1.0f + expf(-acc)) *
-          load_ep(p.gate, g * p.sgate + idx, p.ep_f32);
+// A[r0 : r0 + pm, k0 : k0 + bk] and B[k0 : k0 + bk, c0 : c0 + pn] of group g
+// into shared memory; chunks outside the pass or the matrix are zero-filled.
+__device__ __forceinline__ void f32_load(const Params& p, float* As,
+                                         float* Bs, int g, int r0, int pm,
+                                         int c0, int pn, int k0) {
+  const int bk = p.bk, lda = bk + 4, ldb = kF32Pass + 4;
+  const float* A = static_cast<const float*>(p.a) + g * p.sa;
+  const float* B = static_cast<const float*>(p.b) + g * p.sb;
+  const int a_cpr = bk / 4;
+  for (int c = threadIdx.x; c < kF32Pass * a_cpr; c += kF32Threads) {
+    const int r = c / a_cpr, cc = (c - r * a_cpr) * 4;
+    const int gr = r0 + r, gk = k0 + cc;
+    const bool ok = r < pm && gr < p.M && gk < p.K;
+    cp_async16(As + r * lda + cc, ok ? A + static_cast<size_t>(gr) * p.K + gk : A,
+               ok);
   }
-  if (p.has_res) acc += load_ep(p.residual, g * p.sres + idx, p.ep_f32);
-  const size_t o = g * p.so + idx;
-  if (p.out_f32) {
-    static_cast<float*>(p.out)[o] = acc;
-  } else {
-    static_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16(acc);
+  constexpr int b_cpr = kF32Pass / 4;
+  for (int c = threadIdx.x; c < bk * b_cpr; c += kF32Threads) {
+    const int r = c / b_cpr, cc = (c - r * b_cpr) * 4;
+    const int gk = k0 + r, gn = c0 + cc;
+    const bool ok = cc < pn && gk < p.K && gn < p.N;
+    cp_async16(Bs + r * ldb + cc, ok ? B + static_cast<size_t>(gk) * p.N + gn : B,
+               ok);
   }
 }
 
-// Stage A[row0:row0+PM, k0:k0+bk] and B[k0:k0+bk, col0:col0+PN] of this
-// CTA's group into shared memory with 16-byte cp.async copies; out-of-range
-// chunks are zero-filled.
-template <typename T, int PM, int PN>
-__device__ __forceinline__ void load_tiles(const Params& p, T* As, T* Bs,
-                                           int row0, int col0, int k0) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int bk = p.bk;
-  const int lda = bk + kVec, ldb = PN + kVec;
-  const T* A = static_cast<const T*>(p.a) + blockIdx.y * p.sa;
-  const T* B = static_cast<const T*>(p.b) + blockIdx.y * p.sb;
-  const int a_cpr = bk / kVec;
-  for (int c = threadIdx.x; c < PM * a_cpr; c += kThreads) {
-    const int r = c / a_cpr, cc = (c - r * a_cpr) * kVec;
-    const int gr = row0 + r, gk = k0 + cc;
-    const bool ok = gr < p.M && gk < p.K;
-    const T* src = ok ? A + static_cast<size_t>(gr) * p.K + gk : A;
-    cp_async16(As + r * lda + cc, src, ok);
-  }
-  constexpr int b_cpr = PN / kVec;
-  for (int c = threadIdx.x; c < bk * b_cpr; c += kThreads) {
-    const int r = c / b_cpr, cc = (c - r * b_cpr) * kVec;
-    const int gk = k0 + r, gn = col0 + cc;
-    const bool ok = gk < p.K && gn < p.N;
-    const T* src = ok ? B + static_cast<size_t>(gk) * p.N + gn : B;
-    cp_async16(Bs + r * ldb + cc, src, ok);
-  }
-}
-
-// One PM x PN pass on bf16 tensor cores: double-buffered K loop, then the
-// accumulators go through shared memory so the epilogue writes coalesced.
-template <int PM, int PN>
-__device__ void pass_bf16(const Params& p, __nv_bfloat16* As,
-                          __nv_bfloat16* Bs, float* Cs, int row0, int col0) {
-  constexpr int WN = (PN / 16) < 4 ? (PN / 16) : 4;
-  constexpr int WM_MAX = 8 / WN;
-  constexpr int WM = (PM / 16) < WM_MAX ? (PM / 16) : WM_MAX;
-  constexpr int FM = PM / 16 / WM;
-  constexpr int FN = PN / 16 / WN;
-  constexpr int ldc = PN + 4;
-  const int bk = p.bk;
-  const int lda = bk + 8, ldb = PN + 8;
-  const int warp = threadIdx.x / 32;
-  const bool active = warp < WM * WN;
-  const int wm = warp / WN, wn = warp % WN;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
+__device__ __forceinline__ void f32_body(const Params& p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int bk = p.bk, lda = bk + 4, ldb = kF32Pass + 4;
+  float* As = reinterpret_cast<float*>(smem_raw);
+  float* Bs = As + 2 * kF32Pass * lda;
+  const int pm = min(p.bm, kF32Pass), pn = min(p.bn, kF32Pass);
+  const int passes_n = p.bn / pn, passes = (p.bm / pm) * passes_n;
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const long long u_begin =
+      static_cast<long long>(blockIdx.x) * p.units_per_cta;
+  const long long u_end =
+      u_begin + p.units_per_cta < p.units ? u_begin + p.units_per_cta
+                                          : p.units;
+  long long u = u_begin;
+  Piece pc;
+  while (next_piece(p, u, u_end, pc)) {
+    int g, row0, col0, k_lo, k_hi;
+    tile_origin(p, pc.tile, g, row0, col0);
+    piece_depth(p, pc, k_lo, k_hi);
+    for (int ps = 0; ps < passes; ++ps) {
+      const int r0 = row0 + (ps / passes_n) * pm;
+      const int c0 = col0 + (ps % passes_n) * pn;
+      float acc[4][4];
 #pragma unroll
-  for (int i = 0; i < FM; ++i)
+      for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int nk = (p.K + bk - 1) / bk;
-  load_tiles<__nv_bfloat16, PM, PN>(p, As, Bs, row0, col0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      load_tiles<__nv_bfloat16, PM, PN>(p, As + (cur ^ 1) * PM * lda,
-                                        Bs + (cur ^ 1) * bk * ldb, row0, col0,
-                                        (kt + 1) * bk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (active) {
-      const __nv_bfloat16* a = As + cur * PM * lda + (wm * FM * 16) * lda;
-      const __nv_bfloat16* b = Bs + cur * bk * ldb + wn * FN * 16;
-      for (int kk = 0; kk < bk; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            af[FM];
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major>
-            bf[FN];
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+      if (k_lo < k_hi) {
+        f32_load(p, As, Bs, g, r0, pm, c0, pn, k_lo);
+        cp_async_commit();
+        for (int k = k_lo, cur = 0; k < k_hi; k += bk, cur ^= 1) {
+          if (k + bk < k_hi) {
+            f32_load(p, As + (cur ^ 1) * kF32Pass * lda,
+                     Bs + (cur ^ 1) * bk * ldb, g, r0, pm, c0, pn, k + bk);
+            cp_async_commit();
+            cp_async_wait<1>();
+          } else {
+            cp_async_wait<0>();
+          }
+          __syncthreads();
+          const float* a = As + cur * kF32Pass * lda;
+          const float* b = Bs + cur * bk * ldb;
+          for (int kk = 0; kk < bk; ++kk) {
+            float av[4], bv[4];
 #pragma unroll
-        for (int i = 0; i < FM; ++i)
-          wmma::load_matrix_sync(af[i], a + i * 16 * lda + kk, lda);
+            for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * lda + kk];
 #pragma unroll
-        for (int j = 0; j < FN; ++j)
-          wmma::load_matrix_sync(bf[j], b + kk * ldb + j * 16, ldb);
+            for (int j = 0; j < 4; ++j) bv[j] = b[kk * ldb + tx + 16 * j];
 #pragma unroll
-        for (int i = 0; i < FM; ++i)
+            for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < FN; ++j)
-            wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
+              for (int j = 0; j < 4; ++j)
+                acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          }
+          __syncthreads();
+        }
       }
-    }
-    __syncthreads();
-  }
-  if (active) {
+      // Partial slot of this pass: [register][thread].
+      const size_t region = static_cast<size_t>(ps) * kF32Pass * kF32Pass;
+      if (!pc.first) {
+        float* slot = p.ws + blockIdx.x * p.slot_floats + region;
 #pragma unroll
-    for (int i = 0; i < FM; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int j = 0; j < FN; ++j)
-        wmma::store_matrix_sync(
-            Cs + (wm * FM * 16 + i * 16) * ldc + wn * FN * 16 + j * 16,
-            acc[i][j], ldc, wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < PM * PN; idx += kThreads) {
-    const int r = idx / PN, c = idx % PN;
-    const int row = row0 + r, col = col0 + c;
-    if (row < p.M && col < p.N) epilogue_store(p, row, col, Cs[r * ldc + c]);
-  }
-  __syncthreads();  // Cs aliases the staging buffers of the next pass
-}
-
-// One PM x PN pass in f32 FMA: a 16 x 16 thread grid, each thread owning the
-// rows ty + 16 i and columns tx + 16 j of the pass.
-template <int PM, int PN>
-__device__ void pass_f32(const Params& p, float* As, float* Bs, int row0,
-                         int col0) {
-  constexpr int TM = PM / 16, TN = PN / 16;
-  const int bk = p.bk;
-  const int lda = bk + 4, ldb = PN + 4;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
-
-  const int nk = (p.K + bk - 1) / bk;
-  load_tiles<float, PM, PN>(p, As, Bs, row0, col0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) {
-      load_tiles<float, PM, PN>(p, As + (cur ^ 1) * PM * lda,
-                                Bs + (cur ^ 1) * bk * ldb, row0, col0,
-                                (kt + 1) * bk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* a = As + cur * PM * lda;
-    const float* b = Bs + cur * bk * ldb;
-    for (int kk = 0; kk < bk; ++kk) {
-      float av[TM], bv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = a[(ty + 16 * i) * lda + kk];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = b[kk * ldb + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int row = row0 + ty + 16 * i, col = col0 + tx + 16 * j;
-      if (row < p.M && col < p.N) epilogue_store(p, row, col, acc[i][j]);
-    }
-}
-
-template <typename T, int PM, int PN>
-__global__ void __launch_bounds__(kThreads) gemm_kernel(Params p) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int kVec = 16 / sizeof(T);
-  T* As = reinterpret_cast<T*>(smem);
-  T* Bs = As + 2 * PM * (p.bk + kVec);
-
-  // Flattened tile id -> (pid_m, pid_n) under the group_m row swizzle
-  // (matmul.py::_swizzle), ragged final row group included; the same for
-  // every blockIdx.y (GEMM group).
-  const int Tm = (p.M + p.bm - 1) / p.bm, Tn = (p.N + p.bn - 1) / p.bn;
-  const int pid = blockIdx.x;
-  int pid_m, pid_n;
-  if (p.group_m <= 1) {
-    pid_m = pid / Tn;
-    pid_n = pid % Tn;
-  } else {
-    const int group_size = p.group_m * Tn;
-    const int first_m = (pid / group_size) * p.group_m;
-    const int rows = min(Tm - first_m, p.group_m);
-    const int local = pid % group_size;
-    pid_m = first_m + local % rows;
-    pid_n = local / rows;
-  }
-
-  for (int pm = 0; pm < p.bm; pm += PM) {
-    const int row0 = pid_m * p.bm + pm;
-    if (row0 >= p.M) break;
-    for (int pn = 0; pn < p.bn; pn += PN) {
-      const int col0 = pid_n * p.bn + pn;
-      if (col0 >= p.N) break;
-      if constexpr (sizeof(T) == 2) {
-        pass_bf16<PM, PN>(p, As, Bs, reinterpret_cast<float*>(smem), row0,
-                          col0);
-      } else {
-        pass_f32<PM, PN>(p, As, Bs, row0, col0);
+          for (int j = 0; j < 4; ++j)
+            if (ty + 16 * i < pm && tx + 16 * j < pn)
+              __stcg(slot + (i * 4 + j) * kF32Threads + tid, acc[i][j]);
+        if (ps == passes - 1) {
+          __syncthreads();
+          if (tid == 0) raise_flag(p.flags + blockIdx.x);
+        }
+        continue;
       }
+      if (!pc.last) {
+        if (ps == 0 && tid == 0)
+          for (int c = blockIdx.x + 1; c <= pc.last_cta; ++c)
+            await_and_lower_flag(p.flags + c);
+        __syncthreads();
+        for (int c = blockIdx.x + 1; c <= pc.last_cta; ++c) {
+          const float* slot = p.ws + c * p.slot_floats + region;
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (ty + 16 * i < pm && tx + 16 * j < pn)
+                acc[i][j] += __ldcg(slot + (i * 4 + j) * kF32Threads + tid);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int row = r0 + ty + 16 * i, col = c0 + tx + 16 * j;
+          if (ty + 16 * i < pm && tx + 16 * j < pn && row < p.M && col < p.N)
+            epilogue_store(p, g, row, col, acc[i][j]);
+        }
     }
   }
 }
 
-template <typename T, int PM, int PN>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  constexpr int kVec = 16 / sizeof(T);
-  const size_t staging =
-      2 * (static_cast<size_t>(PM) * (p.bk + kVec) +
-           static_cast<size_t>(p.bk) * (PN + kVec)) *
-      sizeof(T);
-  const size_t cstage =
-      sizeof(T) == 2 ? static_cast<size_t>(PM) * (PN + 4) * sizeof(float) : 0;
-  const size_t smem = staging > cstage ? staging : cstage;
+__global__ void __launch_bounds__(kF32Threads, 1) gemm_dense_f32(const Params p) {
+  f32_body(p);
+}
+
+__global__ void __launch_bounds__(kF32Threads, 1)
+    gemm_grouped_f32(const Params p) {
+  f32_body(p);
+}
+
+// ---------------------------------------------------------------------------
+// Host side.
+// ---------------------------------------------------------------------------
+
+// Opts the kernel in to the full 227 KB of dynamic shared memory: one limit
+// for every stage depth it launches with.
+inline cudaError_t opt_in_smem(const void* kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(kMaxSmem));
+}
+
+// Launches the persistent grid as a cooperative kernel: the fixup spin-waits
+// on peer CTAs, so every CTA must be resident at once, and a cooperative
+// launch has the hardware guarantee that (or refuses, with
+// cudaErrorCooperativeLaunchTooLarge).  It can be captured in a CUDA graph.
+template <typename... Exp, typename... Act>
+cudaError_t launch_resident(void (*kernel)(Exp...), int ctas, int threads,
+                            size_t smem, cudaStream_t stream, Act&&... args) {
+  cudaLaunchAttribute coop;
+  coop.id = cudaLaunchAttributeCooperative;
+  coop.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &coop;
+  cfg.numAttrs = 1;
+  cudaLaunchKernelEx(&cfg, kernel, static_cast<Act&&>(args)...);
+  return cudaGetLastError();  // the launch's error, cleared
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_LOCAL);
+    return lib ? reinterpret_cast<EncodeTiled>(
+                     dlsym(lib, "cuTensorMapEncodeTiled"))
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 3-D bf16 tensor map over (groups, outer, inner), inner contiguous, with a
+// (box_outer, box_inner) box whose inner rows are swizzled over their bytes.
+inline bool encode_bf16(CUtensorMap* map, const void* ptr, uint64_t inner,
+                 uint64_t outer, uint64_t groups, uint64_t group_stride,
+                 uint32_t box_inner, uint32_t box_outer) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {inner, outer, groups};
+  const cuuint64_t strides[2] = {inner * 2, group_stride * 2};
+  const cuuint32_t box[3] = {box_inner, box_outer, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw = box_inner * 2 == 128
+                                    ? CU_TENSOR_MAP_SWIZZLE_128B
+                                    : (box_inner * 2 == 64
+                                           ? CU_TENSOR_MAP_SWIZZLE_64B
+                                           : CU_TENSOR_MAP_SWIZZLE_32B);
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// encode_bf16 through a small cache.  A tensor map is a pure
+// function of these arguments, so a cached one is exact; the decode step's
+// weights, and mostly its activations, recur every step, and the encoder
+// costs microseconds of the host time that bounds decode.
+inline bool encode_bf16_cached(CUtensorMap* map, const void* ptr,
+                               uint64_t inner, uint64_t outer, uint64_t groups,
+                               uint64_t group_stride, uint32_t box_inner,
+                               uint32_t box_outer) {
+  struct Entry {
+    CUtensorMap map;
+    const void* ptr;
+    uint64_t inner, outer, groups, group_stride;
+    uint32_t box_inner, box_outer;
+  };
+  constexpr int kEntries = 512;
+  static Entry cache[kEntries];
+  static std::mutex mu;
+  const std::lock_guard<std::mutex> lock(mu);
+  const uint64_t h = (reinterpret_cast<uint64_t>(ptr) >> 4) ^ inner * 31 ^
+                     outer * 131 ^ box_inner * 7 ^ box_outer;
+  Entry& e = cache[h % kEntries];
+  if (e.ptr == ptr && e.inner == inner && e.outer == outer &&
+      e.groups == groups && e.group_stride == group_stride &&
+      e.box_inner == box_inner && e.box_outer == box_outer) {
+    *map = e.map;
+    return true;
+  }
+  if (!encode_bf16(map, ptr, inner, outer, groups, group_stride, box_inner,
+                   box_outer))
+    return false;
+  e = Entry{*map, ptr, inner, outer, groups, group_stride, box_inner,
+            box_outer};
+  return true;
+}
+
+template <int NWG, int MB, int PN, bool kGrouped>
+cudaError_t launch_sm90(Params p, cudaStream_t stream) {
+  using S = Sm90<NWG, MB, PN>;
+  p.ks = p.bk % 64 == 0 ? 64 : (p.bk % 32 == 0 ? 32 : 16);
+  const size_t stage = static_cast<size_t>(S::kRows + PN) * p.ks * 2;
+  const size_t fixed = 1024 + NWG * kEpiBytes + 2 * kMaxStages * 8;
+  size_t stages = (kMaxSmem - fixed) / stage;
+  if (stages > kMaxStages) stages = kMaxStages;
+  if (stages < 2) return cudaErrorInvalidValue;
+  p.stages = static_cast<int>(stages);
+  const size_t smem = fixed + stages * stage;
+  void (*kernel)(CUtensorMap, CUtensorMap, Params);
+  if constexpr (kGrouped)
+    kernel = gemm_grouped_sm90<NWG, MB, PN>;
+  else
+    kernel = gemm_dense_sm90<NWG, MB, PN>;
+  static const cudaError_t opted =
+      opt_in_smem(reinterpret_cast<const void*>(kernel));
+  if (opted != cudaSuccess) return opted;
+
+  CUtensorMap tma_a, tma_b;
+  const uint64_t M = p.M, N = p.N, K = p.K, G = p.groups;
+  if (!encode_bf16_cached(&tma_a, p.a, K, M, G, G > 1 ? p.sa : M * K, p.ks,
+                          p.bm) ||
+      !encode_bf16_cached(&tma_b, p.b, N, K, G, G > 1 ? p.sb : K * N, S::kCW,
+                          p.ks))
+    return cudaErrorInvalidValue;
+  return launch_resident(kernel, p.ctas, S::kThreads, smem, stream, tma_a,
+                         tma_b, p);
+}
+
+cudaError_t launch_f32(const Params& p, bool grouped, cudaStream_t stream) {
+  const size_t smem =
+      2 * (static_cast<size_t>(kF32Pass) * (p.bk + 4) +
+           static_cast<size_t>(p.bk) * (kF32Pass + 4)) *
+      sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  static size_t opted_in = 48 * 1024;
-  if (smem > opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(
-        gemm_kernel<T, PM, PN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kMaxSmem));
-    if (e != cudaSuccess) return e;
-    opted_in = kMaxSmem;
-  }
-  const long long tiles =
-      static_cast<long long>((p.M + p.bm - 1) / p.bm) * ((p.N + p.bn - 1) / p.bn);
-  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(p.groups));
-  gemm_kernel<T, PM, PN><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  void (*kernel)(Params) = grouped ? gemm_grouped_f32 : gemm_dense_f32;
+  static const cudaError_t opted[2] = {
+      opt_in_smem(reinterpret_cast<const void*>(gemm_dense_f32)),
+      opt_in_smem(reinterpret_cast<const void*>(gemm_grouped_f32))};
+  if (opted[grouped] != cudaSuccess) return opted[grouped];
+  return launch_resident(kernel, p.ctas, kF32Threads, smem, stream, p);
 }
 
-template <typename T>
-cudaError_t dispatch(const Params& p, cudaStream_t stream) {
-  const int pm = p.bm < kMaxPass ? p.bm : kMaxPass;
-  const int pn = p.bn < kMaxPass ? p.bn : kMaxPass;
-#define REPRO_GEMM_CASE(PM_, PN_) \
-  if (pm == PM_ && pn == PN_) return launch<T, PM_, PN_>(p, stream);
-  REPRO_GEMM_CASE(32, 32)
-  REPRO_GEMM_CASE(32, 64)
-  REPRO_GEMM_CASE(32, 128)
-  REPRO_GEMM_CASE(64, 32)
-  REPRO_GEMM_CASE(64, 64)
-  REPRO_GEMM_CASE(64, 128)
-  REPRO_GEMM_CASE(128, 32)
-  REPRO_GEMM_CASE(128, 64)
-  REPRO_GEMM_CASE(128, 128)
-#undef REPRO_GEMM_CASE
+// Picks the tensor-core kernel of (warpgroups, 64-row blocks each, pass
+// width) for the tile; one per (bm, bn) of the gpu_h100_like menu.
+template <bool kGrouped>
+cudaError_t dispatch_sm90(const Params& p, cudaStream_t stream) {
+  const int nwg = p.bm <= 64 ? 1 : 2;
+  const int mb = p.bm == 256 ? 2 : 1;
+  const int pn = p.bm == 256 && p.bn == 256 ? 128 : p.bn;
+#define REPRO_CASE(NWG, MB, PN)                 \
+  if (nwg == NWG && mb == MB && pn == PN)       \
+    return launch_sm90<NWG, MB, PN, kGrouped>(p, stream);
+  REPRO_CASE(1, 1, 32) REPRO_CASE(1, 1, 64) REPRO_CASE(1, 1, 128)
+  REPRO_CASE(1, 1, 256) REPRO_CASE(2, 1, 32) REPRO_CASE(2, 1, 64)
+  REPRO_CASE(2, 1, 128) REPRO_CASE(2, 1, 256) REPRO_CASE(2, 2, 32)
+  REPRO_CASE(2, 2, 64) REPRO_CASE(2, 2, 128)
+#undef REPRO_CASE
   return cudaErrorInvalidValue;
 }
 
-bool tile_ok(int v) { return v == 32 || v == 64 || v == 128 || v == 256; }
+inline bool tile_ok(int v) {
+  return v == 32 || v == 64 || v == 128 || v == 256;
+}
 
-}  // namespace
+}  // namespace repro
+
+using namespace repro;
 
 // groups GEMMs of one shape in one launch; operand g starts sa * g (a),
 // sb * g (b), so * g (out), ... elements past its base pointer.  The dense
-// GEMM is groups = 1 with zero strides.
+// GEMM is groups = 1 with zero strides.  The plan integers come from
+// kernels/matmul.py::work_plan: k-steps per tile and per unit, units per CTA
+// and the grid; workspace holds ctas slots of max(bm, 64) x max(bn, 64) f32
+// when a tile is split, flags one int per CTA, all zero.
 extern "C" int repro_gemm(
     const void* a, const void* b, void* out, const void* bias,
-    const void* gate, const void* residual, int M, int N, int K, int bm,
-    int bn, int bk, int group_m, int in_f32, int out_f32, int ep_f32,
-    int has_bias, int act, int has_res, int groups, long long sa,
-    long long sb, long long so, long long sbias, long long sgate,
-    long long sres, void* stream) {
+    const void* gate, const void* residual, void* workspace, void* flags,
+    int M, int N, int K, int bm, int bn, int bk, int group_m, int in_f32,
+    int out_f32, int ep_f32, int has_bias, int act, int has_res, int groups,
+    int grouped, int steps_per_tile, int steps_per_unit, int units_per_cta,
+    int ctas, long long sa, long long sb, long long so, long long sbias,
+    long long sgate, long long sres, void* stream) {
   const int vec = in_f32 ? 4 : 8;
   if (M <= 0 || N <= 0 || K <= 0 || N % vec || K % vec || !tile_ok(bm) ||
       !tile_ok(bn) || bk <= 0 || bk % 16 || group_m < 1 || act < 0 ||
-      act > kActSwiglu || groups < 1 || groups > 65535 || sa < 0 || sb < 0 ||
-      so < 0 || sbias < 0 || sgate < 0 || sres < 0 || sa % vec || sb % vec)
+      act > kActSwiglu || groups < 1 || sa < 0 || sb < 0 || so < 0 ||
+      sbias < 0 || sgate < 0 || sres < 0 || sa % vec || sb % vec ||
+      steps_per_unit < 1 || steps_per_tile % steps_per_unit ||
+      static_cast<long long>(steps_per_tile) * bk < K || units_per_cta < 1 ||
+      ctas < 1 || flags == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.a = a;
@@ -411,6 +1006,8 @@ extern "C" int repro_gemm(
   p.bias = bias;
   p.gate = gate;
   p.residual = residual;
+  p.ws = static_cast<float*>(workspace);
+  p.flags = static_cast<int*>(flags);
   p.M = M;
   p.N = N;
   p.K = K;
@@ -424,15 +1021,31 @@ extern "C" int repro_gemm(
   p.act = act;
   p.has_res = has_res;
   p.groups = groups;
+  p.Tm = (M + bm - 1) / bm;
+  p.Tn = (N + bn - 1) / bn;
+  p.steps_per_unit = steps_per_unit;
+  p.units_per_tile = steps_per_tile / steps_per_unit;
+  p.units_per_cta = units_per_cta;
+  p.units = static_cast<long long>(groups) * p.Tm * p.Tn * p.units_per_tile;
+  p.ctas = ctas;
+  p.slot_floats = static_cast<size_t>(bm > 64 ? bm : 64) * (bn > 64 ? bn : 64);
   p.sa = static_cast<size_t>(sa);
   p.sb = static_cast<size_t>(sb);
   p.so = static_cast<size_t>(so);
   p.sbias = static_cast<size_t>(sbias);
   p.sgate = static_cast<size_t>(sgate);
   p.sres = static_cast<size_t>(sres);
+  // The grid must cover every unit with no empty CTA, and a split tile
+  // needs the workspace.
+  const long long q = units_per_cta;
+  if (static_cast<long long>(ctas) * q < p.units ||
+      static_cast<long long>(ctas - 1) * q >= p.units ||
+      (workspace == nullptr && ctas > 1 && q % p.units_per_tile != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(in_f32 ? dispatch<float>(p, s)
-                                 : dispatch<__nv_bfloat16>(p, s));
+  if (in_f32) return static_cast<int>(launch_f32(p, grouped != 0, s));
+  return static_cast<int>(grouped ? dispatch_sm90<true>(p, s)
+                                  : dispatch_sm90<false>(p, s));
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

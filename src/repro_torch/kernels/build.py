@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 into ``build/repro_torch/<name>-<hash>.so`` at the repository root; the hash
-covers the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.  The library is loaded with ``ctypes``.
+covers the source, the headers under ``csrc/`` and the flags, so an edited
+source or header rebuilds and an unchanged one is reused.  The library is
+loaded with ``ctypes``.
 
 Nothing here runs at import: the first CUDA tensor that reaches a kernel
 wrapper calls :func:`load`, so the package imports on hosts without
@@ -43,9 +44,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str] = SOURCES) -> Dict[str, Tuple[float, str]]:

@@ -4,14 +4,16 @@
 Replaces ``repro/kernels/matmul.py::matmul_pallas`` (:func:`tiled_matmul`)
 and ``repro/kernels/ops.py::expert_matmul``, the reference's ``jax.vmap`` of
 it over experts (:func:`tiled_expert_matmul`: one launch, the expert axis in
-the grid).  The CUDA kernel runs the selected
-:class:`~repro_torch.core.latency.TileConfig` as given, per expert: bm x bn
-output tile per CTA, bk-deep staged K steps, the group_m row swizzle, and
-the fused epilogue in the flush.  ``split_k`` and the ``stream_k`` schedule
-lower to one in-CTA loop over the whole of K with a single flush, as the
-TPU kernel lowers both onto its sequential grid (same sum, same result).
-The source note in ``csrc/matmul.cu`` says what bounds the kernel on the
-H100 and what its design does about it.
+the kernel's work space).  The CUDA kernel runs the selected
+:class:`~repro_torch.core.latency.TileConfig` as given: a persistent grid of
+one CTA per SM walks the work units that :func:`work_plan` lays out, where
+``schedule`` and ``split_k`` decide what a unit is (one k-step under
+``stream_k``, one (tile, k-shard) under ``data_parallel``), bm x bn is the
+output tile, bk the k-step, group_m the row swizzle; the fused epilogue runs
+once per tile, on the full f32 sum.  A tile whose units span several CTAs is
+summed deterministically, in k order, from f32 partials in a workspace this
+wrapper allocates once per stream (:func:`_scratch`).  The source note in ``csrc/matmul.cu`` says what bounds
+the kernel on the H100 and what its design does about it.
 
 :func:`tiled_matmul` takes the route from the device of its operands: a CPU
 tensor gets the plain version (``ref.matmul_ref``), a CUDA tensor the
@@ -22,17 +24,161 @@ wrapper's kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from dataclasses import dataclass
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.latency import EPILOGUE_NONE, Epilogue, TileConfig
+from repro_torch.core.dtypes import ACC_BYTES
+from repro_torch.core.latency import (EPILOGUE_NONE, Epilogue, GemmProblem,
+                                      TileConfig, cdiv, grid_shape)
 from repro_torch.kernels import build, ref
 
 _TILES = (32, 64, 128, 256)
 _ACT_CODES = {None: 0, "gelu": 1, "silu": 2, "swiglu_gate": 3}
 _DTYPES = (torch.bfloat16, torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# The work plan: how the persistent kernel cuts the GEMM into units and the
+# units into CTAs.  csrc/matmul.cu computes the same partition from the same
+# integers (steps_per_tile, steps_per_unit, units_per_cta, ctas).
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Piece:
+    """The k-steps [s0, s1) of one tile that one CTA sums in registers.
+    ``first``: the piece holds the tile's first k-step, so its CTA owns the
+    tile's fixup and epilogue; ``last``: it holds the tile's last k-step.
+    ``last_cta``: the CTA that holds the tile's last k-step."""
+    tile: int
+    s0: int
+    s1: int
+    first: bool
+    last: bool
+    last_cta: int
+
+
+@dataclass(frozen=True)
+class WorkPlan:
+    """The persistent kernel's partition of ``groups`` GEMMs of one shape.
+
+    The iteration space is flattened (group, swizzled tile, k-step); a tile
+    has ``steps_per_tile`` k-steps of ``bk`` (``latency.grid_shape``'s Tk,
+    split_k shards included).  A unit is ``steps_per_unit`` consecutive
+    k-steps of one tile: one k-step under ``stream_k``, one k-shard under
+    ``data_parallel``.  CTA ``c`` walks units [c q, (c + 1) q) with
+    q = ``units_per_cta`` = ceil(units / min(cores, units)), the strip
+    length ``latency.schedule_extra_classes`` prices; consecutive units of
+    one tile in one CTA share its accumulator.
+
+    Every CTA whose range starts inside a tile writes one f32 partial
+    (bm x bn) of that tile to its workspace slot and raises its flag; the
+    CTA holding the tile's first k-step keeps its own sum in registers,
+    adds the partials of the CTAs after it in k order and applies the
+    epilogue.  ``partials`` counts those writes (each read back once)."""
+    M: int
+    N: int
+    K: int
+    bm: int
+    bn: int
+    bk: int
+    groups: int
+    tiles_m: int
+    tiles_n: int
+    steps_per_tile: int
+    steps_per_unit: int
+    units: int
+    units_per_cta: int
+    ctas: int
+    partials: int
+    split_tiles: int
+    group_m: int = 1
+
+    @property
+    def units_per_tile(self) -> int:
+        return self.steps_per_tile // self.steps_per_unit
+
+    @property
+    def tiles(self) -> int:
+        return self.groups * self.tiles_m * self.tiles_n
+
+    @property
+    def partial_bytes(self) -> int:
+        """Fixup traffic: each partial written once and read once."""
+        return 2 * self.partials * self.bm * self.bn * ACC_BYTES
+
+    @property
+    def slot_bytes(self) -> int:
+        """One CTA's workspace slot: the kernel's accumulator layout holds
+        at least 64 rows and 64 columns."""
+        return max(self.bm, 64) * max(self.bn, 64) * ACC_BYTES
+
+    @property
+    def workspace_bytes(self) -> int:
+        """The workspace the launch uses: a slot per CTA when a tile is
+        split (within the wrapper's per-stream scratch, which holds the
+        largest tile's slot for every SM)."""
+        return self.ctas * self.slot_bytes if self.partials else 0
+
+    def cta_units(self, c: int) -> range:
+        q = self.units_per_cta
+        return range(c * q, min((c + 1) * q, self.units))
+
+    def pieces(self, c: int) -> List[Piece]:
+        """CTA ``c``'s pieces in the order it runs them (the kernel's
+        ``next_piece`` walk)."""
+        upt, q = self.units_per_tile, self.units_per_cta
+        r = self.cta_units(c)
+        u, out = r.start, []
+        while u < r.stop:
+            t = u // upt
+            tu0, tu1 = t * upt, (t + 1) * upt
+            pe = min(r.stop, tu1)
+            out.append(Piece(t, (u - tu0) * self.steps_per_unit,
+                             (pe - tu0) * self.steps_per_unit, u == tu0,
+                             pe == tu1, (tu1 - 1) // q))
+            u = pe
+        return out
+
+    def tile_coords(self, tile: int) -> Tuple[int, int, int]:
+        """Flattened tile -> (group, row tile, column tile) under the
+        group_m row swizzle of ``matmul_pallas``'s ``_swizzle``."""
+        return (tile // (self.tiles_m * self.tiles_n),
+                *_swizzle(tile % (self.tiles_m * self.tiles_n),
+                          self.tiles_m, self.tiles_n, self.group_m))
+
+
+def _swizzle(pid: int, Tm: int, Tn: int, group_m: int) -> Tuple[int, int]:
+    if group_m <= 1:
+        return pid // Tn, pid % Tn
+    group_size = group_m * Tn
+    first_m = (pid // group_size) * group_m
+    rows = min(Tm - first_m, group_m)
+    local = pid % group_size
+    return first_m + local % rows, local // rows
+
+
+@functools.lru_cache(maxsize=4096)
+def work_plan(M: int, N: int, K: int, cfg: TileConfig, groups: int,
+              ctas: int) -> WorkPlan:
+    """The partition of ``groups`` (M, K) @ (K, N) GEMMs on ``cfg`` over at
+    most ``ctas`` resident CTAs (the device's SM count)."""
+    Tm, Tn, Tk = grid_shape(GemmProblem(M, N, K), cfg)
+    spu = 1 if cfg.schedule == "stream_k" else Tk // cfg.split_k
+    upt = Tk // spu
+    units = groups * Tm * Tn * upt
+    q = cdiv(units, min(ctas, units))
+    grid = cdiv(units, q)
+    split = [c * q for c in range(1, grid) if (c * q) % upt]
+    return WorkPlan(M=M, N=N, K=K, bm=cfg.bm, bn=cfg.bn, bk=cfg.bk,
+                    groups=groups, tiles_m=Tm, tiles_n=Tn,
+                    steps_per_tile=Tk, steps_per_unit=spu, units=units,
+                    units_per_cta=q, ctas=grid, partials=len(split),
+                    split_tiles=len({u // upt for u in split}),
+                    group_m=cfg.group_m)
 
 
 def matmul_plain(a, b, cfg: TileConfig, *, out_dtype, epilogue=None,
@@ -112,7 +258,8 @@ def _launch_cuda(a, b, cfg, *, out_dtype, epilogue, bias, gate, residual):
         raise ValueError(f"tiled_matmul: shapes {tuple(a.shape)} @ "
                          f"{tuple(b.shape)} are not (M, K) @ (K, N)")
     out = _launch_groups(
-        "tiled_matmul", a[None], b[None], cfg, out_dtype=out_dtype,
+        "tiled_matmul", a[None], b[None], cfg, grouped=False,
+        out_dtype=out_dtype,
         epilogue=epilogue, bias=None if bias is None else bias[None],
         gate=None if gate is None else gate[None],
         residual=None if residual is None else residual[None])
@@ -122,17 +269,54 @@ def _launch_cuda(a, b, cfg, *, out_dtype, epilogue, bias, gate, residual):
 
 def _launch_expert_cuda(x, w, cfg, *, out_dtype, epilogue, bias, gate,
                         residual):
-    out = _launch_groups("tiled_expert_matmul", x, w, cfg,
+    out = _launch_groups("tiled_expert_matmul", x, w, cfg, grouped=True,
                          out_dtype=out_dtype, epilogue=epilogue, bias=bias,
                          gate=gate, residual=residual)
     tiled_expert_matmul.launches += 1
     return out
 
 
-def _launch_groups(what, a, b, cfg, *, out_dtype, epilogue, bias, gate,
-                   residual):
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# A slot of the largest tile (256 x 256 f32 partials) for every SM, then a
+# flag (an int) for every SM: what any work plan on the device can use.
+_SLOT_BYTES_MAX = 256 * 256 * ACC_BYTES
+_SCRATCH = {}
+
+
+def _scratch(device: torch.device,
+             stream: torch.cuda.Stream) -> Tuple[int, int, torch.Tensor]:
+    """One stream's fixup scratch: (workspace pointer, flags pointer, flags).
+
+    A launch writes the workspace slots it reads back, and each flag is
+    raised by one CTA and lowered by the one CTA that waits on it, in the
+    same launch, so the flags are zero between launches; the launches that
+    share the scratch are the stream's own, which run in order.  It is
+    allocated once and never replaced, so a CUDA graph that captured its
+    address stays valid.  Under graph capture the stream is the capture
+    stream: the scratch then comes from the graph's pool (its flags zeroed
+    by a node of that graph), and graphs captured on one stream share it,
+    so replay them in order, as graphs that share a memory pool."""
+    key = (device.index, stream.cuda_stream)
+    got = _SCRATCH.get(key)
+    if got is None:
+        sms = _sm_count(device.index)
+        buf = torch.empty(sms * (_SLOT_BYTES_MAX + 4), dtype=torch.uint8,
+                          device=device)
+        flags = buf[sms * _SLOT_BYTES_MAX:].view(torch.int32)
+        flags.zero_()
+        got = _SCRATCH[key] = (buf.data_ptr(), flags.data_ptr(), flags)
+    return got
+
+
+def _launch_groups(what, a, b, cfg, *, grouped, out_dtype, epilogue, bias,
+                   gate, residual):
     """Check and launch ``csrc/matmul.cu`` on G problems of one shape: a
-    (G, M, K), b (G, K, N), bias (G, N), gate/residual (G, M, N)."""
+    (G, M, K), b (G, K, N), bias (G, N), gate/residual (G, M, N).
+    ``grouped`` picks the grouped kernel (its own name in a trace)."""
     ep = epilogue or EPILOGUE_NONE
     if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] \
             or a.shape[2] != b.shape[1]:
@@ -184,15 +368,21 @@ def _launch_groups(what, a, b, cfg, *, out_dtype, epilogue, bias, gate,
         b = _pad_last(b, vec)
         ops = {k: (_pad_last(t, vec).contiguous() if t is not None else None)
                for k, t in ops.items()}
+    # TMA wants 16-byte aligned operands; the epilogue's paired loads want
+    # 8-byte aligned ones (views of stacked params may sit at any offset).
     for t in (a, b):
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: operand not 16-byte aligned")
+    ops = {k: (t.clone() if t is not None and t.data_ptr() % 8 else t)
+           for k, t in ops.items()}
     out = torch.empty((G, M, Np), dtype=out_dtype, device=a.device)
+    dev = a.device
+    plan = work_plan(M, Np, Kp, cfg, G, _sm_count(dev.index))
 
     lib = build.load("matmul")
     fn = lib.repro_gemm
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 19 \
             + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
@@ -202,16 +392,25 @@ def _launch_groups(what, a, b, cfg, *, out_dtype, epilogue, bias, gate,
     def stride(t):
         return t.stride(0) if t is not None and G > 1 else 0
 
-    with torch.cuda.device(a.device):
-        code = fn(ptr(a), ptr(b), ptr(out), ptr(ops["bias"]),
-                  ptr(ops["gate"]), ptr(ops["residual"]),
-                  M, Np, Kp, cfg.bm, cfg.bn, cfg.bk, cfg.group_m,
-                  int(a.dtype == torch.float32),
-                  int(out_dtype == torch.float32),
-                  int(ep_dtype == torch.float32),
-                  int(ep.bias), _ACT_CODES[ep.activation], int(ep.residual),
-                  G, stride(a), stride(b), stride(out), stride(ops["bias"]),
-                  stride(ops["gate"]), stride(ops["residual"]),
-                  torch.cuda.current_stream(a.device).cuda_stream)
+    stream = torch.cuda.current_stream(dev)
+    ws, flags, _ = _scratch(dev, stream)
+    args = (ptr(a), ptr(b), ptr(out), ptr(ops["bias"]), ptr(ops["gate"]),
+            ptr(ops["residual"]), ws, flags,
+            M, Np, Kp, cfg.bm, cfg.bn, cfg.bk, cfg.group_m,
+            int(a.dtype == torch.float32), int(out_dtype == torch.float32),
+            int(ep_dtype == torch.float32),
+            int(ep.bias), _ACT_CODES[ep.activation], int(ep.residual),
+            G, int(grouped), plan.steps_per_tile, plan.steps_per_unit,
+            plan.units_per_cta, plan.ctas,
+            stride(a), stride(b), stride(out), stride(ops["bias"]),
+            stride(ops["gate"]), stride(ops["residual"]), stream.cuda_stream)
+    # The C entry launches on the current device; switch only when the
+    # operands live on another (the switch costs microseconds a call on
+    # the host-bound decode path).
+    if dev.index == torch.cuda.current_device():
+        code = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            code = fn(*args)
     build.check(lib, code, f"{what} {G}x{M}x{N}x{K} {cfg}")
     return out[..., :N] if Np != N else out

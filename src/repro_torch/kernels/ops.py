@@ -160,9 +160,9 @@ def matmul(
     ("gelu" | "silu" | "swiglu_gate"), or omitted (inferred from operands).
 
     ``config`` (and selections on multi-core topologies) may carry
-    ``schedule="stream_k"`` or ``split_k > 1``; the Hopper kernel lowers
-    both to an in-CTA loop over the whole of K (``kernels/matmul.py``),
-    which is numerically the same product.
+    ``schedule="stream_k"`` or ``split_k > 1``; the Hopper kernel runs
+    both as given, on a persistent grid of one CTA per SM that sums split
+    tiles deterministically in k order (``kernels/matmul.py::work_plan``).
     """
     hw = hw if hw is not None else get_default_hardware()
     out_dtype = out_dtype or a.dtype

@@ -72,6 +72,154 @@ def test_gemm_kernel_on_card(cuda, M, N, K, cfg, ep, dtype):
                                atol=atol)
 
 
+# The persistent scheduler's partitions: stream-K strips and split-K shard
+# ranges that do not line up with tiles (partials from several CTAs per
+# tile), split-K with one CTA per shard, and the f32 path under both.
+SCHEDULE_CASES = [
+    (4, 3072, 3072, TileConfig(32, 256, 128, schedule="stream_k"),
+     Epilogue(activation="swiglu_gate"), torch.bfloat16),
+    (512, 3072, 8192, TileConfig(256, 128, 128, group_m=2,
+                                 schedule="stream_k"),
+     Epilogue(residual=True), torch.bfloat16),
+    (300, 1000, 1000, TileConfig(128, 64, 64, group_m=4,
+                                 schedule="stream_k"),
+     Epilogue(bias=True), torch.bfloat16),
+    (100, 1000, 1000, TileConfig(64, 128, 64, split_k=4),
+     Epilogue(activation="gelu"), torch.bfloat16),
+    (384, 4096, 1024, TileConfig(128, 128, 64, split_k=4),
+     Epilogue(), torch.bfloat16),
+    (4, 8192, 3072, TileConfig(32, 128, 32, split_k=8),
+     Epilogue(residual=True), torch.bfloat16),
+    (100, 300, 1000, TileConfig(64, 64, 32, schedule="stream_k"),
+     Epilogue(residual=True), torch.float32),
+    (64, 200, 1000, TileConfig(32, 64, 64, split_k=8),
+     Epilogue(activation="silu"), torch.float32),
+]
+
+
+def _gemm_operands(dev, M, N, K, ep, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    kw = {}
+    if ep.bias:
+        kw["bias"] = rnd(N)
+    if ep.activation == "swiglu_gate":
+        kw["gate"] = rnd(M, N)
+    if ep.residual:
+        kw["residual"] = rnd(M, N)
+    return rnd(M, K), rnd(K, N), kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K,cfg,ep,dtype", SCHEDULE_CASES, ids=str)
+def test_gemm_schedules_on_card(cuda, M, N, K, cfg, ep, dtype):
+    """Each partition against the plain version, launched twice: the fixup
+    sums partials in k order, so the two outputs are bitwise equal, and the
+    flags are all down again after the launch."""
+    plan = kmm.work_plan(M, N + (-N) % 8, K + (-K) % 8, cfg, 1,
+                         kmm._sm_count(cuda.index))
+    assert plan.partials > 0
+    a, b, kw = _gemm_operands(cuda, M, N, K, ep, dtype)
+    got = kmm.tiled_matmul(a, b, cfg, out_dtype=dtype, epilogue=ep, **kw)
+    again = kmm.tiled_matmul(a, b, cfg, out_dtype=dtype, epilogue=ep, **kw)
+    want = kmm.matmul_plain(a, b, cfg, out_dtype=dtype, epilogue=ep, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _flags_down()
+    rtol, atol = _tol(dtype, K)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", [
+    TileConfig(64, 128, 128, schedule="stream_k"),
+    TileConfig(64, 128, 128, split_k=8),
+    TileConfig(32, 256, 128, schedule="stream_k"),
+], ids=str)
+def test_grouped_schedules_on_card(cuda, cfg):
+    """Grouped stream-K and split-K: strips cross expert boundaries."""
+    ep = Epilogue(activation="swiglu_gate")
+    x, w, kw = _expert_operands(cuda, 16, 40, 768, 2048, ep, torch.bfloat16,
+                                seed=5)
+    plan = kmm.work_plan(40, 768, 2048, cfg, 16, kmm._sm_count(cuda.index))
+    assert plan.partials > 0
+    got = kmm.tiled_expert_matmul(x, w, cfg, out_dtype=torch.bfloat16,
+                                  epilogue=ep, **kw)
+    again = kmm.tiled_expert_matmul(x, w, cfg, out_dtype=torch.bfloat16,
+                                    epilogue=ep, **kw)
+    want = kmm.expert_matmul_plain(x, w, cfg, out_dtype=torch.bfloat16,
+                                   epilogue=ep, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    rtol, atol = _tol(torch.bfloat16, 2048)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.gpu
+def test_gemm_replays_in_a_cuda_graph(cuda):
+    """A split launch captured in a CUDA graph replays twice with the eager
+    launch's bits: the capture stream has a fixup scratch of its own, and
+    the flags are down again at the end of every launch."""
+    cfg = TileConfig(32, 256, 128, schedule="stream_k")
+    ep = Epilogue(residual=True)
+    a, b, kw = _gemm_operands(cuda, 4, 3072, 3072, ep, torch.bfloat16)
+    eager = kmm.tiled_matmul(a, b, cfg, out_dtype=torch.bfloat16,
+                             epilogue=ep, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kmm.tiled_matmul(a, b, cfg, out_dtype=torch.bfloat16, epilogue=ep,
+                         **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kmm.tiled_matmul(a, b, cfg, out_dtype=torch.bfloat16,
+                               epilogue=ep, **kw)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert _flags_down()
+
+
+@pytest.mark.gpu
+def test_split_launches_on_two_streams(cuda):
+    """Split launches on two streams at once, small enough to run side by
+    side: each stream has its own fixup flags, so every output equals the
+    launch made alone, bitwise, and every flag is down at the end."""
+    cfg = TileConfig(64, 128, 64, split_k=4)
+    ep = Epilogue(residual=True)
+    operands = [_gemm_operands(cuda, 64, 128, 2048, ep, torch.bfloat16,
+                               seed=s) for s in (1, 2)]
+    alone = [kmm.tiled_matmul(a, b, cfg, out_dtype=torch.bfloat16,
+                              epilogue=ep, **kw) for a, b, kw in operands]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = [[], []]
+    for _ in range(50):
+        for i, s in enumerate(streams):
+            a, b, kw = operands[i]
+            with torch.cuda.stream(s):
+                outs[i].append(kmm.tiled_matmul(
+                    a, b, cfg, out_dtype=torch.bfloat16, epilogue=ep, **kw))
+    torch.cuda.synchronize()
+    for i in range(2):
+        assert all(torch.equal(o, alone[i]) for o in outs[i])
+    assert _flags_down()
+
+
+def _flags_down():
+    """Every stream's fixup flags are zero again."""
+    return all(int(f.abs().sum()) == 0
+               for _, _, f in kmm._SCRATCH.values())
+
+
 # The qwen3-moe-30b-a3b prefill expert GEMMs (E 128, C 40 and 32, d_model
 # 2048, expert d_ff 768) with their epilogues, then bias, residual, ragged
 # C, a forced corner config and f32 inputs.

@@ -1,0 +1,158 @@
+#!/usr/bin/env python3
+"""Time the PyTorch port's GEMM wrappers from several checkouts on one card.
+
+    python3 tools/gemm_ab.py ROOT [ROOT ...]
+
+Each ROOT is a checkout of the repository, or an unpacked ``git archive``
+of one (a parent commit, or a copy with a changed ``csrc/``).  Name a root
+more than once, in the order A B B A, to see the spread between runs.  Each
+root runs in a process of its own, one after another: it builds its CUDA
+GEMM source (the build seconds are reported), then times at the selector's
+configuration for each
+
+- phi4-mini-3.8b's seven decode GEMMs (M = 4) and nine prefill GEMMs
+  (M = 512, wk and wv twice), and
+- qwen3-moe-30b-a3b's three prefill expert GEMMs (E = 128, C = 40),
+
+with ``chip_smoke.py``'s ``time_ms`` (device ms a call, from a CUDA graph)
+and ``host_us`` (host microseconds a call, no device sync: the wrapper's
+checks, plan, allocations and the launch; the median of five batches),
+and ``host_c_us``, the part of it spent in the C entry (``repro_gemm``:
+its checks, tensor-map encoding and launch), timed by calling the entry
+again with the arguments the wrapper passed it.  One JSON line a root goes to standard output, with the card's
+``nvidia-smi`` name and power limit; a root that fails or hangs is
+reported with its error and the next runs.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+ROOT_TIMEOUT_S = 600
+HOST_REPEATS = 5
+
+
+def measure(root: Path) -> dict:
+    import torch
+    sys.path.insert(0, str(HERE))
+    sys.path.insert(0, str(root / "src"))
+    import chip_smoke as cs
+    from repro_torch.core.hardware import GPU_H100_LIKE
+    from repro_torch.core.latency import Epilogue
+    from repro_torch.core.selector import select_gemm_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import matmul as kmm
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    build.build(("matmul",))
+    build_s = time.perf_counter() - t0
+    dev = torch.device("cuda", 0)
+    bf = torch.bfloat16
+    eps = {"none": Epilogue(), "residual": Epilogue(residual=True),
+           "swiglu_gate": Epilogue(activation="swiglu_gate")}
+    rows, sums = [], {}
+
+    def record(phase, name, cfg, kern):
+        row = {"phase": phase, "gemm": name, "config": str(cfg),
+               "ms": cs.time_ms(kern),
+               "host_us": statistics.median(
+                   cs.host_us(torch, kern) for _ in range(HOST_REPEATS))}
+        # The C entry alone, on the arguments of one wrapper call.  They
+        # point at the call's output and workspace, which the caching
+        # allocator keeps mapped after the call; host_us synchronises
+        # before anything else allocates.
+        lib = build.load("matmul")
+        entry = lib.repro_gemm
+        rec = _Recorder(entry)
+        lib.repro_gemm = rec
+        try:
+            kern()
+        finally:
+            lib.repro_gemm = entry
+        row["host_c_us"] = statistics.median(
+            cs.host_us(torch, lambda: entry(*rec.args))
+            for _ in range(HOST_REPEATS))
+        rows.append(row)
+        tot = sums.setdefault(phase, dict.fromkeys(
+            ("ms", "host_us", "host_c_us"), 0.0))
+        for key in tot:
+            tot[key] += row[key]
+
+    for phase, M, extra in (("decode", 4, ()), ("prefill", 512, ("wk", "wv"))):
+        for name, N, K, epn in cs.PATH_GEMMS + [
+                g for g in cs.PATH_GEMMS if g[0] in extra]:
+            ep = eps[epn]
+            a, b, kw = cs._gemm_inputs(torch, dev, M, N, K, ep, bf, seed=7)
+            a, b = a * 0.1, b * 0.02
+            cfg = select_gemm_config(M, N, K, in_dtype="bfloat16",
+                                     out_dtype="bfloat16", epilogue=ep,
+                                     hw=GPU_H100_LIKE).config
+            record(phase, name, cfg, lambda: kmm._launch_cuda(
+                a, b, cfg, out_dtype=bf, epilogue=ep, bias=None,
+                gate=kw.get("gate"), residual=kw.get("residual")))
+    E, C = 128, 40
+    for name, N, K, epn in cs.EXPERT_GEMMS:
+        ep = eps[epn]
+        x, w, kw = cs._expert_inputs(torch, dev, E, C, N, K, ep, bf, seed=13)
+        x, w = x * 0.1, w * 0.02
+        cfg = select_gemm_config(C, N, K, in_dtype="bfloat16",
+                                 out_dtype="bfloat16", epilogue=ep,
+                                 hw=GPU_H100_LIKE).config
+        record("expert_prefill", name, cfg, lambda: kmm._launch_expert_cuda(
+            x, w, cfg, out_dtype=bf, epilogue=ep, bias=None,
+            gate=kw.get("gate"), residual=None))
+    return {"nvidia_smi": smi, "build_s": build_s, "sums": sums,
+            "rows": rows}
+
+
+class _Recorder:
+    """Stands in for the C entry for one call and keeps its arguments."""
+
+    def __init__(self, entry):
+        self.entry = entry
+        self.argtypes = entry.argtypes
+        self.args = None
+
+    def __call__(self, *args):
+        self.args = args
+        return self.entry(*args)
+
+
+def main(argv) -> int:
+    if len(argv) == 2 and argv[0] == "--one":
+        print(json.dumps({"root": argv[1], **measure(Path(argv[1]))}),
+              flush=True)
+        return 0
+    if not argv:
+        print(__doc__, file=sys.stderr)
+        return 2
+    code = 0
+    for root in argv:
+        try:
+            res = subprocess.run(
+                [sys.executable, __file__, "--one",
+                 str(Path(root).resolve())], capture_output=True, text=True,
+                timeout=ROOT_TIMEOUT_S)
+            out = res.stdout.strip().splitlines()
+            if res.returncode == 0 and out:
+                print(out[-1], flush=True)
+                continue
+            err = f"exit {res.returncode}: {res.stderr[-2000:]}"
+        except subprocess.TimeoutExpired:
+            err = f"timed out after {ROOT_TIMEOUT_S} s"
+        print(json.dumps({"root": root, "error": err}), flush=True)
+        code = 1
+    return code
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
