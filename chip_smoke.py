@@ -16,8 +16,12 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               must repeat bitwise (``deterministic``) with every fixup flag
               down again; one split launch replays in a CUDA graph.
 3. flash    — the flash-attention kernel against its plain version:
-              (B, 24, S, 128) q over (B, 8, S, 128) k/v, causal and not,
-              S in {512, 1000}, bf16.
+              (2, 24, S, 128) q over (2, 8, S, 128) k/v, causal and not,
+              S in {512, 1000}; the served prefill shapes (phi4-mini 24/8
+              heads at S = 336 and 474, qwen3-moe 32/4 at 474) with v as
+              the model passes it (a transposed view); S = 40, shorter
+              than a q block; every pair of the block menu; bf16.  Every
+              case launches twice and must repeat bitwise.
    expert_gemm — the grouped GEMM kernel (the same source, the expert axis
               in the work space) against its plain version: qwen3-moe's
               three prefill expert GEMMs at capacity 40 and 32 with their
@@ -50,7 +54,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               the bound max(flop / 989e12, bytes / 3.35e12); each GEMM row
               also gives its grid (``ctas``), its split tiles, the latency
               model's prediction (``model_ms``) and the wrapper's host
-              microseconds per call.
+              microseconds per call; each attention row (phi4-mini and
+              qwen3-moe at their largest edge) its selected blocks, grid
+              and ``model_ms``, and every menu pair's time beside its
+              price.
 
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or run from a
@@ -167,7 +174,7 @@ def main() -> int:
     summary = {}
     for name, (sec, log) in report.items():
         lines = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "C75" in ln]
         summary[name] = {"seconds": round(sec, 2), "ptxas": lines}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": summary})
@@ -179,12 +186,12 @@ def main() -> int:
     trace_phase(torch, dev, model, params)
     del model, params
     _free(torch)
-    model, params, moe_launches, moe_capacity = serve_moe_phase(
+    model, params, moe_launches, moe_capacity, moe_edge = serve_moe_phase(
         torch, dev, kmm, kfa)
     trace_phase(torch, dev, model, params, phase="moe_trace")
     del model, params
     _free(torch)
-    times = times_phase(torch, dev, kmm, kfa, edges, moe_capacity)
+    times = times_phase(torch, dev, kmm, kfa, edges, moe_capacity, moe_edge)
     launches["expert_matmul"] = moe_launches["expert_matmul"]
 
     entries = []
@@ -387,40 +394,79 @@ def _graph_case(torch, dev, kmm):
 # Phase 3: the flash-attention kernel against its plain version.
 # ---------------------------------------------------------------------------
 
+# (B, H, Hkv, S, causal, blocks or None for the selector's, v as the model
+# passes it: the transposed view of a (B, S, Hkv, d) tensor).
+FLASH_CASES = [
+    (2, 24, 8, 512, True, None, False),
+    (2, 24, 8, 512, False, None, False),
+    (2, 24, 8, 1000, True, None, False),
+    (2, 24, 8, 1000, False, None, False),
+    (2, 24, 8, 1000, True, (64, 64), False),
+    (2, 24, 8, 1000, False, (128, 64), False),
+    (2, 24, 8, 512, True, (64, 128), False),
+    # the served prefill shapes: phi4-mini at both edges, qwen3-moe
+    (1, 24, 8, 336, True, None, True),
+    (1, 24, 8, 474, True, None, True),
+    (1, 24, 8, 474, True, None, False),
+    (1, 32, 4, 474, True, None, True),
+    # a sequence shorter than one q block
+    (1, 24, 8, 40, True, None, True),
+    (1, 24, 8, 40, False, (128, 128), False),
+] + [(1, 32, 4, 474, True, blocks, True) for blocks in
+     ((64, 64), (64, 128), (128, 64), (128, 128))] + [
+    (2, 24, 8, 300, False, blocks, False) for blocks in
+    ((64, 64), (64, 128), (128, 64), (128, 128))]
+
+
+def _attn_inputs(torch, dev, B, H, Hkv, S, model_v, seed, d=128):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, H, S, d), generator=g, device=dev).bfloat16()
+    k = torch.randn((B, Hkv, S, d), generator=g, device=dev).bfloat16()
+    if model_v:
+        v = torch.randn((B, S, Hkv, d), generator=g,
+                        device=dev).bfloat16().transpose(1, 2)
+    else:
+        v = torch.randn((B, Hkv, S, d), generator=g, device=dev).bfloat16()
+    return q, k, v
+
+
 def flash_phase(torch, dev, kfa) -> float:
     worst = 0.0
     rows = []
-    cases = [(S, causal, None) for S in (512, 1000) for causal in (True, False)]
-    cases += [(1000, True, (64, 64)), (1000, False, (128, 64)),
-              (512, True, (64, 128))]
-    for i, (S, causal, blocks) in enumerate(cases):
-        B, H, Hkv, d = 2, 24, 8, 128
-        g = torch.Generator(device=dev).manual_seed(100 + i)
-        q = torch.randn((B, H, S, d), generator=g, device=dev).bfloat16()
-        k = torch.randn((B, Hkv, S, d), generator=g, device=dev).bfloat16()
-        v = torch.randn((B, Hkv, S, d), generator=g, device=dev).bfloat16()
-        bq, bkv = blocks or kfa.select_attention_blocks(S, S, d,
-                                                        causal=causal)
+    for i, (B, H, Hkv, S, causal, blocks, model_v) in enumerate(FLASH_CASES):
+        d = 128
+        q, k, v = _attn_inputs(torch, dev, B, H, Hkv, S, model_v, 100 + i)
+        plan = kfa.plan_attention(S, S, d, batch=B, heads=H, kv_heads=Hkv,
+                                  causal=causal)
+        bq, bkv = blocks or (plan.block_q, plan.block_kv)
+        n0 = kfa.flash_attention_kernel.launches
         got = kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
                                          causal=causal)
+        again = kfa.flash_attention_kernel(q, k, v, block_q=bq,
+                                           block_kv=bkv, causal=causal)
+        launched = kfa.flash_attention_kernel.launches == n0 + 2
         want = kfa.attention_plain(q, k, v, block_q=bq, block_kv=bkv,
                                    causal=causal)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
         ok = bool((err <= FLASH_ATOL + FLASH_RTOL * want.float().abs()).all())
-        ok = ok and bool(torch.isfinite(got).all())
+        ok = ok and bool(torch.isfinite(got).all()) and launched
+        det = bool(torch.equal(got, again))
         rows.append({"q": [B, H, S, d], "kv": [B, Hkv, S, d],
-                     "causal": causal, "blocks": [bq, bkv],
-                     "max_abs_err": float(err.max()), "ok": ok})
-        if not ok:
+                     "causal": causal, "v_strides": list(v.stride()),
+                     "blocks": [bq, bkv], "selected": blocks is None,
+                     "ctas": B * H * -(-S // bq),
+                     "max_abs_err": float(err.max()),
+                     "deterministic": det, "ok": ok and det})
+        if not ok or not det:
             emit({"phase": "flash", "cases": rows})
-            fail(f"flash attention S={S} causal={causal} blocks "
-                 f"({bq},{bkv}) disagrees with its plain version "
-                 f"(max abs err {float(err.max())})")
+            fail(f"flash attention {rows[-1]} disagrees with its plain "
+                 f"version or does not repeat bitwise")
         worst = max(worst, float(err.max()))
     emit({"phase": "flash", "tolerance": f"bf16 out: atol {FLASH_ATOL} + "
           f"rtol {FLASH_RTOL} (the kernel rounds P to bf16 before P V; the "
-          f"plain version keeps it f32)", "cases": rows})
+          f"plain version keeps it f32)", "deterministic": "two launches "
+          "bitwise equal", "cases": rows})
     return worst
 
 
@@ -765,7 +811,8 @@ def serve_moe_phase(torch, dev, kmm, kfa):
             or d_kp > LOGITS_REL_FACTOR * d_p32:
         fail(f"qwen3-moe {MOE_CUT_LAYERS}-layer logits disagree with the "
              f"plain path (rel {d_kp}, bf16 rounding alone {d_p32})")
-    return model, params, launches, _capacity(cfg, max(out["edges"]))
+    return (model, params, launches, _capacity(cfg, max(out["edges"])),
+            max(out["edges"]))
 
 
 # ---------------------------------------------------------------------------
@@ -893,7 +940,7 @@ def host_us(torch, fn, calls: int = 50) -> float:
     return us
 
 
-def times_phase(torch, dev, kmm, kfa, edges, moe_capacity):
+def times_phase(torch, dev, kmm, kfa, edges, moe_capacity, moe_edge):
     """Per-call times of each kernel at the main-path shapes; returns the
     kernels-line numbers keyed matmul@decode, matmul@prefill,
     flash_attention@prefill and expert_matmul@prefill."""
@@ -966,33 +1013,56 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity):
             "bound_by": "bytes" if t_b >= t_f else "operations",
             "what": f"sum over one layer's {phase} GEMMs at M={M}"}
 
-    # Prefill attention at the largest bucket edge.
-    S = max(edges)
-    B, H, Hkv, d = 1, 24, 8, 128
-    g = torch.Generator(device=dev).manual_seed(11)
-    q = torch.randn((B, H, S, d), generator=g, device=dev).bfloat16()
-    k = torch.randn((B, Hkv, S, d), generator=g, device=dev).bfloat16()
-    v = torch.randn((B, Hkv, S, d), generator=g, device=dev).bfloat16()
-    bq, bkv = kfa.select_attention_blocks(S, S, d, causal=True)
-    n0 = kfa.flash_attention_kernel.launches
-    row = {"phase": "prefill", "kernel": "flash_attention",
-           "q": [B, H, S, d], "kv": [B, Hkv, S, d], "blocks": [bq, bkv],
-           "ms": time_ms(lambda: kfa._launch_cuda(
-               q, k, v, block_q=bq, block_kv=bkv, causal=True, scale=None)),
-           "plain_ms": time_ms(lambda: kfa.attention_plain(
-               q, k, v, block_q=bq, block_kv=bkv, causal=True)),
-           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True, enable_gqa=True))}
-    kfa.flash_attention_kernel.launches = n0
-    pairs = S * (S + 1) // 2                    # causal (query, key) pairs
-    flops = 4.0 * B * H * pairs * d
-    nbytes = 2 * d * S * B * (2 * H + 2 * Hkv)
-    row["bound_ms"] = max(nbytes / HBM_BW, flops / BF16_PEAK) * 1e3
-    row["bound_by"] = "bytes" if nbytes / HBM_BW >= flops / BF16_PEAK \
-        else "operations"
-    per_shape.append(row)
-    times["flash_attention@prefill"] = {k_: row[k_] for k_ in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+    # Prefill attention at each model's largest bucket edge, v as the model
+    # passes it; every pair of the block menu beside the selected one.
+    attn_rows = {}
+    for arch, H, Hkv, S in (("phi4-mini-3.8b", 24, 8, max(edges)),
+                            ("qwen3-moe-30b-a3b", 32, 4, moe_edge)):
+        B, d = 1, 128
+        q, k, v = _attn_inputs(torch, dev, B, H, Hkv, S, True, seed=11)
+        plan = kfa.plan_attention(S, S, d, batch=B, heads=H, kv_heads=Hkv,
+                                  causal=True)
+        n0 = kfa.flash_attention_kernel.launches
+
+        def kern(bq, bkv):
+            return time_ms(lambda: kfa._launch_cuda(
+                q, k, v, block_q=bq, block_kv=bkv, causal=True, scale=None))
+        menu = []
+        for bq in kfa.BLOCK_MENU:
+            for bkv in kfa.BLOCK_MENU:
+                priced = kfa.price_attention_blocks(
+                    S, S, d, bq, bkv, batch=B, heads=H, kv_heads=Hkv,
+                    causal=True)
+                menu.append({"blocks": [bq, bkv], "ctas": priced.ctas,
+                             "ctas_per_sm": priced.ctas_per_sm,
+                             "model_ms": priced.predicted * 1e3,
+                             "ms": kern(bq, bkv)})
+        row = {"phase": "prefill", "kernel": "flash_attention",
+               "arch": arch, "q": [B, H, S, d], "kv": [B, Hkv, S, d],
+               "v_strides": list(v.stride()),
+               "blocks": [plan.block_q, plan.block_kv], "ctas": plan.ctas,
+               "ctas_per_sm": plan.ctas_per_sm,
+               "model_ms": plan.predicted * 1e3,
+               "ms": kern(plan.block_q, plan.block_kv),
+               "plain_ms": time_ms(lambda: kfa.attention_plain(
+                   q, k, v, block_q=plan.block_q, block_kv=plan.block_kv,
+                   causal=True)),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True, enable_gqa=True)),
+               "menu": menu}
+        kfa.flash_attention_kernel.launches = n0   # timing launches
+        pairs = S * (S + 1) // 2                # causal (query, key) pairs
+        flops = 4.0 * B * H * pairs * d
+        nbytes = 2 * d * S * B * (2 * H + 2 * Hkv)
+        row["bound_ms"] = max(nbytes / HBM_BW, flops / BF16_PEAK) * 1e3
+        row["bound_by"] = "bytes" if nbytes / HBM_BW >= flops / BF16_PEAK \
+            else "operations"
+        per_shape.append(row)
+        attn_rows[arch] = row
+    times["flash_attention@prefill"] = {k_: attn_rows["phi4-mini-3.8b"][k_]
+                                        for k_ in ("ms", "plain_ms",
+                                                   "library_ms", "bound_ms",
+                                                   "bound_by")}
 
     # The three expert GEMMs of one qwen3-moe prefill layer at the capacity
     # of the largest served bucket edge.

@@ -3,252 +3,437 @@
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (pallas_call at :166, body _attn_kernel :82).
 //
-//   q (B, H, Sq, d), k / v (B, Hkv, Skv, d), bf16, any strides with a unit
-//   d stride; output in q's type.  GQA maps head h to kv head
-//   h / (H / Hkv) with no KV repeat.  Keys at or beyond kv_len are masked;
-//   with causal set, key j is visible to query i iff i >= j (positions from
-//   0, Sq == Skv at prefill).  Running max m, sum l and accumulator stay f32,
-//   with the same -inf guards as the TPU kernel (rows with no valid key yet
-//   keep m = -inf, alpha = 0, and a row whose l stays 0 writes zeros).
+//   q (B, H, Sq, d), k / v (B, Hkv, Skv, d), bf16, d = 128, any strides with
+//   a unit d stride that are multiples of 16 bytes (v may be the transposed
+//   view of a (B, Skv, Hkv, d) tensor, as the model passes it); the output
+//   o (B, H, Sq, d) in bf16 with its own strides.  GQA maps head h to kv
+//   head h / (H / Hkv) with no KV repeat.  Keys at or beyond kv_len are
+//   masked; with causal set, key j is visible to query i iff i >= j
+//   (positions from 0).  Running max m, sum l and the accumulator stay f32,
+//   with the TPU kernel's -inf guards (a row with no valid key yet keeps
+//   m = -inf and alpha = 0; a row whose l stays 0 writes zeros).
 //
-// Structure: one CTA per (q block, head, batch); 16 query rows per warp
-// (block_q / 16 warps).  The CTA loops over kv blocks up to the causal
-// diagonal and skips every block above it.  Each kv block is staged in
-// shared memory (K row-major, V transposed), both warp-shared; Q, the
-// scores S = Q K^T and the output accumulator stay in registers as
-// mma.sync.m16n8k16 fragments, and P is re-packed from the S accumulator
-// fragments straight into the A operand of P V (the C-fragment layout of
-// two n8 tiles is the A-fragment layout of one k16 step).
+// What bounds it on the H100.  At the served prefill lengths (S <= 474,
+// d = 128) the two chained products are 4 S^2 d flop per head, halved by
+// the causal skip, against 4 S d bytes of q/k/v/o per head: a few
+// microseconds of tensor-core work and 2-9 MB of traffic, so neither the
+// 989 TFLOP/s nor the 3.35 TB/s bound is near.  What bounds it is latency:
+// how many of the 132 SMs have work, how long the longest CTA's chain of
+// kv steps is, and whether each step waits for its loads and for the
+// tensor cores in turn.
 //
-// What bounds it on the H100: at prefill lengths (S <= a few thousand,
-// d = 128) the two chained products are 4 S^2 d flop per head (halved by the
-// causal skip) against 4 S d bytes of q/k/v/o per head, so the work is
-// compute-bound on paper; in practice the online softmax (exp, max, rescale
-// on the CUDA cores) and the per-block shared-memory staging bound it.
-// This first version keeps S and P out of shared memory and device memory
-// entirely, which is what the design buys; kv-block double buffering,
-// ldmatrix loads and wgmma are the next steps.
+// What the design does about it:
+//  * A grid that fills the card and ends on short work.  One CTA per
+//    (64- or 128-row q block, head, batch), issued heaviest causal q block
+//    first (the grid's index runs over q blocks in reverse), so the last
+//    CTAs to start are the one- and two-step ones.  With 64-row q blocks
+//    phi4's 24 heads at S = 474 give 192 CTAs, and two fit on one SM.
+//  * K and V arrive by TMA into a 2-stage ring of mbarrier-guarded stages
+//    that one producer thread keeps filled; Q is loaded once, by TMA as
+//    well.  The tensor maps are 4-D over (d, S, head, batch) with the
+//    caller's strides, so a strided v needs no copy, and TMA zero-fills
+//    rows past Sq and Skv (the key mask covers the ragged edge).  The
+//    producer's warpgroup hands its registers to the consumers
+//    (setmaxnreg).
+//  * Both products on wgmma.  S = Q K^T reads Q (64 rows a consumer
+//    warpgroup) and the K tile from shared memory (both K-major, 128-byte
+//    swizzled); O += P V takes P from registers -- the S accumulator's
+//    layout is the register-A layout, so P is S converted to bf16 in place
+//    -- and V in its natural [key][d] layout as an MN-major B operand, so V
+//    is never transposed.  The next kv block's S product and this block's
+//    P V go to the tensor cores together, and the next block's softmax runs
+//    while P V does (O takes its rescale once P V is done).  The last P V
+//    is peeled off the loop: with it inside, ptxas saw the softmax read an
+//    accumulator inside an open wgmma stage and serialised every wgmma
+//    (C7514).
+//  * The softmax runs on the accumulator fragments in base 2 (two rows a
+//    thread, the row max and sum across the four threads of a quad); only
+//    the blocks that straddle the causal diagonal or the key end are
+//    masked.  The epilogue divides by l and writes bf16 through shared
+//    memory (the dead Q tile, in the output map's swizzle) with a TMA
+//    store, which clips rows past Sq.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+#include "wgmma_bf16.cuh"
+
+namespace repro {
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kD = 128;       // head dim
+constexpr int kStages = 2;    // K/V ring depth
+constexpr int kRowBytes = 128;  // one swizzled row: 64 bf16 of the head dim
+constexpr int kChunks = kD / 64;
 
 struct FlashParams {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  __nv_bfloat16* o;
-  long long q_sb, q_sh, q_ss;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  long long o_sb, o_sh, o_ss;
-  int B, H, Hkv, Sq, Skv, kv_len, causal;
+  int B, H, Hkv, Sq, Skv, kv_len, causal, n_qb;
   float scale_log2;  // softmax scale * log2(e): exponentials run in base 2
 };
 
-__device__ __forceinline__ void mma_bf16_16816(float* c, const uint32_t* a,
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// NWG consumer warpgroups of 64 q rows each, plus one producer warpgroup.
+// A one-warpgroup CTA is built for two CTAs an SM (128 registers a thread
+// at launch: 224 for a consumer, 32 for the producer); a two-warpgroup CTA
+// for one (168 at launch: 232 and 40, as the GEMM's 256-row tile).
+template <int NWG, int BKV>
+struct Flash {
+  static constexpr int kBQ = NWG * 64;
+  static constexpr int kConsumers = NWG * 128;
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kMinBlocks = NWG == 1 ? 2 : 1;
+  static constexpr int kConsumerRegs = NWG == 1 ? 224 : 232;
+  static constexpr int kProducerRegs = NWG == 1 ? 32 : 40;
+  static constexpr uint32_t kQChunk = kBQ * kRowBytes;   // 64 columns of Q
+  static constexpr uint32_t kKVChunk = BKV * kRowBytes;  // 64 columns of K or V
+  static constexpr uint32_t kQBytes = kChunks * kQChunk;
+  static constexpr uint32_t kKVBytes = kChunks * kKVChunk;
+  // [Q][K0 V0 K1 V1][mbarriers: q_full, k_full x2, v_full x2, empty x2]
+  static constexpr uint32_t kBarAt = kQBytes + kStages * 2 * kKVBytes;
+  static constexpr size_t kSmem = 1024 + kBarAt + 8 * (1 + 3 * kStages);
+};
 
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld_u32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
-template <int D, int BQ, int BKV>
-__global__ void __launch_bounds__(BQ * 2) flash_fwd_kernel(FlashParams p) {
-  constexpr int kWarps = BQ / 16;
-  constexpr int kThreads = kWarps * 32;
-  constexpr int ldk = D + 8;    // K tile row stride (elements)
-  constexpr int ldv = BKV + 8;  // transposed V tile row stride
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [BKV][D+8]
-  __nv_bfloat16* Vt = Ks + BKV * ldk;                           // [D][BKV+8]
-
-  const int qb = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int hk = h / (p.H / p.Hkv);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = qb * BQ + warp * 16;
-  const int rows[2] = {q0 + g, q0 + g + 8};
-
-  const __nv_bfloat16* Q = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* Kg = p.k + b * p.k_sb + hk * p.k_sh;
-  const __nv_bfloat16* Vg = p.v + b * p.v_sb + hk * p.v_sh;
-
-  // Q A-fragments for all of d, held for the whole kv loop.
-  uint32_t qf[D / 16][4];
+template <int BKV>
+__device__ __forceinline__ void qk_product(float (&s)[BKV / 2], uint32_t q,
+                                           uint32_t q_chunk, uint32_t k,
+                                           uint32_t k_chunk) {
+  // K-major 128-byte swizzled tiles: a k16 step moves 32 bytes along the
+  // row; 8-row groups are 1024 bytes apart.
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16 + 2 * t;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const bool ok = rows[r] < p.Sq;
-      const __nv_bfloat16* src = Q + static_cast<long long>(rows[r]) * p.q_ss;
-      qf[kk][r] = ok ? ld_u32(src + c) : 0u;
-      qf[kk][r + 2] = ok ? ld_u32(src + c + 8) : 0u;
-    }
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    const uint64_t da = smem_desc(q + (kk / 4) * q_chunk + off, 16, 1024, 128);
+    const uint64_t db = smem_desc(k + (kk / 4) * k_chunk + off, 16, 1024, 128);
+    if constexpr (BKV == 64) wgmma_m64n64_kk(s, da, db, kk > 0);
+    if constexpr (BKV == 128) wgmma_m64n128_kk(s, da, db, kk > 0);
   }
+}
 
-  float o[D / 8][4];
+// O += P V over one stage's V tile, MN-major: a k16 step moves 16 rows;
+// the two 64-column chunks of d are v_chunk bytes apart.
+template <int BKV>
+__device__ __forceinline__ void pv_product(float (&o)[kD / 2],
+                                           const uint32_t (&pa)[BKV / 16][4],
+                                           uint32_t v, uint32_t v_chunk) {
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn)
+  for (int kk = 0; kk < BKV / 16; ++kk)
+    wgmma_m64n128_rs(o, pa[kk],
+                     smem_desc(v + kk * 16 * kRowBytes, v_chunk, 1024, 128));
+}
+
+// The online-softmax update of one kv block on a consumer thread's S
+// fragments (rows row0 and row0 + 8, key columns k0 + 8 j + 2 t + e): scale
+// into base 2, mask only where the block crosses the key end or the causal
+// diagonal of the warpgroup's rows, row max across the quad; then S becomes
+// P = exp2(S - m) in place, l takes alpha and P's row sum, and alpha =
+// exp2(m_old - m_new) is left for O.  The -inf guards are the TPU
+// kernel's: a row with no valid key yet keeps m = -inf and alpha = 0.
+template <int BKV>
+__device__ __forceinline__ void online_softmax(
+    float (&s)[BKV / 2], float (&m_run)[2], float (&l_run)[2],
+    float (&alpha)[2], int k0, int kv_lim, int causal, int row0, int wg_row0,
+    int t, float scale_log2) {
+  const bool edge = k0 + BKV > kv_lim || (causal && k0 + BKV - 1 > wg_row0);
+  float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[dn][e] = 0.0f;
-  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
-  float l_run[2] = {0.0f, 0.0f};  // per-thread partial row sums
-
-  const int q_last = min(qb * BQ + BQ, p.Sq) - 1;
-  int n_blocks = (min(p.Skv, p.kv_len) + BKV - 1) / BKV;
-  if (p.causal) n_blocks = min(n_blocks, q_last / BKV + 1);
-
-  for (int kb = 0; kb < n_blocks; ++kb) {
-    const int k0 = kb * BKV;
-    __syncthreads();  // the previous block's K/V reads are done
-    // K block, row-major, 16-byte loads; rows past Skv are zero.
-    for (int c = threadIdx.x; c < BKV * (D / 8); c += kThreads) {
-      const int j = c / (D / 8), d0 = (c % (D / 8)) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + j < p.Skv)
-        val = *reinterpret_cast<const uint4*>(
-            Kg + static_cast<long long>(k0 + j) * p.k_ss + d0);
-      *reinterpret_cast<uint4*>(Ks + j * ldk + d0) = val;
+  for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e] * scale_log2;
+      if (edge) {
+        const int key = k0 + 8 * j + 2 * t + (e & 1);
+        const int row = row0 + 8 * (e >> 1);
+        if (key >= kv_lim || (causal && row < key)) x = -CUDART_INF_F;
+      }
+      s[4 * j + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
     }
-    // V block, transposed to [d][key] so its B-fragments are 32-bit loads;
-    // key index fastest across lanes keeps the scattered stores conflict-free.
-    for (int c = threadIdx.x; c < BKV * (D / 8); c += kThreads) {
-      const int j = c % BKV, d0 = (c / BKV) * 8;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (k0 + j < p.Skv)
-        val = *reinterpret_cast<const uint4*>(
-            Vg + static_cast<long long>(k0 + j) * p.v_ss + d0);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) Vt[(d0 + i) * ldv + j] = e[i];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x BKV keys.
-    float s[BKV / 8][4];
-#pragma unroll
-    for (int j = 0; j < BKV / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-      const __nv_bfloat16* kr = Ks + (j * 8 + g) * ldk + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        mma_bf16_16816(s[j], qf[kk], ld_u32(kr + kk * 16),
-                       ld_u32(kr + kk * 16 + 8));
-    }
-
-    // Scale into base 2, mask (padding, causal), row max across the quad.
-    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m_run[r], mx[r]);
+    const float safe = m_new == -CUDART_INF_F ? 0.0f : m_new;
+    alpha[r] = m_run[r] == -CUDART_INF_F ? 0.0f : exp2f(m_run[r] - safe);
+    m_run[r] = m_new;
+    l_run[r] *= alpha[r];
 #pragma unroll
     for (int j = 0; j < BKV / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + j * 8 + 2 * t + (e & 1);
-        const int row = rows[e >> 1];
-        const bool valid = key < p.kv_len && key < p.Skv &&
-                           (!p.causal || row >= key);
-        s[j][e] = valid ? s[j][e] * p.scale_log2 : -CUDART_INF_F;
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      for (int e = 0; e < 2; ++e) {
+        const float pv = exp2f(s[4 * j + 2 * r + e] - safe);  // 0 at -inf
+        s[4 * j + 2 * r + e] = pv;
+        l_run[r] += pv;
       }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    }
+  }
+}
 
-    // Online softmax update with the TPU kernel's -inf guards.
+// P as bf16 A fragments: key columns 16 kk .. 16 kk + 15 are the
+// accumulator's 8-column groups 2 kk and 2 kk + 1.
+template <int BKV>
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[BKV / 16][4],
+                                       const float (&s)[BKV / 2]) {
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m_run[r], mx[r]);
-      const float safe = m_new == -CUDART_INF_F ? 0.0f : m_new;
-      const float alpha =
-          m_run[r] == -CUDART_INF_F ? 0.0f : exp2f(m_run[r] - safe);
-      m_run[r] = m_new;
-      l_run[r] *= alpha;
+  for (int kk = 0; kk < BKV / 16; ++kk) {
+    pa[kk][0] = pack_bf16x2(s[8 * kk + 0], s[8 * kk + 1]);
+    pa[kk][1] = pack_bf16x2(s[8 * kk + 2], s[8 * kk + 3]);
+    pa[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
+    pa[kk][3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+template <int NWG, int BKV>
+__global__ void __launch_bounds__(Flash<NWG, BKV>::kThreads,
+                                  Flash<NWG, BKV>::kMinBlocks)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tma_q,
+                     const __grid_constant__ CUtensorMap tma_k,
+                     const __grid_constant__ CUtensorMap tma_v,
+                     const __grid_constant__ CUtensorMap tma_o,
+                     const __grid_constant__ FlashParams p) {
+  using F = Flash<NWG, BKV>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_at = base;
+  auto k_at = [&](int s) { return base + F::kQBytes + s * 2 * F::kKVBytes; };
+  auto v_at = [&](int s) { return k_at(s) + F::kKVBytes; };
+  const uint32_t q_full = base + F::kBarAt;
+  auto k_full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto v_full = [&](int s) { return q_full + 8u * (1 + kStages + s); };
+  auto empty = [&](int s) { return q_full + 8u * (1 + 2 * kStages + s); };
+
+  // The work item: all heads of the last q block first under causal.
+  const int heads = p.H * p.B;
+  const int step = blockIdx.x / heads, hb = blockIdx.x - step * heads;
+  const int qb = p.causal ? p.n_qb - 1 - step : step;
+  const int h = hb % p.H, b = hb / p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = qb * F::kBQ;
+  const int kv_lim = min(p.Skv, p.kv_len);
+  int n_blocks = kv_lim > 0 ? (kv_lim + BKV - 1) / BKV : 0;
+  if (p.causal) n_blocks = min(n_blocks, (min(q0 + F::kBQ, p.Sq) - 1) / BKV + 1);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), F::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // The warpgroup index, broadcast so that the compiler sees the role split
+  // as warp-uniform (otherwise it serialises every wgmma).
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (wg == NWG) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(F::kProducerRegs)
+                 : "memory");
+    // Producer: one thread issues every TMA load of the CTA.
+    if (tid == F::kConsumers) {
+      mbar_expect_tx(q_full, F::kQBytes);
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        o[dn][2 * r] *= alpha;
-        o[dn][2 * r + 1] *= alpha;
-      }
+      for (int c = 0; c < kChunks; ++c)
+        tma_load_4d(q_at + c * F::kQChunk, &tma_q, q_full, 64 * c, q0, h, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kb = 0; kb < n_blocks; ++kb) {
+        mbar_wait(empty(stage), phase ^ 1);
+        mbar_expect_tx(k_full(stage), F::kKVBytes);
 #pragma unroll
-      for (int j = 0; j < BKV / 8; ++j)
+        for (int c = 0; c < kChunks; ++c)
+          tma_load_4d(k_at(stage) + c * F::kKVChunk, &tma_k, k_full(stage),
+                      64 * c, kb * BKV, hk, b);
+        mbar_expect_tx(v_full(stage), F::kKVBytes);
 #pragma unroll
-        for (int e = 2 * r; e < 2 * r + 2; ++e) {
-          const float pv =
-              s[j][e] == -CUDART_INF_F ? 0.0f : exp2f(s[j][e] - safe);
-          s[j][e] = pv;
-          l_run[r] += pv;
+        for (int c = 0; c < kChunks; ++c)
+          tma_load_4d(v_at(stage) + c * F::kKVChunk, &tma_v, v_full(stage),
+                      64 * c, kb * BKV, hk, b);
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
         }
-    }
-
-    // O += P V, P re-packed from the S fragments as bf16 A-fragments.
-#pragma unroll
-    for (int kk = 0; kk < BKV / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16x2(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16x2(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
-        const __nv_bfloat16* vr = Vt + (dn * 8 + g) * ldv + kk * 16 + 2 * t;
-        mma_bf16_16816(o[dn], a, ld_u32(vr), ld_u32(vr + 8));
       }
     }
+    return;
   }
 
-  // Finish: reduce l over the quad, divide (0 where no key was valid), store.
+  // Consumers: warpgroup wg owns q rows q0 + 64 wg ... + 63; this thread
+  // rows row0 and row0 + 8 of them.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(F::kConsumerRegs)
+               : "memory");
+  const int warp = __shfl_sync(0xffffffffu, (tid % 128) / 32, 0);
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int wg_row0 = q0 + wg * 64;
+  const int row0 = wg_row0 + warp * 16 + g;
+  const uint32_t q_wg = q_at + wg * 64 * kRowBytes;
+
+  float o[kD / 2];
+#pragma unroll
+  for (int i = 0; i < kD / 2; ++i) o[i] = 0.0f;
+  float s[BKV / 2];
+  uint32_t pa[BKV / 16][4];
+  float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l_run[2] = {0.0f, 0.0f};  // this thread's partial row sums
+  float alpha[2];
+
+  mbar_wait(q_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  if (n_blocks > 0) {
+    mbar_wait(k_full(0), 0);
+    wgmma_fence();
+    qk_product<BKV>(s, q_wg, F::kQChunk, k_at(0), F::kKVChunk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    online_softmax<BKV>(s, m_run, l_run, alpha, 0, kv_lim, p.causal, row0,
+                        wg_row0, t, p.scale_log2);
+    pack_p<BKV>(pa, s);
+  }
+  // Steps 0 .. n - 2: S of block kb + 1 and O += P V of block kb go to the
+  // tensor cores together; block kb + 1's softmax runs while P V does, and
+  // O takes its alpha once P V is done.
+  for (int kb = 0; kb + 1 < n_blocks; ++kb) {
+    const int next = stage + 1 == kStages ? 0 : stage + 1;
+    const uint32_t next_phase = next == 0 ? phase ^ 1 : phase;
+    wgmma_fence();
+    mbar_wait(k_full(next), next_phase);
+    qk_product<BKV>(s, q_wg, F::kQChunk, k_at(next), F::kKVChunk);
+    wgmma_commit();
+    mbar_wait(v_full(stage), phase);
+    pv_product<BKV>(o, pa, v_at(stage), F::kKVChunk);
+    wgmma_commit();
+    wgmma_wait<1>();  // S of block kb + 1, the older group, is done
+    fence_acc(s);
+    online_softmax<BKV>(s, m_run, l_run, alpha, (kb + 1) * BKV, kv_lim,
+                        p.causal, row0, wg_row0, t, p.scale_log2);
+    wgmma_wait<0>();
+    fence_acc(o);
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) fence_frag(pa[kk]);
+    mbar_arrive(empty(stage));
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        o[4 * j + 2 * r] *= alpha[r];
+        o[4 * j + 2 * r + 1] *= alpha[r];
+      }
+    pack_p<BKV>(pa, s);
+    stage = next;
+    phase = next_phase;
+  }
+  if (n_blocks > 0) {  // the last block's P V
+    wgmma_fence();
+    mbar_wait(v_full(stage), phase);
+    pv_product<BKV>(o, pa, v_at(stage), F::kKVChunk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(o);
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) fence_frag(pa[kk]);
+    mbar_arrive(empty(stage));
+  }
+
+  // Epilogue: l over the quad, divide (a row with l = 0 keeps O = 0), stage
+  // bf16 rows in this warpgroup's part of the Q tile -- every product that
+  // read it has completed -- in the 128-byte swizzle of the output map,
+  // then one thread stores the 64 x 128 tile with TMA.
+  float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_run[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float inv = l > 0.0f ? 1.0f / l : 1.0f;
-    if (rows[r] >= p.Sq) continue;
-    __nv_bfloat16* dst = p.o + b * p.o_sb + h * p.o_sh +
-                         static_cast<long long>(rows[r]) * p.o_ss + 2 * t;
+    inv[r] = l > 0.0f ? 1.0f / l : 1.0f;
+  }
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn)
-      *reinterpret_cast<uint32_t*>(dst + dn * 8) =
-          pack_bf16x2(o[dn][2 * r] * inv, o[dn][2 * r + 1] * inv);
+  for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + g + 8 * r;  // row % 8 == g
+      const uint32_t addr = q_wg + (j / 8) * F::kQChunk + row * kRowBytes +
+                            (((j % 8) ^ g) * 16) + t * 4;
+      st_shared_u32(addr, pack_bf16x2(o[4 * j + 2 * r] * inv[r],
+                                      o[4 * j + 2 * r + 1] * inv[r]));
+    }
+  fence_proxy_async();
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+  if (tid % 128 == 0) {
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c)
+      tma_store_4d(&tma_o, q_wg + c * F::kQChunk, 64 * c, wg_row0, h, b);
+    bulk_commit();
+    bulk_wait_read();
   }
 }
 
-template <int D, int BQ, int BKV>
-cudaError_t launch(const FlashParams& p, cudaStream_t stream) {
-  const size_t smem =
-      (static_cast<size_t>(BKV) * (D + 8) + static_cast<size_t>(D) * (BKV + 8)) *
-      sizeof(__nv_bfloat16);
-  static bool opted_in = false;
-  if (smem > 48 * 1024 && !opted_in) {
-    cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<D, BQ, BKV>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    opted_in = true;
-  }
-  dim3 grid((p.Sq + BQ - 1) / BQ, p.H, p.B);
-  flash_fwd_kernel<D, BQ, BKV><<<grid, BQ * 2, smem, stream>>>(p);
+// A 4-D bf16 tensor map over (d, S, head, batch) with element strides
+// (ss, sh, sb) and a (64, rows, 1, 1) box, 128-byte swizzled.
+bool encode_4d(CUtensorMap* map, const void* ptr, int S, int heads, int batch,
+               long long ss, long long sh, long long sb, uint32_t rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * 2,
+                                 static_cast<cuuint64_t>(sh) * 2,
+                                 static_cast<cuuint64_t>(sb) * 2};
+  const cuuint32_t box[4] = {64, rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+struct Operands {
+  const void *q, *k, *v;
+  void* o;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+  long long o_sb, o_sh, o_ss;
+};
+
+template <int NWG, int BKV>
+cudaError_t launch(const Operands& a, const FlashParams& p,
+                   cudaStream_t stream) {
+  using F = Flash<NWG, BKV>;
+  static const cudaError_t opted = cudaFuncSetAttribute(
+      flash_fwd_kernel<NWG, BKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(F::kSmem));
+  if (opted != cudaSuccess) return opted;
+  CUtensorMap tq, tk, tv, to;
+  if (!encode_4d(&tq, a.q, p.Sq, p.H, p.B, a.q_ss, a.q_sh, a.q_sb, F::kBQ) ||
+      !encode_4d(&tk, a.k, p.Skv, p.Hkv, p.B, a.k_ss, a.k_sh, a.k_sb, BKV) ||
+      !encode_4d(&tv, a.v, p.Skv, p.Hkv, p.B, a.v_ss, a.v_sh, a.v_sb, BKV) ||
+      !encode_4d(&to, a.o, p.Sq, p.H, p.B, a.o_ss, a.o_sh, a.o_sb, 64))
+    return cudaErrorInvalidValue;
+  const unsigned grid = static_cast<unsigned>(p.n_qb) * p.H * p.B;
+  flash_fwd_kernel<NWG, BKV><<<grid, F::kThreads, F::kSmem, stream>>>(
+      tq, tk, tv, to, p);
   return cudaGetLastError();
 }
 
 }  // namespace
+}  // namespace repro
+
+using namespace repro;
 
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, long long q_sb,
@@ -257,24 +442,32 @@ extern "C" int repro_flash_attention(
     long long o_sb, long long o_sh, long long o_ss, int B, int H, int Hkv,
     int Sq, int Skv, int kv_len, int causal, float scale, int block_q,
     int block_kv, int d, void* stream) {
+  // TMA needs 16-byte aligned bases and strides (8 bf16).
+  const long long strides[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                                 v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
+  bool aligned = true;
+  for (long long st : strides) aligned = aligned && st >= 0 && st % 8 == 0;
+  for (const void* ptr : {q, k, v, static_cast<const void*>(o)})
+    aligned = aligned && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
   if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Skv <= 0 ||
-      B > 65535 || H > 65535)
+      d != kD || !aligned || (block_q != 64 && block_q != 128) ||
+      (block_kv != 64 && block_kv != 128))
     return static_cast<int>(cudaErrorInvalidValue);
-  FlashParams p{static_cast<const __nv_bfloat16*>(q),
-                static_cast<const __nv_bfloat16*>(k),
-                static_cast<const __nv_bfloat16*>(v),
-                static_cast<__nv_bfloat16*>(o),
-                q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-                o_sb, o_sh, o_ss, B, H, Hkv, Sq, Skv, kv_len, causal,
-                scale * kLog2e};
+  const int n_qb = (Sq + block_q - 1) / block_q;
+  if (static_cast<long long>(n_qb) * H * B > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Operands a{q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                   v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
+  const FlashParams p{B, H, Hkv, Sq, Skv, kv_len, causal, n_qb,
+                      scale * kLog2e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH_CASE(D_, BQ_, BKV_)                  \
-  if (d == D_ && block_q == BQ_ && block_kv == BKV_) \
-    return static_cast<int>(launch<D_, BQ_, BKV_>(p, s));
-  REPRO_FLASH_CASE(128, 64, 64)
-  REPRO_FLASH_CASE(128, 64, 128)
-  REPRO_FLASH_CASE(128, 128, 64)
-  REPRO_FLASH_CASE(128, 128, 128)
+#define REPRO_FLASH_CASE(BQ_, BKV_)                 \
+  if (block_q == BQ_ && block_kv == BKV_)           \
+    return static_cast<int>(launch<BQ_ / 64, BKV_>(a, p, s));
+  REPRO_FLASH_CASE(64, 64)
+  REPRO_FLASH_CASE(64, 128)
+  REPRO_FLASH_CASE(128, 64)
+  REPRO_FLASH_CASE(128, 128)
 #undef REPRO_FLASH_CASE
   return static_cast<int>(cudaErrorInvalidValue);
 }

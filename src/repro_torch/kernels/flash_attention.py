@@ -16,33 +16,210 @@ counts kernel launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import heapq
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.core.dtypes import DTYPE_BYTES
 from repro_torch.core.hardware import GPU_H100_LIKE
 from repro_torch.core.latency import cdiv
-from repro_torch.core.topology import HardwareSpec
+from repro_torch.core.topology import HardwareSpec, topology_fingerprint
 from repro_torch.kernels import build, ref
 
 BLOCK_MENU = (64, 128)
 HEAD_DIMS = (128,)                 # instantiated in csrc/flash_attention.cu
-_SMEM_BYTES = 227 * 1024           # opt-in dynamic shared memory per block
-_MAX_REGS = 255                    # per thread
+STAGES = 2                         # the kernel's K/V ring
+_SMEM_BYTES = 227 * 1024           # a block's opt-in dynamic shared memory
+_SMEM_RESERVED = 1024              # shared memory the system reserves per block
+_TILE_BYTES = 2                    # the kernel stages bf16 tiles
 _REG_OVERHEAD = 40                 # addresses, loop state, softmax scalars
 
 
-def _smem_bytes(block_kv: int, head_dim: int, bi: int) -> int:
-    """The kernel's shared memory: one K tile (row-major) and one V tile
-    (transposed), each row padded by 8 elements."""
-    return (block_kv * (head_dim + 8) + head_dim * (block_kv + 8)) * bi
+def _ctas_per_sm_at_launch(block_q: int) -> int:
+    """The kernel's launch bounds: a one-warpgroup CTA (block_q 64) is
+    built for two CTAs an SM, a two-warpgroup CTA for one."""
+    return 2 if block_q == 64 else 1
+
+
+def _max_regs(block_q: int) -> int:
+    """A consumer thread's registers after the producer warpgroup hands its
+    own over (setmaxnreg: 224 when two CTAs share the register file, 232
+    for one)."""
+    return 224 if block_q == 64 else 232
+
+
+def _smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
+    """The kernel's shared memory: the 1 KB alignment slack of the
+    swizzled tiles, the Q tile, STAGES x (K tile + V tile) and the
+    mbarriers."""
+    tiles = (block_q + 2 * STAGES * block_kv) * head_dim * _TILE_BYTES
+    return 1024 + tiles + 8 * (1 + 3 * STAGES)
 
 
 def _regs_per_thread(block_kv: int, head_dim: int) -> int:
-    """Scores (16 x block_kv), output (16 x d) in f32 and Q fragments
-    (16 x d bf16), spread over a warp, plus fixed overhead."""
-    return block_kv // 2 + head_dim // 2 + head_dim // 8 + _REG_OVERHEAD
+    """A consumer thread's share of its warpgroup's 64-row fragments: the
+    f32 scores S (64 x block_kv) and output O (64 x d) over 128 threads,
+    and P as bf16 pairs, live beside the next block's S; plus overhead."""
+    return block_kv // 2 + head_dim // 2 + block_kv // 4 + _REG_OVERHEAD
+
+
+def legal_blocks(block_q: int, block_kv: int, head_dim: int) -> bool:
+    """Whether the kernel's budgets take (block_q, block_kv) at head_dim:
+    227 KB of shared memory a block, a consumer's registers."""
+    return (_smem_bytes(block_q, block_kv, head_dim) <= _SMEM_BYTES
+            and _regs_per_thread(block_kv, head_dim) <= _max_regs(block_q))
+
+
+def ctas_per_sm(block_q: int, block_kv: int, head_dim: int,
+                hw: HardwareSpec = GPU_H100_LIKE) -> int:
+    """CTAs resident on one SM: its shared memory (the staging level's
+    capacity, 228 KB on the H100) and the kernel's launch bounds."""
+    by_smem = hw.staging.capacity // (_smem_bytes(block_q, block_kv, head_dim)
+                                      + _SMEM_RESERVED)
+    return max(1, min(by_smem, _ctas_per_sm_at_launch(block_q)))
+
+
+def kv_steps(s_q: int, s_kv: int, block_q: int, block_kv: int,
+             causal: bool) -> List[int]:
+    """The kv blocks each q block walks (q block i first): all of them, or
+    under causal those up to the diagonal of its last row."""
+    n_kv = cdiv(s_kv, block_kv)
+    return [min(n_kv, (min((i + 1) * block_q, s_q) - 1) // block_kv + 1)
+            if causal else n_kv for i in range(cdiv(s_q, block_q))]
+
+
+def _makespan(ctas: Sequence[Tuple[float, float]], sms: int,
+              per_sm: int) -> float:
+    """The finish time of ``ctas`` -- (chain seconds, tensor-core seconds)
+    each -- issued longest first, each to the slot that frees first, slot
+    j on SM j mod ``sms`` (the hardware fills every SM before it doubles
+    up).  An SM finishes when its last chain does, or when the tensor-core
+    work of every CTA it held is done, if that is later."""
+    slots = [(0.0, j) for j in range(max(1, min(sms * per_sm, len(ctas))))]
+    work = [0.0] * sms
+    finish = [0.0] * sms
+    for chain, tensor in sorted(ctas, reverse=True):
+        t, j = heapq.heappop(slots)
+        heapq.heappush(slots, (t + chain, j))
+        work[j % sms] += tensor
+        finish[j % sms] = max(finish[j % sms], t + chain)
+    return max(max(w, f) for w, f in zip(work, finish))
+
+
+@dataclass(frozen=True)
+class AttentionPlan:
+    """One (block_q, block_kv) priced on the card: its grid, residency,
+    the longest CTA's kv steps and the predicted seconds."""
+    block_q: int
+    block_kv: int
+    ctas: int
+    ctas_per_sm: int
+    max_steps: int
+    predicted: float
+
+
+# An SM's dense bf16 tensor-core flops a clock on Hopper (989 TFLOP/s over
+# 132 SMs at 1.83 GHz), and the clocks one score of the softmax costs on
+# its CUDA cores: one exp2 at 16 a clock and about six f32 operations
+# (scale, max, subtract, sum, rescale share, convert) at 128 a clock.
+_TC_FLOPS_PER_CLOCK = 4096
+_SOFTMAX_CLOCKS_PER_SCORE = 1 / 16 + 6 / 128
+
+
+def price_attention_blocks(
+    s_q: int, s_kv: int, head_dim: int, block_q: int, block_kv: int, *,
+    batch: int = 1, heads: int = 1, kv_heads: Optional[int] = None,
+    in_dtype: str = "bfloat16", hw: HardwareSpec = GPU_H100_LIKE,
+    causal: bool = False,
+) -> AttentionPlan:
+    """The kernel's time at (block_q, block_kv), analytically.
+
+    CTAs = batch·heads·⌈s_q/block_q⌉ on ``hw.total_cores()`` SMs, with
+    :func:`ctas_per_sm` of them resident on each.  A kv step of a CTA
+    costs max(NWG·tc + softmax, 2·bkv·d·bytes / (bw / resident CTAs)):
+
+    - tc = 4·64·bkv·d / (peak / SMs), one consumer warpgroup's two
+      products at one SM's share of the tensor-core peak; the CTA's NWG =
+      block_q / 64 warpgroups take turns on the tensor cores;
+    - softmax = 64·bkv scores at ``_SOFTMAX_CLOCKS_PER_SCORE`` on the
+      CUDA cores, priced in series with the products: the kernel runs it
+      beside P·V, but a second warpgroup on the SM wants those cycles too,
+      and priced so the model ranks the measured menu at the served
+      shapes as the card does (PERF.md §6);
+    - the K and V tiles at a resident CTA's share of the bandwidth that
+      serves them: the L2's when the K/V of every kv head fit its budget
+      (each tile is read by ⌈s_q/bq⌉·heads/kv_heads CTAs, and only the
+      first read reaches HBM), else HBM's.
+
+    A CTA adds two HBM latencies and its Q, first K/V and O tiles at that
+    bandwidth share (the loads before its first step, the store after its
+    last), then walks its own causal kv steps.  The CTAs run longest first
+    (:func:`_makespan`); co-resident CTAs share an SM's tensor cores.  The
+    total is that makespan, or the unique q/k/v/o bytes at the HBM rate if
+    longer, plus one kernel launch."""
+    kv_heads = heads if kv_heads is None else kv_heads
+    bi = DTYPE_BYTES[in_dtype]
+    sms = hw.total_cores()
+    per_sm = ctas_per_sm(block_q, block_kv, head_dim, hw)
+    steps = kv_steps(s_q, s_kv, block_q, block_kv, causal)
+    ctas = batch * heads * len(steps)
+    resident = min(ctas, sms * per_sm)
+    nwg = block_q // 64
+    tc = 4.0 * 64 * block_kv * head_dim / (hw.flops(in_dtype) / sms)
+    clock = hw.flops("bfloat16") / sms / _TC_FLOPS_PER_CLOCK
+    softmax = 64 * block_kv * _SOFTMAX_CLOCKS_PER_SCORE / clock
+    kv_set = 2 * batch * kv_heads * s_kv * head_dim * bi
+    bw = hw.hbm_bandwidth
+    for level in hw.cache_levels:
+        if kv_set <= level.budget():
+            bw = level.bandwidth
+            break
+    share = bw / resident
+    step = max(nwg * tc + softmax, 2.0 * block_kv * head_dim * bi / share)
+    fixed = 2 * hw.hbm_latency \
+        + (2 * block_q + 2 * block_kv) * head_dim * bi / share
+    work = [(fixed + n * step, n * nwg * tc) for n in steps] * (batch * heads)
+    unique = 2 * (batch * heads * s_q + batch * kv_heads * s_kv) \
+        * head_dim * bi
+    total = max(_makespan(work, sms, per_sm), unique / hw.hbm_bandwidth) \
+        + hw.kernel_launch
+    return AttentionPlan(block_q, block_kv, ctas, per_sm, max(steps), total)
+
+
+_PLANS: Dict[tuple, AttentionPlan] = {}
+
+
+def plan_attention(
+    s_q: int, s_kv: int, head_dim: int, *, batch: int = 1, heads: int = 1,
+    kv_heads: Optional[int] = None, in_dtype: str = "bfloat16",
+    hw: HardwareSpec = GPU_H100_LIKE, causal: bool = False,
+) -> AttentionPlan:
+    """The cheapest legal pair of the menu under
+    :func:`price_attention_blocks` (ties: more CTAs, then larger blocks);
+    memoised per topology, like the GEMM selections."""
+    key = (topology_fingerprint(hw), s_q, s_kv, head_dim, batch, heads,
+           kv_heads, in_dtype, bool(causal))
+    plan = _PLANS.get(key)
+    if plan is not None:
+        return plan
+    best_key = None
+    for bq in BLOCK_MENU:
+        for bkv in BLOCK_MENU:
+            if not legal_blocks(bq, bkv, head_dim):
+                continue
+            cand = price_attention_blocks(
+                s_q, s_kv, head_dim, bq, bkv, batch=batch, heads=heads,
+                kv_heads=kv_heads, in_dtype=in_dtype, hw=hw, causal=causal)
+            cand_key = (cand.predicted, -cand.ctas, -(bq * bkv))
+            if best_key is None or cand_key < best_key:
+                plan, best_key = cand, cand_key
+    if plan is None:
+        raise ValueError(f"no legal attention blocks for head_dim "
+                         f"{head_dim} ({in_dtype})")
+    _PLANS[key] = plan
+    return plan
 
 
 def select_attention_blocks(
@@ -53,41 +230,19 @@ def select_attention_blocks(
     in_dtype: str = "bfloat16",
     hw: HardwareSpec = GPU_H100_LIKE,
     causal: bool = False,
+    batch: int = 1,
+    heads: int = 1,
+    kv_heads: Optional[int] = None,
 ) -> Tuple[int, int]:
-    """Analytical (block_q, block_kv) for the Hopper kernel: the reference
-    selector's score, steps * max(compute, memory) per (bq, bkv) step,
-    priced against what bounds this kernel instead of VMEM.
-
-    Per step: FLOPs 4·bq·bkv·d (QKᵀ and PV) at the tensor-core rate, and
-    the K and V tiles (2·bkv·d bytes) from HBM.  Legal when the staged K/V
-    tiles fit 227 KB of shared memory and the scores, output and Q
-    fragments, held in registers, fit 255 registers a thread.  The menu
-    starts at 64 (the TPU menu's 128 floor is a lane-width rule), and
-    (64, 64) is legal for every d up to 256, so a pair always exists."""
-    bi = DTYPE_BYTES[in_dtype]
-    flops = hw.flops(in_dtype)
-    best, best_key = None, None
-    for bq in BLOCK_MENU:
-        if bq > 2 * max(s_q, BLOCK_MENU[0]):
-            continue
-        for bkv in BLOCK_MENU:
-            if bkv > 2 * max(s_kv, BLOCK_MENU[0]):
-                continue
-            if _smem_bytes(bkv, head_dim, bi) > _SMEM_BYTES \
-                    or _regs_per_thread(bkv, head_dim) > _MAX_REGS:
-                continue
-            steps = cdiv(s_q, bq) * cdiv(s_kv, bkv)
-            if causal:
-                steps = max(1, steps // 2)        # half the blocks skipped
-            comp = 4.0 * bq * bkv * head_dim / flops
-            mem = 2.0 * bkv * head_dim * bi / hw.hbm_bandwidth + hw.dma_fixed
-            key = (steps * max(comp, mem), -(bq * bkv))
-            if best_key is None or key < best_key:
-                best, best_key = (bq, bkv), key
-    if best is None:
-        raise ValueError(f"no legal attention blocks for head_dim "
-                         f"{head_dim} ({in_dtype})")
-    return best
+    """Analytical (block_q, block_kv) for the Hopper kernel, with zero
+    autotuning: :func:`plan_attention`'s pair.  The legal set is the
+    kernel's (:func:`legal_blocks`; the tiles are bf16 whatever
+    ``in_dtype`` prices); (64, 64) is legal for every d up to 256, so a
+    pair always exists."""
+    plan = plan_attention(s_q, s_kv, head_dim, batch=batch, heads=heads,
+                          kv_heads=kv_heads, in_dtype=in_dtype, hw=hw,
+                          causal=causal)
+    return plan.block_q, plan.block_kv
 
 
 def attention_plain(q, k, v, *, block_q: int, block_kv: int,
@@ -139,9 +294,10 @@ def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale):
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name} needs a unit stride "
                              f"on the head dim")
-    # k/v rows are read as 16-byte vectors, q and o as 4-byte pairs.
-    for name, t, align in (("q", q, 2), ("k", k, 8), ("v", v, 8)):
-        if t.data_ptr() % 16 or any(s % align for s in t.stride()[:3]):
+    # TMA reads q, k and v (any strides, v may be a transposed view):
+    # 16-byte aligned bases and strides.
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
             raise ValueError(f"flash_attention: {name} strides "
                              f"{t.stride()} not aligned for the kernel")
     # Output laid out (B, Sq, H, d): the model's head merge is then a view.

@@ -333,11 +333,12 @@ def flash_attention(
 ) -> torch.Tensor:
     """Selector-driven attention. q: (B,H,Sq,d), k/v: (B,Hkv,Skv,d)."""
     hw = hw if hw is not None else get_default_hardware()
-    _, _, Sq, d = q.shape
-    Skv = k.shape[2]
+    B, H, Sq, d = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
     if blocks is None:
         blocks = kfa.select_attention_blocks(
-            Sq, Skv, d, in_dtype=_dtype_name(q.dtype), hw=hw, causal=causal)
+            Sq, Skv, d, in_dtype=_dtype_name(q.dtype), hw=hw, causal=causal,
+            batch=B, heads=H, kv_heads=Hkv)
     bq, bkv = blocks
     return kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
                                       causal=causal, scale=scale)

@@ -295,22 +295,51 @@ def test_selected_expert_matmul_launches_the_kernel(cuda):
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
 
 
+# (B, H, Hkv, S, causal, blocks or None for the selector's, v as the model
+# passes it: the transposed view of a (B, S, Hkv, d) tensor).
+FLASH_CASES = [
+    (2, 24, 8, 512, True, None, False),
+    (2, 24, 8, 512, False, None, False),
+    (2, 24, 8, 1000, True, None, False),
+    (2, 24, 8, 1000, False, None, False),
+    # the served prefill shapes: phi4-mini at both edges, qwen3-moe
+    (1, 24, 8, 336, True, None, True),
+    (1, 24, 8, 474, True, None, True),
+    (1, 24, 8, 474, True, None, False),
+    (1, 32, 4, 474, True, None, True),
+    # a sequence shorter than one q block
+    (1, 24, 8, 40, True, None, True),
+    (1, 24, 8, 40, False, (128, 128), False),
+] + [(1, 32, 4, 474, True, blocks, True) for blocks in
+     ((64, 64), (64, 128), (128, 64), (128, 128))] + [
+    (2, 24, 8, 300, False, blocks, False) for blocks in
+    ((64, 64), (64, 128), (128, 64), (128, 128))]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("S", [512, 1000])
-def test_flash_kernel_on_card(cuda, S, causal):
-    g = torch.Generator(device=cuda).manual_seed(S)
-    q = torch.randn((2, 24, S, 128), generator=g, device=cuda).bfloat16()
-    k = torch.randn((2, 8, S, 128), generator=g, device=cuda).bfloat16()
-    v = torch.randn((2, 8, S, 128), generator=g, device=cuda).bfloat16()
-    bq, bkv = kfa.select_attention_blocks(S, S, 128, causal=causal)
+@pytest.mark.parametrize("B,H,Hkv,S,causal,blocks,model_v", FLASH_CASES,
+                         ids=str)
+def test_flash_kernel_on_card(cuda, B, H, Hkv, S, causal, blocks, model_v):
+    g = torch.Generator(device=cuda).manual_seed(S + H)
+    q = torch.randn((B, H, S, 128), generator=g, device=cuda).bfloat16()
+    k = torch.randn((B, Hkv, S, 128), generator=g, device=cuda).bfloat16()
+    if model_v:
+        v = torch.randn((B, S, Hkv, 128), generator=g,
+                        device=cuda).bfloat16().transpose(1, 2)
+    else:
+        v = torch.randn((B, Hkv, S, 128), generator=g, device=cuda).bfloat16()
+    bq, bkv = blocks or kfa.select_attention_blocks(
+        S, S, 128, causal=causal, batch=B, heads=H, kv_heads=Hkv)
     n0 = kfa.flash_attention_kernel.launches
     got = kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
                                      causal=causal)
+    again = kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
+                                       causal=causal)
     want = kfa.attention_plain(q, k, v, block_q=bq, block_kv=bkv,
                                causal=causal)
     torch.cuda.synchronize()
-    assert kfa.flash_attention_kernel.launches == n0 + 1
+    assert kfa.flash_attention_kernel.launches == n0 + 2
+    assert torch.equal(got, again)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=1e-2)
 

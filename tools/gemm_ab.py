@@ -127,19 +127,22 @@ class _Recorder:
         return self.entry(*args)
 
 
-def main(argv) -> int:
+def run_roots(argv, script: str, measure_root, doc: str) -> int:
+    """The A/B runner shared with ``tools/flash_ab.py``: ``script --one
+    ROOT`` prints ``measure_root(ROOT)`` as one JSON line; without
+    ``--one``, each ROOT runs that in a process of its own, in turn."""
     if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps({"root": argv[1], **measure(Path(argv[1]))}),
+        print(json.dumps({"root": argv[1], **measure_root(Path(argv[1]))}),
               flush=True)
         return 0
     if not argv:
-        print(__doc__, file=sys.stderr)
+        print(doc, file=sys.stderr)
         return 2
     code = 0
     for root in argv:
         try:
             res = subprocess.run(
-                [sys.executable, __file__, "--one",
+                [sys.executable, script, "--one",
                  str(Path(root).resolve())], capture_output=True, text=True,
                 timeout=ROOT_TIMEOUT_S)
             out = res.stdout.strip().splitlines()
@@ -155,4 +158,4 @@ def main(argv) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(run_roots(sys.argv[1:], __file__, measure, __doc__))
