@@ -5,8 +5,9 @@
 
 Phases, each printed as one JSON line; any failure exits non-zero:
 
-1. build    — compile every CUDA source (one nvcc each, all at once) and
-              record the card (``nvidia-smi`` name and power limit).
+1. build    — compile every CUDA source (one nvcc each, all at once: the
+              GEMM, flash attention and the calibration probes) and record
+              the card (``nvidia-smi`` name and power limit).
 2. gemm     — the GEMM kernel against its plain version on the card: the
               phi4-mini step shapes at M = 4 and 512 with the path's
               epilogues, gelu/silu/bias at one shape each, forced configs
@@ -22,6 +23,12 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               the model passes it (a transposed view); S = 40, shorter
               than a q block; every pair of the block menu; bf16.  Every
               case launches twice and must repeat bitwise.
+   probe    — the three calibration probe kernels (``csrc/probes.cu``)
+              against their plain versions at the calibration sweeps'
+              shapes: the stream read at each level's window and the issue
+              sweep's, the wgmma chain in every dtype, the wave grid at
+              one wave, the C / C + 1 cliff and two waves.  Checksums must
+              be equal and two launches bitwise equal.
    expert_gemm — the grouped GEMM kernel (the same source, the expert axis
               in the work space) against its plain version: qwen3-moe's
               three prefill expert GEMMs at capacity 40 and 32 with their
@@ -58,7 +65,27 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               qwen3-moe at their largest edge) its selected blocks, grid
               and ``model_ms``, and every menu pair's time beside its
               price.
-
+7. calib    — ``fit_topology(GPU_H100_LIKE, TorchDevice())`` with no
+              degraded mode: the probe kernels' sweeps on the card, every
+              fitted field beside its preset value with its residual, the
+              static share and the C / C + 1 wave cliff; the artifact is
+              saved under ``experiments/calib/`` and must reload through
+              the guarded loader undegraded.
+   fidelity — the exhaustive-autotune oracle (pruned, as the reference's
+              default) on phi4-mini's served GEMM shapes, M in {4, 512} x
+              (N, K) in {(3072, 3072), (8192, 3072), (3072, 8192)}, bf16 in
+              and f32 out, every candidate timed by the GEMM kernel: the
+              preset's and the calibrated topology's selections against the
+              oracle's argmin.  Every candidate measured must first agree
+              with the plain product of its shape.
+   residual — ``rows_from_sweep`` (top 12 a shape) on the same shapes, a
+              corrector fitted from those rows and its picks against the
+              oracle (scored on the shapes it was fitted on).
+8. serve_calibrated — phase 4's traffic on phi4-mini-3.8b at full width
+              and depth, served against the calibrated artifact with
+              ``--trace-dir``: both kernels must launch with no rung or
+              retry; the warm and decode drift rows are counted and must
+              feed ``rows_from_drift``.
 The line before the last is the kernels summary; the last line is
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or run from a
 directory without the repository, it exits non-zero and prints no result.
@@ -114,30 +141,8 @@ def time_ms(fn, calls: int = 10, reps: int = 5) -> float:
     (after three warm-up calls), the graph replayed ``reps`` times between
     CUDA events, the median replay divided by ``calls``.  The graph takes
     the host's launch overhead out of the time."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        graph.replay()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e) / calls)
-    times.sort()
-    return times[len(times) // 2]
+    from repro_torch.calib.device import graph_time
+    return graph_time(fn, calls, reps) * 1e3
 
 
 def main() -> int:
@@ -156,6 +161,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import matmul as kmm
+    from repro_torch.kernels import probes as kpr
 
     dev = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -182,6 +188,10 @@ def main() -> int:
     max_err = {"matmul": gemm_phase(torch, dev, kmm),
                "flash_attention": flash_phase(torch, dev, kfa),
                "expert_matmul": expert_gemm_phase(torch, dev, kmm)}
+    probe_times = probe_phase(torch, dev, kpr)
+    # the probe phase demands checksums equal to the plain versions'
+    max_err.update(dict.fromkeys(("stream_read", "mma_chain", "wave_grid"),
+                                 0.0))
     model, params, launches, edges = serve_phase(torch, dev, kmm, kfa)
     trace_phase(torch, dev, model, params)
     del model, params
@@ -193,6 +203,12 @@ def main() -> int:
     _free(torch)
     times = times_phase(torch, dev, kmm, kfa, edges, moe_capacity, moe_edge)
     launches["expert_matmul"] = moe_launches["expert_matmul"]
+    calib, probe_launches = calib_phase(torch, dev, kpr)
+    launches.update(probe_launches)
+    times.update(probe_times)
+    memo = fidelity_phase(torch, dev, kmm, calib)
+    residual_phase(memo, calib)
+    serve_calibrated_phase(torch, dev, kmm, kfa, calib)
 
     entries = []
     for key, base, source, replaces in (
@@ -205,7 +221,16 @@ def main() -> int:
              "src/repro/kernels/flash_attention.py:136"),
             ("expert_matmul@prefill", "expert_matmul",
              "src/repro_torch/csrc/matmul.cu",
-             "src/repro/kernels/ops.py:308")):
+             "src/repro/kernels/ops.py:308"),
+            ("stream_read@calib", "stream_read",
+             "src/repro_torch/csrc/probes.cu",
+             "src/repro/calib/device.py:144"),
+            ("mma_chain@calib", "mma_chain",
+             "src/repro_torch/csrc/probes.cu",
+             "src/repro/calib/device.py:181"),
+            ("wave_grid@calib", "wave_grid",
+             "src/repro_torch/csrc/probes.cu",
+             "src/repro/calib/device.py:208")):
         t = times[key]
         entries.append({"name": key, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[base],
@@ -601,17 +626,17 @@ def plain_path(kmm, kfa):
             mock.patch.object(kfa, "_launch_cuda", attn))
 
 
-def _serve(torch, dev, kmm, kfa, arch):
+def _serve(torch, dev, kmm, kfa, arch, extra=(), phase=None):
     """Random params from the seed, then ``run_serving`` on the phase's
-    traffic with every launch count zeroed right before and read right
-    after.  Fails unless every request finished with in-vocabulary tokens,
-    with no fallback rung and no launch retry."""
+    traffic (plus ``extra`` flags) with every launch count zeroed right
+    before and read right after.  Fails unless every request finished with
+    in-vocabulary tokens, with no fallback rung and no launch retry."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import build_parser, run_serving
     from repro_torch.nn.model import Model
     from repro_torch.obs import metrics as obs_metrics
 
-    args = build_parser().parse_args(["--arch", arch, *SERVE_ARGS])
+    args = build_parser().parse_args(["--arch", arch, *SERVE_ARGS, *extra])
     cfg = get_config(args.arch)
     model = Model(cfg, device=dev)
     t0 = time.perf_counter()
@@ -643,7 +668,7 @@ def _serve(torch, dev, kmm, kfa, arch):
                   if m.name == "launch_retries")
     obs_metrics.enable_metrics(prev_metrics)
     results = out["results"]
-    emit({"phase": "serve" if not cfg.is_moe else "serve_moe",
+    emit({"phase": phase or ("serve" if not cfg.is_moe else "serve_moe"),
           "arch": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "requests": len(results),
           "edges": out["edges"], "bucket_hits": out["bucket_hits"],
@@ -1131,6 +1156,415 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity, moe_edge):
           "call", "rows": per_shape,
           "summary": times})
     return times
+
+
+# ---------------------------------------------------------------------------
+# The calibration slice: the probe kernels, the fit, the oracle, the
+# residual corrector and serving against the calibrated topology.
+# ---------------------------------------------------------------------------
+
+# Published dense peaks of the H100 SXM by operand type (the bound of the
+# probe kernels' operations): tensor cores in bf16/f16, TF32 (the "float32"
+# of the topology), fp8 and int8; f32 adds outside the tensor cores.
+PEAKS = {"bfloat16": 989e12, "float16": 989e12, "float32": 495e12,
+         "float8_e4m3fn": 1979e12, "int8": 1979e12}
+F32_SIMT_PEAK = 67e12
+ATOM_FLOPS = 2.0 * 64 * 64 * 16      # gpu_h100_like's mxu_shape
+
+
+def _probe_shapes():
+    """The first point of every calibration sweep at gpu_h100_like, sized
+    as ``calib/probes.py`` sizes it: (name, nbytes, window, n_chunks) for
+    the stream read, (dtype, n_atoms, n_parallel) for the wgmma chains,
+    the wave unit's atoms."""
+    from repro_torch.calib import probes as cpr
+    from repro_torch.core.hardware import GPU_H100_LIKE as base
+    streams = []
+    for idx, name, window in cpr.level_windows(base):
+        bw = base.levels[idx].bandwidth
+        streams.append((f"stream:{name}",
+                        float(max(2 * window,
+                                  int(cpr.STREAM_TARGETS_S[0] * bw))),
+                        window, 64))
+    issue_window = max(base.staging.budget() // 2, 1)
+    streams.append(("issue", float(2 * issue_window), issue_window,
+                    max(1, int(cpr.ISSUE_TARGETS_S[0] / base.dma_fixed))))
+    nb = float(int(cpr.LATENCY_TARGETS_S[0] * base.backing.bandwidth))
+    streams.append(("latency", nb, int(nb), 1))
+    lanes = base.total_cores()
+    chains = [(dt, max(16 * lanes, int(cpr.COMPUTE_TARGETS_S[0]
+                                       * base.flops(dt) / ATOM_FLOPS)),
+               lanes) for dt in sorted(base.peak_flops)]
+    return streams, chains, cpr._wave_unit_atoms(base), lanes
+
+
+def probe_phase(torch, dev, kpr):
+    """The probe kernels against their plain versions at the sweeps'
+    shapes (checksums equal, two launches bitwise equal); then each timed
+    at one shape for the kernels line.  Returns those times."""
+    streams, chains, unit_atoms, lanes = _probe_shapes()
+    rows = []
+
+    def check(kind, shape, got, again, want):
+        ok = bool(torch.equal(got, want)) and bool(torch.equal(got, again))
+        rows.append({"kernel": kind, "shape": shape,
+                     "checksum": got.tolist(), "plain": want.tolist(),
+                     "ok": ok} if got.dim() == 0 else
+                    {"kernel": kind, "shape": shape,
+                     "checksum_sum": int(got.sum()),
+                     "plain_sum": int(want.sum()), "ok": ok})
+        if not ok:
+            emit({"phase": "probe", "cases": rows})
+            fail(f"{kind} {shape}: the kernel's checksum differs from its "
+                 f"plain version's or between two launches")
+
+    xs = {}
+    for name, nbytes, window, n_chunks in streams:
+        x = xs[name] = kpr.stream_data(window, dev)
+        got = kpr.stream_read(x, nbytes, window, n_chunks)
+        again = kpr.stream_read(x, nbytes, window, n_chunks)
+        want = kpr.stream_read_plain(x, nbytes, window, n_chunks)
+        torch.cuda.synchronize()
+        check("stream_read", [name, nbytes, window, n_chunks], got, again,
+              want)
+    ops = {}
+    for dt, n_atoms, n_par in chains:
+        a, b = ops[dt] = kpr.mma_operands(
+            dt, dev, torch.Generator(device=dev).manual_seed(21))
+        got = kpr.mma_chain(a, b, n_atoms, n_par)
+        again = kpr.mma_chain(a, b, n_atoms, n_par)
+        want = kpr.mma_chain_plain(a, b, n_atoms, n_par)
+        torch.cuda.synchronize()
+        check("mma_chain", [dt, n_atoms, n_par], got, again, want)
+    a, b = ops["bfloat16"]
+    for units in (lanes, lanes + 1, 2 * lanes):
+        got = kpr.wave_grid(a, b, units, unit_atoms)
+        again = kpr.wave_grid(a, b, units, unit_atoms)
+        want = kpr.wave_grid_plain(a, b, units, unit_atoms)
+        torch.cuda.synchronize()
+        check("wave_grid", ["bfloat16", units, unit_atoms], got, again, want)
+
+    # Times at one shape each: the HBM stream sweep's first point, the
+    # bf16 compute sweep's first point, one wave.
+    name, nbytes, window, n_chunks = streams[[s[0] for s in streams].index(
+        "stream:hbm")]
+    x = xs[name]
+    dt, n_atoms, n_par = chains[[c[0] for c in chains].index("bfloat16")]
+    counts = {f.__name__: f.launches for f in (kpr.stream_read,
+                                                kpr.mma_chain, kpr.wave_grid)}
+    cases = {
+        "stream_read@calib": (
+            lambda: kpr.stream_read(x, nbytes, window, n_chunks),
+            lambda: kpr.stream_read_plain(x, nbytes, window, n_chunks),
+            # every f32 read is one add: bound by adds at the f32 rate (the
+            # window itself, read once, is a few µs of HBM at most)
+            (window + 8) / HBM_BW, nbytes / 4 / F32_SIMT_PEAK,
+            {"what": f"{name}: {nbytes:g} B through a {window} B window in "
+                     f"{n_chunks} fetches",
+             "level_bound_ms": nbytes / 3.35e12 * 1e3}),
+        "mma_chain@calib": (
+            lambda: kpr.mma_chain(a, b, n_atoms, n_par),
+            lambda: kpr.mma_chain_plain(a, b, n_atoms, n_par),
+            2 * 64 * 128 / HBM_BW, n_atoms * ATOM_FLOPS / PEAKS[dt],
+            {"what": f"{dt}: {n_atoms} atoms of 64x64x16 over {n_par} CTAs "
+                     f"of {kpr.CHAINS_PER_CTA} chains"}),
+        "wave_grid@calib": (
+            lambda: kpr.wave_grid(a, b, lanes, unit_atoms),
+            lambda: kpr.wave_grid_plain(a, b, lanes, unit_atoms),
+            2 * 64 * 128 / HBM_BW,
+            lanes * unit_atoms * ATOM_FLOPS / PEAKS["bfloat16"],
+            {"what": f"bfloat16: one wave of {lanes} units of {unit_atoms} "
+                     f"atoms"}),
+    }
+    times = {}
+    for key, (kern, plain, t_bytes, t_ops, extra) in cases.items():
+        times[key] = {"ms": time_ms(kern), "plain_ms": time_ms(plain, calls=2,
+                                                              reps=3),
+                      "library_ms": None,
+                      "bound_ms": max(t_bytes, t_ops) * 1e3,
+                      "bound_by": "bytes" if t_bytes >= t_ops
+                      else "operations", **extra}
+    for f in (kpr.stream_read, kpr.mma_chain, kpr.wave_grid):
+        f.launches = counts[f.__name__]          # timing launches
+    emit({"phase": "probe", "equal": "checksums equal to the plain "
+          "versions' (integer data, exact) and two launches bitwise equal",
+          "cases": rows, "times": times})
+    return times
+
+
+def _preset_value(base, key):
+    if key.startswith("levels."):
+        return next(l.bandwidth for l in base.levels
+                    if l.name == key.split(".")[1])
+    if key.startswith("peak_flops."):
+        return base.peak_flops[key.split(".", 1)[1]]
+    if key == "hbm_latency":
+        return base.backing.latency
+    return getattr(base, key)
+
+
+def calib_phase(torch, dev, kpr):
+    """fit_topology on the card, fail-fast; returns (result, reloaded
+    topology, artifact path) and the probe kernels' launches in the fit."""
+    from repro_torch.calib import TorchDevice, fit_topology
+    from repro_torch.core.hardware import GPU_H100_LIKE as base
+    from repro_torch.core.topology import (load_calibrated_topology_guarded,
+                                           topology_fingerprint)
+    counters = {"stream_read": kpr.stream_read, "mma_chain": kpr.mma_chain,
+                "wave_grid": kpr.wave_grid}
+    device = TorchDevice()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = fit_topology(base, device, allow_degraded=False)
+    seconds = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    out_dir = ROOT / "experiments" / "calib"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "gpu_h100_like.h100.topo.json"
+    res.save(str(path))
+    topo, prov = load_calibrated_topology_guarded(str(path), base)
+    fields = {k: {"preset": _preset_value(base, k), "fitted": v,
+                  "fitted_over_preset": v / _preset_value(base, k),
+                  "residual": res.residuals[k]}
+              for k, v in sorted(res.fitted.items())}
+    wave = res.probes["wave"].params
+    emit({"phase": "calib", "device": device.name, "seconds": seconds,
+          "fields": fields, "static_share": res.static_share,
+          "wave_cliff": {"units": [wave["cliff_units"],
+                                   wave["cliff_units"] + 1],
+                         "seconds": [wave["cliff_before_s"],
+                                     wave["cliff_after_s"]]},
+          "n_dropped": {k: sw.params["n_dropped"]
+                        for k, sw in res.probes.items()},
+          "samples": {k: sw.to_dict()["samples"]
+                      for k, sw in res.probes.items()},
+          "launches": launches, "artifact": str(path.relative_to(ROOT)),
+          "fingerprint": topology_fingerprint(res.topology),
+          "reloaded_fingerprint": topology_fingerprint(topo),
+          "reload_degraded": prov.get("degraded") or None})
+    if prov.get("degraded") or topology_fingerprint(topo) != \
+            topology_fingerprint(res.topology):
+        fail(f"the calibrated artifact did not reload clean "
+             f"({prov.get('degraded')})")
+    if min(launches.values()) <= 0:
+        fail(f"a probe kernel did not launch in the fit ({launches})")
+    bad = {k: v for k, v in res.fitted.items()
+           if not math.isfinite(v) or v <= 0}
+    if bad or res.degraded:
+        fail(f"fitted fields out of range {bad} or degraded {res.degraded}")
+    return (res, topo, path), launches
+
+
+FIDELITY_SHAPES = [(f"phi4/M{M}/{N}x{K}", M, N, K) for M in (4, 512)
+                   for N, K in ((3072, 3072), (8192, 3072), (3072, 8192))]
+
+
+class _CheckedDevice:
+    """The card's TorchDevice with ``gemm_time`` memoised by (problem,
+    config): before a candidate's first timing its output is held to one
+    plain product of the shape (tests/test_kernels.py:26-27).  A candidate
+    that fails to launch is recorded, and fails the phase."""
+
+    def __init__(self, torch, dev, kmm, inner):
+        self.torch, self.dev, self.kmm, self.inner = torch, dev, kmm, inner
+        self.name = inner.name
+        self.times = {}
+        self.errors = []
+        self.checked = 0
+        self.worst_err = 0.0
+        self._ref = None
+
+    def gemm_time(self, p, t):
+        key = (p, t)
+        if key not in self.times:
+            try:
+                self._check(p, t)
+                self.times[key] = self.inner.gemm_time(p, t)
+            except RuntimeError as e:
+                self.errors.append(f"{p.M}x{p.N}x{p.K} {t}: {e}")
+                raise
+        return self.times[key]
+
+    def _check(self, p, t):
+        from repro_torch.kernels import ops
+        torch = self.torch
+        if self._ref is None or self._ref[0] != p:
+            g = torch.Generator(device=self.dev).manual_seed(17)
+            a, b = (torch.randn(shape, generator=g, device=self.dev).to(
+                getattr(torch, p.in_dtype)) for shape in ((p.M, p.K),
+                                                          (p.K, p.N)))
+            want = self.kmm.matmul_plain(
+                a, b, t, out_dtype=getattr(torch, p.out_dtype)).float()
+            self._ref = (p, a, b, want)
+        _, a, b, want = self._ref
+        n0 = self.kmm.tiled_matmul.launches
+        got = ops.matmul(a, b, out_dtype=getattr(torch, p.out_dtype),
+                         config=t)
+        self.kmm.tiled_matmul.launches = n0      # checks do not count
+        rtol, atol = gemm_tol(a.dtype, p.K)
+        err = (got.float() - want).abs()
+        if not bool(torch.isfinite(got).all()) or \
+                not bool((err <= atol + rtol * want.abs()).all()):
+            emit({"phase": "fidelity", "failed_candidate": str(t),
+                  "shape": [p.M, p.N, p.K], "max_abs_err": float(err.max())})
+            fail(f"candidate {t} at {p.M}x{p.N}x{p.K} disagrees with the "
+                 f"plain product (max abs err {float(err.max())})")
+        self.checked += 1
+        self.worst_err = max(self.worst_err, float(err.max()))
+
+
+def fidelity_phase(torch, dev, kmm, calib):
+    """The pruned exhaustive oracle on the served shapes: the preset's and
+    the calibrated selection against the measured argmin."""
+    import numpy as np
+    from repro_torch.calib import TorchDevice, fidelity_row, oracle_best
+    from repro_torch.core.hardware import GPU_H100_LIKE as base
+    from repro_torch.core.latency import GemmProblem, score_candidates
+    from repro_torch.core.selector import candidate_tiles, select_gemm_config
+    res, topo, _ = calib
+    memo = _CheckedDevice(torch, dev, kmm, TorchDevice())
+    memo.oracle = {}
+    rows = []
+    t_all = time.perf_counter()
+    for name, M, N, K in FIDELITY_SHAPES:
+        t0 = time.perf_counter()
+        row = fidelity_row(base, name, M, N, K, memo, prune=True)
+        p = GemmProblem(M=M, N=N, K=K)
+        cands = candidate_tiles(p, base)
+        order = list(np.argsort(score_candidates(p, cands, base),
+                                kind="stable"))
+        _, _, pruned = oracle_best(p, base, memo, cands, prune=True,
+                                   order=order)
+        csel = select_gemm_config(M, N, K, hw=topo).config
+        cs = memo.gemm_time(p, csel)
+        ccands = candidate_tiles(p, topo)
+        cscores = score_candidates(p, ccands, topo)
+        oracle_t = next(t for t in cands if str(t) == row.oracle)
+        crank = 1 + int(np.sum(cscores < cscores[ccands.index(oracle_t)]))
+        memo.oracle[(M, N, K)] = row.oracle_s
+        rows.append({
+            "shape": name, "M": M, "N": N, "K": K,
+            "candidates": row.n_candidates,
+            "measured": row.n_candidates - pruned, "pruned": pruned,
+            "preset_selection": row.selected,
+            "preset_ms": row.selected_s * 1e3,
+            "oracle": row.oracle, "oracle_ms": row.oracle_s * 1e3,
+            "fidelity": row.fidelity,
+            "oracle_model_rank": row.oracle_model_rank,
+            "calibrated_selection": str(csel),
+            "calibrated_ms": cs * 1e3,
+            "calibrated_fidelity": row.oracle_s / cs,
+            "calibrated_oracle_rank": crank,
+            "seconds": time.perf_counter() - t0})
+    emit({"phase": "fidelity", "device": memo.name, "prune": True,
+          "timing": "TorchDevice: a CUDA graph of 5 calls after 3 warm-up "
+          "calls, median of 5 replays, per call (calib/device.py)",
+          "checked_candidates": memo.checked,
+          "worst_abs_err": memo.worst_err,
+          "tolerance": "tests/test_kernels.py:26-27 (bf16 in: rtol 3e-2, "
+          "atol 0.3*sqrt(K)) against one plain product a shape",
+          "rows": rows, "seconds": time.perf_counter() - t_all})
+    if memo.errors:
+        fail(f"candidates failed to launch: {memo.errors[:5]}")
+    return memo
+
+
+def residual_phase(memo, calib):
+    """A corrector fitted from silicon rows (the top 12 of every served
+    shape), and its picks against the oracle on those same shapes."""
+    from repro_torch.calib import (fit_residual, residual_pick,
+                                   rows_from_sweep)
+    from repro_torch.calib.residual import MIN_FIT_ROWS
+    from repro_torch.core.hardware import GPU_H100_LIKE as base
+    from repro_torch.core.latency import GemmProblem
+    shapes = [(M, N, K) for _, M, N, K in FIDELITY_SHAPES]
+    t0 = time.perf_counter()
+    rows = rows_from_sweep(base, memo, shapes, k=12)
+    if len(rows) < MIN_FIT_ROWS:
+        fail(f"{len(rows)} residual rows < {MIN_FIT_ROWS}")
+    corr = fit_residual(rows, base, sources=["chip_smoke: top-12 of the "
+                                              "served GEMM shapes"])
+    path = ROOT / "experiments" / "calib" / "gpu_h100_like.h100.residual.json"
+    corr.save(str(path))
+    picks = []
+    for M, N, K in shapes:
+        p = GemmProblem(M=M, N=N, K=K)
+        pick, _ = residual_pick(corr, p, base)
+        s = memo.gemm_time(p, pick)
+        picks.append({"shape": [M, N, K], "pick": str(pick),
+                      "pick_ms": s * 1e3,
+                      "oracle_ms": memo.oracle[(M, N, K)] * 1e3,
+                      "fidelity": memo.oracle[(M, N, K)] / s})
+    emit({"phase": "residual", "rows": len(rows),
+          "fingerprint": corr.fingerprint,
+          "model_digest": corr.content_fingerprint(),
+          "train_rmse_log": corr.provenance["train_rmse_log"],
+          "train_mean_abs_log_ratio":
+              corr.provenance["train_mean_abs_log_ratio"],
+          "artifact": str(path.relative_to(ROOT)),
+          "scored_on": "the shapes the corrector was fitted on",
+          "picks": picks, "seconds": time.perf_counter() - t0})
+    if memo.errors:
+        fail(f"candidates failed to launch: {memo.errors[:5]}")
+
+
+def serve_calibrated_phase(torch, dev, kmm, kfa, calib):
+    """Phase 4's traffic served against the calibrated artifact, traced:
+    drift rows from the warm selections and the decode windows."""
+    import statistics
+    from repro_torch.calib import rows_from_drift
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.bucketing import step_gemms
+    from repro_torch.core.hardware import GPU_H100_LIKE
+    from repro_torch.core.selector import select_gemm_config
+    from repro_torch.core.topology import topology_fingerprint
+    from repro_torch.kernels import ops
+    res, topo, path = calib
+    trace_dir = ROOT / "experiments" / "calib" / "serve_trace"
+    try:
+        args, model, params, out, launches = _serve(
+            torch, dev, kmm, kfa, "phi4-mini-3.8b",
+            extra=["--topology", str(path), "--trace-dir", str(trace_dir)],
+            phase="serve_calibrated_run")
+    finally:
+        ops.set_default_hardware(None)
+    del model, params
+    _free(torch)
+    drift = [json.loads(line) for line in
+             (trace_dir / "drift.jsonl").read_text().splitlines()]
+    warm = [r for r in drift if r["site"] == "warm_gemm"]
+    decode = [r for r in drift if r["site"] == "decode_step"]
+    drows, dstats = rows_from_drift(str(trace_dir / "drift.jsonl"),
+                                    fingerprint=topology_fingerprint(topo))
+    cfg = get_config("phi4-mini-3.8b")
+    gemms = step_gemms(cfg.d_model, cfg.d_ff,
+                       kv_dim=cfg.num_kv_heads * cfg.head_dim,
+                       vocab=cfg.vocab_size,
+                       swiglu=cfg.activation == "swiglu")
+    shapes = [(m, n, k) for m in sorted({*out["edges"], args.batch})
+              for n, k in gemms]
+    differ = [[m, n, k] for m, n, k in shapes
+              if select_gemm_config(m, n, k, hw=topo).config
+              != select_gemm_config(m, n, k, hw=GPU_H100_LIKE).config]
+    emit({"phase": "serve_calibrated", "topology": out["topology"],
+          "degraded": out["degraded"],
+          "warm_gemm_rows": len(warm), "decode_rows": len(decode),
+          "warm_median_fidelity": statistics.median(
+              r["fidelity"] for r in warm) if warm else None,
+          "decode_median_fidelity": statistics.median(
+              r["fidelity"] for r in decode) if decode else None,
+          "rows_from_drift": len(drows), "rows_from_drift_stats": dstats,
+          "step_gemms": len(shapes), "selections_differ": len(differ),
+          "differing_shapes": differ,
+          "trace_files": sorted(p.name for p in trace_dir.iterdir()),
+          "launches": launches})
+    if out["degraded"]:
+        fail(f"the calibrated artifact was rejected: {out['degraded']}")
+    if not warm or not decode or len(drows) != len(warm):
+        fail(f"drift rows: {len(warm)} warm, {len(decode)} decode, "
+             f"{len(drows)} read back")
+
 
 
 if __name__ == "__main__":

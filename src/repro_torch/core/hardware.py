@@ -257,20 +257,39 @@ def validate_measured(field_name: str, value) -> None:
 def calibrate(
     base: Topology,
     microbenchmarks: Optional[Mapping[str, Callable[[], float]]] = None,
+    *,
+    device=None,
+    **fit_kwargs,
 ) -> Topology:
     """Calibration entry point (paper contribution #2 / §V-E retargeting).
 
-    ``microbenchmarks`` maps field names — real :class:`Topology` fields or
-    the legacy flat aliases (``hbm_bandwidth`` …) — to zero-arg callables
-    returning a measured value.  Unknown names raise ``KeyError`` listing
-    what is calibratable; non-finite or non-positive measurements raise
-    ``ValueError`` naming the field (:func:`validate_measured`).  The
-    probe → fit pipeline (``device=`` in the JAX package) is not ported yet.
+    Two modes:
+
+    * ``microbenchmarks`` maps field names — real :class:`Topology` fields
+      or the legacy flat aliases (``hbm_bandwidth`` …) — to zero-arg
+      callables returning a measured value.  Unknown names raise
+      ``KeyError`` listing what is calibratable; non-finite or
+      non-positive measurements raise ``ValueError`` naming the field
+      (:func:`validate_measured`).
+    * ``device`` (a :class:`repro_torch.calib.device.Device`) delegates to the
+      full probe → fit pipeline (``repro_torch.calib.fit.fit_topology``), which
+      measures per-level stream bandwidths, per-dtype issue rates, and the
+      wave/launch/issue overheads, returning the fitted topology.  Pass
+      ``fit_kwargs`` (e.g. ``dtypes=...``) through to the fit.  Use
+      ``repro_torch.calib.fit.fit_topology`` directly when you also want the
+      provenance artifact.
     """
+    if device is not None:
+        if microbenchmarks:
+            raise ValueError(
+                "pass either microbenchmarks or device=, not both")
+        from repro_torch.calib.fit import fit_topology
+        return fit_topology(base, device, **fit_kwargs).topology
     if microbenchmarks is None:
         raise ValueError(
-            "calibrate() needs a microbenchmarks mapping; calling it "
-            "without one would silently return the uncalibrated preset")
+            "calibrate() needs either a microbenchmarks mapping or a "
+            "device= to probe; calling it with neither would silently "
+            "return the uncalibrated preset")
     known = calibration_field_names(base)
     measured = {}
     for field_name, bench in (microbenchmarks or {}).items():

@@ -30,8 +30,12 @@ until the boundary, where the
 :class:`~repro_torch.runtime.fault_tolerance.StragglerMonitor` records the
 device-step time alongside the host dispatch time.
 
-Not ported yet: the simulator-priced ``warm_gemm`` drift rows and the
-residual corrector of the reference engine.
+With a :class:`~repro_torch.obs.drift.DriftMonitor` installed, ``warm_start``
+records one ``warm_gemm`` row per warm selection (its priced latency
+against the event simulator, with config and topology fingerprint: the
+residual corrector's training rows) and the decode loop one
+``decode_step`` row per sync window (the priced step against the measured
+one), both without a host sync of their own.
 """
 from __future__ import annotations
 
@@ -43,11 +47,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.bucketing import BucketPlan, step_gemms
-from repro_torch.core.selector import select_gemm_config_batch
+from repro_torch.core.selector import (get_residual_corrector,
+                                       select_gemm_config_batch)
+from repro_torch.core.simulator import simulate_gemm
+from repro_torch.core.topology import topology_fingerprint
 from repro_torch.kernels import ops
 from repro_torch.nn.model import Model
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.drift import get_drift_monitor, record_step_drift
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.runtime.fault_tolerance import (PreemptionGuard,
                                                  StragglerMonitor, retry)
@@ -177,6 +185,9 @@ class ServingEngine:
         # stats counters with it, and merge-publishes it into the
         # process-global registry when metrics are enabled.
         self.run_registry: MetricsRegistry = MetricsRegistry()
+        # Modeled one-decode-step latency at M = max_batch (the drift
+        # monitor's prediction for each sync window); filled by warm_start.
+        self.predicted_step_s: Optional[float] = None
 
     # -- queue -------------------------------------------------------------
 
@@ -217,9 +228,29 @@ class ServingEngine:
                  else {int(r.prompt.size) for r in self._queue})
         ms.add(self.max_batch)                # the decode step's M extent
         shapes = [(m, n, k) for m in sorted(ms) for (n, k) in gemms]
+        hw = ops.get_default_hardware()
         with obs_trace.span("warm_start", cat="engine", track="engine",
                             args={"n_shapes": len(shapes)}):
-            select_gemm_config_batch(shapes, hw=ops.get_default_hardware())
+            sels = select_gemm_config_batch(shapes, hw=hw)
+        # The decode step's modeled latency: the summed priced latency of
+        # its step GEMMs at M = max_batch — the drift monitor's prediction
+        # for every measured sync window.
+        self.predicted_step_s = sum(
+            s.predicted.total for s, (m, _n, _k) in zip(sels, shapes)
+            if m == self.max_batch)
+        # Per-GEMM drift rows (site "warm_gemm"): when a drift monitor is
+        # installed, check every warm selection's priced latency against
+        # the event simulator.  Unlike the whole-step decode rows (config
+        # None), these carry a config AND the topology fingerprint — the
+        # residual corrector's training set (DESIGN.md §12).
+        mon = get_drift_monitor()
+        if mon is not None:
+            for s in sels:
+                try:
+                    meas = simulate_gemm(s.problem, s.config, hw).time
+                except (ValueError, RuntimeError):
+                    continue
+                mon.record_selection(s, meas, site="warm_gemm")
         return len(shapes)
 
     # -- serving loop ------------------------------------------------------
@@ -269,7 +300,7 @@ class ServingEngine:
     @torch.inference_mode()
     def run(self) -> Dict:
         """Serve the queue to completion (or preemption drain); returns the
-        stats dict (DESIGN.md §10's schema, less the corrector fields)."""
+        stats dict (DESIGN.md §10's schema)."""
         B = self.max_batch
         dev = self.device
         slots = [_Slot() for _ in range(B)]
@@ -286,6 +317,10 @@ class ServingEngine:
         c_padded = reg.counter("engine_padded_rows")
         tr = obs_trace.get_tracer()
         prefill_clock = _PrefillClock(dev)
+        drift_on = (self.predicted_step_s is not None
+                    and get_drift_monitor() is not None)
+        topo_fp = (topology_fingerprint(ops.get_default_hardware())
+                   if drift_on else "")
         dispatch_acc: List[float] = []
         drained = False
         step = 0
@@ -409,6 +444,12 @@ class ServingEngine:
                         obs_metrics.set_gauge(
                             "engine_slot_occupancy",
                             sum(1 for s in slots if s.active) / B)
+                    if drift_on:
+                        record_step_drift(
+                            site="decode_step", shape=(B,),
+                            predicted_s=self.predicted_step_s,
+                            measured_s=device_s, topo=topo_fp,
+                            step=step, dispatch_s=dispatch_s)
         self._sync()
         t_prefill = prefill_clock.settle()
         t_decode = time.perf_counter() - t_run0 - t_prefill
@@ -418,6 +459,12 @@ class ServingEngine:
                 - (t_prefill - pref_at_sync)
             self.straggler.record(
                 window / rem, dispatch_s=sum(dispatch_acc[-rem:]) / rem)
+            if drift_on:
+                record_step_drift(
+                    site="decode_step", shape=(B,),
+                    predicted_s=self.predicted_step_s,
+                    measured_s=window / rem, topo=topo_fp,
+                    step=step, dispatch_s=sum(dispatch_acc[-rem:]) / rem)
 
         # One transfer for the whole run: stack the device-side step log.
         decoded = (torch.stack(tok_log).cpu().numpy() if tok_log
@@ -467,4 +514,5 @@ class ServingEngine:
                                    / len(self.straggler.times)
                                    if self.straggler.times else 0.0),
             "queued_left": len(self._queue),
+            "residual_active": get_residual_corrector() is not None,
         }

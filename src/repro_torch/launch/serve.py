@@ -24,14 +24,18 @@ plan prices every family's step with ``step_gemms`` (a d_model-wide q
 projection and a d_ff MLP), and MoE prompts are admitted into buckets: pad
 tokens raise the token count and so the expert capacity.  ``--topology``
 loads a calibrated-topology artifact through the guarded loader (corrupt
-artifacts quarantine, serving continues on the stock preset).
+artifacts quarantine, serving continues on the stock preset);
+``--residual`` installs a residual corrector, loaded guarded against the
+topology actually served; ``--trace-dir`` writes the run's telemetry.
 ``run_serving`` is the library entry point; ``main`` is the CLI shim.
 
-Not ported yet: ``--tp``, ``--trace-dir`` and ``--residual``.
+Tensor parallelism (the reference's ``--tp``) comes with the distributed
+slice.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Callable, Dict, Optional
 
@@ -41,12 +45,19 @@ import torch
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core.bucketing import plan_buckets, step_gemms
 from repro_torch.core.hardware import GPU_H100_LIKE
-from repro_torch.core.selector import load_selection_cache
+from repro_torch.core.selector import (get_residual_corrector,
+                                       load_selection_cache,
+                                       select_gemm_config,
+                                       set_residual_corrector)
+from repro_torch.core.simulator import simulate_gemm
 from repro_torch.core.topology import load_calibrated_topology_guarded
 from repro_torch.kernels import ops
 from repro_torch.launch.engine import ServingEngine
 from repro_torch.nn.model import Model, resolve_device
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.drift import DriftMonitor, set_drift_monitor
+from repro_torch.obs.perfetto import export_chrome_trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -63,6 +74,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="calibrated-topology artifact to select against "
                          "(guarded load: corrupt artifacts quarantine and "
                          "fall back to the stock preset)")
+    ap.add_argument("--residual", default=None, metavar="PATH",
+                    help="residual-corrector artifact (repro/residual/v1) "
+                         "to re-price top-ranked candidates with (guarded "
+                         "load: corrupt artifacts quarantine, stale "
+                         "fingerprints are ignored; serving falls back to "
+                         "the pure analytical model)")
     ap.add_argument("--ragged", action="store_true",
                     help="draw ragged prompt lengths in "
                          "[prompt-len/2, prompt-len] and admit them into "
@@ -79,6 +96,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; there is no silent "
                          "fallback to the CPU")
+    ap.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="enable telemetry and write trace.json (Perfetto), "
+                         "metrics.prom, metrics.jsonl and drift.jsonl "
+                         "under DIR")
     return ap
 
 
@@ -96,9 +117,16 @@ def run_serving(args: argparse.Namespace, *,
     per-request arrays), ``drained``, ``steps``, ``retries``,
     ``stragglers``, timings, engine stats (``pad_fraction``,
     ``bucket_hits``, ``dispatch_s_mean``, ``device_step_s_mean``,
-    ``tokens_per_s``), the bucket ``edges`` and the topology served
-    against (plus ``degraded`` when the artifact was rejected)."""
+    ``tokens_per_s``), the bucket ``edges``, the topology served against
+    (plus ``degraded`` when the artifact was rejected) and the residual
+    corrector's digest (plus ``residual_degraded`` when it was rejected).
+
+    ``--trace-dir DIR`` installs the telemetry subsystem for the run and
+    writes ``trace.json`` (Perfetto, with the decode-step GEMMs' simulator
+    timelines), ``metrics.prom``, ``metrics.jsonl`` and ``drift.jsonl``
+    under DIR.  The stats dict is the same either way."""
     quiet = bool(getattr(args, "quiet", False))
+    trace_dir = getattr(args, "trace_dir", None)
 
     def say(msg: str) -> None:
         obs_trace.event("status", cat="serve", track="serve",
@@ -106,6 +134,65 @@ def run_serving(args: argparse.Namespace, *,
         if not quiet:
             print(msg)
 
+    prev_tracer = prev_mon = drift_mon = None
+    prev_metrics = False
+    # _run_serving installs the --residual corrector after the topology is
+    # known; restore whatever was there before, success or raise.
+    prev_res = get_residual_corrector()
+    if trace_dir:
+        os.makedirs(trace_dir, exist_ok=True)
+        prev_tracer = obs_trace.set_tracer(obs_trace.Tracer())
+        prev_metrics = obs_metrics.enable_metrics(True)
+        obs_metrics.get_registry().clear()
+        drift_mon = DriftMonitor(path=os.path.join(trace_dir,
+                                                   "drift.jsonl"))
+        prev_mon = set_drift_monitor(drift_mon)
+    try:
+        out = _run_serving(args, decode_fault=decode_fault, params=params,
+                           say=say, quiet=quiet)
+        if trace_dir:
+            _export_telemetry(trace_dir, args)
+        return out
+    finally:
+        set_residual_corrector(prev_res)
+        if trace_dir:
+            obs_trace.set_tracer(prev_tracer)
+            set_drift_monitor(prev_mon)
+            drift_mon.close()
+            obs_metrics.enable_metrics(prev_metrics)
+
+
+def _export_telemetry(trace_dir: str, args: argparse.Namespace) -> None:
+    """Write the run's telemetry artifacts: the Perfetto trace (measured
+    tracer spans + the decode-step GEMMs' modeled simulator timelines),
+    the Prometheus textfile, and a metrics JSONL snapshot.  The drift
+    JSONL streams during the run (``DriftMonitor``)."""
+    cfg = get_config(args.arch, smoke=args.smoke)
+    hw = ops.get_default_hardware()
+    sim_timelines = []
+    gemms = step_gemms(cfg.d_model, cfg.d_ff,
+                       kv_dim=cfg.num_kv_heads * cfg.head_dim,
+                       vocab=cfg.vocab_size,
+                       swiglu=cfg.activation == "swiglu")[:3]
+    for (n, k) in gemms:
+        sel = select_gemm_config(args.batch, n, k, hw=hw)
+        ev: list = []
+        simulate_gemm(sel.problem, sel.config, hw, events=ev)
+        sim_timelines.append((f"gemm {args.batch}x{n}x{k}", ev))
+    tracer = obs_trace.get_tracer()
+    export_chrome_trace(os.path.join(trace_dir, "trace.json"),
+                        tracer.spans if tracer is not None else [],
+                        sim_timelines)
+    reg = obs_metrics.get_registry()
+    reg.write_prometheus(os.path.join(trace_dir, "metrics.prom"))
+    reg.write_jsonl(os.path.join(trace_dir, "metrics.jsonl"),
+                    kind="serving", arch=args.arch)
+
+
+def _run_serving(args: argparse.Namespace, *,
+                 decode_fault: Optional[Callable[..., None]],
+                 params: Optional[Dict],
+                 say: Callable[[str], None], quiet: bool) -> Dict:
     device = resolve_device(getattr(args, "device", "cuda"))
     n_warm = load_selection_cache()            # $REPRO_SELECTION_CACHE
     if n_warm:
@@ -127,6 +214,27 @@ def run_serving(args: argparse.Namespace, *,
         else:
             say(f"[serve] serving against calibrated topology "
                 f"{topo.name}")
+
+    res_info: Dict = {"residual": None, "residual_degraded": None}
+    if getattr(args, "residual", None):
+        # Guarded load against the topology actually served (which the
+        # --topology block above may have just swapped in); run_serving's
+        # finally restores the previous corrector.
+        from repro_torch.calib.residual import load_residual_guarded
+        corr, rprov = load_residual_guarded(
+            args.residual, expect=ops.get_default_hardware())
+        if corr is None:
+            res_info["residual_degraded"] = rprov.get("degraded")
+            say(f"[serve] residual artifact rejected "
+                f"({rprov.get('degraded')}); serving on the pure "
+                f"analytical model")
+        else:
+            set_residual_corrector(corr)
+            res_info["residual"] = corr.content_fingerprint()
+            say(f"[serve] residual corrector active (digest "
+                f"{corr.content_fingerprint()}, top-{corr.top_f} "
+                f"re-pricing, fit on {corr.provenance.get('n_rows', '?')} "
+                f"drift rows)")
 
     cfg = get_config(args.arch, smoke=args.smoke)
     model = Model(cfg, device=device)
@@ -219,8 +327,10 @@ def run_serving(args: argparse.Namespace, *,
         "dispatch_s_mean": stats["dispatch_s_mean"],
         "device_step_s_mean": stats["device_step_s_mean"],
         "device": str(device),
+        "residual_active": stats["residual_active"],
         "results": results,
         **topo_info,
+        **res_info,
     }
 
 

@@ -6,8 +6,8 @@ on a named *track* (one Perfetto row: ``selection``, ``engine``, ``core3``,
 ``dma`` ...).  Span ids are a monotone counter, so ids sort in emission
 order; the clock is injectable, so a test with a fixed fake clock gets a
 byte-deterministic trace.  ``Tracer.to_json``/``from_json`` round-trip the
-full schema; the Chrome/Perfetto ``trace.json`` exporter
-(``obs/perfetto.py`` in the JAX package) is not ported yet.
+full schema; the Chrome/Perfetto ``trace.json`` exporter is
+:mod:`repro_torch.obs.perfetto`.
 
 Off by default: the module-global tracer is ``None`` until
 :func:`set_tracer` installs one.  The instrumentation helpers (:func:`span`,

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (dense and grouped GEMM, flash attention)
-against their plain versions, on the card.
+"""The port's CUDA kernels (dense and grouped GEMM, flash attention, the
+calibration probes) against their plain versions, on the card.
 
 Marked ``gpu``; each test skips on a host without CUDA.  The file imports
 only torch and the port, so it runs where JAX is not installed:
@@ -9,7 +9,8 @@ only torch and the port, so it runs where JAX is not installed:
 GEMM tolerances are ``tests/test_kernels.py``'s (f32 rtol 1e-5 /
 atol 1e-4·√K, bf16 rtol 3e-2 / atol 0.3·√K).  Attention compares bf16
 outputs at rtol 2e-2 / atol 1e-2, because the kernel rounds P to bf16
-before P·V where the plain version keeps it in f32.
+before P·V where the plain version keeps it in f32.  The probe kernels'
+checksums sum integers and must equal their plain versions' exactly.
 """
 import math
 
@@ -21,6 +22,7 @@ from repro_torch.core.latency import Epilogue, TileConfig
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import matmul as kmm
 from repro_torch.kernels import ops
+from repro_torch.kernels import probes
 
 
 @pytest.fixture
@@ -359,3 +361,51 @@ def test_selected_gemm_launches_the_kernel(cuda):
     want = a.float() @ w.float()
     rtol, atol = _tol(torch.bfloat16, 3072)
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
+
+
+# (nbytes, window, n_chunks): fetches shared by groups of CTAs, fetches
+# that wrap the window several times over the whole grid, four vectors a
+# fetch one CTA each (the issue sweep's shape), and windows larger than an
+# SM's shared memory (read through the L2 only), over the grid and in
+# groups.
+STREAM_CASES = [(1 << 20, 1 << 16, 8), (48 << 20, 116736, 16),
+                (233472, 116736, 3000), (3 << 20, 1 << 24, 2),
+                (600000, 466944, 5), (1 << 22, 1 << 20, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nbytes,window,n_chunks", STREAM_CASES, ids=str)
+def test_stream_probe_on_card(cuda, nbytes, window, n_chunks):
+    x = probes.stream_data(window, cuda)
+    n0 = probes.stream_read.launches
+    got = probes.stream_read(x, nbytes, window, n_chunks)
+    again = probes.stream_read(x, nbytes, window, n_chunks)
+    assert probes.stream_read.launches == n0 + 2
+    want = probes.stream_read_plain(x, nbytes, window, n_chunks)
+    assert int(got) == int(want) == int(again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(probes.PROBE_DTYPES))
+@pytest.mark.parametrize("n_atoms,n_parallel", [(1000, 132), (37, 3),
+                                                (2112, 132), (301971, 132)])
+def test_mma_probe_on_card(cuda, dtype, n_atoms, n_parallel):
+    a, b = probes.mma_operands(dtype, cuda,
+                               torch.Generator(device=cuda).manual_seed(1))
+    n0 = probes.mma_chain.launches
+    got = probes.mma_chain(a, b, n_atoms, n_parallel)
+    again = probes.mma_chain(a, b, n_atoms, n_parallel)
+    assert probes.mma_chain.launches == n0 + 2
+    want = probes.mma_chain_plain(a, b, n_atoms, n_parallel)
+    assert torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", list(probes.PROBE_DTYPES))
+def test_wave_probe_on_card(cuda, dtype):
+    a, b = probes.mma_operands(dtype, cuda,
+                               torch.Generator(device=cuda).manual_seed(2))
+    n0 = probes.wave_grid.launches
+    got = probes.wave_grid(a, b, 133, 285)
+    assert probes.wave_grid.launches == n0 + 1
+    assert torch.equal(got, probes.wave_grid_plain(a, b, 133, 285))
