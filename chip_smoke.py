@@ -13,16 +13,26 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               epilogues, gelu/silu/bias at one shape each, forced configs
               at the menu's corners, group_m > 1 on ragged M/N/K, stream-K
               strips and split-K shard ranges that do not line up with
-              tiles, and f32 inputs/outputs.  Every case launches twice and
-              must repeat bitwise (``deterministic``) with every fixup flag
-              down again; one split launch replays in a CUDA graph.
-3. flash    — the flash-attention kernel against its plain version:
+              tiles, and f32 inputs/outputs; then the SSM and hybrid main
+              paths at their selected configs, at M = 4 (decode) and 474
+              (the longest served prompt): mamba2-370m's six projections,
+              zamba2-7b's six and its shared block's seven, in bf16 and
+              (zamba2-7b, as its f32 serve runs them) in f32.  Every case
+              launches twice and must repeat bitwise (``deterministic``)
+              with every fixup flag down again; one split launch replays
+              in a CUDA graph.
+3. flash    — the flash-attention kernels against their plain version:
               (2, 24, S, 128) q over (2, 8, S, 128) k/v, causal and not,
               S in {512, 1000}; the served prefill shapes (phi4-mini 24/8
               heads at S = 336 and 474, qwen3-moe 32/4 at 474) with v as
               the model passes it (a transposed view); S = 40, shorter
-              than a q block; every pair of the block menu; bf16.  Every
-              case launches twice and must repeat bitwise.
+              than a q block; every pair of the block menu; then every
+              head dim d in {16, 32, 64, 112, 128, 160} in bf16 (the wgmma
+              kernel) and f32 (the f32 kernel), causal and not, GQA and
+              not, and zamba2-7b's served shape (1, 32, 474, 112) with v
+              as the model passes it, in both dtypes.  bf16 at atol
+              1e-2 + rtol 2e-2, f32 at atol 2e-5 + rtol 1e-4.  Every case
+              launches twice and must repeat bitwise.
    probe    — the three calibration probe kernels (``csrc/probes.cu``)
               against their plain versions at the calibration sweeps'
               shapes: the stream read at each level's window and the issue
@@ -56,9 +66,13 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               (the f32 yardstick as in phase 4), and kernel vs plain at
               full depth within ``MOE_FULL_REL_CAP``.
    moe_trace — the trace phase for qwen3-moe, grouped GEMM time apart.
-6. times    — each kernel at the main-path shapes: kernel, plain and
+6. times    — each kernel at the main-path shapes (phi4-mini's layer
+              GEMMs, mamba2-370m's and zamba2-7b's mamba layer GEMMs, the
+              latter in bf16 and f32, at decode and prefill M; the
+              flash kernel at phi4-mini's, qwen3-moe's and zamba2-7b's
+              largest prompt, zamba2-7b's again in f32): kernel, plain and
               one-call library times (CUDA graphs and events) and
-              the bound max(flop / 989e12, bytes / 3.35e12); each GEMM row
+              the bound max(flop / peak, bytes / 3.35e12); each GEMM row
               also gives its grid (``ctas``), its split tiles, the latency
               model's prediction (``model_ms``) and the wrapper's host
               microseconds per call; each attention row (phi4-mini and
@@ -86,7 +100,25 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               ``--trace-dir``: both kernels must launch with no rung or
               retry; the warm and decode drift rows are counted and must
               feed ``rows_from_drift``.
-The line before the last is the kernels summary; the last line is
+9. serve_ssm — mamba2-370m at full size on phase 4's traffic with no
+              bucket plan (a recurrent state would integrate the pad):
+              the GEMM launches must equal the reckoning (six a mamba
+              layer per prefill and per decode step); logits against the
+              plain path as in phase 4; ssm_trace as phase 4b.
+   serve_hybrid — zamba2-7b at full width and depth (81 layers, d_model
+              3584, shared attention of 32 heads of 112), the same
+              traffic: the GEMM launches must equal the reckoning (plus
+              nine per shared-block application in a prefill, seven in a
+              decode step) and the flash launches 13 a prefill; a trace;
+              logits against the plain path; then the same model in f32 (4
+              requests of 4 tokens), whose prefill attention runs the f32
+              flash kernel, its logits against the plain path in f32
+              within ``F32_LOGITS_REL_CAP``.
+Each serve phase counts the launches of every kernel inside the model's
+prefills and inside its decode steps apart.  The line before the last is
+the kernels summary (a row's launches are those of its own run and step
+kind, its max_abs_err the worst of its own shapes' cases in phases 2 and
+3); the last line is
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or run from a
 directory without the repository, it exits non-zero and prints no result.
 """
@@ -118,6 +150,14 @@ LOGITS_REL_CAP = 0.1
 MOE_FULL_REL_CAP = 0.5
 MOE_CUT_LAYERS = 4
 FLASH_ATOL, FLASH_RTOL = 1e-2, 2e-2
+# f32 attention: the kernel computes in full f32 (tests/test_kernels.py's
+# attention tolerance).
+FLASH_F32_ATOL, FLASH_F32_RTOL = 2e-5, 1e-4
+F32_PEAK = 67e12            # H100 SXM f32 flop/s outside the tensor cores
+# The f32 serve's prefill logits, kernel path vs plain path (relative L2):
+# both run in f32 and differ only in summation order (predicted ~1e-5
+# after 81 layers; a kernel that rounds to tf32 or bf16 gives > 1e-2).
+F32_LOGITS_REL_CAP = 1e-3
 
 
 def emit(obj) -> None:
@@ -185,13 +225,17 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": summary})
 
-    max_err = {"matmul": gemm_phase(torch, dev, kmm),
-               "flash_attention": flash_phase(torch, dev, kfa),
-               "expert_matmul": expert_gemm_phase(torch, dev, kmm)}
+    flash_err = flash_phase(torch, dev, kfa)
+    max_err = gemm_phase(torch, dev, kmm)
+    max_err.update({
+        "flash_attention@prefill": flash_err[("bfloat16", 128)],
+        "flash_attention@hybrid": flash_err[("bfloat16", 112)],
+        "flash_attention_f32@hybrid": flash_err[("float32", 112)],
+        "expert_matmul@prefill": expert_gemm_phase(torch, dev, kmm)})
     probe_times = probe_phase(torch, dev, kpr)
     # the probe phase demands checksums equal to the plain versions'
-    max_err.update(dict.fromkeys(("stream_read", "mma_chain", "wave_grid"),
-                                 0.0))
+    max_err.update(dict.fromkeys(("stream_read@calib", "mma_chain@calib",
+                                  "wave_grid@calib"), 0.0))
     model, params, launches, edges = serve_phase(torch, dev, kmm, kfa)
     trace_phase(torch, dev, model, params)
     del model, params
@@ -202,39 +246,51 @@ def main() -> int:
     del model, params
     _free(torch)
     times = times_phase(torch, dev, kmm, kfa, edges, moe_capacity, moe_edge)
-    launches["expert_matmul"] = moe_launches["expert_matmul"]
     calib, probe_launches = calib_phase(torch, dev, kpr)
-    launches.update(probe_launches)
     times.update(probe_times)
     memo = fidelity_phase(torch, dev, kmm, calib)
     residual_phase(memo, calib)
     serve_calibrated_phase(torch, dev, kmm, kfa, calib)
+    ssm_launches = serve_ssm_phase(torch, dev, kmm, kfa)
+    hybrid_launches, f32_launches = serve_hybrid_phase(torch, dev, kmm, kfa)
+    # Each row's launches: its own run, in its own step kind.
+    launches = {
+        "matmul@decode": launches["matmul@decode"],
+        "matmul@prefill": launches["matmul@prefill"],
+        "matmul@ssm_decode": ssm_launches["matmul@decode"],
+        "matmul@ssm_prefill": ssm_launches["matmul@prefill"],
+        "matmul@hybrid_decode": hybrid_launches["matmul@decode"],
+        "matmul@hybrid_prefill": hybrid_launches["matmul@prefill"],
+        "matmul_f32@hybrid_decode": f32_launches["matmul@decode"],
+        "matmul_f32@hybrid_prefill": f32_launches["matmul@prefill"],
+        "flash_attention@prefill": launches["flash_attention@prefill"],
+        "flash_attention@hybrid": hybrid_launches["flash_attention@prefill"],
+        "flash_attention_f32@hybrid": f32_launches["flash_attention@prefill"],
+        "expert_matmul@prefill": moe_launches["expert_matmul@prefill"],
+        **{f"{k}@calib": n for k, n in probe_launches.items()}}
 
+    gemm_src = ("src/repro_torch/csrc/matmul.cu",
+                "src/repro/kernels/matmul.py:108")
+    flash_src = ("src/repro_torch/csrc/flash_attention.cu",
+                 "src/repro/kernels/flash_attention.py:136")
+    sources = {
+        "matmul": gemm_src, "matmul_f32": gemm_src,
+        "flash_attention": flash_src, "flash_attention_f32": flash_src,
+        "expert_matmul": ("src/repro_torch/csrc/matmul.cu",
+                          "src/repro/kernels/ops.py:308"),
+        "stream_read": ("src/repro_torch/csrc/probes.cu",
+                        "src/repro/calib/device.py:144"),
+        "mma_chain": ("src/repro_torch/csrc/probes.cu",
+                      "src/repro/calib/device.py:181"),
+        "wave_grid": ("src/repro_torch/csrc/probes.cu",
+                      "src/repro/calib/device.py:208")}
     entries = []
-    for key, base, source, replaces in (
-            ("matmul@decode", "matmul", "src/repro_torch/csrc/matmul.cu",
-             "src/repro/kernels/matmul.py:108"),
-            ("matmul@prefill", "matmul", "src/repro_torch/csrc/matmul.cu",
-             "src/repro/kernels/matmul.py:108"),
-            ("flash_attention@prefill", "flash_attention",
-             "src/repro_torch/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:136"),
-            ("expert_matmul@prefill", "expert_matmul",
-             "src/repro_torch/csrc/matmul.cu",
-             "src/repro/kernels/ops.py:308"),
-            ("stream_read@calib", "stream_read",
-             "src/repro_torch/csrc/probes.cu",
-             "src/repro/calib/device.py:144"),
-            ("mma_chain@calib", "mma_chain",
-             "src/repro_torch/csrc/probes.cu",
-             "src/repro/calib/device.py:181"),
-            ("wave_grid@calib", "wave_grid",
-             "src/repro_torch/csrc/probes.cu",
-             "src/repro/calib/device.py:208")):
+    for key in launches:
+        source, replaces = sources[key.split("@")[0]]
         t = times[key]
         entries.append({"name": key, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[base],
-                        "max_abs_err": max_err[base],
+                        "replaces": replaces, "launches": launches[key],
+                        "max_abs_err": max_err[key],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"]})
@@ -273,7 +329,15 @@ def _gemm_inputs(torch, dev, M, N, K, ep, dt, seed):
     return rnd(M, K), rnd(K, N), kw
 
 
-def gemm_phase(torch, dev, kmm) -> float:
+def _epilogues():
+    from repro_torch.core.latency import Epilogue
+    return {"none": Epilogue(), "residual": Epilogue(residual=True),
+            "swiglu_gate": Epilogue(activation="swiglu_gate")}
+
+
+def gemm_phase(torch, dev, kmm):
+    """Returns the worst absolute error of each kernels-line GEMM row's
+    cases (the general cases under phi4-mini's rows)."""
     from repro_torch.core.hardware import GPU_H100_LIKE
     from repro_torch.core.latency import Epilogue, TileConfig
     from repro_torch.core.selector import select_gemm_config
@@ -322,7 +386,22 @@ def gemm_phase(torch, dev, kmm) -> float:
          TileConfig(64, 64, 32)),
         (512, 3072, 3072, swi, bf, f32, None),
     ]
-    worst = 0.0
+    # The SSM and hybrid main paths' GEMMs at their selected configs, at
+    # decode M and the longest served prompt, each case under its row (a
+    # decode step fuses no residual: the block adds it after the GEMM).
+    eps = _epilogues()
+    row_of = {}
+    for key, gemms, dt in (
+            ("matmul@ssm", SSM_GEMMS, bf),
+            ("matmul@hybrid", MAMBA_GEMMS + SHARED_GEMMS, bf),
+            ("matmul_f32@hybrid", MAMBA_GEMMS + SHARED_GEMMS, f32)):
+        for M, step in ((4, "decode"), (RAGGED_PREFILL_M, "prefill")):
+            for _, N, K, epn in gemms:
+                if step == "decode" and epn == "residual":
+                    epn = "none"
+                row_of[len(cases)] = f"{key}_{step}"
+                cases.append((M, N, K, eps[epn], dt, dt, None))
+    worst = {"matmul@decode": 0.0, **dict.fromkeys(row_of.values(), 0.0)}
     rows = []
     for i, (M, N, K, ep, dt, odt, cfg) in enumerate(cases):
         if cfg is None:
@@ -353,7 +432,9 @@ def gemm_phase(torch, dev, kmm) -> float:
             fail(f"gemm {M}x{N}x{K} {ep} {cfg} disagrees with its plain "
                  f"version (max abs err {float(err.max())}, atol {atol}, "
                  f"rtol {rtol}) or does not repeat (deterministic {det})")
-        worst = max(worst, float(err.max()))
+        key = row_of.get(i, "matmul@decode")
+        worst[key] = max(worst[key], float(err.max()))
+    worst["matmul@prefill"] = worst["matmul@decode"]
     graph = _graph_case(torch, dev, kmm)
     emit({"phase": "gemm", "tolerance": "tests/test_kernels.py:26-27: f32 "
           "rtol 1e-5 atol 1e-4*sqrt(K); bf16 rtol 3e-2 atol 0.3*sqrt(K)",
@@ -443,26 +524,43 @@ FLASH_CASES = [
     ((64, 64), (64, 128), (128, 64), (128, 128))]
 
 
-def _attn_inputs(torch, dev, B, H, Hkv, S, model_v, seed, d=128):
+# Every head dim of both registries at full and smoke size on the served
+# path (16, 32, 64, 112, 128, 160) in bf16 and f32, causal and not, GQA and
+# not, v as the model passes it under causal: (..., d, dtype).
+FLASH_DIMS = (16, 32, 64, 112, 128, 160)
+FLASH_DIM_CASES = [(1, 8, hkv, 300, causal, None, causal, d, dt)
+                   for d in FLASH_DIMS for dt in ("bfloat16", "float32")
+                   for causal in (True, False) for hkv in (2, 8)] + [
+    # zamba2-7b's shared attention as served: causal, 32 heads, no GQA
+    (1, 32, 32, 474, True, None, True, 112, dt)
+    for dt in ("bfloat16", "float32")]
+
+
+def _attn_inputs(torch, dev, B, H, Hkv, S, model_v, seed, d=128,
+                 dtype="bfloat16"):
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = torch.randn((B, H, S, d), generator=g, device=dev).bfloat16()
-    k = torch.randn((B, Hkv, S, d), generator=g, device=dev).bfloat16()
+    dt = getattr(torch, dtype)
+    q = torch.randn((B, H, S, d), generator=g, device=dev).to(dt)
+    k = torch.randn((B, Hkv, S, d), generator=g, device=dev).to(dt)
     if model_v:
         v = torch.randn((B, S, Hkv, d), generator=g,
-                        device=dev).bfloat16().transpose(1, 2)
+                        device=dev).to(dt).transpose(1, 2)
     else:
-        v = torch.randn((B, Hkv, S, d), generator=g, device=dev).bfloat16()
+        v = torch.randn((B, Hkv, S, d), generator=g, device=dev).to(dt)
     return q, k, v
 
 
-def flash_phase(torch, dev, kfa) -> float:
-    worst = 0.0
+def flash_phase(torch, dev, kfa):
+    """Returns the worst absolute error of each (dtype, head dim)."""
+    worst = {}
     rows = []
-    for i, (B, H, Hkv, S, causal, blocks, model_v) in enumerate(FLASH_CASES):
-        d = 128
-        q, k, v = _attn_inputs(torch, dev, B, H, Hkv, S, model_v, 100 + i)
+    cases = [c + (128, "bfloat16") for c in FLASH_CASES] + FLASH_DIM_CASES
+    for i, (B, H, Hkv, S, causal, blocks, model_v, d, dtype) in \
+            enumerate(cases):
+        q, k, v = _attn_inputs(torch, dev, B, H, Hkv, S, model_v, 100 + i,
+                               d=d, dtype=dtype)
         plan = kfa.plan_attention(S, S, d, batch=B, heads=H, kv_heads=Hkv,
-                                  causal=causal)
+                                  in_dtype=dtype, causal=causal)
         bq, bkv = blocks or (plan.block_q, plan.block_kv)
         n0 = kfa.flash_attention_kernel.launches
         got = kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
@@ -474,24 +572,31 @@ def flash_phase(torch, dev, kfa) -> float:
                                    causal=causal)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
-        ok = bool((err <= FLASH_ATOL + FLASH_RTOL * want.float().abs()).all())
+        atol, rtol = ((FLASH_F32_ATOL, FLASH_F32_RTOL) if dtype == "float32"
+                      else (FLASH_ATOL, FLASH_RTOL))
+        ok = bool((err <= atol + rtol * want.float().abs()).all())
         ok = ok and bool(torch.isfinite(got).all()) and launched
+        ok = ok and got.dtype == q.dtype
         det = bool(torch.equal(got, again))
         rows.append({"q": [B, H, S, d], "kv": [B, Hkv, S, d],
-                     "causal": causal, "v_strides": list(v.stride()),
-                     "blocks": [bq, bkv], "selected": blocks is None,
-                     "ctas": B * H * -(-S // bq),
+                     "dtype": dtype, "causal": causal,
+                     "v_strides": list(v.stride()),
+                     "blocks": [bq, bkv] if dtype == "bfloat16" else None,
+                     "selected": blocks is None,
+                     "ctas": B * H * -(-S // (bq if dtype == "bfloat16"
+                                              else 16)),
                      "max_abs_err": float(err.max()),
                      "deterministic": det, "ok": ok and det})
         if not ok or not det:
             emit({"phase": "flash", "cases": rows})
             fail(f"flash attention {rows[-1]} disagrees with its plain "
                  f"version or does not repeat bitwise")
-        worst = max(worst, float(err.max()))
+        worst[dtype, d] = max(worst.get((dtype, d), 0.0), float(err.max()))
     emit({"phase": "flash", "tolerance": f"bf16 out: atol {FLASH_ATOL} + "
           f"rtol {FLASH_RTOL} (the kernel rounds P to bf16 before P V; the "
-          f"plain version keeps it f32)", "deterministic": "two launches "
-          "bitwise equal", "cases": rows})
+          f"plain version keeps it f32); f32 out: atol {FLASH_F32_ATOL} + "
+          f"rtol {FLASH_F32_RTOL}", "deterministic": "two launches "
+          "bitwise equal", "head_dims": list(FLASH_DIMS), "cases": rows})
     return worst
 
 
@@ -626,13 +731,16 @@ def plain_path(kmm, kfa):
             mock.patch.object(kfa, "_launch_cuda", attn))
 
 
-def _serve(torch, dev, kmm, kfa, arch, extra=(), phase=None):
-    """Random params from the seed, then ``run_serving`` on the phase's
-    traffic (plus ``extra`` flags) with every launch count zeroed right
-    before and read right after.  Fails unless every request finished with
-    in-vocabulary tokens, with no fallback rung and no launch retry."""
+def _serve(torch, dev, kmm, kfa, arch, extra=(), phase=None, params=None):
+    """Random params from the seed (or ``params``), then ``run_serving`` on
+    the phase's traffic (plus ``extra`` flags) with every launch count
+    zeroed right before and read right after.  Fails unless every request
+    finished with in-vocabulary tokens, with no fallback rung and no launch
+    retry, and unless the dense GEMM and (where the model has attention)
+    the flash kernel launched."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import build_parser, run_serving
+    from repro_torch.nn import transformer
     from repro_torch.nn.model import Model
     from repro_torch.obs import metrics as obs_metrics
 
@@ -640,13 +748,15 @@ def _serve(torch, dev, kmm, kfa, arch, extra=(), phase=None):
     cfg = get_config(args.arch)
     model = Model(cfg, device=dev)
     t0 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-    params = model.init(gen)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        params = model.init(gen)
     torch.cuda.synchronize()
     emit({"phase": "serve_init", "arch": cfg.name,
           "params": sum(t.numel() for t in _leaves(params)),
           "param_bytes": sum(t.numel() * t.element_size()
                              for t in _leaves(params)),
+          "param_dtypes": sorted({str(t.dtype)[6:] for t in _leaves(params)}),
           "seconds": time.perf_counter() - t0})
 
     prev_metrics = obs_metrics.enable_metrics(True)
@@ -654,13 +764,32 @@ def _serve(torch, dev, kmm, kfa, arch, extra=(), phase=None):
     counters = {"matmul": kmm.tiled_matmul,
                 "expert_matmul": kmm.tiled_expert_matmul,
                 "flash_attention": kfa.flash_attention_kernel}
+    split = {"prefill": dict.fromkeys(counters, 0),
+             "decode": dict.fromkeys(counters, 0)}
+
+    def counted(kind, fn):
+        def call(*a, **kw):
+            n0 = {k: c.launches for k, c in counters.items()}
+            try:
+                return fn(*a, **kw)
+            finally:
+                for k, c in counters.items():
+                    split[kind][k] += c.launches - n0[k]
+        return call
+
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    out = run_serving(args, params=params)
+    with mock.patch.object(transformer, "prefill_forward",
+                           counted("prefill", transformer.prefill_forward)), \
+            mock.patch.object(transformer, "decode_step",
+                              counted("decode", transformer.decode_step)):
+        out = run_serving(args, params=params)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    for kind, counts in split.items():
+        launches.update({f"{k}@{kind}": n for k, n in counts.items()})
     reg = obs_metrics.get_registry()
     fallback = sum(m.value for m in reg.metrics()
                    if m.name == "fallback_rungs")
@@ -685,17 +814,19 @@ def _serve(torch, dev, kmm, kfa, arch, extra=(), phase=None):
           "fallback_rungs": fallback, "launch_retries": retries,
           "sample": [results[r].tokens[:8].tolist()
                      for r in sorted(results)][:2]})
-    if launches["matmul"] <= 0 or launches["flash_attention"] <= 0:
+    if launches["matmul"] <= 0 or (cfg.family != "ssm"
+                                   and launches["flash_attention"] <= 0):
         fail(f"{cfg.name}: main path did not launch the dense GEMM and "
              f"flash kernels ({launches})")
     if fallback or retries:
         fail(f"{cfg.name}: fallback rungs {fallback}, launch retries "
              f"{retries}")
-    if len(results) != 8 or not all(r.finished for r in results.values()):
+    if len(results) != args.requests or not all(
+            r.finished for r in results.values()):
         fail(f"{cfg.name}: not every request finished")
     for r in results.values():
-        if len(r.tokens) != 16 or not ((r.tokens >= 0)
-                                       & (r.tokens < cfg.vocab_size)).all():
+        if len(r.tokens) != args.gen or not (
+                (r.tokens >= 0) & (r.tokens < cfg.vocab_size)).all():
             fail(f"{cfg.name} request {r.rid}: bad tokens "
                  f"{r.tokens.tolist()}")
     return args, model, params, out, launches
@@ -706,7 +837,8 @@ def _request_tokens(torch, dev, args, cfg, r):
     with its last real position."""
     import numpy as np
     prompts = np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, size=(8, args.prompt_len)).astype(np.int64)
+        0, cfg.vocab_size, size=(args.requests, args.prompt_len)
+    ).astype(np.int64)
     tokens = torch.zeros((1, r.padded_len), dtype=torch.int64, device=dev)
     tokens[0, :r.prompt_len] = torch.from_numpy(
         prompts[r.rid, :r.prompt_len]).to(dev)
@@ -721,7 +853,18 @@ def _rel(torch, x, y) -> float:
 def serve_phase(torch, dev, kmm, kfa):
     args, model, params, out, launches = _serve(torch, dev, kmm, kfa,
                                                 "phi4-mini-3.8b")
-    # One request's prefill logits: kernel path vs plain path on the card.
+    _logits_check(torch, dev, kmm, kfa, args, model, params, out,
+                  "serve_logits")
+    return model, params, launches, out["edges"]
+
+
+def _logits_check(torch, dev, kmm, kfa, args, model, params, out, phase,
+                  params32=None, f32=False):
+    """One request's prefill logits: kernel path vs plain path on the card,
+    against the plain path's own bf16-vs-f32 distance (``params32``: the
+    f32 params, made here when not given).  With ``f32`` the served params
+    are f32 already, and the kernel-vs-plain distance must stay within
+    ``F32_LOGITS_REL_CAP``."""
     r0 = out["results"][0]
     tokens, last = _request_tokens(torch, dev, args, model.cfg, r0)
     with torch.inference_mode():
@@ -729,15 +872,24 @@ def serve_phase(torch, dev, kmm, kfa):
         p1, p2, p3 = plain_path(kmm, kfa)
         with p1, p2, p3:
             want, _ = model.prefill(params, tokens, last)
-            # The same plain path in f32: how far bf16 rounding alone moves
-            # the logits, the yardstick for the kernel-vs-plain distance.
-            params32 = _tree_map(params, lambda t: t.float())
-            ref32, _ = model.prefill(params32, tokens, last)
-            del params32
+            if f32:
+                ref32 = want
+            else:
+                # The same plain path in f32: how far bf16 rounding alone
+                # moves the logits, the yardstick for the kernel-vs-plain
+                # distance.
+                p32 = (_tree_map(params, lambda t: t.float())
+                       if params32 is None else params32)
+                ref32, _ = model.prefill(p32, tokens, last)
+                del p32
     torch.cuda.synchronize()
 
     d_kp, d_p32 = _rel(torch, got, want), _rel(torch, want, ref32)
-    emit({"phase": "serve_logits", "rid": r0.rid,
+    tolerance = (f"kernel vs plain relative L2 <= {F32_LOGITS_REL_CAP} (both "
+                 f"f32)" if f32 else
+                 f"kernel vs plain relative L2 <= {LOGITS_REL_FACTOR} x "
+                 f"(plain bf16 vs plain f32) and <= {LOGITS_REL_CAP}")
+    emit({"phase": phase, "arch": model.cfg.name, "rid": r0.rid,
           "prompt_len": r0.prompt_len, "padded_len": r0.padded_len,
           "rel_l2_kernel_vs_plain": d_kp,
           "rel_l2_plain_bf16_vs_plain_f32": d_p32,
@@ -747,14 +899,12 @@ def serve_phase(torch, dev, kmm, kfa):
           "argmax_equal": int(got.argmax()) == int(want.argmax()),
           "first_token_matches_served":
               int(got.argmax()) == int(r0.tokens[0]),
-          "tolerance": f"kernel vs plain relative L2 <= "
-                       f"{LOGITS_REL_FACTOR} x (plain bf16 vs plain f32) "
-                       f"and <= {LOGITS_REL_CAP}"})
-    if not bool(torch.isfinite(got).all()) or d_kp > LOGITS_REL_CAP \
-            or d_kp > LOGITS_REL_FACTOR * d_p32:
-        fail(f"prefill logits disagree with the plain path (rel {d_kp}, "
-             f"bf16 rounding alone {d_p32})")
-    return model, params, launches, out["edges"]
+          "tolerance": tolerance})
+    if not bool(torch.isfinite(got).all()) or (
+            d_kp > F32_LOGITS_REL_CAP if f32 else
+            d_kp > LOGITS_REL_CAP or d_kp > LOGITS_REL_FACTOR * d_p32):
+        fail(f"{model.cfg.name} prefill logits disagree with the plain path "
+             f"(rel {d_kp}, bf16 rounding alone {d_p32})")
 
 
 # ---------------------------------------------------------------------------
@@ -941,14 +1091,30 @@ PATH_GEMMS = [  # (name, N, K, epilogue) of one phi4-mini layer
     ("wd", 3072, 8192, "residual")]
 
 
+MAMBA_GEMMS = [  # (name, N, K, epilogue) of one zamba2-7b mamba layer
+    ("in_z", 7168, 3584, "none"), ("in_x", 7168, 3584, "none"),
+    ("in_b", 64, 3584, "none"), ("in_c", 64, 3584, "none"),
+    ("in_dt", 112, 3584, "none"), ("out_proj", 3584, 7168, "none")]
+SHARED_GEMMS = [  # (name, N, K, epilogue) of zamba2-7b's shared block
+    ("wq", 3584, 3584, "none"), ("wk", 3584, 3584, "none"),
+    ("wv", 3584, 3584, "none"), ("wo", 3584, 3584, "residual"),
+    ("wu", 14336, 3584, "none"), ("wg", 14336, 3584, "swiglu_gate"),
+    ("wd", 3584, 14336, "residual")]
+SSM_GEMMS = [  # (name, N, K, epilogue) of one mamba2-370m layer
+    ("in_z", 2048, 1024, "none"), ("in_x", 2048, 1024, "none"),
+    ("in_b", 128, 1024, "none"), ("in_c", 128, 1024, "none"),
+    ("in_dt", 32, 1024, "none"), ("out_proj", 1024, 2048, "none")]
+RAGGED_PREFILL_M = 474      # the longest prompt of the served traffic
+
+
 EXPERT_GEMMS = [  # (name, N, K, epilogue) of one qwen3-moe layer's experts
     ("wu", 768, 2048, "none"), ("wg", 768, 2048, "swiglu_gate"),
     ("wd", 2048, 768, "none")]
 
 
-def _gemm_bytes_flops(M, N, K, ep):
-    extra = M * N * 2 if ep in ("residual", "swiglu_gate") else 0
-    return 2 * (M * K + K * N + M * N) + extra, 2.0 * M * N * K
+def _gemm_bytes_flops(M, N, K, ep, elem=2):
+    extra = M * N * elem if ep in ("residual", "swiglu_gate") else 0
+    return elem * (M * K + K * N + M * N) + extra, 2.0 * M * N * K
 
 
 def host_us(torch, fn, calls: int = 50) -> float:
@@ -967,35 +1133,49 @@ def host_us(torch, fn, calls: int = 50) -> float:
 
 def times_phase(torch, dev, kmm, kfa, edges, moe_capacity, moe_edge):
     """Per-call times of each kernel at the main-path shapes; returns the
-    kernels-line numbers keyed matmul@decode, matmul@prefill,
-    flash_attention@prefill and expert_matmul@prefill."""
+    kernels-line numbers keyed by row: matmul@{decode, prefill,
+    ssm_decode, ssm_prefill, hybrid_decode, hybrid_prefill},
+    matmul_f32@hybrid_{decode, prefill}, flash_attention@{prefill,
+    hybrid}, flash_attention_f32@hybrid and expert_matmul@prefill."""
     import torch.nn.functional as F
     from repro_torch.core.hardware import GPU_H100_LIKE
-    from repro_torch.core.latency import Epilogue, GemmProblem, gemm_latency
+    from repro_torch.core.latency import GemmProblem, gemm_latency
     from repro_torch.core.selector import select_gemm_config
 
-    eps = {"none": Epilogue(), "residual": Epilogue(residual=True),
-           "swiglu_gate": Epilogue(activation="swiglu_gate")}
+    eps = _epilogues()
     times = {}
     per_shape = []
-    for phase, M, extra in (("decode", 4, ()),
-                            ("prefill", 512, ("wk", "wv"))):
+    bf16, f32 = torch.bfloat16, torch.float32
+    # phi4-mini's layer; mamba2-370m's and zamba2-7b's mamba layer at the
+    # served prefill M, zamba2-7b's again in f32.
+    for key, M, gemms, bf in (
+            ("matmul@decode", 4, PATH_GEMMS, bf16),
+            # a prefill also recomputes wk/wv for the cache
+            # (transformer.py:111)
+            ("matmul@prefill", 512, PATH_GEMMS + [
+                g for g in PATH_GEMMS if g[0] in ("wk", "wv")], bf16),
+            ("matmul@ssm_decode", 4, SSM_GEMMS, bf16),
+            ("matmul@ssm_prefill", RAGGED_PREFILL_M, SSM_GEMMS, bf16),
+            ("matmul@hybrid_decode", 4, MAMBA_GEMMS, bf16),
+            ("matmul@hybrid_prefill", RAGGED_PREFILL_M, MAMBA_GEMMS, bf16),
+            ("matmul_f32@hybrid_decode", 4, MAMBA_GEMMS, f32),
+            ("matmul_f32@hybrid_prefill", RAGGED_PREFILL_M, MAMBA_GEMMS,
+             f32)):
+        dtype = str(bf)[6:]
+        elem = 2 if bf == bf16 else 4
+        peak = BF16_PEAK if bf == bf16 else F32_PEAK
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "model_ms": 0.0, "bytes": 0, "flops": 0.0}
-        # A prefill also recomputes wk/wv for the cache (transformer.py:111).
-        for name, N, K, epn in PATH_GEMMS + [g for g in PATH_GEMMS
-                                             if g[0] in extra]:
+        for name, N, K, epn in gemms:
             ep = eps[epn]
-            a, b, kw = _gemm_inputs(torch, dev, M, N, K, ep, torch.bfloat16,
-                                    seed=7)
+            a, b, kw = _gemm_inputs(torch, dev, M, N, K, ep, bf, seed=7)
             a = a * 0.1
             b = b * 0.02
-            sel = select_gemm_config(M, N, K, in_dtype="bfloat16",
-                                     out_dtype="bfloat16", epilogue=ep,
+            sel = select_gemm_config(M, N, K, in_dtype=dtype,
+                                     out_dtype=dtype, epilogue=ep,
                                      hw=GPU_H100_LIKE)
             cfg = sel.config
             plan = _plan(kmm, dev, M, N, K, cfg, 1)
-            bf = torch.bfloat16
 
             def kern():
                 return kmm._launch_cuda(a, b, cfg, out_dtype=bf, epilogue=ep,
@@ -1013,7 +1193,8 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity, moe_edge):
                 return F.silu(y) * kw["gate"] if epn == "swiglu_gate" else y
 
             n0 = kmm.tiled_matmul.launches
-            row = {"phase": phase, "gemm": name, "M": M, "N": N, "K": K,
+            row = {"row": key, "gemm": name, "dtype": dtype, "M": M,
+                   "N": N, "K": K,
                    "epilogue": epn, "config": str(cfg), "ctas": plan.ctas,
                    "split_tiles": plan.split_tiles,
                    "model_ms": sel.predicted.total * 1e3,
@@ -1021,32 +1202,43 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity, moe_edge):
                    "library_ms": time_ms(library),
                    "host_us": host_us(torch, kern)}
             kmm.tiled_matmul.launches = n0     # timing launches do not count
-            nbytes, flops = _gemm_bytes_flops(M, N, K, epn)
-            row["bound_ms"] = max(nbytes / HBM_BW, flops / BF16_PEAK) * 1e3
+            nbytes, flops = _gemm_bytes_flops(M, N, K, epn, elem)
+            row["bound_ms"] = max(nbytes / HBM_BW, flops / peak) * 1e3
             row["bound_by"] = ("bytes" if nbytes / HBM_BW
-                               >= flops / BF16_PEAK else "operations")
+                               >= flops / peak else "operations")
             per_shape.append(row)
-            for key in ("ms", "plain_ms", "library_ms", "model_ms"):
-                tot[key] += row[key]
+            for k_ in ("ms", "plain_ms", "library_ms", "model_ms"):
+                tot[k_] += row[k_]
             tot["bytes"] += nbytes
             tot["flops"] += flops
-        t_b, t_f = tot["bytes"] / HBM_BW, tot["flops"] / BF16_PEAK
-        times[f"matmul@{phase}"] = {
+        t_b, t_f = tot["bytes"] / HBM_BW, tot["flops"] / peak
+        times[key] = {
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "library_ms": tot["library_ms"], "model_ms": tot["model_ms"],
             "bound_ms": max(t_b, t_f) * 1e3,
             "bound_by": "bytes" if t_b >= t_f else "operations",
-            "what": f"sum over one layer's {phase} GEMMs at M={M}"}
+            "what": f"sum over one layer's {len(gemms)} {dtype} GEMMs at "
+                    f"M={M}"}
 
-    # Prefill attention at each model's largest bucket edge, v as the model
-    # passes it; every pair of the block menu beside the selected one.
+    # Prefill attention at each model's largest served prompt, v as the
+    # model passes it; every legal pair of the block menu beside the
+    # selected one (bf16); zamba2-7b's shape again in f32 (the f32 kernel,
+    # bound by the card's f32 rate outside the tensor cores).
     attn_rows = {}
-    for arch, H, Hkv, S in (("phi4-mini-3.8b", 24, 8, max(edges)),
-                            ("qwen3-moe-30b-a3b", 32, 4, moe_edge)):
-        B, d = 1, 128
-        q, k, v = _attn_inputs(torch, dev, B, H, Hkv, S, True, seed=11)
+    for key, arch, H, Hkv, S, d, dtype in (
+            ("flash_attention@prefill", "phi4-mini-3.8b", 24, 8, max(edges),
+             128, "bfloat16"),
+            ("flash_attention@moe", "qwen3-moe-30b-a3b", 32, 4, moe_edge,
+             128, "bfloat16"),
+            ("flash_attention@hybrid", "zamba2-7b", 32, 32,
+             RAGGED_PREFILL_M, 112, "bfloat16"),
+            ("flash_attention_f32@hybrid", "zamba2-7b", 32, 32,
+             RAGGED_PREFILL_M, 112, "float32")):
+        B = 1
+        q, k, v = _attn_inputs(torch, dev, B, H, Hkv, S, True, seed=11, d=d,
+                               dtype=dtype)
         plan = kfa.plan_attention(S, S, d, batch=B, heads=H, kv_heads=Hkv,
-                                  causal=True)
+                                  in_dtype=dtype, causal=True)
         n0 = kfa.flash_attention_kernel.launches
 
         def kern(bq, bkv):
@@ -1055,6 +1247,8 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity, moe_edge):
         menu = []
         for bq in kfa.BLOCK_MENU:
             for bkv in kfa.BLOCK_MENU:
+                if dtype != "bfloat16" or not kfa.legal_blocks(bq, bkv, d):
+                    continue
                 priced = kfa.price_attention_blocks(
                     S, S, d, bq, bkv, batch=B, heads=H, kv_heads=Hkv,
                     causal=True)
@@ -1062,8 +1256,9 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity, moe_edge):
                              "ctas_per_sm": priced.ctas_per_sm,
                              "model_ms": priced.predicted * 1e3,
                              "ms": kern(bq, bkv)})
-        row = {"phase": "prefill", "kernel": "flash_attention",
-               "arch": arch, "q": [B, H, S, d], "kv": [B, Hkv, S, d],
+        row = {"phase": "prefill", "kernel": key.split("@")[0],
+               "arch": arch, "dtype": dtype,
+               "q": [B, H, S, d], "kv": [B, Hkv, S, d],
                "v_strides": list(v.stride()),
                "blocks": [plan.block_q, plan.block_kv], "ctas": plan.ctas,
                "ctas_per_sm": plan.ctas_per_sm,
@@ -1078,16 +1273,16 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity, moe_edge):
         kfa.flash_attention_kernel.launches = n0   # timing launches
         pairs = S * (S + 1) // 2                # causal (query, key) pairs
         flops = 4.0 * B * H * pairs * d
-        nbytes = 2 * d * S * B * (2 * H + 2 * Hkv)
-        row["bound_ms"] = max(nbytes / HBM_BW, flops / BF16_PEAK) * 1e3
-        row["bound_by"] = "bytes" if nbytes / HBM_BW >= flops / BF16_PEAK \
+        nbytes = q.element_size() * d * S * B * (2 * H + 2 * Hkv)
+        peak = BF16_PEAK if dtype == "bfloat16" else F32_PEAK
+        row["bound_ms"] = max(nbytes / HBM_BW, flops / peak) * 1e3
+        row["bound_by"] = "bytes" if nbytes / HBM_BW >= flops / peak \
             else "operations"
         per_shape.append(row)
-        attn_rows[arch] = row
-    times["flash_attention@prefill"] = {k_: attn_rows["phi4-mini-3.8b"][k_]
-                                        for k_ in ("ms", "plain_ms",
-                                                   "library_ms", "bound_ms",
-                                                   "bound_by")}
+        attn_rows[key] = row
+    for key, row in attn_rows.items():
+        times[key] = {k_: row[k_] for k_ in ("ms", "plain_ms", "library_ms",
+                                             "bound_ms", "bound_by")}
 
     # The three expert GEMMs of one qwen3-moe prefill layer at the capacity
     # of the largest served bucket edge.
@@ -1565,6 +1760,87 @@ def serve_calibrated_phase(torch, dev, kmm, kfa, calib):
         fail(f"drift rows: {len(warm)} warm, {len(decode)} decode, "
              f"{len(drows)} read back")
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the SSM and hybrid families at full width and depth.
+# ---------------------------------------------------------------------------
+
+def _mamba_launches(cfg):
+    """(GEMMs a prefill, GEMMs a decode step, flash launches a prefill) of
+    an SSM or hybrid model, reckoned from the code: six GEMMs per mamba
+    layer (in_z, in_x, in_b, in_c, in_dt, out_proj) in a prefill and in a
+    decode step; per application of the hybrid's shared block nine in a
+    prefill (wk, wv for the cache; wq, wk, wv, wo; wu, wg, wd), seven in a
+    decode step, and one flash launch in a prefill.  The lm_head is a
+    plain product."""
+    shared = (cfg.num_layers // cfg.shared_attn_every
+              if cfg.family == "hybrid" else 0)
+    return 6 * cfg.num_layers + 9 * shared, 6 * cfg.num_layers + 7 * shared, \
+        shared
+
+
+def _check_mamba_launches(cfg, out, launches, phase):
+    n, steps = len(out["results"]), out["steps"]
+    per_prefill, per_step, flash = _mamba_launches(cfg)
+    expected = {"matmul@prefill": per_prefill * n,
+                "matmul@decode": per_step * steps,
+                "flash_attention@prefill": flash * n,
+                "flash_attention@decode": 0}
+    row = {"phase": phase, "arch": cfg.name, "prefills": n, "steps": steps,
+           "matmul_per_prefill": per_prefill, "matmul_per_step": per_step,
+           "expected": expected,
+           "launched": {k: launches[k] for k in expected}}
+    emit(row)
+    if row["launched"] != expected:
+        fail(f"{cfg.name}: kernel launches {launches} differ from the "
+             f"reckoning {row}")
+
+
+def serve_ssm_phase(torch, dev, kmm, kfa):
+    """mamba2-370m on phase 4's traffic (no bucket plan: prompts prefill at
+    their exact lengths), its logits against the plain path, a trace."""
+    args, model, params, out, launches = _serve(
+        torch, dev, kmm, kfa, "mamba2-370m", phase="serve_ssm")
+    if out["edges"]:
+        fail(f"an SSM model was served on bucket edges {out['edges']}")
+    _check_mamba_launches(model.cfg, out, launches, "serve_ssm_launches")
+    _logits_check(torch, dev, kmm, kfa, args, model, params, out,
+                  "serve_ssm_logits")
+    trace_phase(torch, dev, model, params, phase="ssm_trace")
+    del model, params
+    _free(torch)
+    return launches
+
+
+def serve_hybrid_phase(torch, dev, kmm, kfa):
+    """zamba2-7b at full width and depth on phase 4's traffic: 13 flash
+    launches a prefill at head dim 112, the launch reckoning, its logits
+    against the plain path and a trace; then the same model in f32 (4
+    requests of 4 tokens) through the f32 flash kernel and the f32 GEMM,
+    its logits against the plain path in f32."""
+    args, model, params, out, launches = _serve(
+        torch, dev, kmm, kfa, "zamba2-7b", phase="serve_hybrid")
+    if out["edges"]:
+        fail(f"a hybrid model was served on bucket edges {out['edges']}")
+    _check_mamba_launches(model.cfg, out, launches, "serve_hybrid_launches")
+    trace_phase(torch, dev, model, params, phase="hybrid_trace")
+    params32 = _tree_map(params, lambda t: t.float())
+    _logits_check(torch, dev, kmm, kfa, args, model, params, out,
+                  "serve_hybrid_logits", params32=params32)
+    del model, params
+    _free(torch)
+    args32, model, _, out32, launches32 = _serve(
+        torch, dev, kmm, kfa, "zamba2-7b",
+        extra=["--requests", "4", "--gen", "4"], phase="serve_hybrid_f32",
+        params=params32)
+    _check_mamba_launches(model.cfg, out32, launches32,
+                          "serve_hybrid_f32_launches")
+    _logits_check(torch, dev, kmm, kfa, args32, model, params32, out32,
+                  "serve_hybrid_f32_logits", f32=True)
+    del model, params32
+    _free(torch)
+    return launches, launches32
 
 
 if __name__ == "__main__":

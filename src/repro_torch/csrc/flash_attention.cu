@@ -3,10 +3,11 @@
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (pallas_call at :166, body _attn_kernel :82).
 //
-//   q (B, H, Sq, d), k / v (B, Hkv, Skv, d), bf16, d = 128, any strides with
-//   a unit d stride that are multiples of 16 bytes (v may be the transposed
-//   view of a (B, Skv, Hkv, d) tensor, as the model passes it); the output
-//   o (B, H, Sq, d) in bf16 with its own strides.  GQA maps head h to kv
+//   q (B, H, Sq, d), k / v (B, Hkv, Skv, d), bf16 or f32, any head dim d
+//   that is a multiple of 8 up to 256, any strides with a unit d stride
+//   (bf16: multiples of 16 bytes; v may be the transposed view of a
+//   (B, Skv, Hkv, d) tensor, as the model passes it); the output o
+//   (B, H, Sq, d) in q's dtype with its own strides.  GQA maps head h to kv
 //   head h / (H / Hkv) with no KV repeat.  Keys at or beyond kv_len are
 //   masked; with causal set, key j is visible to query i iff i >= j
 //   (positions from 0).  Running max m, sum l and the accumulator stay f32,
@@ -46,12 +47,28 @@
 //    is peeled off the loop: with it inside, ptxas saw the softmax read an
 //    accumulator inside an open wgmma stage and serialised every wgmma
 //    (C7514).
+//  * Any head dim on one code path, templated on d rounded up to 64 (DP:
+//    64, 128, 192 or 256).  The tiles keep the 128-byte swizzle in 64-column
+//    chunks; the TMA box of the last chunk runs past d and TMA fills the
+//    columns past d with zeros, so Q K^T over DP columns is Q K^T over d,
+//    and O's columns past d are zero and are clipped by the TMA store.  No
+//    host copy pads anything; the cost is the padded work (d 112: 8 k16
+//    steps instead of 7, d 160: 12 instead of 10).  P V runs as 128-column
+//    wgmma where DP is a multiple of 128 and as 64-column ones otherwise.
 //  * The softmax runs on the accumulator fragments in base 2 (two rows a
 //    thread, the row max and sum across the four threads of a quad); only
 //    the blocks that straddle the causal diagonal or the key end are
 //    masked.  The epilogue divides by l and writes bf16 through shared
 //    memory (the dead Q tile, in the output map's swizzle) with a TMA
 //    store, which clips rows past Sq.
+//
+// f32 inputs take a second kernel, flash_fwd_kernel_f32, that computes the
+// same function in full f32 on the CUDA cores (tf32 wgmma keeps ten
+// mantissa bits, too few for the f32 tolerance): one CTA of four warps per
+// 16 q rows, a warp per four rows; a 32-key block of K and V staged in
+// shared memory, each lane scoring one key against the warp's rows and
+// owning d / 32 output columns of each row.  It is bound by its f32 FMA
+// rate; it is the plain, right kernel of the f32 models, not a fast one.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,22 +82,26 @@ namespace repro {
 namespace {
 
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kD = 128;       // head dim
-constexpr int kStages = 2;    // K/V ring depth
+constexpr int kMaxD = 256;      // the largest head dim
+constexpr int kStages = 2;      // K/V ring depth
 constexpr int kRowBytes = 128;  // one swizzled row: 64 bf16 of the head dim
-constexpr int kChunks = kD / 64;
 
 struct FlashParams {
   int B, H, Hkv, Sq, Skv, kv_len, causal, n_qb;
   float scale_log2;  // softmax scale * log2(e): exponentials run in base 2
 };
 
-// NWG consumer warpgroups of 64 q rows each, plus one producer warpgroup.
-// A one-warpgroup CTA is built for two CTAs an SM (128 registers a thread
-// at launch: 224 for a consumer, 32 for the producer); a two-warpgroup CTA
-// for one (168 at launch: 232 and 40, as the GEMM's 256-row tile).
-template <int NWG, int BKV>
+// NWG consumer warpgroups of 64 q rows each, plus one producer warpgroup,
+// over a head dim padded to DP columns.  A one-warpgroup CTA is built for
+// two CTAs an SM (128 registers a thread at launch: 224 for a consumer, 32
+// for the producer); a two-warpgroup CTA for one (168 at launch: 232 and
+// 40, as the GEMM's 256-row tile).  O is kOChunks accumulators of kCW
+// columns, one P V wgmma each.
+template <int NWG, int BKV, int DP>
 struct Flash {
+  static constexpr int kChunks = DP / 64;
+  static constexpr int kCW = DP % 128 == 0 ? 128 : 64;
+  static constexpr int kOChunks = DP / kCW;
   static constexpr int kBQ = NWG * 64;
   static constexpr int kConsumers = NWG * 128;
   static constexpr int kThreads = kConsumers + 128;
@@ -91,6 +112,7 @@ struct Flash {
   static constexpr uint32_t kKVChunk = BKV * kRowBytes;  // 64 columns of K or V
   static constexpr uint32_t kQBytes = kChunks * kQChunk;
   static constexpr uint32_t kKVBytes = kChunks * kKVChunk;
+  static_assert(DP % 64 == 0 && DP <= kMaxD, "DP: 64, 128, 192 or 256");
   // [Q][K0 V0 K1 V1][mbarriers: q_full, k_full x2, v_full x2, empty x2]
   static constexpr uint32_t kBarAt = kQBytes + kStages * 2 * kKVBytes;
   static constexpr size_t kSmem = 1024 + kBarAt + 8 * (1 + 3 * kStages);
@@ -105,14 +127,14 @@ __device__ __forceinline__ void st_shared_u32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
-template <int BKV>
+template <int BKV, int DP>
 __device__ __forceinline__ void qk_product(float (&s)[BKV / 2], uint32_t q,
                                            uint32_t q_chunk, uint32_t k,
                                            uint32_t k_chunk) {
   // K-major 128-byte swizzled tiles: a k16 step moves 32 bytes along the
   // row; 8-row groups are 1024 bytes apart.
 #pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
+  for (int kk = 0; kk < DP / 16; ++kk) {
     const uint32_t off = (kk % 4) * 32;
     const uint64_t da = smem_desc(q + (kk / 4) * q_chunk + off, 16, 1024, 128);
     const uint64_t db = smem_desc(k + (kk / 4) * k_chunk + off, 16, 1024, 128);
@@ -122,15 +144,28 @@ __device__ __forceinline__ void qk_product(float (&s)[BKV / 2], uint32_t q,
 }
 
 // O += P V over one stage's V tile, MN-major: a k16 step moves 16 rows;
-// the two 64-column chunks of d are v_chunk bytes apart.
-template <int BKV>
-__device__ __forceinline__ void pv_product(float (&o)[kD / 2],
+// the 64-column chunks of d are v_chunk bytes apart, and O chunk c starts
+// at chunk c * CW / 64.
+template <int BKV, int CW, int NC>
+__device__ __forceinline__ void pv_product(float (&o)[NC][CW / 2],
                                            const uint32_t (&pa)[BKV / 16][4],
                                            uint32_t v, uint32_t v_chunk) {
 #pragma unroll
   for (int kk = 0; kk < BKV / 16; ++kk)
-    wgmma_m64n128_rs(o, pa[kk],
-                     smem_desc(v + kk * 16 * kRowBytes, v_chunk, 1024, 128));
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const uint64_t db = smem_desc(
+          v + c * (CW / 64) * v_chunk + kk * 16 * kRowBytes, v_chunk, 1024,
+          128);
+      if constexpr (CW == 64) wgmma_m64n64_rs(o[c], pa[kk], db);
+      if constexpr (CW == 128) wgmma_m64n128_rs(o[c], pa[kk], db);
+    }
+}
+
+template <int CW, int NC>
+__device__ __forceinline__ void fence_o(float (&o)[NC][CW / 2]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) fence_acc(o[c]);
 }
 
 // The online-softmax update of one kv block on a consumer thread's S
@@ -194,15 +229,15 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[BKV / 16][4],
   }
 }
 
-template <int NWG, int BKV>
-__global__ void __launch_bounds__(Flash<NWG, BKV>::kThreads,
-                                  Flash<NWG, BKV>::kMinBlocks)
+template <int NWG, int BKV, int DP>
+__global__ void __launch_bounds__(Flash<NWG, BKV, DP>::kThreads,
+                                  Flash<NWG, BKV, DP>::kMinBlocks)
     flash_fwd_kernel(const __grid_constant__ CUtensorMap tma_q,
                      const __grid_constant__ CUtensorMap tma_k,
                      const __grid_constant__ CUtensorMap tma_v,
                      const __grid_constant__ CUtensorMap tma_o,
                      const __grid_constant__ FlashParams p) {
-  using F = Flash<NWG, BKV>;
+  using F = Flash<NWG, BKV, DP>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_at = base;
@@ -246,7 +281,7 @@ __global__ void __launch_bounds__(Flash<NWG, BKV>::kThreads,
     if (tid == F::kConsumers) {
       mbar_expect_tx(q_full, F::kQBytes);
 #pragma unroll
-      for (int c = 0; c < kChunks; ++c)
+      for (int c = 0; c < F::kChunks; ++c)
         tma_load_4d(q_at + c * F::kQChunk, &tma_q, q_full, 64 * c, q0, h, b);
       int stage = 0;
       uint32_t phase = 0;
@@ -254,12 +289,12 @@ __global__ void __launch_bounds__(Flash<NWG, BKV>::kThreads,
         mbar_wait(empty(stage), phase ^ 1);
         mbar_expect_tx(k_full(stage), F::kKVBytes);
 #pragma unroll
-        for (int c = 0; c < kChunks; ++c)
+        for (int c = 0; c < F::kChunks; ++c)
           tma_load_4d(k_at(stage) + c * F::kKVChunk, &tma_k, k_full(stage),
                       64 * c, kb * BKV, hk, b);
         mbar_expect_tx(v_full(stage), F::kKVBytes);
 #pragma unroll
-        for (int c = 0; c < kChunks; ++c)
+        for (int c = 0; c < F::kChunks; ++c)
           tma_load_4d(v_at(stage) + c * F::kKVChunk, &tma_v, v_full(stage),
                       64 * c, kb * BKV, hk, b);
         if (++stage == kStages) {
@@ -281,9 +316,11 @@ __global__ void __launch_bounds__(Flash<NWG, BKV>::kThreads,
   const int row0 = wg_row0 + warp * 16 + g;
   const uint32_t q_wg = q_at + wg * 64 * kRowBytes;
 
-  float o[kD / 2];
+  float o[F::kOChunks][F::kCW / 2];
 #pragma unroll
-  for (int i = 0; i < kD / 2; ++i) o[i] = 0.0f;
+  for (int c = 0; c < F::kOChunks; ++c)
+#pragma unroll
+    for (int i = 0; i < F::kCW / 2; ++i) o[c][i] = 0.0f;
   float s[BKV / 2];
   uint32_t pa[BKV / 16][4];
   float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F};
@@ -296,7 +333,7 @@ __global__ void __launch_bounds__(Flash<NWG, BKV>::kThreads,
   if (n_blocks > 0) {
     mbar_wait(k_full(0), 0);
     wgmma_fence();
-    qk_product<BKV>(s, q_wg, F::kQChunk, k_at(0), F::kKVChunk);
+    qk_product<BKV, DP>(s, q_wg, F::kQChunk, k_at(0), F::kKVChunk);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
@@ -312,27 +349,30 @@ __global__ void __launch_bounds__(Flash<NWG, BKV>::kThreads,
     const uint32_t next_phase = next == 0 ? phase ^ 1 : phase;
     wgmma_fence();
     mbar_wait(k_full(next), next_phase);
-    qk_product<BKV>(s, q_wg, F::kQChunk, k_at(next), F::kKVChunk);
+    qk_product<BKV, DP>(s, q_wg, F::kQChunk, k_at(next), F::kKVChunk);
     wgmma_commit();
     mbar_wait(v_full(stage), phase);
-    pv_product<BKV>(o, pa, v_at(stage), F::kKVChunk);
+    pv_product<BKV, F::kCW, F::kOChunks>(o, pa, v_at(stage),
+                                         F::kKVChunk);
     wgmma_commit();
     wgmma_wait<1>();  // S of block kb + 1, the older group, is done
     fence_acc(s);
     online_softmax<BKV>(s, m_run, l_run, alpha, (kb + 1) * BKV, kv_lim,
                         p.causal, row0, wg_row0, t, p.scale_log2);
     wgmma_wait<0>();
-    fence_acc(o);
+    fence_o<F::kCW, F::kOChunks>(o);
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) fence_frag(pa[kk]);
     mbar_arrive(empty(stage));
 #pragma unroll
-    for (int j = 0; j < kD / 8; ++j)
+    for (int c = 0; c < F::kOChunks; ++c)
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        o[4 * j + 2 * r] *= alpha[r];
-        o[4 * j + 2 * r + 1] *= alpha[r];
-      }
+      for (int j = 0; j < F::kCW / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          o[c][4 * j + 2 * r] *= alpha[r];
+          o[c][4 * j + 2 * r + 1] *= alpha[r];
+        }
     pack_p<BKV>(pa, s);
     stage = next;
     phase = next_phase;
@@ -340,10 +380,11 @@ __global__ void __launch_bounds__(Flash<NWG, BKV>::kThreads,
   if (n_blocks > 0) {  // the last block's P V
     wgmma_fence();
     mbar_wait(v_full(stage), phase);
-    pv_product<BKV>(o, pa, v_at(stage), F::kKVChunk);
+    pv_product<BKV, F::kCW, F::kOChunks>(o, pa, v_at(stage),
+                                         F::kKVChunk);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_acc(o);
+    fence_o<F::kCW, F::kOChunks>(o);
 #pragma unroll
     for (int kk = 0; kk < BKV / 16; ++kk) fence_frag(pa[kk]);
     mbar_arrive(empty(stage));
@@ -352,7 +393,8 @@ __global__ void __launch_bounds__(Flash<NWG, BKV>::kThreads,
   // Epilogue: l over the quad, divide (a row with l = 0 keeps O = 0), stage
   // bf16 rows in this warpgroup's part of the Q tile -- every product that
   // read it has completed -- in the 128-byte swizzle of the output map,
-  // then one thread stores the 64 x 128 tile with TMA.
+  // then one thread stores the 64 x DP tile with TMA (columns past d are
+  // clipped).
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -362,20 +404,21 @@ __global__ void __launch_bounds__(Flash<NWG, BKV>::kThreads,
     inv[r] = l > 0.0f ? 1.0f / l : 1.0f;
   }
 #pragma unroll
-  for (int j = 0; j < kD / 8; ++j)
+  for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = warp * 16 + g + 8 * r;  // row % 8 == g
       const uint32_t addr = q_wg + (j / 8) * F::kQChunk + row * kRowBytes +
                             (((j % 8) ^ g) * 16) + t * 4;
-      st_shared_u32(addr, pack_bf16x2(o[4 * j + 2 * r] * inv[r],
-                                      o[4 * j + 2 * r + 1] * inv[r]));
+      const float* oc = o[j / (F::kCW / 8)] + 4 * (j % (F::kCW / 8));
+      st_shared_u32(addr, pack_bf16x2(oc[2 * r] * inv[r],
+                                      oc[2 * r + 1] * inv[r]));
     }
   fence_proxy_async();
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
   if (tid % 128 == 0) {
 #pragma unroll
-    for (int c = 0; c < kChunks; ++c)
+    for (int c = 0; c < F::kChunks; ++c)
       tma_store_4d(&tma_o, q_wg + c * F::kQChunk, 64 * c, wg_row0, h, b);
     bulk_commit();
     bulk_wait_read();
@@ -383,12 +426,14 @@ __global__ void __launch_bounds__(Flash<NWG, BKV>::kThreads,
 }
 
 // A 4-D bf16 tensor map over (d, S, head, batch) with element strides
-// (ss, sh, sb) and a (64, rows, 1, 1) box, 128-byte swizzled.
-bool encode_4d(CUtensorMap* map, const void* ptr, int S, int heads, int batch,
-               long long ss, long long sh, long long sb, uint32_t rows) {
+// (ss, sh, sb) and a (64, rows, 1, 1) box, 128-byte swizzled.  A box that
+// runs past d (or past S) reads zeros and stores nothing there.
+bool encode_4d(CUtensorMap* map, const void* ptr, int d, int S, int heads,
+               int batch, long long ss, long long sh, long long sb,
+               uint32_t rows) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(kD),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(batch)};
@@ -410,24 +455,212 @@ struct Operands {
   long long o_sb, o_sh, o_ss;
 };
 
-template <int NWG, int BKV>
-cudaError_t launch(const Operands& a, const FlashParams& p,
+template <int NWG, int BKV, int DP>
+cudaError_t launch(const Operands& a, const FlashParams& p, int d,
                    cudaStream_t stream) {
-  using F = Flash<NWG, BKV>;
+  using F = Flash<NWG, BKV, DP>;
+  if (F::kSmem > 232448) return cudaErrorInvalidValue;  // 227 KB a block
   static const cudaError_t opted = cudaFuncSetAttribute(
-      flash_fwd_kernel<NWG, BKV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(F::kSmem));
+      flash_fwd_kernel<NWG, BKV, DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(F::kSmem));
   if (opted != cudaSuccess) return opted;
   CUtensorMap tq, tk, tv, to;
-  if (!encode_4d(&tq, a.q, p.Sq, p.H, p.B, a.q_ss, a.q_sh, a.q_sb, F::kBQ) ||
-      !encode_4d(&tk, a.k, p.Skv, p.Hkv, p.B, a.k_ss, a.k_sh, a.k_sb, BKV) ||
-      !encode_4d(&tv, a.v, p.Skv, p.Hkv, p.B, a.v_ss, a.v_sh, a.v_sb, BKV) ||
-      !encode_4d(&to, a.o, p.Sq, p.H, p.B, a.o_ss, a.o_sh, a.o_sb, 64))
+  if (!encode_4d(&tq, a.q, d, p.Sq, p.H, p.B, a.q_ss, a.q_sh, a.q_sb,
+                 F::kBQ) ||
+      !encode_4d(&tk, a.k, d, p.Skv, p.Hkv, p.B, a.k_ss, a.k_sh, a.k_sb,
+                 BKV) ||
+      !encode_4d(&tv, a.v, d, p.Skv, p.Hkv, p.B, a.v_ss, a.v_sh, a.v_sb,
+                 BKV) ||
+      !encode_4d(&to, a.o, d, p.Sq, p.H, p.B, a.o_ss, a.o_sh, a.o_sb, 64))
     return cudaErrorInvalidValue;
   const unsigned grid = static_cast<unsigned>(p.n_qb) * p.H * p.B;
-  flash_fwd_kernel<NWG, BKV><<<grid, F::kThreads, F::kSmem, stream>>>(
+  flash_fwd_kernel<NWG, BKV, DP><<<grid, F::kThreads, F::kSmem, stream>>>(
       tq, tk, tv, to, p);
   return cudaGetLastError();
+}
+
+// The (block_q, block_kv) pairs whose shared memory fits a block at DP
+// (kernels/flash_attention.py::legal_blocks prices the same budgets).
+template <int DP>
+cudaError_t launch_dp(int block_q, int block_kv, const Operands& a,
+                      const FlashParams& p, int d, cudaStream_t s) {
+  if (block_q == 64 && block_kv == 64) return launch<1, 64, DP>(a, p, d, s);
+  if (block_q == 128 && block_kv == 64) return launch<2, 64, DP>(a, p, d, s);
+  if constexpr (DP <= 128) {
+    if (block_q == 64 && block_kv == 128)
+      return launch<1, 128, DP>(a, p, d, s);
+    if (block_q == 128 && block_kv == 128)
+      return launch<2, 128, DP>(a, p, d, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// f32: the same function in full f32 on the CUDA cores.
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Rows = 16;   // q rows a CTA
+constexpr int kF32Warps = 4;   // a warp owns kF32Rows / kF32Warps rows
+constexpr int kF32Keys = 32;   // keys a block: one a lane
+
+struct F32Params {
+  int B, H, Hkv, Sq, Skv, kv_len, causal, n_qb, d;
+  float scale;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+  long long o_sb, o_sh, o_ss;
+};
+
+template <int DC>
+constexpr size_t f32_smem() {  // Q rows, K (rows padded by one), V
+  return sizeof(float) * (kF32Rows * 32 * DC + kF32Keys * (32 * DC + 1) +
+                          kF32Keys * 32 * DC);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// DC output columns a lane (d <= 32 DC).  Lane j scores key k0 + j against
+// the warp's rows (K rows padded to DP + 1 floats: the 32 lanes read 32
+// banks); the online softmax reduces across the warp; then each lane adds
+// P V into its own columns c = 32 cc + lane, P broadcast by shuffles.  The
+// -inf guards and the l = 0 rows are the TPU kernel's, as above.
+template <int DC>
+__global__ void __launch_bounds__(32 * kF32Warps)
+    flash_fwd_kernel_f32(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o,
+                         const F32Params p) {
+  constexpr int DP = 32 * DC;
+  constexpr int RPW = kF32Rows / kF32Warps;
+  extern __shared__ float f32_smem_raw[];
+  float* qs = f32_smem_raw;                  // [kF32Rows][DP]
+  float* ks = qs + kF32Rows * DP;            // [kF32Keys][DP + 1]
+  float* vs = ks + kF32Keys * (DP + 1);      // [kF32Keys][DP]
+
+  const int heads = p.H * p.B;
+  const int step = blockIdx.x / heads, hb = blockIdx.x - step * heads;
+  const int qb = p.causal ? p.n_qb - 1 - step : step;
+  const int h = hb % p.H, b = hb / p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = qb * kF32Rows, d = p.d;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const float* qg = q + b * p.q_sb + h * p.q_sh;
+  const float* kg = k + b * p.k_sb + hk * p.k_sh;
+  const float* vg = v + b * p.v_sb + hk * p.v_sh;
+  float* og = o + b * p.o_sb + h * p.o_sh;
+
+  for (int i = tid; i < kF32Rows * DP; i += 32 * kF32Warps) {
+    const int r = i / DP, c = i % DP;
+    qs[i] = q0 + r < p.Sq && c < d
+                ? qg[static_cast<long long>(q0 + r) * p.q_ss + c]
+                : 0.0f;
+  }
+  const int kv_lim = min(p.Skv, p.kv_len);
+  int n_blocks = kv_lim > 0 ? (kv_lim + kF32Keys - 1) / kF32Keys : 0;
+  if (p.causal)
+    n_blocks = min(n_blocks, (min(q0 + kF32Rows, p.Sq) - 1) / kF32Keys + 1);
+
+  float m[RPW], l[RPW], acc[RPW][DC];
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    m[r] = -CUDART_INF_F;
+    l[r] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[r][c] = 0.0f;
+  }
+  const float* qw = qs + warp * RPW * DP;
+  for (int kb = 0; kb < n_blocks; ++kb) {
+    const int k0 = kb * kF32Keys;
+    __syncthreads();  // the previous block's K and V are read
+    for (int i = tid; i < kF32Keys * DP; i += 32 * kF32Warps) {
+      const int j = i / DP, c = i % DP;
+      const bool in = k0 + j < p.Skv && c < d;
+      ks[j * (DP + 1) + c] =
+          in ? kg[static_cast<long long>(k0 + j) * p.k_ss + c] : 0.0f;
+      vs[i] = in ? vg[static_cast<long long>(k0 + j) * p.v_ss + c] : 0.0f;
+    }
+    __syncthreads();
+
+    float sc[RPW];
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) sc[r] = 0.0f;
+    const float* kr = ks + lane * (DP + 1);
+    for (int c = 0; c < d; ++c) {
+      const float kv = kr[c];
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) sc[r] = fmaf(qw[r * DP + c], kv, sc[r]);
+    }
+    const int key = k0 + lane;
+    float pv[RPW];
+#pragma unroll
+    for (int r = 0; r < RPW; ++r) {
+      const int row = q0 + warp * RPW + r;
+      const bool valid = key < kv_lim && (!p.causal || row >= key);
+      const float x = valid ? sc[r] * p.scale : -CUDART_INF_F;
+      const float m_new = fmaxf(m[r], warp_max(x));
+      const float safe = m_new == -CUDART_INF_F ? 0.0f : m_new;
+      const float alpha = m[r] == -CUDART_INF_F ? 0.0f : expf(m[r] - safe);
+      pv[r] = valid ? expf(x - safe) : 0.0f;
+      l[r] = l[r] * alpha + warp_sum(pv[r]);
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) acc[r][c] *= alpha;
+    }
+#pragma unroll 4
+    for (int j = 0; j < kF32Keys; ++j) {
+      float vv[DC];
+#pragma unroll
+      for (int c = 0; c < DC; ++c) vv[c] = vs[j * DP + 32 * c + lane];
+#pragma unroll
+      for (int r = 0; r < RPW; ++r) {
+        const float pj = __shfl_sync(0xffffffffu, pv[r], j);
+#pragma unroll
+        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < RPW; ++r) {
+    const int row = q0 + warp * RPW + r;
+    if (row >= p.Sq) continue;
+    const float denom = l[r] > 0.0f ? l[r] : 1.0f;
+#pragma unroll
+    for (int c = 0; c < DC; ++c) {
+      const int col = 32 * c + lane;
+      if (col < d)
+        og[static_cast<long long>(row) * p.o_ss + col] = acc[r][c] / denom;
+    }
+  }
+}
+
+template <int DC>
+cudaError_t launch_f32(const float* q, const float* k, const float* v,
+                       float* o, const F32Params& p, cudaStream_t stream) {
+  constexpr size_t smem = f32_smem<DC>();
+  static const cudaError_t opted = cudaFuncSetAttribute(
+      flash_fwd_kernel_f32<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (opted != cudaSuccess) return opted;
+  const unsigned grid = static_cast<unsigned>(p.n_qb) * p.H * p.B;
+  flash_fwd_kernel_f32<DC><<<grid, 32 * kF32Warps, smem, stream>>>(q, k, v,
+                                                                   o, p);
+  return cudaGetLastError();
+}
+
+bool valid_shape(int B, int H, int Hkv, int Sq, int Skv, int d, int block_q) {
+  const long long n_qb = (Sq + block_q - 1) / block_q;
+  return B > 0 && H > 0 && Hkv > 0 && H % Hkv == 0 && Sq > 0 && Skv > 0 &&
+         d > 0 && d % 8 == 0 && d <= kMaxD && n_qb * H * B <= 0x7fffffffLL;
 }
 
 }  // namespace
@@ -435,6 +668,7 @@ cudaError_t launch(const Operands& a, const FlashParams& p,
 
 using namespace repro;
 
+// bf16 q, k, v and o.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
@@ -449,26 +683,48 @@ extern "C" int repro_flash_attention(
   for (long long st : strides) aligned = aligned && st >= 0 && st % 8 == 0;
   for (const void* ptr : {q, k, v, static_cast<const void*>(o)})
     aligned = aligned && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Skv <= 0 ||
-      d != kD || !aligned || (block_q != 64 && block_q != 128) ||
-      (block_kv != 64 && block_kv != 128))
+  if (!aligned || (block_q != 64 && block_q != 128) ||
+      (block_kv != 64 && block_kv != 128) ||
+      !valid_shape(B, H, Hkv, Sq, Skv, d, block_q))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_qb = (Sq + block_q - 1) / block_q;
-  if (static_cast<long long>(n_qb) * H * B > 0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
   const Operands a{q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                    v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
   const FlashParams p{B, H, Hkv, Sq, Skv, kv_len, causal, n_qb,
                       scale * kLog2e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define REPRO_FLASH_CASE(BQ_, BKV_)                 \
-  if (block_q == BQ_ && block_kv == BKV_)           \
-    return static_cast<int>(launch<BQ_ / 64, BKV_>(a, p, s));
-  REPRO_FLASH_CASE(64, 64)
-  REPRO_FLASH_CASE(64, 128)
-  REPRO_FLASH_CASE(128, 64)
-  REPRO_FLASH_CASE(128, 128)
-#undef REPRO_FLASH_CASE
+  cudaError_t err = cudaErrorInvalidValue;
+  switch ((d + 63) / 64) {
+    case 1: err = launch_dp<64>(block_q, block_kv, a, p, d, s); break;
+    case 2: err = launch_dp<128>(block_q, block_kv, a, p, d, s); break;
+    case 3: err = launch_dp<192>(block_q, block_kv, a, p, d, s); break;
+    case 4: err = launch_dp<256>(block_q, block_kv, a, p, d, s); break;
+  }
+  return static_cast<int>(err);
+}
+
+// f32 q, k, v and o, element strides with a unit d stride.
+extern "C" int repro_flash_attention_f32(
+    const float* q, const float* k, const float* v, float* o,
+    long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long o_sb, long long o_sh, long long o_ss, int B,
+    int H, int Hkv, int Sq, int Skv, int kv_len, int causal, float scale,
+    int d, void* stream) {
+  if (!valid_shape(B, H, Hkv, Sq, Skv, d, kF32Rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const F32Params p{B, H, Hkv, Sq, Skv, kv_len, causal,
+                    (Sq + kF32Rows - 1) / kF32Rows, d, scale,
+                    q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                    o_sb, o_sh, o_ss};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch ((d + 31) / 32) {
+#define REPRO_F32_CASE(DC_) \
+  case DC_: return static_cast<int>(launch_f32<DC_>(q, k, v, o, p, s));
+    REPRO_F32_CASE(1) REPRO_F32_CASE(2) REPRO_F32_CASE(3) REPRO_F32_CASE(4)
+    REPRO_F32_CASE(5) REPRO_F32_CASE(6) REPRO_F32_CASE(7) REPRO_F32_CASE(8)
+#undef REPRO_F32_CASE
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -10,8 +10,10 @@ on the H100 and what its design does about that.
 
 :func:`flash_attention_kernel` takes the route from the device of q: a CPU
 tensor gets the plain version (``ref.attention_ref``), a CUDA tensor the
-kernel, and anything else raises.  ``flash_attention_kernel.launches``
-counts kernel launches.
+kernel, and anything else raises.  On the card, bf16 q/k/v take the wgmma
+kernel and f32 q/k/v the f32 kernel of the same source, at any head dim in
+:data:`HEAD_DIMS`; any other head dim or dtype raises.
+``flash_attention_kernel.launches`` counts kernel launches of both.
 """
 from __future__ import annotations
 
@@ -29,7 +31,12 @@ from repro_torch.core.topology import HardwareSpec, topology_fingerprint
 from repro_torch.kernels import build, ref
 
 BLOCK_MENU = (64, 128)
-HEAD_DIMS = (128,)                 # instantiated in csrc/flash_attention.cu
+# Head dims the kernels take: multiples of 8 up to 256.  The bf16 kernel is
+# instantiated for d rounded up to 64 (its 128-byte swizzled chunks); the
+# padded columns read zeros and are not stored.
+HEAD_DIM_ALIGN, MAX_HEAD_DIM = 8, 256
+HEAD_DIMS = tuple(range(HEAD_DIM_ALIGN, MAX_HEAD_DIM + 1, HEAD_DIM_ALIGN))
+DTYPES = (torch.bfloat16, torch.float32)
 STAGES = 2                         # the kernel's K/V ring
 _SMEM_BYTES = 227 * 1024           # a block's opt-in dynamic shared memory
 _SMEM_RESERVED = 1024              # shared memory the system reserves per block
@@ -50,19 +57,28 @@ def _max_regs(block_q: int) -> int:
     return 224 if block_q == 64 else 232
 
 
+def padded_head_dim(head_dim: int) -> int:
+    """The head dim the bf16 kernel computes over: d rounded up to a whole
+    64-column (128-byte) swizzled chunk."""
+    return cdiv(head_dim, 64) * 64
+
+
 def _smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
     """The kernel's shared memory: the 1 KB alignment slack of the
-    swizzled tiles, the Q tile, STAGES x (K tile + V tile) and the
-    mbarriers."""
-    tiles = (block_q + 2 * STAGES * block_kv) * head_dim * _TILE_BYTES
+    swizzled tiles, the Q tile, STAGES x (K tile + V tile) at the padded
+    head dim, and the mbarriers."""
+    tiles = (block_q + 2 * STAGES * block_kv) * padded_head_dim(head_dim) \
+        * _TILE_BYTES
     return 1024 + tiles + 8 * (1 + 3 * STAGES)
 
 
 def _regs_per_thread(block_kv: int, head_dim: int) -> int:
     """A consumer thread's share of its warpgroup's 64-row fragments: the
-    f32 scores S (64 x block_kv) and output O (64 x d) over 128 threads,
-    and P as bf16 pairs, live beside the next block's S; plus overhead."""
-    return block_kv // 2 + head_dim // 2 + block_kv // 4 + _REG_OVERHEAD
+    f32 scores S (64 x block_kv) and output O (64 x padded d) over 128
+    threads, and P as bf16 pairs, live beside the next block's S; plus
+    overhead."""
+    return (block_kv // 2 + padded_head_dim(head_dim) // 2 + block_kv // 4
+            + _REG_OVERHEAD)
 
 
 def legal_blocks(block_q: int, block_kv: int, head_dim: int) -> bool:
@@ -140,8 +156,9 @@ def price_attention_blocks(
     :func:`ctas_per_sm` of them resident on each.  A kv step of a CTA
     costs max(NWG·tc + softmax, 2·bkv·d·bytes / (bw / resident CTAs)):
 
-    - tc = 4·64·bkv·d / (peak / SMs), one consumer warpgroup's two
-      products at one SM's share of the tensor-core peak; the CTA's NWG =
+    - tc = 4·64·bkv·dp / (peak / SMs), one consumer warpgroup's two
+      products over the padded head dim dp at one SM's share of the
+      tensor-core peak; the CTA's NWG =
       block_q / 64 warpgroups take turns on the tensor cores;
     - softmax = 64·bkv scores at ``_SOFTMAX_CLOCKS_PER_SCORE`` on the
       CUDA cores, priced in series with the products: the kernel runs it
@@ -167,7 +184,8 @@ def price_attention_blocks(
     ctas = batch * heads * len(steps)
     resident = min(ctas, sms * per_sm)
     nwg = block_q // 64
-    tc = 4.0 * 64 * block_kv * head_dim / (hw.flops(in_dtype) / sms)
+    tc = 4.0 * 64 * block_kv * padded_head_dim(head_dim) \
+        / (hw.flops(in_dtype) / sms)
     clock = hw.flops("bfloat16") / sms / _TC_FLOPS_PER_CLOCK
     softmax = 64 * block_kv * _SOFTMAX_CLOCKS_PER_SCORE / clock
     kv_set = 2 * batch * kv_heads * s_kv * head_dim * bi
@@ -237,8 +255,8 @@ def select_attention_blocks(
     """Analytical (block_q, block_kv) for the Hopper kernel, with zero
     autotuning: :func:`plan_attention`'s pair.  The legal set is the
     kernel's (:func:`legal_blocks`; the tiles are bf16 whatever
-    ``in_dtype`` prices); (64, 64) is legal for every d up to 256, so a
-    pair always exists."""
+    ``in_dtype`` prices, and the f32 kernel runs its own fixed tiles);
+    (64, 64) is legal for every d up to 256, so a pair always exists."""
     plan = plan_attention(s_q, s_kv, head_dim, batch=batch, heads=heads,
                           kv_heads=kv_heads, in_dtype=in_dtype, hw=hw,
                           causal=causal)
@@ -248,7 +266,8 @@ def select_attention_blocks(
 def attention_plain(q, k, v, *, block_q: int, block_kv: int,
                     causal: bool = False,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """The plain version: what the kernel computes, whatever the blocks."""
+    """The plain version: what the kernels compute, whatever the blocks,
+    at any head dim and dtype."""
     return ref.attention_ref(q, k, v, causal=causal, scale=scale)
 
 
@@ -257,7 +276,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            causal: bool = False,
                            scale: Optional[float] = None) -> torch.Tensor:
     """Attention of q (B, H, Sq, d) over k/v (B, Hkv, Skv, d); returns
-    (B, H, Sq, d) in q's dtype."""
+    (B, H, Sq, d) in q's dtype.  ``block_q``/``block_kv`` tile the bf16
+    kernel; the f32 kernel runs 16-row q blocks and 32-key kv blocks."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, block_q=block_q, block_kv=block_kv,
                                causal=causal, scale=scale)
@@ -270,6 +290,14 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
 flash_attention_kernel.launches = 0
 
 
+def check_head_dim(d: int) -> None:
+    """Raise unless the kernels take head dim ``d``."""
+    if d not in HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention: head_dim {d} is not taken by the kernels "
+            f"(a multiple of {HEAD_DIM_ALIGN} up to {MAX_HEAD_DIM})")
+
+
 def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
@@ -280,45 +308,55 @@ def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale):
     if k.shape[0] != B or dk != d or H % Hkv:
         raise ValueError(f"flash_attention: incompatible q {tuple(q.shape)} "
                          f"and k/v {tuple(k.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
+    check_head_dim(d)
     if block_q not in BLOCK_MENU or block_kv not in BLOCK_MENU:
         raise ValueError(f"flash_attention: blocks ({block_q}, {block_kv}) "
                          f"not in {BLOCK_MENU}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"flash_attention: q is {q.dtype}; the kernels "
+                         f"take bf16 or f32")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise ValueError(f"flash_attention: {name} must be bf16, got "
-                             f"{t.dtype}")
+        if t.dtype != q.dtype:
+            raise ValueError(f"flash_attention: {name} is {t.dtype}, q is "
+                             f"{q.dtype}")
         if t.device != q.device:
             raise ValueError("flash_attention: q, k, v on different devices")
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name} needs a unit stride "
                              f"on the head dim")
-    # TMA reads q, k and v (any strides, v may be a transposed view):
-    # 16-byte aligned bases and strides.
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
-            raise ValueError(f"flash_attention: {name} strides "
-                             f"{t.stride()} not aligned for the kernel")
+    f32 = q.dtype == torch.float32
+    if not f32:
+        if not legal_blocks(block_q, block_kv, d):
+            raise ValueError(f"flash_attention: blocks ({block_q}, "
+                             f"{block_kv}) exceed the kernel's budgets at "
+                             f"head_dim {d}")
+        # TMA reads q, k and v (any strides, v may be a transposed view):
+        # 16-byte aligned bases and strides.
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+                raise ValueError(f"flash_attention: {name} strides "
+                                 f"{t.stride()} not aligned for the kernel")
     # Output laid out (B, Sq, H, d): the model's head merge is then a view.
     out = torch.empty((B, Sq, H, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     scale = scale if scale is not None else d ** -0.5
 
     lib = build.load("flash_attention")
-    fn = lib.repro_flash_attention
+    fn = lib.repro_flash_attention_f32 if f32 else lib.repro_flash_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 \
-            + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 3 \
+        tail = [ctypes.c_int] * 7 + [ctypes.c_float] \
+            + ([ctypes.c_int] if f32 else [ctypes.c_int] * 3) \
             + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + tail
         fn.restype = ctypes.c_int
+    blocks = () if f32 else (block_q, block_kv)
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *out.stride()[:3], B, H, Hkv, Sq, Skv, Skv, int(causal),
-                  float(scale), block_q, block_kv, d,
+                  float(scale), *blocks, d,
                   torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, code, f"flash_attention q{tuple(q.shape)} "
+    build.check(lib, code, f"flash_attention {q.dtype} q{tuple(q.shape)} "
                            f"k{tuple(k.shape)} blocks ({block_q}, {block_kv})")
     flash_attention_kernel.launches += 1
     return out

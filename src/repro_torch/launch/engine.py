@@ -12,7 +12,11 @@ slot-reuse decode, on PyTorch tensors (the port of
   position vector; each row masks its own prefix and writes KV at its own
   offset.  Finished rows free their slot mid-flight.
 * **Warm-up**: every bucket edge's step GEMMs are selected in ONE
-  ``select_gemm_config_batch`` call before serving.
+  ``select_gemm_config_batch`` call before serving (none for the SSM
+  family, which has no attention-step GEMM grid).
+* The SSM and hybrid families take no bucket plan: a recurrent state
+  would integrate the pad tokens, so their prompts prefill at exact length
+  (``repro/launch/engine.py:116-120``).
 
 Fail-soft semantics follow the reference: every prefill/decode is
 transient-retried (the fault hook fires before the step touches the cache,
@@ -140,9 +144,12 @@ class _PrefillClock:
 def _insert(full: Dict, part: Dict, b: int) -> None:
     """Write each prefill cache leaf (L, 1, ...) into row ``b`` of the
     matching decode cache leaf (L, B, ...), in place, at offset 0 of every
-    later axis."""
+    later axis (nested cache trees leaf by leaf)."""
     for name, dst in full.items():
         src = part[name]
+        if isinstance(dst, dict):
+            _insert(dst, src, b)
+            continue
         idx = (slice(None), slice(b, b + 1)) \
             + tuple(slice(0, n) for n in src.shape[2:])
         dst[idx].copy_(src)
@@ -164,6 +171,12 @@ class ServingEngine:
                  decode_fault: Optional[Callable[..., None]] = None,
                  straggler_window: int = 16, straggler_min_steps: int = 4,
                  quiet: bool = False):
+        cfg = model.cfg
+        if plan is not None and cfg.has_ssm:
+            raise ValueError(
+                f"bucketed (padded) admission is not exact for family "
+                f"{cfg.family!r}: recurrent state integrates pad tokens. "
+                f"Run without a plan (exact, per-length compiles).")
         self.model = model
         self.device = model.device
         self.params = params
@@ -219,6 +232,8 @@ class ServingEngine:
         each bucket edge's (or queued length's) step GEMMs plus the decode
         batch's, in ONE batched selection call.  Returns shapes primed."""
         cfg = self.model.cfg
+        if cfg.family == "ssm":
+            return 0                          # no attention-step GEMM grid
         gemms = step_gemms(
             cfg.d_model, cfg.d_ff,
             kv_dim=cfg.num_kv_heads * cfg.head_dim,

@@ -13,6 +13,10 @@ uniform requests, on the GPU by default.
         --arch qwen3-moe-30b-a3b --batch 4 --prompt-len 512 --gen 16 \\
         --ragged --requests 8
 
+    # the SSM and hybrid families (mamba2-370m, zamba2-7b: 13.5 GB)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
+        --batch 4 --prompt-len 512 --gen 16 --ragged --requests 8
+
 Requests flow through :class:`repro_torch.launch.engine.ServingEngine`;
 ragged lengths are right-padded to the edges of a model-priced
 :class:`~repro_torch.core.bucketing.BucketPlan`, every bucket edge's step
@@ -22,7 +26,9 @@ hand-written flash kernel; an MoE layer's expert GEMMs run the grouped
 Hopper GEMM, one launch for all experts.  As in the reference, the bucket
 plan prices every family's step with ``step_gemms`` (a d_model-wide q
 projection and a d_ff MLP), and MoE prompts are admitted into buckets: pad
-tokens raise the token count and so the expert capacity.  ``--topology``
+tokens raise the token count and so the expert capacity.  The SSM and
+hybrid families get no plan (a recurrent state would integrate the pad):
+their prompts prefill at exact length.  ``--topology``
 loads a calibrated-topology artifact through the guarded loader (corrupt
 artifacts quarantine, serving continues on the stock preset);
 ``--residual`` installs a residual corrector, loaded guarded against the
@@ -170,15 +176,16 @@ def _export_telemetry(trace_dir: str, args: argparse.Namespace) -> None:
     cfg = get_config(args.arch, smoke=args.smoke)
     hw = ops.get_default_hardware()
     sim_timelines = []
-    gemms = step_gemms(cfg.d_model, cfg.d_ff,
-                       kv_dim=cfg.num_kv_heads * cfg.head_dim,
-                       vocab=cfg.vocab_size,
-                       swiglu=cfg.activation == "swiglu")[:3]
-    for (n, k) in gemms:
-        sel = select_gemm_config(args.batch, n, k, hw=hw)
-        ev: list = []
-        simulate_gemm(sel.problem, sel.config, hw, events=ev)
-        sim_timelines.append((f"gemm {args.batch}x{n}x{k}", ev))
+    if cfg.family != "ssm":
+        gemms = step_gemms(cfg.d_model, cfg.d_ff,
+                           kv_dim=cfg.num_kv_heads * cfg.head_dim,
+                           vocab=cfg.vocab_size,
+                           swiglu=cfg.activation == "swiglu")[:3]
+        for (n, k) in gemms:
+            sel = select_gemm_config(args.batch, n, k, hw=hw)
+            ev: list = []
+            simulate_gemm(sel.problem, sel.config, hw, events=ev)
+            sim_timelines.append((f"gemm {args.batch}x{n}x{k}", ev))
     tracer = obs_trace.get_tracer()
     export_chrome_trace(os.path.join(trace_dir, "trace.json"),
                         tracer.spans if tracer is not None else [],
@@ -260,7 +267,7 @@ def _run_serving(args: argparse.Namespace, *,
         lens = [args.prompt_len] * n_req
 
     plan = None
-    if ragged:
+    if ragged and not cfg.has_ssm:
         plan = plan_buckets(
             lens,
             gemms=step_gemms(cfg.d_model, cfg.d_ff,

@@ -8,7 +8,7 @@ Hopper GEMM runs it with the epilogue fused into its flush.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -18,16 +18,24 @@ from repro_torch.nn.config import ModelConfig
 
 # ---------------------------------------------------------------------------
 # Parameter definitions: shape and init rule per leaf ("normal" is
-# N(0, 1) * 0.02, "ones" is the norm scale, "zeros" a norm bias).
+# N(0, 1) * scale, "ones" is the norm scale, "zeros" a norm bias, "ssm_a"
+# and "ssm_dt" the mamba decay and step-bias rules), with the leaf's own
+# dtype where it has one (the mamba A_log, D and dt_bias stay f32 in a bf16
+# model, ``repro/nn/mamba2.py:113-117``).
 # ---------------------------------------------------------------------------
 
-ParamDef = Tuple[Tuple[int, ...], str]
+
+class ParamDef(NamedTuple):
+    shape: Tuple[int, ...]
+    init: str = "normal"
+    dtype: Optional[torch.dtype] = None     # None: the model's dtype
+    scale: float = 0.02
 
 
 def norm_defs(cfg: ModelConfig) -> Dict:
-    d = {"scale": ((cfg.d_model,), "ones")}
+    d = {"scale": ParamDef((cfg.d_model,), "ones")}
     if cfg.norm == "layernorm":
-        d["bias"] = ((cfg.d_model,), "zeros")
+        d["bias"] = ParamDef((cfg.d_model,), "zeros")
     return d
 
 
@@ -36,10 +44,10 @@ def attn_defs(cfg: ModelConfig) -> Dict:
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     return {
         "norm": norm_defs(cfg),
-        "wq": ((D, H * hd), "normal"),
-        "wk": ((D, Hkv * hd), "normal"),
-        "wv": ((D, Hkv * hd), "normal"),
-        "wo": ((H * hd, D), "normal"),
+        "wq": ParamDef((D, H * hd)),
+        "wk": ParamDef((D, Hkv * hd)),
+        "wv": ParamDef((D, Hkv * hd)),
+        "wo": ParamDef((H * hd, D)),
     }
 
 
@@ -48,14 +56,14 @@ def mlp_defs(cfg: ModelConfig) -> Dict:
     if cfg.activation == "swiglu":
         return {
             "norm": norm_defs(cfg),
-            "wg": ((D, F), "normal"),
-            "wu": ((D, F), "normal"),
-            "wd": ((F, D), "normal"),
+            "wg": ParamDef((D, F)),
+            "wu": ParamDef((D, F)),
+            "wd": ParamDef((F, D)),
         }
     return {
         "norm": norm_defs(cfg),
-        "w1": ((D, F), "normal"),
-        "w2": ((F, D), "normal"),
+        "w1": ParamDef((D, F)),
+        "w2": ParamDef((F, D)),
     }
 
 
@@ -64,37 +72,47 @@ def mlp_defs(cfg: ModelConfig) -> Dict:
 _DRAW_ELEMS = 1 << 26
 
 
-def _draw_normal(shape, generator, *, dtype, device) -> torch.Tensor:
-    """N(0, 0.02²) drawn in f32 and cast, in slices along axis 0 of at most
-    ``_DRAW_ELEMS`` elements (one row at least)."""
+def _draw_normal(shape, generator, *, dtype, device,
+                 scale: float = 0.02) -> torch.Tensor:
+    """N(0, scale²) drawn in f32 and cast, in slices along axis 0 of at
+    most ``_DRAW_ELEMS`` elements (one row at least)."""
     out = torch.empty(shape, dtype=dtype, device=device)
     row = out[0].numel() if out.dim() > 1 else 1
     step = max(1, _DRAW_ELEMS // row)
     for i in range(0, shape[0], step):
         part = out[i:i + step]
         t = torch.empty(part.shape, dtype=torch.float32, device=device)
-        part.copy_(t.normal_(0.0, 0.02, generator=generator))
+        part.copy_(t.normal_(0.0, scale, generator=generator))
     return out
 
 
 def init_tree(defs: Dict, generator: torch.Generator, *,
               dtype: torch.dtype, device: torch.device) -> Dict:
     """Materialise a def tree, leaves in insertion order, from one
-    generator: normal leaves are N(0, 0.02²) drawn in f32 then cast, a
-    slice of axis 0 at a time."""
+    generator, each leaf in its def's dtype or else ``dtype``: normal
+    leaves are N(0, scale²) drawn in f32 then cast, a slice of axis 0 at a
+    time; "ssm_a" is log(1 + 15 u) and "ssm_dt" is U[-4.6, -2.3), u ~
+    U[0, 1) drawn in f32 (the reference's rules, ``repro/nn/layers.py:
+    53-59``, from the port's own generator)."""
     out = {}
     for name, d in defs.items():
         if isinstance(d, dict):
             out[name] = init_tree(d, generator, dtype=dtype, device=device)
             continue
-        shape, rule = d
-        if rule == "ones":
-            out[name] = torch.ones(shape, dtype=dtype, device=device)
-        elif rule == "zeros":
-            out[name] = torch.zeros(shape, dtype=dtype, device=device)
+        dt = d.dtype or dtype
+        if d.init == "ones":
+            out[name] = torch.ones(d.shape, dtype=dt, device=device)
+        elif d.init == "zeros":
+            out[name] = torch.zeros(d.shape, dtype=dt, device=device)
+        elif d.init in ("ssm_a", "ssm_dt"):
+            u = torch.rand(d.shape, generator=generator, device=device,
+                           dtype=torch.float32)
+            u = (torch.log(1.0 + u * 15.0) if d.init == "ssm_a"
+                 else u * 2.3 - 4.6)
+            out[name] = u.to(dt)
         else:
-            out[name] = _draw_normal(shape, generator, dtype=dtype,
-                                     device=device)
+            out[name] = _draw_normal(d.shape, generator, dtype=dt,
+                                     device=device, scale=d.scale)
     return out
 
 

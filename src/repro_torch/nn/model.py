@@ -44,9 +44,9 @@ class Model:
 
     def init(self, generator: torch.Generator,
              dtype: Optional[torch.dtype] = None) -> Dict:
-        """Random params (N(0, 0.02²), ones for norm scales) from an
-        explicit generator on the model's device; ``dtype`` defaults to the
-        config's."""
+        """Random params (the def tree's init rules) from an explicit
+        generator on the model's device; ``dtype`` defaults to the config's
+        and does not touch a leaf whose def carries its own dtype."""
         return L.init_tree(self.defs(), generator,
                            dtype=dtype or _DTYPES[self.cfg.dtype],
                            device=self.device)
@@ -74,7 +74,9 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, *, dtype: torch.dtype,
                     device: Union[str, torch.device]) -> Dict:
     """The port's params from the JAX package's param tree given as numpy
     arrays (layers stacked on axis 0, as ``repro/nn/transformer.py:59``).
-    Every leaf of the port's def tree must be present with its shape."""
+    Every leaf of the port's def tree must be present with its shape; a
+    leaf whose def carries a dtype (the f32 mamba A_log, D, dt_bias) keeps
+    it, every other leaf takes ``dtype``."""
     dev = torch.device(device)
 
     def convert(defs, node, path):
@@ -86,11 +88,11 @@ def params_from_jax(tree: Dict, cfg: ModelConfig, *, dtype: torch.dtype,
                 out[name] = convert(d, node[name], f"{path}{name}/")
                 continue
             arr = np.asarray(node[name])
-            if arr.shape != tuple(d[0]):
+            if arr.shape != tuple(d.shape):
                 raise ValueError(f"param {path}{name}: shape {arr.shape}, "
-                                 f"expected {tuple(d[0])}")
+                                 f"expected {tuple(d.shape)}")
             out[name] = torch.from_numpy(np.array(arr, np.float32)).to(
-                device=dev, dtype=dtype)
+                device=dev, dtype=d.dtype or dtype)
         return out
 
     return convert(T.model_defs(cfg), tree, "")

@@ -24,17 +24,17 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
 from repro_torch.nn.config import ModelConfig
-from repro_torch.nn.layers import norm, norm_defs
+from repro_torch.nn.layers import ParamDef, norm, norm_defs
 
 
 def moe_defs(cfg: ModelConfig) -> Dict:
     D, E, Fd = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
     return {
         "norm": norm_defs(cfg),
-        "router": ((D, E), "normal"),
-        "wg": ((E, D, Fd), "normal"),
-        "wu": ((E, D, Fd), "normal"),
-        "wd": ((E, Fd, D), "normal"),
+        "router": ParamDef((D, E)),
+        "wg": ParamDef((E, D, Fd)),
+        "wu": ParamDef((E, D, Fd)),
+        "wd": ParamDef((E, Fd, D)),
     }
 
 

@@ -1,10 +1,16 @@
-"""Decoder-LM assembly on PyTorch tensors, for the dense and MoE families.
+"""Decoder-LM assembly on PyTorch tensors, for the dense, MoE, SSM and
+hybrid families.
 
 The param tree keeps the JAX package's layout: layer parameters stacked on
 a leading "layers" axis (``repro/nn/transformer.py:59``).  Where the
 reference scans over that axis, the port runs a Python loop over views of
-it.  A dense layer is attention + MLP, an MoE layer attention + MoE
-(``repro/nn/transformer.py:36-41``); the other families are not ported.
+it.  A dense layer is attention + MLP, an MoE layer attention + MoE, an
+SSM layer one mamba2 block (``repro/nn/transformer.py:36-41``).  The
+hybrid (zamba2) family runs groups of ``shared_attn_every`` mamba layers,
+each group followed by one application of the *shared* attention + MLP
+block (one weight set reused at every application), then a ragged tail of
+mamba layers; the shared block keeps one KV cache per application.  The
+vlm and audio families are not ported.
 """
 from __future__ import annotations
 
@@ -13,25 +19,30 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.nn import layers as L
-from repro_torch.nn import moe
+from repro_torch.nn import mamba2, moe
 from repro_torch.nn.config import ModelConfig
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense and moe families are ported, not "
-            f"{cfg.family!r}")
+            f"{cfg.name}: only the {', '.join(FAMILIES)} families are "
+            f"ported, not {cfg.family!r}")
 
 
 def layer_defs(cfg: ModelConfig) -> Dict:
+    if cfg.has_ssm:
+        return {"mamba": mamba2.mamba_defs(cfg)}
     if cfg.is_moe:
         return {"attn": L.attn_defs(cfg), "moe": moe.moe_defs(cfg)}
     return {"attn": L.attn_defs(cfg), "mlp": L.mlp_defs(cfg)}
 
 
 def _stack(defs, n: int):
-    return {k: (_stack(d, n) if isinstance(d, dict) else ((n, *d[0]), d[1]))
+    return {k: (_stack(d, n) if isinstance(d, dict)
+                else d._replace(shape=(n, *d.shape)))
             for k, d in defs.items()}
 
 
@@ -39,13 +50,32 @@ def model_defs(cfg: ModelConfig) -> Dict:
     _check_family(cfg)
     D, V = cfg.d_model, cfg.vocab_size
     defs = {
-        "embed": ((V, D), "normal"),
+        "embed": L.ParamDef((V, D)),
         "layers": _stack(layer_defs(cfg), cfg.num_layers),
         "final_norm": L.norm_defs(cfg),
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = ((D, V), "normal")
+        defs["lm_head"] = L.ParamDef((D, V))
+    if cfg.family == "hybrid":
+        defs["shared"] = {"attn": L.attn_defs(cfg), "mlp": L.mlp_defs(cfg)}
     return defs
+
+
+def _hybrid_split(cfg: ModelConfig) -> Tuple[int, int, int]:
+    """(n_groups, group_size, tail) of the hybrid layer structure."""
+    g = cfg.shared_attn_every
+    n_groups, tail = divmod(cfg.num_layers, g)
+    return n_groups, g, tail
+
+
+def _shared_after(cfg: ModelConfig, i: int) -> int:
+    """The shared block's application that follows mamba layer ``i`` of a
+    hybrid model (its group's index), or -1 (inside a group, the tail, or
+    not hybrid)."""
+    if cfg.family != "hybrid":
+        return -1
+    n_groups, g, _ = _hybrid_split(cfg)
+    return (i + 1) // g - 1 if (i + 1) % g == 0 and i < n_groups * g else -1
 
 
 def _layer(tree, i: int):
@@ -99,6 +129,15 @@ def _block(lp: Dict, x: torch.Tensor, positions: torch.Tensor,
     return L.mlp_forward(lp["mlp"], x, cfg, residual=x)
 
 
+def _shared_block(shared: Dict, x: torch.Tensor, positions: torch.Tensor,
+                  cfg: ModelConfig) -> torch.Tensor:
+    """One application of the hybrid's shared attention + MLP block, both
+    residuals fused into their GEMM flushes (``transformer.py:144-146``)."""
+    x = L.attn_forward(shared["attn"], x, cfg, positions=positions,
+                       residual=x)
+    return L.mlp_forward(shared["mlp"], x, cfg, residual=x)
+
+
 def forward_hidden(params: Dict, tokens: torch.Tensor, cfg: ModelConfig
                    ) -> torch.Tensor:
     """Final normed hidden states (B, S, D) of a full causal pass."""
@@ -107,7 +146,12 @@ def forward_hidden(params: Dict, tokens: torch.Tensor, cfg: ModelConfig
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
-        x = _block(lp, x, positions, cfg)
+        if cfg.has_ssm:
+            x = x + mamba2.mamba_forward(lp["mamba"], x, cfg)
+            if _shared_after(cfg, i) >= 0:
+                x = _shared_block(params["shared"], x, positions, cfg)
+        else:
+            x = _block(lp, x, positions, cfg)
     return L.norm(x, params["final_norm"], cfg)
 
 
@@ -118,8 +162,11 @@ def prefill_forward(
     *,
     last_pos: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
-    """Returns (last-position logits (B, V) f32, decode cache with k/v of
-    shape (L, B, Hkv, S, d) in the param dtype).
+    """Returns (last-position logits (B, V) f32, decode cache).  The cache
+    of a dense or MoE model is k/v of shape (L, B, Hkv, S, d) in the param
+    dtype; an SSM model's is ``{"mamba": {conv_x, conv_b, conv_c, ssm}}``
+    stacked on L, and a hybrid's adds ``"attn"`` k/v stacked on the shared
+    block's applications.
 
     ``last_pos`` (B,) reads each row's logits at its own final real
     position — the ragged-admission path: prompts right-padded to a bucket
@@ -128,9 +175,21 @@ def prefill_forward(
     x = embed_tokens(params, tokens)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
-    ks, vs = [], []
+    ks, vs, mcs = [], [], []
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
+        if cfg.has_ssm:
+            y, mc = mamba2.mamba_forward(lp["mamba"], x, cfg,
+                                         return_cache=True)
+            x = x + y
+            mcs.append(mc)
+            if _shared_after(cfg, i) >= 0:
+                k, v = _kv_for_cache(params["shared"]["attn"], x, positions,
+                                     cfg)
+                ks.append(k)
+                vs.append(v)
+                x = _shared_block(params["shared"], x, positions, cfg)
+            continue
         k, v = _kv_for_cache(lp["attn"], x, positions, cfg)
         ks.append(k)
         vs.append(v)
@@ -138,18 +197,37 @@ def prefill_forward(
     x = L.norm(x, params["final_norm"], cfg)
     last = (x[:, -1] if last_pos is None
             else x[torch.arange(B, device=x.device), last_pos])
-    return logits(last, params, cfg), {"k": torch.stack(ks),
-                                       "v": torch.stack(vs)}
+    kv = {"k": torch.stack(ks), "v": torch.stack(vs)} if ks else {}
+    if not mcs:
+        return logits(last, params, cfg), kv
+    cache = {"mamba": {name: torch.stack([mc[name] for mc in mcs])
+                       for name in mcs[0]}}
+    if kv:
+        cache["attn"] = kv
+    return logits(last, params, cfg), cache
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device: torch.device) -> Dict:
-    """The decode cache: bf16 whatever the param dtype, as in the
-    reference (``transformer.py:338-341``)."""
+    """The decode cache, shaped as :func:`prefill_forward`'s with
+    ``max_len`` positions: k/v and the conv tails bf16 whatever the param
+    dtype, the SSM state f32, as in the reference
+    (``transformer.py:327-353``)."""
     _check_family(cfg)
-    shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-            "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+    def kv(n):
+        shape = (n, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
+                "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+
+    if not cfg.has_ssm:
+        return kv(cfg.num_layers)
+    cache = {"mamba": {
+        name: torch.zeros((cfg.num_layers, *shape), dtype=dt, device=device)
+        for name, (shape, dt) in mamba2.mamba_cache_defs(cfg, batch).items()}}
+    if cfg.family == "hybrid":
+        cache["attn"] = kv(_hybrid_split(cfg)[0])
+    return cache
 
 
 def decode_step(
@@ -160,11 +238,28 @@ def decode_step(
     cfg: ModelConfig,
 ) -> Tuple[torch.Tensor, Dict]:
     """One serving step: f32 logits for the next token.  The cache is
-    updated in place and returned."""
+    updated in place and returned.  k/v are written at ``pos`` (a retried
+    step writes the same values again); the mamba layers' new states are
+    held until the last layer has run and then written into the cache,
+    one copy per leaf, so a step that fails part-way leaves the recurrent
+    state as it was."""
     _check_family(cfg)
     x = embed_tokens(params, tokens)[:, None, :]          # (B, 1, D)
+    new_mamba = []
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
+        if cfg.has_ssm:
+            y, mc = mamba2.mamba_decode(lp["mamba"], x,
+                                        _layer(cache["mamba"], i), cfg)
+            new_mamba.append(mc)
+            x = x + y
+            a = _shared_after(cfg, i)
+            if a >= 0:
+                shared = params["shared"]
+                x = x + L.attn_decode(shared["attn"], x,
+                                      _layer(cache["attn"], a), cfg, pos=pos)
+                x = x + L.mlp_forward(shared["mlp"], x, cfg)
+            continue
         c = {"k": cache["k"][i], "v": cache["v"][i]}
         x = x + L.attn_decode(lp["attn"], x, c, cfg, pos=pos)
         if cfg.is_moe:
@@ -172,4 +267,7 @@ def decode_step(
         else:
             x = x + L.mlp_forward(lp["mlp"], x, cfg)
     x = L.norm(x, params["final_norm"], cfg)
-    return logits(x[:, 0], params, cfg), cache
+    out = logits(x[:, 0], params, cfg)
+    for name, leaf in (cache["mamba"].items() if new_mamba else ()):
+        torch.stack([mc[name] for mc in new_mamba], out=leaf)
+    return out, cache

@@ -5,8 +5,11 @@ Token equality runs in f32 (params cast to f32, and an f32 decode cache on
 both sides): in bf16 the two frameworks round activations in different
 orders, which can flip an argmax between near-tied logits, while in f32 the
 logits agree to ~1e-6 and greedy tokens must be identical.  Every engine
-case runs for each ported family: phi4-mini (pair) and qwen3-moe-30b-a3b
-(MoE), at smoke size.
+case runs for each ported family: phi4-mini (pair), qwen3-moe-30b-a3b
+(MoE), mamba2-370m (SSM) and zamba2-7b (hybrid), at smoke size.  The SSM
+and hybrid families take no bucket plan (both engines refuse one: a
+recurrent state would integrate the pad), so their ragged cases prefill
+every prompt at its exact length.
 """
 import ast
 import dataclasses
@@ -31,15 +34,17 @@ from repro.core.bucketing import plan_buckets as jplan_buckets
 from repro.core.hardware import GPU_H100_LIKE as JGPU_H100_LIKE
 from repro.launch.engine import ServingEngine as JEngine
 from repro.nn.model import Model as JModel
+from repro_torch.calib.faults import InjectedTransientError
 from repro_torch.configs.registry import get_config
 from repro_torch.core.bucketing import plan_buckets, step_gemms
 from repro_torch.core.hardware import GPU_H100_LIKE
 from repro_torch.launch.engine import ServingEngine
 from repro_torch.launch.serve import build_parser, run_serving
+from repro_torch.nn import mamba2
 from repro_torch.nn.model import Model, params_from_jax
 
 ARCH = "phi4-mini-3.8b"
-ARCHS = [ARCH, "qwen3-moe-30b-a3b"]
+ARCHS = [ARCH, "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-7b"]
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
@@ -49,10 +54,14 @@ class _JF32Cache(JModel):
                                       super().init_cache(batch, max_len))
 
 
+def _tree_float(tree):
+    return {k: (_tree_float(v) if isinstance(v, dict) else v.float())
+            for k, v in tree.items()}
+
+
 class _F32Cache(Model):
     def init_cache(self, batch, max_len):
-        return {k: v.float() for k, v in super().init_cache(batch,
-                                                            max_len).items()}
+        return _tree_float(super().init_cache(batch, max_len))
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -81,6 +90,19 @@ def _gemms(cfg):
                       swiglu=cfg.activation == "swiglu")
 
 
+def _plans(cfg, lens):
+    """The port's and the reference's priced bucket plans for ``lens``, or
+    (None, None) for the SSM and hybrid families, which take none."""
+    if cfg.has_ssm:
+        return None, None
+    plan = plan_buckets(lens, gemms=_gemms(cfg), hw=GPU_H100_LIKE,
+                        max_buckets=2)
+    jplan = jplan_buckets(lens, gemms=_gemms(cfg), hw=JGPU_H100_LIKE,
+                          max_buckets=2)
+    assert plan.edges == jplan.edges
+    return plan, jplan
+
+
 def _serve(engine_cls, model, params, prompts, n, **kw):
     eng = engine_cls(model, params, temperature=0.0, seed=0, **kw)
     for p in prompts:
@@ -90,16 +112,13 @@ def _serve(engine_cls, model, params, prompts, n, **kw):
 
 def test_ragged_bucketed_tokens_match_jax_and_isolated(pair):
     """The test_engine.py case: ragged prompts padded to priced bucket
-    edges in a slot-reusing batch.  The port's tokens equal the JAX
-    engine's, and each request's equal its solo run's."""
+    edges (exact lengths for the SSM and hybrid families) in a
+    slot-reusing batch.  The port's tokens equal the JAX engine's, and
+    each request's equal its solo run's."""
     cfg = pair["cfg"]
     lens = [5, 9, 13, 7]
     prompts = _prompts(cfg, lens)
-    plan = plan_buckets(lens, gemms=_gemms(cfg), hw=GPU_H100_LIKE,
-                        max_buckets=2)
-    jplan = jplan_buckets(lens, gemms=_gemms(cfg), hw=JGPU_H100_LIKE,
-                          max_buckets=2)
-    assert plan.edges == jplan.edges
+    plan, jplan = _plans(cfg, lens)
     kw = dict(max_batch=2, max_len=64, sync_every=4)
     got = _serve(ServingEngine, pair["m"], pair["tp"], prompts, 4,
                  plan=plan, **kw)
@@ -111,7 +130,8 @@ def test_ragged_bucketed_tokens_match_jax_and_isolated(pair):
     for i, p in enumerate(prompts):
         g, w = got["results"][i], want["results"][i]
         assert np.array_equal(g.tokens, w.tokens), (i, g.tokens, w.tokens)
-        assert g.finished and g.padded_len == plan.bucket_for(lens[i])
+        assert g.finished and g.padded_len == (
+            plan.bucket_for(lens[i]) if plan else lens[i])
         solo = _serve(ServingEngine, pair["m"], pair["tp"], [p], 4,
                       max_batch=1, max_len=64)["results"][0].tokens
         assert np.array_equal(solo, g.tokens)
@@ -154,6 +174,39 @@ def test_fault_retry_and_drain_prefix_matches_jax(pair):
         assert not faulted["results"][rid].finished
 
 
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_transient_fault_mid_decode_step_replays_intact_state(
+        arch, monkeypatch):
+    """A transient error that escapes after some mamba layers of a decode
+    step have run (as a launch fault does once its ladder is spent) is
+    retried by the step-level retry; the retried step starts from the
+    same recurrent state, so the tokens equal a clean run's."""
+    cfg = get_config(arch, smoke=True)
+    model = Model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0),
+                        dtype=torch.float32)
+    prompts = _prompts(cfg, [7, 9])
+    clean = _serve(ServingEngine, model, params, prompts, 5, max_batch=2,
+                   max_len=32)
+    real, calls = mamba2.mamba_decode, []
+
+    def flaky(p, x, cache, cfg_):
+        out = real(p, x, cache, cfg_)
+        calls.append(1)
+        if len(calls) == cfg.num_layers + 2:     # step 1, second layer
+            raise InjectedTransientError(
+                "transient: injected launch fault mid-step")
+        return out
+
+    monkeypatch.setattr(mamba2, "mamba_decode", flaky)
+    faulted = _serve(ServingEngine, model, params, prompts, 5, max_batch=2,
+                     max_len=32)
+    assert faulted["retries"] == 1 and faulted["steps"] == clean["steps"]
+    for rid in (0, 1):
+        assert np.array_equal(faulted["results"][rid].tokens,
+                              clean["results"][rid].tokens)
+
+
 def test_temperature_sampling_seeded_and_prefix_under_faults(pair):
     """temperature > 0: per-step seeds from a pre-split table make runs
     reproducible, and a retry or drain never shifts the stream."""
@@ -179,6 +232,50 @@ def test_temperature_sampling_seeded_and_prefix_under_faults(pair):
         assert np.array_equal(f, ta[:len(f)])
         differs |= not np.array_equal(ta, greedy["results"][rid].tokens)
     assert differs
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_bucket_plan_is_refused_for_recurrent_families(arch):
+    """Padded admission is not exact when a recurrent state integrates the
+    pad: both engines refuse a plan for the SSM and hybrid families with
+    the same message, and serve without one."""
+    cfg = get_config(arch, smoke=True)
+    plan = plan_buckets([5, 9], gemms=_gemms(get_config(ARCH, smoke=True)),
+                        hw=GPU_H100_LIKE, max_buckets=2)
+    jplan = jplan_buckets([5, 9], gemms=_gemms(get_config(ARCH, smoke=True)),
+                          hw=JGPU_H100_LIKE, max_buckets=2)
+    msgs = []
+    for cls, model, p in (
+            (ServingEngine, Model(cfg, device="cpu"), plan),
+            (JEngine, JModel(jget_config(arch, smoke=True)), jplan)):
+        with pytest.raises(ValueError, match="not exact for family") as e:
+            cls(model, {}, max_batch=2, max_len=32, plan=p)
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1]
+
+
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-7b"])
+def test_recurrent_greedy_tokens_match_jax_engine(arch):
+    """Greedy tokens of ServingEngine equal the JAX engine's, both run
+    in-process from the same converted params in f32, on more requests
+    than slots (a slot's state is overwritten on re-admission) with prompt
+    lengths on both sides of the smoke chunk (16)."""
+    jcfg = jget_config(arch, smoke=True)
+    jp = jax.tree_util.tree_map(lambda x: x.astype(jnp.float32),
+                                JModel(jcfg).init(jax.random.PRNGKey(1)))
+    cfg = get_config(arch, smoke=True)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), cfg,
+                         dtype=torch.float32, device="cpu")
+    prompts = _prompts(cfg, [3, 17, 11, 24, 6], seed=9)
+    kw = dict(max_batch=2, max_len=40)
+    got = _serve(ServingEngine, _F32Cache(cfg, device="cpu"), tp, prompts, 5,
+                 **kw)
+    want = _serve(JEngine, _JF32Cache(jcfg), jp, prompts, 5, **kw)
+    assert got["steps"] == want["steps"] > 0
+    for rid in range(len(prompts)):
+        g, w = got["results"][rid], want["results"][rid]
+        assert g.finished and g.padded_len == g.prompt_len
+        assert np.array_equal(g.tokens, w.tokens), (rid, g.tokens, w.tokens)
 
 
 def test_submit_validation(pair):
@@ -213,8 +310,9 @@ def test_run_serving_smoke_on_cpu(ragged, arch):
     assert all(r.finished and len(r.tokens) == 3
                for r in out["results"].values())
     assert out["tokens_emitted"] == 3 * len(out["results"])
-    if ragged:
-        assert out["edges"] and isinstance(out["tokens"], list)
+    if ragged:          # priced edges, but none for a recurrent family
+        assert isinstance(out["tokens"], list)
+        assert bool(out["edges"]) != get_config(arch, smoke=True).has_ssm
     else:
         assert out["tokens"].shape == (2, 3)
 
@@ -277,10 +375,7 @@ def test_warm_gemm_drift_rows_match_jax(pair, tmp_path, jax_on_h100):
     cfg = pair["cfg"]
     lens = [5, 9, 13, 7]
     prompts = _prompts(cfg, lens)
-    plan = plan_buckets(lens, gemms=_gemms(cfg), hw=GPU_H100_LIKE,
-                        max_buckets=2)
-    jplan = jplan_buckets(lens, gemms=_gemms(cfg), hw=JGPU_H100_LIKE,
-                          max_buckets=2)
+    plan, jplan = _plans(cfg, lens)
     engines = {}
     for name, cls, model, params, p, drift in (
             ("t", ServingEngine, pair["m"], pair["tp"], plan, tdrift),
@@ -299,6 +394,10 @@ def test_warm_gemm_drift_rows_match_jax(pair, tmp_path, jax_on_h100):
         engines[name] = (eng, n)
     rows = _drift_rows(tmp_path / "t.jsonl")
     assert rows == _drift_rows(tmp_path / "j.jsonl")
+    if cfg.family == "ssm":          # no attention-step GEMM grid to warm
+        assert rows == [] and engines["t"][1] == engines["j"][1] == 0
+        assert engines["t"][0].predicted_step_s is None
+        return
     assert len(rows) == engines["t"][1] == engines["j"][1] > 0
     assert {r["site"] for r in rows} == {"warm_gemm"}
     assert engines["t"][0].predicted_step_s == \
@@ -328,7 +427,11 @@ def test_residual_corrector_keeps_tokens_and_selections_equal(pair,
     (re-priced by it) and the greedy tokens equal the JAX engine's."""
     cfg = pair["cfg"]
     tcorr, jcorr = _corrector_pair()
-    shapes = [(m, n, k) for m in (2, 5, 13) for (n, k) in _gemms(cfg)]
+    # The SSM family has no attention-step grid: its mamba projections.
+    nk = ([(cfg.d_inner, cfg.d_model), (cfg.ssm_state, cfg.d_model),
+           (cfg.ssm_heads, cfg.d_model), (cfg.d_model, cfg.d_inner)]
+          if cfg.family == "ssm" else _gemms(cfg))
+    shapes = [(m, n, k) for m in (2, 5, 13) for (n, k) in nk]
     prev_t = tsel.set_residual_corrector(tcorr)
     prev_j = jsel.set_residual_corrector(jcorr)
     try:

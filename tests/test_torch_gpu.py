@@ -9,7 +9,8 @@ only torch and the port, so it runs where JAX is not installed:
 GEMM tolerances are ``tests/test_kernels.py``'s (f32 rtol 1e-5 /
 atol 1e-4·√K, bf16 rtol 3e-2 / atol 0.3·√K).  Attention compares bf16
 outputs at rtol 2e-2 / atol 1e-2, because the kernel rounds P to bf16
-before P·V where the plain version keeps it in f32.  The probe kernels'
+before P·V where the plain version keeps it in f32, and f32 outputs at the
+attention f32 tolerance (rtol 1e-4 / atol 2e-5).  The probe kernels'
 checksums sum integers and must equal their plain versions' exactly.
 """
 import math
@@ -344,6 +345,117 @@ def test_flash_kernel_on_card(cuda, B, H, Hkv, S, causal, blocks, model_v):
     assert torch.equal(got, again)
     torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
                                atol=1e-2)
+
+
+# Every head dim of both registries at full and smoke size (16, 32, 64, 112,
+# 128, 160) and the rule's ends (8, 256), in bf16 and f32, GQA and not,
+# causal and not.  f32 is held at the attention f32 tolerance (rtol 1e-4,
+# atol 2e-5: the kernel computes in full f32); bf16 as above.
+HEAD_DIM_CASES = [(d, dt, causal, heads)
+                  for d in (8, 16, 32, 64, 112, 128, 160, 256)
+                  for dt in (torch.bfloat16, torch.float32)
+                  for causal in (True, False)
+                  for heads in ((4, 2), (4, 4))]
+
+
+def _attn_case(cuda, B, H, Hkv, S, d, dtype, seed, model_v=False):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((B, H, S, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Hkv, S, d), generator=g, device=cuda).to(dtype)
+    if model_v:
+        v = torch.randn((B, S, Hkv, d), generator=g,
+                        device=cuda).to(dtype).transpose(1, 2)
+    else:
+        v = torch.randn((B, Hkv, S, d), generator=g, device=cuda).to(dtype)
+    return q, k, v
+
+
+def _attn_tol(dtype):
+    return (dict(rtol=1e-4, atol=2e-5) if dtype == torch.float32
+            else dict(rtol=2e-2, atol=1e-2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d,dtype,causal,heads", HEAD_DIM_CASES, ids=str)
+def test_flash_kernel_every_head_dim_on_card(cuda, d, dtype, causal, heads):
+    H, Hkv = heads
+    S = 200                                  # ragged past three 64-blocks
+    q, k, v = _attn_case(cuda, 2, H, Hkv, S, d, dtype, seed=d,
+                         model_v=causal)
+    bq, bkv = kfa.select_attention_blocks(
+        S, S, d, causal=causal, batch=2, heads=H, kv_heads=Hkv)
+    n0 = kfa.flash_attention_kernel.launches
+    got = kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
+                                     causal=causal)
+    again = kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
+                                       causal=causal)
+    want = kfa.attention_plain(q, k, v, block_q=bq, block_kv=bkv,
+                               causal=causal)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention_kernel.launches == n0 + 2
+    assert got.dtype == dtype and tuple(got.shape) == (2, H, S, d)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(), **_attn_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [112, 160])
+def test_flash_every_legal_block_pair_at_odd_head_dims(cuda, d):
+    """zamba2's (d 112) and stablelm's (d 160) head dims, whose last
+    64-column chunk runs past d, at every pair the budgets admit."""
+    q, k, v = _attn_case(cuda, 1, 8, 8, 300, d, torch.bfloat16, seed=7,
+                         model_v=True)
+    pairs = [(bq, bkv) for bq in kfa.BLOCK_MENU for bkv in kfa.BLOCK_MENU
+             if kfa.legal_blocks(bq, bkv, d)]
+    assert (64, 64) in pairs
+    for bq, bkv in pairs:
+        got = kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
+                                         causal=True)
+        want = kfa.attention_plain(q, k, v, block_q=bq, block_kv=bkv,
+                                   causal=True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=1e-2)
+
+
+@pytest.mark.gpu
+def test_f32_flash_route_never_reaches_the_plain_version(cuda, monkeypatch):
+    """An f32 model's prefill attention on the card launches the f32
+    kernel: the plain version is not called, and a launch is counted."""
+    from repro_torch.kernels import ref
+
+    def refuse(*a, **kw):
+        raise AssertionError("the plain attention ran on a CUDA tensor")
+    monkeypatch.setattr(kfa, "attention_plain", refuse)
+    monkeypatch.setattr(ref, "attention_ref", refuse)
+    q, k, v = _attn_case(cuda, 1, 32, 32, 474, 112, torch.float32, seed=3)
+    n0 = kfa.flash_attention_kernel.launches
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention_kernel.launches == n0 + 1
+    assert out.dtype == torch.float32 and bool(torch.isfinite(out).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [4, 474])
+@pytest.mark.parametrize("N,K", [(32, 1024), (128, 1024), (64, 3584),
+                                 (112, 3584)], ids=str)
+def test_narrow_mamba_gemms_on_card(cuda, M, N, K):
+    """The mamba projections' narrow outputs (mamba2-370m in_dt N 32 and
+    in_b/in_c N 128 at K 1024; zamba2-7b in_b/in_c N 64 and in_dt N 112 at
+    K 3584), through the selector-driven op, at decode and prefill M."""
+    g = torch.Generator(device=cuda).manual_seed(M + N)
+    a = torch.randn((M, K), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((K, N), generator=g, device=cuda) * 0.02).bfloat16()
+    n0 = kmm.tiled_matmul.launches
+    got = ops.matmul(a, w)
+    again = ops.matmul(a, w)
+    torch.cuda.synchronize()
+    assert kmm.tiled_matmul.launches == n0 + 2
+    assert torch.equal(got, again)
+    rtol, atol = _tol(torch.bfloat16, K)
+    torch.testing.assert_close(got.float(), a.float() @ w.float(),
+                               rtol=rtol, atol=atol)
 
 
 @pytest.mark.gpu

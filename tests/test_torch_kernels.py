@@ -159,6 +159,54 @@ def test_flash_attention_matches_pallas(heads, s_q, s_kv, causal):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("d", [112, 160])
+def test_flash_attention_matches_pallas_at_wide_head_dims(d, causal):
+    """zamba2-7b's head dim (112) and stablelm-12b's (160), neither a whole
+    64-column chunk of the Hopper kernel's tiles, against the TPU kernel
+    in interpret mode (GQA, ragged Sq)."""
+    rng = np.random.default_rng(d)
+    q = rng.standard_normal((1, 4, 70, d)).astype(np.float32)
+    k = rng.standard_normal((1, 2, 70, d)).astype(np.float32)
+    v = rng.standard_normal((1, 2, 70, d)).astype(np.float32)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=causal,
+                                blocks=(128, 128),
+                                backend="pallas_interpret")
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                               atol=2e-5)
+
+
+def test_flash_head_dim_rule_covers_both_registries():
+    """Every full-size head dim of the JAX registry and every head dim of
+    the port's registry (full and smoke) is one the kernels take (a
+    multiple of 8 up to 256); others raise with the rule.  stablelm-12b's
+    smoke config (d 20, not yet ported) is off the rule: its 40-byte rows
+    are no TMA stride.  The legal block pairs are the ones the launcher
+    instantiates: at a padded head dim above 128 only 64-key blocks."""
+    from repro.configs.registry import ARCH_IDS as JARCH_IDS
+    from repro.configs.registry import get_config as jget_config
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    full = {jget_config(a).head_dim for a in JARCH_IDS} - {0}
+    ported = {get_config(a, smoke=s).head_dim for a in ARCH_IDS
+              for s in (False, True)} - {0}
+    assert full == {64, 112, 128, 160} and ported == {16, 32, 112, 128}
+    for d in full | ported:
+        kfa.check_head_dim(d)
+    assert jget_config("stablelm-12b", smoke=True).head_dim == 20
+    for bad in (12, 20, 100, 264):
+        with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+            kfa.check_head_dim(bad)
+    for d in kfa.HEAD_DIMS:
+        legal = {(bq, bkv) for bq in kfa.BLOCK_MENU for bkv in kfa.BLOCK_MENU
+                 if kfa.legal_blocks(bq, bkv, d)}
+        assert (64, 64) in legal
+        if kfa.padded_head_dim(d) > 128:
+            assert all(bkv == 64 for _, bkv in legal), (d, legal)
+
+
 @pytest.mark.parametrize("gqa_packed", [False, True])
 @pytest.mark.parametrize("per_slot", [False, True])
 def test_decode_attention_matches_jax(per_slot, gqa_packed):
