@@ -114,6 +114,32 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               requests of 4 tokens), whose prefill attention runs the f32
               flash kernel, its logits against the plain path in f32
               within ``F32_LOGITS_REL_CAP``.
+10. train_kernels — the training kernels against their plain versions at
+              phi4-mini's training shapes (T = B x S = 2048 tokens), each
+              launched twice and bitwise equal: the GEMM with W read
+              transposed (dX = dY W^T) and with X read transposed (dW =
+              X^T dY) for each of the layer's seven projections in bf16 and
+              one f32 case of each; the flash forward's lse and the flash
+              backward at (4, 24/8, 512, 128) causal, at d in {16, 64, 112,
+              160, 256} and in f32 (d 128 and 112); the epilogue backward
+              of each activation in bf16 and f32.
+    train_grads — phi4-mini at full width with 2 layers, B 2 x S 512: one
+              loss and gradient on the kernel route against the plain route
+              on the card, in bf16 (within 2x the plain bf16 route's
+              distance from the plain f32 route) and in f32 (each leaf
+              within 1e-4: the f32 backward kernels' path).
+    train   — the driver's step functions (loss and gradients under retry,
+              then the in-place AdamW commit) on phi4-mini-3.8b at full
+              width and depth with remat: 6 steps on one repeated batch of
+              B 4 x S 512, AdamW(lr=1e-3, weight_decay=0); the launches of
+              the forward, the remat recompute and the backward each equal
+              the reckoning (``_train_reckoning``), the loss falls, the
+              norms are finite and no degraded mode fires; tokens/s, ms a
+              step and peak memory.
+    train_trace — one traced train step: wall time against device-busy
+              time, kernel time by kernel.
+    train_times — the training kernels' times at those shapes beside
+              their bounds, plain versions and library calls.
 Each serve phase counts the launches of every kernel inside the model's
 prefills and inside its decode steps apart.  The line before the last is
 the kernels summary (a row's launches are those of its own run and step
@@ -124,6 +150,7 @@ directory without the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -253,6 +280,13 @@ def main() -> int:
     serve_calibrated_phase(torch, dev, kmm, kfa, calib)
     ssm_launches = serve_ssm_phase(torch, dev, kmm, kfa)
     hybrid_launches, f32_launches = serve_hybrid_phase(torch, dev, kmm, kfa)
+    max_err.update(train_kernels_phase(torch, dev, kmm, kfa))
+    grads_launches = train_grads_phase(torch, dev, kmm, kfa)
+    model, state, batch, train_launches = train_phase(torch, dev, kmm, kfa)
+    train_trace_phase(torch, dev, model, state, batch)
+    del model, state, batch
+    _free(torch)
+    times.update(train_times_phase(torch, dev, kmm, kfa))
     # Each row's launches: its own run, in its own step kind.
     launches = {
         "matmul@decode": launches["matmul@decode"],
@@ -267,7 +301,13 @@ def main() -> int:
         "flash_attention@hybrid": hybrid_launches["flash_attention@prefill"],
         "flash_attention_f32@hybrid": f32_launches["flash_attention@prefill"],
         "expert_matmul@prefill": moe_launches["expert_matmul@prefill"],
-        **{f"{k}@calib": n for k, n in probe_launches.items()}}
+        **{f"{k}@calib": n for k, n in probe_launches.items()},
+        "matmul@train_dgrad": train_launches["nt"],
+        "matmul@train_wgrad": train_launches["tn"],
+        "flash_attention@train": train_launches["flash"],
+        "flash_attention_bwd@train": train_launches["flash_bwd"],
+        "flash_attention_bwd_f32@train_grads": grads_launches["flash_bwd"],
+        "epilogue_bwd@train": train_launches["epilogue_bwd"]}
 
     gemm_src = ("src/repro_torch/csrc/matmul.cu",
                 "src/repro/kernels/matmul.py:108")
@@ -276,6 +316,8 @@ def main() -> int:
     sources = {
         "matmul": gemm_src, "matmul_f32": gemm_src,
         "flash_attention": flash_src, "flash_attention_f32": flash_src,
+        "flash_attention_bwd": flash_src, "flash_attention_bwd_f32": flash_src,
+        "epilogue_bwd": gemm_src,
         "expert_matmul": ("src/repro_torch/csrc/matmul.cu",
                           "src/repro/kernels/ops.py:308"),
         "stream_read": ("src/repro_torch/csrc/probes.cu",
@@ -709,26 +751,20 @@ SERVE_ARGS = ["--batch", "4", "--prompt-len", "512", "--gen", "16",
               "0", "--quiet"]
 
 
+@contextlib.contextmanager
 def plain_path(kmm, kfa):
-    """Every kernel launch replaced by its plain version, for reference
-    runs of the same model code on the card; launch counts do not move."""
-    def gemm(a, b, cfg, *, out_dtype, epilogue, bias, gate, residual):
-        return kmm.matmul_plain(a, b, cfg, out_dtype=out_dtype,
-                                epilogue=epilogue, bias=bias, gate=gate,
-                                residual=residual)
-
-    def expert(x, w, cfg, *, out_dtype, epilogue, bias, gate, residual):
-        return kmm.expert_matmul_plain(x, w, cfg, out_dtype=out_dtype,
-                                       epilogue=epilogue, bias=bias,
-                                       gate=gate, residual=residual)
-
-    def attn(q, k, v, *, block_q, block_kv, causal, scale):
-        return kfa.attention_plain(q, k, v, block_q=block_q,
-                                   block_kv=block_kv, causal=causal,
-                                   scale=scale)
-    return (mock.patch.object(kmm, "_launch_cuda", gemm),
-            mock.patch.object(kmm, "_launch_expert_cuda", expert),
-            mock.patch.object(kfa, "_launch_cuda", attn))
+    """Every kernel launch, forward and backward, replaced by its plain
+    version, for reference runs of the same model code on the card; launch
+    counts do not move."""
+    with mock.patch.object(kmm, "_launch_cuda", kmm.matmul_plain), \
+            mock.patch.object(kmm, "_launch_expert_cuda",
+                              kmm.expert_matmul_plain), \
+            mock.patch.object(kmm, "_launch_epilogue_bwd_cuda",
+                              kmm.epilogue_bwd_plain), \
+            mock.patch.object(kfa, "_launch_cuda", kfa.attention_plain), \
+            mock.patch.object(kfa, "_launch_bwd_cuda",
+                              kfa.attention_bwd_plain):
+        yield
 
 
 def _serve(torch, dev, kmm, kfa, arch, extra=(), phase=None, params=None):
@@ -869,8 +905,7 @@ def _logits_check(torch, dev, kmm, kfa, args, model, params, out, phase,
     tokens, last = _request_tokens(torch, dev, args, model.cfg, r0)
     with torch.inference_mode():
         got, _ = model.prefill(params, tokens, last)
-        p1, p2, p3 = plain_path(kmm, kfa)
-        with p1, p2, p3:
+        with plain_path(kmm, kfa):
             want, _ = model.prefill(params, tokens, last)
             if f32:
                 ref32 = want
@@ -934,8 +969,7 @@ def serve_moe_phase(torch, dev, kmm, kfa):
     with torch.inference_mode():
         # Full depth: kernel path vs plain path over every position.
         got = model.forward(params, tokens)[0]
-        p1, p2, p3 = plain_path(kmm, kfa)
-        with p1, p2, p3:
+        with plain_path(kmm, kfa):
             want = model.forward(params, tokens)[0]
         torch.cuda.synchronize()
         d_full = _rel(torch, got, want)
@@ -960,7 +994,7 @@ def serve_moe_phase(torch, dev, kmm, kfa):
         p_cut = dict(params, layers=_tree_map(
             params["layers"], lambda t: t[:MOE_CUT_LAYERS]))
         got = cut.forward(p_cut, tokens)[0]
-        with p1, p2, p3:
+        with plain_path(kmm, kfa):
             want = cut.forward(p_cut, tokens)[0]
             p32 = _tree_map(p_cut, lambda t: t.float())
             ref32 = cut.forward(p32, tokens)[0]
@@ -997,12 +1031,15 @@ def serve_moe_phase(torch, dev, kmm, kfa):
 def _kernel_ms(prof):
     """Device time (ms) and launch count of every kernel in a profile,
     grouped by kernel name: the dense GEMM's kernels are gemm_dense_*, the
-    grouped GEMM's gemm_grouped_* (csrc/matmul.cu)."""
+    grouped GEMM's gemm_grouped_*, the epilogue backward's
+    epilogue_bwd_kernel (csrc/matmul.cu); the flash forward's
+    flash_fwd_kernel*, the backward's flash_bwd_* (csrc/flash_attention.cu)."""
     import os
     import tempfile
     groups = {"matmul": 0.0, "expert_matmul": 0.0, "flash_attention": 0.0,
-              "other": 0.0}
+              "flash_attention_bwd": 0.0, "epilogue_bwd": 0.0, "other": 0.0}
     counts = dict.fromkeys(groups, 0)
+    other = {}
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
@@ -1016,13 +1053,17 @@ def _kernel_ms(prof):
             continue
         name = ev.get("name", "")
         key = ("flash_attention" if "flash_fwd_kernel" in name else
+               "flash_attention_bwd" if "flash_bwd" in name else
+               "epilogue_bwd" if "epilogue_bwd" in name else
                "expert_matmul" if "gemm_grouped" in name else
                "matmul" if "gemm_dense" in name else "other")
         groups[key] += ev.get("dur", 0.0) / 1e3
         counts[key] += 1
+        if key == "other":
+            other[name] = other.get(name, 0.0) + ev.get("dur", 0.0) / 1e3
     if not any(counts.values()):
         fail("the profiler's trace holds no device kernel events")
-    return groups, counts
+    return groups, counts, other
 
 
 def trace_phase(torch, dev, model, params, phase="trace") -> None:
@@ -1053,7 +1094,7 @@ def trace_phase(torch, dev, model, params, phase="trace") -> None:
                     fn()
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3 / n
-            ms, counts = _kernel_ms(prof)
+            ms, counts, _ = _kernel_ms(prof)
             groups = {k: v / n for k, v in ms.items()}
             busy = sum(groups.values())
             rows[name] = {"wall_ms": wall, "kernel_ms": groups,
@@ -1841,6 +1882,659 @@ def serve_hybrid_phase(torch, dev, kmm, kfa):
     del model, params32
     _free(torch)
     return launches, launches32
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: training phi4-mini-3.8b.
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 4, 512          # the train batch: B x S tokens
+TRAIN_T = TRAIN_B * TRAIN_S        # the backward GEMMs' token count
+TRAIN_STEPS = 6
+GRADS_LAYERS, GRADS_B = 2, 2       # train_grads: phi4 width at 2 layers
+# The flash backward in bf16 against the plain f32 backward (relative L2
+# of each of dq, dk, dv): at most this factor times the plain bf16
+# backward's own distance from it.
+BWD_REL_FACTOR = 2.0
+BWD_F32_REL_CAP = 1e-4             # f32 kernel vs plain f32 backward
+GRADS_REL_FACTOR = 2.0             # train_grads bf16: kernel vs plain route
+GRADS_F32_REL_CAP = 1e-4           # train_grads f32: each leaf
+TRAIN_FLASH_DIMS = (16, 64, 112, 160, 256)
+
+
+def _counters(kmm, kfa):
+    """The launch counters of every kernel on the training path."""
+    return {"nn": lambda: kmm.tiled_matmul.layout_launches["nn"],
+            "tn": lambda: kmm.tiled_matmul.layout_launches["tn"],
+            "nt": lambda: kmm.tiled_matmul.layout_launches["nt"],
+            "flash": lambda: kfa.flash_attention_kernel.launches,
+            "flash_bwd": lambda: kfa.flash_attention_bwd_kernel.launches,
+            "epilogue_bwd": lambda: kmm.epilogue_bwd.launches}
+
+
+def _zero_counts(kmm, kfa) -> None:
+    kmm.tiled_matmul.launches = 0
+    kmm.tiled_matmul.layout_launches.update(nn=0, tn=0, nt=0)
+    kmm.tiled_expert_matmul.launches = 0
+    kmm.epilogue_bwd.launches = 0
+    kfa.flash_attention_kernel.launches = 0
+    kfa.flash_attention_bwd_kernel.launches = 0
+
+
+def _read_counts(kmm, kfa):
+    return {k: f() for k, f in _counters(kmm, kfa).items()}
+
+
+def _check_case(rows, phase, row, ok):
+    rows.append({**row, "ok": ok})
+    if not ok:
+        emit({"phase": phase, "cases": rows})
+        fail(f"{phase}: {row} disagrees with its plain version or does not "
+             f"repeat bitwise")
+
+
+def train_kernels_phase(torch, dev, kmm, kfa):
+    """The training kernels against their plain versions at phi4-mini's
+    training shapes (T = 2048 tokens), each launched twice and bitwise
+    equal: the GEMM with B read transposed (dX = dY W^T) and with A read
+    transposed (dW = X^T dY) for each of wq, wk, wv, wo, wu, wg, wd in
+    bf16, one small case of each layout in f32; the flash forward with its
+    lse and the flash backward at (4, 24/8, 512, 128) causal bf16, at d in
+    TRAIN_FLASH_DIMS, and in f32 at d 128 and 112; the epilogue backward
+    of each activation in bf16 and f32.  Returns the worst absolute error
+    of each kernels-line row."""
+    from repro_torch.core.hardware import GPU_H100_LIKE
+    from repro_torch.core.latency import Epilogue
+    from repro_torch.core.selector import select_gemm_config
+
+    bf, f32 = torch.bfloat16, torch.float32
+    worst = dict.fromkeys(("matmul@train_dgrad", "matmul@train_wgrad",
+                           "flash_attention@train",
+                           "flash_attention_bwd@train",
+                           "flash_attention_bwd_f32@train_grads",
+                           "epilogue_bwd@train"), 0.0)
+    rows = []
+    g = torch.Generator(device=dev).manual_seed(17)
+
+    def rnd(*shape, dt=bf):
+        return torch.randn(shape, generator=g, device=dev).to(dt)
+
+    # Kernel 1: (row, layout, M, N, K, dtype) of the GEMM's products.
+    cases = []
+    for name, N, K, _ in PATH_GEMMS:
+        cases += [("matmul@train_dgrad", "nt", TRAIN_T, K, N, bf, name),
+                  ("matmul@train_wgrad", "tn", K, N, TRAIN_T, bf, name)]
+    cases += [("matmul@train_dgrad", "nt", 256, 320, 512, f32, "f32"),
+              ("matmul@train_wgrad", "tn", 320, 256, 512, f32, "f32")]
+    for key, layout, M, N, K, dt, name in cases:
+        cfg = select_gemm_config(M, N, K, in_dtype=str(dt)[6:],
+                                 out_dtype=str(dt)[6:],
+                                 hw=GPU_H100_LIKE).config
+        a = rnd(K, M, dt=dt) if layout == "tn" else rnd(M, K, dt=dt)
+        b = rnd(N, K, dt=dt) if layout == "nt" else rnd(K, N, dt=dt)
+        kw = dict(out_dtype=dt, trans_a=layout == "tn",
+                  trans_b=layout == "nt")
+        got = kmm.tiled_matmul(a, b, cfg, **kw)
+        again = kmm.tiled_matmul(a, b, cfg, **kw)
+        want = kmm.matmul_plain(a, b, cfg, **kw)
+        torch.cuda.synchronize()
+        rtol, atol = gemm_tol(dt, K)
+        err = (got.float() - want.float()).abs()
+        ok = bool((err <= atol + rtol * want.float().abs()).all()) \
+            and bool(torch.isfinite(got).all()) \
+            and _deterministic(torch, dev, kmm, got, again)
+        worst[key] = max(worst[key], float(err.max()))
+        _check_case(rows, "train_kernels", {
+            "kernel": key, "gemm": name, "layout": layout,
+            "shape": [M, N, K], "dtype": str(dt)[6:], "config": str(cfg),
+            "max_abs_err": float(err.max()),
+            "rel_l2": _rel(torch, got.float(), want.float())}, ok)
+
+    # Kernel 2: the flash forward's lse and the backward.
+    def rel(x, y):
+        return _rel(torch, x.float(), y.float())
+    flash_cases = [(TRAIN_B, 24, 8, TRAIN_S, 128, "bfloat16", True)]
+    flash_cases += [(1, 8, 2, 300, d, "bfloat16", True)
+                    for d in TRAIN_FLASH_DIMS]
+    flash_cases += [(1, 8, 8, 300, 128, "bfloat16", False),
+                    (2, 24, 8, TRAIN_S, 128, "float32", True),
+                    (1, 8, 2, 300, 112, "float32", True)]
+    for B, H, Hkv, S, d, dtype, causal in flash_cases:
+        dt = getattr(torch, dtype)
+        q, k, v = _attn_inputs(torch, dev, B, H, Hkv, S, True, seed=d + S,
+                               d=d, dtype=dtype)
+        do = torch.randn(q.shape, generator=g, device=dev).to(dt)
+        bq, bkv = kfa.select_attention_blocks(S, S, d, causal=causal,
+                                              batch=B, heads=H, kv_heads=Hkv)
+        o, lse = kfa.flash_attention_kernel(q, k, v, block_q=bq,
+                                            block_kv=bkv, causal=causal,
+                                            return_lse=True)
+        o2, lse2 = kfa.flash_attention_kernel(q, k, v, block_q=bq,
+                                              block_kv=bkv, causal=causal,
+                                              return_lse=True)
+        o_p, lse_p = kfa.attention_plain(q, k, v, block_q=bq, block_kv=bkv,
+                                         causal=causal, return_lse=True)
+        got = kfa.flash_attention_bwd_kernel(q, k, v, o_p, lse_p, do,
+                                             causal=causal)
+        again = kfa.flash_attention_bwd_kernel(q, k, v, o_p, lse_p, do,
+                                               causal=causal)
+        plain = kfa.attention_bwd_plain(q, k, v, o_p, lse_p, do,
+                                        causal=causal)
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        o32, lse32 = kfa.attention_plain(q32, k32, v32, block_q=bq,
+                                         block_kv=bkv, causal=causal,
+                                         return_lse=True)
+        ref32 = kfa.attention_bwd_plain(q32, k32, v32, o32, lse32,
+                                        do.float(), causal=causal)
+        torch.cuda.synchronize()
+        f32_case = dtype == "float32"
+        fatol, frtol = ((FLASH_F32_ATOL, FLASH_F32_RTOL) if f32_case
+                        else (FLASH_ATOL, FLASH_RTOL))
+        o_err = (o.float() - o_p.float()).abs()
+        ok = bool((o_err <= fatol + frtol * o_p.float().abs()).all()) \
+            and bool(((lse - lse_p).abs() <= 1e-4 + 1e-5 * lse_p.abs()).all()) \
+            and torch.equal(o, o2) and torch.equal(lse, lse2)
+        dist = {}
+        for name, x, y, p, r in zip(("dq", "dk", "dv"), got, again, plain,
+                                    ref32):
+            dist[name] = {"kernel_vs_plain_f32": rel(x, r),
+                          "plain_vs_plain_f32": rel(p, r),
+                          "kernel_vs_plain": rel(x, p)}
+            ok = ok and torch.equal(x, y) and bool(torch.isfinite(x).all()) \
+                and x.dtype == dt
+            ok = ok and (dist[name]["kernel_vs_plain"] <= BWD_F32_REL_CAP
+                         if f32_case else dist[name]["kernel_vs_plain_f32"]
+                         <= BWD_REL_FACTOR
+                         * dist[name]["plain_vs_plain_f32"])
+            bkey = ("flash_attention_bwd_f32@train_grads" if f32_case
+                    else "flash_attention_bwd@train")
+            worst[bkey] = max(worst[bkey], float((x.float() - p.float())
+                                                 .abs().max()))
+        if not f32_case:
+            worst["flash_attention@train"] = max(
+                worst["flash_attention@train"], float(o_err.max()))
+        _check_case(rows, "train_kernels", {
+            "kernel": "flash_attention_bwd", "q": [B, H, S, d],
+            "kv": [B, Hkv, S, d], "dtype": dtype, "causal": causal,
+            "fwd_max_abs_err": float(o_err.max()),
+            "lse_max_abs_err": float((lse - lse_p).abs().max()),
+            "rel_l2": dist}, ok)
+
+    # Kernel 3: the epilogue backward.
+    M, N = TRAIN_T, 8192
+    for ep in (Epilogue(activation="swiglu_gate"),
+               Epilogue(activation="gelu"), Epilogue(activation="silu"),
+               Epilogue(bias=True, activation="gelu"), Epilogue(bias=True)):
+        for dt in (bf, f32):
+            z = torch.randn((M, N), generator=g, device=dev) * 3
+            gate = rnd(M, N, dt=dt) if ep.activation == "swiglu_gate" \
+                else None
+            kw = dict(epilogue=ep, gate=gate, dz_dtype=dt,
+                      want_bias=ep.bias)
+            zz = z if ep.activation else None
+            dout = rnd(M, N, dt=dt)
+            got = kmm.epilogue_bwd(dout, zz, **kw)
+            again = kmm.epilogue_bwd(dout, zz, **kw)
+            want = kmm.epilogue_bwd_plain(dout, zz, **kw)
+            torch.cuda.synchronize()
+            rtol, atol = (1e-5, 1e-5) if dt == f32 else (1e-2, 1e-2)
+            ok, errs = True, {}
+            for name, x, y, w in zip(("dz", "dgate", "dbias"), got, again,
+                                     want):
+                if (x is None) != (w is None):
+                    ok = False
+                if x is None or w is None:
+                    continue
+                tol = atol * (M if name == "dbias" else 1)
+                err = (x.float() - w.float()).abs()
+                errs[name] = float(err.max())
+                ok = ok and torch.equal(x, y) and bool(
+                    (err <= tol + rtol * w.float().abs()).all())
+                if name != "dbias":
+                    worst["epilogue_bwd@train"] = max(
+                        worst["epilogue_bwd@train"], errs[name])
+            _check_case(rows, "train_kernels", {
+                "kernel": "epilogue_bwd", "epilogue": str(ep),
+                "dtype": str(dt)[6:], "shape": [M, N],
+                "max_abs_err": errs}, ok)
+    emit({"phase": "train_kernels", "tolerance": {
+        "gemm": "tests/test_kernels.py:26-27 with K the product's reduction "
+                "length (N for dX, T for dW)",
+        "flash_bwd": f"bf16: relative L2 of dq, dk, dv against the plain "
+                     f"f32 backward <= {BWD_REL_FACTOR} x the plain bf16 "
+                     f"backward's; f32: <= {BWD_F32_REL_CAP} against the "
+                     f"plain backward; forward o as the flash phase, lse "
+                     f"atol 1e-4 + rtol 1e-5",
+        "epilogue_bwd": "f32 atol 1e-5 + rtol 1e-5, bf16 atol 1e-2 + rtol "
+                        "1e-2 (dbias atol x M)"},
+          "deterministic": "two launches bitwise equal", "cases": rows})
+    return worst
+
+
+def _grad_rel(torch, got, want):
+    from repro_torch.optim.adamw import tree_items
+    return {path: _rel(torch, x.float(), w.float())
+            for (path, x), (_, w) in zip(tree_items(got), tree_items(want))}
+
+
+def train_grads_phase(torch, dev, kmm, kfa):
+    """phi4-mini at full width with GRADS_LAYERS layers (remat on), B 2 x S
+    512: one loss and gradient on the kernel route against the plain route
+    on the card, in bf16 (within GRADS_REL_FACTOR x the plain bf16 route's
+    distance from the plain f32 route, the loss and each leaf) and in f32
+    (each leaf within GRADS_F32_REL_CAP of the plain f32 route; this run
+    puts the f32 backward kernels on a path).  Returns the f32 run's
+    launches."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.nn.model import Model
+    from repro_torch.optim import AdamW
+
+    cfg = dataclasses.replace(get_config("phi4-mini-3.8b"),
+                              num_layers=GRADS_LAYERS)
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(5))
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_S,
+                                   global_batch=GRADS_B)).batch_at(0)
+    step = make_train_step(model, AdamW())
+    t0 = time.perf_counter()
+    loss_k, g_k = step.loss_and_grads(params, batch)
+    with plain_path(kmm, kfa):
+        loss_p, g_p = step.loss_and_grads(params, batch)
+        p32 = _tree_map(params, lambda t: t.float())
+        loss_p32, g_p32 = step.loss_and_grads(p32, batch)
+    _zero_counts(kmm, kfa)
+    loss_k32, g_k32 = step.loss_and_grads(p32, batch)
+    torch.cuda.synchronize()
+    launches32 = _read_counts(kmm, kfa)
+    rel_kp, rel_p32 = _grad_rel(torch, g_k, g_p), _grad_rel(torch, g_p, g_p32)
+    rel_f32 = _grad_rel(torch, g_k32, g_p32)
+    d_loss_kp = abs(float(loss_k) - float(loss_p))
+    d_loss_p32 = abs(float(loss_p) - float(loss_p32))
+    row = {"phase": "train_grads", "arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "batch": [GRADS_B, TRAIN_S], "remat": cfg.remat,
+           "loss": {"kernel": float(loss_k), "plain": float(loss_p),
+                    "plain_f32": float(loss_p32),
+                    "kernel_f32": float(loss_k32)},
+           "loss_abs_diff_kernel_vs_plain": d_loss_kp,
+           "loss_abs_diff_plain_vs_plain_f32": d_loss_p32,
+           "grad_rel_l2_kernel_vs_plain": rel_kp,
+           "grad_rel_l2_plain_vs_plain_f32": rel_p32,
+           "grad_rel_l2_f32_kernel_vs_plain": rel_f32,
+           "f32_launches": launches32,
+           "tolerance": f"bf16: loss and each leaf kernel-vs-plain <= "
+                        f"{GRADS_REL_FACTOR} x plain-vs-plain-f32; f32: each "
+                        f"leaf <= {GRADS_F32_REL_CAP}, loss <= 1e-5 relative",
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    bad = [p for p in rel_kp if not rel_kp[p] <= GRADS_REL_FACTOR * rel_p32[p]]
+    bad += [f"{p} (f32)" for p in rel_f32
+            if not rel_f32[p] <= GRADS_F32_REL_CAP]
+    if not d_loss_kp <= GRADS_REL_FACTOR * d_loss_p32:
+        bad.append("loss")
+    if not abs(float(loss_k32) - float(loss_p32)) \
+            <= 1e-5 * abs(float(loss_p32)):
+        bad.append("loss (f32)")
+    if bad or launches32["flash_bwd"] != cfg.num_layers:
+        fail(f"train_grads: {bad} outside tolerance, or the f32 backward "
+             f"did not launch once a layer ({launches32})")
+    del params, p32, g_k, g_p, g_p32, g_k32
+    _free(torch)
+    return launches32
+
+
+def _train_reckoning(L):
+    """The launches of one phi4-mini train step with remat, reckoned from
+    the code (per layer: wq, wk, wv, wo + residual, wu, wg + swiglu gate,
+    wd + residual and one attention).  Forward: 7 GEMMs and one flash
+    forward a layer.  Remat recompute (in the backward pass): the same
+    again.  Backward: for each GEMM dX (B read transposed, "nt") and dW (A
+    read transposed, "tn"); wg's swiglu adds the pre-activation's
+    recompute (one more "nn" GEMM, f32 out) and one epilogue backward; one
+    flash backward.  The lm_head and the loss are plain products."""
+    return {"forward": {"nn": 7 * L, "flash": L},
+            "recompute": {"nn": 7 * L, "flash": L},
+            "backward": {"nn": L, "nt": 7 * L, "tn": 7 * L, "flash_bwd": L,
+                         "epilogue_bwd": L}}
+
+
+def train_phase(torch, dev, kmm, kfa):
+    """phi4-mini-3.8b at full width and depth (remat as configured), 6 steps
+    of the driver's step functions (``launch/steps.py``: the retried loss
+    and gradients, then the in-place AdamW commit) on one repeated
+    SyntheticLM batch of B 4 x S 512, AdamW(lr=1e-3, weight_decay=0.0), no
+    warmup.  Launch counts are zeroed right before the steps; each step's
+    forward (inside ``Model.loss``) and backward are counted apart and
+    must equal the reckoning; the loss must fall, every grad norm be
+    finite, and no degraded mode fire.  Returns (model, state, batch,
+    the run's launches)."""
+    import warnings
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.topology import DegradedModeWarning
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.nn.model import Model
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.optim import AdamW
+    from repro_torch.runtime import retry
+
+    cfg = get_config("phi4-mini-3.8b")
+    model = Model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    opt = AdamW(lr=1e-3, weight_decay=0.0)
+    state = TrainState(params=params, opt=opt.init(params), step=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_S,
+                                   global_batch=TRAIN_B)).batch_at(0)
+    step = make_train_step(model, opt)
+
+    fwd = {"n": dict.fromkeys(_counters(kmm, kfa), 0)}
+    real_loss = model.loss
+
+    def counted_loss(p, b):
+        n0 = _read_counts(kmm, kfa)
+        try:
+            return real_loss(p, b)
+        finally:
+            for k, v in _read_counts(kmm, kfa).items():
+                fwd["n"][k] += v - n0[k]
+
+    prev_metrics = obs_metrics.enable_metrics(True)
+    obs_metrics.get_registry().clear()
+    losses, gnorms, ms = [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts(kmm, kfa)
+    with warnings.catch_warnings(), \
+            mock.patch.object(Model, "loss",
+                              lambda self, p, b: counted_loss(p, b)):
+        warnings.simplefilter("error", DegradedModeWarning)
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss, grads = retry(step.loss_and_grads, state.params, batch,
+                                retries=2)
+            state, met = step.apply(state, loss, grads)
+            del grads
+            losses.append(float(met["loss"]))
+            gnorms.append(float(met["grad_norm"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+    launches = _read_counts(kmm, kfa)
+    peak = torch.cuda.max_memory_allocated(dev)
+    reg = obs_metrics.get_registry()
+    fallback = sum(m.value for m in reg.metrics() if m.name == "fallback_rungs")
+    retries = sum(m.value for m in reg.metrics() if m.name == "launch_retries")
+    obs_metrics.enable_metrics(prev_metrics)
+    with torch.no_grad():
+        final = float(model.loss(state.params, {"tokens": torch.from_numpy(
+            batch["tokens"]).to(dev).long()}))
+
+    n = TRAIN_STEPS
+    per_step = {k: v / n for k, v in launches.items()}
+    fwd_step = {k: v / n for k, v in fwd["n"].items()}
+    bwd_step = {k: per_step[k] - fwd_step[k] for k in per_step}
+    # In the backward pass, the "nn" GEMMs and flash forwards are the remat
+    # recompute, except one "nn" GEMM per epilogue backward (the
+    # pre-activation's recompute).
+    measured = {
+        "forward": {"nn": fwd_step["nn"], "flash": fwd_step["flash"]},
+        "recompute": {"nn": bwd_step["nn"] - bwd_step["epilogue_bwd"],
+                      "flash": bwd_step["flash"]},
+        "backward": {"nn": bwd_step["epilogue_bwd"], "nt": bwd_step["nt"],
+                     "tn": bwd_step["tn"], "flash_bwd": bwd_step["flash_bwd"],
+                     "epilogue_bwd": bwd_step["epilogue_bwd"]}}
+    expected = _train_reckoning(cfg.num_layers)
+    if not cfg.remat:
+        expected["recompute"] = {"nn": 0, "flash": 0}
+    steady = ms[1:]
+    row = {"phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "remat": cfg.remat, "batch": [TRAIN_B, TRAIN_S],
+           "steps": n, "init_s": init_s, "losses": losses,
+           "loss_after_last_step": final, "grad_norms": gnorms,
+           "ms_per_step": ms,
+           "ms_per_step_mean_after_first": sum(steady) / len(steady),
+           "train_tokens_per_s": TRAIN_T * len(steady) / (sum(steady) / 1e3),
+           "peak_mem_bytes": peak, "launches": launches,
+           "launches_per_step": measured, "expected_per_step": expected,
+           "fallback_rungs": fallback, "launch_retries": retries,
+           "fixup_flags_down": _flags_down(kmm)}
+    emit(row)
+    if measured != expected:
+        fail(f"train: launches per step {measured} differ from the "
+             f"reckoning {expected}")
+    if not all(math.isfinite(x) for x in gnorms + losses) \
+            or not final < losses[0]:
+        fail(f"train: the loss did not fall ({losses} -> {final}) or a "
+             f"norm is not finite ({gnorms})")
+    if fallback or retries or not _flags_down(kmm):
+        fail(f"train: degraded mode (fallback rungs {fallback}, launch "
+             f"retries {retries}, fixup flags down {_flags_down(kmm)})")
+    return model, state, batch, launches
+
+
+def train_trace_phase(torch, dev, model, state, batch):
+    """One traced train step (loss and gradients, then the commit) under
+    torch.profiler: wall time against device-busy time, kernel time by
+    kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamW
+    step = make_train_step(model, AdamW(lr=1e-3, weight_decay=0.0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        loss, grads = step.loss_and_grads(state.params, batch)
+        step.apply(state, loss, grads)
+        del grads
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ms, counts, other = _kernel_ms(prof)
+    busy = sum(ms.values())
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:12]
+    emit({"phase": "train_trace", "arch": model.cfg.name,
+          "what": "torch.profiler device kernel time vs host wall time of "
+          "one train step (profiler on)", "batch": [TRAIN_B, TRAIN_S],
+          "wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
+          "kernel_ms": ms, "kernels": counts,
+          "other_top_ms": {name[:120]: t for name, t in top}})
+
+
+def event_ms(torch, fn, calls: int = 5, reps: int = 3) -> float:
+    """Time of one call between CUDA events (after two warm-up calls), the
+    median of ``reps`` runs of ``calls`` calls, host gaps included: for the
+    plain versions, which are no speed yardstick."""
+    import statistics
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        runs.append(a.elapsed_time(b) / calls)
+    return statistics.median(runs)
+
+
+def device_ms(torch, fn, calls: int = 5) -> float:
+    """Device time of one call: ``calls`` calls under torch.profiler (after
+    two warm-up calls), the summed duration of the kernels they ran divided
+    by ``calls``, so host time between the kernels is not counted: for a
+    library call that a CUDA graph cannot capture (an autograd backward)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(_kernel_ms(prof)[0].values()) / calls
+
+
+def train_times_phase(torch, dev, kmm, kfa):
+    """Times of the training kernels at phi4-mini's training shapes: the
+    kernel and the library call (a CUDA graph, as the times phase; the
+    library's attention backward by its kernels' device time, ``device_ms``),
+    the plain version (CUDA events), and the bound max(flop / peak, bytes /
+    3.35e12).  Returns the kernels-line numbers keyed by row."""
+    import torch.nn.functional as F
+    from repro_torch.core.hardware import GPU_H100_LIKE
+    from repro_torch.core.latency import Epilogue
+    from repro_torch.core.selector import select_gemm_config
+
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(23)
+
+    def rnd(*shape, dt=bf, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
+
+    def bound(nbytes, flops, peak):
+        t_b, t_f = nbytes / HBM_BW, flops / peak
+        return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+    times, rows = {}, []
+    n0 = (kmm.tiled_matmul.launches, dict(kmm.tiled_matmul.layout_launches),
+          kfa.flash_attention_kernel.launches,
+          kfa.flash_attention_bwd_kernel.launches, kmm.epilogue_bwd.launches)
+    for key, layout in (("matmul@train_dgrad", "nt"),
+                        ("matmul@train_wgrad", "tn")):
+        tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes",
+                             "flops"), 0.0)
+        for name, N, K, _ in PATH_GEMMS:
+            # dX (T, K) = dY (T, N) W^T, W stored (K, N);
+            # dW (K, N) = X^T dY, X stored (T, K).
+            M_, N_, K_ = (TRAIN_T, K, N) if layout == "nt" else (K, N, TRAIN_T)
+            a = rnd(TRAIN_T, N, scale=0.1) if layout == "nt" \
+                else rnd(TRAIN_T, K, scale=0.1)
+            b = rnd(K, N, scale=0.02) if layout == "nt" \
+                else rnd(TRAIN_T, N, scale=0.1)
+            cfg = select_gemm_config(M_, N_, K_, in_dtype="bfloat16",
+                                     out_dtype="bfloat16",
+                                     hw=GPU_H100_LIKE).config
+            kw = dict(out_dtype=bf, epilogue=None, bias=None, gate=None,
+                      residual=None, trans_a=layout == "tn",
+                      trans_b=layout == "nt")
+            row = {"row": key, "gemm": name, "M": M_, "N": N_, "K": K_,
+                   "config": str(cfg),
+                   "ms": time_ms(lambda: kmm._launch_cuda(a, b, cfg, **kw)),
+                   "plain_ms": event_ms(torch, lambda: kmm.matmul_plain(
+                       a, b, cfg, **kw)),
+                   "library_ms": time_ms((
+                       lambda: torch.matmul(a, b.t())) if layout == "nt"
+                       else (lambda: torch.matmul(a.t(), b)))}
+            nbytes, flops = _gemm_bytes_flops(M_, N_, K_, "none")
+            row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
+                                                     BF16_PEAK)
+            rows.append(row)
+            for k_ in ("ms", "plain_ms", "library_ms"):
+                tot[k_] += row[k_]
+            tot["bytes"] += nbytes
+            tot["flops"] += flops
+        b_ms, b_by = bound(tot["bytes"], tot["flops"], BF16_PEAK)
+        times[key] = {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                      "library_ms": tot["library_ms"], "bound_ms": b_ms,
+                      "bound_by": b_by,
+                      "what": f"sum over one layer's 7 bf16 GEMMs' "
+                              f"{'dX' if layout == 'nt' else 'dW'} at "
+                              f"T={TRAIN_T}"}
+
+    # Flash: the forward with lse and the backward at the train shape, the
+    # backward in f32 at train_grads' shape.
+    for key, B, dtype in (("flash_attention@train", TRAIN_B, "bfloat16"),
+                          ("flash_attention_bwd@train", TRAIN_B, "bfloat16"),
+                          ("flash_attention_bwd_f32@train_grads", GRADS_B,
+                           "float32")):
+        H, Hkv, S, d = 24, 8, TRAIN_S, 128
+        q, k, v = _attn_inputs(torch, dev, B, H, Hkv, S, True, seed=29, d=d,
+                               dtype=dtype)
+        dt = q.dtype
+        do = torch.randn(q.shape, generator=g, device=dev).to(dt)
+        bq, bkv = kfa.select_attention_blocks(S, S, d, causal=True, batch=B,
+                                              heads=H, kv_heads=Hkv)
+        o, lse = kfa.attention_plain(q, k, v, block_q=bq, block_kv=bkv,
+                                     causal=True, return_lse=True)
+        pairs = S * (S + 1) // 2
+        elem = q.element_size()
+        peak = BF16_PEAK if dtype == "bfloat16" else F32_PEAK
+        if key == "flash_attention@train":
+            kern = lambda: kfa._launch_cuda(  # noqa: E731
+                q, k, v, block_q=bq, block_kv=bkv, causal=True, scale=None,
+                return_lse=True)
+            plain = lambda: kfa.attention_plain(  # noqa: E731
+                q, k, v, block_q=bq, block_kv=bkv, causal=True,
+                return_lse=True)
+            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, is_causal=True, enable_gqa=True)
+            flops = 4.0 * B * H * pairs * d
+            nbytes = elem * d * S * B * (2 * H + 2 * Hkv) + 4 * B * H * S
+        else:
+            kern = lambda: kfa._launch_bwd_cuda(  # noqa: E731
+                q, k, v, o, lse, do, causal=True, scale=None)
+            plain = lambda: kfa.attention_bwd_plain(  # noqa: E731
+                q, k, v, o, lse, do, causal=True)
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                                 enable_gqa=True)
+            library = lambda: torch.autograd.grad(  # noqa: E731
+                out, (ql, kl, vl), do, retain_graph=True)
+            # recompute S, then dP, dV, dQ, dK: five products
+            flops = 10.0 * B * H * pairs * d
+            nbytes = elem * d * S * B * (4 * H + 4 * Hkv) + 4 * B * H * S
+        row = {"row": key, "q": [B, H, S, d], "kv": [B, Hkv, S, d],
+               "dtype": dtype, "ms": time_ms(kern),
+               "plain_ms": event_ms(torch, plain),
+               "library_ms": (time_ms(library) if key == "flash_attention@train"
+                              else device_ms(torch, library))}
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peak)
+        rows.append(row)
+        times[key] = {k_: row[k_] for k_ in ("ms", "plain_ms", "library_ms",
+                                              "bound_ms", "bound_by")}
+
+    # The epilogue backward of wg (swiglu) at (T, d_ff): dOut and the gate
+    # bf16, z f32 read; dz and dgate bf16 written; about 20 flop an element.
+    M, N = TRAIN_T, 8192
+    ep = Epilogue(activation="swiglu_gate")
+    dout, gate = rnd(M, N), rnd(M, N)
+    z = torch.randn((M, N), generator=g, device=dev)
+    kw = dict(epilogue=ep, gate=gate, dz_dtype=bf, want_bias=False)
+    row = {"row": "epilogue_bwd@train", "shape": [M, N],
+           "epilogue": str(ep),
+           "ms": time_ms(lambda: kmm._launch_epilogue_bwd_cuda(dout, z,
+                                                               **kw)),
+           "plain_ms": event_ms(torch, lambda: kmm.epilogue_bwd_plain(
+               dout, z, **kw)),
+           "library_ms": None}
+    row["bound_ms"], row["bound_by"] = bound((2 + 4 + 2 + 2 + 2) * M * N,
+                                             20.0 * M * N, F32_PEAK)
+    rows.append(row)
+    times["epilogue_bwd@train"] = {k_: row[k_] for k_ in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+    # timing launches do not count
+    kmm.tiled_matmul.launches = n0[0]
+    kmm.tiled_matmul.layout_launches.update(n0[1])
+    kfa.flash_attention_kernel.launches = n0[2]
+    kfa.flash_attention_bwd_kernel.launches = n0[3]
+    kmm.epilogue_bwd.launches = n0[4]
+    emit({"phase": "train_times", "timing": "kernels and library calls: CUDA "
+          "graph of 10 calls, median of 5 replays (the library's attention "
+          "backward: its kernels' device time over 5 calls under "
+          "torch.profiler); plain: CUDA events over 5 calls, median of 3",
+          "rows": rows, "summary": times})
+    return times
 
 
 if __name__ == "__main__":

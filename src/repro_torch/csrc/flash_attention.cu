@@ -69,6 +69,25 @@
 // shared memory, each lane scoring one key against the warp's rows and
 // owning d / 32 output columns of each row.  It is bound by its f32 FMA
 // rate; it is the plain, right kernel of the f32 models, not a fast one.
+//
+// Both forward kernels can also write the row log-sum-exp of the scaled
+// scores, lse (B, H, Sq) f32 in natural units (+inf for a row with no
+// visible key, so that the backward's exp(s - lse) is 0 there), which the
+// backward needs; the serving launches pass none.
+//
+// The backward (flash_bwd_*) is the FlashAttention-2 form, deterministic:
+// delta = rowsum(dO o O); a dK/dV kernel with one CTA per (batch, kv head,
+// 32-key block) that walks the q heads of its GQA group and their 32-row q
+// blocks (under causal from its own diagonal), recomputes P = exp(S scale -
+// lse) and accumulates dV += P^T dO and dK += scale dS^T Q, dS = P o (dO V^T
+// - delta), writing each output once; and a dQ kernel with one CTA per
+// (batch, head, 32-row q block) that walks the kv blocks, dQ += scale dS K.
+// No float atomics, so two launches are bitwise equal.  Both kernels run in
+// f32 on the CUDA cores for bf16 and f32 inputs alike (bf16 rounds only at
+// the loads and the stores), with the head dim padded to a multiple of 32
+// by zero columns in shared memory.  What bounds them is the CUDA cores'
+// f32 rate and shared-memory reads (about five loads for four FMAs in the
+// score products); the tensor cores (wgmma) are later work.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,7 +108,10 @@ constexpr int kRowBytes = 128;  // one swizzled row: 64 bf16 of the head dim
 struct FlashParams {
   int B, H, Hkv, Sq, Skv, kv_len, causal, n_qb;
   float scale_log2;  // softmax scale * log2(e): exponentials run in base 2
+  float* lse;        // (B, H, Sq) or null
 };
+
+constexpr float kLn2 = 0.6931471805599453f;
 
 // NWG consumer warpgroups of 64 q rows each, plus one producer warpgroup,
 // over a head dim padded to DP columns.  A one-warpgroup CTA is built for
@@ -402,6 +424,11 @@ __global__ void __launch_bounds__(Flash<NWG, BKV, DP>::kThreads,
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     inv[r] = l > 0.0f ? 1.0f / l : 1.0f;
+    // m_run is in base-2 units of the scaled scores: lse = m ln 2 + ln l.
+    const int row = row0 + 8 * r;
+    if (p.lse != nullptr && t == 0 && row < p.Sq)
+      p.lse[(static_cast<size_t>(b) * p.H + h) * p.Sq + row] =
+          l > 0.0f ? m_run[r] * kLn2 + logf(l) : CUDART_INF_F;
   }
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j)
@@ -506,6 +533,7 @@ constexpr int kF32Keys = 32;   // keys a block: one a lane
 struct F32Params {
   int B, H, Hkv, Sq, Skv, kv_len, causal, n_qb, d;
   float scale;
+  float* lse;  // (B, H, Sq) or null
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
 };
@@ -634,6 +662,9 @@ __global__ void __launch_bounds__(32 * kF32Warps)
     const int row = q0 + warp * RPW + r;
     if (row >= p.Sq) continue;
     const float denom = l[r] > 0.0f ? l[r] : 1.0f;
+    if (p.lse != nullptr && lane == 0)
+      p.lse[(static_cast<size_t>(b) * p.H + h) * p.Sq + row] =
+          l[r] > 0.0f ? m[r] + logf(l[r]) : CUDART_INF_F;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       const int col = 32 * c + lane;
@@ -663,6 +694,313 @@ bool valid_shape(int B, int H, int Hkv, int Sq, int Skv, int d, int block_q) {
          d > 0 && d % 8 == 0 && d <= kMaxD && n_qb * H * B <= 0x7fffffffLL;
 }
 
+// ---------------------------------------------------------------------------
+// Backward: f32 on the CUDA cores, for bf16 and f32 inputs.  32-row q blocks
+// and 32-key kv blocks; 256 threads, thread t owning row t / 8 of a block and
+// columns t % 8 + 8 w (w < DP / 8) of its outputs, and, for the scores, q row
+// t / 8 against keys t % 8 + 8 u (u < 4).  Shared-memory rows are padded by
+// one float so that the eight keys (or columns) a warp reads fall in eight
+// banks.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdRows = 32;
+constexpr int kBwdThreads = 256;
+constexpr int kBwdLdS = kBwdRows + 1;  // row stride of P and dS
+
+struct BwdParams {
+  int B, H, Hkv, Sq, Skv, kv_len, causal, d;
+  float scale;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+  long long o_sb, o_sh, o_ss, g_sb, g_sh, g_ss;  // g: dO
+  // dq (B, H, Sq, d) and dk / dv (B, Hkv, Skv, d) contiguous; lse and
+  // delta (B, H, Sq) f32.
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// Rows [r0, r0 + 32) of an (S, d) matrix with row stride ss into a
+// [32][DP + 1] f32 tile, zeros past S and past d.
+template <typename T, int DP>
+__device__ __forceinline__ void load_tile(float* dst, const T* src,
+                                          long long ss, int r0, int S,
+                                          int d) {
+  for (int i = threadIdx.x; i < kBwdRows * DP; i += kBwdThreads) {
+    const int r = i / DP, c = i - r * DP;
+    dst[r * (DP + 1) + c] =
+        r0 + r < S && c < d
+            ? to_f32(src[static_cast<long long>(r0 + r) * ss + c])
+            : 0.0f;
+  }
+}
+
+// delta[row] = sum_c dO[row][c] O[row][c] over the B H Sq rows, a warp a row.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+                    float* __restrict__ delta, const BwdParams p) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= static_cast<long long>(p.B) * p.H * p.Sq) return;
+  const int i = static_cast<int>(row % p.Sq);
+  const long long bh = row / p.Sq;
+  const int h = static_cast<int>(bh % p.H), b = static_cast<int>(bh / p.H);
+  const T* orow = o + b * p.o_sb + h * p.o_sh + i * p.o_ss;
+  const T* grow = dout + b * p.g_sb + h * p.g_sh + i * p.g_ss;
+  float s = 0.0f;
+  for (int c = lane; c < p.d; c += 32)
+    s = fmaf(to_f32(orow[c]), to_f32(grow[c]), s);
+  s = warp_sum(s);
+  if (lane == 0) delta[row] = s;
+}
+
+// The scores of one (q block, kv block) pair: S = Q K^T and dP = dO V^T over
+// the tiles, then P = exp(S scale - lse) on the visible (query, key) pairs
+// and dS = P (dP - delta), into ps (when given) and dss.
+template <int DP>
+__device__ __forceinline__ void block_scores(
+    const float* qs, const float* gs, const float* ks, const float* vs,
+    const float* lse_s, const float* delta_s, float* ps, float* dss, int q0,
+    int k0, int kv_lim, const BwdParams& p) {
+  constexpr int LD = DP + 1;
+  const int qi = threadIdx.x / 8, kb = threadIdx.x % 8;
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  const float* qr = qs + qi * LD;
+  const float* gr = gs + qi * LD;
+#pragma unroll 4
+  for (int c = 0; c < DP; ++c) {
+    const float qv = qr[c], gv = gr[c];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      s[u] = fmaf(qv, ks[(kb + 8 * u) * LD + c], s[u]);
+      dp[u] = fmaf(gv, vs[(kb + 8 * u) * LD + c], dp[u]);
+    }
+  }
+  const int i = q0 + qi;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int j = k0 + kb + 8 * u;
+    const bool visible = i < p.Sq && j < kv_lim && (!p.causal || i >= j);
+    const float pr = visible ? expf(s[u] * p.scale - lse_s[qi]) : 0.0f;
+    if (ps != nullptr) ps[qi * kBwdLdS + kb + 8 * u] = pr;
+    dss[qi * kBwdLdS + kb + 8 * u] = pr * (dp[u] - delta_s[qi]);
+  }
+}
+
+template <int DC>
+constexpr size_t bwd_smem() {  // Q, dO, K, V tiles, P and dS, lse, delta
+  return sizeof(float) * (4 * kBwdRows * (32 * DC + 1) +
+                          2 * kBwdRows * kBwdLdS + 2 * kBwdRows);
+}
+
+template <typename T, int DC>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
+                   const T* __restrict__ v, const T* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, T* __restrict__ dk,
+                   T* __restrict__ dv, const BwdParams p) {
+  constexpr int DP = 32 * DC, LD = DP + 1, NW = DP / 8;
+  extern __shared__ float bwd_smem_raw[];
+  float* ks = bwd_smem_raw;
+  float* vs = ks + kBwdRows * LD;
+  float* qs = vs + kBwdRows * LD;
+  float* gs = qs + kBwdRows * LD;
+  float* ps = gs + kBwdRows * LD;
+  float* dss = ps + kBwdRows * kBwdLdS;
+  float* lse_s = dss + kBwdRows * kBwdLdS;
+  float* delta_s = lse_s + kBwdRows;
+
+  // kv block 0 first: under causal it walks the most q blocks.
+  const int bhk = p.B * p.Hkv;
+  const int kvb = blockIdx.x / bhk, hb = blockIdx.x - kvb * bhk;
+  const int hk = hb % p.Hkv, b = hb / p.Hkv;
+  const int k0 = kvb * kBwdRows;
+  const int kv_lim = min(p.Skv, p.kv_len);
+  const int group = p.H / p.Hkv;
+  const int n_qb = (p.Sq + kBwdRows - 1) / kBwdRows;
+  // Under causal, query i sees key j iff i >= j: q blocks from k0's.
+  const int qb0 = p.causal ? min(k0 / kBwdRows, n_qb) : 0;
+  const int kr = threadIdx.x / 8, cb = threadIdx.x % 8;
+
+  float dk_acc[NW], dv_acc[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) dk_acc[w] = dv_acc[w] = 0.0f;
+  load_tile<T, DP>(ks, k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv, p.d);
+  load_tile<T, DP>(vs, v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv, p.d);
+  for (int gi = 0; gi < group && k0 < kv_lim; ++gi) {
+    const int h = hk * group + gi;
+    for (int qb = qb0; qb < n_qb; ++qb) {
+      const int q0 = qb * kBwdRows;
+      __syncthreads();  // the previous pair's tiles are read
+      load_tile<T, DP>(qs, q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq,
+                       p.d);
+      load_tile<T, DP>(gs, dout + b * p.g_sb + h * p.g_sh, p.g_ss, q0, p.Sq,
+                       p.d);
+      if (threadIdx.x < kBwdRows) {
+        const int i = q0 + threadIdx.x;
+        const size_t at = (static_cast<size_t>(b) * p.H + h) * p.Sq + i;
+        lse_s[threadIdx.x] = i < p.Sq ? lse[at] : CUDART_INF_F;
+        delta_s[threadIdx.x] = i < p.Sq ? delta[at] : 0.0f;
+      }
+      __syncthreads();
+      block_scores<DP>(qs, gs, ks, vs, lse_s, delta_s, ps, dss, q0, k0,
+                       kv_lim, p);
+      __syncthreads();
+      for (int qi = 0; qi < kBwdRows; ++qi) {
+        const float pv = ps[qi * kBwdLdS + kr], dsv = dss[qi * kBwdLdS + kr];
+        const float* gr = gs + qi * LD;
+        const float* qr = qs + qi * LD;
+#pragma unroll
+        for (int w = 0; w < NW; ++w) {
+          dv_acc[w] = fmaf(pv, gr[cb + 8 * w], dv_acc[w]);
+          dk_acc[w] = fmaf(dsv, qr[cb + 8 * w], dk_acc[w]);
+        }
+      }
+    }
+  }
+  const int j = k0 + kr;
+  if (j >= p.Skv) return;
+  const size_t at = ((static_cast<size_t>(b) * p.Hkv + hk) * p.Skv + j) * p.d;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int c = cb + 8 * w;
+    if (c < p.d) {
+      store_f32(dk + at + c, dk_acc[w] * p.scale);
+      store_f32(dv + at + c, dv_acc[w]);
+    }
+  }
+}
+
+template <typename T, int DC>
+__global__ void __launch_bounds__(kBwdThreads)
+    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, T* __restrict__ dq,
+                 const BwdParams p) {
+  constexpr int DP = 32 * DC, LD = DP + 1, NW = DP / 8;
+  extern __shared__ float bwd_smem_raw[];
+  float* qs = bwd_smem_raw;
+  float* gs = qs + kBwdRows * LD;
+  float* ks = gs + kBwdRows * LD;
+  float* vs = ks + kBwdRows * LD;
+  float* dss = vs + kBwdRows * LD;
+  float* lse_s = dss + 2 * kBwdRows * kBwdLdS;
+  float* delta_s = lse_s + kBwdRows;
+
+  // The heaviest causal q block first, as the forward.
+  const int bh = p.B * p.H;
+  const int n_qb = (p.Sq + kBwdRows - 1) / kBwdRows;
+  const int step = blockIdx.x / bh, hb = blockIdx.x - step * bh;
+  const int qb = p.causal ? n_qb - 1 - step : step;
+  const int h = hb % p.H, b = hb / p.H, hk = h / (p.H / p.Hkv);
+  const int q0 = qb * kBwdRows;
+  const int kv_lim = min(p.Skv, p.kv_len);
+  int n_kb = kv_lim > 0 ? (kv_lim + kBwdRows - 1) / kBwdRows : 0;
+  if (p.causal)
+    n_kb = min(n_kb, (min(q0 + kBwdRows, p.Sq) - 1) / kBwdRows + 1);
+  const int qr = threadIdx.x / 8, cb = threadIdx.x % 8;
+
+  load_tile<T, DP>(qs, q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, p.d);
+  load_tile<T, DP>(gs, dout + b * p.g_sb + h * p.g_sh, p.g_ss, q0, p.Sq,
+                   p.d);
+  if (threadIdx.x < kBwdRows) {
+    const int i = q0 + threadIdx.x;
+    const size_t at = (static_cast<size_t>(b) * p.H + h) * p.Sq + i;
+    lse_s[threadIdx.x] = i < p.Sq ? lse[at] : CUDART_INF_F;
+    delta_s[threadIdx.x] = i < p.Sq ? delta[at] : 0.0f;
+  }
+  float dq_acc[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) dq_acc[w] = 0.0f;
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int k0 = kb * kBwdRows;
+    __syncthreads();  // Q, dO, lse and delta are staged; the last K, V read
+    load_tile<T, DP>(ks, k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv,
+                     p.d);
+    load_tile<T, DP>(vs, v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv,
+                     p.d);
+    __syncthreads();
+    block_scores<DP>(qs, gs, ks, vs, lse_s, delta_s, nullptr, dss, q0, k0,
+                     kv_lim, p);
+    __syncthreads();
+    for (int kj = 0; kj < kBwdRows; ++kj) {
+      const float dsv = dss[qr * kBwdLdS + kj];
+      const float* kr = ks + kj * LD;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) dq_acc[w] = fmaf(dsv, kr[cb + 8 * w], dq_acc[w]);
+    }
+  }
+  const int i = q0 + qr;
+  if (i >= p.Sq) return;
+  const size_t at = ((static_cast<size_t>(b) * p.H + h) * p.Sq + i) * p.d;
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    const int c = cb + 8 * w;
+    if (c < p.d) store_f32(dq + at + c, dq_acc[w] * p.scale);
+  }
+}
+
+template <typename T, int DC>
+cudaError_t launch_bwd(const T* q, const T* k, const T* v, const T* o,
+                       const T* dout, const float* lse, float* delta, T* dq,
+                       T* dk, T* dv, const BwdParams& p, cudaStream_t s) {
+  constexpr size_t smem = bwd_smem<DC>();
+  static const cudaError_t opted = [] {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_bwd_dkdv<T, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(flash_bwd_dq<T, DC>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                static_cast<int>(smem));
+  }();
+  if (opted != cudaSuccess) return opted;
+  const long long rows = static_cast<long long>(p.B) * p.H * p.Sq;
+  flash_bwd_delta<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
+      o, dout, delta, p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const unsigned n_kvb = (p.Skv + kBwdRows - 1) / kBwdRows;
+  const unsigned n_qb = (p.Sq + kBwdRows - 1) / kBwdRows;
+  flash_bwd_dkdv<T, DC><<<n_kvb * p.B * p.Hkv, kBwdThreads, smem, s>>>(
+      q, k, v, dout, lse, delta, dk, dv, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq<T, DC><<<n_qb * p.B * p.H, kBwdThreads, smem, s>>>(
+      q, k, v, dout, lse, delta, dq, p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(const void* q, const void* k, const void* v,
+                         const void* o, const void* dout, const float* lse,
+                         float* delta, void* dq, void* dk, void* dv,
+                         const BwdParams& p, cudaStream_t s) {
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
+          *tv = static_cast<const T*>(v), *to = static_cast<const T*>(o),
+          *tg = static_cast<const T*>(dout);
+  T *gq = static_cast<T*>(dq), *gk = static_cast<T*>(dk),
+    *gv = static_cast<T*>(dv);
+  switch ((p.d + 31) / 32) {
+#define REPRO_BWD_CASE(DC_) \
+  case DC_:                 \
+    return launch_bwd<T, DC_>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, p, s);
+    REPRO_BWD_CASE(1) REPRO_BWD_CASE(2) REPRO_BWD_CASE(3) REPRO_BWD_CASE(4)
+    REPRO_BWD_CASE(5) REPRO_BWD_CASE(6) REPRO_BWD_CASE(7) REPRO_BWD_CASE(8)
+#undef REPRO_BWD_CASE
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 }  // namespace repro
 
@@ -670,7 +1008,8 @@ using namespace repro;
 
 // bf16 q, k, v and o.
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* o, long long q_sb,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss, int B, int H, int Hkv,
@@ -691,7 +1030,7 @@ extern "C" int repro_flash_attention(
   const Operands a{q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                    v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
   const FlashParams p{B, H, Hkv, Sq, Skv, kv_len, causal, n_qb,
-                      scale * kLog2e};
+                      scale * kLog2e, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
   switch ((d + 63) / 64) {
@@ -705,7 +1044,7 @@ extern "C" int repro_flash_attention(
 
 // f32 q, k, v and o, element strides with a unit d stride.
 extern "C" int repro_flash_attention_f32(
-    const float* q, const float* k, const float* v, float* o,
+    const float* q, const float* k, const float* v, float* o, float* lse,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, long long o_ss, int B,
@@ -714,7 +1053,7 @@ extern "C" int repro_flash_attention_f32(
   if (!valid_shape(B, H, Hkv, Sq, Skv, d, kF32Rows))
     return static_cast<int>(cudaErrorInvalidValue);
   const F32Params p{B, H, Hkv, Sq, Skv, kv_len, causal,
-                    (Sq + kF32Rows - 1) / kF32Rows, d, scale,
+                    (Sq + kF32Rows - 1) / kF32Rows, d, scale, lse,
                     q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                     o_sb, o_sh, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -726,6 +1065,34 @@ extern "C" int repro_flash_attention_f32(
 #undef REPRO_F32_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward of either dtype (f32 != 0: f32 tensors, else bf16): dq
+// (B, H, Sq, d), dk / dv (B, Hkv, Skv, d) contiguous in the inputs' type,
+// from q, k, v, the forward's o and lse, and dO (element strides, unit d
+// stride); delta is (B, H, Sq) f32 scratch.
+extern "C" int repro_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* delta, void* dq, void* dk,
+    void* dv, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
+    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
+    long long v_ss, long long o_sb, long long o_sh, long long o_ss,
+    long long g_sb, long long g_sh, long long g_ss, int B, int H, int Hkv,
+    int Sq, int Skv, int kv_len, int causal, float scale, int d, int f32,
+    void* stream) {
+  if (!valid_shape(B, H, Hkv, Sq, Skv, d, kBwdRows) ||
+      static_cast<long long>((Skv + kBwdRows - 1) / kBwdRows) * B * Hkv >
+          0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const BwdParams p{B, H, Hkv, Sq, Skv, kv_len, causal, d, scale,
+                    q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                    o_sb, o_sh, o_ss, g_sb, g_sh, g_ss};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(
+      f32 ? dispatch_bwd<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, p,
+                                s)
+          : dispatch_bwd<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk,
+                                        dv, p, s));
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

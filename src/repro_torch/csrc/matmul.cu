@@ -11,6 +11,19 @@
 //              -> +residual (M, N) -> cast to the output type,
 //   applied once per output element, on the full f32 sum, in DESIGN.md §3's
 //   order.  The dense GEMM is the launch with one group and zero strides.
+//   A dense launch may also read A stored (K, M) (trans_a: the weight
+//   gradient X^T dY reads the activation X in place) or B stored (N, K)
+//   (trans_b: the input gradient dY W^T reads the weight W in place); the
+//   tensor maps are encoded over the operand as stored and wgmma takes it
+//   MN-major (A) or K-major (B), so no transposed copy is ever made.
+//
+// The epilogue's backward (epilogue_bwd_kernel) is a second, elementwise
+// kernel of this source: from dOut and the recomputed pre-activation z it
+// gives dz = dOut * act'(z) (gelu(tanh), silu, or silu(z) * gate), dgate =
+// dOut * silu(z), and dbias as column sums in a fixed order (no atomics).
+// It is bound by HBM bytes (a few flops an element): one pass over dOut,
+// z and the gate, each column strip's rows walked by eight warps whose
+// partial sums are added in warp order.
 //
 // What bounds it on the H100.  At decode (M = 4) every GEMM streams its
 // weight once: bound by HBM bytes, it needs loads in flight on every SM.  At
@@ -99,6 +112,7 @@ struct Params {
   int out_f32, ep_f32;
   int has_bias, act, has_res;
   int groups;
+  int trans_a, trans_b;   // A stored (K, M), B stored (N, K) (dense only)
   int Tm, Tn;             // output tiles of one group
   int steps_per_unit;     // k-steps of bk in one unit
   int units_per_tile;
@@ -237,13 +251,15 @@ __device__ __forceinline__ float2 load_ep2(const void* p, size_t i, int f32) {
       static_cast<const __nv_bfloat16*>(p) + i));
 }
 
-template <int PN>
+// TA: A is MN-major in shared memory; TB: B is MN-major (wgmma's
+// transpose-a / transpose-b).
+template <int PN, int TA, int TB>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[PN / 2], uint64_t da,
                                            uint64_t db) {
-  if constexpr (PN == 32) wgmma_m64n32(d, da, db);
-  if constexpr (PN == 64) wgmma_m64n64(d, da, db);
-  if constexpr (PN == 128) wgmma_m64n128(d, da, db);
-  if constexpr (PN == 256) wgmma_m64n256(d, da, db);
+  if constexpr (PN == 32) wgmma_m64n32<TA, TB>(d, da, db);
+  if constexpr (PN == 64) wgmma_m64n64<TA, TB>(d, da, db);
+  if constexpr (PN == 128) wgmma_m64n128<TA, TB>(d, da, db);
+  if constexpr (PN == 256) wgmma_m64n256<TA, TB>(d, da, db);
 }
 
 __device__ __forceinline__ void consumer_sync(int threads) {
@@ -316,7 +332,12 @@ __device__ __forceinline__ void epilogue_block(const Params& p,
 
 // ---------------------------------------------------------------------------
 // The tensor-core kernel.  NWG consumer warpgroups of MB 64-row blocks each
-// cover the tile's rows (NWG * MB * 64 >= bm); PN columns per pass.
+// cover the tile's rows (NWG * MB * 64 >= bm); PN columns per pass.  TA / TB
+// select the operands' stored layouts: TA = 0 stages A K-major (a TMA box of
+// bm rows x ks), TA = 1 stages A stored (K, M) MN-major (one 64 x ks box,
+// 128-byte rows of 64 m, per 64-row block); TB = 0 stages B stored (K, N)
+// MN-major (64-column chunks), TB = 1 stages B stored (N, K) K-major (one
+// ks x PN box).  A stage holds the same bytes in every layout.
 // ---------------------------------------------------------------------------
 
 template <int NWG, int MB, int PN>
@@ -335,7 +356,7 @@ struct Sm90 {
   static constexpr int kAcc = PN / 2;               // f32 a thread, per block
 };
 
-template <int NWG, int MB, int PN>
+template <int NWG, int MB, int PN, int TA, int TB>
 __device__ __forceinline__ void sm90_body(const CUtensorMap& tma_a,
                                           const CUtensorMap& tma_b,
                                           const Params& p) {
@@ -376,7 +397,7 @@ __device__ __forceinline__ void sm90_body(const CUtensorMap& tma_a,
       asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     // Producer: one thread issues every TMA load of the CTA's pieces.
     if (tid == S::kConsumers) {
-      const uint32_t tx = p.bm * ks * 2 + S::kChunks * b_chunk;
+      const uint32_t tx = (TA ? S::kRows : p.bm) * ks * 2 + PN * ks * 2;
       int stage = 0;
       uint32_t phase = 0;
       long long u = u_begin;
@@ -390,11 +411,23 @@ __device__ __forceinline__ void sm90_body(const CUtensorMap& tma_a,
             mbar_wait(empty(stage), phase ^ 1);
             mbar_expect_tx(full(stage), tx);
             const uint32_t sa = base + stage * stage_bytes;
-            tma_load_3d(sa, &tma_a, full(stage), k, row0, g);
+            if constexpr (TA) {
 #pragma unroll
-            for (int j = 0; j < S::kChunks; ++j)
-              tma_load_3d(sa + a_bytes + j * b_chunk, &tma_b, full(stage),
-                          col0 + ps * PN + j * S::kCW, k, g);
+              for (int c = 0; c < S::kRows / 64; ++c)
+                tma_load_3d(sa + c * ks * 128, &tma_a, full(stage),
+                            row0 + 64 * c, k, g);
+            } else {
+              tma_load_3d(sa, &tma_a, full(stage), k, row0, g);
+            }
+            if constexpr (TB) {
+              tma_load_3d(sa + a_bytes, &tma_b, full(stage), k,
+                          col0 + ps * PN, g);
+            } else {
+#pragma unroll
+              for (int j = 0; j < S::kChunks; ++j)
+                tma_load_3d(sa + a_bytes + j * b_chunk, &tma_b, full(stage),
+                            col0 + ps * PN + j * S::kCW, k, g);
+            }
             if (++stage == p.stages) {
               stage = 0;
               phase ^= 1;
@@ -435,15 +468,23 @@ __device__ __forceinline__ void sm90_body(const CUtensorMap& tma_a,
         const uint32_t sa = base + stage * stage_bytes;
         wgmma_fence();
         for (int kk = 0; kk < ks / 16; ++kk) {
+          // K-major tiles: a k16 step moves 32 bytes along the swizzled
+          // row, 8-row groups 8 rows apart.  MN-major tiles: a k16 step
+          // moves 16 rows of 128 (or kCW * 2) bytes, 8-row groups 1024
+          // bytes apart, 64-wide chunks one chunk apart.
           const uint64_t db =
-              smem_desc(sa + a_bytes + kk * 16 * S::kCW * 2, b_chunk,
-                        8 * S::kCW * 2, S::kCW * 2);
+              TB ? smem_desc(sa + a_bytes + kk * 32, 16, 8 * ks * 2, ks * 2)
+                 : smem_desc(sa + a_bytes + kk * 16 * S::kCW * 2, b_chunk,
+                             8 * S::kCW * 2, S::kCW * 2);
 #pragma unroll
           for (int mb = 0; mb < MB; ++mb) {
+            const int blk = wg * MB + mb;
             const uint64_t da =
-                smem_desc(sa + (wg * MB + mb) * 64 * ks * 2 + kk * 32, 16,
-                          8 * ks * 2, ks * 2);
-            wgmma_bf16<PN>(acc[mb], da, db);
+                TA ? smem_desc(sa + blk * ks * 128 + kk * 16 * 128, ks * 128,
+                               1024, 128)
+                   : smem_desc(sa + blk * 64 * ks * 2 + kk * 32, 16,
+                               8 * ks * 2, ks * 2);
+            wgmma_bf16<PN, TA, 1 - TB>(acc[mb], da, db);
           }
         }
         wgmma_commit();
@@ -543,12 +584,12 @@ __device__ __forceinline__ void sm90_body(const CUtensorMap& tma_a,
   }
 }
 
-template <int NWG, int MB, int PN>
+template <int NWG, int MB, int PN, int TA, int TB>
 __global__ void __launch_bounds__(Sm90<NWG, MB, PN>::kThreads, 1)
     gemm_dense_sm90(const __grid_constant__ CUtensorMap tma_a,
                     const __grid_constant__ CUtensorMap tma_b,
                     const __grid_constant__ Params p) {
-  sm90_body<NWG, MB, PN>(tma_a, tma_b, p);
+  sm90_body<NWG, MB, PN, TA, TB>(tma_a, tma_b, p);
 }
 
 template <int NWG, int MB, int PN>
@@ -556,12 +597,15 @@ __global__ void __launch_bounds__(Sm90<NWG, MB, PN>::kThreads, 1)
     gemm_grouped_sm90(const __grid_constant__ CUtensorMap tma_a,
                       const __grid_constant__ CUtensorMap tma_b,
                       const __grid_constant__ Params p) {
-  sm90_body<NWG, MB, PN>(tma_a, tma_b, p);
+  sm90_body<NWG, MB, PN, 0, 0>(tma_a, tma_b, p);
 }
 
 // ---------------------------------------------------------------------------
 // The f32 (SIMT) kernel: 256 threads, 64 x 64 passes of a tile, each thread
-// owning rows ty + 16 i and columns tx + 16 j of the pass.
+// owning rows ty + 16 i and columns tx + 16 j of the pass.  Shared memory
+// keeps each operand as stored: A as [row][k] (bk + 4 a row) or, stored
+// (K, M), as [k][row] (64 + 4 a k); B as [k][column] or, stored (N, K), as
+// [column][k], so every cp.async copies 16 contiguous bytes.
 // ---------------------------------------------------------------------------
 
 constexpr int kF32Threads = 256;
@@ -584,37 +628,70 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Floats of one stage's A and B buffers in each layout.
+__host__ __device__ __forceinline__ int f32_a_floats(int bk, int ta) {
+  return ta ? bk * (kF32Pass + 4) : kF32Pass * (bk + 4);
+}
+__host__ __device__ __forceinline__ int f32_b_floats(int bk, int tb) {
+  return tb ? kF32Pass * (bk + 4) : bk * (kF32Pass + 4);
+}
+
 // A[r0 : r0 + pm, k0 : k0 + bk] and B[k0 : k0 + bk, c0 : c0 + pn] of group g
 // into shared memory; chunks outside the pass or the matrix are zero-filled.
+template <int TA, int TB>
 __device__ __forceinline__ void f32_load(const Params& p, float* As,
                                          float* Bs, int g, int r0, int pm,
                                          int c0, int pn, int k0) {
-  const int bk = p.bk, lda = bk + 4, ldb = kF32Pass + 4;
+  const int bk = p.bk;
   const float* A = static_cast<const float*>(p.a) + g * p.sa;
   const float* B = static_cast<const float*>(p.b) + g * p.sb;
-  const int a_cpr = bk / 4;
-  for (int c = threadIdx.x; c < kF32Pass * a_cpr; c += kF32Threads) {
-    const int r = c / a_cpr, cc = (c - r * a_cpr) * 4;
-    const int gr = r0 + r, gk = k0 + cc;
-    const bool ok = r < pm && gr < p.M && gk < p.K;
-    cp_async16(As + r * lda + cc, ok ? A + static_cast<size_t>(gr) * p.K + gk : A,
-               ok);
+  if constexpr (TA) {  // A stored (K, M): four rows of one k a copy
+    constexpr int cpr = kF32Pass / 4;
+    for (int c = threadIdx.x; c < bk * cpr; c += kF32Threads) {
+      const int kk = c / cpr, r = (c - kk * cpr) * 4;
+      const int gr = r0 + r, gk = k0 + kk;
+      const bool ok = r < pm && gr < p.M && gk < p.K;
+      cp_async16(As + kk * (kF32Pass + 4) + r,
+                 ok ? A + static_cast<size_t>(gk) * p.M + gr : A, ok);
+    }
+  } else {
+    const int cpr = bk / 4;
+    for (int c = threadIdx.x; c < kF32Pass * cpr; c += kF32Threads) {
+      const int r = c / cpr, cc = (c - r * cpr) * 4;
+      const int gr = r0 + r, gk = k0 + cc;
+      const bool ok = r < pm && gr < p.M && gk < p.K;
+      cp_async16(As + r * (bk + 4) + cc,
+                 ok ? A + static_cast<size_t>(gr) * p.K + gk : A, ok);
+    }
   }
-  constexpr int b_cpr = kF32Pass / 4;
-  for (int c = threadIdx.x; c < bk * b_cpr; c += kF32Threads) {
-    const int r = c / b_cpr, cc = (c - r * b_cpr) * 4;
-    const int gk = k0 + r, gn = c0 + cc;
-    const bool ok = cc < pn && gk < p.K && gn < p.N;
-    cp_async16(Bs + r * ldb + cc, ok ? B + static_cast<size_t>(gk) * p.N + gn : B,
-               ok);
+  if constexpr (TB) {  // B stored (N, K): four k of one column a copy
+    const int cpr = bk / 4;
+    for (int c = threadIdx.x; c < kF32Pass * cpr; c += kF32Threads) {
+      const int n = c / cpr, kk = (c - n * cpr) * 4;
+      const int gn = c0 + n, gk = k0 + kk;
+      const bool ok = n < pn && gn < p.N && gk < p.K;
+      cp_async16(Bs + n * (bk + 4) + kk,
+                 ok ? B + static_cast<size_t>(gn) * p.K + gk : B, ok);
+    }
+  } else {
+    constexpr int cpr = kF32Pass / 4;
+    for (int c = threadIdx.x; c < bk * cpr; c += kF32Threads) {
+      const int r = c / cpr, cc = (c - r * cpr) * 4;
+      const int gk = k0 + r, gn = c0 + cc;
+      const bool ok = cc < pn && gk < p.K && gn < p.N;
+      cp_async16(Bs + r * (kF32Pass + 4) + cc,
+                 ok ? B + static_cast<size_t>(gk) * p.N + gn : B, ok);
+    }
   }
 }
 
+template <int TA, int TB>
 __device__ __forceinline__ void f32_body(const Params& p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int bk = p.bk, lda = bk + 4, ldb = kF32Pass + 4;
+  const int bk = p.bk;
+  const int a_fl = f32_a_floats(bk, TA), b_fl = f32_b_floats(bk, TB);
   float* As = reinterpret_cast<float*>(smem_raw);
-  float* Bs = As + 2 * kF32Pass * lda;
+  float* Bs = As + 2 * a_fl;
   const int pm = min(p.bm, kF32Pass), pn = min(p.bn, kF32Pass);
   const int passes_n = p.bn / pn, passes = (p.bm / pm) * passes_n;
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
@@ -638,26 +715,30 @@ __device__ __forceinline__ void f32_body(const Params& p) {
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
       if (k_lo < k_hi) {
-        f32_load(p, As, Bs, g, r0, pm, c0, pn, k_lo);
+        f32_load<TA, TB>(p, As, Bs, g, r0, pm, c0, pn, k_lo);
         cp_async_commit();
         for (int k = k_lo, cur = 0; k < k_hi; k += bk, cur ^= 1) {
           if (k + bk < k_hi) {
-            f32_load(p, As + (cur ^ 1) * kF32Pass * lda,
-                     Bs + (cur ^ 1) * bk * ldb, g, r0, pm, c0, pn, k + bk);
+            f32_load<TA, TB>(p, As + (cur ^ 1) * a_fl, Bs + (cur ^ 1) * b_fl,
+                             g, r0, pm, c0, pn, k + bk);
             cp_async_commit();
             cp_async_wait<1>();
           } else {
             cp_async_wait<0>();
           }
           __syncthreads();
-          const float* a = As + cur * kF32Pass * lda;
-          const float* b = Bs + cur * bk * ldb;
+          const float* a = As + cur * a_fl;
+          const float* b = Bs + cur * b_fl;
           for (int kk = 0; kk < bk; ++kk) {
             float av[4], bv[4];
 #pragma unroll
-            for (int i = 0; i < 4; ++i) av[i] = a[(ty + 16 * i) * lda + kk];
+            for (int i = 0; i < 4; ++i)
+              av[i] = TA ? a[kk * (kF32Pass + 4) + ty + 16 * i]
+                         : a[(ty + 16 * i) * (bk + 4) + kk];
 #pragma unroll
-            for (int j = 0; j < 4; ++j) bv[j] = b[kk * ldb + tx + 16 * j];
+            for (int j = 0; j < 4; ++j)
+              bv[j] = TB ? b[(tx + 16 * j) * (bk + 4) + kk]
+                         : b[kk * (kF32Pass + 4) + tx + 16 * j];
 #pragma unroll
             for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -710,13 +791,14 @@ __device__ __forceinline__ void f32_body(const Params& p) {
   }
 }
 
+template <int TA, int TB>
 __global__ void __launch_bounds__(kF32Threads, 1) gemm_dense_f32(const Params p) {
-  f32_body(p);
+  f32_body<TA, TB>(p);
 }
 
 __global__ void __launch_bounds__(kF32Threads, 1)
     gemm_grouped_f32(const Params p) {
-  f32_body(p);
+  f32_body<0, 0>(p);
 }
 
 // ---------------------------------------------------------------------------
@@ -808,7 +890,7 @@ inline bool encode_bf16_cached(CUtensorMap* map, const void* ptr,
   return true;
 }
 
-template <int NWG, int MB, int PN, bool kGrouped>
+template <int NWG, int MB, int PN, bool kGrouped, int TA, int TB>
 cudaError_t launch_sm90(Params p, cudaStream_t stream) {
   using S = Sm90<NWG, MB, PN>;
   p.ks = p.bk % 64 == 0 ? 64 : (p.bk % 32 == 0 ? 32 : 16);
@@ -823,46 +905,55 @@ cudaError_t launch_sm90(Params p, cudaStream_t stream) {
   if constexpr (kGrouped)
     kernel = gemm_grouped_sm90<NWG, MB, PN>;
   else
-    kernel = gemm_dense_sm90<NWG, MB, PN>;
+    kernel = gemm_dense_sm90<NWG, MB, PN, TA, TB>;
   static const cudaError_t opted =
       opt_in_smem(reinterpret_cast<const void*>(kernel));
   if (opted != cudaSuccess) return opted;
 
+  // Each map is encoded over its operand as stored: A (M, K), or (K, M)
+  // read in 64 x ks boxes; B (K, N) in kCW x ks boxes, or (N, K) in ks x PN.
   CUtensorMap tma_a, tma_b;
   const uint64_t M = p.M, N = p.N, K = p.K, G = p.groups;
-  if (!encode_bf16_cached(&tma_a, p.a, K, M, G, G > 1 ? p.sa : M * K, p.ks,
-                          p.bm) ||
-      !encode_bf16_cached(&tma_b, p.b, N, K, G, G > 1 ? p.sb : K * N, S::kCW,
-                          p.ks))
-    return cudaErrorInvalidValue;
+  const uint64_t ga = G > 1 ? p.sa : M * K, gb = G > 1 ? p.sb : K * N;
+  const bool a_ok =
+      TA ? encode_bf16_cached(&tma_a, p.a, M, K, G, ga, 64, p.ks)
+         : encode_bf16_cached(&tma_a, p.a, K, M, G, ga, p.ks, p.bm);
+  const bool b_ok =
+      TB ? encode_bf16_cached(&tma_b, p.b, K, N, G, gb, p.ks, PN)
+         : encode_bf16_cached(&tma_b, p.b, N, K, G, gb, S::kCW, p.ks);
+  if (!a_ok || !b_ok) return cudaErrorInvalidValue;
   return launch_resident(kernel, p.ctas, S::kThreads, smem, stream, tma_a,
                          tma_b, p);
 }
 
-cudaError_t launch_f32(const Params& p, bool grouped, cudaStream_t stream) {
-  const size_t smem =
-      2 * (static_cast<size_t>(kF32Pass) * (p.bk + 4) +
-           static_cast<size_t>(p.bk) * (kF32Pass + 4)) *
-      sizeof(float);
+template <int TA, int TB, bool kGrouped>
+cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
+  const size_t smem = 2 *
+                      static_cast<size_t>(f32_a_floats(p.bk, TA) +
+                                          f32_b_floats(p.bk, TB)) *
+                      sizeof(float);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  void (*kernel)(Params) = grouped ? gemm_grouped_f32 : gemm_dense_f32;
-  static const cudaError_t opted[2] = {
-      opt_in_smem(reinterpret_cast<const void*>(gemm_dense_f32)),
-      opt_in_smem(reinterpret_cast<const void*>(gemm_grouped_f32))};
-  if (opted[grouped] != cudaSuccess) return opted[grouped];
+  void (*kernel)(Params);
+  if constexpr (kGrouped)
+    kernel = gemm_grouped_f32;
+  else
+    kernel = gemm_dense_f32<TA, TB>;
+  static const cudaError_t opted =
+      opt_in_smem(reinterpret_cast<const void*>(kernel));
+  if (opted != cudaSuccess) return opted;
   return launch_resident(kernel, p.ctas, kF32Threads, smem, stream, p);
 }
 
 // Picks the tensor-core kernel of (warpgroups, 64-row blocks each, pass
 // width) for the tile; one per (bm, bn) of the gpu_h100_like menu.
-template <bool kGrouped>
+template <bool kGrouped, int TA, int TB>
 cudaError_t dispatch_sm90(const Params& p, cudaStream_t stream) {
   const int nwg = p.bm <= 64 ? 1 : 2;
   const int mb = p.bm == 256 ? 2 : 1;
   const int pn = p.bm == 256 && p.bn == 256 ? 128 : p.bn;
 #define REPRO_CASE(NWG, MB, PN)                 \
   if (nwg == NWG && mb == MB && pn == PN)       \
-    return launch_sm90<NWG, MB, PN, kGrouped>(p, stream);
+    return launch_sm90<NWG, MB, PN, kGrouped, TA, TB>(p, stream);
   REPRO_CASE(1, 1, 32) REPRO_CASE(1, 1, 64) REPRO_CASE(1, 1, 128)
   REPRO_CASE(1, 1, 256) REPRO_CASE(2, 1, 32) REPRO_CASE(2, 1, 64)
   REPRO_CASE(2, 1, 128) REPRO_CASE(2, 1, 256) REPRO_CASE(2, 2, 32)
@@ -875,25 +966,130 @@ inline bool tile_ok(int v) {
   return v == 32 || v == 64 || v == 128 || v == 256;
 }
 
+// ---------------------------------------------------------------------------
+// The epilogue's backward.  CTA (x, y) takes columns [64 x, 64 x + 64) of
+// rows [rows_per_cta y, ...); lane l of warp w takes columns 2 l, 2 l + 1 of
+// rows w, w + 8, ...  With a bias the grid has one row block, so each
+// column's sum is complete in its CTA: every warp sums its rows in order,
+// then the eight warp sums are added in warp order.
+// ---------------------------------------------------------------------------
+
+constexpr int kEbCols = 64;
+constexpr int kEbWarps = 8;
+
+struct EpiBwdParams {
+  const void* dout;   // (M, N), the output's type
+  const float* z;     // (M, N) pre-activation z = A B (+ bias), f32
+  const void* gate;   // (M, N), swiglu only
+  void* dz;           // (M, N), A's type (written unless act is none)
+  void* dgate;        // (M, N), the gate's type (swiglu only)
+  float* dbias;       // (N), f32 (with has_bias)
+  int M, N, rows_per_cta;
+  int dout_f32, gate_f32, dz_f32;
+  int act, has_bias;
+};
+
+__device__ __forceinline__ void store_ep2(void* p, size_t i, int f32, float x,
+                                          float y) {
+  if (f32) {
+    *reinterpret_cast<float2*>(static_cast<float*>(p) + i) = make_float2(x, y);
+  } else {
+    *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p) + i) =
+        __floats2bfloat162_rn(x, y);
+  }
+}
+
+// d act(z) / dz (times the gate for swiglu) and, for swiglu, d out / d gate
+// = silu(z); the derivatives of activate() above.
+__device__ __forceinline__ void act_grad(int act, float z, float gate,
+                                         float& dz, float& dgate) {
+  dgate = 0.0f;
+  if (act == kActGelu) {
+    const float c = 0.7978845608028654f, z2 = z * z;
+    const float t = tanhf(c * (z + 0.044715f * z2 * z));
+    dz = 0.5f * (1.0f + t) +
+         0.5f * z * (1.0f - t * t) * c * (1.0f + 3.0f * 0.044715f * z2);
+    return;
+  }
+  if (act == kActSilu || act == kActSwiglu) {
+    const float s = 1.0f / (1.0f + expf(-z));
+    dz = s * (1.0f + z * (1.0f - s));
+    if (act == kActSwiglu) {
+      dgate = z * s;
+      dz *= gate;
+    }
+    return;
+  }
+  dz = 1.0f;
+}
+
+__global__ void __launch_bounds__(32 * kEbWarps)
+    epilogue_bwd_kernel(const EpiBwdParams p) {
+  __shared__ float part[kEbWarps][kEbCols];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col = static_cast<int>(blockIdx.x) * kEbCols + 2 * lane;
+  const int r_begin = static_cast<int>(blockIdx.y) * p.rows_per_cta;
+  const int r_end = min(p.M, r_begin + p.rows_per_cta);
+  float2 db = make_float2(0.0f, 0.0f);
+  if (col < p.N) {
+    for (int r = r_begin + warp; r < r_end;
+         r += kEbWarps) {
+      const size_t i = static_cast<size_t>(r) * p.N + col;
+      float2 d = load_ep2(p.dout, i, p.dout_f32);
+      if (p.act != kActNone) {
+        const float2 z = *reinterpret_cast<const float2*>(p.z + i);
+        const float2 gt = p.act == kActSwiglu ? load_ep2(p.gate, i, p.gate_f32)
+                                              : make_float2(0.0f, 0.0f);
+        float d0, d1, g0, g1;
+        act_grad(p.act, z.x, gt.x, d0, g0);
+        act_grad(p.act, z.y, gt.y, d1, g1);
+        if (p.act == kActSwiglu)
+          store_ep2(p.dgate, i, p.gate_f32, d.x * g0, d.y * g1);
+        d = make_float2(d.x * d0, d.y * d1);
+        store_ep2(p.dz, i, p.dz_f32, d.x, d.y);
+      }
+      db.x += d.x;
+      db.y += d.y;
+    }
+  }
+  if (!p.has_bias) return;  // uniform over the grid
+  part[warp][2 * lane] = db.x;
+  part[warp][2 * lane + 1] = db.y;
+  __syncthreads();
+  const int c = static_cast<int>(blockIdx.x * kEbCols + threadIdx.x);
+  if (threadIdx.x < kEbCols && c < p.N) {
+    float s = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kEbWarps; ++w) s += part[w][threadIdx.x];
+    p.dbias[c] = s;
+  }
+}
+
 }  // namespace repro
 
 using namespace repro;
 
 // groups GEMMs of one shape in one launch; operand g starts sa * g (a),
 // sb * g (b), so * g (out), ... elements past its base pointer.  The dense
-// GEMM is groups = 1 with zero strides.  The plan integers come from
-// kernels/matmul.py::work_plan: k-steps per tile and per unit, units per CTA
-// and the grid; workspace holds ctas slots of max(bm, 64) x max(bn, 64) f32
-// when a tile is split, flags one int per CTA, all zero.
+// GEMM is groups = 1 with zero strides; it alone may take A stored (K, M)
+// (trans_a, M a multiple of 8 for bf16, 4 for f32: TMA's 16-byte row
+// strides) or B stored (N, K) (trans_b), not both.  The plan integers come
+// from kernels/matmul.py::work_plan: k-steps per tile and per unit, units
+// per CTA and the grid; workspace holds ctas slots of max(bm, 64) x
+// max(bn, 64) f32 when a tile is split, flags one int per CTA, all zero.
 extern "C" int repro_gemm(
     const void* a, const void* b, void* out, const void* bias,
     const void* gate, const void* residual, void* workspace, void* flags,
     int M, int N, int K, int bm, int bn, int bk, int group_m, int in_f32,
     int out_f32, int ep_f32, int has_bias, int act, int has_res, int groups,
-    int grouped, int steps_per_tile, int steps_per_unit, int units_per_cta,
-    int ctas, long long sa, long long sb, long long so, long long sbias,
-    long long sgate, long long sres, void* stream) {
+    int grouped, int trans_a, int trans_b, int steps_per_tile,
+    int steps_per_unit, int units_per_cta, int ctas, long long sa,
+    long long sb, long long so, long long sbias, long long sgate,
+    long long sres, void* stream) {
   const int vec = in_f32 ? 4 : 8;
+  if ((trans_a && trans_b) || ((trans_a || trans_b) && (grouped || groups != 1)) ||
+      (trans_a && M % vec))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0 || K <= 0 || N % vec || K % vec || !tile_ok(bm) ||
       !tile_ok(bn) || bk <= 0 || bk % 16 || group_m < 1 || act < 0 ||
       act > kActSwiglu || groups < 1 || sa < 0 || sb < 0 || so < 0 ||
@@ -924,6 +1120,8 @@ extern "C" int repro_gemm(
   p.act = act;
   p.has_res = has_res;
   p.groups = groups;
+  p.trans_a = trans_a;
+  p.trans_b = trans_b;
   p.Tm = (M + bm - 1) / bm;
   p.Tn = (N + bn - 1) / bn;
   p.steps_per_unit = steps_per_unit;
@@ -946,9 +1144,43 @@ extern "C" int repro_gemm(
       (workspace == nullptr && ctas > 1 && q % p.units_per_tile != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_f32) return static_cast<int>(launch_f32(p, grouped != 0, s));
-  return static_cast<int>(grouped ? dispatch_sm90<true>(p, s)
-                                  : dispatch_sm90<false>(p, s));
+  cudaError_t err;
+  if (in_f32)
+    err = grouped ? launch_f32<0, 0, true>(p, s)
+          : trans_a ? launch_f32<1, 0, false>(p, s)
+          : trans_b ? launch_f32<0, 1, false>(p, s)
+                    : launch_f32<0, 0, false>(p, s);
+  else
+    err = grouped ? dispatch_sm90<true, 0, 0>(p, s)
+          : trans_a ? dispatch_sm90<false, 1, 0>(p, s)
+          : trans_b ? dispatch_sm90<false, 0, 1>(p, s)
+                    : dispatch_sm90<false, 0, 0>(p, s);
+  return static_cast<int>(err);
+}
+
+// The epilogue's backward over (M, N): dz (A's type, dz_f32), dgate (the
+// gate's type, gate_f32) and dbias (f32) from dout (dout_f32) and the f32
+// pre-activation z; act 0 reads neither z nor the gate and only sums dout's
+// columns into dbias.  N must be even; rows_per_cta splits the rows over
+// the grid's y (one block of all M rows when has_bias).
+extern "C" int repro_epilogue_bwd(const void* dout, const float* z,
+                                  const void* gate, void* dz, void* dgate,
+                                  float* dbias, int M, int N, int act,
+                                  int has_bias, int dout_f32, int gate_f32,
+                                  int dz_f32, int rows_per_cta, void* stream) {
+  if (M <= 0 || N <= 0 || N % 2 || act < 0 || act > kActSwiglu ||
+      rows_per_cta <= 0 || (has_bias && (rows_per_cta < M || !dbias)) ||
+      (act != kActNone && (!z || !dz)) || (act == kActSwiglu && (!gate || !dgate)) ||
+      (act == kActNone && !has_bias))
+    return static_cast<int>(cudaErrorInvalidValue);
+  EpiBwdParams p{dout, z, gate, dz, dgate, dbias, M, N, rows_per_cta,
+                 dout_f32, gate_f32, dz_f32, act, has_bias};
+  const dim3 grid((N + kEbCols - 1) / kEbCols,
+                  (M + rows_per_cta - 1) / rows_per_cta);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  epilogue_bwd_kernel<<<grid, 32 * kEbWarps, 0,
+                        static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

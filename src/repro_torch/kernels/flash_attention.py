@@ -12,8 +12,12 @@ on the H100 and what its design does about that.
 tensor gets the plain version (``ref.attention_ref``), a CUDA tensor the
 kernel, and anything else raises.  On the card, bf16 q/k/v take the wgmma
 kernel and f32 q/k/v the f32 kernel of the same source, at any head dim in
-:data:`HEAD_DIMS`; any other head dim or dtype raises.
-``flash_attention_kernel.launches`` counts kernel launches of both.
+:data:`HEAD_DIMS`; any other head dim or dtype raises.  With
+``return_lse`` it also returns the rows' log-sum-exp, which
+:func:`flash_attention_bwd_kernel` (the backward: the delta, dK/dV and dQ
+kernels of the same source; plain version ``ref.attention_bwd_ref``)
+takes.  ``flash_attention_kernel.launches`` counts forward launches of
+both dtypes, ``flash_attention_bwd_kernel.launches`` backward ones.
 """
 from __future__ import annotations
 
@@ -264,30 +268,65 @@ def select_attention_blocks(
 
 
 def attention_plain(q, k, v, *, block_q: int, block_kv: int,
-                    causal: bool = False,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = False, scale: Optional[float] = None,
+                    return_lse: bool = False):
     """The plain version: what the kernels compute, whatever the blocks,
-    at any head dim and dtype."""
+    at any head dim and dtype (and the rows' lse, f32, with
+    ``return_lse``)."""
+    if return_lse:
+        return ref.attention_lse_ref(q, k, v, causal=causal, scale=scale)
     return ref.attention_ref(q, k, v, causal=causal, scale=scale)
 
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, block_q: int, block_kv: int,
                            causal: bool = False,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None,
+                           return_lse: bool = False):
     """Attention of q (B, H, Sq, d) over k/v (B, Hkv, Skv, d); returns
-    (B, H, Sq, d) in q's dtype.  ``block_q``/``block_kv`` tile the bf16
-    kernel; the f32 kernel runs 16-row q blocks and 32-key kv blocks."""
+    (B, H, Sq, d) in q's dtype, and with ``return_lse`` also the rows'
+    log-sum-exp of the scaled scores, (B, H, Sq) f32 (+inf where a row sees
+    no key).  ``block_q``/``block_kv`` tile the bf16 kernel; the f32 kernel
+    runs 16-row q blocks and 32-key kv blocks."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, block_q=block_q, block_kv=block_kv,
-                               causal=causal, scale=scale)
+                               causal=causal, scale=scale,
+                               return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _launch_cuda(q, k, v, block_q=block_q, block_kv=block_kv,
-                        causal=causal, scale=scale)
+                        causal=causal, scale=scale, return_lse=return_lse)
 
 
 flash_attention_kernel.launches = 0
+
+
+def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,
+                        scale: Optional[float] = None):
+    """The plain version of the backward: ``ref.attention_bwd_ref``."""
+    return ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                 scale=scale)
+
+
+def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, o: torch.Tensor,
+                               lse: torch.Tensor, do: torch.Tensor, *,
+                               causal: bool = False,
+                               scale: Optional[float] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """(dq, dk, dv) of :func:`flash_attention_kernel` at q, k, v, its o and
+    lse, and the output gradient do, each in its input's dtype."""
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
+                                   scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    return _launch_bwd_cuda(q, k, v, o, lse, do, causal=causal, scale=scale)
+
+
+flash_attention_bwd_kernel.launches = 0
 
 
 def check_head_dim(d: int) -> None:
@@ -298,32 +337,87 @@ def check_head_dim(d: int) -> None:
             f"(a multiple of {HEAD_DIM_ALIGN} up to {MAX_HEAD_DIM})")
 
 
-def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale):
+def _check_qkv(q, k, v, what="flash_attention"):
+    """Shapes, head dim, dtype, device and unit d strides of q, k, v."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
+        raise ValueError(f"{what}: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} are not "
                          f"(B,H,Sq,d) / (B,Hkv,Skv,d)")
     B, H, Sq, d = q.shape
     _, Hkv, Skv, dk = k.shape
     if k.shape[0] != B or dk != d or H % Hkv:
-        raise ValueError(f"flash_attention: incompatible q {tuple(q.shape)} "
+        raise ValueError(f"{what}: incompatible q {tuple(q.shape)} "
                          f"and k/v {tuple(k.shape)}")
     check_head_dim(d)
+    if q.dtype not in DTYPES:
+        raise ValueError(f"{what}: q is {q.dtype}; the kernels take bf16 "
+                         f"or f32")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != q.dtype:
+            raise ValueError(f"{what}: {name} is {t.dtype}, q is {q.dtype}")
+        if t.device != q.device:
+            raise ValueError(f"{what}: q, k, v on different devices")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} needs a unit stride on the "
+                             f"head dim")
+
+
+def _launch_bwd_cuda(q, k, v, o, lse, do, *, causal, scale):
+    """The backward's three kernels (delta, dK/dV, dQ) in one call."""
+    _check_qkv(q, k, v, "flash_attention_bwd")
+    B, H, Sq, d = q.shape
+    _, Hkv, Skv, _ = k.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or tuple(lse.shape) != (B, H, Sq) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} "
+                         f"{o.dtype}, do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)} {lse.dtype} do not match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if do.dtype != q.dtype or do.stride(-1) != 1:
+        do = do.to(q.dtype).contiguous()
+    lse = lse.contiguous()
+    for t in (o, do, lse):
+        if t.device != q.device:
+            raise ValueError("flash_attention_bwd: operands on different "
+                             "devices")
+    if o.stride(-1) != 1:
+        raise ValueError("flash_attention_bwd: o needs a unit stride on "
+                         "the head dim")
+    scale = scale if scale is not None else d ** -0.5
+    dq = torch.empty((B, H, Sq, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Hkv, Skv, d), dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    lib = build.load("flash_attention")
+    fn = lib.repro_flash_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 15 \
+            + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 2 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    with torch.cuda.device(q.device):
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                  *o.stride()[:3], *do.stride()[:3], B, H, Hkv, Sq, Skv,
+                  Skv, int(causal), float(scale), d,
+                  int(q.dtype == torch.float32),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, code, f"flash_attention_bwd {q.dtype} q{tuple(q.shape)} "
+                           f"k{tuple(k.shape)}")
+    flash_attention_bwd_kernel.launches += 1
+    return dq, dk, dv
+
+
+def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale,
+                 return_lse=False):
+    _check_qkv(q, k, v)
+    B, H, Sq, d = q.shape
+    _, Hkv, Skv, _ = k.shape
     if block_q not in BLOCK_MENU or block_kv not in BLOCK_MENU:
         raise ValueError(f"flash_attention: blocks ({block_q}, {block_kv}) "
                          f"not in {BLOCK_MENU}")
-    if q.dtype not in DTYPES:
-        raise ValueError(f"flash_attention: q is {q.dtype}; the kernels "
-                         f"take bf16 or f32")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != q.dtype:
-            raise ValueError(f"flash_attention: {name} is {t.dtype}, q is "
-                             f"{q.dtype}")
-        if t.device != q.device:
-            raise ValueError("flash_attention: q, k, v on different devices")
-        if t.stride(-1) != 1:
-            raise ValueError(f"flash_attention: {name} needs a unit stride "
-                             f"on the head dim")
     f32 = q.dtype == torch.float32
     if not f32:
         if not legal_blocks(block_q, block_kv, d):
@@ -339,6 +433,8 @@ def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale):
     # Output laid out (B, Sq, H, d): the model's head merge is then a view.
     out = torch.empty((B, Sq, H, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if return_lse else None
     scale = scale if scale is not None else d ** -0.5
 
     lib = build.load("flash_attention")
@@ -347,11 +443,12 @@ def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale):
         tail = [ctypes.c_int] * 7 + [ctypes.c_float] \
             + ([ctypes.c_int] if f32 else [ctypes.c_int] * 3) \
             + [ctypes.c_void_p]
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + tail
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12 + tail
         fn.restype = ctypes.c_int
     blocks = () if f32 else (block_q, block_kv)
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  lse.data_ptr() if lse is not None else None,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *out.stride()[:3], B, H, Hkv, Sq, Skv, Skv, int(causal),
                   float(scale), *blocks, d,
@@ -359,4 +456,4 @@ def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale):
     build.check(lib, code, f"flash_attention {q.dtype} q{tuple(q.shape)} "
                            f"k{tuple(k.shape)} blocks ({block_q}, {block_kv})")
     flash_attention_kernel.launches += 1
-    return out
+    return (out, lse) if return_lse else out

@@ -15,11 +15,20 @@ summed deterministically, in k order, from f32 partials in a workspace this
 wrapper allocates once per stream (:func:`_scratch`).  The source note in ``csrc/matmul.cu`` says what bounds
 the kernel on the H100 and what its design does about it.
 
+:func:`tiled_matmul` also takes the two operand layouts of the GEMM's
+backward, each read in place: ``trans_a`` (a stored (K, M): the weight
+gradient ``X^T dY`` reads the activation as it is) and ``trans_b`` (b stored
+(N, K): the input gradient ``dY W^T`` reads the weight as it is).
+:func:`epilogue_bwd` is the fused epilogue's backward, one elementwise pass
+of its own kernel in the same source.
+
 :func:`tiled_matmul` takes the route from the device of its operands: a CPU
 tensor gets the plain version (``ref.matmul_ref``), a CUDA tensor the
-kernel, and anything else raises; :func:`tiled_expert_matmul` likewise.
-``tiled_matmul.launches`` and ``tiled_expert_matmul.launches`` count each
-wrapper's kernel launches.
+kernel, and anything else raises; :func:`tiled_expert_matmul` and
+:func:`epilogue_bwd` likewise.  ``tiled_matmul.launches``,
+``tiled_expert_matmul.launches`` and ``epilogue_bwd.launches`` count each
+wrapper's kernel launches; ``tiled_matmul.layout_launches`` splits the
+dense launches by layout ("nn", "tn": trans_a, "nt": trans_b).
 """
 from __future__ import annotations
 
@@ -182,9 +191,12 @@ def work_plan(M: int, N: int, K: int, cfg: TileConfig, groups: int,
 
 
 def matmul_plain(a, b, cfg: TileConfig, *, out_dtype, epilogue=None,
-                 bias=None, gate=None, residual=None) -> torch.Tensor:
-    """The plain version: what the kernel computes, whatever the tiling."""
-    return ref.matmul_ref(a, b, out_dtype, epilogue=epilogue, bias=bias,
+                 bias=None, gate=None, residual=None, trans_a=False,
+                 trans_b=False) -> torch.Tensor:
+    """The plain version: what the kernel computes, whatever the tiling
+    (``trans_a`` / ``trans_b``: the operand is stored transposed)."""
+    return ref.matmul_ref(a.t() if trans_a else a, b.t() if trans_b else b,
+                          out_dtype, epilogue=epilogue, bias=bias,
                           gate=gate, residual=residual)
 
 
@@ -193,20 +205,26 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, cfg: TileConfig, *,
                  epilogue: Optional[Epilogue] = None,
                  bias: Optional[torch.Tensor] = None,
                  gate: Optional[torch.Tensor] = None,
-                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """C = epilogue(a @ b) for a (M, K), b (K, N); bias (N,),
-    gate/residual (M, N)."""
+                 residual: Optional[torch.Tensor] = None,
+                 trans_a: bool = False,
+                 trans_b: bool = False) -> torch.Tensor:
+    """C = epilogue(A @ B) (M, N); bias (N,), gate/residual (M, N).  A is
+    ``a`` (M, K), or ``a.t()`` for a stored (K, M) with ``trans_a``; B is
+    ``b`` (K, N), or ``b.t()`` for b stored (N, K) with ``trans_b``."""
     if a.device.type == "cpu":
         return matmul_plain(a, b, cfg, out_dtype=out_dtype,
                             epilogue=epilogue, bias=bias, gate=gate,
-                            residual=residual)
+                            residual=residual, trans_a=trans_a,
+                            trans_b=trans_b)
     if a.device.type != "cuda":
         raise ValueError(f"tiled_matmul: unsupported device {a.device}")
     return _launch_cuda(a, b, cfg, out_dtype=out_dtype, epilogue=epilogue,
-                        bias=bias, gate=gate, residual=residual)
+                        bias=bias, gate=gate, residual=residual,
+                        trans_a=trans_a, trans_b=trans_b)
 
 
 tiled_matmul.launches = 0
+tiled_matmul.layout_launches = {"nn": 0, "tn": 0, "nt": 0}
 
 
 def expert_matmul_plain(x, w, cfg: TileConfig, *, out_dtype, epilogue=None,
@@ -252,18 +270,22 @@ def _pad_last(x: torch.Tensor, n: int) -> torch.Tensor:
     return F.pad(x, (0, pad)) if pad else x
 
 
-def _launch_cuda(a, b, cfg, *, out_dtype, epilogue, bias, gate, residual):
+def _launch_cuda(a, b, cfg, *, out_dtype, epilogue, bias, gate, residual,
+                 trans_a=False, trans_b=False):
     """The dense launch: the grouped kernel with one group."""
     if a.dim() != 2 or b.dim() != 2:
-        raise ValueError(f"tiled_matmul: shapes {tuple(a.shape)} @ "
-                         f"{tuple(b.shape)} are not (M, K) @ (K, N)")
+        raise ValueError(f"tiled_matmul: operands {tuple(a.shape)}, "
+                         f"{tuple(b.shape)} are not matrices")
     out = _launch_groups(
         "tiled_matmul", a[None], b[None], cfg, grouped=False,
         out_dtype=out_dtype,
         epilogue=epilogue, bias=None if bias is None else bias[None],
         gate=None if gate is None else gate[None],
-        residual=None if residual is None else residual[None])
+        residual=None if residual is None else residual[None],
+        trans_a=trans_a, trans_b=trans_b)
     tiled_matmul.launches += 1
+    tiled_matmul.layout_launches[
+        "tn" if trans_a else "nt" if trans_b else "nn"] += 1
     return out[0]
 
 
@@ -313,17 +335,28 @@ def _scratch(device: torch.device,
 
 
 def _launch_groups(what, a, b, cfg, *, grouped, out_dtype, epilogue, bias,
-                   gate, residual):
+                   gate, residual, trans_a=False, trans_b=False):
     """Check and launch ``csrc/matmul.cu`` on G problems of one shape: a
     (G, M, K), b (G, K, N), bias (G, N), gate/residual (G, M, N).
-    ``grouped`` picks the grouped kernel (its own name in a trace)."""
+    ``grouped`` picks the grouped kernel (its own name in a trace).  One
+    dense problem may give a stored (1, K, M) (``trans_a``) or b stored
+    (1, N, K) (``trans_b``): the kernel reads it in place."""
     ep = epilogue or EPILOGUE_NONE
+    if trans_a and trans_b:
+        raise ValueError(f"{what}: trans_a and trans_b together are not "
+                         f"taken (the backward needs one or the other)")
+    if (trans_a or trans_b) and (grouped or a.shape[0] != 1):
+        raise ValueError(f"{what}: transposed operands are taken by the "
+                         f"dense launch only (one group), not the grouped "
+                         f"kernel")
+    a_mk = a.transpose(1, 2) if trans_a else a          # logical (G, M, K)
+    b_kn = b.transpose(1, 2) if trans_b else b          # logical (G, K, N)
     if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] \
-            or a.shape[2] != b.shape[1]:
-        raise ValueError(f"{what}: shapes {tuple(a.shape)} @ "
-                         f"{tuple(b.shape)} are not (G, M, K) @ (G, K, N)")
-    G, M, K = a.shape
-    N = b.shape[2]
+            or a_mk.shape[2] != b_kn.shape[1]:
+        raise ValueError(f"{what}: shapes {tuple(a_mk.shape)} @ "
+                         f"{tuple(b_kn.shape)} are not (G, M, K) @ (G, K, N)")
+    G, M, K = a_mk.shape
+    N = b_kn.shape[2]
     if a.dtype not in _DTYPES or b.dtype != a.dtype:
         raise ValueError(f"{what}: inputs must both be bf16 or f32, "
                          f"got {a.dtype} and {b.dtype}")
@@ -358,14 +391,20 @@ def _launch_groups(what, a, b, cfg, *, grouped, out_dtype, epilogue, bias,
             raise ValueError(f"{what}: {name} must be contiguous")
 
     # 16-byte loads need K and N to be multiples of 8 elements (4 for f32);
-    # pad with zeros where they are not (never on the served paths).
+    # pad with zeros where they are not (never on the served or trained
+    # paths).  A stored (K, M) is read in rows of M: M must be such a
+    # multiple too.
     vec = 4 if a.dtype == torch.float32 else 8
+    if trans_a and M % vec:
+        raise ValueError(f"{what}: a stored (K, M) needs M a multiple of "
+                         f"{vec} ({a.dtype} rows of 16-byte multiples), got "
+                         f"M = {M}")
     Kp, Np = K + (-K) % vec, N + (-N) % vec
     if Kp != K:
-        a = _pad_last(a, vec)
-        b = F.pad(b, (0, 0, 0, Kp - K))
+        a = F.pad(a, (0, 0, 0, Kp - K)) if trans_a else _pad_last(a, vec)
+        b = _pad_last(b, vec) if trans_b else F.pad(b, (0, 0, 0, Kp - K))
     if Np != N:
-        b = _pad_last(b, vec)
+        b = F.pad(b, (0, 0, 0, Np - N)) if trans_b else _pad_last(b, vec)
         ops = {k: (_pad_last(t, vec).contiguous() if t is not None else None)
                for k, t in ops.items()}
     # TMA wants 16-byte aligned operands; the epilogue's paired loads want
@@ -382,7 +421,7 @@ def _launch_groups(what, a, b, cfg, *, grouped, out_dtype, epilogue, bias,
     lib = build.load("matmul")
     fn = lib.repro_gemm
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 19 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 21 \
             + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
@@ -400,7 +439,8 @@ def _launch_groups(what, a, b, cfg, *, grouped, out_dtype, epilogue, bias,
             int(a.dtype == torch.float32), int(out_dtype == torch.float32),
             int(ep_dtype == torch.float32),
             int(ep.bias), _ACT_CODES[ep.activation], int(ep.residual),
-            G, int(grouped), plan.steps_per_tile, plan.steps_per_unit,
+            G, int(grouped), int(trans_a), int(trans_b),
+            plan.steps_per_tile, plan.steps_per_unit,
             plan.units_per_cta, plan.ctas,
             stride(a), stride(b), stride(out), stride(ops["bias"]),
             stride(ops["gate"]), stride(ops["residual"]), stream.cuda_stream)
@@ -414,3 +454,99 @@ def _launch_groups(what, a, b, cfg, *, grouped, out_dtype, epilogue, bias,
             code = fn(*args)
     build.check(lib, code, f"{what} {G}x{M}x{N}x{K} {cfg}")
     return out[..., :N] if Np != N else out
+
+
+# ---------------------------------------------------------------------------
+# The epilogue's backward: one elementwise pass (``csrc/matmul.cu``,
+# ``epilogue_bwd_kernel``).
+# ---------------------------------------------------------------------------
+
+# Rows a CTA walks when no bias sum needs every row in one CTA: enough CTAs
+# to cover the card at the training shapes (M 2048: 32 row blocks).
+_EPI_BWD_ROWS = 64
+
+
+def epilogue_bwd_plain(dout, z, *, epilogue, gate=None, dz_dtype,
+                       want_bias=False):
+    """The plain version: ``ref.epilogue_bwd_ref``."""
+    return ref.epilogue_bwd_ref(dout, z, epilogue, gate=gate,
+                                dz_dtype=dz_dtype, want_bias=want_bias)
+
+
+def epilogue_bwd(dout: torch.Tensor, z: Optional[torch.Tensor], *,
+                 epilogue: Epilogue, gate: Optional[torch.Tensor] = None,
+                 dz_dtype: torch.dtype, want_bias: bool = False
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                            Optional[torch.Tensor]]:
+    """(dz, dgate, dbias) of the fused epilogue for dout (M, N), the f32
+    pre-activation z = A B (+ bias) (M, N) (None when the epilogue has no
+    activation) and the swiglu gate (M, N): dz in ``dz_dtype`` (dout itself
+    without an activation), dgate in the gate's dtype, dbias (N,) f32 when
+    ``want_bias``.  The residual's gradient is dout and needs no kernel."""
+    if dout.device.type == "cpu":
+        return epilogue_bwd_plain(dout, z, epilogue=epilogue, gate=gate,
+                                  dz_dtype=dz_dtype, want_bias=want_bias)
+    if dout.device.type != "cuda":
+        raise ValueError(f"epilogue_bwd: unsupported device {dout.device}")
+    return _launch_epilogue_bwd_cuda(dout, z, epilogue=epilogue, gate=gate,
+                                     dz_dtype=dz_dtype, want_bias=want_bias)
+
+
+epilogue_bwd.launches = 0
+
+
+def _launch_epilogue_bwd_cuda(dout, z, *, epilogue, gate, dz_dtype,
+                              want_bias):
+    ep = epilogue
+    act = _ACT_CODES[ep.activation]
+    if dout.dim() != 2:
+        raise ValueError(f"epilogue_bwd: dout {tuple(dout.shape)} is not "
+                         f"(M, N)")
+    M, N = dout.shape
+    if act == 0 and not want_bias:
+        return dout.to(dz_dtype), None, None
+    if N % 2:
+        raise ValueError(f"epilogue_bwd: N = {N} must be even (the kernel "
+                         f"takes column pairs)")
+    for name, t, dts in (("dout", dout, _DTYPES), ("z", z, (torch.float32,)),
+                         ("gate", gate, _DTYPES)):
+        if t is None:
+            continue
+        if tuple(t.shape) != (M, N) or t.dtype not in dts \
+                or t.device != dout.device or not t.is_contiguous():
+            raise ValueError(f"epilogue_bwd: {name} must be a contiguous "
+                             f"({M}, {N}) tensor in {dts} on {dout.device}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    if dz_dtype not in _DTYPES:
+        raise ValueError(f"epilogue_bwd: dz dtype {dz_dtype} not in "
+                         f"{_DTYPES}")
+    if act and z is None:
+        raise ValueError(f"epilogue_bwd: {ep} needs the pre-activation z")
+    if (act == _ACT_CODES["swiglu_gate"]) != (gate is not None):
+        raise ValueError(f"epilogue_bwd: {ep} vs gate operand")
+    dev = dout.device
+    dz = torch.empty((M, N), dtype=dz_dtype, device=dev) if act else None
+    dgate = torch.empty_like(gate) if gate is not None else None
+    dbias = torch.empty((N,), dtype=torch.float32, device=dev) \
+        if want_bias else None
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    lib = build.load("matmul")
+    fn = lib.repro_epilogue_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    rows = M if want_bias else _EPI_BWD_ROWS
+    with torch.cuda.device(dev):
+        code = fn(ptr(dout), ptr(z), ptr(gate), ptr(dz), ptr(dgate),
+                  ptr(dbias), M, N, act, int(want_bias),
+                  int(dout.dtype == torch.float32),
+                  int(gate is not None and gate.dtype == torch.float32),
+                  int(dz_dtype == torch.float32), rows,
+                  torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, code, f"epilogue_bwd {M}x{N} {ep}")
+    epilogue_bwd.launches += 1
+    return (dz if act else dout.to(dz_dtype)), dgate, dbias

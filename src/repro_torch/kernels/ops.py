@@ -20,6 +20,17 @@ selection source.  When every tiled rung fails, a CPU launch serves the
 plain version as the last (``reference``) rung; a CUDA launch raises,
 because the card never serves the plain version.  Explicitly passed
 ``config`` objects are the caller's contract: transient retry, no ladder.
+
+Gradients.  Where autograd records (grad enabled and an operand requires
+grad), :func:`matmul` and :func:`flash_attention` run as
+``torch.autograd.Function``s whose backward is kernels too: the GEMM's
+dA = dZ B^T and dB = A^T dZ are the same Hopper GEMM reading B or A in
+place (``trans_b`` / ``trans_a``), each product selected for its own
+(M, N, K); an activation's dZ comes from the epilogue-backward kernel on
+the pre-activation, recomputed in f32 by the GEMM; attention's backward is
+the flash backward kernels on the forward's saved output and row
+log-sum-exp.  Otherwise (serving, under ``torch.inference_mode``) the ops
+launch directly and build no autograd node.
 """
 from __future__ import annotations
 
@@ -30,7 +41,8 @@ import torch
 
 from repro_torch.core.dtypes import DTYPE_BYTES
 from repro_torch.core.hardware import GPU_H100_LIKE
-from repro_torch.core.latency import Epilogue, GemmProblem, TileConfig
+from repro_torch.core.latency import (EPILOGUE_NONE, Epilogue, GemmProblem,
+                                      TileConfig)
 from repro_torch.core.selector import (Selection, emit_fallback,
                                        fallback_ladder, select_gemm_config,
                                        validate_selection)
@@ -38,7 +50,6 @@ from repro_torch.core.topology import (DegradedModeWarning, HardwareSpec,
                                        topology_fingerprint)
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels import matmul as kmm
-from repro_torch.kernels import ref
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.runtime.fault_tolerance import retry
@@ -167,21 +178,44 @@ def matmul(
     hw = hw if hw is not None else get_default_hardware()
     out_dtype = out_dtype or a.dtype
     ep = _normalize_epilogue(epilogue, bias, gate, residual)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (a, b, bias, gate, residual)):
+        return _Matmul.apply(a, b, bias, gate, residual, ep, out_dtype, hw,
+                             config)
+    return _matmul_forward(a, b, ep, out_dtype, hw, config, bias, gate,
+                           residual)
+
+
+def _matmul_forward(a, b, ep, out_dtype, hw, config, bias, gate, residual):
+    """The forward of :func:`matmul` on (..., M, K) @ (K, N)."""
     lead = tuple(a.shape[:-2]) if a.dim() > 2 else ()
     M = 1
     for s in (*lead, a.shape[-2]):
         M *= s
     K, N = b.shape
-    a2 = a.reshape(M, K).contiguous()
     gate2 = gate.reshape(M, N).contiguous() if gate is not None else None
     res2 = residual.reshape(M, N).contiguous() if residual is not None \
         else None
-    b = b.contiguous()
-    bias = bias.contiguous() if bias is not None else None
+    out = _gemm(a.reshape(M, K).contiguous(), b.contiguous(), ep, out_dtype,
+                hw, config, bias=bias.contiguous() if bias is not None
+                else None, gate=gate2, residual=res2)
+    return out.reshape(*lead, a.shape[-2], N) if lead else out
 
-    def _shape(out: torch.Tensor) -> torch.Tensor:
-        return out.reshape(*lead, a.shape[-2], N) if lead else out
 
+def _gemm(a: torch.Tensor, b: torch.Tensor, ep: Epilogue,
+          out_dtype: torch.dtype, hw: HardwareSpec,
+          config: Optional[TileConfig] = None, *,
+          bias: Optional[torch.Tensor] = None,
+          gate: Optional[torch.Tensor] = None,
+          residual: Optional[torch.Tensor] = None,
+          trans_a: bool = False, trans_b: bool = False) -> torch.Tensor:
+    """epilogue(A @ B) on 2-D operands as stored (A = a.t() with
+    ``trans_a``, B = b.t() with ``trans_b``), selected for its own
+    (M, N, K) unless ``config`` is given, behind the fail-soft launch."""
+    M = a.shape[1] if trans_a else a.shape[0]
+    K = a.shape[0] if trans_a else a.shape[1]
+    N = b.shape[0] if trans_b else b.shape[1]
     selected: Optional[Selection] = None
     if config is None:
         selected = select_gemm_config(M, N, K,
@@ -190,13 +224,67 @@ def matmul(
                                       epilogue=ep,
                                       hw=hw)
         config = selected.config
+    kw = dict(out_dtype=out_dtype, epilogue=ep, bias=bias, gate=gate,
+              residual=residual, trans_a=trans_a, trans_b=trans_b)
     return _launch_fail_soft(
-        lambda cfg: _shape(kmm.tiled_matmul(a2, b, cfg, out_dtype=out_dtype,
-                                            epilogue=ep, bias=bias,
-                                            gate=gate2, residual=res2)),
-        lambda: _shape(ref.matmul_ref(a2, b, out_dtype, epilogue=ep,
-                                      bias=bias, gate=gate2, residual=res2)),
+        lambda cfg: kmm.tiled_matmul(a, b, cfg, **kw),
+        lambda: kmm.matmul_plain(a, b, config, **kw),
         config, selected, hw, (M, N, K), a.device)
+
+
+class _Matmul(torch.autograd.Function):
+    """:func:`matmul` under autograd.  Saves a, b, bias and gate (the
+    residual's gradient is the output's); the backward recomputes an
+    activation's pre-activation z = A B (+ bias) in f32 with the GEMM
+    rather than storing it, takes dZ (and dgate, dbias) from the
+    epilogue-backward kernel, then dA = dZ B^T with b read in place and
+    dB = A^T dZ with a read in place."""
+
+    @staticmethod
+    def forward(ctx, a, b, bias, gate, residual, ep, out_dtype, hw, config):
+        ctx.save_for_backward(a, b, bias, gate)
+        ctx.ep, ctx.hw = ep, hw
+        ctx.res_meta = ((residual.shape, residual.dtype)
+                        if residual is not None else None)
+        return _matmul_forward(a, b, ep, out_dtype, hw, config, bias, gate,
+                               residual)
+
+    @staticmethod
+    def backward(ctx, dout):
+        a, b, bias, gate = ctx.saved_tensors
+        ep, hw = ctx.ep, ctx.hw
+        need_a, need_b, need_bias, need_gate, need_res = \
+            ctx.needs_input_grad[:5]
+        K, N = b.shape
+        a2 = a.reshape(-1, K).contiguous()
+        M = a2.shape[0]
+        d2 = dout.reshape(M, N).contiguous()
+        gate2 = gate.reshape(M, N).contiguous() if gate is not None else None
+        dz, dgate, dbias = d2, None, None
+        if ep.activation is not None:
+            z = _gemm(a2, b.contiguous(), Epilogue(bias=ep.bias),
+                      torch.float32, hw, bias=bias)
+            dz, dgate, dbias = kmm.epilogue_bwd(
+                d2, z, epilogue=ep, gate=gate2, dz_dtype=a.dtype,
+                want_bias=ep.bias and need_bias)
+        elif ep.bias and need_bias:
+            _, _, dbias = kmm.epilogue_bwd(d2, None, epilogue=ep,
+                                           dz_dtype=a.dtype, want_bias=True)
+        dz = dz.to(a.dtype)
+        none = EPILOGUE_NONE
+        da = (_gemm(dz, b.contiguous(), none, a.dtype, hw,
+                    trans_b=True).reshape(a.shape) if need_a else None)
+        db = (_gemm(a2, dz, none, b.dtype, hw, trans_a=True)
+              if need_b else None)
+        dres = None
+        if need_res:
+            shape, dtype = ctx.res_meta
+            dres = dout.reshape(shape).to(dtype)
+        return (da, db,
+                dbias.to(bias.dtype) if dbias is not None else None,
+                dgate.reshape(gate.shape) if need_gate and dgate is not None
+                else None,
+                dres, None, None, None, None)
 
 
 def expert_matmul(
@@ -221,6 +309,12 @@ def expert_matmul(
     hw = hw if hw is not None else get_default_hardware()
     out_dtype = out_dtype or x.dtype
     ep = _normalize_epilogue(epilogue, bias, gate, residual)
+    if x.device.type == "cuda" and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, w, bias, gate, residual)):
+        raise NotImplementedError(
+            "expert_matmul: the grouped GEMM has no backward on the card "
+            "yet (ROADMAP A3b); its output would carry no gradient")
     _, M, K = x.shape
     N = w.shape[2]
     x, w = x.contiguous(), w.contiguous()
@@ -340,5 +434,30 @@ def flash_attention(
             Sq, Skv, d, in_dtype=_dtype_name(q.dtype), hw=hw, causal=causal,
             batch=B, heads=H, kv_heads=Hkv)
     bq, bkv = blocks
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, scale, bq, bkv)
     return kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
                                       causal=causal, scale=scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` under autograd: the forward kernel also
+    writes the rows' log-sum-exp, saved with q, k, v and the output for
+    the backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, bq, bkv):
+        out, lse = kfa.flash_attention_kernel(
+            q, k, v, block_q=bq, block_kv=bkv, causal=causal, scale=scale,
+            return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = kfa.flash_attention_bwd_kernel(
+            q, k, v, out, lse, dout, causal=ctx.causal, scale=ctx.scale)
+        return dq, dk, dv, None, None, None, None

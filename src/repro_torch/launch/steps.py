@@ -1,0 +1,126 @@
+"""Step functions shared by the trainer and the server (the port of
+``repro/launch/steps.py``).
+
+The reference's train step is one pure jitted function that the driver
+retries whole.  Here the training state is updated in place (at
+phi4-mini's full size a second copy of the 46 GB state does not fit the
+card), so a step has two parts: :meth:`TrainStep.loss_and_grads`, which
+mutates nothing and may be retried, and :meth:`TrainStep.apply`, the
+optimizer's commit, which runs once.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.nn.model import Model
+from repro_torch.optim.adamw import AdamW, OptState, tree_items, tree_map
+
+TRAINED_FAMILIES = ("dense",)
+
+
+class TrainState(NamedTuple):
+    params: Dict
+    opt: OptState
+    step: int
+
+
+def _unflatten(flat: Dict[str, torch.Tensor]) -> Dict:
+    out: Dict = {}
+    for path, leaf in flat.items():
+        node = out
+        *head, last = path.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return out
+
+
+class TrainStep:
+    """One training step of ``model`` under ``optimizer``; ``microbatches``
+    > 1 accumulates each micro-batch's gradients (in the param dtype) into
+    an f32 buffer, as ``steps.py:38-56``."""
+
+    def __init__(self, model: Model, optimizer: AdamW, microbatches: int = 1):
+        self.model, self.optimizer = model, optimizer
+        self.microbatches = microbatches
+
+    def _tokens(self, batch: Dict) -> torch.Tensor:
+        t = batch["tokens"]
+        if isinstance(t, np.ndarray):
+            t = torch.from_numpy(t)
+        return t.to(device=self.model.device, dtype=torch.int64)
+
+    def _value_and_grad(self, params: Dict, tokens: torch.Tensor
+                        ) -> Tuple[torch.Tensor, Dict]:
+        paths, leaves = zip(*tree_items(params))
+        live = [p.detach().requires_grad_(True) for p in leaves]
+        loss = self.model.loss(_unflatten(dict(zip(paths, live))),
+                               {"tokens": tokens})
+        grads = torch.autograd.grad(loss, live)
+        return loss.detach(), _unflatten(dict(zip(paths, grads)))
+
+    def loss_and_grads(self, params: Dict, batch: Dict
+                       ) -> Tuple[torch.Tensor, Dict]:
+        """(the f32 loss, the grads in the param dtype); mutates nothing."""
+        tokens = self._tokens(batch)
+        n = self.microbatches
+        if n == 1:
+            return self._value_and_grad(params, tokens)
+        if tokens.shape[0] % n:
+            raise ValueError(f"batch {tokens.shape[0]} does not split into "
+                             f"{n} micro-batches")
+        loss_sum, gacc = None, None
+        for micro in tokens.reshape(n, -1, *tokens.shape[1:]):
+            loss, g = self._value_and_grad(params, micro)
+            loss_sum = loss if loss_sum is None else loss_sum + loss
+            if gacc is None:
+                gacc = tree_map(lambda t: t.float(), g)
+            else:
+                for (_, a), (_, b) in zip(tree_items(gacc), tree_items(g)):
+                    a.add_(b.float())
+        grads = _unflatten({
+            path: (a / n).to(p.dtype)
+            for (path, a), (_, p) in zip(tree_items(gacc),
+                                         tree_items(params))})
+        return loss_sum / n, grads
+
+    def apply(self, state: TrainState, loss: torch.Tensor, grads: Dict
+              ) -> Tuple[TrainState, Dict]:
+        """The optimizer's commit, in place on the params and moments."""
+        opt, om = self.optimizer.update(grads, state.opt, state.params)
+        return (TrainState(params=state.params, opt=opt, step=state.step + 1),
+                {"loss": loss, **om})
+
+    def __call__(self, state: TrainState, batch: Dict
+                 ) -> Tuple[TrainState, Dict]:
+        return self.apply(state, *self.loss_and_grads(state.params, batch))
+
+
+def make_train_step(model: Model, optimizer: AdamW, microbatches: int = 1
+                    ) -> TrainStep:
+    """The train step of a dense model.  The MoE, SSM and hybrid families
+    raise until their gradients are held against the reference (ROADMAP
+    A3b)."""
+    if model.cfg.family not in TRAINED_FAMILIES:
+        raise NotImplementedError(
+            f"{model.cfg.name}: training the {model.cfg.family} family is "
+            f"not ported yet (ROADMAP A3b); the port trains the "
+            f"{', '.join(TRAINED_FAMILIES)} family")
+    return TrainStep(model, optimizer, microbatches)
+
+
+def make_serve_step(model: Model) -> Callable:
+    def serve_step(params: Dict, cache: Dict, tokens: torch.Tensor,
+                   pos: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+        return model.decode_step(params, cache, tokens, pos)
+    return serve_step
+
+
+def make_prefill_step(model: Model) -> Callable:
+    def prefill_step(params: Dict, batch: Dict
+                     ) -> Tuple[torch.Tensor, Dict]:
+        return model.prefill(params, batch["tokens"])
+    return prefill_step

@@ -1,5 +1,5 @@
-"""Model facade: config, device, params and the serving entry points
-(prefill, decode) — the public API of the port's launcher and tests."""
+"""Model facade: config, device, params and the entry points (train loss,
+prefill, decode) — the public API of the port's launchers and tests."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -51,7 +51,22 @@ class Model:
                            dtype=dtype or _DTYPES[self.cfg.dtype],
                            device=self.device)
 
+    def abstract_params(self) -> Dict:
+        """The param tree as storage-free ("meta") tensors of the right
+        shapes and dtypes: a template for restoring a checkpoint."""
+        def build(defs):
+            return {k: (build(d) if isinstance(d, dict) else torch.empty(
+                        d.shape, dtype=d.dtype or _DTYPES[self.cfg.dtype],
+                        device="meta"))
+                    for k, d in defs.items()}
+        return build(self.defs())
+
     # -- entrypoints --------------------------------------------------------
+    def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
+        """The training loss (``T.lm_loss``) of a batch {"tokens": (B, S)
+        int64 on the model's device}."""
+        return T.lm_loss(params, batch, self.cfg)
+
     def forward(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
         """f32 logits (B, S, V) of a full causal pass."""
         return T.logits(T.forward_hidden(params, tokens, self.cfg), params,

@@ -11,12 +11,19 @@ each group followed by one application of the *shared* attention + MLP
 block (one weight set reused at every application), then a ragged tail of
 mamba layers; the shared block keeps one KV cache per application.  The
 vlm and audio families are not ported.
+
+Training: :func:`lm_loss` is the reference's chunked next-token NLL over
+:func:`forward_hidden`, whose layers run under
+``torch.utils.checkpoint.checkpoint`` when ``cfg.remat`` is set and
+autograd records (the reference's ``jax.checkpoint``, recomputed in the
+backward pass).
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.nn import layers as L
 from repro_torch.nn import mamba2, moe
@@ -95,15 +102,43 @@ def lm_head_weight(params: Dict, cfg: ModelConfig) -> torch.Tensor:
 def logits(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
     """f32 logits of x (..., D), a plain product as in the reference
     (``transformer.py:242,393``).  A bf16 head accumulates in f32 and writes
-    f32 without an f32 copy of the (V, D) weight on the card."""
+    f32 without an f32 copy of the (V, D) weight on the card; under autograd
+    it runs as :class:`_LmHead`."""
     w = lm_head_weight(params, cfg)
     if x.dtype == w.dtype == torch.float32:
         return torch.matmul(x, w)
     if x.device.type == "cuda":
-        x2 = x.reshape(-1, x.shape[-1])
-        out = torch.mm(x2, w, out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], w.shape[1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            return _LmHead.apply(x, w)
+        return _head_f32(x, w)
     return torch.matmul(x.float(), w.float())
+
+
+def _head_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    x2 = x.reshape(-1, x.shape[-1])
+    out = torch.mm(x2, w, out_dtype=torch.float32)
+    return out.reshape(*x.shape[:-1], w.shape[1])
+
+
+class _LmHead(torch.autograd.Function):
+    """The bf16 head's f32 logits on the card, and its gradients as plain
+    bf16 products of the f32 logit gradient rounded to bf16 (the lm_head
+    stays a plain product, as in the reference)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return _head_f32(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1]).to(w.dtype)
+        x2 = x.reshape(-1, x.shape[-1])
+        dx = torch.mm(g2, w.t()).reshape(x.shape) \
+            if ctx.needs_input_grad[0] else None
+        dw = torch.mm(x2.t(), g2) if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 def _kv_for_cache(attn_p, h, positions, cfg):
@@ -119,14 +154,17 @@ def _kv_for_cache(attn_p, h, positions, cfg):
 
 
 def _block(lp: Dict, x: torch.Tensor, positions: torch.Tensor,
-           cfg: ModelConfig) -> torch.Tensor:
-    """One layer of a full pass.  The attention residual fuses into the wo
-    GEMM's flush, a dense MLP's into wd's; the MoE output is added after
-    the combine, as in the reference (``transformer.py:156-157``)."""
+           cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer of a full pass: (x, the MoE aux loss or 0).  The attention
+    residual fuses into the wo GEMM's flush, a dense MLP's into wd's; the
+    MoE output is added after the combine, as in the reference
+    (``transformer.py:156-157``)."""
     x = L.attn_forward(lp["attn"], x, cfg, positions=positions, residual=x)
     if cfg.is_moe:
-        return x + moe.moe_forward(lp["moe"], x, cfg)[0]
-    return L.mlp_forward(lp["mlp"], x, cfg, residual=x)
+        y, aux = moe.moe_forward(lp["moe"], x, cfg)
+        return x + y, aux
+    return (L.mlp_forward(lp["mlp"], x, cfg, residual=x),
+            x.new_zeros((), dtype=torch.float32))
 
 
 def _shared_block(shared: Dict, x: torch.Tensor, positions: torch.Tensor,
@@ -138,21 +176,78 @@ def _shared_block(shared: Dict, x: torch.Tensor, positions: torch.Tensor,
     return L.mlp_forward(shared["mlp"], x, cfg, residual=x)
 
 
-def forward_hidden(params: Dict, tokens: torch.Tensor, cfg: ModelConfig
-                   ) -> torch.Tensor:
-    """Final normed hidden states (B, S, D) of a full causal pass."""
+def _unbind_layers(tree: Dict, n: int) -> List[Dict]:
+    """The ``n`` per-layer param trees of a stacked tree, each leaf one
+    ``torch.unbind`` view: the backward stacks the layers' gradients once,
+    where indexing the stack per layer would zero-fill and add a stack-sized
+    gradient for every layer."""
+    flat = {k: (_unbind_layers(v, n) if isinstance(v, dict)
+                else torch.unbind(v, 0)) for k, v in tree.items()}
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
+
+
+def _layer_step(lp: Dict, shared: Optional[Dict], x: torch.Tensor,
+                positions: torch.Tensor, cfg: ModelConfig, i: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Layer ``i`` of a full pass (the hybrid's shared block after it where
+    one follows): (x, the layer's MoE aux loss or 0)."""
+    if not cfg.has_ssm:
+        return _block(lp, x, positions, cfg)
+    x = x + mamba2.mamba_forward(lp["mamba"], x, cfg)
+    if _shared_after(cfg, i) >= 0:
+        x = _shared_block(shared, x, positions, cfg)
+    return x, x.new_zeros((), dtype=torch.float32)
+
+
+def forward_hidden_aux(params: Dict, tokens: torch.Tensor, cfg: ModelConfig
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(final normed hidden states (B, S, D), the MoE aux loss summed over
+    layers) of a full causal pass (``transformer.py:125-165``).  With
+    ``cfg.remat`` and autograd recording, each layer runs under a
+    non-reentrant checkpoint: its activations are recomputed in the
+    backward pass, as the reference's ``jax.checkpoint`` body."""
     _check_family(cfg)
     x = embed_tokens(params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
-        if cfg.has_ssm:
-            x = x + mamba2.mamba_forward(lp["mamba"], x, cfg)
-            if _shared_after(cfg, i) >= 0:
-                x = _shared_block(params["shared"], x, positions, cfg)
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = x.new_zeros((), dtype=torch.float32)
+    shared = params.get("shared")
+    for i, lp in enumerate(_unbind_layers(params["layers"], cfg.num_layers)):
+        if remat:
+            x, a = checkpoint(_layer_step, lp, shared, x, positions, cfg, i,
+                              use_reentrant=False)
         else:
-            x = _block(lp, x, positions, cfg)
-    return L.norm(x, params["final_norm"], cfg)
+            x, a = _layer_step(lp, shared, x, positions, cfg, i)
+        aux = aux + a
+    return L.norm(x, params["final_norm"], cfg), aux
+
+
+def forward_hidden(params: Dict, tokens: torch.Tensor, cfg: ModelConfig
+                   ) -> torch.Tensor:
+    """Final normed hidden states (B, S, D) of a full causal pass."""
+    return forward_hidden_aux(params, tokens, cfg)[0]
+
+
+def lm_loss(params: Dict, batch: Dict, cfg: ModelConfig, *,
+            loss_chunk: int = 1024, aux_weight: float = 0.01
+            ) -> torch.Tensor:
+    """Mean next-token NLL over B (S - 1) positions plus ``aux_weight`` x
+    the MoE aux loss (``transformer.py:282-324``): the logits are f32 and
+    made ``loss_chunk`` positions at a time, never (B, S, V) at once; each
+    chunk's NLL is logsumexp minus the gold logit."""
+    tokens = batch["tokens"]
+    hidden, aux = forward_hidden_aux(params, tokens, cfg)
+    B, S, _ = hidden.shape
+    n = S - 1
+    c = min(loss_chunk, n)
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for j in range(0, n, c):
+        lg = logits(hidden[:, j:min(j + c, n)], params, cfg)
+        gold = tokens[:, j + 1:min(j + c, n) + 1]
+        nll = torch.logsumexp(lg, dim=-1) \
+            - lg.gather(-1, gold[..., None])[..., 0]
+        total = total + nll.sum()
+    return total / (B * n) + aux_weight * aux
 
 
 def prefill_forward(
@@ -193,7 +288,7 @@ def prefill_forward(
         k, v = _kv_for_cache(lp["attn"], x, positions, cfg)
         ks.append(k)
         vs.append(v)
-        x = _block(lp, x, positions, cfg)
+        x, _ = _block(lp, x, positions, cfg)
     x = L.norm(x, params["final_norm"], cfg)
     last = (x[:, -1] if last_pos is None
             else x[torch.arange(B, device=x.device), last_pos])

@@ -521,3 +521,186 @@ def test_wave_probe_on_card(cuda, dtype):
     got = probes.wave_grid(a, b, 133, 285)
     assert probes.wave_grid.launches == n0 + 1
     assert torch.equal(got, probes.wave_grid_plain(a, b, 133, 285))
+
+
+# ---------------------------------------------------------------------------
+# Training: the GEMM with a transposed operand read in place, the epilogue's
+# backward and the flash backward, each against its plain version; then one
+# loss and gradient of a smoke model on the kernels against the CPU.
+# ---------------------------------------------------------------------------
+
+# (M, N, K, config or None for the selector's) of products with A stored
+# (K, M) ("tn": the weight gradient) or B stored (N, K) ("nt": the input
+# gradient): phi4-mini's backward shapes at a small token count, the menu's
+# corners, stream-K and split-K fixups, ragged N and K.
+TRANS_CASES = [
+    (3072, 1024, 256, None), (256, 3072, 8192, None),
+    (512, 3072, 3072, TileConfig(256, 128, 128)),
+    (64, 256, 512, TileConfig(32, 32, 32)),
+    (512, 512, 1024, TileConfig(256, 256, 64)),
+    (256, 1000, 1000, TileConfig(128, 64, 64, group_m=4,
+                                 schedule="stream_k")),
+    (128, 512, 2048, TileConfig(64, 128, 64, split_k=4)),
+    (96, 200, 264, TileConfig(64, 64, 32)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["tn", "nt"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("M,N,K,cfg", TRANS_CASES, ids=str)
+def test_gemm_transposed_operand_on_card(cuda, layout, dtype, M, N, K, cfg):
+    from repro_torch.core.selector import select_gemm_config
+    if cfg is None:
+        cfg = select_gemm_config(M, N, K, in_dtype=str(dtype)[6:],
+                                 out_dtype=str(dtype)[6:],
+                                 hw=GPU_H100_LIKE).config
+    g = torch.Generator(device=cuda).manual_seed(M + N + K)
+    a = torch.randn((K, M) if layout == "tn" else (M, K), generator=g,
+                    device=cuda).to(dtype)
+    b = torch.randn((N, K) if layout == "nt" else (K, N), generator=g,
+                    device=cuda).to(dtype)
+    kw = dict(out_dtype=dtype, trans_a=layout == "tn",
+              trans_b=layout == "nt")
+    n0 = dict(kmm.tiled_matmul.layout_launches)
+    got = kmm.tiled_matmul(a, b, cfg, **kw)
+    again = kmm.tiled_matmul(a, b, cfg, **kw)
+    want = kmm.matmul_plain(a, b, cfg, **kw)
+    torch.cuda.synchronize()
+    assert kmm.tiled_matmul.layout_launches[layout] == n0[layout] + 2
+    assert got.shape == (M, N) and torch.equal(got, again)
+    rtol, atol = _tol(dtype, K)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("ep", [
+    Epilogue(activation="gelu"), Epilogue(activation="silu"),
+    Epilogue(activation="swiglu_gate"), Epilogue(bias=True),
+    Epilogue(bias=True, activation="gelu"),
+    Epilogue(bias=True, activation="swiglu_gate", residual=True)], ids=str)
+def test_epilogue_bwd_on_card(cuda, dtype, ep):
+    M, N = 300, 520
+    g = torch.Generator(device=cuda).manual_seed(5)
+    dout = torch.randn((M, N), generator=g, device=cuda).to(dtype)
+    z = torch.randn((M, N), generator=g, device=cuda) * 3
+    gate = (torch.randn((M, N), generator=g, device=cuda).to(dtype)
+            if ep.activation == "swiglu_gate" else None)
+    kw = dict(epilogue=ep, gate=gate, dz_dtype=dtype, want_bias=ep.bias)
+    zz = z if ep.activation else None
+    n0 = kmm.epilogue_bwd.launches
+    got = kmm.epilogue_bwd(dout, zz, **kw)
+    again = kmm.epilogue_bwd(dout, zz, **kw)
+    want = kmm.epilogue_bwd_plain(dout, zz, **kw)
+    torch.cuda.synchronize()
+    assert kmm.epilogue_bwd.launches == n0 + 2
+    # f32: expf / tanhf against torch's within a few ulps; bf16 outputs
+    # within one bf16 rounding; dbias sums M = 300 rows in another order.
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-2, 1e-2)
+    for x, y, w in zip(got, again, want):
+        assert (x is None) == (w is None)
+        if x is None:
+            continue
+        assert torch.equal(x, y)
+        torch.testing.assert_close(x.float(), w.float(), rtol=rtol,
+                                   atol=atol * (M if x.dim() == 1 else 1))
+
+
+def _rel_l2(x, y):
+    return float(torch.linalg.vector_norm(x.float() - y.float())
+                 / torch.linalg.vector_norm(y.float()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [16, 64, 112, 128, 160, 256])
+@pytest.mark.parametrize("causal,Hkv", [(True, 2), (False, 8), (True, 8)],
+                         ids=str)
+def test_flash_bwd_on_card(cuda, dtype, d, causal, Hkv):
+    """The forward's lse and the backward against the plain versions: f32
+    within 1e-4 relative L2; bf16 within 2x the plain bf16 backward's
+    distance from the plain f32 backward (both compute in f32 and round
+    at the inputs and outputs)."""
+    B, H, S = 2, 8, 200
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=cuda).manual_seed(d + Hkv)
+    q32 = torch.randn((B, H, S, d), generator=g, device=cuda)
+    k32 = torch.randn((B, Hkv, S, d), generator=g, device=cuda)
+    v32 = torch.randn((B, S, Hkv, d), generator=g, device=cuda).transpose(1, 2)
+    do32 = torch.randn((B, H, S, d), generator=g, device=cuda)
+    q, k, v, do = (t.to(dt) for t in (q32, k32, v32, do32))
+    bq, bkv = kfa.select_attention_blocks(S, S, d, causal=causal, batch=B,
+                                          heads=H, kv_heads=Hkv)
+    o, lse = kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
+                                        causal=causal, return_lse=True)
+    o_p, lse_p = kfa.attention_plain(q, k, v, block_q=bq, block_kv=bkv,
+                                     causal=causal, return_lse=True)
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
+    n0 = kfa.flash_attention_bwd_kernel.launches
+    got = kfa.flash_attention_bwd_kernel(q, k, v, o_p, lse_p, do,
+                                         causal=causal)
+    again = kfa.flash_attention_bwd_kernel(q, k, v, o_p, lse_p, do,
+                                           causal=causal)
+    plain = kfa.attention_bwd_plain(q, k, v, o_p, lse_p, do, causal=causal)
+    o32, lse32 = kfa.attention_plain(q.float(), k.float(), v.float(),
+                                     block_q=bq, block_kv=bkv, causal=causal,
+                                     return_lse=True)
+    ref32 = kfa.attention_bwd_plain(q.float(), k.float(), v.float(), o32,
+                                    lse32, do.float(), causal=causal)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention_bwd_kernel.launches == n0 + 2
+    for x, y, p, r in zip(got, again, plain, ref32):
+        assert torch.equal(x, y) and x.dtype == dt and x.shape == p.shape
+        if dtype == "float32":
+            assert _rel_l2(x, p) <= 1e-4
+        else:
+            assert _rel_l2(x, r) <= 2 * _rel_l2(p, r)
+
+
+@pytest.mark.gpu
+def test_smoke_training_grads_on_card(cuda):
+    """One f32 loss and gradient of phi4-mini's smoke config on the kernels
+    (the f32 GEMM in every layout, the f32 flash forward and backward)
+    against the same step's plain versions on the CPU: each leaf within
+    1e-4 relative L2."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.nn.model import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_items, tree_map
+    cfg = get_config("phi4-mini-3.8b", smoke=True)
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0), dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    opt = AdamW()
+    want_loss, want = make_train_step(cpu, opt).loss_and_grads(
+        params, {"tokens": tokens})
+    gpu = Model(cfg, device=cuda)
+    n0 = (dict(kmm.tiled_matmul.layout_launches),
+          kfa.flash_attention_bwd_kernel.launches, kmm.epilogue_bwd.launches)
+    loss, got = make_train_step(gpu, opt).loss_and_grads(
+        tree_map(lambda t: t.to(cuda), params), {"tokens": tokens})
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert kmm.tiled_matmul.layout_launches["tn"] - n0[0]["tn"] == 7 * L
+    assert kmm.tiled_matmul.layout_launches["nt"] - n0[0]["nt"] == 7 * L
+    assert kfa.flash_attention_bwd_kernel.launches - n0[1] == L
+    assert kmm.epilogue_bwd.launches - n0[2] == L
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for (path, x), (_, w) in zip(tree_items(got), tree_items(want)):
+        assert _rel_l2(x.cpu(), w) <= 1e-4, path
+
+
+@pytest.mark.gpu
+def test_expert_matmul_refuses_autograd_on_card(cuda):
+    """The grouped GEMM has no backward yet: under autograd on the card it
+    raises rather than return an output with no gradient."""
+    x = torch.randn((2, 8, 64), device=cuda).bfloat16().requires_grad_()
+    w = torch.randn((2, 64, 32), device=cuda).bfloat16()
+    with pytest.raises(NotImplementedError, match="A3b"):
+        ops.expert_matmul(x, w)
+    with torch.no_grad():
+        assert ops.expert_matmul(x, w).shape == (2, 8, 32)
