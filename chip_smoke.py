@@ -7,7 +7,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 
 1. build    — compile every CUDA source (one nvcc each, all at once: the
               GEMM, flash attention and the calibration probes) and record
-              the card (``nvidia-smi`` name and power limit).
+              the card (``nvidia-smi`` name and power limit); a spill or a
+              wgmma serialisation note of a flash_bwd kernel fails it.
 2. gemm     — the GEMM kernel against its plain version on the card: the
               phi4-mini step shapes at M = 4 and 512 with the path's
               epilogues, gelu/silu/bias at one shape each, forced configs
@@ -120,9 +121,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               transposed (dX = dY W^T) and with X read transposed (dW =
               X^T dY) for each of the layer's seven projections in bf16 and
               one f32 case of each; the flash forward's lse and the flash
-              backward at (4, 24/8, 512, 128) causal, at d in {16, 64, 112,
-              160, 256} and in f32 (d 128 and 112); the epilogue backward
-              of each activation in bf16 and f32.
+              backward at (4, 24/8, 512, 128) causal, at d in {16, 64,
+              112, 160, 256}, at S = 77 and in f32 (d 128 and 112); the
+              epilogue backward of each activation in bf16 and f32.  The
+              bf16 backward must take the wgmma route.
     train_grads — phi4-mini at full width with 2 layers, B 2 x S 512: one
               loss and gradient on the kernel route against the plain route
               on the card, in bf16 (within 2x the plain bf16 route's
@@ -137,7 +139,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               norms are finite and no degraded mode fires; tokens/s, ms a
               step and peak memory.
     train_trace — one traced train step: wall time against device-busy
-              time, kernel time by kernel.
+              time, kernel time by kernel; the attention backward must run
+              its three wgmma-route kernels a layer and no SIMT one.
     train_times — the training kernels' times at those shapes beside
               their bounds, plain versions and library calls.
 Each serve phase counts the launches of every kernel inside the model's
@@ -203,6 +206,27 @@ def gemm_tol(dtype, K):
     return 3e-2, 0.3 * math.sqrt(K)
 
 
+def ptxas_faults(log: str, marker: str):
+    """The ``-Xptxas -v`` lines that fault a kernel whose (mangled) name
+    holds ``marker``: a note that ptxas serialised its wgmma (C7514: an
+    accumulator read inside an open wgmma stage; C7515, C7520) or spill
+    stores or loads.  A note belongs to the entry function being
+    compiled."""
+    import re
+    faults, func = [], ""
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", ln)
+        if m:
+            func = m.group(1)
+        if re.search(r"C751[45]|C7520|serializ", ln) \
+                and (marker in ln or marker in func):
+            faults.append(ln.strip())
+        elif marker in func and re.search(r"[1-9]\d* bytes spill", ln):
+            faults.append(f"{func}: {ln.strip()}")
+    return faults
+
+
 def time_ms(fn, calls: int = 10, reps: int = 5) -> float:
     """Device time of one call: ``calls`` calls captured in a CUDA graph
     (after three warm-up calls), the graph replayed ``reps`` times between
@@ -244,13 +268,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     report = build.build()
-    summary = {}
+    summary, faults = {}, []
     for name, (sec, log) in report.items():
         lines = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln or "C75" in ln]
         summary[name] = {"seconds": round(sec, 2), "ptxas": lines}
+        faults += ptxas_faults(log, "flash_bwd")
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "sources": summary})
+          "sources": summary, "flash_bwd_faults": faults})
+    if faults:
+        fail(f"build: ptxas spilled or serialised wgmma in a flash_bwd "
+             f"kernel: {faults}")
 
     flash_err = flash_phase(torch, dev, kfa)
     max_err = gemm_phase(torch, dev, kmm)
@@ -1033,11 +1061,13 @@ def _kernel_ms(prof):
     grouped by kernel name: the dense GEMM's kernels are gemm_dense_*, the
     grouped GEMM's gemm_grouped_*, the epilogue backward's
     epilogue_bwd_kernel (csrc/matmul.cu); the flash forward's
-    flash_fwd_kernel*, the backward's flash_bwd_* (csrc/flash_attention.cu)."""
+    flash_fwd_kernel*, the backward's flash_bwd_* (csrc/flash_attention.cu;
+    the f32 route's SIMT kernels flash_bwd_*_simt apart)."""
     import os
     import tempfile
     groups = {"matmul": 0.0, "expert_matmul": 0.0, "flash_attention": 0.0,
-              "flash_attention_bwd": 0.0, "epilogue_bwd": 0.0, "other": 0.0}
+              "flash_attention_bwd": 0.0, "flash_attention_bwd_simt": 0.0,
+              "epilogue_bwd": 0.0, "other": 0.0}
     counts = dict.fromkeys(groups, 0)
     other = {}
     fd, path = tempfile.mkstemp(suffix=".json")
@@ -1053,6 +1083,8 @@ def _kernel_ms(prof):
             continue
         name = ev.get("name", "")
         key = ("flash_attention" if "flash_fwd_kernel" in name else
+               "flash_attention_bwd_simt" if "flash_bwd" in name
+               and "simt" in name else
                "flash_attention_bwd" if "flash_bwd" in name else
                "epilogue_bwd" if "epilogue_bwd" in name else
                "expert_matmul" if "gemm_grouped" in name else
@@ -1997,6 +2029,7 @@ def train_kernels_phase(torch, dev, kmm, kfa):
     flash_cases += [(1, 8, 2, 300, d, "bfloat16", True)
                     for d in TRAIN_FLASH_DIMS]
     flash_cases += [(1, 8, 8, 300, 128, "bfloat16", False),
+                    (1, 8, 2, 77, 128, "bfloat16", True),
                     (2, 24, 8, TRAIN_S, 128, "float32", True),
                     (1, 8, 2, 300, 112, "float32", True)]
     for B, H, Hkv, S, d, dtype, causal in flash_cases:
@@ -2053,9 +2086,14 @@ def train_kernels_phase(torch, dev, kmm, kfa):
         if not f32_case:
             worst["flash_attention@train"] = max(
                 worst["flash_attention@train"], float(o_err.max()))
+        plan = kfa.plan_attention_bwd(S, S, d, batch=B, heads=H,
+                                      kv_heads=Hkv, in_dtype=dtype)
+        ok = ok and plan.route == ("simt" if f32_case else "wgmma")
         _check_case(rows, "train_kernels", {
             "kernel": "flash_attention_bwd", "q": [B, H, S, d],
             "kv": [B, Hkv, S, d], "dtype": dtype, "causal": causal,
+            "plan": {k_: getattr(plan, k_) for k_ in (
+                "route", "kv_block", "kv_ctas", "q_ctas")},
             "fwd_max_abs_err": float(o_err.max()),
             "lse_max_abs_err": float((lse - lse_p).abs().max()),
             "rel_l2": dist}, ok)
@@ -2340,6 +2378,13 @@ def train_trace_phase(torch, dev, model, state, batch):
     ms, counts, other = _kernel_ms(prof)
     busy = sum(ms.values())
     top = sorted(other.items(), key=lambda kv: -kv[1])[:12]
+    L = model.cfg.num_layers
+    if counts["flash_attention_bwd_simt"] \
+            or counts["flash_attention_bwd"] != 3 * L:
+        fail(f"train_trace: the bf16 step's attention backward ran "
+             f"{counts['flash_attention_bwd']} wgmma-route kernels "
+             f"(delta, dK/dV, dQ: {3 * L} expected) and "
+             f"{counts['flash_attention_bwd_simt']} SIMT ones")
     emit({"phase": "train_trace", "arch": model.cfg.name,
           "what": "torch.profiler device kernel time vs host wall time of "
           "one train step (profiler on)", "batch": [TRAIN_B, TRAIN_S],
@@ -2391,6 +2436,7 @@ def train_times_phase(torch, dev, kmm, kfa):
     library's attention backward by its kernels' device time, ``device_ms``),
     the plain version (CUDA events), and the bound max(flop / peak, bytes /
     3.35e12).  Returns the kernels-line numbers keyed by row."""
+    import dataclasses
     import torch.nn.functional as F
     from repro_torch.core.hardware import GPU_H100_LIKE
     from repro_torch.core.latency import Epilogue
@@ -2494,8 +2540,14 @@ def train_times_phase(torch, dev, kmm, kfa):
             # recompute S, then dP, dV, dQ, dK: five products
             flops = 10.0 * B * H * pairs * d
             nbytes = elem * d * S * B * (4 * H + 4 * Hkv) + 4 * B * H * S
+        if key != "flash_attention@train":
+            plan = kfa.plan_attention_bwd(S, S, d, batch=B, heads=H,
+                                          kv_heads=Hkv, in_dtype=dtype)
+            extra = {"plan": dataclasses.asdict(plan)}
+        else:
+            extra = {"blocks": [bq, bkv]}
         row = {"row": key, "q": [B, H, S, d], "kv": [B, Hkv, S, d],
-               "dtype": dtype, "ms": time_ms(kern),
+               "dtype": dtype, **extra, "ms": time_ms(kern),
                "plain_ms": event_ms(torch, plain),
                "library_ms": (time_ms(library) if key == "flash_attention@train"
                               else device_ms(torch, library))}

@@ -75,19 +75,48 @@
 // visible key, so that the backward's exp(s - lse) is 0 there), which the
 // backward needs; the serving launches pass none.
 //
-// The backward (flash_bwd_*) is the FlashAttention-2 form, deterministic:
-// delta = rowsum(dO o O); a dK/dV kernel with one CTA per (batch, kv head,
-// 32-key block) that walks the q heads of its GQA group and their 32-row q
-// blocks (under causal from its own diagonal), recomputes P = exp(S scale -
-// lse) and accumulates dV += P^T dO and dK += scale dS^T Q, dS = P o (dO V^T
-// - delta), writing each output once; and a dQ kernel with one CTA per
-// (batch, head, 32-row q block) that walks the kv blocks, dQ += scale dS K.
-// No float atomics, so two launches are bitwise equal.  Both kernels run in
-// f32 on the CUDA cores for bf16 and f32 inputs alike (bf16 rounds only at
-// the loads and the stores), with the head dim padded to a multiple of 32
-// by zero columns in shared memory.  What bounds them is the CUDA cores'
-// f32 rate and shared-memory reads (about five loads for four FMAs in the
-// score products); the tensor cores (wgmma) are later work.
+// The backward (flash_bwd_*) is the FlashAttention-2 form, deterministic
+// (no float atomics: two launches are bitwise equal).  flash_bwd_delta
+// first computes delta = rowsum(dO o O), a warp a row.  bf16 (every head
+// dim) then runs two wgmma kernels:
+//  * flash_bwd_dkdv_wgmma: one CTA per (kv block, kv head, batch), kv block
+//    0 first, walking the q heads of its GQA group and their 64-row q
+//    blocks (under causal from its own diagonal).  K and V are loaded once
+//    by TMA; (Q, dO) tiles and the q block's lse2 = lse log2(e) and delta
+//    arrive through a 2-stage mbarrier ring that a producer warpgroup keeps
+//    filled.  Each of two consumer warpgroups computes S^T = K Q^T and
+//    dP^T = V dO^T over its 64 kv rows (K-major A and B), forms
+//    P^T = exp2(S^T scale log2(e) - lse2) and dS^T = P^T o (dP^T - delta)
+//    on the fragments, converts both to bf16 in place (the register-A
+//    layout) and accumulates dV += P^T dO and dK += dS^T Q, with the same
+//    swizzled [row][d] Q and dO tiles read as MN-major B: no operand is
+//    transposed or copied.  A CTA holds 64 kv rows, warpgroup 0
+//    accumulating their dV and warpgroup 1 their dK (past a padded d of
+//    128 the two sums of one row do not fit one thread's registers), both
+//    recomputing S^T.  dK is scaled once; dK and dV are stored by TMA
+//    through the dead K / V tiles.
+//  * flash_bwd_dq_wgmma: one CTA per (64-row q block, head, batch), the
+//    heaviest causal block first; Q and dO loaded once, (K, V) through the
+//    ring; S = Q K^T and dP = dO V^T, then P, dS, and dQ += dS K with K as
+//    an MN-major B; dQ scaled once and stored by TMA.
+// Each product group is waited for before its accumulators are read (a
+// read inside an open wgmma stage makes ptxas serialise every wgmma,
+// C7514).  q rows past Sq are zero-filled by TMA and carry lse2 = +inf in
+// the padded scratch, so their P is 0; only blocks that straddle the
+// causal diagonal or the key end are masked.  The cost of determinism is
+// S and dP computed twice (seven 64x64 products a block pair where a
+// dQ accumulated by atomics needs five).  What bounds it at phi4's
+// training shape (causal, 4 x 24 heads of 512 x 128) is neither the
+// bytes (about 0.02 ms at 3.35 TB/s) nor the tensor cores (the seven
+// products about 0.023 ms at the bf16 peak) but latency: the longest dK/dV
+// CTA walks 24 dependent q-block steps, each waiting for its products,
+// its score math and its products again.  The route follows the dtype
+// alone, and the host plan (kernels/flash_attention.py::plan_attention_bwd)
+// passes its tiles, grids and shared bytes, which the entry checks against
+// the instantiation it runs.  f32 inputs run the SIMT
+// kernels flash_bwd_dkdv_simt / flash_bwd_dq_simt in full f32 on the CUDA
+// cores (tf32 wgmma misses the f32 tolerance): 32-row blocks, bound by the
+// CUDA cores' f32 rate and shared-memory reads.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -249,6 +278,42 @@ __device__ __forceinline__ void pack_p(uint32_t (&pa)[BKV / 16][4],
     pa[kk][2] = pack_bf16x2(s[8 * kk + 4], s[8 * kk + 5]);
     pa[kk][3] = pack_bf16x2(s[8 * kk + 6], s[8 * kk + 7]);
   }
+}
+
+// Rows 16 warp + g and 16 warp + g + 8 of a warpgroup's 64 x (NC CW) f32
+// accumulator, times mul[0] and mul[1], as bf16 into a 64-row tile of
+// 64-column chunks `chunk` bytes apart, in the 128-byte swizzle of a TMA
+// map (row % 8 == g).
+template <int CW, int NC>
+__device__ __forceinline__ void stage_bf16(const float (&acc)[NC][CW / 2],
+                                           uint32_t tile, uint32_t chunk,
+                                           const float (&mul)[2], int warp,
+                                           int g, int t) {
+#pragma unroll
+  for (int j = 0; j < NC * CW / 8; ++j)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = warp * 16 + g + 8 * r;
+      const uint32_t addr = tile + (j / 8) * chunk + row * kRowBytes +
+                            (((j % 8) ^ g) * 16) + t * 4;
+      const float* a = acc[j / (CW / 8)] + 4 * (j % (CW / 8));
+      st_shared_u32(addr,
+                    pack_bf16x2(a[2 * r] * mul[r], a[2 * r + 1] * mul[r]));
+    }
+}
+
+// One thread stores a staged 64-row tile (CHUNKS chunks `chunk` bytes
+// apart) at rows row0.. of a (d, S, head, batch) map and waits until the
+// shared memory has been read.
+template <int CHUNKS>
+__device__ __forceinline__ void store_tile(const CUtensorMap* map,
+                                           uint32_t tile, uint32_t chunk,
+                                           int row0, int head, int batch) {
+#pragma unroll
+  for (int c = 0; c < CHUNKS; ++c)
+    tma_store_4d(map, tile + c * chunk, 64 * c, row0, head, batch);
+  bulk_commit();
+  bulk_wait_read();
 }
 
 template <int NWG, int BKV, int DP>
@@ -430,26 +495,11 @@ __global__ void __launch_bounds__(Flash<NWG, BKV, DP>::kThreads,
       p.lse[(static_cast<size_t>(b) * p.H + h) * p.Sq + row] =
           l > 0.0f ? m_run[r] * kLn2 + logf(l) : CUDART_INF_F;
   }
-#pragma unroll
-  for (int j = 0; j < DP / 8; ++j)
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = warp * 16 + g + 8 * r;  // row % 8 == g
-      const uint32_t addr = q_wg + (j / 8) * F::kQChunk + row * kRowBytes +
-                            (((j % 8) ^ g) * 16) + t * 4;
-      const float* oc = o[j / (F::kCW / 8)] + 4 * (j % (F::kCW / 8));
-      st_shared_u32(addr, pack_bf16x2(oc[2 * r] * inv[r],
-                                      oc[2 * r + 1] * inv[r]));
-    }
+  stage_bf16<F::kCW, F::kOChunks>(o, q_wg, F::kQChunk, inv, warp, g, t);
   fence_proxy_async();
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
-  if (tid % 128 == 0) {
-#pragma unroll
-    for (int c = 0; c < F::kChunks; ++c)
-      tma_store_4d(&tma_o, q_wg + c * F::kQChunk, 64 * c, wg_row0, h, b);
-    bulk_commit();
-    bulk_wait_read();
-  }
+  named_sync(1 + wg, 128);
+  if (tid % 128 == 0)
+    store_tile<F::kChunks>(&tma_o, q_wg, F::kQChunk, wg_row0, h, b);
 }
 
 // A 4-D bf16 tensor map over (d, S, head, batch) with element strides
@@ -475,6 +525,16 @@ bool encode_4d(CUtensorMap* map, const void* ptr, int d, int S, int heads,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// A kernel's dynamic shared memory above 48 KB, up to the 227 KB a block
+// may opt into.
+template <typename Kernel>
+cudaError_t opt_in_smem(Kernel kernel, size_t bytes) {
+  if (bytes > 232448) return cudaErrorInvalidValue;  // 227 KB a block
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
 struct Operands {
   const void *q, *k, *v;
   void* o;
@@ -486,10 +546,8 @@ template <int NWG, int BKV, int DP>
 cudaError_t launch(const Operands& a, const FlashParams& p, int d,
                    cudaStream_t stream) {
   using F = Flash<NWG, BKV, DP>;
-  if (F::kSmem > 232448) return cudaErrorInvalidValue;  // 227 KB a block
-  static const cudaError_t opted = cudaFuncSetAttribute(
-      flash_fwd_kernel<NWG, BKV, DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(F::kSmem));
+  static const cudaError_t opted =
+      opt_in_smem(flash_fwd_kernel<NWG, BKV, DP>, F::kSmem);
   if (opted != cudaSuccess) return opted;
   CUtensorMap tq, tk, tv, to;
   if (!encode_4d(&tq, a.q, d, p.Sq, p.H, p.B, a.q_ss, a.q_sh, a.q_sb,
@@ -678,9 +736,7 @@ template <int DC>
 cudaError_t launch_f32(const float* q, const float* k, const float* v,
                        float* o, const F32Params& p, cudaStream_t stream) {
   constexpr size_t smem = f32_smem<DC>();
-  static const cudaError_t opted = cudaFuncSetAttribute(
-      flash_fwd_kernel_f32<DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+  static const cudaError_t opted = opt_in_smem(flash_fwd_kernel_f32<DC>, smem);
   if (opted != cudaSuccess) return opted;
   const unsigned grid = static_cast<unsigned>(p.n_qb) * p.H * p.B;
   flash_fwd_kernel_f32<DC><<<grid, 32 * kF32Warps, smem, stream>>>(q, k, v,
@@ -695,70 +751,577 @@ bool valid_shape(int B, int H, int Hkv, int Sq, int Skv, int d, int block_q) {
 }
 
 // ---------------------------------------------------------------------------
-// Backward: f32 on the CUDA cores, for bf16 and f32 inputs.  32-row q blocks
-// and 32-key kv blocks; 256 threads, thread t owning row t / 8 of a block and
-// columns t % 8 + 8 w (w < DP / 8) of its outputs, and, for the scores, q row
-// t / 8 against keys t % 8 + 8 u (u < 4).  Shared-memory rows are padded by
-// one float so that the eight keys (or columns) a warp reads fall in eight
-// banks.
+// Backward.  delta = rowsum(dO o O) first (flash_bwd_delta, either dtype);
+// then bf16 runs the two wgmma kernels below and f32 the SIMT kernels
+// further down.
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdRows = 32;
-constexpr int kBwdThreads = 256;
-constexpr int kBwdLdS = kBwdRows + 1;  // row stride of P and dS
+constexpr int kBwdStages = 2;                     // the backward's TMA rings
+constexpr int kBwdKVRows = 64;                    // kv rows a dK/dV CTA
+constexpr int kBwdQRows = 64;                     // q rows a dQ CTA / ring stage
+constexpr int kBwdKeys = 64;                      // keys a dQ ring stage
+constexpr uint32_t kStatBytes = 2 * kBwdQRows * 4;  // a q block's lse2, delta
 
 struct BwdParams {
   int B, H, Hkv, Sq, Skv, kv_len, causal, d;
+  int sq_pad;  // rows a (b, h) of delta / lse2: Sq, or Sq padded to 64
   float scale;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss, g_sb, g_sh, g_ss;  // g: dO
-  // dq (B, H, Sq, d) and dk / dv (B, Hkv, Skv, d) contiguous; lse and
-  // delta (B, H, Sq) f32.
+  // dq (B, H, Sq, d) and dk / dv (B, Hkv, Skv, d) contiguous; lse (B, H,
+  // Sq) f32; delta and lse2 (B, H, sq_pad) f32.
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
-__device__ __forceinline__ void store_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+
+// delta[row] = sum_c dO[row][c] O[row][c], a warp a row, over the B H
+// sq_pad rows (0 past Sq).  With lse2 given (the wgmma route) it also
+// writes lse2 = lse log2(e), the base-2 exponent offset, +inf past Sq, so
+// that a padded q row's P is exp2(-inf) = 0.
+template <typename T>
+__global__ void __launch_bounds__(256)
+    flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+                    const float* __restrict__ lse, float* __restrict__ delta,
+                    float* __restrict__ lse2, const BwdParams p) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= static_cast<long long>(p.B) * p.H * p.sq_pad) return;
+  const int i = static_cast<int>(row % p.sq_pad);
+  const long long bh = row / p.sq_pad;
+  float s = 0.0f;
+  if (i < p.Sq) {  // the warp's one row: a uniform branch
+    const int h = static_cast<int>(bh % p.H), b = static_cast<int>(bh / p.H);
+    const T* orow = o + b * p.o_sb + h * p.o_sh + i * p.o_ss;
+    const T* grow = dout + b * p.g_sb + h * p.g_sh + i * p.g_ss;
+    for (int c = lane; c < p.d; c += 32)
+      s = fmaf(to_f32(orow[c]), to_f32(grow[c]), s);
+  }
+  s = warp_sum(s);
+  if (lane == 0) {
+    delta[row] = s;
+    if (lse2 != nullptr)
+      lse2[row] = i < p.Sq ? lse[bh * p.Sq + i] * kLog2e : CUDART_INF_F;
+  }
 }
+
+// ---------------------------------------------------------------------------
+// bf16 backward on wgmma (FlashAttention-2 form, deterministic).
+// ---------------------------------------------------------------------------
+
+struct BwdTmaParams {
+  int B, H, Hkv, Sq, Skv, kv_len, causal, sq_pad;
+  float scale, scale_log2;
+  const float* lse2;   // (B, H, sq_pad): lse log2(e), +inf past Sq
+  const float* delta;  // (B, H, sq_pad): 0 past Sq
+};
+
+// The dK/dV kernel's CTA: a producer warpgroup and two consumer
+// warpgroups over 64 kv rows, consumer 0 accumulating their dV and
+// consumer 1 their dK (two DP-column sums do not fit one thread's
+// registers past DP 128).  K and V are loaded once; (Q, dO) tiles of 64 q
+// rows and the q block's lse2 and delta come through a kBwdStages ring.
+template <int DP>
+struct BwdKV {
+  static constexpr int kBKV = kBwdKVRows;
+  static constexpr int kChunks = DP / 64;
+  static constexpr int kCW = DP % 128 == 0 ? 128 : 64;
+  static constexpr int kNC = DP / kCW;
+  static constexpr int kConsumers = 256;
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr uint32_t kKVChunk = kBKV * kRowBytes;
+  static constexpr uint32_t kKVBytes = kChunks * kKVChunk;
+  static constexpr uint32_t kQChunk = kBwdQRows * kRowBytes;
+  static constexpr uint32_t kQBytes = kChunks * kQChunk;
+  // [K][V][Q dO] x stages [lse2 delta] x stages [kv_full, full x stages,
+  // empty x stages]
+  static constexpr uint32_t kStatAt = 2 * kKVBytes + kBwdStages * 2 * kQBytes;
+  static constexpr uint32_t kBarAt = kStatAt + kBwdStages * kStatBytes;
+  static constexpr size_t kSmem = 1024 + kBarAt + 8 * (1 + 2 * kBwdStages);
+  static_assert(DP % 64 == 0 && DP <= kMaxD, "DP: 64, 128, 192 or 256");
+};
+
+// The dQ kernel's CTA: one consumer warpgroup of 64 q rows and a producer;
+// Q and dO loaded once, (K, V) tiles of 64 keys through the ring.  Two
+// CTAs an SM up to DP 128 (224 registers a consumer thread after
+// setmaxnreg), one above.
+template <int DP>
+struct BwdQ {
+  static constexpr int kChunks = DP / 64;
+  static constexpr int kCW = DP % 128 == 0 ? 128 : 64;
+  static constexpr int kNC = DP / kCW;
+  static constexpr int kMinBlocks = DP <= 128 ? 2 : 1;
+  static constexpr int kConsumers = 128;
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr uint32_t kQChunk = kBwdQRows * kRowBytes;
+  static constexpr uint32_t kQBytes = kChunks * kQChunk;
+  static constexpr uint32_t kKVChunk = kBwdKeys * kRowBytes;
+  static constexpr uint32_t kKVBytes = kChunks * kKVChunk;
+  // [Q][dO][K V] x stages [q_full, full x stages, empty x stages]
+  static constexpr uint32_t kBarAt = 2 * kQBytes + kBwdStages * 2 * kKVBytes;
+  static constexpr size_t kSmem = 1024 + kBarAt + 8 * (1 + 2 * kBwdStages);
+};
+
+// What a dK/dV consumer warpgroup accumulates.
+enum BwdRole { kRoleDV, kRoleDK };
+
+// A dK/dV consumer warpgroup: for each ring stage (q block q0 of head h),
+// S^T = K Q^T and (for dK) dP^T = V dO^T over the CTA's 64 kv rows (both
+// operands K-major tiles), then P^T = exp2(S^T scale log2(e) - lse2) and
+// dS^T = P^T o (dP^T - delta) on the fragments -- the accumulator's column
+// is the q row, so lse2 and delta come from the stage's shared copy, read
+// at columns 8 j + 2 t + e -- converted to bf16 in place (the register-A
+// layout), then dV += P^T dO and dK += dS^T Q with dO and Q as MN-major B
+// operands (the same [row][d] tiles).  Only tiles that cross the causal
+// diagonal or the key end are masked; q rows past Sq carry lse2 = +inf.
+// At the end dK takes the softmax scale and is stored by TMA through the
+// dead K tile, dV through the dead V tile (rows past Skv clipped).
+template <int DP, int ROLE>
+__device__ __forceinline__ void dkdv_consumer(
+    const BwdTmaParams& p, const CUtensorMap* tma_dk,
+    const CUtensorMap* tma_dv, uint32_t base, const unsigned char* gbase,
+    int wg, int b, int hk, int k0, int qb0, int per_head, int n_steps) {
+  using F = BwdKV<DP>;
+  constexpr bool kDK = ROLE == kRoleDK;
+  const int tid = threadIdx.x;
+  const int warp = __shfl_sync(0xffffffffu, (tid % 128) / 32, 0);
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int kv_lim = min(p.Skv, p.kv_len);
+  const uint32_t k_s = base, v_s = base + F::kKVBytes;
+  const uint32_t kv_full = base + F::kBarAt;
+
+  // acc: dV (warpgroup 0) or dK (warpgroup 1); pa: P^T or dS^T in bf16.
+  float acc[F::kNC][F::kCW / 2];
+#pragma unroll
+  for (int c = 0; c < F::kNC; ++c)
+#pragma unroll
+    for (int i = 0; i < F::kCW / 2; ++i) acc[c][i] = 0.0f;
+  float s[32], dp[32];
+  uint32_t pa[4][4];
+
+  mbar_wait(kv_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int i = 0; i < n_steps; ++i) {
+    const int gi = i / per_head;
+    const int q0 = (qb0 + i - gi * per_head) * kBwdQRows;
+    const uint32_t q_s = base + 2 * F::kKVBytes + stage * 2 * F::kQBytes;
+    const uint32_t do_s = q_s + F::kQBytes;
+    mbar_wait(kv_full + 8u * (1 + stage), phase);
+    wgmma_fence();
+    qk_product<64, DP>(s, k_s, F::kKVChunk, q_s, F::kQChunk);
+    if constexpr (kDK)
+      qk_product<64, DP>(dp, v_s, F::kKVChunk, do_s, F::kQChunk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    if constexpr (kDK) fence_acc(dp);
+    const float* st = reinterpret_cast<const float*>(
+        gbase + F::kStatAt + stage * kStatBytes);
+    const bool edge = (p.causal && q0 < k0 + 63) || k0 + 64 > kv_lim;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l2 = *reinterpret_cast<const float2*>(st + 8 * j + 2 * t);
+      const float2 dl =
+          *reinterpret_cast<const float2*>(st + kBwdQRows + 8 * j + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e] * p.scale_log2 - ((e & 1) ? l2.y : l2.x);
+        if (edge) {
+          const int key = k0 + warp * 16 + g + 8 * (e >> 1);
+          const int qi = q0 + 8 * j + 2 * t + (e & 1);
+          if (key >= kv_lim || (p.causal && qi < key)) x = -CUDART_INF_F;
+        }
+        const float pv = exp2f(x);
+        s[4 * j + e] = pv;
+        if constexpr (kDK)
+          dp[4 * j + e] = pv * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+      }
+    }
+    // dV += P^T dO, or dK += dS^T Q.
+    if constexpr (kDK)
+      pack_p<64>(pa, dp);
+    else
+      pack_p<64>(pa, s);
+    wgmma_fence();
+    pv_product<64, F::kCW, F::kNC>(acc, pa, kDK ? q_s : do_s, F::kQChunk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_o<F::kCW, F::kNC>(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_frag(pa[kk]);
+    mbar_arrive(kv_full + 8u * (1 + kBwdStages + stage));
+    if (++stage == kBwdStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // The other warpgroup may still read the K / V tile this one overwrites.
+  named_sync(1, F::kConsumers);
+  const float one[2] = {1.0f, 1.0f}, scale[2] = {p.scale, p.scale};
+  const uint32_t out_s = kDK ? k_s : v_s;
+  stage_bf16<F::kCW, F::kNC>(acc, out_s, F::kKVChunk, kDK ? scale : one,
+                             warp, g, t);
+  fence_proxy_async();
+  named_sync(2 + wg, 128);
+  if (tid % 128 == 0)
+    store_tile<F::kChunks>(kDK ? tma_dk : tma_dv, out_s, F::kKVChunk, k0, hk,
+                           b);
+}
+
+// One CTA per (kv block, kv head, batch), kv block 0 first: under causal
+// it walks the most q blocks.  The CTA walks the q heads of its GQA group
+// and their q blocks, under causal from its own diagonal.
+template <int DP>
+__global__ void __launch_bounds__(BwdKV<DP>::kThreads, 1)
+    flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tma_q,
+                         const __grid_constant__ CUtensorMap tma_k,
+                         const __grid_constant__ CUtensorMap tma_v,
+                         const __grid_constant__ CUtensorMap tma_do,
+                         const __grid_constant__ CUtensorMap tma_dk,
+                         const __grid_constant__ CUtensorMap tma_dv,
+                         const __grid_constant__ BwdTmaParams p) {
+  using F = BwdKV<DP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t kv_full = base + F::kBarAt;
+  auto full = [&](int s) { return kv_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return kv_full + 8u * (1 + kBwdStages + s); };
+
+  const int bhk = p.B * p.Hkv;
+  const int kvb = blockIdx.x / bhk, hb = blockIdx.x - kvb * bhk;
+  const int hk = hb % p.Hkv, b = hb / p.Hkv;
+  const int k0 = kvb * F::kBKV;
+  const int group = p.H / p.Hkv;
+  const int n_qb = (p.Sq + kBwdQRows - 1) / kBwdQRows;
+  // Under causal, query i sees key j iff i >= j: q blocks from k0's.
+  const int qb0 = p.causal ? min(k0 / kBwdQRows, n_qb) : 0;
+  const int per_head = k0 < min(p.Skv, p.kv_len) ? n_qb - qb0 : 0;
+  const int n_steps = group * per_head;
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), F::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (wg == 2) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == F::kConsumers) {
+      mbar_expect_tx(kv_full, 2 * F::kKVBytes);
+#pragma unroll
+      for (int c = 0; c < F::kChunks; ++c) {
+        tma_load_4d(base + c * F::kKVChunk, &tma_k, kv_full, 64 * c, k0, hk,
+                    b);
+        tma_load_4d(base + F::kKVBytes + c * F::kKVChunk, &tma_v, kv_full,
+                    64 * c, k0, hk, b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int i = 0; i < n_steps; ++i) {
+        const int gi = i / per_head;
+        const int qb = qb0 + i - gi * per_head;
+        const int h = hk * group + gi;
+        const uint32_t q_s = base + 2 * F::kKVBytes + stage * 2 * F::kQBytes;
+        const uint32_t st = base + F::kStatAt + stage * kStatBytes;
+        const size_t row = (static_cast<size_t>(b) * p.H + h) * p.sq_pad +
+                           qb * kBwdQRows;
+        mbar_wait(empty(stage), phase ^ 1);
+        mbar_expect_tx(full(stage), 2 * F::kQBytes + kStatBytes);
+#pragma unroll
+        for (int c = 0; c < F::kChunks; ++c) {
+          tma_load_4d(q_s + c * F::kQChunk, &tma_q, full(stage), 64 * c,
+                      qb * kBwdQRows, h, b);
+          tma_load_4d(q_s + F::kQBytes + c * F::kQChunk, &tma_do,
+                      full(stage), 64 * c, qb * kBwdQRows, h, b);
+        }
+        bulk_load(st, p.lse2 + row, kStatBytes / 2, full(stage));
+        bulk_load(st + kStatBytes / 2, p.delta + row, kStatBytes / 2,
+                  full(stage));
+        if (++stage == kBwdStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const unsigned char* gbase = smem_raw + (base - raw);
+  if (wg == 0)
+    dkdv_consumer<DP, kRoleDV>(p, &tma_dk, &tma_dv, base, gbase, wg, b, hk,
+                               k0, qb0, per_head, n_steps);
+  else
+    dkdv_consumer<DP, kRoleDK>(p, &tma_dk, &tma_dv, base, gbase, wg, b, hk,
+                               k0, qb0, per_head, n_steps);
+}
+
+// One CTA per (64-row q block, head, batch), the heaviest causal q block
+// first.  Per kv block: S = Q K^T and dP = dO V^T (K-major), P and dS on
+// the fragments (row-indexed lse2 and delta, two rows a thread, in
+// registers), dQ += dS K with K as an MN-major B.  dQ takes the softmax
+// scale once and is stored by TMA through the dead Q tile.
+template <int DP>
+__global__ void __launch_bounds__(BwdQ<DP>::kThreads, BwdQ<DP>::kMinBlocks)
+    flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tma_q,
+                       const __grid_constant__ CUtensorMap tma_k,
+                       const __grid_constant__ CUtensorMap tma_v,
+                       const __grid_constant__ CUtensorMap tma_do,
+                       const __grid_constant__ CUtensorMap tma_dq,
+                       const __grid_constant__ BwdTmaParams p) {
+  using F = BwdQ<DP>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_at = base, do_at = base + F::kQBytes;
+  auto k_at = [&](int s) { return base + 2 * F::kQBytes + s * 2 * F::kKVBytes; };
+  auto v_at = [&](int s) { return k_at(s) + F::kKVBytes; };
+  const uint32_t q_full = base + F::kBarAt;
+  auto full = [&](int s) { return q_full + 8u * (1 + s); };
+  auto empty = [&](int s) { return q_full + 8u * (1 + kBwdStages + s); };
+
+  const int heads = p.H * p.B;
+  const int n_qb = (p.Sq + kBwdQRows - 1) / kBwdQRows;
+  const int step = blockIdx.x / heads, hb = blockIdx.x - step * heads;
+  const int qb = p.causal ? n_qb - 1 - step : step;
+  const int h = hb % p.H, b = hb / p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = qb * kBwdQRows;
+  const int kv_lim = min(p.Skv, p.kv_len);
+  int n_kb = kv_lim > 0 ? (kv_lim + kBwdKeys - 1) / kBwdKeys : 0;
+  if (p.causal)
+    n_kb = min(n_kb, (min(q0 + kBwdQRows, p.Sq) - 1) / kBwdKeys + 1);
+
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), F::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (wg == 1) {
+    if constexpr (F::kMinBlocks == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 32;\n" ::: "memory");
+    if (tid == F::kConsumers) {
+      mbar_expect_tx(q_full, 2 * F::kQBytes);
+#pragma unroll
+      for (int c = 0; c < F::kChunks; ++c) {
+        tma_load_4d(q_at + c * F::kQChunk, &tma_q, q_full, 64 * c, q0, h, b);
+        tma_load_4d(do_at + c * F::kQChunk, &tma_do, q_full, 64 * c, q0, h,
+                    b);
+      }
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kb = 0; kb < n_kb; ++kb) {
+        mbar_wait(empty(stage), phase ^ 1);
+        mbar_expect_tx(full(stage), 2 * F::kKVBytes);
+#pragma unroll
+        for (int c = 0; c < F::kChunks; ++c) {
+          tma_load_4d(k_at(stage) + c * F::kKVChunk, &tma_k, full(stage),
+                      64 * c, kb * kBwdKeys, hk, b);
+          tma_load_4d(v_at(stage) + c * F::kKVChunk, &tma_v, full(stage),
+                      64 * c, kb * kBwdKeys, hk, b);
+        }
+        if (++stage == kBwdStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  if constexpr (F::kMinBlocks == 2)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int row0 = q0 + warp * 16 + g;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // row0 + 8 r < sq_pad: the scratch is padded
+    const size_t at = (static_cast<size_t>(b) * p.H + h) * p.sq_pad + row0 +
+                      8 * r;
+    lse2[r] = p.lse2[at];
+    dl[r] = p.delta[at];
+  }
+  float dq[F::kNC][F::kCW / 2];
+#pragma unroll
+  for (int c = 0; c < F::kNC; ++c)
+#pragma unroll
+    for (int i = 0; i < F::kCW / 2; ++i) dq[c][i] = 0.0f;
+  float s[32], dp[32];
+  uint32_t da[4][4];
+
+  mbar_wait(q_full, 0);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int k0 = kb * kBwdKeys;
+    mbar_wait(full(stage), phase);
+    wgmma_fence();
+    qk_product<64, DP>(s, q_at, F::kQChunk, k_at(stage), F::kKVChunk);
+    qk_product<64, DP>(dp, do_at, F::kQChunk, v_at(stage), F::kKVChunk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(s);
+    fence_acc(dp);
+    const bool edge =
+        k0 + kBwdKeys > kv_lim || (p.causal && k0 + kBwdKeys - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float x = s[4 * j + e] * p.scale_log2 - lse2[r];
+        if (edge) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          if (key >= kv_lim || (p.causal && row0 + 8 * r < key))
+            x = -CUDART_INF_F;
+        }
+        dp[4 * j + e] = exp2f(x) * (dp[4 * j + e] - dl[r]);
+      }
+    pack_p<64>(da, dp);
+    wgmma_fence();
+    pv_product<64, F::kCW, F::kNC>(dq, da, k_at(stage), F::kKVChunk);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_o<F::kCW, F::kNC>(dq);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_frag(da[kk]);
+    mbar_arrive(empty(stage));
+    if (++stage == kBwdStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // Every product that read the Q tile has completed: stage dQ there.
+  const float scale[2] = {p.scale, p.scale};
+  stage_bf16<F::kCW, F::kNC>(dq, q_at, F::kQChunk, scale, warp, g, t);
+  fence_proxy_async();
+  named_sync(1, 128);
+  if (tid == 0) store_tile<F::kChunks>(&tma_dq, q_at, F::kQChunk, q0, h, b);
+}
+
+struct BwdOperands {
+  const void *q, *k, *v, *dout;
+  void *dq, *dk, *dv;
+  long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
+  long long g_sb, g_sh, g_ss;
+};
+
+// The dK/dV launch at DP; `smem` and `ctas` are the caller's plan of its
+// shared memory and grid and must be this instantiation's.
+template <int DP>
+cudaError_t launch_dkdv(const BwdOperands& a, const BwdTmaParams& p, int d,
+                        long long smem, long long ctas, cudaStream_t stream) {
+  using F = BwdKV<DP>;
+  const long long grid =
+      static_cast<long long>((p.Skv + F::kBKV - 1) / F::kBKV) * p.B * p.Hkv;
+  if (smem != static_cast<long long>(F::kSmem) || ctas != grid)
+    return cudaErrorInvalidValue;
+  static const cudaError_t opted =
+      opt_in_smem(flash_bwd_dkdv_wgmma<DP>, F::kSmem);
+  if (opted != cudaSuccess) return opted;
+  const long long dd = d, kv_head = static_cast<long long>(p.Skv) * d;
+  CUtensorMap tq, tk, tv, tg, tdk, tdv;
+  if (!encode_4d(&tq, a.q, d, p.Sq, p.H, p.B, a.q_ss, a.q_sh, a.q_sb,
+                 kBwdQRows) ||
+      !encode_4d(&tk, a.k, d, p.Skv, p.Hkv, p.B, a.k_ss, a.k_sh, a.k_sb,
+                 F::kBKV) ||
+      !encode_4d(&tv, a.v, d, p.Skv, p.Hkv, p.B, a.v_ss, a.v_sh, a.v_sb,
+                 F::kBKV) ||
+      !encode_4d(&tg, a.dout, d, p.Sq, p.H, p.B, a.g_ss, a.g_sh, a.g_sb,
+                 kBwdQRows) ||
+      !encode_4d(&tdk, a.dk, d, p.Skv, p.Hkv, p.B, dd, kv_head,
+                 kv_head * p.Hkv, 64) ||
+      !encode_4d(&tdv, a.dv, d, p.Skv, p.Hkv, p.B, dd, kv_head,
+                 kv_head * p.Hkv, 64))
+    return cudaErrorInvalidValue;
+  flash_bwd_dkdv_wgmma<DP><<<static_cast<unsigned>(grid), F::kThreads,
+                             F::kSmem, stream>>>(tq, tk, tv, tg, tdk, tdv, p);
+  return cudaGetLastError();
+}
+
+template <int DP>
+cudaError_t launch_dq(const BwdOperands& a, const BwdTmaParams& p, int d,
+                      long long smem, long long ctas, cudaStream_t stream) {
+  using F = BwdQ<DP>;
+  const long long grid =
+      static_cast<long long>(p.sq_pad / kBwdQRows) * p.H * p.B;
+  if (smem != static_cast<long long>(F::kSmem) || ctas != grid)
+    return cudaErrorInvalidValue;
+  static const cudaError_t opted = opt_in_smem(flash_bwd_dq_wgmma<DP>,
+                                               F::kSmem);
+  if (opted != cudaSuccess) return opted;
+  const long long dd = d, q_head = static_cast<long long>(p.Sq) * d;
+  CUtensorMap tq, tk, tv, tg, tdq;
+  if (!encode_4d(&tq, a.q, d, p.Sq, p.H, p.B, a.q_ss, a.q_sh, a.q_sb,
+                 kBwdQRows) ||
+      !encode_4d(&tk, a.k, d, p.Skv, p.Hkv, p.B, a.k_ss, a.k_sh, a.k_sb,
+                 kBwdKeys) ||
+      !encode_4d(&tv, a.v, d, p.Skv, p.Hkv, p.B, a.v_ss, a.v_sh, a.v_sb,
+                 kBwdKeys) ||
+      !encode_4d(&tg, a.dout, d, p.Sq, p.H, p.B, a.g_ss, a.g_sh, a.g_sb,
+                 kBwdQRows) ||
+      !encode_4d(&tdq, a.dq, d, p.Sq, p.H, p.B, dd, q_head, q_head * p.H, 64))
+    return cudaErrorInvalidValue;
+  flash_bwd_dq_wgmma<DP><<<static_cast<unsigned>(grid), F::kThreads,
+                           F::kSmem, stream>>>(tq, tk, tv, tg, tdq, p);
+  return cudaGetLastError();
+}
+
+// dK/dV, then dQ, at DP.
+template <int DP>
+cudaError_t launch_bwd_wgmma(const BwdOperands& a, const BwdTmaParams& p,
+                             int d, long long kv_smem, long long q_smem,
+                             long long kv_ctas, long long q_ctas,
+                             cudaStream_t s) {
+  const cudaError_t err = launch_dkdv<DP>(a, p, d, kv_smem, kv_ctas, s);
+  if (err != cudaSuccess) return err;
+  return launch_dq<DP>(a, p, d, q_smem, q_ctas, s);
+}
+
+// ---------------------------------------------------------------------------
+// f32 backward on the CUDA cores.  32-row q blocks and 32-key kv blocks;
+// 256 threads, thread t owning row t / 8 of a block and columns t % 8 + 8 w
+// (w < DP / 8) of its outputs, and, for the scores, q row t / 8 against
+// keys t % 8 + 8 u (u < 4).  Shared-memory rows are padded by one float so
+// that the eight keys (or columns) a warp reads fall in eight banks.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdRows = 32;
+constexpr int kBwdThreads = 256;
+constexpr int kBwdLdS = kBwdRows + 1;  // row stride of P and dS
 
 // Rows [r0, r0 + 32) of an (S, d) matrix with row stride ss into a
 // [32][DP + 1] f32 tile, zeros past S and past d.
-template <typename T, int DP>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+template <int DP>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long ss, int r0, int S,
                                           int d) {
   for (int i = threadIdx.x; i < kBwdRows * DP; i += kBwdThreads) {
     const int r = i / DP, c = i - r * DP;
     dst[r * (DP + 1) + c] =
-        r0 + r < S && c < d
-            ? to_f32(src[static_cast<long long>(r0 + r) * ss + c])
-            : 0.0f;
+        r0 + r < S && c < d ? src[static_cast<long long>(r0 + r) * ss + c]
+                            : 0.0f;
   }
-}
-
-// delta[row] = sum_c dO[row][c] O[row][c] over the B H Sq rows, a warp a row.
-template <typename T>
-__global__ void __launch_bounds__(256)
-    flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
-                    float* __restrict__ delta, const BwdParams p) {
-  const long long row =
-      static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= static_cast<long long>(p.B) * p.H * p.Sq) return;
-  const int i = static_cast<int>(row % p.Sq);
-  const long long bh = row / p.Sq;
-  const int h = static_cast<int>(bh % p.H), b = static_cast<int>(bh / p.H);
-  const T* orow = o + b * p.o_sb + h * p.o_sh + i * p.o_ss;
-  const T* grow = dout + b * p.g_sb + h * p.g_sh + i * p.g_ss;
-  float s = 0.0f;
-  for (int c = lane; c < p.d; c += 32)
-    s = fmaf(to_f32(orow[c]), to_f32(grow[c]), s);
-  s = warp_sum(s);
-  if (lane == 0) delta[row] = s;
 }
 
 // The scores of one (q block, kv block) pair: S = Q K^T and dP = dO V^T over
@@ -800,13 +1363,16 @@ constexpr size_t bwd_smem() {  // Q, dO, K, V tiles, P and dS, lse, delta
                           2 * kBwdRows * kBwdLdS + 2 * kBwdRows);
 }
 
-template <typename T, int DC>
+template <int DC>
 __global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
-                   const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dk,
-                   T* __restrict__ dv, const BwdParams p) {
+    flash_bwd_dkdv_simt(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dk, float* __restrict__ dv,
+                        const BwdParams p) {
   constexpr int DP = 32 * DC, LD = DP + 1, NW = DP / 8;
   extern __shared__ float bwd_smem_raw[];
   float* ks = bwd_smem_raw;
@@ -833,17 +1399,16 @@ __global__ void __launch_bounds__(kBwdThreads)
   float dk_acc[NW], dv_acc[NW];
 #pragma unroll
   for (int w = 0; w < NW; ++w) dk_acc[w] = dv_acc[w] = 0.0f;
-  load_tile<T, DP>(ks, k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv, p.d);
-  load_tile<T, DP>(vs, v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv, p.d);
+  load_tile<DP>(ks, k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv, p.d);
+  load_tile<DP>(vs, v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv, p.d);
   for (int gi = 0; gi < group && k0 < kv_lim; ++gi) {
     const int h = hk * group + gi;
     for (int qb = qb0; qb < n_qb; ++qb) {
       const int q0 = qb * kBwdRows;
       __syncthreads();  // the previous pair's tiles are read
-      load_tile<T, DP>(qs, q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq,
-                       p.d);
-      load_tile<T, DP>(gs, dout + b * p.g_sb + h * p.g_sh, p.g_ss, q0, p.Sq,
-                       p.d);
+      load_tile<DP>(qs, q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, p.d);
+      load_tile<DP>(gs, dout + b * p.g_sb + h * p.g_sh, p.g_ss, q0, p.Sq,
+                    p.d);
       if (threadIdx.x < kBwdRows) {
         const int i = q0 + threadIdx.x;
         const size_t at = (static_cast<size_t>(b) * p.H + h) * p.Sq + i;
@@ -873,19 +1438,20 @@ __global__ void __launch_bounds__(kBwdThreads)
   for (int w = 0; w < NW; ++w) {
     const int c = cb + 8 * w;
     if (c < p.d) {
-      store_f32(dk + at + c, dk_acc[w] * p.scale);
-      store_f32(dv + at + c, dv_acc[w]);
+      dk[at + c] = dk_acc[w] * p.scale;
+      dv[at + c] = dv_acc[w];
     }
   }
 }
 
-template <typename T, int DC>
+template <int DC>
 __global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dq,
-                 const BwdParams p) {
+    flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta, float* __restrict__ dq,
+                      const BwdParams p) {
   constexpr int DP = 32 * DC, LD = DP + 1, NW = DP / 8;
   extern __shared__ float bwd_smem_raw[];
   float* qs = bwd_smem_raw;
@@ -909,9 +1475,8 @@ __global__ void __launch_bounds__(kBwdThreads)
     n_kb = min(n_kb, (min(q0 + kBwdRows, p.Sq) - 1) / kBwdRows + 1);
   const int qr = threadIdx.x / 8, cb = threadIdx.x % 8;
 
-  load_tile<T, DP>(qs, q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, p.d);
-  load_tile<T, DP>(gs, dout + b * p.g_sb + h * p.g_sh, p.g_ss, q0, p.Sq,
-                   p.d);
+  load_tile<DP>(qs, q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, p.d);
+  load_tile<DP>(gs, dout + b * p.g_sb + h * p.g_sh, p.g_ss, q0, p.Sq, p.d);
   if (threadIdx.x < kBwdRows) {
     const int i = q0 + threadIdx.x;
     const size_t at = (static_cast<size_t>(b) * p.H + h) * p.Sq + i;
@@ -924,10 +1489,8 @@ __global__ void __launch_bounds__(kBwdThreads)
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * kBwdRows;
     __syncthreads();  // Q, dO, lse and delta are staged; the last K, V read
-    load_tile<T, DP>(ks, k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv,
-                     p.d);
-    load_tile<T, DP>(vs, v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv,
-                     p.d);
+    load_tile<DP>(ks, k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv, p.d);
+    load_tile<DP>(vs, v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv, p.d);
     __syncthreads();
     block_scores<DP>(qs, gs, ks, vs, lse_s, delta_s, nullptr, dss, q0, k0,
                      kv_lim, p);
@@ -936,7 +1499,8 @@ __global__ void __launch_bounds__(kBwdThreads)
       const float dsv = dss[qr * kBwdLdS + kj];
       const float* kr = ks + kj * LD;
 #pragma unroll
-      for (int w = 0; w < NW; ++w) dq_acc[w] = fmaf(dsv, kr[cb + 8 * w], dq_acc[w]);
+      for (int w = 0; w < NW; ++w)
+        dq_acc[w] = fmaf(dsv, kr[cb + 8 * w], dq_acc[w]);
     }
   }
   const int i = q0 + qr;
@@ -945,60 +1509,32 @@ __global__ void __launch_bounds__(kBwdThreads)
 #pragma unroll
   for (int w = 0; w < NW; ++w) {
     const int c = cb + 8 * w;
-    if (c < p.d) store_f32(dq + at + c, dq_acc[w] * p.scale);
+    if (c < p.d) dq[at + c] = dq_acc[w] * p.scale;
   }
 }
 
-template <typename T, int DC>
-cudaError_t launch_bwd(const T* q, const T* k, const T* v, const T* o,
-                       const T* dout, const float* lse, float* delta, T* dq,
-                       T* dk, T* dv, const BwdParams& p, cudaStream_t s) {
-  constexpr size_t smem = bwd_smem<DC>();
+template <int DC>
+cudaError_t launch_bwd_simt(const float* q, const float* k, const float* v,
+                            const float* dout, const float* lse,
+                            const float* delta, float* dq, float* dk,
+                            float* dv, const BwdParams& p, long long smem,
+                            cudaStream_t s) {
+  constexpr size_t bytes = bwd_smem<DC>();
+  if (smem != static_cast<long long>(bytes)) return cudaErrorInvalidValue;
   static const cudaError_t opted = [] {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_bwd_dkdv<T, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(flash_bwd_dq<T, DC>,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                static_cast<int>(smem));
+    const cudaError_t e = opt_in_smem(flash_bwd_dkdv_simt<DC>, bytes);
+    return e != cudaSuccess ? e : opt_in_smem(flash_bwd_dq_simt<DC>, bytes);
   }();
   if (opted != cudaSuccess) return opted;
-  const long long rows = static_cast<long long>(p.B) * p.H * p.Sq;
-  flash_bwd_delta<T><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, s>>>(
-      o, dout, delta, p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
   const unsigned n_kvb = (p.Skv + kBwdRows - 1) / kBwdRows;
   const unsigned n_qb = (p.Sq + kBwdRows - 1) / kBwdRows;
-  flash_bwd_dkdv<T, DC><<<n_kvb * p.B * p.Hkv, kBwdThreads, smem, s>>>(
+  flash_bwd_dkdv_simt<DC><<<n_kvb * p.B * p.Hkv, kBwdThreads, bytes, s>>>(
       q, k, v, dout, lse, delta, dk, dv, p);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq<T, DC><<<n_qb * p.B * p.H, kBwdThreads, smem, s>>>(
+  flash_bwd_dq_simt<DC><<<n_qb * p.B * p.H, kBwdThreads, bytes, s>>>(
       q, k, v, dout, lse, delta, dq, p);
   return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_bwd(const void* q, const void* k, const void* v,
-                         const void* o, const void* dout, const float* lse,
-                         float* delta, void* dq, void* dk, void* dv,
-                         const BwdParams& p, cudaStream_t s) {
-  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
-          *tv = static_cast<const T*>(v), *to = static_cast<const T*>(o),
-          *tg = static_cast<const T*>(dout);
-  T *gq = static_cast<T*>(dq), *gk = static_cast<T*>(dk),
-    *gv = static_cast<T*>(dv);
-  switch ((p.d + 31) / 32) {
-#define REPRO_BWD_CASE(DC_) \
-  case DC_:                 \
-    return launch_bwd<T, DC_>(tq, tk, tv, to, tg, lse, delta, gq, gk, gv, p, s);
-    REPRO_BWD_CASE(1) REPRO_BWD_CASE(2) REPRO_BWD_CASE(3) REPRO_BWD_CASE(4)
-    REPRO_BWD_CASE(5) REPRO_BWD_CASE(6) REPRO_BWD_CASE(7) REPRO_BWD_CASE(8)
-#undef REPRO_BWD_CASE
-  }
-  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -1067,32 +1603,99 @@ extern "C" int repro_flash_attention_f32(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The backward of either dtype (f32 != 0: f32 tensors, else bf16): dq
-// (B, H, Sq, d), dk / dv (B, Hkv, Skv, d) contiguous in the inputs' type,
-// from q, k, v, the forward's o and lse, and dO (element strides, unit d
-// stride); delta is (B, H, Sq) f32 scratch.
+// The backward (f32 != 0: f32 tensors, on the SIMT kernels; else bf16, on
+// wgmma): dq (B, H, Sq, d), dk / dv (B, Hkv, Skv, d) contiguous in the
+// inputs' type, from q, k, v, the forward's o and lse, and dO (element
+// strides with a unit d stride; bf16 also 16-byte aligned bases and
+// strides: TMA reads q, k, v and dO in place).  delta and, in bf16, lse2
+// are (B, H, sq_pad) f32 scratch.  The launch follows the caller's plan
+// (kernels/flash_attention.py::plan_attention_bwd): the dK/dV CTA's kv
+// rows, the dQ CTA's q rows, sq_pad and each kernel's grid and shared
+// memory, every one checked against the instantiation that runs.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-    long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-    long long v_ss, long long o_sb, long long o_sh, long long o_ss,
-    long long g_sb, long long g_sh, long long g_ss, int B, int H, int Hkv,
-    int Sq, int Skv, int kv_len, int causal, float scale, int d, int f32,
-    void* stream) {
-  if (!valid_shape(B, H, Hkv, Sq, Skv, d, kBwdRows) ||
-      static_cast<long long>((Skv + kBwdRows - 1) / kBwdRows) * B * Hkv >
-          0x7fffffffLL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const BwdParams p{B, H, Hkv, Sq, Skv, kv_len, causal, d, scale,
+    const void* dout, const float* lse, float* delta, float* lse2, void* dq,
+    void* dk, void* dv, long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+    long long v_sh, long long v_ss, long long o_sb, long long o_sh,
+    long long o_ss, long long g_sb, long long g_sh, long long g_ss, int B,
+    int H, int Hkv, int Sq, int Skv, int kv_len, int causal, float scale,
+    int d, int f32, int kv_block, int q_block, int sq_pad, long long kv_ctas,
+    long long q_ctas, long long kv_smem, long long q_smem, void* stream) {
+  const BwdParams p{B, H, Hkv, Sq, Skv, kv_len, causal, d, sq_pad, scale,
                     q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                     o_sb, o_sh, o_ss, g_sb, g_sh, g_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      f32 ? dispatch_bwd<float>(q, k, v, o, dout, lse, delta, dq, dk, dv, p,
-                                s)
-          : dispatch_bwd<__nv_bfloat16>(q, k, v, o, dout, lse, delta, dq, dk,
-                                        dv, p, s));
+  const long long n_kvb = kv_block > 0 ? (Skv + kv_block - 1) / kv_block : 0;
+  if (!valid_shape(B, H, Hkv, Sq, Skv, d, q_block) || n_kvb * B * Hkv >
+      0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned delta_grid =
+      static_cast<unsigned>((static_cast<long long>(B) * H * sq_pad + 7) / 8);
+  if (f32) {
+    if (kv_block != kBwdRows || q_block != kBwdRows || sq_pad != Sq ||
+        kv_ctas != n_kvb * B * Hkv ||
+        q_ctas != static_cast<long long>((Sq + kBwdRows - 1) / kBwdRows) *
+                      B * H ||
+        kv_smem != q_smem || lse2 != nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    flash_bwd_delta<float><<<delta_grid, 256, 0, s>>>(
+        static_cast<const float*>(o), static_cast<const float*>(dout), lse,
+        delta, nullptr, p);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const float *fq = static_cast<const float*>(q),
+                *fk = static_cast<const float*>(k),
+                *fv = static_cast<const float*>(v),
+                *fg = static_cast<const float*>(dout);
+    float *gq = static_cast<float*>(dq), *gk = static_cast<float*>(dk),
+          *gv = static_cast<float*>(dv);
+    switch ((d + 31) / 32) {
+#define REPRO_BWD_CASE(DC_)                                                  \
+  case DC_:                                                                  \
+    return static_cast<int>(launch_bwd_simt<DC_>(                            \
+        fq, fk, fv, fg, lse, delta, gq, gk, gv, p, kv_smem, s));
+      REPRO_BWD_CASE(1) REPRO_BWD_CASE(2) REPRO_BWD_CASE(3) REPRO_BWD_CASE(4)
+      REPRO_BWD_CASE(5) REPRO_BWD_CASE(6) REPRO_BWD_CASE(7) REPRO_BWD_CASE(8)
+#undef REPRO_BWD_CASE
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+
+  // bf16: TMA needs 16-byte aligned bases and strides (8 bf16); the
+  // bulk copies of lse2 and delta 16-byte aligned rows.
+  const long long strides[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                                 v_sb, v_sh, v_ss, g_sb, g_sh, g_ss};
+  bool aligned = lse2 != nullptr;
+  for (long long st : strides) aligned = aligned && st >= 0 && st % 8 == 0;
+  for (const void* ptr : {q, k, v, dout, static_cast<const void*>(dq),
+                          static_cast<const void*>(dk),
+                          static_cast<const void*>(dv),
+                          static_cast<const void*>(delta),
+                          static_cast<const void*>(lse2)})
+    aligned = aligned && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  if (!aligned || kv_block != kBwdKVRows || q_block != kBwdQRows ||
+      sq_pad != (Sq + kBwdQRows - 1) / kBwdQRows * kBwdQRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  flash_bwd_delta<__nv_bfloat16><<<delta_grid, 256, 0, s>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, delta, lse2, p);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const BwdOperands a{q,    k,    v,    dout, dq,   dk,   dv,
+                      q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
+                      v_sh, v_ss, g_sb, g_sh, g_ss};
+  const BwdTmaParams tp{B,     H,     Hkv,           Sq,   Skv,  kv_len,
+                        causal, sq_pad, scale, scale * kLog2e, lse2, delta};
+  switch ((d + 63) / 64) {
+#define REPRO_BWD_CASE(N_)                                                  \
+  case N_:                                                                  \
+    return static_cast<int>(launch_bwd_wgmma<64 * N_>(                      \
+        a, tp, d, kv_smem, q_smem, kv_ctas, q_ctas, s));
+    REPRO_BWD_CASE(1) REPRO_BWD_CASE(2) REPRO_BWD_CASE(3) REPRO_BWD_CASE(4)
+#undef REPRO_BWD_CASE
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

@@ -16,8 +16,12 @@ kernel and f32 q/k/v the f32 kernel of the same source, at any head dim in
 ``return_lse`` it also returns the rows' log-sum-exp, which
 :func:`flash_attention_bwd_kernel` (the backward: the delta, dK/dV and dQ
 kernels of the same source; plain version ``ref.attention_bwd_ref``)
-takes.  ``flash_attention_kernel.launches`` counts forward launches of
-both dtypes, ``flash_attention_bwd_kernel.launches`` backward ones.
+takes.  The backward's route follows the dtype alone: bf16 runs the wgmma
+kernels at every head dim, f32 the SIMT kernels; :func:`plan_attention_bwd`
+holds its tiles, grids and shared bytes, and the launch passes that plan to
+the C entry, which checks it against the instantiation it runs.
+``flash_attention_kernel.launches`` counts forward launches of both
+dtypes, ``flash_attention_bwd_kernel.launches`` backward ones.
 """
 from __future__ import annotations
 
@@ -267,6 +271,84 @@ def select_attention_blocks(
     return plan.block_q, plan.block_kv
 
 
+# The backward (``flash_bwd_*`` in csrc/flash_attention.cu).  bf16: a dK/dV
+# kernel (a CTA per 64 kv rows, a dV and a dK consumer warpgroup, a ring of
+# 64-row (Q, dO) tiles) and a dQ kernel (a CTA per 64-row q block, a ring of
+# 64-key (K, V) tiles), both on wgmma; f32: the SIMT kernels on 32-row
+# tiles.  Both start with the delta kernel.
+BWD_KV_ROWS = 64          # kv rows a dK/dV CTA
+BWD_Q_ROWS = 64           # q rows a dK/dV ring stage and a dQ CTA
+BWD_KEYS = 64             # keys a dQ ring stage
+BWD_SIMT_ROWS = 32        # the f32 kernels' q and kv rows
+_BWD_STAGES = 2
+
+
+def _bwd_kv_smem(head_dim: int) -> int:
+    """The dK/dV kernel's shared memory: alignment slack, the K and V
+    tiles, the ring's (Q, dO) tiles and its stages' lse2 and delta rows,
+    and the mbarriers."""
+    tiles = (2 * BWD_KV_ROWS + _BWD_STAGES * 2 * BWD_Q_ROWS) \
+        * padded_head_dim(head_dim) * _TILE_BYTES
+    return 1024 + tiles + _BWD_STAGES * 2 * BWD_Q_ROWS * 4 \
+        + 8 * (1 + 2 * _BWD_STAGES)
+
+
+def _bwd_q_smem(head_dim: int) -> int:
+    """The dQ kernel's: slack, the Q and dO tiles, the ring's (K, V)
+    tiles, the mbarriers."""
+    tiles = (2 * BWD_Q_ROWS + _BWD_STAGES * 2 * BWD_KEYS) \
+        * padded_head_dim(head_dim) * _TILE_BYTES
+    return 1024 + tiles + 8 * (1 + 2 * _BWD_STAGES)
+
+
+def _bwd_simt_smem(head_dim: int) -> int:
+    """The f32 kernels' (both the same): Q, dO, K and V as f32 rows padded
+    by one, P and dS, the block's lse and delta."""
+    dp, rows = cdiv(head_dim, 32) * 32, BWD_SIMT_ROWS
+    return 4 * (4 * rows * (dp + 1) + 2 * rows * (rows + 1) + 2 * rows)
+
+
+@dataclass(frozen=True)
+class BwdPlan:
+    """The backward's launch, every field of which the C entry checks
+    against the instantiation it runs: the route, the dK/dV CTA's
+    ``kv_block`` kv rows, the dQ CTA's ``q_block`` q rows, ``sq_pad`` rows
+    a (batch, head) of the lse/delta scratch, and each kernel's grid and
+    shared bytes."""
+    route: str
+    kv_block: int
+    q_block: int
+    sq_pad: int
+    kv_ctas: int
+    q_ctas: int
+    kv_smem: int
+    q_smem: int
+
+
+def plan_attention_bwd(
+    s_q: int, s_kv: int, head_dim: int, *, batch: int = 1, heads: int = 1,
+    kv_heads: Optional[int] = None, in_dtype: str = "bfloat16",
+) -> BwdPlan:
+    """The backward's launch at these shapes: f32 takes the SIMT kernels
+    (32-row tiles), bf16 the wgmma kernels (64 kv rows a dK/dV CTA, 64 q
+    rows a dQ CTA), whatever the head dim."""
+    kv_heads = heads if kv_heads is None else kv_heads
+    check_head_dim(head_dim)
+    if in_dtype == "float32":
+        rows = BWD_SIMT_ROWS
+        smem = _bwd_simt_smem(head_dim)
+        return BwdPlan("simt", rows, rows, s_q,
+                       cdiv(s_kv, rows) * batch * kv_heads,
+                       cdiv(s_q, rows) * batch * heads, smem, smem)
+    if in_dtype != "bfloat16":
+        raise ValueError(f"flash_attention_bwd: no route for {in_dtype}")
+    n_qb = cdiv(s_q, BWD_Q_ROWS)
+    return BwdPlan("wgmma", BWD_KV_ROWS, BWD_Q_ROWS, n_qb * BWD_Q_ROWS,
+                   cdiv(s_kv, BWD_KV_ROWS) * batch * kv_heads,
+                   n_qb * batch * heads, _bwd_kv_smem(head_dim),
+                   _bwd_q_smem(head_dim))
+
+
 def attention_plain(q, k, v, *, block_q: int, block_kv: int,
                     causal: bool = False, scale: Optional[float] = None,
                     return_lse: bool = False):
@@ -362,8 +444,19 @@ def _check_qkv(q, k, v, what="flash_attention"):
                              f"head dim")
 
 
+def check_tma_operands(what: str, **tensors: torch.Tensor) -> None:
+    """Raise unless TMA can read each tensor in place: a 16-byte aligned
+    base and 16-byte multiples (8 bf16) for the strides of its first
+    three dims.  Nothing is padded or copied to make it so."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16 or any(s < 0 or s % 8 for s in t.stride()[:3]):
+            raise ValueError(f"{what}: {name} strides {t.stride()} not "
+                             f"aligned for the kernel")
+
+
 def _launch_bwd_cuda(q, k, v, o, lse, do, *, causal, scale):
-    """The backward's three kernels (delta, dK/dV, dQ) in one call."""
+    """The backward's three kernels (delta, dK/dV, dQ) in one call, on the
+    route, tiles and grids of :func:`plan_attention_bwd`."""
     _check_qkv(q, k, v, "flash_attention_bwd")
     B, H, Sq, d = q.shape
     _, Hkv, Skv, _ = k.shape
@@ -373,6 +466,8 @@ def _launch_bwd_cuda(q, k, v, o, lse, do, *, causal, scale):
                          f"{o.dtype}, do {tuple(do.shape)}, lse "
                          f"{tuple(lse.shape)} {lse.dtype} do not match q "
                          f"{tuple(q.shape)} {q.dtype}")
+    # Autograd may hand an expanded or cast output gradient (a stride-0
+    # broadcast of a sum's gradient): that one is made a dense copy.
     if do.dtype != q.dtype or do.stride(-1) != 1:
         do = do.to(q.dtype).contiguous()
     lse = lse.contiguous()
@@ -383,29 +478,38 @@ def _launch_bwd_cuda(q, k, v, o, lse, do, *, causal, scale):
     if o.stride(-1) != 1:
         raise ValueError("flash_attention_bwd: o needs a unit stride on "
                          "the head dim")
+    f32 = q.dtype == torch.float32
+    if not f32:
+        check_tma_operands("flash_attention_bwd", q=q, k=k, v=v, do=do)
+    plan = plan_attention_bwd(Sq, Skv, d, batch=B, heads=H, kv_heads=Hkv,
+                              in_dtype="float32" if f32 else "bfloat16")
     scale = scale if scale is not None else d ** -0.5
     dq = torch.empty((B, H, Sq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Hkv, Skv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    # delta and (wgmma route) lse2 = lse log2(e), plan.sq_pad rows a head.
+    scratch = torch.empty((1 if f32 else 2, B, H, plan.sq_pad),
+                          dtype=torch.float32, device=q.device)
     lib = build.load("flash_attention")
     fn = lib.repro_flash_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 15 \
-            + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 2 \
-            + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 15 \
+            + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 5 \
+            + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                  do.data_ptr(), lse.data_ptr(), scratch[0].data_ptr(),
+                  None if f32 else scratch[1].data_ptr(),
                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *o.stride()[:3], *do.stride()[:3], B, H, Hkv, Sq, Skv,
-                  Skv, int(causal), float(scale), d,
-                  int(q.dtype == torch.float32),
+                  Skv, int(causal), float(scale), d, int(f32),
+                  plan.kv_block, plan.q_block, plan.sq_pad, plan.kv_ctas,
+                  plan.q_ctas, plan.kv_smem, plan.q_smem,
                   torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, code, f"flash_attention_bwd {q.dtype} q{tuple(q.shape)} "
-                           f"k{tuple(k.shape)}")
+                           f"k{tuple(k.shape)} plan {plan}")
     flash_attention_bwd_kernel.launches += 1
     return dq, dk, dv
 
@@ -424,12 +528,8 @@ def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale,
             raise ValueError(f"flash_attention: blocks ({block_q}, "
                              f"{block_kv}) exceed the kernel's budgets at "
                              f"head_dim {d}")
-        # TMA reads q, k and v (any strides, v may be a transposed view):
-        # 16-byte aligned bases and strides.
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
-                raise ValueError(f"flash_attention: {name} strides "
-                                 f"{t.stride()} not aligned for the kernel")
+        # TMA reads q, k and v (any strides, v may be a transposed view).
+        check_tma_operands("flash_attention", q=q, k=k, v=v)
     # Output laid out (B, Sq, H, d): the model's head merge is then a view.
     out = torch.empty((B, Sq, H, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)

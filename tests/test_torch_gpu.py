@@ -613,24 +613,25 @@ def _rel_l2(x, y):
                  / torch.linalg.vector_norm(y.float()))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
-@pytest.mark.parametrize("d", [16, 64, 112, 128, 160, 256])
-@pytest.mark.parametrize("causal,Hkv", [(True, 2), (False, 8), (True, 8)],
-                         ids=str)
-def test_flash_bwd_on_card(cuda, dtype, d, causal, Hkv):
+def _check_flash_bwd(cuda, dtype, B, H, Hkv, S, d, causal, seed,
+                     do_view=False):
     """The forward's lse and the backward against the plain versions: f32
     within 1e-4 relative L2; bf16 within 2x the plain bf16 backward's
-    distance from the plain f32 backward (both compute in f32 and round
-    at the inputs and outputs)."""
-    B, H, S = 2, 8, 200
+    distance from the plain f32 backward (the kernel rounds P and dS to
+    bf16 before the wgmma products, the plain version keeps them f32).
+    Two launches must be bitwise equal.  ``do_view``: dO as the transposed
+    view of a (B, S, H, d) tensor, the layout autograd hands back through
+    the model's head merge."""
     dt = getattr(torch, dtype)
-    g = torch.Generator(device=cuda).manual_seed(d + Hkv)
+    g = torch.Generator(device=cuda).manual_seed(seed)
     q32 = torch.randn((B, H, S, d), generator=g, device=cuda)
     k32 = torch.randn((B, Hkv, S, d), generator=g, device=cuda)
     v32 = torch.randn((B, S, Hkv, d), generator=g, device=cuda).transpose(1, 2)
-    do32 = torch.randn((B, H, S, d), generator=g, device=cuda)
+    do32 = (torch.randn((B, S, H, d), generator=g, device=cuda).transpose(1, 2)
+            if do_view else torch.randn((B, H, S, d), generator=g,
+                                        device=cuda))
     q, k, v, do = (t.to(dt) for t in (q32, k32, v32, do32))
+    assert do.is_contiguous() != do_view
     bq, bkv = kfa.select_attention_blocks(S, S, d, causal=causal, batch=B,
                                           heads=H, kv_heads=Hkv)
     o, lse = kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
@@ -639,10 +640,8 @@ def test_flash_bwd_on_card(cuda, dtype, d, causal, Hkv):
                                      causal=causal, return_lse=True)
     torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
     n0 = kfa.flash_attention_bwd_kernel.launches
-    got = kfa.flash_attention_bwd_kernel(q, k, v, o_p, lse_p, do,
-                                         causal=causal)
-    again = kfa.flash_attention_bwd_kernel(q, k, v, o_p, lse_p, do,
-                                           causal=causal)
+    got, again = (kfa.flash_attention_bwd_kernel(
+        q, k, v, o_p, lse_p, do, causal=causal) for _ in range(2))
     plain = kfa.attention_bwd_plain(q, k, v, o_p, lse_p, do, causal=causal)
     o32, lse32 = kfa.attention_plain(q.float(), k.float(), v.float(),
                                      block_q=bq, block_kv=bkv, causal=causal,
@@ -651,12 +650,44 @@ def test_flash_bwd_on_card(cuda, dtype, d, causal, Hkv):
                                     lse32, do.float(), causal=causal)
     torch.cuda.synchronize()
     assert kfa.flash_attention_bwd_kernel.launches == n0 + 2
+    plan = kfa.plan_attention_bwd(S, S, d, batch=B, heads=H, kv_heads=Hkv,
+                                  in_dtype=dtype)
+    assert plan.route == ("simt" if dtype == "float32" else "wgmma")
     for x, y, p, r in zip(got, again, plain, ref32):
         assert torch.equal(x, y) and x.dtype == dt and x.shape == p.shape
+        assert bool(torch.isfinite(x).all())
         if dtype == "float32":
             assert _rel_l2(x, p) <= 1e-4
         else:
             assert _rel_l2(x, r) <= 2 * _rel_l2(p, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("d", [16, 64, 112, 128, 160, 256])
+@pytest.mark.parametrize("causal,Hkv", [(True, 2), (False, 8), (True, 8)],
+                         ids=str)
+def test_flash_bwd_on_card(cuda, dtype, d, causal, Hkv):
+    """Every head dim in both dtypes, causal with GQA and without, at
+    (2, 8, 200, d): see :func:`_check_flash_bwd`."""
+    _check_flash_bwd(cuda, dtype, 2, 8, Hkv, 200, d, causal, seed=d + Hkv)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,H,Hkv,S,d,causal,do_view", [
+    (4, 24, 8, 512, 128, True, False),   # phi4-mini's training attention
+    (1, 8, 2, 40, 64, True, False),      # S shorter than one 64-row block
+    (1, 8, 2, 77, 128, True, False),     # a ragged second block
+    (1, 8, 2, 77, 112, False, False),
+    (2, 24, 8, 300, 128, True, True),    # dO a transposed view
+], ids=str)
+def test_flash_bwd_shapes_on_card(cuda, dtype, B, H, Hkv, S, d, causal,
+                                  do_view):
+    """The backward at phi4-mini's training shape, at a ragged S and with a
+    non-contiguous dO: see :func:`_check_flash_bwd`."""
+    _check_flash_bwd(cuda, dtype, B, H, Hkv, S, d, causal, d + Hkv + S,
+                     do_view)
 
 
 @pytest.mark.gpu

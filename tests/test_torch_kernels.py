@@ -207,6 +207,73 @@ def test_flash_head_dim_rule_covers_both_registries():
             assert all(bkv == 64 for _, bkv in legal), (d, legal)
 
 
+def _registry_head_dims():
+    from repro.configs.registry import ARCH_IDS as JARCH_IDS
+    from repro.configs.registry import get_config as jget_config
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    full = {jget_config(a).head_dim for a in JARCH_IDS} - {0}
+    ported = {get_config(a, smoke=s).head_dim for a in ARCH_IDS
+              for s in (False, True)} - {0}
+    return full | ported
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_bwd_route_covers_both_registries(dtype):
+    """The backward's route follows the dtype alone: every head dim of
+    both registries (and every one the kernels take) runs the wgmma
+    kernels in bf16 (64 kv rows a dK/dV CTA, 64 q rows a dQ CTA) and the
+    SIMT kernels in f32; every launch's shared memory fits the 227 KB a
+    block may opt into."""
+    dims = _registry_head_dims()
+    assert dims == {16, 32, 64, 112, 128, 160}
+    for d in sorted(dims | set(kfa.HEAD_DIMS)):
+        plan = kfa.plan_attention_bwd(300, 300, d, batch=1, heads=8,
+                                      kv_heads=2, in_dtype=dtype)
+        assert plan.kv_smem <= 232448 and plan.q_smem <= 232448, plan
+        if dtype == "float32":
+            assert (plan.route, plan.kv_block, plan.q_block, plan.sq_pad,
+                    plan.kv_ctas, plan.q_ctas) == ("simt", 32, 32, 300,
+                                                   20, 80), plan
+            assert plan.kv_smem == plan.q_smem
+            continue
+        assert (plan.route, plan.kv_block, plan.q_block, plan.sq_pad,
+                plan.kv_ctas, plan.q_ctas) == ("wgmma", 64, 64, 320,
+                                               10, 40), plan
+    with pytest.raises(ValueError, match="multiple of 8 up to 256"):
+        kfa.plan_attention_bwd(64, 64, 20)
+    with pytest.raises(ValueError, match="no route for float16"):
+        kfa.plan_attention_bwd(64, 64, 64, in_dtype="float16")
+
+
+def test_flash_bwd_plan_at_phi4_train_shape():
+    """phi4-mini's training attention, (4, 24/8, 512, 128) in bf16: the
+    plan's tiles, grids and shared bytes; and the grids at a ragged S
+    shorter than one 64-row block."""
+    plan = kfa.plan_attention_bwd(512, 512, 128, batch=4, heads=24,
+                                  kv_heads=8)
+    assert plan == kfa.BwdPlan(
+        route="wgmma", kv_block=64, q_block=64, sq_pad=512, kv_ctas=256,
+        q_ctas=768, kv_smem=1024 + 98304 + 1024 + 40,
+        q_smem=1024 + 98304 + 40)
+    short = kfa.plan_attention_bwd(40, 40, 64, heads=8, kv_heads=2)
+    assert (short.sq_pad, short.kv_ctas, short.q_ctas) == (64, 2, 8)
+    assert kfa.plan_attention_bwd(77, 77, 128, heads=8,
+                                  kv_heads=2).q_ctas == 16
+
+
+def test_tma_operand_check_refuses_misaligned_strides():
+    """The bf16 kernels read q, k, v and dO in place by TMA: a stride that
+    is no 16-byte multiple raises instead of being copied."""
+    x = torch.zeros((1, 2, 8, 24), dtype=torch.bfloat16)
+    kfa.check_tma_operands("t", q=x, v=x.transpose(1, 2))
+    shifted = torch.zeros(385, dtype=torch.bfloat16)[1:].view(1, 2, 8, 24)
+    with pytest.raises(ValueError, match="do strides"):
+        kfa.check_tma_operands("t", do=shifted)
+    with pytest.raises(ValueError, match="q strides"):
+        kfa.check_tma_operands("t", q=torch.zeros((1, 2, 8, 20),
+                                                  dtype=torch.bfloat16))
+
+
 @pytest.mark.parametrize("gqa_packed", [False, True])
 @pytest.mark.parametrize("per_slot", [False, True])
 def test_decode_attention_matches_jax(per_slot, gqa_packed):

@@ -3,6 +3,7 @@
 one card.
 
     python3 tools/flash_ab.py ROOT [ROOT ...]
+    python3 tools/flash_ab.py --bwd ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repository, or an unpacked ``git archive``
 of one (a parent commit, or a copy with a changed ``csrc/``).  Name a root
@@ -19,10 +20,19 @@ with v as the model passes it (the transposed view of a (B, S, Hkv, d)
 tensor), at every (block_q, block_kv) of that root's menu and at the pair
 its selector picks, with ``chip_smoke.py``'s ``time_ms`` (device ms a
 call, from a CUDA graph).  ``F.scaled_dot_product_attention`` on the same
-inputs is timed once per shape as the library yardstick.  One JSON line a
-root goes to standard output, with the card's ``nvidia-smi`` name and
-power limit; a root that fails or hangs is reported with its error and the
-next runs.
+inputs is timed once per shape as the library yardstick.
+
+With ``--bwd`` each root times the attention backward instead, at
+phi4-mini's training shape (causal q (4, 24, 512, 128), k/v (4, 8, 512,
+128), bf16, v the transposed view), from the forward's o and lse: the
+root's backward as its wrapper launches it (device ms from a CUDA graph;
+its plan where the root has one), and the library's backward
+(``F.scaled_dot_product_attention`` under ``torch.autograd.grad``, its
+kernels' device time under torch.profiler) as the yardstick.
+
+One JSON line a root goes to standard output, with the card's
+``nvidia-smi`` name and power limit; a root that fails or hangs is
+reported with its error and the next runs.
 """
 from __future__ import annotations
 
@@ -38,9 +48,11 @@ SHAPES = (("phi4-mini-3.8b", 24, 8, 336), ("phi4-mini-3.8b", 24, 8, 474),
           ("qwen3-moe-30b-a3b", 32, 4, 474))
 
 
-def measure(root: Path) -> dict:
+def _setup(root: Path):
+    """The root's modules on the path, its flash source built: (torch, the
+    chip_smoke helpers, the root's flash wrapper, the card's nvidia-smi
+    line, build seconds, the device)."""
     import torch
-    import torch.nn.functional as F
     sys.path.insert(0, str(HERE))
     sys.path.insert(0, str(root / "src"))
     import chip_smoke as cs
@@ -53,8 +65,13 @@ def measure(root: Path) -> dict:
         check=True).stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     build.build(("flash_attention",))
-    build_s = time.perf_counter() - t0
-    dev = torch.device("cuda", 0)
+    return torch, cs, kfa, smi, time.perf_counter() - t0, \
+        torch.device("cuda", 0)
+
+
+def measure(root: Path) -> dict:
+    import torch.nn.functional as F
+    torch, cs, kfa, smi, build_s, dev = _setup(root)
     rows = []
     for arch, H, Hkv, S in SHAPES:
         q, k, v = cs._attn_inputs(torch, dev, 1, H, Hkv, S, True, seed=11)
@@ -79,5 +96,34 @@ def measure(root: Path) -> dict:
     return {"nvidia_smi": smi, "build_s": build_s, "rows": rows}
 
 
+def measure_bwd(root: Path) -> dict:
+    import dataclasses
+    import torch.nn.functional as F
+    torch, cs, kfa, smi, build_s, dev = _setup(root)
+    B, H, Hkv, S, d = 4, 24, 8, 512, 128
+    q, k, v = cs._attn_inputs(torch, dev, B, H, Hkv, S, True, seed=29, d=d)
+    do = torch.randn(q.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(23), device=dev).to(q.dtype)
+    o, lse = kfa.attention_plain(q, k, v, block_q=64, block_kv=64,
+                                 causal=True, return_lse=True)
+    plan = getattr(kfa, "plan_attention_bwd", None)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+    out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                         enable_gqa=True)
+    return {"nvidia_smi": smi, "build_s": build_s,
+            "q": [B, H, S, d], "kv": [B, Hkv, S, d],
+            "plan": dataclasses.asdict(plan(S, S, d, batch=B, heads=H,
+                                            kv_heads=Hkv))
+            if plan else None,
+            "ms": cs.time_ms(lambda: kfa._launch_bwd_cuda(
+                q, k, v, o, lse, do, causal=True, scale=None)),
+            "library_ms": cs.device_ms(torch, lambda: torch.autograd.grad(
+                out, (ql, kl, vl), do, retain_graph=True))}
+
+
 if __name__ == "__main__":
-    sys.exit(run_roots(sys.argv[1:], __file__, measure, __doc__))
+    args = sys.argv[1:]
+    bwd = "--bwd" in args
+    args = [a for a in args if a != "--bwd"]
+    sys.exit(run_roots(args, __file__, measure_bwd if bwd else measure,
+                       __doc__, flags=("--bwd",) if bwd else ()))

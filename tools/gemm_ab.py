@@ -127,10 +127,12 @@ class _Recorder:
         return self.entry(*args)
 
 
-def run_roots(argv, script: str, measure_root, doc: str) -> int:
+def run_roots(argv, script: str, measure_root, doc: str,
+              flags=()) -> int:
     """The A/B runner shared with ``tools/flash_ab.py``: ``script --one
     ROOT`` prints ``measure_root(ROOT)`` as one JSON line; without
-    ``--one``, each ROOT runs that in a process of its own, in turn."""
+    ``--one``, each ROOT runs that in a process of its own, in turn, with
+    ``flags`` passed on to it."""
     if len(argv) == 2 and argv[0] == "--one":
         print(json.dumps({"root": argv[1], **measure_root(Path(argv[1]))}),
               flush=True)
@@ -142,7 +144,7 @@ def run_roots(argv, script: str, measure_root, doc: str) -> int:
     for root in argv:
         try:
             res = subprocess.run(
-                [sys.executable, script, "--one",
+                [sys.executable, script, *flags, "--one",
                  str(Path(root).resolve())], capture_output=True, text=True,
                 timeout=ROOT_TIMEOUT_S)
             out = res.stdout.strip().splitlines()
