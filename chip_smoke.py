@@ -140,7 +140,7 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               step and peak memory.
     train_trace — one traced train step: wall time against device-busy
               time, kernel time by kernel; the attention backward must run
-              its three wgmma-route kernels a layer and no SIMT one.
+              its three wgmma-route kernels a layer and no f32 one.
     train_times — the training kernels' times at those shapes beside
               their bounds, plain versions and library calls.
 Each serve phase counts the launches of every kernel inside the model's
@@ -184,6 +184,12 @@ FLASH_ATOL, FLASH_RTOL = 1e-2, 2e-2
 # attention tolerance).
 FLASH_F32_ATOL, FLASH_F32_RTOL = 2e-5, 1e-4
 F32_PEAK = 67e12            # H100 SXM f32 flop/s outside the tensor cores
+# The f32 GEMM and the f32 flash backward take every product as three TF32
+# tensor-core products (split TF32): their rate is a third of the TF32 peak.
+TF32X3_PEAK = 495e12 / 3
+# The kernels-line rows whose kernel computes in split TF32 ("products").
+TF32X3_ROWS = ("matmul_f32@hybrid_decode", "matmul_f32@hybrid_prefill",
+               "flash_attention_bwd_f32@train_grads")
 # The f32 serve's prefill logits, kernel path vs plain path (relative L2):
 # both run in f32 and differ only in summation order (predicted ~1e-5
 # after 81 layers; a kernel that rounds to tf32 or bf16 gives > 1e-2).
@@ -273,12 +279,13 @@ def main() -> int:
         lines = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln or "C75" in ln]
         summary[name] = {"seconds": round(sec, 2), "ptxas": lines}
-        faults += ptxas_faults(log, "flash_bwd")
+        for marker in ("flash_bwd", "gemm_dense_f32", "gemm_grouped_f32"):
+            faults += ptxas_faults(log, marker)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": summary, "flash_bwd_faults": faults})
     if faults:
-        fail(f"build: ptxas spilled or serialised wgmma in a flash_bwd "
-             f"kernel: {faults}")
+        fail(f"build: ptxas spilled or serialised wgmma in a flash_bwd or "
+             f"f32 GEMM kernel: {faults}")
 
     flash_err = flash_phase(torch, dev, kfa)
     max_err = gemm_phase(torch, dev, kmm)
@@ -363,7 +370,9 @@ def main() -> int:
                         "max_abs_err": max_err[key],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"]})
+                        "library_ms": t["library_ms"],
+                        **({"products": "tf32x3"} if key in TF32X3_ROWS
+                           else {})})
     print(smi, flush=True)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -450,7 +459,7 @@ def gemm_phase(torch, dev, kmm):
         (4, 8192, 3072, res, bf, bf, TileConfig(32, 128, 32, split_k=8)),
         (100, 300, 1000, res, f32, f32,
          TileConfig(64, 64, 32, schedule="stream_k")),
-        # f32 inputs (SIMT path) and bf16 -> f32 outputs
+        # f32 inputs (split-TF32 path) and bf16 -> f32 outputs
         (128, 256, 512, none, f32, f32, None),
         (100, 300, 77, Epilogue(bias=True, activation="gelu"), f32, f32,
          TileConfig(64, 64, 32)),
@@ -719,7 +728,7 @@ def expert_gemm_phase(torch, dev, kmm) -> float:
         (16, 40, 768, 2048, swi, bf, bf, TileConfig(64, 128, 128, split_k=8)),
         (16, 40, 2048, 768, none, bf, bf,
          TileConfig(32, 256, 128, schedule="stream_k")),
-        # f32 inputs (SIMT path)
+        # f32 inputs (split-TF32 path)
         (8, 24, 200, 264, Epilogue(bias=True), f32, f32,
          TileConfig(32, 32, 32)),
         (8, 40, 768, 512, swi, f32, f32, None),
@@ -1062,11 +1071,11 @@ def _kernel_ms(prof):
     grouped GEMM's gemm_grouped_*, the epilogue backward's
     epilogue_bwd_kernel (csrc/matmul.cu); the flash forward's
     flash_fwd_kernel*, the backward's flash_bwd_* (csrc/flash_attention.cu;
-    the f32 route's SIMT kernels flash_bwd_*_simt apart)."""
+    the f32 route's split-TF32 kernels flash_bwd_*_tf32x3 apart)."""
     import os
     import tempfile
     groups = {"matmul": 0.0, "expert_matmul": 0.0, "flash_attention": 0.0,
-              "flash_attention_bwd": 0.0, "flash_attention_bwd_simt": 0.0,
+              "flash_attention_bwd": 0.0, "flash_attention_bwd_f32": 0.0,
               "epilogue_bwd": 0.0, "other": 0.0}
     counts = dict.fromkeys(groups, 0)
     other = {}
@@ -1083,8 +1092,8 @@ def _kernel_ms(prof):
             continue
         name = ev.get("name", "")
         key = ("flash_attention" if "flash_fwd_kernel" in name else
-               "flash_attention_bwd_simt" if "flash_bwd" in name
-               and "simt" in name else
+               "flash_attention_bwd_f32" if "flash_bwd" in name
+               and "tf32x3" in name else
                "flash_attention_bwd" if "flash_bwd" in name else
                "epilogue_bwd" if "epilogue_bwd" in name else
                "expert_matmul" if "gemm_grouped" in name else
@@ -1236,7 +1245,7 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity, moe_edge):
              f32)):
         dtype = str(bf)[6:]
         elem = 2 if bf == bf16 else 4
-        peak = BF16_PEAK if bf == bf16 else F32_PEAK
+        peak = BF16_PEAK if bf == bf16 else TF32X3_PEAK
         tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                "model_ms": 0.0, "bytes": 0, "flops": 0.0}
         for name, N, K, epn in gemms:
@@ -1520,9 +1529,12 @@ def probe_phase(torch, dev, kpr):
     dt, n_atoms, n_par = chains[[c[0] for c in chains].index("bfloat16")]
     counts = {f.__name__: f.launches for f in (kpr.stream_read,
                                                 kpr.mma_chain, kpr.wave_grid)}
+    # As the calibration times them: the sums into a buffer made once, so
+    # a call is the probe's one launch.
+    slots = torch.empty(4096, dtype=torch.int64, device=dev)
     cases = {
         "stream_read@calib": (
-            lambda: kpr.stream_read(x, nbytes, window, n_chunks),
+            lambda: kpr.stream_read(x, nbytes, window, n_chunks, out=slots),
             lambda: kpr.stream_read_plain(x, nbytes, window, n_chunks),
             # every f32 read is one add: bound by adds at the f32 rate (the
             # window itself, read once, is a few µs of HBM at most)
@@ -1531,13 +1543,13 @@ def probe_phase(torch, dev, kpr):
                      f"{n_chunks} fetches",
              "level_bound_ms": nbytes / 3.35e12 * 1e3}),
         "mma_chain@calib": (
-            lambda: kpr.mma_chain(a, b, n_atoms, n_par),
+            lambda: kpr.mma_chain(a, b, n_atoms, n_par, out=slots),
             lambda: kpr.mma_chain_plain(a, b, n_atoms, n_par),
             2 * 64 * 128 / HBM_BW, n_atoms * ATOM_FLOPS / PEAKS[dt],
             {"what": f"{dt}: {n_atoms} atoms of 64x64x16 over {n_par} CTAs "
                      f"of {kpr.CHAINS_PER_CTA} chains"}),
         "wave_grid@calib": (
-            lambda: kpr.wave_grid(a, b, lanes, unit_atoms),
+            lambda: kpr.wave_grid(a, b, lanes, unit_atoms, out=slots),
             lambda: kpr.wave_grid_plain(a, b, lanes, unit_atoms),
             2 * 64 * 128 / HBM_BW,
             lanes * unit_atoms * ATOM_FLOPS / PEAKS["bfloat16"],
@@ -1597,6 +1609,9 @@ def calib_phase(torch, dev, kpr):
                   "residual": res.residuals[k]}
               for k, v in sorted(res.fitted.items())}
     wave = res.probes["wave"].params
+    emit({"phase": "calib_constants", "device": device.name,
+          **{k: res.fitted.get(k) for k in ("hbm_latency", "kernel_launch",
+                                            "dma_fixed")}})
     emit({"phase": "calib", "device": device.name, "seconds": seconds,
           "fields": fields, "static_share": res.static_share,
           "wave_cliff": {"units": [wave["cliff_units"],
@@ -2088,7 +2103,7 @@ def train_kernels_phase(torch, dev, kmm, kfa):
                 worst["flash_attention@train"], float(o_err.max()))
         plan = kfa.plan_attention_bwd(S, S, d, batch=B, heads=H,
                                       kv_heads=Hkv, in_dtype=dtype)
-        ok = ok and plan.route == ("simt" if f32_case else "wgmma")
+        ok = ok and plan.route == ("tf32x3" if f32_case else "wgmma")
         _check_case(rows, "train_kernels", {
             "kernel": "flash_attention_bwd", "q": [B, H, S, d],
             "kv": [B, Hkv, S, d], "dtype": dtype, "causal": causal,
@@ -2379,12 +2394,12 @@ def train_trace_phase(torch, dev, model, state, batch):
     busy = sum(ms.values())
     top = sorted(other.items(), key=lambda kv: -kv[1])[:12]
     L = model.cfg.num_layers
-    if counts["flash_attention_bwd_simt"] \
+    if counts["flash_attention_bwd_f32"] \
             or counts["flash_attention_bwd"] != 3 * L:
         fail(f"train_trace: the bf16 step's attention backward ran "
              f"{counts['flash_attention_bwd']} wgmma-route kernels "
              f"(delta, dK/dV, dQ: {3 * L} expected) and "
-             f"{counts['flash_attention_bwd_simt']} SIMT ones")
+             f"{counts['flash_attention_bwd_f32']} f32-route ones")
     emit({"phase": "train_trace", "arch": model.cfg.name,
           "what": "torch.profiler device kernel time vs host wall time of "
           "one train step (profiler on)", "batch": [TRAIN_B, TRAIN_S],
@@ -2515,7 +2530,7 @@ def train_times_phase(torch, dev, kmm, kfa):
                                      causal=True, return_lse=True)
         pairs = S * (S + 1) // 2
         elem = q.element_size()
-        peak = BF16_PEAK if dtype == "bfloat16" else F32_PEAK
+        peak = BF16_PEAK if dtype == "bfloat16" else TF32X3_PEAK
         if key == "flash_attention@train":
             kern = lambda: kfa._launch_cuda(  # noqa: E731
                 q, k, v, block_q=bq, block_kv=bkv, causal=True, scale=None,

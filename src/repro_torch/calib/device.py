@@ -200,6 +200,7 @@ class TorchDevice:
         self._gemm_key = None
         self._gemm_ab = None
         self._side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+        self._slots_buf = None
 
     def _generator(self):
         return self._torch.Generator(device=self.device).manual_seed(SEED)
@@ -224,6 +225,19 @@ class TorchDevice:
                 dtype, self.device, self._generator())
         return self._operands[dtype]
 
+    def _slots(self, n: int):
+        """The int64 buffer (at least ``n`` slots) that timed probe calls
+        write their sums into, made before any graph captures it: a timed
+        call is then the probe's one launch, with no fill or allocation
+        beside it, for every probe alike.  None on the CPU."""
+        if self.device.type != "cuda":
+            return None
+        if self._slots_buf is None or self._slots_buf.numel() < n:
+            self._slots_buf = self._torch.empty(
+                max(int(n), 4096), dtype=self._torch.int64,
+                device=self.device)
+        return self._slots_buf
+
     def stream_time(self, nbytes: float, window: int,
                     n_chunks: int) -> float:
         from repro_torch.kernels import probes
@@ -231,8 +245,9 @@ class TorchDevice:
         if x is None:
             x = self._windows[window] = probes.stream_data(window,
                                                            self.device)
+        out = self._slots(probes.STREAM_SLOTS_MAX)
         return self._time(
-            lambda: probes.stream_read(x, nbytes, window, n_chunks))
+            lambda: probes.stream_read(x, nbytes, window, n_chunks, out=out))
 
     def compute_time(self, dtype: str, n_atoms: int,
                      n_parallel: int = 1) -> float:
@@ -241,15 +256,18 @@ class TorchDevice:
         # cannot reach.
         from repro_torch.kernels import probes
         a, b = self._mma_operands(dtype)
+        n_parallel = max(int(n_parallel), 1)
+        out = self._slots(n_parallel * probes.CHAINS_PER_CTA)
         return self._time(
-            lambda: probes.mma_chain(a, b, n_atoms, max(int(n_parallel), 1)))
+            lambda: probes.mma_chain(a, b, n_atoms, n_parallel, out=out))
 
     def wave_time(self, n_units: int, unit_atoms: int,
                   dtype: str) -> float:
         from repro_torch.kernels import probes
         a, b = self._mma_operands(dtype)
+        out = self._slots(max(int(n_units), 1))
         return self._time(
-            lambda: probes.wave_grid(a, b, n_units, unit_atoms))
+            lambda: probes.wave_grid(a, b, n_units, unit_atoms, out=out))
 
     def gemm_time(self, p: GemmProblem, t: TileConfig) -> float:
         from repro_torch.kernels import ops

@@ -113,10 +113,16 @@
 // its score math and its products again.  The route follows the dtype
 // alone, and the host plan (kernels/flash_attention.py::plan_attention_bwd)
 // passes its tiles, grids and shared bytes, which the entry checks against
-// the instantiation it runs.  f32 inputs run the SIMT
-// kernels flash_bwd_dkdv_simt / flash_bwd_dq_simt in full f32 on the CUDA
-// cores (tf32 wgmma misses the f32 tolerance): 32-row blocks, bound by the
-// CUDA cores' f32 rate and shared-memory reads.
+// the instantiation it runs.  f32 inputs run the same
+// two-kernel structure on the tensor cores with split-TF32 products
+// (flash_bwd_dkdv_tf32x3 / flash_bwd_dq_tf32x3, below; one TF32 product
+// misses the f32 tolerance, three meet it).  At the f32 training shape
+// (2 x 24/8 heads of 512 x 128, causal) the backward's five products are
+// 8.07e9 flop, about 0.05 ms at the TF32 peak three times over; the
+// kernels compute seven 64x64 products a block pair (S^T, dP^T, dV, dK;
+// S, dP, dQ), and what bounds them is again the longest dK/dV CTA's
+// chain of q-block steps, each its products, its score math and its
+// products again.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -124,6 +130,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace repro {
@@ -752,8 +759,8 @@ bool valid_shape(int B, int H, int Hkv, int Sq, int Skv, int d, int block_q) {
 
 // ---------------------------------------------------------------------------
 // Backward.  delta = rowsum(dO o O) first (flash_bwd_delta, either dtype);
-// then bf16 runs the two wgmma kernels below and f32 the SIMT kernels
-// further down.
+// then bf16 runs the two wgmma kernels below and f32 the split-TF32
+// kernels further down.
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdStages = 2;                     // the backward's TMA rings
@@ -764,8 +771,8 @@ constexpr uint32_t kStatBytes = 2 * kBwdQRows * 4;  // a q block's lse2, delta
 
 struct BwdParams {
   int B, H, Hkv, Sq, Skv, kv_len, causal, d;
-  int sq_pad;  // rows a (b, h) of delta / lse2: Sq, or Sq padded to 64
-  float scale;
+  int sq_pad;  // rows a (b, h) of delta / lse2: Sq padded to 64
+  float scale, scale_log2;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss, g_sb, g_sh, g_ss;  // g: dO
   // dq (B, H, Sq, d) and dk / dv (B, Hkv, Skv, d) contiguous; lse (B, H,
@@ -1299,241 +1306,493 @@ cudaError_t launch_bwd_wgmma(const BwdOperands& a, const BwdTmaParams& p,
 }
 
 // ---------------------------------------------------------------------------
-// f32 backward on the CUDA cores.  32-row q blocks and 32-key kv blocks;
-// 256 threads, thread t owning row t / 8 of a block and columns t % 8 + 8 w
-// (w < DP / 8) of its outputs, and, for the scores, q row t / 8 against
-// keys t % 8 + 8 u (u < 4).  Shared-memory rows are padded by one float so
-// that the eight keys (or columns) a warp reads fall in eight banks.
+// f32 backward on the tensor cores: the bf16 route's structure with every
+// product in split TF32 (tf32x3.cuh, mma.sync) and the sums and the softmax
+// algebra in f32.  Tiles are f32 rows of the head dim padded to DP + 4
+// floats, loaded by cp.async (16-byte copies, zero-filled past S and past
+// d); one [row][d] tile serves as the K-major operand of Q K^T and dO V^T
+// (fragment loads across its rows) and as the row-indexed B of P^T dO,
+// dS^T Q and dS K (loads across its columns, k in the paired order of the
+// register A operand): P and dS never leave the registers and no tile is
+// transposed.  Products skip the 8-column blocks past d.
+//  * flash_bwd_dkdv_tf32x3: one CTA per (64 kv rows, q head, batch), kv
+//    block 0 first, walking the head's q blocks (under causal from its
+//    diagonal) through a 2-stage ring of (Q, dO) tiles with the block's
+//    lse2 and delta; K and V loaded once.  8 warps: warp w holds kv rows
+//    16 (w % 4) and accumulates their dV (w < 4) or dK (w >= 4).  Each
+//    computes one product of scores a step, S^T = K Q^T (dV) or
+//    dP^T = V dO^T (dK), and the dV warp hands P^T to its dK partner
+//    through shared memory: two products a warp a step, none twice.
+//    Under GQA a CTA per q head, not per kv head, cuts the longest CTA's
+//    walk by the group size (24 q-block steps to 8 at the f32 training
+//    shape); each writes its head's dK, dV to a scratch, and
+//    flash_bwd_group_sum adds a group's heads in head order.
+//  * flash_bwd_dq_tf32x3: one CTA per (64 q rows, head, batch), heaviest
+//    causal block first; Q and dO loaded once, (K, V) tiles through the
+//    ring.  Warp w holds q rows 16 (w % 4) and half of each stage's keys
+//    (w / 4); the two halves' dQ are added in a fixed order at the end.
+// Past a head dim of 128 the ring's stages hold fewer rows (kBwdF32Rows)
+// so that K, V and two stages fit 227 KB.  No atomics: two launches are
+// bitwise equal.
 // ---------------------------------------------------------------------------
 
-constexpr int kBwdRows = 32;
-constexpr int kBwdThreads = 256;
-constexpr int kBwdLdS = kBwdRows + 1;  // row stride of P and dS
-
-// Rows [r0, r0 + 32) of an (S, d) matrix with row stride ss into a
-// [32][DP + 1] f32 tile, zeros past S and past d.
 template <int DP>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          long long ss, int r0, int S,
-                                          int d) {
-  for (int i = threadIdx.x; i < kBwdRows * DP; i += kBwdThreads) {
-    const int r = i / DP, c = i - r * DP;
-    dst[r * (DP + 1) + c] =
-        r0 + r < S && c < d ? src[static_cast<long long>(r0 + r) * ss + c]
-                            : 0.0f;
+struct BwdF32 {
+  static constexpr int kLd = DP + 4;         // floats a tile row
+  static constexpr int kRows = 64;           // kv rows a dK/dV CTA, q rows a dQ CTA
+  // q rows a dK/dV stage, keys a dQ stage
+  static constexpr int kStep = DP <= 128 ? 64 : (DP <= 192 ? 32 : 16);
+  static constexpr int kStages = 2;
+  static constexpr int kThreads = 256;
+  // k8 steps of a score product unrolled together: past DP 128 the
+  // accumulators of the head dim leave no registers for more.
+  static constexpr int kUnroll = DP <= 128 ? 4 : 1;
+  static constexpr int kStatFloats = 2 * kStep;  // lse2, delta of a stage
+  static constexpr int kKVStage = 2 * kStep * kLd + kStatFloats;
+  // P^T handed from the dV warps to the dK warps: 4 row groups x 32 lanes
+  // x the kStep / 2 values of a thread's fragments.
+  static constexpr int kXFloats = 4 * 32 * (kStep / 2);
+  static constexpr size_t kKVSmem =
+      sizeof(float) * (2 * kRows * kLd + kStages * kKVStage + kXFloats);
+  static constexpr int kQStage = 2 * kStep * kLd;
+  static constexpr size_t kQSmem =
+      sizeof(float) * (2 * kRows * kLd + kStages * kQStage);
+  static_assert(DP % 64 == 0 && DP <= kMaxD, "DP: 64, 128, 192 or 256");
+  static_assert(kKVSmem <= 232448 && kQSmem <= 232448, "227 KB a CTA");
+};
+
+// Rows [r0, r0 + R) of an (S, d) f32 matrix with row stride ss into an
+// [R][DP + 4] tile, 16 bytes a copy; rows past S and columns past d are
+// zero-filled.
+template <int DP, int R>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              long long ss, int r0, int S,
+                                              int d) {
+  constexpr int kCpr = DP / 4;
+  for (int c = threadIdx.x; c < R * kCpr; c += BwdF32<DP>::kThreads) {
+    const int r = c / kCpr, col = (c - r * kCpr) * 4;
+    const bool ok = r0 + r < S && col < d;
+    cp_async16(dst + r * BwdF32<DP>::kLd + col,
+               ok ? src + static_cast<long long>(r0 + r) * ss + col : src,
+               ok);
   }
 }
 
-// The scores of one (q block, kv block) pair: S = Q K^T and dP = dO V^T over
-// the tiles, then P = exp(S scale - lse) on the visible (query, key) pairs
-// and dS = P (dP - delta), into ps (when given) and dss.
+// n floats (a multiple of 4) from global to shared memory.
+__device__ __forceinline__ void load_floats(float* dst, const float* src,
+                                            int n) {
+  for (int c = threadIdx.x * 4; c < n; c += 4 * 256)
+    cp_async16(dst + c, src + c, true);
+}
+
 template <int DP>
-__device__ __forceinline__ void block_scores(
-    const float* qs, const float* gs, const float* ks, const float* vs,
-    const float* lse_s, const float* delta_s, float* ps, float* dss, int q0,
-    int k0, int kv_lim, const BwdParams& p) {
-  constexpr int LD = DP + 1;
-  const int qi = threadIdx.x / 8, kb = threadIdx.x % 8;
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dp[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  const float* qr = qs + qi * LD;
-  const float* gr = gs + qi * LD;
-#pragma unroll 4
-  for (int c = 0; c < DP; ++c) {
-    const float qv = qr[c], gv = gr[c];
+__global__ void __launch_bounds__(BwdF32<DP>::kThreads, 1)
+    flash_bwd_dkdv_tf32x3(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
+                          const float* __restrict__ dout,
+                          const float* __restrict__ lse2,
+                          const float* __restrict__ delta,
+                          float* __restrict__ dk, float* __restrict__ dv,
+                          float* __restrict__ part, const BwdParams p) {
+  using F = BwdF32<DP>;
+  constexpr int LD = F::kLd, QR = F::kStep, NQ = QR / 8, NC = DP / 8;
+  extern __shared__ __align__(16) unsigned char tf32_smem[];
+  float* k_s = reinterpret_cast<float*>(tf32_smem);
+  float* v_s = k_s + F::kRows * LD;
+  float* ring = v_s + F::kRows * LD;
+
+  const int bh = p.B * p.H;
+  const int kvb = blockIdx.x / bh, hb = blockIdx.x - kvb * bh;
+  const int h = hb % p.H, b = hb / p.H;
+  const int group = p.H / p.Hkv, hk = h / group;
+  const int k0 = kvb * F::kRows;
+  const int kv_lim = min(p.Skv, p.kv_len);
+  const int n_qb = (p.Sq + QR - 1) / QR;
+  // Under causal, query i sees key j iff i >= j: q blocks from k0's.
+  const int qb0 = p.causal ? min(k0 / QR, n_qb) : 0;
+  const int n_steps = k0 < kv_lim ? n_qb - qb0 : 0;
+
+  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int rg = warp % 4;
+  const bool kDK = warp >= 4;  // warp-uniform role
+
+  auto load_step = [&](int i, int stage) {
+    const int qb = qb0 + i;
+    float* q_s = ring + stage * F::kKVStage;
+    load_rows_f32<DP, QR>(q_s, q + b * p.q_sb + h * p.q_sh, p.q_ss, qb * QR,
+                          p.Sq, p.d);
+    load_rows_f32<DP, QR>(q_s + QR * LD, dout + b * p.g_sb + h * p.g_sh,
+                          p.g_ss, qb * QR, p.Sq, p.d);
+    const size_t row = (static_cast<size_t>(b) * p.H + h) * p.sq_pad + qb * QR;
+    load_floats(q_s + 2 * QR * LD, lse2 + row, QR);
+    load_floats(q_s + 2 * QR * LD + QR, delta + row, QR);
+  };
+
+  load_rows_f32<DP, 64>(k_s, k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv,
+                        p.d);
+  load_rows_f32<DP, 64>(v_s, v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv,
+                        p.d);
+  if (n_steps > 0) load_step(0, 0);
+  cp_async_commit();
+
+  float acc[NC][4];
 #pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      s[u] = fmaf(qv, ks[(kb + 8 * u) * LD + c], s[u]);
-      dp[u] = fmaf(gv, vs[(kb + 8 * u) * LD + c], dp[u]);
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+  const float* kr = k_s + 16 * rg * LD;
+  const float* vr = v_s + 16 * rg * LD;
+  // A dV warp's P^T for the dK warp of its rows: [row group][j][e][lane].
+  float* xb = ring + F::kStages * F::kKVStage + rg * NQ * 4 * 32 + lane;
+
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // step i has landed; step i - 1's stage is read
+    if (i + 1 < n_steps) load_step(i + 1, (i + 1) % F::kStages);
+    cp_async_commit();
+    const int q0 = (qb0 + i) * QR;
+    const float* q_s = ring + (i % F::kStages) * F::kKVStage;
+    const float* do_s = q_s + QR * LD;
+    const float* st = do_s + QR * LD;
+
+    // The dV warp: S^T = K Q^T over its 16 kv rows; the dK warp of the same
+    // rows: dP^T = V dO^T.
+    float s[NQ][4];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+    const float* a_rows = kDK ? vr : kr;
+    const float* b_rows = kDK ? do_s : q_s;
+#pragma unroll (F::kUnroll)
+    for (int kk = 0; kk < DP; kk += 8) {
+      if (kk >= p.d) break;
+      FragA fa;
+      load_a_rows(fa, a_rows + kk, LD, g, t);
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        FragB fb;
+        load_b_rows(fb, b_rows + 8 * j * LD + kk, LD, g, t);
+        mma_tf32x3(s[j], fa, fb);
+      }
+    }
+    // The dV warp: P^T = exp2(S^T scale log2(e) - lse2), the accumulator's
+    // column being the q row, handed to its dK partner through shared
+    // memory (each thread's own fragment positions); the dK warp:
+    // dS^T = P^T o (dP^T - delta).
+    if (!kDK) {
+      const bool edge = (p.causal && q0 < k0 + 63) || k0 + 64 > kv_lim;
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * j + 2 * t + (e & 1);
+          float x = s[j][e] * p.scale_log2 - st[qc];
+          if (edge) {
+            const int key = k0 + 16 * rg + g + 8 * (e >> 1);
+            if (key >= kv_lim || (p.causal && q0 + qc < key))
+              x = -CUDART_INF_F;
+          }
+          s[j][e] = exp2f(x);
+          xb[(j * 4 + e) * 32] = s[j][e];
+        }
+    }
+    named_sync(1 + rg, 64);  // the pair's P^T is written
+    if (kDK) {
+#pragma unroll
+      for (int j = 0; j < NQ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * j + 2 * t + (e & 1);
+          s[j][e] = xb[(j * 4 + e) * 32] * (s[j][e] - st[QR + qc]);
+        }
+    }
+    // dV += P^T dO, or dK += dS^T Q: the step's products a fragment in a
+    // fresh accumulator, then one rounded add into the running sum.
+    const float* rows = kDK ? q_s : do_s;
+    FragA fa[NQ];
+#pragma unroll
+    for (int j = 0; j < NQ; ++j) ka_from_acc(fa[j], s[j]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (8 * c >= p.d) continue;
+      float part[4];
+#pragma unroll
+      for (int j = 0; j < NQ; ++j) {
+        FragB fb;
+        load_b_cols_pairs(fb, rows + 8 * j * LD + 8 * c, LD, g, t);
+        if (j == 0)
+          mma_tf32x3_fresh(part, fa[j], fb);
+        else
+          mma_tf32x3(part, fa[j], fb);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] += part[e];
     }
   }
-  const int i = q0 + qi;
+  cp_async_wait<0>();
+
+  // Without GQA straight to dK / dV; else to the head's slot of the scratch.
+  const float mul = kDK ? p.scale : 1.0f;
+  float* out = group == 1
+                   ? (kDK ? dk : dv) +
+                         (static_cast<size_t>(b) * p.Hkv + hk) * p.Skv * p.d
+                   : part + (kDK ? 0 : static_cast<size_t>(bh) * p.Skv * p.d) +
+                         static_cast<size_t>(hb) * p.Skv * p.d;
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int j = k0 + kb + 8 * u;
-    const bool visible = i < p.Sq && j < kv_lim && (!p.causal || i >= j);
-    const float pr = visible ? expf(s[u] * p.scale - lse_s[qi]) : 0.0f;
-    if (ps != nullptr) ps[qi * kBwdLdS + kb + 8 * u] = pr;
-    dss[qi * kBwdLdS + kb + 8 * u] = pr * (dp[u] - delta_s[qi]);
+  for (int h = 0; h < 2; ++h) {
+    const int row = k0 + 16 * rg + g + 8 * h;
+    if (row >= p.Skv) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = 8 * c + 2 * t;
+      if (col < p.d)
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * p.d +
+                                   col) =
+            make_float2(acc[c][2 * h] * mul, acc[c][2 * h + 1] * mul);
+    }
   }
 }
 
-template <int DC>
-constexpr size_t bwd_smem() {  // Q, dO, K, V tiles, P and dS, lse, delta
-  return sizeof(float) * (4 * kBwdRows * (32 * DC + 1) +
-                          2 * kBwdRows * kBwdLdS + 2 * kBwdRows);
-}
-
-template <int DC>
-__global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dkdv_simt(const float* __restrict__ q,
+template <int DP>
+__global__ void __launch_bounds__(BwdF32<DP>::kThreads, 1)
+    flash_bwd_dq_tf32x3(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
                         const float* __restrict__ dout,
-                        const float* __restrict__ lse,
+                        const float* __restrict__ lse2,
                         const float* __restrict__ delta,
-                        float* __restrict__ dk, float* __restrict__ dv,
-                        const BwdParams p) {
-  constexpr int DP = 32 * DC, LD = DP + 1, NW = DP / 8;
-  extern __shared__ float bwd_smem_raw[];
-  float* ks = bwd_smem_raw;
-  float* vs = ks + kBwdRows * LD;
-  float* qs = vs + kBwdRows * LD;
-  float* gs = qs + kBwdRows * LD;
-  float* ps = gs + kBwdRows * LD;
-  float* dss = ps + kBwdRows * kBwdLdS;
-  float* lse_s = dss + kBwdRows * kBwdLdS;
-  float* delta_s = lse_s + kBwdRows;
+                        float* __restrict__ dq, const BwdParams p) {
+  using F = BwdF32<DP>;
+  constexpr int LD = F::kLd, KB = F::kStep, NK = KB / 16, NC = DP / 8;
+  extern __shared__ __align__(16) unsigned char tf32_smem[];
+  float* q_s = reinterpret_cast<float*>(tf32_smem);
+  float* do_s = q_s + F::kRows * LD;
+  float* ring = do_s + F::kRows * LD;
 
-  // kv block 0 first: under causal it walks the most q blocks.
-  const int bhk = p.B * p.Hkv;
-  const int kvb = blockIdx.x / bhk, hb = blockIdx.x - kvb * bhk;
-  const int hk = hb % p.Hkv, b = hb / p.Hkv;
-  const int k0 = kvb * kBwdRows;
-  const int kv_lim = min(p.Skv, p.kv_len);
-  const int group = p.H / p.Hkv;
-  const int n_qb = (p.Sq + kBwdRows - 1) / kBwdRows;
-  // Under causal, query i sees key j iff i >= j: q blocks from k0's.
-  const int qb0 = p.causal ? min(k0 / kBwdRows, n_qb) : 0;
-  const int kr = threadIdx.x / 8, cb = threadIdx.x % 8;
-
-  float dk_acc[NW], dv_acc[NW];
-#pragma unroll
-  for (int w = 0; w < NW; ++w) dk_acc[w] = dv_acc[w] = 0.0f;
-  load_tile<DP>(ks, k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv, p.d);
-  load_tile<DP>(vs, v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv, p.d);
-  for (int gi = 0; gi < group && k0 < kv_lim; ++gi) {
-    const int h = hk * group + gi;
-    for (int qb = qb0; qb < n_qb; ++qb) {
-      const int q0 = qb * kBwdRows;
-      __syncthreads();  // the previous pair's tiles are read
-      load_tile<DP>(qs, q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, p.d);
-      load_tile<DP>(gs, dout + b * p.g_sb + h * p.g_sh, p.g_ss, q0, p.Sq,
-                    p.d);
-      if (threadIdx.x < kBwdRows) {
-        const int i = q0 + threadIdx.x;
-        const size_t at = (static_cast<size_t>(b) * p.H + h) * p.Sq + i;
-        lse_s[threadIdx.x] = i < p.Sq ? lse[at] : CUDART_INF_F;
-        delta_s[threadIdx.x] = i < p.Sq ? delta[at] : 0.0f;
-      }
-      __syncthreads();
-      block_scores<DP>(qs, gs, ks, vs, lse_s, delta_s, ps, dss, q0, k0,
-                       kv_lim, p);
-      __syncthreads();
-      for (int qi = 0; qi < kBwdRows; ++qi) {
-        const float pv = ps[qi * kBwdLdS + kr], dsv = dss[qi * kBwdLdS + kr];
-        const float* gr = gs + qi * LD;
-        const float* qr = qs + qi * LD;
-#pragma unroll
-        for (int w = 0; w < NW; ++w) {
-          dv_acc[w] = fmaf(pv, gr[cb + 8 * w], dv_acc[w]);
-          dk_acc[w] = fmaf(dsv, qr[cb + 8 * w], dk_acc[w]);
-        }
-      }
-    }
-  }
-  const int j = k0 + kr;
-  if (j >= p.Skv) return;
-  const size_t at = ((static_cast<size_t>(b) * p.Hkv + hk) * p.Skv + j) * p.d;
-#pragma unroll
-  for (int w = 0; w < NW; ++w) {
-    const int c = cb + 8 * w;
-    if (c < p.d) {
-      dk[at + c] = dk_acc[w] * p.scale;
-      dv[at + c] = dv_acc[w];
-    }
-  }
-}
-
-template <int DC>
-__global__ void __launch_bounds__(kBwdThreads)
-    flash_bwd_dq_simt(const float* __restrict__ q, const float* __restrict__ k,
-                      const float* __restrict__ v,
-                      const float* __restrict__ dout,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta, float* __restrict__ dq,
-                      const BwdParams p) {
-  constexpr int DP = 32 * DC, LD = DP + 1, NW = DP / 8;
-  extern __shared__ float bwd_smem_raw[];
-  float* qs = bwd_smem_raw;
-  float* gs = qs + kBwdRows * LD;
-  float* ks = gs + kBwdRows * LD;
-  float* vs = ks + kBwdRows * LD;
-  float* dss = vs + kBwdRows * LD;
-  float* lse_s = dss + 2 * kBwdRows * kBwdLdS;
-  float* delta_s = lse_s + kBwdRows;
-
-  // The heaviest causal q block first, as the forward.
-  const int bh = p.B * p.H;
-  const int n_qb = (p.Sq + kBwdRows - 1) / kBwdRows;
-  const int step = blockIdx.x / bh, hb = blockIdx.x - step * bh;
+  const int heads = p.H * p.B;
+  const int n_qb = p.sq_pad / F::kRows;
+  const int step = blockIdx.x / heads, hb = blockIdx.x - step * heads;
   const int qb = p.causal ? n_qb - 1 - step : step;
-  const int h = hb % p.H, b = hb / p.H, hk = h / (p.H / p.Hkv);
-  const int q0 = qb * kBwdRows;
+  const int h = hb % p.H, b = hb / p.H;
+  const int hk = h / (p.H / p.Hkv);
+  const int q0 = qb * F::kRows;
   const int kv_lim = min(p.Skv, p.kv_len);
-  int n_kb = kv_lim > 0 ? (kv_lim + kBwdRows - 1) / kBwdRows : 0;
-  if (p.causal)
-    n_kb = min(n_kb, (min(q0 + kBwdRows, p.Sq) - 1) / kBwdRows + 1);
-  const int qr = threadIdx.x / 8, cb = threadIdx.x % 8;
+  int n_kb = kv_lim > 0 ? (kv_lim + KB - 1) / KB : 0;
+  if (p.causal) n_kb = min(n_kb, (min(q0 + F::kRows, p.Sq) - 1) / KB + 1);
 
-  load_tile<DP>(qs, q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq, p.d);
-  load_tile<DP>(gs, dout + b * p.g_sb + h * p.g_sh, p.g_ss, q0, p.Sq, p.d);
-  if (threadIdx.x < kBwdRows) {
-    const int i = q0 + threadIdx.x;
-    const size_t at = (static_cast<size_t>(b) * p.H + h) * p.Sq + i;
-    lse_s[threadIdx.x] = i < p.Sq ? lse[at] : CUDART_INF_F;
-    delta_s[threadIdx.x] = i < p.Sq ? delta[at] : 0.0f;
+  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int rg = warp % 4, kh = warp / 4;
+  const float* kbase = k + b * p.k_sb + hk * p.k_sh;
+  const float* vbase = v + b * p.v_sb + hk * p.v_sh;
+  auto load_step = [&](int kb, int stage) {
+    float* k_s = ring + stage * F::kQStage;
+    load_rows_f32<DP, KB>(k_s, kbase, p.k_ss, kb * KB, p.Skv, p.d);
+    load_rows_f32<DP, KB>(k_s + KB * LD, vbase, p.v_ss, kb * KB, p.Skv, p.d);
+  };
+  load_rows_f32<DP, 64>(q_s, q + b * p.q_sb + h * p.q_sh, p.q_ss, q0, p.Sq,
+                        p.d);
+  load_rows_f32<DP, 64>(do_s, dout + b * p.g_sb + h * p.g_sh, p.g_ss, q0,
+                        p.Sq, p.d);
+  if (n_kb > 0) load_step(0, 0);
+  cp_async_commit();
+
+  // The thread's two q rows (the scratch is padded to sq_pad rows).
+  const int row0 = q0 + 16 * rg + g;
+  float l2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t at =
+        (static_cast<size_t>(b) * p.H + h) * p.sq_pad + row0 + 8 * r;
+    l2[r] = lse2[at];
+    dl[r] = delta[at];
   }
-  float dq_acc[NW];
+  float acc[NC][4];
 #pragma unroll
-  for (int w = 0; w < NW; ++w) dq_acc[w] = 0.0f;
+  for (int c = 0; c < NC; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+  const float* qr = q_s + 16 * rg * LD;
+  const float* gr = do_s + 16 * rg * LD;
+
   for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * kBwdRows;
-    __syncthreads();  // Q, dO, lse and delta are staged; the last K, V read
-    load_tile<DP>(ks, k + b * p.k_sb + hk * p.k_sh, p.k_ss, k0, p.Skv, p.d);
-    load_tile<DP>(vs, v + b * p.v_sb + hk * p.v_sh, p.v_ss, k0, p.Skv, p.d);
+    cp_async_wait<0>();
     __syncthreads();
-    block_scores<DP>(qs, gs, ks, vs, lse_s, delta_s, nullptr, dss, q0, k0,
-                     kv_lim, p);
-    __syncthreads();
-    for (int kj = 0; kj < kBwdRows; ++kj) {
-      const float dsv = dss[qr * kBwdLdS + kj];
-      const float* kr = ks + kj * LD;
+    if (kb + 1 < n_kb) load_step(kb + 1, (kb + 1) % F::kStages);
+    cp_async_commit();
+    const int k0 = kb * KB + kh * (KB / 2);  // the warp's first key
+    const float* k_s = ring + (kb % F::kStages) * F::kQStage + kh * (KB / 2) * LD;
+    const float* v_s = k_s + KB * LD;
+
+    // S = Q K^T and dP = dO V^T over the warp's 16 q rows and KB / 2 keys.
+    float s[NK][4], dp[NK][4];
 #pragma unroll
-      for (int w = 0; w < NW; ++w)
-        dq_acc[w] = fmaf(dsv, kr[cb + 8 * w], dq_acc[w]);
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+#pragma unroll (F::kUnroll)
+    for (int kk = 0; kk < DP; kk += 8) {
+      if (kk >= p.d) break;
+      FragA fq, fo;
+      load_a_rows(fq, qr + kk, LD, g, t);
+      load_a_rows(fo, gr + kk, LD, g, t);
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        FragB fb;
+        load_b_rows(fb, k_s + 8 * j * LD + kk, LD, g, t);
+        mma_tf32x3(s[j], fq, fb);
+        load_b_rows(fb, v_s + 8 * j * LD + kk, LD, g, t);
+        mma_tf32x3(dp[j], fo, fb);
+      }
+    }
+    const bool edge = k0 + KB / 2 > kv_lim || (p.causal && k0 + KB / 2 - 1 > q0);
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float x = s[j][e] * p.scale_log2 - l2[r];
+        if (edge) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          if (key >= kv_lim || (p.causal && row0 + 8 * r < key))
+            x = -CUDART_INF_F;
+        }
+        dp[j][e] = exp2f(x) * (dp[j][e] - dl[r]);
+      }
+    // dQ += dS K, K's rows as the row-indexed B, a fresh accumulator a
+    // step as in the dK/dV kernel.
+    FragA fa[NK];
+#pragma unroll
+    for (int j = 0; j < NK; ++j) ka_from_acc(fa[j], dp[j]);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      if (8 * c >= p.d) continue;
+      float part[4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        FragB fb;
+        load_b_cols_pairs(fb, k_s + 8 * j * LD + 8 * c, LD, g, t);
+        if (j == 0)
+          mma_tf32x3_fresh(part, fa[j], fb);
+        else
+          mma_tf32x3(part, fa[j], fb);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[c][e] += part[e];
     }
   }
-  const int i = q0 + qr;
-  if (i >= p.Sq) return;
-  const size_t at = ((static_cast<size_t>(b) * p.H + h) * p.Sq + i) * p.d;
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the Q tile: it takes the sums
+
+  // The second key half's dQ goes through the dead Q tile, then the first
+  // half adds it, scales and stores: a fixed order, so bitwise repeatable.
+  float* red = q_s + 16 * rg * LD;
+  if (kh == 1) {
 #pragma unroll
-  for (int w = 0; w < NW; ++w) {
-    const int c = cb + 8 * w;
-    if (c < p.d) dq[at + c] = dq_acc[w] * p.scale;
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh)
+        *reinterpret_cast<float2*>(red + (g + 8 * hh) * LD + 8 * c + 2 * t) =
+            make_float2(acc[c][2 * hh], acc[c][2 * hh + 1]);
+  }
+  __syncthreads();
+  if (kh == 1) return;
+  float* out = dq + (static_cast<size_t>(b) * p.H + h) * p.Sq * p.d;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    if (row >= p.Sq) continue;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int col = 8 * c + 2 * t;
+      if (col >= p.d) continue;
+      const float2 o2 = *reinterpret_cast<const float2*>(
+          red + (g + 8 * hh) * LD + col);
+      *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * p.d + col) =
+          make_float2((acc[c][2 * hh] + o2.x) * p.scale,
+                      (acc[c][2 * hh + 1] + o2.y) * p.scale);
+    }
   }
 }
 
-template <int DC>
-cudaError_t launch_bwd_simt(const float* q, const float* k, const float* v,
-                            const float* dout, const float* lse,
-                            const float* delta, float* dq, float* dk,
-                            float* dv, const BwdParams& p, long long smem,
-                            cudaStream_t s) {
-  constexpr size_t bytes = bwd_smem<DC>();
-  if (smem != static_cast<long long>(bytes)) return cudaErrorInvalidValue;
+// dK and dV of kv head hk = the sum of its group's q heads' slots of the
+// scratch (part: dK slots, then dV slots, each (B, H, Skv, d)), in head
+// order; a thread a float4.
+__global__ void __launch_bounds__(256)
+    flash_bwd_group_sum(const float4* __restrict__ part,
+                        float4* __restrict__ dk, float4* __restrict__ dv,
+                        const BwdParams p) {
+  const long long per_head = static_cast<long long>(p.Skv) * p.d / 4;
+  const long long n = static_cast<long long>(p.B) * p.Hkv * per_head;
+  const long long i =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= 2 * n) return;
+  const bool is_v = i >= n;
+  const long long j = is_v ? i - n : i;
+  const long long bhk = j / per_head, at = j - bhk * per_head;
+  const int group = p.H / p.Hkv;
+  const float4* src = part + (is_v ? static_cast<long long>(p.B) * p.H *
+                                         per_head
+                                   : 0) +
+                      bhk * group * per_head + at;
+  float4 s = src[0];
+  for (int gi = 1; gi < group; ++gi) {
+    const float4 x = src[gi * per_head];
+    s.x += x.x;
+    s.y += x.y;
+    s.z += x.z;
+    s.w += x.w;
+  }
+  (is_v ? dv : dk)[j] = s;
+}
+
+// delta and lse2, then dK/dV (and under GQA the group sum), then dQ at DP;
+// `kv_smem`, `q_smem` and the grids are the caller's plan and must be this
+// instantiation's.
+template <int DP>
+cudaError_t launch_bwd_tf32x3(const float* q, const float* k, const float* v,
+                              const float* dout, const float* lse2,
+                              const float* delta, float* dq, float* dk,
+                              float* dv, float* part, const BwdParams& p,
+                              long long kv_smem, long long q_smem,
+                              long long kv_ctas, long long q_ctas,
+                              cudaStream_t s) {
+  using F = BwdF32<DP>;
+  const long long kv_grid =
+      static_cast<long long>((p.Skv + F::kRows - 1) / F::kRows) * p.B * p.H;
+  const long long q_grid =
+      static_cast<long long>(p.sq_pad / F::kRows) * p.B * p.H;
+  if (kv_smem != static_cast<long long>(F::kKVSmem) ||
+      q_smem != static_cast<long long>(F::kQSmem) || kv_ctas != kv_grid ||
+      q_ctas != q_grid || ((p.H != p.Hkv) != (part != nullptr)))
+    return cudaErrorInvalidValue;
   static const cudaError_t opted = [] {
-    const cudaError_t e = opt_in_smem(flash_bwd_dkdv_simt<DC>, bytes);
-    return e != cudaSuccess ? e : opt_in_smem(flash_bwd_dq_simt<DC>, bytes);
+    const cudaError_t e =
+        opt_in_smem(flash_bwd_dkdv_tf32x3<DP>, F::kKVSmem);
+    return e != cudaSuccess ? e
+                            : opt_in_smem(flash_bwd_dq_tf32x3<DP>, F::kQSmem);
   }();
   if (opted != cudaSuccess) return opted;
-  const unsigned n_kvb = (p.Skv + kBwdRows - 1) / kBwdRows;
-  const unsigned n_qb = (p.Sq + kBwdRows - 1) / kBwdRows;
-  flash_bwd_dkdv_simt<DC><<<n_kvb * p.B * p.Hkv, kBwdThreads, bytes, s>>>(
-      q, k, v, dout, lse, delta, dk, dv, p);
-  const cudaError_t err = cudaGetLastError();
+  flash_bwd_dkdv_tf32x3<DP><<<static_cast<unsigned>(kv_grid), F::kThreads,
+                              F::kKVSmem, s>>>(q, k, v, dout, lse2, delta, dk,
+                                               dv, part, p);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_simt<DC><<<n_qb * p.B * p.H, kBwdThreads, bytes, s>>>(
-      q, k, v, dout, lse, delta, dq, p);
+  if (part != nullptr) {
+    const long long n4 = 2LL * p.B * p.Hkv * p.Skv * p.d / 4;
+    flash_bwd_group_sum<<<static_cast<unsigned>((n4 + 255) / 256), 256, 0,
+                          s>>>(reinterpret_cast<const float4*>(part),
+                               reinterpret_cast<float4*>(dk),
+                               reinterpret_cast<float4*>(dv), p);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  flash_bwd_dq_tf32x3<DP><<<static_cast<unsigned>(q_grid), F::kThreads,
+                            F::kQSmem, s>>>(q, k, v, dout, lse2, delta, dq,
+                                            p);
   return cudaGetLastError();
 }
 
@@ -1603,19 +1862,22 @@ extern "C" int repro_flash_attention_f32(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The backward (f32 != 0: f32 tensors, on the SIMT kernels; else bf16, on
-// wgmma): dq (B, H, Sq, d), dk / dv (B, Hkv, Skv, d) contiguous in the
-// inputs' type, from q, k, v, the forward's o and lse, and dO (element
-// strides with a unit d stride; bf16 also 16-byte aligned bases and
-// strides: TMA reads q, k, v and dO in place).  delta and, in bf16, lse2
-// are (B, H, sq_pad) f32 scratch.  The launch follows the caller's plan
+// The backward (f32 != 0: f32 tensors, on the split-TF32 kernels; else
+// bf16, on wgmma): dq (B, H, Sq, d), dk / dv (B, Hkv, Skv, d) contiguous
+// in the inputs' type, from q, k, v, the forward's o and lse, and dO
+// (element strides with a unit d stride, 16-byte aligned bases and
+// strides: TMA (bf16) and cp.async (f32) read q, k, v and dO in place).
+// delta and lse2 are (B, H, sq_pad) f32 scratch; f32 under GQA (H > Hkv)
+// also takes
+// dkv_part, (2, B, H, Skv, d) f32 scratch for each q head's dK and dV
+// (null otherwise).  The launch follows the caller's plan
 // (kernels/flash_attention.py::plan_attention_bwd): the dK/dV CTA's kv
 // rows, the dQ CTA's q rows, sq_pad and each kernel's grid and shared
 // memory, every one checked against the instantiation that runs.
 extern "C" int repro_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, float* lse2, void* dq,
-    void* dk, void* dv, long long q_sb, long long q_sh, long long q_ss,
+    void* dk, void* dv, void* dkv_part, long long q_sb, long long q_sh, long long q_ss,
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, long long o_sb, long long o_sh,
     long long o_ss, long long g_sb, long long g_sh, long long g_ss, int B,
@@ -1623,6 +1885,7 @@ extern "C" int repro_flash_attention_bwd(
     int d, int f32, int kv_block, int q_block, int sq_pad, long long kv_ctas,
     long long q_ctas, long long kv_smem, long long q_smem, void* stream) {
   const BwdParams p{B, H, Hkv, Sq, Skv, kv_len, causal, d, sq_pad, scale,
+                    scale * kLog2e,
                     q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                     o_sb, o_sh, o_ss, g_sb, g_sh, g_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1633,15 +1896,25 @@ extern "C" int repro_flash_attention_bwd(
   const unsigned delta_grid =
       static_cast<unsigned>((static_cast<long long>(B) * H * sq_pad + 7) / 8);
   if (f32) {
-    if (kv_block != kBwdRows || q_block != kBwdRows || sq_pad != Sq ||
-        kv_ctas != n_kvb * B * Hkv ||
-        q_ctas != static_cast<long long>((Sq + kBwdRows - 1) / kBwdRows) *
-                      B * H ||
-        kv_smem != q_smem || lse2 != nullptr)
+    // cp.async reads q, k, v and dO in place: 16-byte aligned bases and
+    // strides (4 floats).
+    const long long strides[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+                                   v_sb, v_sh, v_ss, g_sb, g_sh, g_ss};
+    bool aligned = lse2 != nullptr;
+    for (long long st : strides) aligned = aligned && st >= 0 && st % 4 == 0;
+    for (const void* ptr : {q, k, v, dout, static_cast<const void*>(dq),
+                            static_cast<const void*>(dk),
+                            static_cast<const void*>(dv),
+                            static_cast<const void*>(delta),
+                            static_cast<const void*>(lse2),
+                            static_cast<const void*>(dkv_part)})
+      aligned = aligned && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+    if (!aligned || kv_block != kBwdKVRows || q_block != kBwdQRows ||
+        sq_pad != (Sq + kBwdQRows - 1) / kBwdQRows * kBwdQRows)
       return static_cast<int>(cudaErrorInvalidValue);
     flash_bwd_delta<float><<<delta_grid, 256, 0, s>>>(
         static_cast<const float*>(o), static_cast<const float*>(dout), lse,
-        delta, nullptr, p);
+        delta, lse2, p);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     const float *fq = static_cast<const float*>(q),
@@ -1650,13 +1923,14 @@ extern "C" int repro_flash_attention_bwd(
                 *fg = static_cast<const float*>(dout);
     float *gq = static_cast<float*>(dq), *gk = static_cast<float*>(dk),
           *gv = static_cast<float*>(dv);
-    switch ((d + 31) / 32) {
-#define REPRO_BWD_CASE(DC_)                                                  \
-  case DC_:                                                                  \
-    return static_cast<int>(launch_bwd_simt<DC_>(                            \
-        fq, fk, fv, fg, lse, delta, gq, gk, gv, p, kv_smem, s));
+    switch ((d + 63) / 64) {
+#define REPRO_BWD_CASE(N_)                                                   \
+  case N_:                                                                   \
+    return static_cast<int>(launch_bwd_tf32x3<64 * N_>(                      \
+        fq, fk, fv, fg, lse2, delta, gq, gk, gv,                             \
+        static_cast<float*>(dkv_part), p, kv_smem, q_smem, kv_ctas, q_ctas, \
+        s));
       REPRO_BWD_CASE(1) REPRO_BWD_CASE(2) REPRO_BWD_CASE(3) REPRO_BWD_CASE(4)
-      REPRO_BWD_CASE(5) REPRO_BWD_CASE(6) REPRO_BWD_CASE(7) REPRO_BWD_CASE(8)
 #undef REPRO_BWD_CASE
     }
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1675,7 +1949,8 @@ extern "C" int repro_flash_attention_bwd(
                           static_cast<const void*>(lse2)})
     aligned = aligned && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
   if (!aligned || kv_block != kBwdKVRows || q_block != kBwdQRows ||
-      sq_pad != (Sq + kBwdQRows - 1) / kBwdQRows * kBwdQRows)
+      sq_pad != (Sq + kBwdQRows - 1) / kBwdQRows * kBwdQRows ||
+      dkv_part != nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   flash_bwd_delta<__nv_bfloat16><<<delta_grid, 256, 0, s>>>(
       static_cast<const __nv_bfloat16*>(o),

@@ -76,10 +76,20 @@
 //    and depth (per group: the descriptors are 3-D), so only stores are
 //    guarded.  A 256 x 256 tile is walked as two 256 x 128 passes (registers
 //    cap a thread at 128 accumulators).
-//  * f32 inputs take a SIMT FMA path under the same scheduler (64 x 64
-//    passes, double-buffered cp.async); tensor-core TF32 would miss the f32
-//    tolerance.  Outputs and epilogue operands may be bf16 or f32
-//    independently of the inputs.
+//  * f32 inputs run on the tensor cores too, under the same scheduler,
+//    fixup and CTA shape, with split-TF32 products (tf32x3.cuh): each
+//    operand split into a TF32 hi and lo part, three wgmma products a k8
+//    step, f32 sums.  One TF32 product keeps ten mantissa bits and misses
+//    the f32 tolerance; three reach it, at a third of the TF32 rate (495 /
+//    3 = 165 TFLOP/s, against 67 on the CUDA cores).  At decode the f32
+//    weight's bytes bound it as in bf16; at prefill the three products.
+//    tf32 wgmma reads B only K-major and takes no transpose, and the route
+//    must read B stored (K, N) and A stored (K, M) in place: TMA lands each
+//    operand's slab as stored, the consumers split B into K-major hi / lo
+//    copies in shared memory (transposing B stored (K, N)) and take A from
+//    registers, loaded from the slab in whichever layout it has.  So every
+//    operand's K-slab of a tile is read from memory once.  Outputs and
+//    epilogue operands may be bf16 or f32 independently of the inputs.
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -88,6 +98,7 @@
 #include <mutex>
 
 #include "hopper.cuh"
+#include "tf32x3.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace repro {
@@ -119,8 +130,9 @@ struct Params {
   int units_per_cta;      // q
   int ctas;               // the grid
   long long units;        // groups * Tm * Tn * units_per_tile
-  int ks;                 // depth of one shared-memory stage (tensor-core path)
+  int ks;                 // depth of one shared-memory stage
   int stages;
+  int plan_stages, plan_smem;  // the f32 kernel's, as the caller planned them
   size_t slot_floats;     // one CTA's workspace slot
   // Element strides between consecutive groups (0 for the dense case).
   size_t sa, sb, so, sbias, sgate, sres;
@@ -225,23 +237,6 @@ __device__ __forceinline__ float activate(int act, float x, float gate) {
   if (act == kActSilu) return x / (1.0f + expf(-x));
   if (act == kActSwiglu) return x / (1.0f + expf(-x)) * gate;
   return x;
-}
-
-__device__ __forceinline__ void epilogue_store(const Params& p, int g_,
-                                               int row, int col, float acc) {
-  const size_t g = static_cast<size_t>(g_);
-  const size_t idx = static_cast<size_t>(row) * p.N + col;
-  if (p.has_bias) acc += load_ep(p.bias, g * p.sbias + col, p.ep_f32);
-  const float gate =
-      p.act == kActSwiglu ? load_ep(p.gate, g * p.sgate + idx, p.ep_f32) : 0.0f;
-  acc = activate(p.act, acc, gate);
-  if (p.has_res) acc += load_ep(p.residual, g * p.sres + idx, p.ep_f32);
-  const size_t o = g * p.so + idx;
-  if (p.out_f32) {
-    static_cast<float*>(p.out)[o] = acc;
-  } else {
-    static_cast<__nv_bfloat16*>(p.out)[o] = __float2bfloat16(acc);
-  }
 }
 
 // Two neighbouring columns (col even; N is a multiple of 8, so col + 1 < N).
@@ -601,105 +596,214 @@ __global__ void __launch_bounds__(Sm90<NWG, MB, PN>::kThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// The f32 (SIMT) kernel: 256 threads, 64 x 64 passes of a tile, each thread
-// owning rows ty + 16 i and columns tx + 16 j of the pass.  Shared memory
-// keeps each operand as stored: A as [row][k] (bk + 4 a row) or, stored
-// (K, M), as [k][row] (64 + 4 a k); B as [k][column] or, stored (N, K), as
-// [column][k], so every cp.async copies 16 contiguous bytes.
+// The f32 kernel: split-TF32 products (tf32x3.cuh) on wgmma, under the same
+// scheduler, fixup and epilogue as the bf16 kernel.  The CTA is the bf16
+// kernel's: NWG consumer warpgroups of MB 64-row blocks and a producer
+// warpgroup that keeps TMA loads in flight through a ring of stages, each a
+// 32-deep k slab of A and B as stored (f32 rows of 128 bytes, 128-byte
+// swizzle; TMA zero-fills past M, N and K).  tf32 wgmma takes B only
+// K-major from shared memory and A from registers in any layout, so for
+// each slab the consumers first split B into TF32 hi and lo copies, K-major
+// (a transposing copy for B stored (K, N), an elementwise one for B stored
+// (N, K)), and load their A fragments from the slab in registers, split
+// there.  Each 64-row block's products of a slab (three wgmma a k8 step)
+// go to a fresh accumulator of at most 128 columns, added to the block's
+// running f32 sum by a rounded add: the tensor cores' own adds are not
+// rounded to nearest, and summed in the accumulator over the whole K the
+// f32 GEMM at 474 x 14336 x 3584 (zamba2-7b's wg, swiglu) drifted from the
+// plain f32 product by up to 0.020 against the f32 tolerance's 0.006 +
+// 1e-5 |y| (one H100).  A pass is 64 rows a consumer warpgroup by up to
+// 128 columns: a thread then holds 64 running sums and a fresh accumulator
+// of 64 (with 128 running sums, as one pass of a 256 x 128 tile needs,
+// ptxas spilled); so a 256-row tile runs as two 128-row passes, each
+// reading its own half of A and the tile's B slab again, and a 256-wide
+// tile as two 128-wide passes.
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Threads = 256;
-constexpr int kF32Pass = 64;
+constexpr int kF32Ks = 32;           // k of a stage: one 128-byte f32 row
+constexpr int kF32Box = 32;          // f32 of a 128-byte swizzled row
+constexpr uint32_t kF32BoxBytes = kF32Box * kF32Ks * 4;  // a 32 x 32 box
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  const int n = pred ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(smem)),
-               "l"(gmem), "r"(n));
+template <int NWG, int PN>
+struct Tf32 {
+  static constexpr int kConsumers = NWG * 128;
+  // A producer warpgroup; with two consumer warpgroups it hands its
+  // registers to them (setmaxnreg).
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kRows = NWG * 64;           // rows of a pass
+  static constexpr int kAcc = PN / 2;              // running sums a thread
+  static constexpr uint32_t kBBytes = PN * kF32Ks * 4;  // a B slab
+};
+
+// Byte offset of element (row, col) of a 128-byte-swizzled tile of rows of
+// 32 f32 (the layout TMA writes and wgmma reads), the tile 1024-aligned.
+__device__ __forceinline__ uint32_t swz(int row, int col) {
+  return row * 128 + ((((col >> 2) ^ row) & 7) << 4) + ((col & 3) << 2);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// A[r][k] of a stage's A slab: TA = 0 stores (M, K) as bm rows of 32 k;
+// TA = 1 stores (K, M) as bm / 32 boxes of 32 k rows of 32 m.  Rows past
+// the tile's bm read 0.
+template <int TA>
+__device__ __forceinline__ float a_elem(const unsigned char* sa, int bm,
+                                        int r, int k) {
+  if (r >= bm) return 0.0f;
+  if constexpr (TA)
+    return *reinterpret_cast<const float*>(sa + (r >> 5) * kF32BoxBytes +
+                                           swz(k, r & 31));
+  else
+    return *reinterpret_cast<const float*>(sa + swz(r, k));
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Floats of one stage's A and B buffers in each layout.
-__host__ __device__ __forceinline__ int f32_a_floats(int bk, int ta) {
-  return ta ? bk * (kF32Pass + 4) : kF32Pass * (bk + 4);
-}
-__host__ __device__ __forceinline__ int f32_b_floats(int bk, int tb) {
-  return tb ? kF32Pass * (bk + 4) : bk * (kF32Pass + 4);
-}
-
-// A[r0 : r0 + pm, k0 : k0 + bk] and B[k0 : k0 + bk, c0 : c0 + pn] of group g
-// into shared memory; chunks outside the pass or the matrix are zero-filled.
-template <int TA, int TB>
-__device__ __forceinline__ void f32_load(const Params& p, float* As,
-                                         float* Bs, int g, int r0, int pm,
-                                         int c0, int pn, int k0) {
-  const int bk = p.bk;
-  const float* A = static_cast<const float*>(p.a) + g * p.sa;
-  const float* B = static_cast<const float*>(p.b) + g * p.sb;
-  if constexpr (TA) {  // A stored (K, M): four rows of one k a copy
-    constexpr int cpr = kF32Pass / 4;
-    for (int c = threadIdx.x; c < bk * cpr; c += kF32Threads) {
-      const int kk = c / cpr, r = (c - kk * cpr) * 4;
-      const int gr = r0 + r, gk = k0 + kk;
-      const bool ok = r < pm && gr < p.M && gk < p.K;
-      cp_async16(As + kk * (kF32Pass + 4) + r,
-                 ok ? A + static_cast<size_t>(gk) * p.M + gr : A, ok);
+// The stage's B slab as hi and lo TF32 copies, K-major ([n][k], swizzled),
+// k at or past kv (the piece's end) zeroed, by the NWG * 128 consumers.
+// TB = 1 (B stored (N, K)) lands in that layout already: an elementwise
+// split, 16 bytes a thread a step.  TB = 0 (B stored (K, N)) lands as PN /
+// 32 boxes of 32 k rows of 32 n: a thread takes a 4 x 4 block, transposes
+// it in registers and splits it.
+template <int TB, int NT, int PN>
+__device__ __forceinline__ void split_b_slab(const unsigned char* sb,
+                                             unsigned char* hi,
+                                             unsigned char* lo, int kv,
+                                             int tid) {
+  if constexpr (TB) {
+    for (int i = tid; i < PN * 8; i += NT) {
+      const int n = i >> 3, kc = (i & 7) ^ (n & 7);
+      const float4 x = *reinterpret_cast<const float4*>(sb + i * 16);
+      const float v[4] = {x.x, x.y, x.z, x.w};
+      uint32_t h[4], l[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        split_tf32(4 * kc + e < kv ? v[e] : 0.0f, h[e], l[e]);
+      *reinterpret_cast<uint4*>(hi + i * 16) = make_uint4(h[0], h[1], h[2], h[3]);
+      *reinterpret_cast<uint4*>(lo + i * 16) = make_uint4(l[0], l[1], l[2], l[3]);
     }
   } else {
-    const int cpr = bk / 4;
-    for (int c = threadIdx.x; c < kF32Pass * cpr; c += kF32Threads) {
-      const int r = c / cpr, cc = (c - r * cpr) * 4;
-      const int gr = r0 + r, gk = k0 + cc;
-      const bool ok = r < pm && gr < p.M && gk < p.K;
-      cp_async16(As + r * (bk + 4) + cc,
-                 ok ? A + static_cast<size_t>(gr) * p.K + gk : A, ok);
-    }
-  }
-  if constexpr (TB) {  // B stored (N, K): four k of one column a copy
-    const int cpr = bk / 4;
-    for (int c = threadIdx.x; c < kF32Pass * cpr; c += kF32Threads) {
-      const int n = c / cpr, kk = (c - n * cpr) * 4;
-      const int gn = c0 + n, gk = k0 + kk;
-      const bool ok = n < pn && gn < p.N && gk < p.K;
-      cp_async16(Bs + n * (bk + 4) + kk,
-                 ok ? B + static_cast<size_t>(gn) * p.K + gk : B, ok);
-    }
-  } else {
-    constexpr int cpr = kF32Pass / 4;
-    for (int c = threadIdx.x; c < bk * cpr; c += kF32Threads) {
-      const int r = c / cpr, cc = (c - r * cpr) * 4;
-      const int gk = k0 + r, gn = c0 + cc;
-      const bool ok = cc < pn && gk < p.K && gn < p.N;
-      cp_async16(Bs + r * (kF32Pass + 4) + cc,
-                 ok ? B + static_cast<size_t>(gk) * p.N + gn : B, ok);
+    for (int i = tid; i < PN * 2; i += NT) {
+      const int k0 = (i & 7) * 4, n0 = (i >> 3) * 4;
+      const unsigned char* box = sb + (n0 >> 5) * kF32BoxBytes;
+      float v[4][4];  // v[k][n]
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float4 x = *reinterpret_cast<const float4*>(
+            box + swz(k0 + kk, n0 & 31));
+        const bool ok = k0 + kk < kv;
+        v[kk][0] = ok ? x.x : 0.0f;
+        v[kk][1] = ok ? x.y : 0.0f;
+        v[kk][2] = ok ? x.z : 0.0f;
+        v[kk][3] = ok ? x.w : 0.0f;
+      }
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn) {
+        uint32_t h[4], l[4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) split_tf32(v[kk][nn], h[kk], l[kk]);
+        const uint32_t at = swz(n0 + nn, k0);
+        *reinterpret_cast<uint4*>(hi + at) = make_uint4(h[0], h[1], h[2], h[3]);
+        *reinterpret_cast<uint4*>(lo + at) = make_uint4(l[0], l[1], l[2], l[3]);
+      }
     }
   }
 }
 
-template <int TA, int TB>
-__device__ __forceinline__ void f32_body(const Params& p) {
+template <int NWG, int PN, int TA, int TB>
+__device__ __forceinline__ void tf32_body(const CUtensorMap& tma_a,
+                                          const CUtensorMap& tma_b,
+                                          const Params& p) {
+  using S = Tf32<NWG, PN>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int bk = p.bk;
-  const int a_fl = f32_a_floats(bk, TA), b_fl = f32_b_floats(bk, TB);
-  float* As = reinterpret_cast<float*>(smem_raw);
-  float* Bs = As + 2 * a_fl;
-  const int pm = min(p.bm, kF32Pass), pn = min(p.bn, kF32Pass);
-  const int passes_n = p.bn / pn, passes = (p.bm / pm) * passes_n;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  // [stages x (A slab, B slab)] [B hi] [B lo] [NWG epilogue buffers]
+  // [mbarriers]
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* gbase = smem_raw + (base - raw);
+  const int rows = min(p.bm, S::kRows);             // A rows of a pass
+  const int col_passes = p.bn / PN;
+  const int passes = (p.bm / rows) * col_passes;
+  const uint32_t a_bytes = rows * kF32Ks * 4;
+  const uint32_t stage_bytes = a_bytes + S::kBBytes;
+  const uint32_t hi_at = p.stages * stage_bytes;
+  const uint32_t lo_at = hi_at + S::kBBytes;
+  const uint32_t epi_at = lo_at + S::kBBytes;
+  const uint32_t bars = base + epi_at + NWG * kEpiBytes;
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (kMaxStages + s); };
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), S::kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
   const long long u_begin =
       static_cast<long long>(blockIdx.x) * p.units_per_cta;
   const long long u_end =
       u_begin + p.units_per_cta < p.units ? u_begin + p.units_per_cta
                                           : p.units;
+  const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
+
+  if (wg == NWG) {
+    if constexpr (NWG == 2)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    // Producer: one thread issues every TMA load of the CTA's pieces.
+    if (tid == S::kConsumers) {
+      const uint32_t tx = stage_bytes;
+      int stage = 0;
+      uint32_t phase = 0;
+      long long u = u_begin;
+      Piece pc;
+      while (next_piece(p, u, u_end, pc)) {
+        int g, row0, col0, k_lo, k_hi;
+        tile_origin(p, pc.tile, g, row0, col0);
+        piece_depth(p, pc, k_lo, k_hi);
+        for (int ps = 0; ps < passes; ++ps) {
+          const int r0 = row0 + (ps / col_passes) * rows;
+          const int c0 = col0 + (ps % col_passes) * PN;
+          for (int k = k_lo; k < k_hi; k += kF32Ks) {
+            mbar_wait(empty(stage), phase ^ 1);
+            mbar_expect_tx(full(stage), tx);
+            const uint32_t sa = base + stage * stage_bytes;
+            if constexpr (TA) {
+              for (int c = 0; c < rows / kF32Box; ++c)
+                tma_load_3d(sa + c * kF32BoxBytes, &tma_a, full(stage),
+                            r0 + kF32Box * c, k, g);
+            } else {
+              tma_load_3d(sa, &tma_a, full(stage), k, r0, g);
+            }
+            if constexpr (TB) {
+              tma_load_3d(sa + a_bytes, &tma_b, full(stage), k, c0, g);
+            } else {
+#pragma unroll
+              for (int j = 0; j < PN / kF32Box; ++j)
+                tma_load_3d(sa + a_bytes + j * kF32BoxBytes, &tma_b,
+                            full(stage), c0 + kF32Box * j, k, g);
+            }
+            if (++stage == p.stages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // Consumers.
+  if constexpr (NWG == 2)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int warp = __shfl_sync(0xffffffffu, (tid % 128) / 32, 0);
+  const int lane = tid % 32, gq = lane / 4, tq = lane % 4;
+  float* epi = reinterpret_cast<float*>(gbase + epi_at + wg * kEpiBytes);
+  unsigned char* b_hi = gbase + hi_at;
+  unsigned char* b_lo = gbase + lo_at;
+  float acc[S::kAcc];
+  float part[S::kAcc];
+  int stage = 0;
+  uint32_t phase = 0;
   long long u = u_begin;
   Piece pc;
   while (next_piece(p, u, u_end, pc)) {
@@ -707,59 +811,75 @@ __device__ __forceinline__ void f32_body(const Params& p) {
     tile_origin(p, pc.tile, g, row0, col0);
     piece_depth(p, pc, k_lo, k_hi);
     for (int ps = 0; ps < passes; ++ps) {
-      const int r0 = row0 + (ps / passes_n) * pm;
-      const int c0 = col0 + (ps % passes_n) * pn;
-      float acc[4][4];
+      const int r0 = row0 + (ps / col_passes) * rows;
+      const int c0 = col0 + (ps % col_passes) * PN;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < S::kAcc; ++i) acc[i] = 0.0f;
+      const int r = wg * 64 + warp * 16 + gq;  // the thread's first A row
+      for (int k = k_lo; k < k_hi; k += kF32Ks) {
+        mbar_wait(full(stage), phase);
+        const unsigned char* sa = gbase + stage * stage_bytes;
+        // Every warpgroup is done with the last slab's hi / lo copies.
+        consumer_sync(S::kConsumers);
+        split_b_slab<TB, S::kConsumers, PN>(sa + a_bytes, b_hi, b_lo,
+                                            k_hi - k, tid);
+        fence_proxy_async();
+        consumer_sync(S::kConsumers);
+        const int kv = min(kF32Ks, k_hi - k);
+        for (int kk = 0; kk < kv; kk += 16) {
+          FragA fa[2];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-      if (k_lo < k_hi) {
-        f32_load<TA, TB>(p, As, Bs, g, r0, pm, c0, pn, k_lo);
-        cp_async_commit();
-        for (int k = k_lo, cur = 0; k < k_hi; k += bk, cur ^= 1) {
-          if (k + bk < k_hi) {
-            f32_load<TA, TB>(p, As + (cur ^ 1) * a_fl, Bs + (cur ^ 1) * b_fl,
-                             g, r0, pm, c0, pn, k + bk);
-            cp_async_commit();
-            cp_async_wait<1>();
-          } else {
-            cp_async_wait<0>();
+          for (int h = 0; h < 2; ++h) {
+            const int kc = kk + 8 * h + tq;
+            const float x[4] = {a_elem<TA>(sa, rows, r, kc),
+                                a_elem<TA>(sa, rows, r + 8, kc),
+                                a_elem<TA>(sa, rows, r, kc + 4),
+                                a_elem<TA>(sa, rows, r + 8, kc + 4)};
+            split_a(x, fa[h]);
           }
-          __syncthreads();
-          const float* a = As + cur * a_fl;
-          const float* b = Bs + cur * b_fl;
-          for (int kk = 0; kk < bk; ++kk) {
-            float av[4], bv[4];
+          wgmma_fence();
 #pragma unroll
-            for (int i = 0; i < 4; ++i)
-              av[i] = TA ? a[kk * (kF32Pass + 4) + ty + 16 * i]
-                         : a[(ty + 16 * i) * (bk + 4) + kk];
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              bv[j] = TB ? b[(tx + 16 * j) * (bk + 4) + kk]
-                         : b[kk * (kF32Pass + 4) + tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+          for (int h = 0; h < 2; ++h) {
+            const uint32_t off = (kk + 8 * h) * 4;
+            const uint64_t dh = smem_desc(base + hi_at + off, 16, 1024, 128);
+            const uint64_t dl = smem_desc(base + lo_at + off, 16, 1024, 128);
+            wgmma_tf32_rs<PN>(part, fa[h].lo, dh, kk + h > 0);
+            wgmma_tf32_rs<PN>(part, fa[h].hi, dl, 1);
+            wgmma_tf32_rs<PN>(part, fa[h].hi, dh, 1);
           }
-          __syncthreads();
+          wgmma_commit();
+          wgmma_wait<0>();
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            fence_frag(fa[h].hi);
+            fence_frag(fa[h].lo);
+          }
+        }
+        fence_acc(part);
+#pragma unroll
+        for (int i = 0; i < S::kAcc; ++i) acc[i] += part[i];
+        mbar_arrive(empty(stage));
+        if (++stage == p.stages) {
+          stage = 0;
+          phase ^= 1;
         }
       }
-      // Partial slot of this pass: [register][thread].
-      const size_t region = static_cast<size_t>(ps) * kF32Pass * kF32Pass;
+
+      // Partial slot of this pass: [register / 4][consumer thread].
+      const size_t region = static_cast<size_t>(ps) * S::kRows * PN / 4;
+      const bool live = wg * 64 + warp * 16 < rows;
       if (!pc.first) {
-        float* slot = p.ws + blockIdx.x * p.slot_floats + region;
+        float4* slot =
+            reinterpret_cast<float4*>(p.ws + blockIdx.x * p.slot_floats) + region;
+        if (live) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (ty + 16 * i < pm && tx + 16 * j < pn)
-              __stcg(slot + (i * 4 + j) * kF32Threads + tid, acc[i][j]);
+          for (int i = 0; i < S::kAcc / 4; ++i)
+            __stcg(slot + i * S::kConsumers + tid,
+                   make_float4(acc[4 * i], acc[4 * i + 1], acc[4 * i + 2],
+                               acc[4 * i + 3]));
+        }
         if (ps == passes - 1) {
-          __syncthreads();
+          consumer_sync(S::kConsumers);
           if (tid == 0) raise_flag(p.flags + blockIdx.x);
         }
         continue;
@@ -768,37 +888,67 @@ __device__ __forceinline__ void f32_body(const Params& p) {
         if (ps == 0 && tid == 0)
           for (int c = blockIdx.x + 1; c <= pc.last_cta; ++c)
             await_and_lower_flag(p.flags + c);
-        __syncthreads();
-        for (int c = blockIdx.x + 1; c <= pc.last_cta; ++c) {
-          const float* slot = p.ws + c * p.slot_floats + region;
+        consumer_sync(S::kConsumers);
+        if (live) {
+          for (int c = blockIdx.x + 1; c <= pc.last_cta; ++c) {
+            const float4* slot =
+                reinterpret_cast<const float4*>(p.ws + c * p.slot_floats) +
+                region;
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              if (ty + 16 * i < pm && tx + 16 * j < pn)
-                acc[i][j] += __ldcg(slot + (i * 4 + j) * kF32Threads + tid);
+            for (int i = 0; i < S::kAcc / 4; ++i) {
+              const float4 v = __ldcg(slot + i * S::kConsumers + tid);
+              acc[4 * i] += v.x;
+              acc[4 * i + 1] += v.y;
+              acc[4 * i + 2] += v.z;
+              acc[4 * i + 3] += v.w;
+            }
+          }
         }
       }
+      // The epilogue, 32 columns of the warpgroup's 64 rows at a time,
+      // through its staging buffer (as the bf16 kernel's).
+      const int blk = wg * 64;
+      const int out_rows = min(min(64, rows - blk), p.M - r0 - blk);
+      if (out_rows <= 0) continue;
+#pragma unroll 1
+      for (int jc = 0; jc < PN / kEpiCols; ++jc) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int cc = 0; cc < PN / kEpiCols; ++cc) {
+          if (cc != jc) continue;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int row = r0 + ty + 16 * i, col = c0 + tx + 16 * j;
-          if (ty + 16 * i < pm && tx + 16 * j < pn && row < p.M && col < p.N)
-            epilogue_store(p, g, row, col, acc[i][j]);
+          for (int jj = 0; jj < kEpiCols / 8; ++jj) {
+            const int j = cc * (kEpiCols / 8) + jj;
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              *reinterpret_cast<float2*>(
+                  epi + (warp * 16 + gq + 8 * h) * kEpiStride + jj * 8 +
+                  tq * 2) = make_float2(acc[j * 4 + 2 * h],
+                                        acc[j * 4 + 2 * h + 1]);
+          }
         }
+        warpgroup_sync(wg);
+        epilogue_block<4>(p, epi, g, r0 + blk, out_rows, c0 + jc * kEpiCols,
+                          tid % 128);
+        warpgroup_sync(wg);
+      }
     }
   }
 }
 
-template <int TA, int TB>
-__global__ void __launch_bounds__(kF32Threads, 1) gemm_dense_f32(const Params p) {
-  f32_body<TA, TB>(p);
+template <int NWG, int PN, int TA, int TB>
+__global__ void __launch_bounds__(Tf32<NWG, PN>::kThreads, 1)
+    gemm_dense_f32(const __grid_constant__ CUtensorMap tma_a,
+                   const __grid_constant__ CUtensorMap tma_b,
+                   const __grid_constant__ Params p) {
+  tf32_body<NWG, PN, TA, TB>(tma_a, tma_b, p);
 }
 
-__global__ void __launch_bounds__(kF32Threads, 1)
-    gemm_grouped_f32(const Params p) {
-  f32_body<0, 0>(p);
+template <int NWG, int PN>
+__global__ void __launch_bounds__(Tf32<NWG, PN>::kThreads, 1)
+    gemm_grouped_f32(const __grid_constant__ CUtensorMap tma_a,
+                     const __grid_constant__ CUtensorMap tma_b,
+                     const __grid_constant__ Params p) {
+  tf32_body<NWG, PN, 0, 0>(tma_a, tma_b, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -833,39 +983,46 @@ cudaError_t launch_resident(void (*kernel)(Exp...), int ctas, int threads,
   return cudaGetLastError();  // the launch's error, cleared
 }
 
-// A 3-D bf16 tensor map over (groups, outer, inner), inner contiguous, with a
-// (box_outer, box_inner) box whose inner rows are swizzled over their bytes.
-inline bool encode_bf16(CUtensorMap* map, const void* ptr, uint64_t inner,
-                 uint64_t outer, uint64_t groups, uint64_t group_stride,
-                 uint32_t box_inner, uint32_t box_outer) {
+// A 3-D tensor map (bf16 or f32) over (groups, outer, inner), inner
+// contiguous, with a (box_outer, box_inner) box whose inner rows are
+// swizzled over their bytes.
+inline bool encode_tiled3d(CUtensorMap* map, bool f32, const void* ptr,
+                           uint64_t inner, uint64_t outer, uint64_t groups,
+                           uint64_t group_stride, uint32_t box_inner,
+                           uint32_t box_outer) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
+  const uint64_t elem = f32 ? 4 : 2;
   const cuuint64_t dims[3] = {inner, outer, groups};
-  const cuuint64_t strides[2] = {inner * 2, group_stride * 2};
+  const cuuint64_t strides[2] = {inner * elem, group_stride * elem};
   const cuuint32_t box[3] = {box_inner, box_outer, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUtensorMapSwizzle sw = box_inner * 2 == 128
-                                    ? CU_TENSOR_MAP_SWIZZLE_128B
-                                    : (box_inner * 2 == 64
-                                           ? CU_TENSOR_MAP_SWIZZLE_64B
-                                           : CU_TENSOR_MAP_SWIZZLE_32B);
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+  const uint64_t row = box_inner * elem;
+  const CUtensorMapSwizzle sw = row == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                           : (row == 64
+                                                  ? CU_TENSOR_MAP_SWIZZLE_64B
+                                                  : CU_TENSOR_MAP_SWIZZLE_32B);
+  return fn(map,
+            f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+            3, const_cast<void*>(ptr), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// encode_bf16 through a small cache.  A tensor map is a pure
-// function of these arguments, so a cached one is exact; the decode step's
-// weights, and mostly its activations, recur every step, and the encoder
-// costs microseconds of the host time that bounds decode.
-inline bool encode_bf16_cached(CUtensorMap* map, const void* ptr,
-                               uint64_t inner, uint64_t outer, uint64_t groups,
-                               uint64_t group_stride, uint32_t box_inner,
-                               uint32_t box_outer) {
+// encode_tiled3d through a small cache.  A tensor map is a pure function
+// of these arguments, so a cached one is exact; the decode step's weights,
+// and mostly its activations, recur every step, and the encoder costs
+// microseconds of the host time that bounds decode.
+inline bool encode_cached(CUtensorMap* map, bool f32, const void* ptr,
+                          uint64_t inner, uint64_t outer, uint64_t groups,
+                          uint64_t group_stride, uint32_t box_inner,
+                          uint32_t box_outer) {
   struct Entry {
     CUtensorMap map;
     const void* ptr;
+    bool f32;
     uint64_t inner, outer, groups, group_stride;
     uint32_t box_inner, box_outer;
   };
@@ -874,18 +1031,18 @@ inline bool encode_bf16_cached(CUtensorMap* map, const void* ptr,
   static std::mutex mu;
   const std::lock_guard<std::mutex> lock(mu);
   const uint64_t h = (reinterpret_cast<uint64_t>(ptr) >> 4) ^ inner * 31 ^
-                     outer * 131 ^ box_inner * 7 ^ box_outer;
+                     outer * 131 ^ box_inner * 7 ^ box_outer ^ (f32 ? 1 : 0);
   Entry& e = cache[h % kEntries];
-  if (e.ptr == ptr && e.inner == inner && e.outer == outer &&
+  if (e.ptr == ptr && e.f32 == f32 && e.inner == inner && e.outer == outer &&
       e.groups == groups && e.group_stride == group_stride &&
       e.box_inner == box_inner && e.box_outer == box_outer) {
     *map = e.map;
     return true;
   }
-  if (!encode_bf16(map, ptr, inner, outer, groups, group_stride, box_inner,
-                   box_outer))
+  if (!encode_tiled3d(map, f32, ptr, inner, outer, groups, group_stride,
+                      box_inner, box_outer))
     return false;
-  e = Entry{*map, ptr, inner, outer, groups, group_stride, box_inner,
+  e = Entry{*map, ptr, f32, inner, outer, groups, group_stride, box_inner,
             box_outer};
   return true;
 }
@@ -916,32 +1073,71 @@ cudaError_t launch_sm90(Params p, cudaStream_t stream) {
   const uint64_t M = p.M, N = p.N, K = p.K, G = p.groups;
   const uint64_t ga = G > 1 ? p.sa : M * K, gb = G > 1 ? p.sb : K * N;
   const bool a_ok =
-      TA ? encode_bf16_cached(&tma_a, p.a, M, K, G, ga, 64, p.ks)
-         : encode_bf16_cached(&tma_a, p.a, K, M, G, ga, p.ks, p.bm);
+      TA ? encode_cached(&tma_a, false, p.a, M, K, G, ga, 64, p.ks)
+         : encode_cached(&tma_a, false, p.a, K, M, G, ga, p.ks, p.bm);
   const bool b_ok =
-      TB ? encode_bf16_cached(&tma_b, p.b, K, N, G, gb, p.ks, PN)
-         : encode_bf16_cached(&tma_b, p.b, N, K, G, gb, S::kCW, p.ks);
+      TB ? encode_cached(&tma_b, false, p.b, K, N, G, gb, p.ks, PN)
+         : encode_cached(&tma_b, false, p.b, N, K, G, gb, S::kCW, p.ks);
   if (!a_ok || !b_ok) return cudaErrorInvalidValue;
   return launch_resident(kernel, p.ctas, S::kThreads, smem, stream, tma_a,
                          tma_b, p);
 }
 
-template <int TA, int TB, bool kGrouped>
-cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
-  const size_t smem = 2 *
-                      static_cast<size_t>(f32_a_floats(p.bk, TA) +
-                                          f32_b_floats(p.bk, TB)) *
-                      sizeof(float);
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  void (*kernel)(Params);
+template <int NWG, int PN, bool kGrouped, int TA, int TB>
+cudaError_t launch_f32(Params p, cudaStream_t stream) {
+  using S = Tf32<NWG, PN>;
+  p.ks = kF32Ks;
+  const int rows = p.bm < S::kRows ? p.bm : S::kRows;
+  const size_t stage = static_cast<size_t>(rows + PN) * kF32Ks * 4;
+  const size_t fixed =
+      1024 + 2 * S::kBBytes + NWG * kEpiBytes + 2 * kMaxStages * 8;
+  size_t stages = (kMaxSmem - fixed) / stage;
+  if (stages > kMaxStages) stages = kMaxStages;
+  const size_t smem = fixed + stages * stage;
+  if (stages < 2 || static_cast<int>(stages) != p.plan_stages ||
+      smem != static_cast<size_t>(p.plan_smem))
+    return cudaErrorInvalidValue;
+  p.stages = static_cast<int>(stages);
+  void (*kernel)(CUtensorMap, CUtensorMap, Params);
   if constexpr (kGrouped)
-    kernel = gemm_grouped_f32;
+    kernel = gemm_grouped_f32<NWG, PN>;
   else
-    kernel = gemm_dense_f32<TA, TB>;
+    kernel = gemm_dense_f32<NWG, PN, TA, TB>;
   static const cudaError_t opted =
       opt_in_smem(reinterpret_cast<const void*>(kernel));
   if (opted != cudaSuccess) return opted;
-  return launch_resident(kernel, p.ctas, kF32Threads, smem, stream, p);
+  // Each map over its operand as stored, in boxes of 32 f32 (128-byte
+  // rows): A (M, K) in 32 x rows boxes or (K, M) in 32 x 32; B (N, K) in
+  // 32 x PN or (K, N) in 32 x 32.
+  CUtensorMap tma_a, tma_b;
+  const uint64_t M = p.M, N = p.N, K = p.K, G = p.groups;
+  const uint64_t ga = G > 1 ? p.sa : M * K, gb = G > 1 ? p.sb : K * N;
+  const bool a_ok =
+      TA ? encode_cached(&tma_a, true, p.a, M, K, G, ga, kF32Box, kF32Ks)
+         : encode_cached(&tma_a, true, p.a, K, M, G, ga, kF32Ks, rows);
+  const bool b_ok =
+      TB ? encode_cached(&tma_b, true, p.b, K, N, G, gb, kF32Ks, PN)
+         : encode_cached(&tma_b, true, p.b, N, K, G, gb, kF32Box, kF32Ks);
+  if (!a_ok || !b_ok) return cudaErrorInvalidValue;
+  return launch_resident(kernel, p.ctas, S::kThreads, smem, stream, tma_a,
+                         tma_b, p);
+}
+
+// The f32 kernel of (consumer warpgroups, pass width) for the tile: one
+// warpgroup up to 64 rows, two above (a 256-row tile in two 128-row
+// passes), passes of up to 128 columns; kernels/matmul.py::f32_tiling
+// mirrors it.
+template <bool kGrouped, int TA, int TB>
+cudaError_t dispatch_f32(const Params& p, cudaStream_t stream) {
+  const int nwg = p.bm <= 64 ? 1 : 2;
+  const int pn = p.bn < 128 ? p.bn : 128;
+#define REPRO_CASE(NWG, PN)            \
+  if (nwg == NWG && pn == PN)          \
+    return launch_f32<NWG, PN, kGrouped, TA, TB>(p, stream);
+  REPRO_CASE(1, 32) REPRO_CASE(1, 64) REPRO_CASE(1, 128)
+  REPRO_CASE(2, 32) REPRO_CASE(2, 64) REPRO_CASE(2, 128)
+#undef REPRO_CASE
+  return cudaErrorInvalidValue;
 }
 
 // Picks the tensor-core kernel of (warpgroups, 64-row blocks each, pass
@@ -1077,13 +1273,17 @@ using namespace repro;
 // from kernels/matmul.py::work_plan: k-steps per tile and per unit, units
 // per CTA and the grid; workspace holds ctas slots of max(bm, 64) x
 // max(bn, 64) f32 when a tile is split, flags one int per CTA, all zero.
+// f32 inputs also take the f32 kernel's ring stages and shared bytes as
+// kernels/matmul.py::f32_tiling planned them (0 for bf16); a launch whose
+// own differ is refused.
 extern "C" int repro_gemm(
     const void* a, const void* b, void* out, const void* bias,
     const void* gate, const void* residual, void* workspace, void* flags,
     int M, int N, int K, int bm, int bn, int bk, int group_m, int in_f32,
     int out_f32, int ep_f32, int has_bias, int act, int has_res, int groups,
     int grouped, int trans_a, int trans_b, int steps_per_tile,
-    int steps_per_unit, int units_per_cta, int ctas, long long sa,
+    int steps_per_unit, int units_per_cta, int ctas, int f32_stages,
+    int f32_smem, long long sa,
     long long sb, long long so, long long sbias, long long sgate,
     long long sres, void* stream) {
   const int vec = in_f32 ? 4 : 8;
@@ -1129,6 +1329,8 @@ extern "C" int repro_gemm(
   p.units_per_cta = units_per_cta;
   p.units = static_cast<long long>(groups) * p.Tm * p.Tn * p.units_per_tile;
   p.ctas = ctas;
+  p.plan_stages = f32_stages;
+  p.plan_smem = f32_smem;
   p.slot_floats = static_cast<size_t>(bm > 64 ? bm : 64) * (bn > 64 ? bn : 64);
   p.sa = static_cast<size_t>(sa);
   p.sb = static_cast<size_t>(sb);
@@ -1146,10 +1348,10 @@ extern "C" int repro_gemm(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (in_f32)
-    err = grouped ? launch_f32<0, 0, true>(p, s)
-          : trans_a ? launch_f32<1, 0, false>(p, s)
-          : trans_b ? launch_f32<0, 1, false>(p, s)
-                    : launch_f32<0, 0, false>(p, s);
+    err = grouped ? dispatch_f32<true, 0, 0>(p, s)
+          : trans_a ? dispatch_f32<false, 1, 0>(p, s)
+          : trans_b ? dispatch_f32<false, 0, 1>(p, s)
+                    : dispatch_f32<false, 0, 0>(p, s);
   else
     err = grouped ? dispatch_sm90<true, 0, 0>(p, s)
           : trans_a ? dispatch_sm90<false, 1, 0>(p, s)

@@ -21,7 +21,7 @@
 //    the bytes of the level that holds the window (L1 for the smem window,
 //    L2, HBM); at one vector a fetch by the loop iteration each fetch
 //    costs, spread over the CTAs.  Every load is folded into per-thread f32
-//    sums, reduced to one int64 checksum, so nothing is hoisted or dropped.
+//    sums, reduced to one int64 a CTA, so nothing is hoisted or dropped.
 //  * probe_mma: chains of back-to-back wgmma on resident operands.  One
 //    64 x 64 x (32 bytes of K) instruction per step, both operands K-major in
 //    shared memory (128-byte swizzle), the accumulators in registers; the
@@ -30,6 +30,11 @@
 //    independent chains keep an SM's tensor cores busy.  Bound by the tensor
 //    cores' issue rate.  Each chain's accumulators are summed into an int64
 //    checksum (exact while every accumulator stays below 2^24).
+//  * Both probes end the same way: each CTA (stream) or chain (mma) writes
+//    its int64 sum to its own slot with a plain store.  No atomics into a
+//    zeroed buffer, so a timed call is the probe's one launch and nothing
+//    else: the calibration subtracts the wave sweep's intercept from the
+//    latency sweep's, and both must carry the same fixed cost.
 //    The compute sweep runs 4 chains a CTA, one CTA per SM; the wave sweep
 //    runs one chain a CTA with 120 KB of dynamic shared memory, so that a
 //    CTA holds a whole SM and n_units CTAs run in ceil(n_units / SMs) waves.
@@ -43,6 +48,7 @@ namespace repro {
 constexpr int kStreamThreads = 1024;
 constexpr int kOperandBytes = 64 * 128;  // 64 rows of 128 bytes, swizzled
 constexpr int kMaxChains = 4;            // warpgroups a CTA
+constexpr int kSumBytes = 4 * kMaxChains * 8;  // the warps' int64 sums
 constexpr int kMaxProbeSmem = 232448;
 
 enum ProbeDtype { kBf16 = 0, kF16 = 1, kTf32 = 2, kE4m3 = 3, kS8 = 4 };
@@ -60,8 +66,7 @@ __device__ __forceinline__ long long warp_sum(long long v) {
 template <bool kL2Only>
 __global__ void __launch_bounds__(kStreamThreads, 1)
     probe_stream_kernel(const float4* __restrict__ x, int elems, int chunk,
-                        long long n_chunks, int group_ctas,
-                        unsigned long long* out) {
+                        long long n_chunks, int group_ctas, long long* out) {
   // CTA group g takes fetches g, g + groups, ...; within the group, thread
   // lt reads vectors lt, lt + group_threads, ... of each fetch.
   const int groups = gridDim.x / group_ctas;
@@ -104,7 +109,7 @@ __global__ void __launch_bounds__(kStreamThreads, 1)
     long long t = 0;
     for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w)
       t += warp_sums[w];
-    atomicAdd(out, static_cast<unsigned long long>(t));
+    out[blockIdx.x] = t;
   }
 }
 
@@ -228,8 +233,7 @@ __device__ __forceinline__ void mma_step(typename Mma<D>::Acc (&d)[32],
 template <int D>
 __global__ void __launch_bounds__(128 * kMaxChains, 1)
     probe_mma_kernel(const uint4* __restrict__ a, const uint4* __restrict__ b,
-                     long long base, long long extra,
-                     unsigned long long* out) {
+                     long long base, long long extra, long long* out) {
   extern __shared__ uint8_t smem_raw[];
   // The 128-byte swizzle works on 1024-byte aligned groups of 8 rows.
   const uint32_t sa = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -282,14 +286,22 @@ __global__ void __launch_bounds__(128 * kMaxChains, 1)
 #pragma unroll
   for (int r = 0; r < 32; ++r) s += static_cast<long long>(d[r]);
   s = warp_sum(s);
-  if ((threadIdx.x & 31) == 0)
-    atomicAdd(out + chain, static_cast<unsigned long long>(s));
+  // The chain's four warp sums, added in warp order by its first thread,
+  // in the dynamic shared memory past the operands (a static array would
+  // lower the dynamic bytes the kernel may opt into).
+  long long* warp_sums = reinterpret_cast<long long*>(
+      smem_raw + (sb + kOperandBytes - smem_u32(smem_raw)));
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x / 32] = s;
+  named_sync(1 + wg, 128);
+  if (threadIdx.x % 128 == 0)
+    out[chain] = warp_sums[4 * wg] + warp_sums[4 * wg + 1] +
+                 warp_sums[4 * wg + 2] + warp_sums[4 * wg + 3];
 }
 
 template <int D>
 cudaError_t launch_mma(const void* a, const void* b, long long base,
                        long long extra, int ctas, int chains, int smem,
-                       unsigned long long* out, cudaStream_t stream) {
+                       long long* out, cudaStream_t stream) {
   static const cudaError_t opted = cudaFuncSetAttribute(
       reinterpret_cast<const void*>(probe_mma_kernel<D>),
       cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxProbeSmem);
@@ -306,8 +318,9 @@ using namespace repro;
 
 // Streams n_chunks fetches of chunk 16-byte vectors through the first elems
 // vectors of x, fetch i from vector (i chunk) % elems, on ctas CTAs of 1024
-// threads in groups of group_ctas (ctas a multiple of it).  out (one int64,
-// zeroed) += the sum of every f32 read.
+// threads in groups of group_ctas (ctas a multiple of it).  out[c] (ctas
+// int64) = the sum of every f32 CTA c read: plain stores, so the launch
+// needs no zeroed buffer and no fill kernel before it.
 extern "C" int repro_probe_stream(const void* x, int elems, int chunk,
                                   long long n_chunks, int ctas,
                                   int group_ctas, void* out, void* stream) {
@@ -325,27 +338,28 @@ extern "C" int repro_probe_stream(const void* x, int elems, int chunk,
   auto kernel = l2_only ? probe_stream_kernel<true> : probe_stream_kernel<false>;
   kernel<<<ctas, kStreamThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float4*>(x), elems, chunk, n_chunks, group_ctas,
-      static_cast<unsigned long long*>(out));
+      static_cast<long long*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 // ctas CTAs of `chains` warpgroups each run wgmma chains on the operands a
 // and b (64 rows of 128 bytes, in the dtype's encoding); chain c runs
-// base + (c < extra) instructions and adds its accumulators' sum to out[c]
-// (ctas * chains int64, zeroed).  smem: dynamic shared memory a CTA asks
-// for (at least the operands' 17 KB; more keeps other CTAs off its SM).
+// base + (c < extra) instructions and writes its accumulators' sum to
+// out[c] (ctas * chains int64; plain stores, as the stream probe's).  smem: dynamic shared memory a CTA asks
+// for (at least the operands' 17 KB and the sums' 128 bytes; more keeps
+// other CTAs off its SM).
 extern "C" int repro_probe_mma(int dtype, const void* a, const void* b,
                                long long base, long long extra, int ctas,
                                int chains, int smem, void* out,
                                void* stream) {
   if (a == nullptr || b == nullptr || out == nullptr || base < 0 ||
       extra < 0 || ctas < 1 || chains < 1 || chains > kMaxChains ||
-      smem < 2 * kOperandBytes + 1024 || smem > kMaxProbeSmem ||
+      smem < 2 * kOperandBytes + 1024 + kSumBytes || smem > kMaxProbeSmem ||
       reinterpret_cast<uintptr_t>(a) % 16 ||
       reinterpret_cast<uintptr_t>(b) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto* o = static_cast<unsigned long long*>(out);
+  auto* o = static_cast<long long*>(out);
   switch (dtype) {
     case kBf16: return launch_mma<kBf16>(a, b, base, extra, ctas, chains, smem, o, s);
     case kF16: return launch_mma<kF16>(a, b, base, extra, ctas, chains, smem, o, s);

@@ -17,7 +17,8 @@ kernel and f32 q/k/v the f32 kernel of the same source, at any head dim in
 :func:`flash_attention_bwd_kernel` (the backward: the delta, dK/dV and dQ
 kernels of the same source; plain version ``ref.attention_bwd_ref``)
 takes.  The backward's route follows the dtype alone: bf16 runs the wgmma
-kernels at every head dim, f32 the SIMT kernels; :func:`plan_attention_bwd`
+kernels at every head dim, f32 the split-TF32 ones ("tf32x3", mma.sync);
+:func:`plan_attention_bwd`
 holds its tiles, grids and shared bytes, and the launch passes that plan to
 the C entry, which checks it against the instantiation it runs.
 ``flash_attention_kernel.launches`` counts forward launches of both
@@ -274,12 +275,13 @@ def select_attention_blocks(
 # The backward (``flash_bwd_*`` in csrc/flash_attention.cu).  bf16: a dK/dV
 # kernel (a CTA per 64 kv rows, a dV and a dK consumer warpgroup, a ring of
 # 64-row (Q, dO) tiles) and a dQ kernel (a CTA per 64-row q block, a ring of
-# 64-key (K, V) tiles), both on wgmma; f32: the SIMT kernels on 32-row
-# tiles.  Both start with the delta kernel.
+# 64-key (K, V) tiles), both on wgmma; f32: the same two kernels' structure
+# with split-TF32 products on mma.sync (route "tf32x3"), f32 tiles whose
+# ring stages hold fewer rows past a padded head dim of 128.  Both start
+# with the delta kernel.
 BWD_KV_ROWS = 64          # kv rows a dK/dV CTA
 BWD_Q_ROWS = 64           # q rows a dK/dV ring stage and a dQ CTA
 BWD_KEYS = 64             # keys a dQ ring stage
-BWD_SIMT_ROWS = 32        # the f32 kernels' q and kv rows
 _BWD_STAGES = 2
 
 
@@ -301,11 +303,25 @@ def _bwd_q_smem(head_dim: int) -> int:
     return 1024 + tiles + 8 * (1 + 2 * _BWD_STAGES)
 
 
-def _bwd_simt_smem(head_dim: int) -> int:
-    """The f32 kernels' (both the same): Q, dO, K and V as f32 rows padded
-    by one, P and dS, the block's lse and delta."""
-    dp, rows = cdiv(head_dim, 32) * 32, BWD_SIMT_ROWS
-    return 4 * (4 * rows * (dp + 1) + 2 * rows * (rows + 1) + 2 * rows)
+def bwd_f32_step_rows(head_dim: int) -> int:
+    """The f32 kernels' ring stage: q rows of a dK/dV stage and keys of a
+    dQ stage (csrc ``BwdF32::kStep``), fewer past a padded head dim of 128
+    so that two stages fit beside the CTA's own two tiles."""
+    dp = padded_head_dim(head_dim)
+    return 64 if dp <= 128 else (32 if dp <= 192 else 16)
+
+
+def _bwd_f32_smem(head_dim: int) -> Tuple[int, int]:
+    """The f32 kernels' shared memory (dK/dV, dQ): the CTA's two 64-row
+    f32 tiles and two ring stages of two tiles, rows of the padded head dim
+    plus 4 floats; a dK/dV stage also holds its q rows' lse2 and delta,
+    and the dK/dV CTA the P^T its dV warps hand to its dK warps (4 row
+    groups x 32 lanes x step / 2 values)."""
+    ld, step = padded_head_dim(head_dim) + 4, bwd_f32_step_rows(head_dim)
+    own = 2 * 64 * ld
+    kv = own + _BWD_STAGES * (2 * step * ld + 2 * step) + 64 * step
+    q = own + _BWD_STAGES * 2 * step * ld
+    return 4 * kv, 4 * q
 
 
 @dataclass(frozen=True)
@@ -329,20 +345,21 @@ def plan_attention_bwd(
     s_q: int, s_kv: int, head_dim: int, *, batch: int = 1, heads: int = 1,
     kv_heads: Optional[int] = None, in_dtype: str = "bfloat16",
 ) -> BwdPlan:
-    """The backward's launch at these shapes: f32 takes the SIMT kernels
-    (32-row tiles), bf16 the wgmma kernels (64 kv rows a dK/dV CTA, 64 q
-    rows a dQ CTA), whatever the head dim."""
+    """The backward's launch at these shapes: bf16 takes the wgmma kernels,
+    f32 the split-TF32 ones ("tf32x3"); both run 64 kv rows a dK/dV CTA
+    and 64 q rows a dQ CTA, whatever the head dim.  A bf16 dK/dV CTA walks
+    its kv head's whole GQA group, an f32 one a single q head (its grid
+    counts q heads; a group-sum kernel adds them)."""
     kv_heads = heads if kv_heads is None else kv_heads
     check_head_dim(head_dim)
+    n_qb = cdiv(s_q, BWD_Q_ROWS)
     if in_dtype == "float32":
-        rows = BWD_SIMT_ROWS
-        smem = _bwd_simt_smem(head_dim)
-        return BwdPlan("simt", rows, rows, s_q,
-                       cdiv(s_kv, rows) * batch * kv_heads,
-                       cdiv(s_q, rows) * batch * heads, smem, smem)
+        kv_smem, q_smem = _bwd_f32_smem(head_dim)
+        return BwdPlan("tf32x3", BWD_KV_ROWS, BWD_Q_ROWS, n_qb * BWD_Q_ROWS,
+                       cdiv(s_kv, BWD_KV_ROWS) * batch * heads,
+                       n_qb * batch * heads, kv_smem, q_smem)
     if in_dtype != "bfloat16":
         raise ValueError(f"flash_attention_bwd: no route for {in_dtype}")
-    n_qb = cdiv(s_q, BWD_Q_ROWS)
     return BwdPlan("wgmma", BWD_KV_ROWS, BWD_Q_ROWS, n_qb * BWD_Q_ROWS,
                    cdiv(s_kv, BWD_KV_ROWS) * batch * kv_heads,
                    n_qb * batch * heads, _bwd_kv_smem(head_dim),
@@ -445,11 +462,13 @@ def _check_qkv(q, k, v, what="flash_attention"):
 
 
 def check_tma_operands(what: str, **tensors: torch.Tensor) -> None:
-    """Raise unless TMA can read each tensor in place: a 16-byte aligned
-    base and 16-byte multiples (8 bf16) for the strides of its first
-    three dims.  Nothing is padded or copied to make it so."""
+    """Raise unless TMA (bf16) or cp.async (f32) can read each tensor in
+    place: a 16-byte aligned base and 16-byte multiples (8 bf16, 4 f32)
+    for the strides of its first three dims.  Nothing is padded or copied
+    to make it so."""
     for name, t in tensors.items():
-        if t.data_ptr() % 16 or any(s < 0 or s % 8 for s in t.stride()[:3]):
+        if t.data_ptr() % 16 or any(s < 0 or s * t.element_size() % 16
+                                    for s in t.stride()[:3]):
             raise ValueError(f"{what}: {name} strides {t.stride()} not "
                              f"aligned for the kernel")
 
@@ -479,29 +498,33 @@ def _launch_bwd_cuda(q, k, v, o, lse, do, *, causal, scale):
         raise ValueError("flash_attention_bwd: o needs a unit stride on "
                          "the head dim")
     f32 = q.dtype == torch.float32
-    if not f32:
-        check_tma_operands("flash_attention_bwd", q=q, k=k, v=v, do=do)
+    # TMA (bf16) and cp.async (f32) read q, k, v and dO in place.
+    check_tma_operands("flash_attention_bwd", q=q, k=k, v=v, do=do)
     plan = plan_attention_bwd(Sq, Skv, d, batch=B, heads=H, kv_heads=Hkv,
                               in_dtype="float32" if f32 else "bfloat16")
     scale = scale if scale is not None else d ** -0.5
     dq = torch.empty((B, H, Sq, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Hkv, Skv, d), dtype=q.dtype, device=q.device)
     dv = torch.empty_like(dk)
-    # delta and (wgmma route) lse2 = lse log2(e), plan.sq_pad rows a head.
-    scratch = torch.empty((1 if f32 else 2, B, H, plan.sq_pad),
+    # delta and lse2 = lse log2(e), plan.sq_pad rows a head; in f32 under
+    # GQA each q head's dK and dV, which a group-sum kernel adds up.
+    scratch = torch.empty((2, B, H, plan.sq_pad),
                           dtype=torch.float32, device=q.device)
+    part = torch.empty((2, B, H, Skv, d), dtype=torch.float32,
+                       device=q.device) if f32 and H > Hkv else None
     lib = build.load("flash_attention")
     fn = lib.repro_flash_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 15 \
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 15 \
             + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 5 \
             + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   do.data_ptr(), lse.data_ptr(), scratch[0].data_ptr(),
-                  None if f32 else scratch[1].data_ptr(),
+                  scratch[1].data_ptr(),
                   dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                  part.data_ptr() if part is not None else None,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *o.stride()[:3], *do.stride()[:3], B, H, Hkv, Sq, Skv,
                   Skv, int(causal), float(scale), d, int(f32),

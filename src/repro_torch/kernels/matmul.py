@@ -190,6 +190,51 @@ def work_plan(M: int, N: int, K: int, cfg: TileConfig, groups: int,
                     group_m=cfg.group_m)
 
 
+# The f32 kernel's tiling (csrc/matmul.cu: dispatch_f32, launch_f32): one
+# consumer warpgroup for bm <= 64, two above, each 64 rows of a pass; a pass
+# up to 128 columns wide (a 256-row tile runs as two 128-row passes, a
+# 256-wide one as two 128-wide passes); a ring of 32-deep f32 slabs of A
+# (the pass's rows) and B (its columns), as many stages as fit beside the
+# hi / lo copies of a B slab, the epilogue buffers and the barriers (at
+# most 8).
+_F32_KS = 32
+_MAX_STAGES = 8
+_EPI_BYTES = 64 * 40 * 4
+SMEM_MAX = 232448
+
+
+@dataclass(frozen=True)
+class F32Tiling:
+    """How the f32 (split-TF32) kernel runs a ``TileConfig``: ``nwg``
+    consumer warpgroups, passes of ``rows`` x ``pass_n`` (``passes`` of
+    them a tile), ring stages ``ks`` deep, ``stages`` of them in ``smem``
+    bytes.  The wrapper passes ``stages`` and ``smem`` to the C entry,
+    which refuses a launch whose own differ."""
+    nwg: int
+    rows: int
+    pass_n: int
+    passes: int
+    ks: int
+    stages: int
+    smem: int
+
+
+def f32_tiling(cfg: TileConfig, *, trans_a: bool = False,
+               trans_b: bool = False) -> F32Tiling:
+    """``dispatch_f32`` / ``launch_f32``'s tiling of ``cfg`` (the same in
+    every operand layout: TMA boxes hold the slabs as stored)."""
+    bm, bn = cfg.bm, cfg.bn
+    nwg = 1 if bm <= 64 else 2
+    rows, pn = min(bm, 64 * nwg), min(bn, 128)
+    fixed = 1024 + 2 * pn * _F32_KS * 4 + nwg * _EPI_BYTES \
+        + 2 * _MAX_STAGES * 8
+    stage = (rows + pn) * _F32_KS * 4
+    stages = min(_MAX_STAGES, (SMEM_MAX - fixed) // stage)
+    return F32Tiling(nwg=nwg, rows=rows, pass_n=pn,
+                     passes=(bm // rows) * (bn // pn), ks=_F32_KS,
+                     stages=stages, smem=fixed + stages * stage)
+
+
 def matmul_plain(a, b, cfg: TileConfig, *, out_dtype, epilogue=None,
                  bias=None, gate=None, residual=None, trans_a=False,
                  trans_b=False) -> torch.Tensor:
@@ -418,10 +463,13 @@ def _launch_groups(what, a, b, cfg, *, grouped, out_dtype, epilogue, bias,
     dev = a.device
     plan = work_plan(M, Np, Kp, cfg, G, _sm_count(dev.index))
 
+    f32 = f32_tiling(cfg, trans_a=trans_a, trans_b=trans_b) \
+        if a.dtype == torch.float32 else None
+
     lib = build.load("matmul")
     fn = lib.repro_gemm
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 21 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 23 \
             + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
@@ -442,6 +490,7 @@ def _launch_groups(what, a, b, cfg, *, grouped, out_dtype, epilogue, bias,
             G, int(grouped), int(trans_a), int(trans_b),
             plan.steps_per_tile, plan.steps_per_unit,
             plan.units_per_cta, plan.ctas,
+            f32.stages if f32 else 0, f32.smem if f32 else 0,
             stride(a), stride(b), stride(out), stride(ops["bias"]),
             stride(ops["gate"]), stride(ops["residual"]), stream.cuda_stream)
     # The C entry launches on the current device; switch only when the

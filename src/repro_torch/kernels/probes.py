@@ -20,6 +20,15 @@ checksum), a CUDA tensor the kernel, anything else raises.  The counts
 ``stream_read.launches``, ``mma_chain.launches`` and ``wave_grid.launches``
 go up by one per kernel launch.
 
+Each kernel writes its sums (one a CTA for the stream, one a chain for the
+others) with plain stores, so no output needs zeroing.  A timed call
+(``calib/device.py::TorchDevice``) passes ``out``, a buffer it owns: the
+call then enqueues the probe's one launch and nothing else (no fill, no
+allocation, no reduction), the same fixed work for every probe, since the
+fit subtracts the wave sweep's intercept from the latency sweep's.  On the
+card ``stream_read`` then returns the CTAs' sums, whose total is the
+checksum; without ``out`` it allocates them and returns the total.
+
 The stream's work departs from ``JaxDevice``'s in two ways, both so that
 the sweep moves what ``core/simulator.py::simulate_stream`` prices:
 ``nbytes`` in all, each byte read again one window later.  A fetch larger
@@ -33,7 +42,7 @@ window then re-reads most of the one before, which the L2 serves).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -45,8 +54,10 @@ VEC_BYTES = 16              # a stream fetch reads 16-byte vectors of 4 f32
 CHAINS_PER_CTA = 4          # wgmma chains (warpgroups) of a compute CTA
 ATOM_K = 16                 # the macro-atom's depth: mxu_shape (64, 64, 16)
 ROW_BYTES = 128             # an operand row: four 32-byte K slices
-MMA_SMEM = 2 * 64 * ROW_BYTES + 1024    # both operands, 1024-byte aligned
+# both operands, 1024-byte aligned, and the warps' int64 sums after them
+MMA_SMEM = 2 * 64 * ROW_BYTES + 1024 + 16 * 8
 WAVE_SMEM = 120 * 1024      # > half an SM's 228 KB: one wave CTA an SM
+STREAM_SLOTS_MAX = 1024     # the stream grid's CTAs (one an SM) at most
 
 # dtype name (the topology's peak_flops keys) -> (kernel code, torch dtype
 # of the operands, K of one instruction: 32 bytes of the operand type).
@@ -103,22 +114,23 @@ def stream_read_plain(x: torch.Tensor, nbytes: float, window: int,
 
 
 def stream_read(x: torch.Tensor, nbytes: float, window: int,
-                n_chunks: int) -> torch.Tensor:
+                n_chunks: int, *, out: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
     """Checksum (0-d int64) of ``n_chunks`` fetches moving ``nbytes`` in
     all through the first ``window`` bytes of ``x`` (from
     :func:`stream_data`).  The kernel's per-thread f32 sums, and so the
     checksum, are exact while a thread reads fewer than 2^24 / 12 vectors
     (``ceil(n_chunks / groups) * ceil(chunk / (1024 * CTAs a fetch))``,
-    :func:`stream_groups`)."""
+    :func:`stream_groups`).  With ``out`` (int64, at least one element an
+    SM; the card only) the kernel writes its CTAs' sums into its first
+    slots and ``out`` is returned, with nothing else enqueued."""
     elems, chunk, chunks = stream_geometry(nbytes, window, n_chunks)
     if x.dtype != torch.float32 or x.dim() != 1 or x.numel() < elems * 4:
         raise ValueError(f"stream_read: x must be 1-D f32 with at least "
                          f"{elems * 4} elements, got {tuple(x.shape)} "
                          f"{x.dtype}")
-    if x.device.type == "cpu":
+    if _route(x, "stream_read") == "plain":
         return stream_read_plain(x, nbytes, window, n_chunks)
-    if x.device.type != "cuda":
-        raise ValueError(f"stream_read: unsupported device {x.device}")
     ctas = _sm_count(x.device.index)
     if not x.is_contiguous() or x.data_ptr() % VEC_BYTES:
         raise ValueError("stream_read: x must be contiguous and 16-byte "
@@ -127,17 +139,16 @@ def stream_read(x: torch.Tensor, nbytes: float, window: int,
         raise ValueError(f"stream_read: a fetch of {chunk} vectors is too "
                          f"large (raise n_chunks)")
     per, groups = stream_groups(chunk, ctas)
-    out = torch.zeros(1, dtype=torch.int64, device=x.device)
-    lib = _lib()
-    stream = torch.cuda.current_stream(x.device)
-    with torch.cuda.device(x.device):
-        code = lib.repro_probe_stream(x.data_ptr(), elems, chunk, chunks,
-                                      per * groups, per, out.data_ptr(),
-                                      stream.cuda_stream)
-    build.check(lib, code, f"stream_read {nbytes:g} B / {window} B window "
-                f"/ {chunks} fetches")
+    if per * groups > STREAM_SLOTS_MAX:
+        raise ValueError(f"stream_read: {per * groups} CTAs exceed "
+                         f"{STREAM_SLOTS_MAX} result slots")
+    parts = _out_slots("stream_read", out, per * groups, x.device)
+    _run("repro_probe_stream", x.device,
+         f"stream_read {nbytes:g} B / {window} B window / {chunks} fetches",
+         x.data_ptr(), elems, chunk, chunks, per * groups, per,
+         parts.data_ptr())
     stream_read.launches += 1
-    return out[0]
+    return parts if out is not None else parts.sum()
 
 
 stream_read.launches = 0
@@ -207,20 +218,50 @@ def _check_operands(what: str, a: torch.Tensor, b: torch.Tensor) -> str:
     return dtype
 
 
-def _launch_chains(what, a, b, dtype, base, extra, ctas, chains, smem):
+def _route(t: torch.Tensor, what: str) -> str:
+    """"plain" for a CPU tensor, "kernel" for a CUDA one; raises for any
+    other device."""
+    if t.device.type == "cpu":
+        return "plain"
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {t.device}")
+    return "kernel"
+
+
+def _out_slots(what: str, out: Optional[torch.Tensor], n: int,
+               device) -> torch.Tensor:
+    """The kernel's n int64 result slots: the first n of the caller's
+    ``out`` (returned whole) or, without one, a new tensor (no fill: the
+    kernel writes every slot)."""
+    if out is None:
+        return torch.empty(n, dtype=torch.int64, device=device)
+    if out.dtype != torch.int64 or out.dim() != 1 or out.numel() < n \
+            or out.device != device or not out.is_contiguous():
+        raise ValueError(f"{what}: out must be a contiguous int64 vector of "
+                         f"at least {n} elements on {device}")
+    return out
+
+
+def _run(fn_name: str, device, what: str, *args) -> None:
+    """Call the C entry ``fn_name`` of ``csrc/probes.cu`` on ``device``'s
+    current stream and raise on its error code."""
+    lib = _lib()
+    stream = torch.cuda.current_stream(device)
+    with torch.cuda.device(device):
+        code = getattr(lib, fn_name)(*args, stream.cuda_stream)
+    build.check(lib, code, what)
+
+
+def _launch_chains(what, a, b, dtype, base, extra, ctas, chains, smem, out):
     for t in (a, b):
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{what}: operands must be contiguous and "
                              f"16-byte aligned")
-    out = torch.zeros(ctas * chains, dtype=torch.int64, device=a.device)
-    lib = _lib()
-    stream = torch.cuda.current_stream(a.device)
-    with torch.cuda.device(a.device):
-        code = lib.repro_probe_mma(PROBE_DTYPES[dtype][0], a.data_ptr(),
-                                   b.data_ptr(), base, extra, ctas, chains,
-                                   smem, out.data_ptr(), stream.cuda_stream)
-    build.check(lib, code, f"{what} {dtype} {ctas} x {chains} chains")
-    return out
+    sums = _out_slots(what, out, ctas * chains, a.device)
+    _run("repro_probe_mma", a.device, f"{what} {dtype} {ctas} x {chains} "
+         f"chains", PROBE_DTYPES[dtype][0], a.data_ptr(), b.data_ptr(), base,
+         extra, ctas, chains, smem, sums.data_ptr())
+    return sums
 
 
 def mma_chain_plain(a, b, n_atoms: int, n_parallel: int) -> torch.Tensor:
@@ -230,22 +271,22 @@ def mma_chain_plain(a, b, n_atoms: int, n_parallel: int) -> torch.Tensor:
 
 
 def mma_chain(a: torch.Tensor, b: torch.Tensor, n_atoms: int,
-              n_parallel: int) -> torch.Tensor:
+              n_parallel: int, *,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Checksums (int64, one a chain) of ``n_atoms`` macro-atoms on the
     resident operands ``a``, ``b`` (from :func:`mma_operands`), split over
     ``n_parallel`` CTAs of :data:`CHAINS_PER_CTA` chains: chain c runs
-    I // chains + (c < I % chains) of the I instructions."""
+    I // chains + (c < I % chains) of the I instructions.  ``out`` (card
+    only): an int64 buffer whose first slots take them; it is returned."""
     dtype = _check_operands("mma_chain", a, b)
-    if a.device.type == "cpu":
+    if _route(a, "mma_chain") == "plain":
         return mma_chain_plain(a, b, n_atoms, n_parallel)
-    if a.device.type != "cuda":
-        raise ValueError(f"mma_chain: unsupported device {a.device}")
     ctas = max(int(n_parallel), 1)
     base, extra = divmod(instructions(dtype, n_atoms), ctas * CHAINS_PER_CTA)
-    out = _launch_chains("mma_chain", a, b, dtype, base, extra, ctas,
-                         CHAINS_PER_CTA, MMA_SMEM)
+    sums = _launch_chains("mma_chain", a, b, dtype, base, extra, ctas,
+                          CHAINS_PER_CTA, MMA_SMEM, out)
     mma_chain.launches += 1
-    return out
+    return sums
 
 
 mma_chain.launches = 0
@@ -257,20 +298,19 @@ def wave_grid_plain(a, b, n_units: int, unit_atoms: int) -> torch.Tensor:
 
 
 def wave_grid(a: torch.Tensor, b: torch.Tensor, n_units: int,
-              unit_atoms: int) -> torch.Tensor:
+              unit_atoms: int, *,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Checksums (int64, one a unit) of ``n_units`` CTAs, each one chain of
     ``unit_atoms`` macro-atoms with :data:`WAVE_SMEM` of shared memory, so
-    that a CTA holds a whole SM."""
+    that a CTA holds a whole SM.  ``out`` as for :func:`mma_chain`."""
     dtype = _check_operands("wave_grid", a, b)
-    if a.device.type == "cpu":
+    if _route(a, "wave_grid") == "plain":
         return wave_grid_plain(a, b, n_units, unit_atoms)
-    if a.device.type != "cuda":
-        raise ValueError(f"wave_grid: unsupported device {a.device}")
-    out = _launch_chains("wave_grid", a, b, dtype,
-                         instructions(dtype, unit_atoms), 0,
-                         max(int(n_units), 1), 1, WAVE_SMEM)
+    sums = _launch_chains("wave_grid", a, b, dtype,
+                          instructions(dtype, unit_atoms), 0,
+                          max(int(n_units), 1), 1, WAVE_SMEM, out)
     wave_grid.launches += 1
-    return out
+    return sums
 
 
 wave_grid.launches = 0

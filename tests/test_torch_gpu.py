@@ -652,7 +652,7 @@ def _check_flash_bwd(cuda, dtype, B, H, Hkv, S, d, causal, seed,
     assert kfa.flash_attention_bwd_kernel.launches == n0 + 2
     plan = kfa.plan_attention_bwd(S, S, d, batch=B, heads=H, kv_heads=Hkv,
                                   in_dtype=dtype)
-    assert plan.route == ("simt" if dtype == "float32" else "wgmma")
+    assert plan.route == ("tf32x3" if dtype == "float32" else "wgmma")
     for x, y, p, r in zip(got, again, plain, ref32):
         assert torch.equal(x, y) and x.dtype == dt and x.shape == p.shape
         assert bool(torch.isfinite(x).all())
@@ -735,3 +735,139 @@ def test_expert_matmul_refuses_autograd_on_card(cuda):
         ops.expert_matmul(x, w)
     with torch.no_grad():
         assert ops.expert_matmul(x, w).shape == (2, 8, 32)
+
+
+# ---------------------------------------------------------------------------
+# The f32 routes on split-TF32 products (csrc/tf32x3.cuh): the GEMM at every
+# tile of the menu in every layout and grouped, at zamba2-7b's mamba
+# GEMMs, in a CUDA graph; the flash backward at every head dim; the probes'
+# timed form.  f32 tolerances as above; every case launched twice, bitwise.
+# ---------------------------------------------------------------------------
+
+F32_TILES = [(bm, bn) for bm in (32, 64, 128, 256) for bn in (32, 64, 128, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["nn", "tn", "nt", "grouped"])
+@pytest.mark.parametrize("bm,bn", F32_TILES, ids=str)
+def test_f32_gemm_every_tile_and_layout_on_card(cuda, layout, bm, bn):
+    """Each (bm, bn) of the menu in each layout, ragged M, N and K, with a
+    k-step (48) that is no multiple of 32 on half the tiles (the 16-deep
+    ring slices) and a stream-K or split-K fixup."""
+    M, N, K = 204, 332, 472
+    bk = 48 if (bm + bn) % 64 else 64
+    cfg = (TileConfig(bm, bn, bk, schedule="stream_k") if bm <= bn
+           else TileConfig(bm, bn, bk, split_k=2, group_m=2))
+    g = torch.Generator(device=cuda).manual_seed(bm * 7 + bn)
+    f32 = torch.float32
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=cuda)
+    if layout == "grouped":
+        x, w = rnd(3, M, K), rnd(3, K, N)
+        ep = Epilogue(bias=True, activation="silu")
+        bias = rnd(3, N)
+        kw = dict(out_dtype=f32, epilogue=ep, bias=bias)
+        got, again = (kmm.tiled_expert_matmul(x, w, cfg, **kw)
+                      for _ in range(2))
+        want = kmm.expert_matmul_plain(x, w, cfg, **kw)
+    else:
+        a = rnd(K, M) if layout == "tn" else rnd(M, K)
+        b = rnd(N, K) if layout == "nt" else rnd(K, N)
+        ep = Epilogue(residual=True)
+        kw = dict(out_dtype=f32, epilogue=ep, residual=rnd(M, N),
+                  trans_a=layout == "tn", trans_b=layout == "nt")
+        got, again = (kmm.tiled_matmul(a, b, cfg, **kw) for _ in range(2))
+        want = kmm.matmul_plain(a, b, cfg, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _flags_down()
+    rtol, atol = _tol(f32, K)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+ZAMBA2_MAMBA_GEMMS = [(7168, 3584), (64, 3584), (112, 3584), (3584, 7168)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [4, 474])
+@pytest.mark.parametrize("N,K", ZAMBA2_MAMBA_GEMMS, ids=str)
+def test_f32_zamba2_gemms_on_card(cuda, M, N, K):
+    """zamba2-7b's mamba projections in f32 (the f32 serve's GEMMs) at
+    decode and prefill M on the selector's config, bf16 outputs too."""
+    from repro_torch.core.selector import select_gemm_config
+    cfg = select_gemm_config(M, N, K, in_dtype="float32",
+                             out_dtype="float32", hw=GPU_H100_LIKE).config
+    g = torch.Generator(device=cuda).manual_seed(N + K + M)
+    a = torch.randn((M, K), generator=g, device=cuda) * 0.1
+    b = torch.randn((K, N), generator=g, device=cuda) * 0.02
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got, again = (kmm.tiled_matmul(a, b, cfg, out_dtype=out_dtype)
+                      for _ in range(2))
+        want = kmm.matmul_plain(a, b, cfg, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        rtol, atol = _tol(out_dtype, K)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.gpu
+def test_f32_gemm_replays_in_a_cuda_graph(cuda):
+    """The f32 route's split launch (zamba2's decode in_z on its stream-K
+    config) replays twice in a CUDA graph with the eager launch's bits."""
+    cfg = TileConfig(32, 128, 128, schedule="stream_k")
+    a, b, kw = _gemm_operands(cuda, 4, 7168, 3584, Epilogue(residual=True),
+                              torch.float32)
+    kw = dict(out_dtype=torch.float32, epilogue=Epilogue(residual=True),
+              **kw)
+    eager = kmm.tiled_matmul(a, b, cfg, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kmm.tiled_matmul(a, b, cfg, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kmm.tiled_matmul(a, b, cfg, **kw)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert _flags_down()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", kfa.HEAD_DIMS)
+@pytest.mark.parametrize("causal,Hkv", [(True, 2), (False, 4)], ids=str)
+def test_flash_bwd_f32_every_head_dim_on_card(cuda, d, causal, Hkv):
+    """The split-TF32 backward at every head dim the f32 route takes
+    (every multiple of 8 up to 256), causal with GQA and not without, at
+    a ragged S: see :func:`_check_flash_bwd`."""
+    _check_flash_bwd(cuda, "float32", 1, 4, Hkv, 150, d, causal, seed=d)
+
+
+@pytest.mark.gpu
+def test_probes_timed_form_on_card(cuda):
+    """With ``out`` the probes write their sums into the caller's buffer
+    (no fill before them): the stream's CTA sums add up to the checksum,
+    the chains' sums equal the plain version's."""
+    x = probes.stream_data(1 << 20, cuda)
+    out = torch.full((4096,), -1, dtype=torch.int64, device=cuda)
+    _, chunk, _ = probes.stream_geometry(3 << 20, 1 << 20, 4)
+    per, groups = probes.stream_groups(chunk, kmm._sm_count(cuda.index))
+    got = probes.stream_read(x, 3 << 20, 1 << 20, 4, out=out)
+    torch.cuda.synchronize()
+    assert got is out
+    want = probes.stream_read_plain(x, 3 << 20, 1 << 20, 4)
+    assert int(out[:per * groups].sum()) == int(want)
+    assert bool((out[per * groups:] == -1).all())
+    a, b = probes.mma_operands("bfloat16", cuda,
+                               torch.Generator(device=cuda).manual_seed(3))
+    probes.wave_grid(a, b, 133, 40, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:133], probes.wave_grid_plain(a, b, 133, 40))
+    probes.mma_chain(a, b, 1000, 7, out=out)
+    torch.cuda.synchronize()
+    assert torch.equal(out[:28], probes.mma_chain_plain(a, b, 1000, 7))

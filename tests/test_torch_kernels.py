@@ -221,24 +221,21 @@ def _registry_head_dims():
 def test_flash_bwd_route_covers_both_registries(dtype):
     """The backward's route follows the dtype alone: every head dim of
     both registries (and every one the kernels take) runs the wgmma
-    kernels in bf16 (64 kv rows a dK/dV CTA, 64 q rows a dQ CTA) and the
-    SIMT kernels in f32; every launch's shared memory fits the 227 KB a
-    block may opt into."""
+    kernels in bf16 and the split-TF32 kernels in f32, both with 64 kv
+    rows a dK/dV CTA and 64 q rows a dQ CTA; every launch's shared memory
+    fits the 227 KB a block may opt into."""
     dims = _registry_head_dims()
     assert dims == {16, 32, 64, 112, 128, 160}
     for d in sorted(dims | set(kfa.HEAD_DIMS)):
         plan = kfa.plan_attention_bwd(300, 300, d, batch=1, heads=8,
                                       kv_heads=2, in_dtype=dtype)
         assert plan.kv_smem <= 232448 and plan.q_smem <= 232448, plan
-        if dtype == "float32":
-            assert (plan.route, plan.kv_block, plan.q_block, plan.sq_pad,
-                    plan.kv_ctas, plan.q_ctas) == ("simt", 32, 32, 300,
-                                                   20, 80), plan
-            assert plan.kv_smem == plan.q_smem
-            continue
+        # a bf16 dK/dV CTA a kv head, an f32 one a q head
+        route, kv_ctas = (("tf32x3", 40) if dtype == "float32"
+                          else ("wgmma", 10))
         assert (plan.route, plan.kv_block, plan.q_block, plan.sq_pad,
-                plan.kv_ctas, plan.q_ctas) == ("wgmma", 64, 64, 320,
-                                               10, 40), plan
+                plan.kv_ctas, plan.q_ctas) == (route, 64, 64, 320,
+                                               kv_ctas, 40), plan
     with pytest.raises(ValueError, match="multiple of 8 up to 256"):
         kfa.plan_attention_bwd(64, 64, 20)
     with pytest.raises(ValueError, match="no route for float16"):

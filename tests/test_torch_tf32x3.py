@@ -1,0 +1,379 @@
+"""The f32 routes' split-TF32 products and the calibration probes' timed
+form, on the CPU.
+
+The f32 GEMM (``csrc/matmul.cu``) and the f32 flash-attention backward
+(``csrc/flash_attention.cu``) compute every product as three TF32
+tensor-core products of split operands (``csrc/tf32x3.cuh``).  The
+kernels run only on the card; here a plain PyTorch emulation of that
+rounding (a test helper, on no path of the port; for the GEMM also with
+a model of the tensor cores' accumulator, which rounds toward zero
+within a 32-deep slab's products) is held against the JAX package's f32
+reference, so the error budget is shown before the card: the GEMM at
+zamba2-7b's K within ``tests/test_kernels.py``'s f32 GEMM tolerance
+(rtol 1e-5 / atol 1e-4·√K), the attention backward at small widths
+within its f32 attention tolerance (rtol 1e-4 / atol 2e-5).  One TF32
+product alone misses the GEMM tolerance, which is why the kernels take
+three, and so does one accumulator over the whole K, which is why they
+add each 32-deep slab's sum to a running f32 sum.
+
+The plans of the new kernels (tiles, stages, grids, shared bytes) are held
+to the card's limits at the shapes the main paths launch, and the probes'
+timed form to the same fixed work a call for the latency and the wave
+sweep (the calibration subtracts one intercept from the other).
+"""
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from repro.kernels import ops as jops
+from repro_torch.calib import device as cdev
+from repro_torch.core.hardware import GPU_H100_LIKE
+from repro_torch.core.selector import select_gemm_config
+from repro_torch.kernels import flash_attention as kfa
+from repro_torch.kernels import matmul as kmm
+from repro_torch.kernels import probes
+
+SMEM_MAX = 232448             # 227 KB of opt-in shared memory a block
+
+
+# ---------------------------------------------------------------------------
+# The emulation (test helpers).
+# ---------------------------------------------------------------------------
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32``: round f32 to 10 mantissa bits, to nearest
+    with ties away from zero (the low 13 bits of the result are zero)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor cores read of an f32 bit pattern given as a .tf32
+    operand: its low 13 bits dropped."""
+    return (x.contiguous().view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """The kernels' split: hi rounded to nearest, lo = x - hi (exact in
+    f32) as the tensor cores read it."""
+    hi = tf32_rna(x)
+    return hi, tf32_trunc(x - hi)
+
+
+def mm_tf32x3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b as the kernels take it: lo hi + hi lo, then hi hi, each
+    product exact in f32 (11 x 11 significant bits), sums in f32."""
+    ah, al = split_tf32(a)
+    bh, bl = split_tf32(b)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _rz_f32(x: torch.Tensor) -> torch.Tensor:
+    """f64 -> f32 rounded toward zero."""
+    y = x.to(torch.float32)
+    over = y.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def mm_tf32x3_sliced(a: torch.Tensor, b: torch.Tensor,
+                     slice_k: int = 32) -> torch.Tensor:
+    """a @ b as the f32 GEMM kernel sums it, with a model of the tensor
+    cores' accumulator: each mma adds its 8 exact products to the f32
+    accumulator and rounds toward zero; every ``slice_k`` of K the slice's
+    accumulator goes to the running sum by a rounded f32 add."""
+    ah, al = (x.double() for x in split_tf32(a))
+    bh, bl = (x.double() for x in split_tf32(b))
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32)
+    part = torch.zeros_like(acc)
+    for k0 in range(0, a.shape[1], 8):
+        ks = slice(k0, k0 + 8)
+        for x, y in ((al, bh), (ah, bl), (ah, bh)):
+            part = _rz_f32(part.double() + x[:, ks] @ y[ks])
+        if (k0 + 8) % slice_k == 0:
+            acc, part = acc + part, torch.zeros_like(part)
+    return acc + part
+
+
+def mm_tf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One TF32 product: what a single tensor-core pass would give."""
+    return tf32_rna(a) @ tf32_rna(b)
+
+
+def _rng(seed):
+    return np.random.default_rng(seed)
+
+
+def test_tf32_rounding_emulation():
+    """hi keeps 11 significant bits, rounded to nearest with ties away from
+    zero; hi + lo (lo truncated) keeps x within 2^-21 |x|."""
+    x = torch.from_numpy(_rng(0).standard_normal(4096).astype(np.float32))
+    hi, lo = split_tf32(x)
+    assert not bool((hi.view(torch.int32) & 0x1FFF).any())
+    assert not bool((lo.view(torch.int32) & 0x1FFF).any())
+    assert bool(((x - hi).abs() <= x.abs() * 2.0 ** -11).all())
+    assert bool(((x - hi - lo).abs() <= x.abs() * 2.0 ** -21).all())
+    # 1 + 2^-11 lies halfway between two TF32 values: away from zero.
+    tie = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11)])
+    assert tf32_rna(tie).tolist() == [1 + 2.0 ** -10, -(1 + 2.0 ** -10)]
+
+
+# ---------------------------------------------------------------------------
+# The GEMM at zamba2-7b's K: the split-TF32 sum within the f32 tolerance of
+# the JAX package's f32 reference; one TF32 product outside it.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("K", [3584, 7168, 14336])
+def test_split_tf32_gemm_meets_the_f32_tolerance_at_zamba2_k(K):
+    M, N = 16, 64
+    r = _rng(K)
+    a = r.standard_normal((M, K)).astype(np.float32)
+    b = r.standard_normal((K, N)).astype(np.float32)
+    want = np.asarray(jops.matmul(jnp.asarray(a), jnp.asarray(b),
+                                  out_dtype=jnp.float32,
+                                  backend="reference"))
+    rtol, atol = 1e-5, 1e-4 * math.sqrt(K)
+    got = mm_tf32x3(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+    sliced = mm_tf32x3_sliced(torch.from_numpy(a),
+                              torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(sliced, want, rtol=rtol, atol=atol)
+    # One accumulator over the whole K (no slices) drifts past it at the
+    # out_proj's and the shared block's wd's K.
+    if K >= 7168:
+        whole = mm_tf32x3_sliced(torch.from_numpy(a), torch.from_numpy(b),
+                                 slice_k=K).numpy()
+        assert np.any(np.abs(whole - want) > atol + rtol * np.abs(want))
+    one = mm_tf32(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    assert np.any(np.abs(one - want) > atol + rtol * np.abs(want))
+
+
+# ---------------------------------------------------------------------------
+# The attention backward at small widths: every product (S, dP, dV, dK, dQ)
+# in split TF32, the softmax algebra in f32, from the f32 forward's o and
+# lse, as the kernels compute it.
+# ---------------------------------------------------------------------------
+
+def attention_bwd_tf32x3(q, k, v, do, *, causal, scale):
+    B, H, S, d = q.shape
+    rep = H // k.shape[1]
+    kk, vv = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    keep = torch.ones((S, S), dtype=torch.bool)
+    if causal:
+        keep = torch.tril(keep)
+    s32 = (q @ kk.transpose(-1, -2)) * scale
+    s32 = s32.masked_fill(~keep, float("-inf"))
+    lse = torch.logsumexp(s32, dim=-1, keepdim=True)
+    o = torch.softmax(s32, dim=-1) @ vv                 # the f32 forward
+    delta = (do * o).sum(-1, keepdim=True)
+    s = mm_tf32x3(q, kk.transpose(-1, -2)) * scale
+    p = torch.exp(s - lse).masked_fill(~keep, 0.0)
+    dp = mm_tf32x3(do, vv.transpose(-1, -2))
+    ds = p * (dp - delta)
+    dv = mm_tf32x3(p.transpose(-1, -2), do)
+    dk = mm_tf32x3(ds.transpose(-1, -2), q) * scale
+    dq = mm_tf32x3(ds, kk) * scale
+
+    def fold(x):   # the GQA group's heads summed onto their kv head
+        return x.reshape(B, H // rep, rep, S, d).sum(2)
+    return dq, fold(dk), fold(dv)
+
+
+@pytest.mark.parametrize("d", [16, 64, 112])
+@pytest.mark.parametrize("causal,Hkv", [(True, 2), (False, 4)], ids=str)
+def test_split_tf32_attention_bwd_meets_the_f32_tolerance(d, causal, Hkv):
+    B, H, S = 1, 4, 40
+    r = _rng(d + Hkv)
+    q, cot = (r.standard_normal((B, H, S, d)).astype(np.float32)
+              for _ in range(2))
+    k, v = (r.standard_normal((B, Hkv, S, d)).astype(np.float32)
+            for _ in range(2))
+
+    def f(q_, k_, v_):
+        out = jops.flash_attention(q_, k_, v_, causal=causal,
+                                   backend="reference")
+        return jnp.sum(out * cot)
+    want = jax.grad(f, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v))
+    got = attention_bwd_tf32x3(*(torch.from_numpy(x) for x in (q, k, v, cot)),
+                               causal=causal, scale=d ** -0.5)
+    for name, x, w in zip("qkv", got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=2e-5, err_msg=f"d{name}")
+
+
+# ---------------------------------------------------------------------------
+# The new kernels' plans.
+# ---------------------------------------------------------------------------
+
+ZAMBA2_MAMBA = [(7168, 3584), (7168, 3584), (64, 3584), (64, 3584),
+                (112, 3584), (3584, 7168)]
+
+
+@pytest.mark.parametrize("M", [4, 474])
+def test_f32_gemm_tiling_at_zamba2_shapes(M):
+    """The f32 kernel's tiling at the selector's config for zamba2-7b's six
+    mamba GEMMs: its passes cover the tile, 64 rows a consumer warpgroup
+    and at most 128 columns (64 running sums a thread), a ring of at least
+    two 32-deep stages in 227 KB; a 256-row tile takes two row passes."""
+    for N, K in ZAMBA2_MAMBA:
+        cfg = select_gemm_config(M, N, K, in_dtype="float32",
+                                 out_dtype="float32",
+                                 hw=GPU_H100_LIKE).config
+        for ta, tb in ((False, False), (True, False), (False, True)):
+            t = kmm.f32_tiling(cfg, trans_a=ta, trans_b=tb)
+            assert t.rows * t.pass_n * t.passes == cfg.bm * cfg.bn
+            assert t.rows <= 64 * t.nwg and t.pass_n <= 128
+            assert 2 <= t.stages <= 8 and t.smem <= SMEM_MAX
+            assert t.ks == 32
+            assert t.passes == (2 if cfg.bm == 256 else 1) \
+                * (2 if cfg.bn == 256 else 1)
+        plan = kmm.work_plan(M, N, K, cfg, 1, 132)
+        assert 1 <= plan.ctas <= 132
+
+
+def test_f32_gemm_tiling_covers_the_menu():
+    """Every (bm, bn) of the menu and several k-steps: one of the kernel's
+    six instantiations (consumer warpgroups, pass width), the same in
+    every operand layout, the stages filling the shared memory they may
+    beside the B slab's hi / lo copies."""
+    from repro_torch.core.latency import TileConfig
+    seen = set()
+    for bm in (32, 64, 128, 256):
+        for bn in (32, 64, 128, 256):
+            for bk in (48, 64, 128):
+                tilings = {kmm.f32_tiling(TileConfig(bm, bn, bk),
+                                          trans_a=ta, trans_b=tb)
+                           for ta, tb in ((False, False), (True, False),
+                                          (False, True))}
+                assert len(tilings) == 1
+                t = tilings.pop()
+                seen.add((t.nwg, t.pass_n))
+                stage = (t.rows + t.pass_n) * 32 * 4
+                assert t.smem <= SMEM_MAX
+                assert t.stages == 8 or t.smem + stage > SMEM_MAX
+    assert seen == {(1, 32), (1, 64), (1, 128), (2, 32), (2, 64), (2, 128)}
+
+
+@pytest.mark.parametrize("d", kfa.HEAD_DIMS)
+def test_flash_bwd_f32_plan_every_head_dim(d):
+    """The split-TF32 backward's plan at every head dim: the C entry's
+    tiles (64 kv rows a dK/dV CTA, 64 q rows a dQ CTA), the grids of the
+    f32 training shape (a dK/dV CTA per q head, not per kv head: 384, not
+    128), and shared bytes within 227 KB; the ring's stage rows fall past
+    a padded head dim of 128."""
+    plan = kfa.plan_attention_bwd(512, 512, d, batch=2, heads=24,
+                                  kv_heads=8, in_dtype="float32")
+    assert (plan.route, plan.kv_block, plan.q_block, plan.sq_pad,
+            plan.kv_ctas, plan.q_ctas) == ("tf32x3", 64, 64, 512, 384, 384)
+    assert plan.kv_smem <= SMEM_MAX and plan.q_smem <= SMEM_MAX
+    dp = kfa.padded_head_dim(d)
+    step = kfa.bwd_f32_step_rows(d)
+    assert step == {64: 64, 128: 64, 192: 32, 256: 16}[dp]
+    ld = dp + 4
+    assert plan.kv_smem == 4 * (2 * 64 * ld + 2 * (2 * step * ld + 2 * step)
+                                + 4 * 32 * step // 2)
+    assert plan.q_smem == 4 * (2 * 64 * ld + 2 * 2 * step * ld)
+
+
+def test_flash_bwd_f32_plan_at_zamba2_and_ragged_shapes():
+    """zamba2-7b's attention (32 heads of 112, no GQA) at its longest
+    served prompt, and an S shorter than one block: grids over 64-row
+    blocks of the padded q rows."""
+    plan = kfa.plan_attention_bwd(474, 474, 112, batch=1, heads=32,
+                                  kv_heads=32, in_dtype="float32")
+    assert (plan.sq_pad, plan.kv_ctas, plan.q_ctas) == (512, 256, 256)
+    short = kfa.plan_attention_bwd(40, 40, 64, heads=8, kv_heads=2,
+                                   in_dtype="float32")
+    assert (short.sq_pad, short.kv_ctas, short.q_ctas) == (64, 8, 8)
+
+
+# ---------------------------------------------------------------------------
+# C7: the latency sweep and the wave sweep time the same fixed work a call.
+# ---------------------------------------------------------------------------
+
+class _AtenOps(TorchDispatchMode):
+    """Records the aten ops a call dispatches (allocations, fills, sums)."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(func.overloadpacket.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The probe wrappers' card route on CPU tensors, the C entry replaced
+    by a recorder: what a call enqueues besides its one launch shows as
+    aten ops."""
+    calls = []
+    monkeypatch.setattr(probes, "_route", lambda t, what: "kernel")
+    monkeypatch.setattr(probes, "_sm_count", lambda index: 132)
+    monkeypatch.setattr(probes, "_run",
+                        lambda fn, dev, what, *args: calls.append(fn))
+    return calls
+
+
+def test_latency_and_wave_probes_enqueue_the_same_fixed_work(fake_card):
+    """In the timed form (``out`` given, as ``TorchDevice`` calls them) the
+    latency sweep's stream probe, the wave probe and the compute probe
+    are each one launch with no allocation, fill or reduction beside it;
+    without ``out`` the chains' probes allocate their slots (no fill) and
+    the stream probe also sums its CTAs' slots."""
+    x = probes.stream_data(1 << 16, "cpu")
+    a, b = probes.mma_operands("bfloat16", "cpu",
+                               torch.Generator().manual_seed(0))
+    out = torch.empty(4096, dtype=torch.int64)
+    timed = {}
+    for name, fn in (
+            ("latency", lambda: probes.stream_read(x, 65536.0, 1 << 16, 1,
+                                                   out=out)),
+            ("wave", lambda: probes.wave_grid(a, b, 2 * 132, 285, out=out)),
+            ("compute", lambda: probes.mma_chain(a, b, 4000, 132, out=out))):
+        with _AtenOps() as rec:
+            assert fn() is out
+        timed[name] = rec.ops
+    assert timed == {"latency": [], "wave": [], "compute": []}
+    assert fake_card == ["repro_probe_stream", "repro_probe_mma",
+                         "repro_probe_mma"]
+    with _AtenOps() as rec:
+        probes.wave_grid(a, b, 132, 285)
+    assert rec.ops == ["empty"]
+    with _AtenOps() as rec:
+        probes.stream_read(x, 65536.0, 1 << 16, 1)
+    assert rec.ops == ["empty", "sum"]
+    with pytest.raises(ValueError, match="at least 264"):
+        probes.wave_grid(a, b, 264, 285, out=out[:100])
+
+
+def test_torch_device_times_the_probes_in_their_timed_form(monkeypatch):
+    """``TorchDevice``'s stream, compute and wave timings each pass one
+    buffer it owns as ``out``, sized for the call and made before the
+    timing (so never inside a captured graph)."""
+    got = {}
+    buf = torch.empty(4096, dtype=torch.int64)
+
+    def record(name):
+        def fn(*args, out=None):
+            got[name] = out
+        return fn
+    for name in ("stream_read", "mma_chain", "wave_grid"):
+        monkeypatch.setattr(probes, name, record(name))
+    dev = cdev.TorchDevice(device="cpu")
+    sizes = []
+    monkeypatch.setattr(dev, "_slots", lambda n: sizes.append(n) or buf)
+    monkeypatch.setattr(dev, "_time", lambda fn: fn() or 1.0)
+    dev.stream_time(65536.0, 65536, 1)
+    dev.compute_time("bfloat16", 1000, 132)
+    dev.wave_time(3 * 132, 285, "bfloat16")
+    assert got == {"stream_read": buf, "mma_chain": buf, "wave_grid": buf}
+    assert sizes == [probes.STREAM_SLOTS_MAX, 132 * probes.CHAINS_PER_CTA,
+                     3 * 132]
+    assert cdev.TorchDevice(device="cpu")._slots(10) is None
