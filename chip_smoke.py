@@ -123,13 +123,20 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               one f32 case of each; the flash forward's lse and the flash
               backward at (4, 24/8, 512, 128) causal, at d in {16, 64,
               112, 160, 256}, at S = 77 and in f32 (d 128 and 112); the
-              epilogue backward of each activation in bf16 and f32.  The
-              bf16 backward must take the wgmma route.
-    train_grads — phi4-mini at full width with 2 layers, B 2 x S 512: one
-              loss and gradient on the kernel route against the plain route
-              on the card, in bf16 (within 2x the plain bf16 route's
-              distance from the plain f32 route) and in f32 (each leaf
-              within 1e-4: the f32 backward kernels' path).
+              epilogue backward of each activation in bf16 and f32; the
+              grouped GEMM's backward at qwen3-moe's training shapes (128
+              experts of capacity 160): dX with w read transposed and dW
+              with x read transposed for wu / wg and wd in bf16, one f32
+              case of each, and the grouped epilogue backward (dbias an
+              expert).  The bf16 backward must take the wgmma route.
+    train_grads — phi4-mini, then qwen3-moe-30b-a3b, at full width with 2
+              layers, B 2 x S 512: one loss and gradient on the kernel route
+              against the plain route on the card, in bf16 (within 2x the
+              plain bf16 route's distance from the plain f32 route; the
+              kernel route twice, bitwise) and in f32 (each leaf within
+              1e-4: the f32 backward kernels' path; launches equal to the
+              reckoning; qwen3's experts the same for every token copy on
+              both routes).
     train   — the driver's step functions (loss and gradients under retry,
               then the in-place AdamW commit) on phi4-mini-3.8b at full
               width and depth with remat: 6 steps on one repeated batch of
@@ -141,13 +148,18 @@ Phases, each printed as one JSON line; any failure exits non-zero:
     train_trace — one traced train step: wall time against device-busy
               time, kernel time by kernel; the attention backward must run
               its three wgmma-route kernels a layer and no f32 one.
+    train_moe, train_ssm, train_hybrid — the train phase, 3 steps each, for
+              qwen3-moe-30b-a3b at full width with 4 of its 48 layers
+              (then train_moe_trace), mamba2-370m at full size, zamba2-7b
+              at full width with 12 of its 81 layers.
     train_times — the training kernels' times at those shapes beside
-              their bounds, plain versions and library calls.
+              their bounds, plain versions and library calls (the grouped
+              backward beside ``torch.bmm``).
 Each serve phase counts the launches of every kernel inside the model's
 prefills and inside its decode steps apart.  The line before the last is
 the kernels summary (a row's launches are those of its own run and step
 kind, its max_abs_err the worst of its own shapes' cases in phases 2 and
-3); the last line is
+3), after a line with the script's total seconds; the last line is
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or run from a
 directory without the repository, it exits non-zero and prints no result.
 """
@@ -251,6 +263,7 @@ def main() -> int:
         print("chip_smoke: run from a checkout of the repository "
               "(src/repro_torch missing)", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -317,10 +330,12 @@ def main() -> int:
     hybrid_launches, f32_launches = serve_hybrid_phase(torch, dev, kmm, kfa)
     max_err.update(train_kernels_phase(torch, dev, kmm, kfa))
     grads_launches = train_grads_phase(torch, dev, kmm, kfa)
+    train_grads_phase(torch, dev, kmm, kfa, "qwen3-moe-30b-a3b")
     model, state, batch, train_launches = train_phase(torch, dev, kmm, kfa)
     train_trace_phase(torch, dev, model, state, batch)
     del model, state, batch
     _free(torch)
+    moe_train_launches = train_families_phase(torch, dev, kmm, kfa)
     times.update(train_times_phase(torch, dev, kmm, kfa))
     # Each row's launches: its own run, in its own step kind.
     launches = {
@@ -342,19 +357,25 @@ def main() -> int:
         "flash_attention@train": train_launches["flash"],
         "flash_attention_bwd@train": train_launches["flash_bwd"],
         "flash_attention_bwd_f32@train_grads": grads_launches["flash_bwd"],
-        "epilogue_bwd@train": train_launches["epilogue_bwd"]}
+        "epilogue_bwd@train": train_launches["epilogue_bwd"],
+        "expert_matmul_bwd@train_moe_dgrad": moe_train_launches["expert_nt"],
+        "expert_matmul_bwd@train_moe_wgrad": moe_train_launches["expert_tn"],
+        "epilogue_bwd_grouped@train_moe":
+            moe_train_launches["epilogue_bwd_grouped"]}
 
     gemm_src = ("src/repro_torch/csrc/matmul.cu",
                 "src/repro/kernels/matmul.py:108")
     flash_src = ("src/repro_torch/csrc/flash_attention.cu",
                  "src/repro/kernels/flash_attention.py:136")
+    expert_src = ("src/repro_torch/csrc/matmul.cu",
+                  "src/repro/kernels/ops.py:308")
     sources = {
         "matmul": gemm_src, "matmul_f32": gemm_src,
         "flash_attention": flash_src, "flash_attention_f32": flash_src,
         "flash_attention_bwd": flash_src, "flash_attention_bwd_f32": flash_src,
         "epilogue_bwd": gemm_src,
-        "expert_matmul": ("src/repro_torch/csrc/matmul.cu",
-                          "src/repro/kernels/ops.py:308"),
+        "expert_matmul": expert_src, "expert_matmul_bwd": expert_src,
+        "epilogue_bwd_grouped": expert_src,
         "stream_read": ("src/repro_torch/csrc/probes.cu",
                         "src/repro/calib/device.py:144"),
         "mma_chain": ("src/repro_torch/csrc/probes.cu",
@@ -373,6 +394,7 @@ def main() -> int:
                         "library_ms": t["library_ms"],
                         **({"products": "tf32x3"} if key in TF32X3_ROWS
                            else {})})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1947,23 +1969,44 @@ BWD_F32_REL_CAP = 1e-4             # f32 kernel vs plain f32 backward
 GRADS_REL_FACTOR = 2.0             # train_grads bf16: kernel vs plain route
 GRADS_F32_REL_CAP = 1e-4           # train_grads f32: each leaf
 TRAIN_FLASH_DIMS = (16, 64, 112, 160, 256)
+# The other families' train phases: 3 steps each; qwen3-moe-30b-a3b at
+# 4 of its 48 layers (30.5 B params x 12 bytes of bf16 param
+# and grad and f32 moments is about 366 GB at full depth), zamba2-7b at 12
+# of its 81 (two applications of the shared block; 81 GB of state at full
+# depth); mamba2-370m whole.
+FAMILY_TRAIN_STEPS = 3
+MOE_TRAIN_LAYERS = 4
+HYBRID_TRAIN_LAYERS = 12
+# The MoE train phase's expert GEMMs: E 128 experts, capacity C = 160 at
+# T = 2048 tokens (2048 x 8 x 1.25 / 128), d_model 2048, expert d_ff 768.
+MOE_E, MOE_C, MOE_D, MOE_F = 128, 160, 2048, 768
 
 
 def _counters(kmm, kfa):
-    """The launch counters of every kernel on the training path."""
-    return {"nn": lambda: kmm.tiled_matmul.layout_launches["nn"],
-            "tn": lambda: kmm.tiled_matmul.layout_launches["tn"],
-            "nt": lambda: kmm.tiled_matmul.layout_launches["nt"],
+    """The launch counters of every kernel on the training path: the dense
+    GEMM's and the grouped GEMM's ("expert_") by layout, the dense and the
+    grouped epilogue backward, the flash forward and backward."""
+    dense, grouped = (kmm.tiled_matmul.layout_launches,
+                      kmm.tiled_expert_matmul.layout_launches)
+    epi = kmm.epilogue_bwd
+    return {"nn": lambda: dense["nn"], "tn": lambda: dense["tn"],
+            "nt": lambda: dense["nt"],
+            "expert_nn": lambda: grouped["nn"],
+            "expert_tn": lambda: grouped["tn"],
+            "expert_nt": lambda: grouped["nt"],
             "flash": lambda: kfa.flash_attention_kernel.launches,
             "flash_bwd": lambda: kfa.flash_attention_bwd_kernel.launches,
-            "epilogue_bwd": lambda: kmm.epilogue_bwd.launches}
+            "epilogue_bwd": lambda: epi.launches - epi.grouped_launches,
+            "epilogue_bwd_grouped": lambda: epi.grouped_launches}
 
 
 def _zero_counts(kmm, kfa) -> None:
     kmm.tiled_matmul.launches = 0
     kmm.tiled_matmul.layout_launches.update(nn=0, tn=0, nt=0)
     kmm.tiled_expert_matmul.launches = 0
+    kmm.tiled_expert_matmul.layout_launches.update(nn=0, tn=0, nt=0)
     kmm.epilogue_bwd.launches = 0
+    kmm.epilogue_bwd.grouped_launches = 0
     kfa.flash_attention_kernel.launches = 0
     kfa.flash_attention_bwd_kernel.launches = 0
 
@@ -1988,8 +2031,9 @@ def train_kernels_phase(torch, dev, kmm, kfa):
     bf16, one small case of each layout in f32; the flash forward with its
     lse and the flash backward at (4, 24/8, 512, 128) causal bf16, at d in
     TRAIN_FLASH_DIMS, and in f32 at d 128 and 112; the epilogue backward
-    of each activation in bf16 and f32.  Returns the worst absolute error
-    of each kernels-line row."""
+    of each activation in bf16 and f32; the grouped GEMM's backward and
+    the grouped epilogue backward at qwen3-moe's training shapes (Kernel
+    4).  Returns the worst absolute error of each kernels-line row."""
     from repro_torch.core.hardware import GPU_H100_LIKE
     from repro_torch.core.latency import Epilogue
     from repro_torch.core.selector import select_gemm_config
@@ -1999,7 +2043,10 @@ def train_kernels_phase(torch, dev, kmm, kfa):
                            "flash_attention@train",
                            "flash_attention_bwd@train",
                            "flash_attention_bwd_f32@train_grads",
-                           "epilogue_bwd@train"), 0.0)
+                           "epilogue_bwd@train",
+                           "expert_matmul_bwd@train_moe_dgrad",
+                           "expert_matmul_bwd@train_moe_wgrad",
+                           "epilogue_bwd_grouped@train_moe"), 0.0)
     rows = []
     g = torch.Generator(device=dev).manual_seed(17)
 
@@ -2150,6 +2197,79 @@ def train_kernels_phase(torch, dev, kmm, kfa):
                 "kernel": "epilogue_bwd", "epilogue": str(ep),
                 "dtype": str(dt)[6:], "shape": [M, N],
                 "max_abs_err": errs}, ok)
+
+    # Kernel 4: the grouped GEMM's backward at qwen3-moe's training shapes
+    # (E 128 experts of capacity C 160): dX_e = dZ_e W_e^T with w read
+    # transposed ("nt") and dW_e = X_e^T dZ_e with x read transposed ("tn")
+    # for wu and wg (D 2048 -> F 768) and wd (F -> D) in bf16, one f32 case
+    # of each layout; the grouped epilogue backward of wg's swiglu in bf16
+    # and f32, and of a per-expert bias.
+    E, C = MOE_E, MOE_C
+    gcases = []
+    for name, K_in, N_out in (("wu/wg", MOE_D, MOE_F), ("wd", MOE_F, MOE_D)):
+        gcases += [("expert_matmul_bwd@train_moe_dgrad", "nt", C, K_in,
+                    N_out, bf, name),
+                   ("expert_matmul_bwd@train_moe_wgrad", "tn", K_in, N_out,
+                    C, bf, name)]
+    gcases += [("expert_matmul_bwd@train_moe_dgrad", "nt", C, MOE_D, MOE_F,
+                f32, "wu/wg f32"),
+               ("expert_matmul_bwd@train_moe_wgrad", "tn", MOE_D, MOE_F, C,
+                f32, "wu/wg f32")]
+    for key, layout, M, N, K, dt, name in gcases:
+        cfg = select_gemm_config(M, N, K, in_dtype=str(dt)[6:],
+                                 out_dtype=str(dt)[6:],
+                                 hw=GPU_H100_LIKE).config
+        a = rnd(E, K, M, dt=dt) if layout == "tn" else rnd(E, M, K, dt=dt)
+        b = rnd(E, N, K, dt=dt) if layout == "nt" else rnd(E, K, N, dt=dt)
+        kw = dict(out_dtype=dt, trans_a=layout == "tn",
+                  trans_b=layout == "nt")
+        got = kmm.tiled_expert_matmul(a, b, cfg, **kw)
+        again = kmm.tiled_expert_matmul(a, b, cfg, **kw)
+        want = kmm.expert_matmul_plain(a, b, cfg, **kw)
+        torch.cuda.synchronize()
+        rtol, atol = gemm_tol(dt, K)
+        err = (got.float() - want.float()).abs()
+        ok = bool((err <= atol + rtol * want.float().abs()).all()) \
+            and bool(torch.isfinite(got).all()) \
+            and _deterministic(torch, dev, kmm, got, again)
+        worst[key] = max(worst[key], float(err.max()))
+        _check_case(rows, "train_kernels", {
+            "kernel": key, "gemm": name, "layout": layout, "experts": E,
+            "shape": [M, N, K], "dtype": str(dt)[6:], "config": str(cfg),
+            "max_abs_err": float(err.max()),
+            "rel_l2": _rel(torch, got.float(), want.float())}, ok)
+        del a, b, got, again, want, err
+    for ep, dt in ((Epilogue(activation="swiglu_gate"), bf),
+                   (Epilogue(activation="swiglu_gate"), f32),
+                   (Epilogue(bias=True, activation="silu"), bf)):
+        z = torch.randn((E, C, MOE_F), generator=g, device=dev) * 3
+        gate = rnd(E, C, MOE_F, dt=dt) \
+            if ep.activation == "swiglu_gate" else None
+        dout = rnd(E, C, MOE_F, dt=dt)
+        kw = dict(epilogue=ep, gate=gate, dz_dtype=dt, want_bias=ep.bias)
+        got = kmm.epilogue_bwd(dout, z, **kw)
+        again = kmm.epilogue_bwd(dout, z, **kw)
+        want = kmm.epilogue_bwd_plain(dout, z, **kw)
+        torch.cuda.synchronize()
+        rtol, atol = (1e-5, 1e-5) if dt == f32 else (1e-2, 1e-2)
+        ok, errs = True, {}
+        for name, x, y, w in zip(("dz", "dgate", "dbias"), got, again, want):
+            if (x is None) != (w is None):
+                ok = False
+            if x is None or w is None:
+                continue
+            tol = atol * (C if name == "dbias" else 1)
+            err = (x.float() - w.float()).abs()
+            errs[name] = float(err.max())
+            ok = ok and torch.equal(x, y) and x.shape == w.shape and bool(
+                (err <= tol + rtol * w.float().abs()).all())
+            if name != "dbias":
+                worst["epilogue_bwd_grouped@train_moe"] = max(
+                    worst["epilogue_bwd_grouped@train_moe"], errs[name])
+        _check_case(rows, "train_kernels", {
+            "kernel": "epilogue_bwd_grouped", "epilogue": str(ep),
+            "dtype": str(dt)[6:], "shape": [E, C, MOE_F],
+            "max_abs_err": errs}, ok)
     emit({"phase": "train_kernels", "tolerance": {
         "gemm": "tests/test_kernels.py:26-27 with K the product's reduction "
                 "length (N for dX, T for dW)",
@@ -2159,7 +2279,9 @@ def train_kernels_phase(torch, dev, kmm, kfa):
                      f"plain backward; forward o as the flash phase, lse "
                      f"atol 1e-4 + rtol 1e-5",
         "epilogue_bwd": "f32 atol 1e-5 + rtol 1e-5, bf16 atol 1e-2 + rtol "
-                        "1e-2 (dbias atol x M)"},
+                        "1e-2 (dbias atol x M; grouped: x C, a row an "
+                        "expert)",
+        "expert_matmul_bwd": "as gemm, per expert"},
           "deterministic": "two launches bitwise equal", "cases": rows})
     return worst
 
@@ -2170,39 +2292,69 @@ def _grad_rel(torch, got, want):
             for (path, x), (_, w) in zip(tree_items(got), tree_items(want))}
 
 
-def train_grads_phase(torch, dev, kmm, kfa):
-    """phi4-mini at full width with GRADS_LAYERS layers (remat on), B 2 x S
+def train_grads_phase(torch, dev, kmm, kfa, arch="phi4-mini-3.8b"):
+    """``arch`` at full width with GRADS_LAYERS layers (remat on), B 2 x S
     512: one loss and gradient on the kernel route against the plain route
     on the card, in bf16 (within GRADS_REL_FACTOR x the plain bf16 route's
-    distance from the plain f32 route, the loss and each leaf) and in f32
-    (each leaf within GRADS_F32_REL_CAP of the plain f32 route; this run
-    puts the f32 backward kernels on a path).  Returns the f32 run's
-    launches."""
+    distance from the plain f32 route, the loss and each leaf; the kernel
+    route twice, bitwise) and in f32 (each leaf within GRADS_F32_REL_CAP of
+    the plain f32 route; this run puts the f32 backward kernels on a path,
+    its launches must equal the reckoning, and an MoE model must route
+    every token copy of every layer to the same experts on both routes).
+    Returns the f32 run's launches."""
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch.steps import make_train_step
+    from repro_torch.nn import moe
     from repro_torch.nn.model import Model
     from repro_torch.optim import AdamW
 
-    cfg = dataclasses.replace(get_config("phi4-mini-3.8b"),
-                              num_layers=GRADS_LAYERS)
+    cfg = dataclasses.replace(get_config(arch), num_layers=GRADS_LAYERS)
     model = Model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(5))
     batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                    seq_len=TRAIN_S,
                                    global_batch=GRADS_B)).batch_at(0)
     step = make_train_step(model, AdamW())
+    routes = {}
+    real_route = moe._route
+
+    @contextlib.contextmanager
+    def recording(name):
+        """Record every MoE layer's expert ids (the forward's; the remat
+        recompute routes again in the backward pass)."""
+        ids = routes[name] = []
+
+        def spy(flat, router, k):
+            out = real_route(flat, router, k)
+            ids.append(out[2])
+            return out
+        with mock.patch.object(moe, "_route", spy):
+            yield
+
     t0 = time.perf_counter()
     loss_k, g_k = step.loss_and_grads(params, batch)
+    _, g_k2 = step.loss_and_grads(params, batch)
+    repeat_ok = all(torch.equal(x, y) for x, y in zip(_leaves(g_k),
+                                                      _leaves(g_k2)))
+    del g_k2
+    p32 = _tree_map(params, lambda t: t.float())
     with plain_path(kmm, kfa):
         loss_p, g_p = step.loss_and_grads(params, batch)
-        p32 = _tree_map(params, lambda t: t.float())
-        loss_p32, g_p32 = step.loss_and_grads(p32, batch)
+        with recording("plain_f32"):
+            loss_p32, g_p32 = step.loss_and_grads(p32, batch)
     _zero_counts(kmm, kfa)
-    loss_k32, g_k32 = step.loss_and_grads(p32, batch)
+    with recording("kernel_f32"):
+        loss_k32, g_k32 = step.loss_and_grads(p32, batch)
     torch.cuda.synchronize()
     launches32 = _read_counts(kmm, kfa)
+    want = _train_reckoning(cfg)
+    expected32 = {k: sum(want[part].get(k, 0) for part in want)
+                  for k in launches32}
+    same_routes = len(routes["kernel_f32"]) == len(routes["plain_f32"]) \
+        and all(torch.equal(a, b) for a, b in zip(routes["kernel_f32"],
+                                                   routes["plain_f32"]))
     rel_kp, rel_p32 = _grad_rel(torch, g_k, g_p), _grad_rel(torch, g_p, g_p32)
     rel_f32 = _grad_rel(torch, g_k32, g_p32)
     d_loss_kp = abs(float(loss_k) - float(loss_p))
@@ -2218,7 +2370,11 @@ def train_grads_phase(torch, dev, kmm, kfa):
            "grad_rel_l2_kernel_vs_plain": rel_kp,
            "grad_rel_l2_plain_vs_plain_f32": rel_p32,
            "grad_rel_l2_f32_kernel_vs_plain": rel_f32,
-           "f32_launches": launches32,
+           "kernel_route_bitwise_over_two_runs": repeat_ok,
+           "f32_launches": launches32, "f32_expected": expected32,
+           **({"f32_same_experts_every_copy": same_routes,
+               "f32_routed_layers": len(routes["kernel_f32"])}
+              if cfg.is_moe else {}),
            "tolerance": f"bf16: loss and each leaf kernel-vs-plain <= "
                         f"{GRADS_REL_FACTOR} x plain-vs-plain-f32; f32: each "
                         f"leaf <= {GRADS_F32_REL_CAP}, loss <= 1e-5 relative",
@@ -2232,39 +2388,80 @@ def train_grads_phase(torch, dev, kmm, kfa):
     if not abs(float(loss_k32) - float(loss_p32)) \
             <= 1e-5 * abs(float(loss_p32)):
         bad.append("loss (f32)")
-    if bad or launches32["flash_bwd"] != cfg.num_layers:
-        fail(f"train_grads: {bad} outside tolerance, or the f32 backward "
-             f"did not launch once a layer ({launches32})")
+    if not repeat_ok:
+        bad.append("the kernel route's gradient differs between two runs")
+    if cfg.is_moe and not same_routes:
+        bad.append("the f32 routes chose other experts")
+    if bad or launches32 != expected32:
+        fail(f"train_grads {cfg.name}: {bad} outside tolerance, or the f32 "
+             f"launches {launches32} differ from the reckoning {expected32}")
     del params, p32, g_k, g_p, g_p32, g_k32
     _free(torch)
     return launches32
 
 
-def _train_reckoning(L):
-    """The launches of one phi4-mini train step with remat, reckoned from
-    the code (per layer: wq, wk, wv, wo + residual, wu, wg + swiglu gate,
-    wd + residual and one attention).  Forward: 7 GEMMs and one flash
-    forward a layer.  Remat recompute (in the backward pass): the same
-    again.  Backward: for each GEMM dX (B read transposed, "nt") and dW (A
-    read transposed, "tn"); wg's swiglu adds the pre-activation's
-    recompute (one more "nn" GEMM, f32 out) and one epilogue backward; one
-    flash backward.  The lm_head and the loss are plain products."""
-    return {"forward": {"nn": 7 * L, "flash": L},
-            "recompute": {"nn": 7 * L, "flash": L},
-            "backward": {"nn": L, "nt": 7 * L, "tn": 7 * L, "flash_bwd": L,
-                         "epilogue_bwd": L}}
+# The launches of one block's forward and backward, reckoned from the code.
+# Forward: its GEMMs ("nn"; the MoE's experts "expert_nn", one grouped launch
+# each) and flash forwards.  Backward: for each GEMM dX (B read transposed,
+# "nt") and dW (A read transposed, "tn"); a swiglu gate adds the
+# pre-activation's recompute (one more "nn", f32 out) and one epilogue
+# backward; attention one flash backward.
+_BLOCK_LAUNCHES = {
+    # wq, wk, wv, wo + residual, one attention
+    "attn": ({"nn": 4, "flash": 1},
+             {"nt": 4, "tn": 4, "flash_bwd": 1}),
+    # wu, wg + swiglu gate, wd + residual
+    "mlp": ({"nn": 3},
+            {"nt": 3, "tn": 3, "nn": 1, "epilogue_bwd": 1}),
+    # the experts' wu, wg + swiglu gate, wd, each one grouped launch (the
+    # router, dispatch and combine are plain)
+    "moe": ({"expert_nn": 3},
+            {"expert_nt": 3, "expert_tn": 3, "expert_nn": 1,
+             "epilogue_bwd_grouped": 1}),
+    # in_z, in_x, in_b, in_c, in_dt, out_proj (the SSD is plain)
+    "mamba": ({"nn": 6}, {"nt": 6, "tn": 6}),
+}
+_FWD_KEYS = ("nn", "flash", "expert_nn")
+_BWD_KEYS = ("nn", "nt", "tn", "flash_bwd", "epilogue_bwd", "expert_nn",
+             "expert_nt", "expert_tn", "epilogue_bwd_grouped")
 
 
-def train_phase(torch, dev, kmm, kfa):
-    """phi4-mini-3.8b at full width and depth (remat as configured), 6 steps
-    of the driver's step functions (``launch/steps.py``: the retried loss
-    and gradients, then the in-place AdamW commit) on one repeated
-    SyntheticLM batch of B 4 x S 512, AdamW(lr=1e-3, weight_decay=0.0), no
-    warmup.  Launch counts are zeroed right before the steps; each step's
-    forward (inside ``Model.loss``) and backward are counted apart and
-    must equal the reckoning; the loss must fall, every grad norm be
-    finite, and no degraded mode fire.  Returns (model, state, batch,
-    the run's launches)."""
+def _train_reckoning(cfg):
+    """The launches of one train step of ``cfg``: every layer's blocks
+    (dense: attention and MLP; MoE: attention and experts; SSM: a mamba
+    block; hybrid: a mamba block, and after every ``shared_attn_every``
+    layers the shared attention and MLP) forward, then in the backward pass
+    the remat recompute (the forward again, with ``cfg.remat``) and the
+    backward.  The embedding, the lm_head and the loss are plain."""
+    L = cfg.num_layers
+    blocks = {"dense": {"attn": L, "mlp": L}, "moe": {"attn": L, "moe": L},
+              "ssm": {"mamba": L},
+              "hybrid": {"mamba": L, "attn": L // max(cfg.shared_attn_every,
+                                                      1),
+                         "mlp": L // max(cfg.shared_attn_every, 1)}}
+    fwd, bwd = dict.fromkeys(_FWD_KEYS, 0), dict.fromkeys(_BWD_KEYS, 0)
+    for block, n in blocks[cfg.family].items():
+        f, b = _BLOCK_LAUNCHES[block]
+        for k, v in f.items():
+            fwd[k] += n * v
+        for k, v in b.items():
+            bwd[k] += n * v
+    recompute = dict(fwd) if cfg.remat else dict.fromkeys(_FWD_KEYS, 0)
+    return {"forward": fwd, "recompute": recompute, "backward": bwd}
+
+
+def train_phase(torch, dev, kmm, kfa, arch="phi4-mini-3.8b", layers=None,
+                steps=TRAIN_STEPS, phase="train"):
+    """``arch`` at full width (depth ``layers``, or the config's; remat as
+    configured), ``steps`` steps of the driver's step functions
+    (``launch/steps.py``: the retried loss and gradients, then the in-place
+    AdamW commit) on one repeated SyntheticLM batch of B 4 x S 512,
+    AdamW(lr=1e-3, weight_decay=0.0), no warmup.  Launch counts are zeroed
+    right before the steps; each step's forward (inside ``Model.loss``) and
+    backward are counted apart and must equal the reckoning; the loss must
+    fall, every grad norm be finite, and no degraded mode fire.  Returns
+    (model, state, batch, the run's launches)."""
+    import dataclasses
     import warnings
     from repro_torch.configs.registry import get_config
     from repro_torch.core.topology import DegradedModeWarning
@@ -2275,7 +2472,9 @@ def train_phase(torch, dev, kmm, kfa):
     from repro_torch.optim import AdamW
     from repro_torch.runtime import retry
 
-    cfg = get_config("phi4-mini-3.8b")
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = Model(cfg, device=dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
@@ -2308,7 +2507,7 @@ def train_phase(torch, dev, kmm, kfa):
             mock.patch.object(Model, "loss",
                               lambda self, p, b: counted_loss(p, b)):
         warnings.simplefilter("error", DegradedModeWarning)
-        for _ in range(TRAIN_STEPS):
+        for _ in range(steps):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             loss, grads = retry(step.loss_and_grads, state.params, batch,
@@ -2329,28 +2528,29 @@ def train_phase(torch, dev, kmm, kfa):
         final = float(model.loss(state.params, {"tokens": torch.from_numpy(
             batch["tokens"]).to(dev).long()}))
 
-    n = TRAIN_STEPS
-    per_step = {k: v / n for k, v in launches.items()}
-    fwd_step = {k: v / n for k, v in fwd["n"].items()}
+    per_step = {k: v / steps for k, v in launches.items()}
+    fwd_step = {k: v / steps for k, v in fwd["n"].items()}
     bwd_step = {k: per_step[k] - fwd_step[k] for k in per_step}
-    # In the backward pass, the "nn" GEMMs and flash forwards are the remat
+    # In the backward pass the "nn" GEMMs and flash forwards are the remat
     # recompute, except one "nn" GEMM per epilogue backward (the
-    # pre-activation's recompute).
-    measured = {
-        "forward": {"nn": fwd_step["nn"], "flash": fwd_step["flash"]},
-        "recompute": {"nn": bwd_step["nn"] - bwd_step["epilogue_bwd"],
-                      "flash": bwd_step["flash"]},
-        "backward": {"nn": bwd_step["epilogue_bwd"], "nt": bwd_step["nt"],
-                     "tn": bwd_step["tn"], "flash_bwd": bwd_step["flash_bwd"],
-                     "epilogue_bwd": bwd_step["epilogue_bwd"]}}
-    expected = _train_reckoning(cfg.num_layers)
-    if not cfg.remat:
-        expected["recompute"] = {"nn": 0, "flash": 0}
+    # pre-activation's recompute), dense and grouped alike.
+    recompute = {"nn": bwd_step["nn"] - bwd_step["epilogue_bwd"],
+                 "flash": bwd_step["flash"],
+                 "expert_nn": bwd_step["expert_nn"]
+                 - bwd_step["epilogue_bwd_grouped"]}
+    backward = {k: bwd_step[k] for k in _BWD_KEYS}
+    backward["nn"] = bwd_step["epilogue_bwd"]
+    backward["expert_nn"] = bwd_step["epilogue_bwd_grouped"]
+    measured = {"forward": {k: fwd_step[k] for k in _FWD_KEYS},
+                "recompute": recompute, "backward": backward}
+    expected = _train_reckoning(cfg)
     steady = ms[1:]
-    row = {"phase": "train", "arch": cfg.name, "layers": cfg.num_layers,
-           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-           "remat": cfg.remat, "batch": [TRAIN_B, TRAIN_S],
-           "steps": n, "init_s": init_s, "losses": losses,
+    row = {"phase": phase, "arch": cfg.name, "family": cfg.family,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "remat": cfg.remat,
+           "params": sum(t.numel() for t in _leaves(state.params)),
+           "batch": [TRAIN_B, TRAIN_S],
+           "steps": steps, "init_s": init_s, "losses": losses,
            "loss_after_last_step": final, "grad_norms": gnorms,
            "ms_per_step": ms,
            "ms_per_step_mean_after_first": sum(steady) / len(steady),
@@ -2361,22 +2561,47 @@ def train_phase(torch, dev, kmm, kfa):
            "fixup_flags_down": _flags_down(kmm)}
     emit(row)
     if measured != expected:
-        fail(f"train: launches per step {measured} differ from the "
+        fail(f"{phase}: launches per step {measured} differ from the "
              f"reckoning {expected}")
     if not all(math.isfinite(x) for x in gnorms + losses) \
             or not final < losses[0]:
-        fail(f"train: the loss did not fall ({losses} -> {final}) or a "
+        fail(f"{phase}: the loss did not fall ({losses} -> {final}) or a "
              f"norm is not finite ({gnorms})")
     if fallback or retries or not _flags_down(kmm):
-        fail(f"train: degraded mode (fallback rungs {fallback}, launch "
+        fail(f"{phase}: degraded mode (fallback rungs {fallback}, launch "
              f"retries {retries}, fixup flags down {_flags_down(kmm)})")
     return model, state, batch, launches
 
 
-def train_trace_phase(torch, dev, model, state, batch):
+def train_families_phase(torch, dev, kmm, kfa):
+    """The MoE, SSM and hybrid families' train phases, each freed before the
+    next: qwen3-moe-30b-a3b at full width with MOE_TRAIN_LAYERS layers (its
+    full-depth state does not fit the card) and one traced step, mamba2-370m
+    at full size, zamba2-7b at full width with HYBRID_TRAIN_LAYERS layers
+    (two applications of the shared block), FAMILY_TRAIN_STEPS steps each.
+    Returns qwen3's launches."""
+    model, state, batch, moe_launches = train_phase(
+        torch, dev, kmm, kfa, "qwen3-moe-30b-a3b", layers=MOE_TRAIN_LAYERS,
+        steps=FAMILY_TRAIN_STEPS, phase="train_moe")
+    train_trace_phase(torch, dev, model, state, batch,
+                      phase="train_moe_trace")
+    del model, state, batch
+    _free(torch)
+    for arch, layers, phase in (("mamba2-370m", None, "train_ssm"),
+                                ("zamba2-7b", HYBRID_TRAIN_LAYERS,
+                                 "train_hybrid")):
+        model, state, batch, _ = train_phase(
+            torch, dev, kmm, kfa, arch, layers=layers,
+            steps=FAMILY_TRAIN_STEPS, phase=phase)
+        del model, state, batch
+        _free(torch)
+    return moe_launches
+
+
+def train_trace_phase(torch, dev, model, state, batch, phase="train_trace"):
     """One traced train step (loss and gradients, then the commit) under
     torch.profiler: wall time against device-busy time, kernel time by
-    kernel."""
+    kernel (the grouped GEMM's as expert_matmul)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import AdamW
@@ -2396,11 +2621,12 @@ def train_trace_phase(torch, dev, model, state, batch):
     L = model.cfg.num_layers
     if counts["flash_attention_bwd_f32"] \
             or counts["flash_attention_bwd"] != 3 * L:
-        fail(f"train_trace: the bf16 step's attention backward ran "
+        fail(f"{phase}: the bf16 step's attention backward ran "
              f"{counts['flash_attention_bwd']} wgmma-route kernels "
              f"(delta, dK/dV, dQ: {3 * L} expected) and "
              f"{counts['flash_attention_bwd_f32']} f32-route ones")
-    emit({"phase": "train_trace", "arch": model.cfg.name,
+    emit({"phase": phase, "arch": model.cfg.name,
+          "layers": L,
           "what": "torch.profiler device kernel time vs host wall time of "
           "one train step (profiler on)", "batch": [TRAIN_B, TRAIN_S],
           "wall_ms": wall, "busy_ms": busy, "idle_share": 1 - busy / wall,
@@ -2470,7 +2696,10 @@ def train_times_phase(torch, dev, kmm, kfa):
     times, rows = {}, []
     n0 = (kmm.tiled_matmul.launches, dict(kmm.tiled_matmul.layout_launches),
           kfa.flash_attention_kernel.launches,
-          kfa.flash_attention_bwd_kernel.launches, kmm.epilogue_bwd.launches)
+          kfa.flash_attention_bwd_kernel.launches, kmm.epilogue_bwd.launches,
+          kmm.tiled_expert_matmul.launches,
+          dict(kmm.tiled_expert_matmul.layout_launches),
+          kmm.epilogue_bwd.grouped_launches)
     for key, layout in (("matmul@train_dgrad", "nt"),
                         ("matmul@train_wgrad", "tn")):
         tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes",
@@ -2590,12 +2819,88 @@ def train_times_phase(torch, dev, kmm, kfa):
     rows.append(row)
     times["epilogue_bwd@train"] = {k_: row[k_] for k_ in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+
+    # The grouped GEMM's backward at qwen3-moe's training shapes, summed
+    # over one layer's wu, wg and wd: dX_e = dZ_e W_e^T (w read transposed;
+    # library torch.bmm(dz, w.transpose(1, 2))) and dW_e = X_e^T dZ_e (x read
+    # transposed; torch.bmm(x.transpose(1, 2), dz)).  Bound: each expert's
+    # operands read once and its output written once.
+    E, C = MOE_E, MOE_C
+    for key, layout in (("expert_matmul_bwd@train_moe_dgrad", "nt"),
+                        ("expert_matmul_bwd@train_moe_wgrad", "tn")):
+        tot = dict.fromkeys(("ms", "plain_ms", "library_ms", "bytes",
+                             "flops"), 0.0)
+        for name, K_in, N_out in (("wu", MOE_D, MOE_F), ("wg", MOE_D, MOE_F),
+                                  ("wd", MOE_F, MOE_D)):
+            # forward x (E, C, K_in) @ w (E, K_in, N_out) -> dz (E, C, N_out)
+            x = rnd(E, C, K_in, scale=0.1)
+            w = rnd(E, K_in, N_out, scale=0.02)
+            dz = rnd(E, C, N_out, scale=0.1)
+            if layout == "nt":
+                a, b, (M_, N_, K_) = dz, w, (C, K_in, N_out)
+                library = lambda: torch.bmm(dz, w.transpose(1, 2))  # noqa: E731
+            else:
+                a, b, (M_, N_, K_) = x, dz, (K_in, N_out, C)
+                library = lambda: torch.bmm(x.transpose(1, 2), dz)  # noqa: E731
+            cfg = select_gemm_config(M_, N_, K_, in_dtype="bfloat16",
+                                     out_dtype="bfloat16",
+                                     hw=GPU_H100_LIKE).config
+            kw = dict(out_dtype=bf, epilogue=None, bias=None, gate=None,
+                      residual=None, trans_a=layout == "tn",
+                      trans_b=layout == "nt")
+            row = {"row": key, "gemm": name, "experts": E, "M": M_, "N": N_,
+                   "K": K_, "config": str(cfg),
+                   "ms": time_ms(lambda: kmm._launch_expert_cuda(a, b, cfg,
+                                                                 **kw)),
+                   "plain_ms": event_ms(torch, lambda: kmm.expert_matmul_plain(
+                       a, b, cfg, **kw)),
+                   "library_ms": time_ms(library)}
+            nbytes, flops = _gemm_bytes_flops(M_, N_, K_, "none")
+            nbytes, flops = E * nbytes, E * flops
+            row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
+                                                     BF16_PEAK)
+            rows.append(row)
+            for k_ in ("ms", "plain_ms", "library_ms"):
+                tot[k_] += row[k_]
+            tot["bytes"] += nbytes
+            tot["flops"] += flops
+            del x, w, dz, a, b
+        b_ms, b_by = bound(tot["bytes"], tot["flops"], BF16_PEAK)
+        times[key] = {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
+                      "library_ms": tot["library_ms"], "bound_ms": b_ms,
+                      "bound_by": b_by,
+                      "what": f"sum over one qwen3-moe layer's wu, wg, wd "
+                              f"{'dX' if layout == 'nt' else 'dW'}, E {E} "
+                              f"C {C}"}
+
+    # The grouped epilogue backward of wg's swiglu at (E, C, F), read and
+    # written as the dense row's.
+    shape = (E, C, MOE_F)
+    dout, gate = rnd(*shape), rnd(*shape)
+    z = torch.randn(shape, generator=g, device=dev)
+    kw = dict(epilogue=ep, gate=gate, dz_dtype=bf, want_bias=False)
+    n_el = E * C * MOE_F
+    row = {"row": "epilogue_bwd_grouped@train_moe", "shape": list(shape),
+           "epilogue": str(ep),
+           "ms": time_ms(lambda: kmm._launch_epilogue_bwd_cuda(dout, z,
+                                                               **kw)),
+           "plain_ms": event_ms(torch, lambda: kmm.epilogue_bwd_plain(
+               dout, z, **kw)),
+           "library_ms": None}
+    row["bound_ms"], row["bound_by"] = bound((2 + 4 + 2 + 2 + 2) * n_el,
+                                             20.0 * n_el, F32_PEAK)
+    rows.append(row)
+    times["epilogue_bwd_grouped@train_moe"] = {k_: row[k_] for k_ in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
     # timing launches do not count
     kmm.tiled_matmul.launches = n0[0]
     kmm.tiled_matmul.layout_launches.update(n0[1])
     kfa.flash_attention_kernel.launches = n0[2]
     kfa.flash_attention_bwd_kernel.launches = n0[3]
     kmm.epilogue_bwd.launches = n0[4]
+    kmm.tiled_expert_matmul.launches = n0[5]
+    kmm.tiled_expert_matmul.layout_launches.update(n0[6])
+    kmm.epilogue_bwd.grouped_launches = n0[7]
     emit({"phase": "train_times", "timing": "kernels and library calls: CUDA "
           "graph of 10 calls, median of 5 replays (the library's attention "
           "backward: its kernels' device time over 5 calls under "

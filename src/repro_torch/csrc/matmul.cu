@@ -11,19 +11,24 @@
 //              -> +residual (M, N) -> cast to the output type,
 //   applied once per output element, on the full f32 sum, in DESIGN.md §3's
 //   order.  The dense GEMM is the launch with one group and zero strides.
-//   A dense launch may also read A stored (K, M) (trans_a: the weight
-//   gradient X^T dY reads the activation X in place) or B stored (N, K)
-//   (trans_b: the input gradient dY W^T reads the weight W in place); the
-//   tensor maps are encoded over the operand as stored and wgmma takes it
-//   MN-major (A) or K-major (B), so no transposed copy is ever made.
+//   A launch, dense or grouped, may also read A stored (K, M) (trans_a: the
+//   weight gradient X^T dY reads the activation X in place; per expert,
+//   dW_e = X_e^T dZ_e reads the (E, C, D) dispatch buffer in place) or B
+//   stored (N, K) (trans_b: the input gradient dY W^T reads the weight W
+//   in place; per expert dX_e = dZ_e W_e^T); the tensor maps are encoded
+//   over the operand as stored, the group as their third coordinate, and
+//   wgmma takes it MN-major (A) or K-major (B), so no transposed copy is
+//   ever made.  These are the gradients JAX derives through matmul_pallas
+//   and through expert_matmul's vmap of it.
 //
 // The epilogue's backward (epilogue_bwd_kernel) is a second, elementwise
 // kernel of this source: from dOut and the recomputed pre-activation z it
 // gives dz = dOut * act'(z) (gelu(tanh), silu, or silu(z) * gate), dgate =
-// dOut * silu(z), and dbias as column sums in a fixed order (no atomics).
-// It is bound by HBM bytes (a few flops an element): one pass over dOut,
-// z and the gate, each column strip's rows walked by eight warps whose
-// partial sums are added in warp order.
+// dOut * silu(z), and dbias as column sums in a fixed order (no atomics),
+// one bias row per group for the grouped GEMM.  It is bound by HBM bytes
+// (a few flops an element): one pass over dOut, z and the gate, each
+// column strip's rows walked by eight warps whose partial sums are added in
+// warp order.
 //
 // What bounds it on the H100.  At decode (M = 4) every GEMM streams its
 // weight once: bound by HBM bytes, it needs loads in flight on every SM.  At
@@ -123,7 +128,7 @@ struct Params {
   int out_f32, ep_f32;
   int has_bias, act, has_res;
   int groups;
-  int trans_a, trans_b;   // A stored (K, M), B stored (N, K) (dense only)
+  int trans_a, trans_b;   // A stored (K, M), B stored (N, K)
   int Tm, Tn;             // output tiles of one group
   int steps_per_unit;     // k-steps of bk in one unit
   int units_per_tile;
@@ -587,12 +592,12 @@ __global__ void __launch_bounds__(Sm90<NWG, MB, PN>::kThreads, 1)
   sm90_body<NWG, MB, PN, TA, TB>(tma_a, tma_b, p);
 }
 
-template <int NWG, int MB, int PN>
+template <int NWG, int MB, int PN, int TA, int TB>
 __global__ void __launch_bounds__(Sm90<NWG, MB, PN>::kThreads, 1)
     gemm_grouped_sm90(const __grid_constant__ CUtensorMap tma_a,
                       const __grid_constant__ CUtensorMap tma_b,
                       const __grid_constant__ Params p) {
-  sm90_body<NWG, MB, PN, 0, 0>(tma_a, tma_b, p);
+  sm90_body<NWG, MB, PN, TA, TB>(tma_a, tma_b, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -943,12 +948,12 @@ __global__ void __launch_bounds__(Tf32<NWG, PN>::kThreads, 1)
   tf32_body<NWG, PN, TA, TB>(tma_a, tma_b, p);
 }
 
-template <int NWG, int PN>
+template <int NWG, int PN, int TA, int TB>
 __global__ void __launch_bounds__(Tf32<NWG, PN>::kThreads, 1)
     gemm_grouped_f32(const __grid_constant__ CUtensorMap tma_a,
                      const __grid_constant__ CUtensorMap tma_b,
                      const __grid_constant__ Params p) {
-  tf32_body<NWG, PN, 0, 0>(tma_a, tma_b, p);
+  tf32_body<NWG, PN, TA, TB>(tma_a, tma_b, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -1060,7 +1065,7 @@ cudaError_t launch_sm90(Params p, cudaStream_t stream) {
   const size_t smem = fixed + stages * stage;
   void (*kernel)(CUtensorMap, CUtensorMap, Params);
   if constexpr (kGrouped)
-    kernel = gemm_grouped_sm90<NWG, MB, PN>;
+    kernel = gemm_grouped_sm90<NWG, MB, PN, TA, TB>;
   else
     kernel = gemm_dense_sm90<NWG, MB, PN, TA, TB>;
   static const cudaError_t opted =
@@ -1100,7 +1105,7 @@ cudaError_t launch_f32(Params p, cudaStream_t stream) {
   p.stages = static_cast<int>(stages);
   void (*kernel)(CUtensorMap, CUtensorMap, Params);
   if constexpr (kGrouped)
-    kernel = gemm_grouped_f32<NWG, PN>;
+    kernel = gemm_grouped_f32<NWG, PN, TA, TB>;
   else
     kernel = gemm_dense_f32<NWG, PN, TA, TB>;
   static const cudaError_t opted =
@@ -1163,24 +1168,28 @@ inline bool tile_ok(int v) {
 }
 
 // ---------------------------------------------------------------------------
-// The epilogue's backward.  CTA (x, y) takes columns [64 x, 64 x + 64) of
-// rows [rows_per_cta y, ...); lane l of warp w takes columns 2 l, 2 l + 1 of
-// rows w, w + 8, ...  With a bias the grid has one row block, so each
-// column's sum is complete in its CTA: every warp sums its rows in order,
-// then the eight warp sums are added in warp order.
+// The epilogue's backward over groups of M rows (the grouped GEMM's (E, C,
+// N) output as E groups of C rows; one group for the dense GEMM).  CTA (x,
+// y) takes columns [64 x, 64 x + 64) of rows [rows_per_cta b, ...) of group
+// g, y = g blocks_per_group + b; lane l of warp w takes columns 2 l, 2 l + 1
+// of rows w, w + 8, ...  With a bias a group has one row block, so each
+// column's sum of the group is complete in its CTA: every warp sums its rows
+// in order, then the eight warp sums are added in warp order.
 // ---------------------------------------------------------------------------
 
 constexpr int kEbCols = 64;
 constexpr int kEbWarps = 8;
 
 struct EpiBwdParams {
-  const void* dout;   // (M, N), the output's type
-  const float* z;     // (M, N) pre-activation z = A B (+ bias), f32
-  const void* gate;   // (M, N), swiglu only
-  void* dz;           // (M, N), A's type (written unless act is none)
-  void* dgate;        // (M, N), the gate's type (swiglu only)
-  float* dbias;       // (N), f32 (with has_bias)
-  int M, N, rows_per_cta;
+  // Each (groups M, N), rows contiguous:
+  const void* dout;   // the output's type
+  const float* z;     // pre-activation z = A B (+ bias), f32
+  const void* gate;   // swiglu only
+  void* dz;           // A's type (written unless act is none)
+  void* dgate;        // the gate's type (swiglu only)
+  float* dbias;       // (groups, N), f32 (with has_bias)
+  int M, N, rows_per_cta;  // M: the rows of one group
+  int blocks_per_group;
   int dout_f32, gate_f32, dz_f32;
   int act, has_bias;
 };
@@ -1224,13 +1233,16 @@ __global__ void __launch_bounds__(32 * kEbWarps)
   __shared__ float part[kEbWarps][kEbCols];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int col = static_cast<int>(blockIdx.x) * kEbCols + 2 * lane;
-  const int r_begin = static_cast<int>(blockIdx.y) * p.rows_per_cta;
+  const int g = static_cast<int>(blockIdx.y) / p.blocks_per_group;
+  const int r_begin =
+      static_cast<int>(blockIdx.y) % p.blocks_per_group * p.rows_per_cta;
   const int r_end = min(p.M, r_begin + p.rows_per_cta);
+  const size_t row0 = static_cast<size_t>(g) * p.M;
   float2 db = make_float2(0.0f, 0.0f);
   if (col < p.N) {
     for (int r = r_begin + warp; r < r_end;
          r += kEbWarps) {
-      const size_t i = static_cast<size_t>(r) * p.N + col;
+      const size_t i = (row0 + r) * p.N + col;
       float2 d = load_ep2(p.dout, i, p.dout_f32);
       if (p.act != kActNone) {
         const float2 z = *reinterpret_cast<const float2*>(p.z + i);
@@ -1257,7 +1269,7 @@ __global__ void __launch_bounds__(32 * kEbWarps)
     float s = 0.0f;
 #pragma unroll
     for (int w = 0; w < kEbWarps; ++w) s += part[w][threadIdx.x];
-    p.dbias[c] = s;
+    p.dbias[static_cast<size_t>(g) * p.N + c] = s;
   }
 }
 
@@ -1267,9 +1279,10 @@ using namespace repro;
 
 // groups GEMMs of one shape in one launch; operand g starts sa * g (a),
 // sb * g (b), so * g (out), ... elements past its base pointer.  The dense
-// GEMM is groups = 1 with zero strides; it alone may take A stored (K, M)
+// GEMM is groups = 1 with zero strides.  Either may take A stored (K, M)
 // (trans_a, M a multiple of 8 for bf16, 4 for f32: TMA's 16-byte row
-// strides) or B stored (N, K) (trans_b), not both.  The plan integers come
+// strides) or B stored (N, K) (trans_b), not both; a group's operand is
+// then that layout at its own stride.  The plan integers come
 // from kernels/matmul.py::work_plan: k-steps per tile and per unit, units
 // per CTA and the grid; workspace holds ctas slots of max(bm, 64) x
 // max(bn, 64) f32 when a tile is split, flags one int per CTA, all zero.
@@ -1287,8 +1300,7 @@ extern "C" int repro_gemm(
     long long sb, long long so, long long sbias, long long sgate,
     long long sres, void* stream) {
   const int vec = in_f32 ? 4 : 8;
-  if ((trans_a && trans_b) || ((trans_a || trans_b) && (grouped || groups != 1)) ||
-      (trans_a && M % vec))
+  if ((trans_a && trans_b) || (!grouped && groups != 1) || (trans_a && M % vec))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0 || K <= 0 || N % vec || K % vec || !tile_ok(bm) ||
       !tile_ok(bn) || bk <= 0 || bk % 16 || group_m < 1 || act < 0 ||
@@ -1347,39 +1359,50 @@ extern "C" int repro_gemm(
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (in_f32)
-    err = grouped ? dispatch_f32<true, 0, 0>(p, s)
-          : trans_a ? dispatch_f32<false, 1, 0>(p, s)
+  if (in_f32 && grouped)
+    err = trans_a   ? dispatch_f32<true, 1, 0>(p, s)
+          : trans_b ? dispatch_f32<true, 0, 1>(p, s)
+                    : dispatch_f32<true, 0, 0>(p, s);
+  else if (in_f32)
+    err = trans_a   ? dispatch_f32<false, 1, 0>(p, s)
           : trans_b ? dispatch_f32<false, 0, 1>(p, s)
                     : dispatch_f32<false, 0, 0>(p, s);
+  else if (grouped)
+    err = trans_a   ? dispatch_sm90<true, 1, 0>(p, s)
+          : trans_b ? dispatch_sm90<true, 0, 1>(p, s)
+                    : dispatch_sm90<true, 0, 0>(p, s);
   else
-    err = grouped ? dispatch_sm90<true, 0, 0>(p, s)
-          : trans_a ? dispatch_sm90<false, 1, 0>(p, s)
+    err = trans_a   ? dispatch_sm90<false, 1, 0>(p, s)
           : trans_b ? dispatch_sm90<false, 0, 1>(p, s)
                     : dispatch_sm90<false, 0, 0>(p, s);
   return static_cast<int>(err);
 }
 
-// The epilogue's backward over (M, N): dz (A's type, dz_f32), dgate (the
-// gate's type, gate_f32) and dbias (f32) from dout (dout_f32) and the f32
-// pre-activation z; act 0 reads neither z nor the gate and only sums dout's
-// columns into dbias.  N must be even; rows_per_cta splits the rows over
-// the grid's y (one block of all M rows when has_bias).
+// The epilogue's backward over groups x (M, N), rows contiguous: dz (A's
+// type, dz_f32), dgate (the gate's type, gate_f32) and dbias (groups, N) f32
+// from dout (dout_f32) and the f32 pre-activation z; act 0 reads neither z
+// nor the gate and only sums dout's columns into dbias, a row per group.  N
+// must be even; rows_per_cta splits each group's rows over the grid's y
+// (one block of all M rows when has_bias).
 extern "C" int repro_epilogue_bwd(const void* dout, const float* z,
                                   const void* gate, void* dz, void* dgate,
-                                  float* dbias, int M, int N, int act,
-                                  int has_bias, int dout_f32, int gate_f32,
-                                  int dz_f32, int rows_per_cta, void* stream) {
-  if (M <= 0 || N <= 0 || N % 2 || act < 0 || act > kActSwiglu ||
-      rows_per_cta <= 0 || (has_bias && (rows_per_cta < M || !dbias)) ||
+                                  float* dbias, int M, int N, int groups,
+                                  int act, int has_bias, int dout_f32,
+                                  int gate_f32, int dz_f32, int rows_per_cta,
+                                  void* stream) {
+  if (M <= 0 || N <= 0 || N % 2 || groups < 1 || act < 0 ||
+      act > kActSwiglu || rows_per_cta <= 0 ||
+      (has_bias && (rows_per_cta < M || !dbias)) ||
       (act != kActNone && (!z || !dz)) || (act == kActSwiglu && (!gate || !dgate)) ||
       (act == kActNone && !has_bias))
     return static_cast<int>(cudaErrorInvalidValue);
-  EpiBwdParams p{dout, z, gate, dz, dgate, dbias, M, N, rows_per_cta,
+  const int blocks = (M + rows_per_cta - 1) / rows_per_cta;
+  EpiBwdParams p{dout, z, gate, dz, dgate, dbias, M, N, rows_per_cta, blocks,
                  dout_f32, gate_f32, dz_f32, act, has_bias};
   const dim3 grid((N + kEbCols - 1) / kEbCols,
-                  (M + rows_per_cta - 1) / rows_per_cta);
-  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
+                  static_cast<unsigned>(static_cast<long long>(groups) * blocks));
+  if (static_cast<long long>(groups) * blocks > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   epilogue_bwd_kernel<<<grid, 32 * kEbWarps, 0,
                         static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());

@@ -15,20 +15,24 @@ summed deterministically, in k order, from f32 partials in a workspace this
 wrapper allocates once per stream (:func:`_scratch`).  The source note in ``csrc/matmul.cu`` says what bounds
 the kernel on the H100 and what its design does about it.
 
-:func:`tiled_matmul` also takes the two operand layouts of the GEMM's
-backward, each read in place: ``trans_a`` (a stored (K, M): the weight
-gradient ``X^T dY`` reads the activation as it is) and ``trans_b`` (b stored
-(N, K): the input gradient ``dY W^T`` reads the weight as it is).
+:func:`tiled_matmul` and :func:`tiled_expert_matmul` also take the two
+operand layouts of the GEMM's backward, each read in place: ``trans_a`` (a
+stored (K, M): the weight gradient ``X^T dY`` reads the activation as it
+is) and ``trans_b`` (b stored (N, K): the input gradient ``dY W^T`` reads the
+weight as it is); grouped, each expert's operand has that layout.
 :func:`epilogue_bwd` is the fused epilogue's backward, one elementwise pass
-of its own kernel in the same source.
+of its own kernel in the same source, dense (M, N) or grouped (E, M, N) with
+a bias gradient per expert.
 
 :func:`tiled_matmul` takes the route from the device of its operands: a CPU
 tensor gets the plain version (``ref.matmul_ref``), a CUDA tensor the
 kernel, and anything else raises; :func:`tiled_expert_matmul` and
 :func:`epilogue_bwd` likewise.  ``tiled_matmul.launches``,
 ``tiled_expert_matmul.launches`` and ``epilogue_bwd.launches`` count each
-wrapper's kernel launches; ``tiled_matmul.layout_launches`` splits the
-dense launches by layout ("nn", "tn": trans_a, "nt": trans_b).
+wrapper's kernel launches; ``tiled_matmul.layout_launches`` and
+``tiled_expert_matmul.layout_launches`` split them by layout ("nn", "tn":
+trans_a, "nt": trans_b), ``epilogue_bwd.grouped_launches`` counts the
+grouped ones.
 """
 from __future__ import annotations
 
@@ -273,13 +277,17 @@ tiled_matmul.layout_launches = {"nn": 0, "tn": 0, "nt": 0}
 
 
 def expert_matmul_plain(x, w, cfg: TileConfig, *, out_dtype, epilogue=None,
-                        bias=None, gate=None,
-                        residual=None) -> torch.Tensor:
+                        bias=None, gate=None, residual=None, trans_a=False,
+                        trans_b=False) -> torch.Tensor:
     """The plain version of the grouped kernel, as the reference's
     ``expert_matmul`` (``repro/kernels/ops.py:333-339``): an f32-accumulated
-    per-expert product, then the epilogue with bias broadcast over rows."""
+    per-expert product, then the epilogue with bias broadcast over rows
+    (``trans_a`` / ``trans_b``: each expert's operand is stored
+    transposed)."""
     ep = epilogue or EPILOGUE_NONE
-    acc = torch.einsum("emk,ekn->emn", x.float(), w.float())
+    xe = x.transpose(1, 2) if trans_a else x
+    we = w.transpose(1, 2) if trans_b else w
+    acc = torch.einsum("emk,ekn->emn", xe.float(), we.float())
     acc = ref.apply_epilogue_ref(
         acc, ep, bias=bias[:, None, :] if bias is not None else None,
         gate=gate, residual=residual)
@@ -291,23 +299,29 @@ def tiled_expert_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TileConfig,
                         epilogue: Optional[Epilogue] = None,
                         bias: Optional[torch.Tensor] = None,
                         gate: Optional[torch.Tensor] = None,
-                        residual: Optional[torch.Tensor] = None
+                        residual: Optional[torch.Tensor] = None,
+                        trans_a: bool = False, trans_b: bool = False
                         ) -> torch.Tensor:
-    """out[e] = epilogue(x[e] @ w[e]) for x (E, M, K), w (E, K, N); bias
-    (E, N), gate/residual (E, M, N).  One launch for all E experts."""
+    """out[e] = epilogue(X[e] @ W[e]) for X (E, M, K), W (E, K, N); bias
+    (E, N), gate/residual (E, M, N).  X is ``x``, or x stored (E, K, M)
+    with ``trans_a``; W is ``w``, or w stored (E, N, K) with ``trans_b``.
+    One launch for all E experts."""
+    kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias, gate=gate,
+              residual=residual, trans_a=trans_a, trans_b=trans_b)
     if x.device.type == "cpu":
-        return expert_matmul_plain(x, w, cfg, out_dtype=out_dtype,
-                                   epilogue=epilogue, bias=bias, gate=gate,
-                                   residual=residual)
+        return expert_matmul_plain(x, w, cfg, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"tiled_expert_matmul: unsupported device "
                          f"{x.device}")
-    return _launch_expert_cuda(x, w, cfg, out_dtype=out_dtype,
-                               epilogue=epilogue, bias=bias, gate=gate,
-                               residual=residual)
+    return _launch_expert_cuda(x, w, cfg, **kw)
 
 
 tiled_expert_matmul.launches = 0
+tiled_expert_matmul.layout_launches = {"nn": 0, "tn": 0, "nt": 0}
+
+
+def _layout(trans_a: bool, trans_b: bool) -> str:
+    return "tn" if trans_a else "nt" if trans_b else "nn"
 
 
 def _pad_last(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -329,17 +343,18 @@ def _launch_cuda(a, b, cfg, *, out_dtype, epilogue, bias, gate, residual,
         residual=None if residual is None else residual[None],
         trans_a=trans_a, trans_b=trans_b)
     tiled_matmul.launches += 1
-    tiled_matmul.layout_launches[
-        "tn" if trans_a else "nt" if trans_b else "nn"] += 1
+    tiled_matmul.layout_launches[_layout(trans_a, trans_b)] += 1
     return out[0]
 
 
 def _launch_expert_cuda(x, w, cfg, *, out_dtype, epilogue, bias, gate,
-                        residual):
+                        residual, trans_a=False, trans_b=False):
     out = _launch_groups("tiled_expert_matmul", x, w, cfg, grouped=True,
                          out_dtype=out_dtype, epilogue=epilogue, bias=bias,
-                         gate=gate, residual=residual)
+                         gate=gate, residual=residual, trans_a=trans_a,
+                         trans_b=trans_b)
     tiled_expert_matmul.launches += 1
+    tiled_expert_matmul.layout_launches[_layout(trans_a, trans_b)] += 1
     return out
 
 
@@ -383,17 +398,13 @@ def _launch_groups(what, a, b, cfg, *, grouped, out_dtype, epilogue, bias,
                    gate, residual, trans_a=False, trans_b=False):
     """Check and launch ``csrc/matmul.cu`` on G problems of one shape: a
     (G, M, K), b (G, K, N), bias (G, N), gate/residual (G, M, N).
-    ``grouped`` picks the grouped kernel (its own name in a trace).  One
-    dense problem may give a stored (1, K, M) (``trans_a``) or b stored
-    (1, N, K) (``trans_b``): the kernel reads it in place."""
+    ``grouped`` picks the grouped kernel (its own name in a trace).  a may
+    be stored (G, K, M) (``trans_a``) or b stored (G, N, K) (``trans_b``):
+    the kernel reads each group's operand in place."""
     ep = epilogue or EPILOGUE_NONE
     if trans_a and trans_b:
         raise ValueError(f"{what}: trans_a and trans_b together are not "
                          f"taken (the backward needs one or the other)")
-    if (trans_a or trans_b) and (grouped or a.shape[0] != 1):
-        raise ValueError(f"{what}: transposed operands are taken by the "
-                         f"dense launch only (one group), not the grouped "
-                         f"kernel")
     a_mk = a.transpose(1, 2) if trans_a else a          # logical (G, M, K)
     b_kn = b.transpose(1, 2) if trans_b else b          # logical (G, K, N)
     if a.dim() != 3 or b.dim() != 3 or a.shape[0] != b.shape[0] \
@@ -517,7 +528,8 @@ _EPI_BWD_ROWS = 64
 
 def epilogue_bwd_plain(dout, z, *, epilogue, gate=None, dz_dtype,
                        want_bias=False):
-    """The plain version: ``ref.epilogue_bwd_ref``."""
+    """The plain version: ``ref.epilogue_bwd_ref`` (elementwise on any
+    shape; dbias sums the rows of each group)."""
     return ref.epilogue_bwd_ref(dout, z, epilogue, gate=gate,
                                 dz_dtype=dz_dtype, want_bias=want_bias)
 
@@ -531,7 +543,9 @@ def epilogue_bwd(dout: torch.Tensor, z: Optional[torch.Tensor], *,
     pre-activation z = A B (+ bias) (M, N) (None when the epilogue has no
     activation) and the swiglu gate (M, N): dz in ``dz_dtype`` (dout itself
     without an activation), dgate in the gate's dtype, dbias (N,) f32 when
-    ``want_bias``.  The residual's gradient is dout and needs no kernel."""
+    ``want_bias``.  Grouped (the grouped GEMM's backward), every operand is
+    (E, M, N) and dbias (E, N), each expert's rows summed apart.  The
+    residual's gradient is dout and needs no kernel."""
     if dout.device.type == "cpu":
         return epilogue_bwd_plain(dout, z, epilogue=epilogue, gate=gate,
                                   dz_dtype=dz_dtype, want_bias=want_bias)
@@ -542,16 +556,18 @@ def epilogue_bwd(dout: torch.Tensor, z: Optional[torch.Tensor], *,
 
 
 epilogue_bwd.launches = 0
+epilogue_bwd.grouped_launches = 0
 
 
 def _launch_epilogue_bwd_cuda(dout, z, *, epilogue, gate, dz_dtype,
                               want_bias):
     ep = epilogue
     act = _ACT_CODES[ep.activation]
-    if dout.dim() != 2:
+    if dout.dim() not in (2, 3):
         raise ValueError(f"epilogue_bwd: dout {tuple(dout.shape)} is not "
-                         f"(M, N)")
-    M, N = dout.shape
+                         f"(M, N) or (E, M, N)")
+    shape = tuple(dout.shape)
+    G, M, N = shape if dout.dim() == 3 else (1, *shape)
     if act == 0 and not want_bias:
         return dout.to(dz_dtype), None, None
     if N % 2:
@@ -561,10 +577,10 @@ def _launch_epilogue_bwd_cuda(dout, z, *, epilogue, gate, dz_dtype,
                          ("gate", gate, _DTYPES)):
         if t is None:
             continue
-        if tuple(t.shape) != (M, N) or t.dtype not in dts \
+        if tuple(t.shape) != shape or t.dtype not in dts \
                 or t.device != dout.device or not t.is_contiguous():
             raise ValueError(f"epilogue_bwd: {name} must be a contiguous "
-                             f"({M}, {N}) tensor in {dts} on {dout.device}, "
+                             f"{shape} tensor in {dts} on {dout.device}, "
                              f"got {tuple(t.shape)} {t.dtype}")
     if dz_dtype not in _DTYPES:
         raise ValueError(f"epilogue_bwd: dz dtype {dz_dtype} not in "
@@ -574,9 +590,9 @@ def _launch_epilogue_bwd_cuda(dout, z, *, epilogue, gate, dz_dtype,
     if (act == _ACT_CODES["swiglu_gate"]) != (gate is not None):
         raise ValueError(f"epilogue_bwd: {ep} vs gate operand")
     dev = dout.device
-    dz = torch.empty((M, N), dtype=dz_dtype, device=dev) if act else None
+    dz = torch.empty(shape, dtype=dz_dtype, device=dev) if act else None
     dgate = torch.empty_like(gate) if gate is not None else None
-    dbias = torch.empty((N,), dtype=torch.float32, device=dev) \
+    dbias = torch.empty(shape[:-2] + (N,), dtype=torch.float32, device=dev) \
         if want_bias else None
 
     def ptr(t):
@@ -585,17 +601,20 @@ def _launch_epilogue_bwd_cuda(dout, z, *, epilogue, gate, dz_dtype,
     lib = build.load("matmul")
     fn = lib.repro_epilogue_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 \
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    rows = M if want_bias else _EPI_BWD_ROWS
+    # Without a bias sum the pass is elementwise over all G M rows; with
+    # one, each group's M rows are one CTA's.
+    groups, m, rows = (G, M, M) if want_bias else (1, G * M, _EPI_BWD_ROWS)
     with torch.cuda.device(dev):
         code = fn(ptr(dout), ptr(z), ptr(gate), ptr(dz), ptr(dgate),
-                  ptr(dbias), M, N, act, int(want_bias),
-                  int(dout.dtype == torch.float32),
+                  ptr(dbias), m, N, groups, act,
+                  int(want_bias), int(dout.dtype == torch.float32),
                   int(gate is not None and gate.dtype == torch.float32),
                   int(dz_dtype == torch.float32), rows,
                   torch.cuda.current_stream(dev).cuda_stream)
-    build.check(lib, code, f"epilogue_bwd {M}x{N} {ep}")
+    build.check(lib, code, f"epilogue_bwd {shape} {ep}")
     epilogue_bwd.launches += 1
+    epilogue_bwd.grouped_launches += int(dout.dim() == 3)
     return (dz if act else dout.to(dz_dtype)), dgate, dbias

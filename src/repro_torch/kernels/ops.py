@@ -22,14 +22,17 @@ because the card never serves the plain version.  Explicitly passed
 ``config`` objects are the caller's contract: transient retry, no ladder.
 
 Gradients.  Where autograd records (grad enabled and an operand requires
-grad), :func:`matmul` and :func:`flash_attention` run as
-``torch.autograd.Function``s whose backward is kernels too: the GEMM's
-dA = dZ B^T and dB = A^T dZ are the same Hopper GEMM reading B or A in
-place (``trans_b`` / ``trans_a``), each product selected for its own
+grad), :func:`matmul`, :func:`expert_matmul` and :func:`flash_attention`
+run as ``torch.autograd.Function``s whose backward is kernels too: the
+GEMM's dA = dZ B^T and dB = A^T dZ are the same Hopper GEMM reading B or A
+in place (``trans_b`` / ``trans_a``), each product selected for its own
 (M, N, K); an activation's dZ comes from the epilogue-backward kernel on
-the pre-activation, recomputed in f32 by the GEMM; attention's backward is
-the flash backward kernels on the forward's saved output and row
-log-sum-exp.  Otherwise (serving, under ``torch.inference_mode``) the ops
+the pre-activation, recomputed in f32 by the GEMM.  The grouped GEMM's
+gradient is the same per expert, each product one grouped launch for all
+experts (dX_e = dZ_e W_e^T, dW_e = X_e^T dZ_e, read in place), dZ, dgate
+and the per-expert dbias one grouped epilogue backward.  Attention's
+backward is the flash backward kernels on the forward's saved output and
+row log-sum-exp.  Otherwise (serving, under ``torch.inference_mode``) the ops
 launch directly and build no autograd node.
 """
 from __future__ import annotations
@@ -309,14 +312,28 @@ def expert_matmul(
     hw = hw if hw is not None else get_default_hardware()
     out_dtype = out_dtype or x.dtype
     ep = _normalize_epilogue(epilogue, bias, gate, residual)
-    if x.device.type == "cuda" and torch.is_grad_enabled() and any(
+    if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad
             for t in (x, w, bias, gate, residual)):
-        raise NotImplementedError(
-            "expert_matmul: the grouped GEMM has no backward on the card "
-            "yet (ROADMAP A3b); its output would carry no gradient")
-    _, M, K = x.shape
-    N = w.shape[2]
+        return _ExpertMatmul.apply(x, w, bias, gate, residual, ep, out_dtype,
+                                   hw)
+    return _expert_gemm(x, w, ep, out_dtype, hw, bias=bias, gate=gate,
+                        residual=residual)
+
+
+def _expert_gemm(x: torch.Tensor, w: torch.Tensor, ep: Epilogue,
+                 out_dtype: torch.dtype, hw: HardwareSpec, *,
+                 bias: Optional[torch.Tensor] = None,
+                 gate: Optional[torch.Tensor] = None,
+                 residual: Optional[torch.Tensor] = None,
+                 trans_a: bool = False, trans_b: bool = False
+                 ) -> torch.Tensor:
+    """epilogue(X[e] @ W[e]) for every expert e, on 3-D operands as stored
+    (X[e] = x[e].t() with ``trans_a``, W[e] = w[e].t() with ``trans_b``),
+    selected for the per-expert (M, N, K), behind the fail-soft launch."""
+    M = x.shape[2] if trans_a else x.shape[1]
+    K = x.shape[1] if trans_a else x.shape[2]
+    N = w.shape[1] if trans_b else w.shape[2]
     x, w = x.contiguous(), w.contiguous()
     bias, gate, residual = (t.contiguous() if t is not None else None
                             for t in (bias, gate, residual))
@@ -324,11 +341,58 @@ def expert_matmul(
                                   out_dtype=_model_dtype_name(out_dtype),
                                   epilogue=ep, hw=hw)
     kw = dict(out_dtype=out_dtype, epilogue=ep, bias=bias, gate=gate,
-              residual=residual)
+              residual=residual, trans_a=trans_a, trans_b=trans_b)
     return _launch_fail_soft(
         lambda cfg: kmm.tiled_expert_matmul(x, w, cfg, **kw),
         lambda: kmm.expert_matmul_plain(x, w, selected.config, **kw),
         selected.config, selected, hw, (M, N, K), x.device)
+
+
+class _ExpertMatmul(torch.autograd.Function):
+    """:func:`expert_matmul` under autograd, as :class:`_Matmul` expert by
+    expert: saves x, w, bias and gate; the backward recomputes an
+    activation's pre-activation z = X W (+ bias) in f32 with the grouped
+    GEMM, takes dZ (and dgate, the per-expert dbias) from the grouped
+    epilogue backward, then dX = dZ W^T with w read in place and dW = X^T dZ
+    with x read in place, each one grouped launch for all experts."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, gate, residual, ep, out_dtype, hw):
+        ctx.save_for_backward(x, w, bias, gate)
+        ctx.ep, ctx.hw = ep, hw
+        ctx.res_dtype = residual.dtype if residual is not None else None
+        return _expert_gemm(x, w, ep, out_dtype, hw, bias=bias, gate=gate,
+                            residual=residual)
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, w, bias, gate = ctx.saved_tensors
+        ep, hw = ctx.ep, ctx.hw
+        need_x, need_w, need_bias, need_gate, need_res = \
+            ctx.needs_input_grad[:5]
+        d = dout.contiguous()
+        dz, dgate, dbias = d, None, None
+        if ep.activation is not None:
+            z = _expert_gemm(x, w, Epilogue(bias=ep.bias), torch.float32, hw,
+                             bias=bias)
+            dz, dgate, dbias = kmm.epilogue_bwd(
+                d, z, epilogue=ep,
+                gate=gate.contiguous() if gate is not None else None,
+                dz_dtype=x.dtype, want_bias=ep.bias and need_bias)
+        elif ep.bias and need_bias:
+            _, _, dbias = kmm.epilogue_bwd(d, None, epilogue=ep,
+                                           dz_dtype=x.dtype, want_bias=True)
+        dz = dz.to(x.dtype)
+        none = EPILOGUE_NONE
+        dx = (_expert_gemm(dz, w, none, x.dtype, hw, trans_b=True)
+              if need_x else None)
+        dw = (_expert_gemm(x, dz, none, w.dtype, hw, trans_a=True)
+              if need_w else None)
+        return (dx, dw,
+                dbias.to(bias.dtype) if dbias is not None else None,
+                dgate if need_gate else None,
+                dout.to(ctx.res_dtype) if need_res else None,
+                None, None, None)
 
 
 def _launch_fail_soft(launch: Callable[[TileConfig], torch.Tensor],

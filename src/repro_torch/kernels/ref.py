@@ -122,7 +122,8 @@ def epilogue_bwd_ref(
     acc (+ bias), in f32: (dz, dgate, dbias).  dz = dout * act'(z) (dout
     itself without an activation) in ``dz_dtype``; dgate = dout * silu(z)
     in the gate's dtype (swiglu only); dbias = the column sums of dz, f32,
-    when ``want_bias``.  The residual's gradient is dout."""
+    when ``want_bias`` (of each group's rows for a grouped (E, M, N) dout:
+    dbias (E, N)).  The residual's gradient is dout."""
     d = dout.float()
     dgate = None
     if ep.activation == "gelu":
@@ -137,7 +138,7 @@ def epilogue_bwd_ref(
             dgate = (d * zf * s).to(gate.dtype)
             d = d * gate.float()
         d = d * (s * (1.0 + zf * (1.0 - s)))
-    dbias = d.sum(dim=0) if want_bias else None
+    dbias = d.sum(dim=-2) if want_bias else None
     return d.to(dz_dtype), dgate, dbias
 
 

@@ -15,10 +15,9 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch.nn import transformer as T
 from repro_torch.nn.model import Model
 from repro_torch.optim.adamw import AdamW, OptState, tree_items, tree_map
-
-TRAINED_FAMILIES = ("dense",)
 
 
 class TrainState(NamedTuple):
@@ -101,14 +100,9 @@ class TrainStep:
 
 def make_train_step(model: Model, optimizer: AdamW, microbatches: int = 1
                     ) -> TrainStep:
-    """The train step of a dense model.  The MoE, SSM and hybrid families
-    raise until their gradients are held against the reference (ROADMAP
-    A3b)."""
-    if model.cfg.family not in TRAINED_FAMILIES:
-        raise NotImplementedError(
-            f"{model.cfg.name}: training the {model.cfg.family} family is "
-            f"not ported yet (ROADMAP A3b); the port trains the "
-            f"{', '.join(TRAINED_FAMILIES)} family")
+    """The train step of a model of any family the port has (dense, MoE,
+    SSM, hybrid); another family raises here."""
+    T._check_family(model.cfg)
     return TrainStep(model, optimizer, microbatches)
 
 

@@ -15,12 +15,15 @@ The reference's features (``repro/launch/train.py``) on one device:
     optimizer's in-place commit runs once (``launch/steps.py``);
   * deterministic restart-safe data stream + background prefetch.
 On the card every GEMM of the forward pass, of its recompute (``remat``)
-and of the backward runs the hand-written Hopper GEMM, every attention
-forward and backward the flash kernels.  The dense family trains; the
-others raise (ROADMAP A3b).  There is no mesh and no ``--compress-dp``:
-the distributed slice brings them.  phi4-mini-3.8b at full size needs
-about 46 GB of the card for its state (bf16 params and grads, f32 AdamW
-moments) plus its activations.
+and of the backward runs the hand-written Hopper GEMM (the MoE's expert
+GEMMs and their gradients the grouped one), every attention forward and
+backward the flash kernels.  Every family of the port trains: dense
+(phi4-mini-3.8b), MoE (qwen3-moe-30b-a3b), SSM (mamba2-370m) and hybrid
+(zamba2-7b).  There is no mesh and no ``--compress-dp``: the distributed
+slice brings them.  At full size phi4-mini-3.8b needs about 46 GB of the
+card for its state (bf16 params and grads, f32 AdamW moments) and
+mamba2-370m about 4.4 GB, plus activations; qwen3-moe-30b-a3b (about 366
+GB) and zamba2-7b (about 81 GB) do not fit one card at full depth.
 """
 from __future__ import annotations
 

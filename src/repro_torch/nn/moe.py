@@ -13,7 +13,12 @@ Where the port departs from the reference's operations, the result does not
 change: the dispatch buffer is filled by ``index_copy_`` (every kept copy
 owns its slot; the reference scatter-adds into zeros), and the combine sums
 each token's K copies over a (T, K, D) view instead of scatter-adding them,
-so it is deterministic on the card, where ``index_add_`` uses atomics.
+so it is deterministic on the card, where ``index_add_`` uses atomics.  The
+backward is deterministic too, and has no accumulating scatter: the copies
+are gathered from a token-major (T·K, D) expansion by the sort's
+permutation (each token's K copy gradients are summed by the expansion's
+reduction), and the experts' outputs go back to their copies' rows by
+``index_copy_`` (whose backward is a gather), a dropped copy's row zero.
 """
 from __future__ import annotations
 
@@ -92,29 +97,29 @@ def _dispatch_compute(p: Dict, flat: torch.Tensor, cfg: ModelConfig
     ce = F.one_hot(gate_ids, E).float().sum(1).mean(0)
     aux = E * (me * ce).sum()
 
-    order, keep, slot = dispatch_plan(gate_ids, E, C)
-    tids_s = order // K                       # token of each sorted copy
-    gvals_s = gate_vals.reshape(-1)[order]
+    order, _, slot = dispatch_plan(gate_ids, E, C)
+    copies = flat[:, None, :].expand(T, K, D).reshape(T * K, D)[order]
 
     # Every kept copy owns its slot; dropped copies all land in the
     # overflow row E·C, which is cut off before the GEMMs.
     buf = torch.zeros((E * C + 1, D), dtype=flat.dtype, device=flat.device)
-    buf.index_copy_(0, slot, flat[tids_s])
+    buf.index_copy_(0, slot, copies)
     xe = buf[:-1].view(E, C, D)
 
     u = kops.expert_matmul(xe, p["wu"])
     act = kops.expert_matmul(xe, p["wg"], epilogue="swiglu_gate", gate=u)
     ye = kops.expert_matmul(act, p["wd"])
 
-    y_copies = ye.reshape(E * C, D)
-    safe_slot = torch.where(keep, slot, torch.zeros_like(slot))
-    gw = torch.where(keep, gvals_s, torch.zeros_like(gvals_s))
-    gathered = (y_copies[safe_slot] * gw[:, None].to(y_copies.dtype)
-                ).to(flat.dtype)
-    # Back to token-major order: each token's K copies are adjacent.
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.numel(), device=order.device)
-    y = gathered[inv].view(T, K, D).sum(1)
+    # Each slot's output goes back to the token-major row of the copy that
+    # owns it (an empty slot to the row T·K, cut off); a dropped copy's row
+    # stays zero, so its gate weight multiplies nothing.
+    owner = torch.full((E * C + 1,), T * K, dtype=order.dtype,
+                       device=order.device)
+    owner.index_copy_(0, slot, order)
+    ys = torch.zeros((T * K + 1, D), dtype=ye.dtype, device=ye.device)
+    ys.index_copy_(0, owner[:-1], ye.reshape(E * C, D))
+    y = (ys[:-1].view(T, K, D) * gate_vals[..., None].to(ys.dtype)
+         ).to(flat.dtype).sum(1)
     return y, aux
 
 

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels (dense and grouped GEMM, flash attention, the
-calibration probes) against their plain versions, on the card.
+"""The port's CUDA kernels (dense and grouped GEMM, forward and backward,
+flash attention, the calibration probes) against their plain versions, on
+the card.
 
 Marked ``gpu``; each test skips on a host without CUDA.  The file imports
 only torch and the port, so it runs where JAX is not installed:
@@ -725,16 +726,193 @@ def test_smoke_training_grads_on_card(cuda):
         assert _rel_l2(x.cpu(), w) <= 1e-4, path
 
 
+MENU_TILES = [(bm, bn) for bm in (32, 64, 128, 256)
+              for bn in (32, 64, 128, 256)]
+
+# ---------------------------------------------------------------------------
+# The grouped GEMM's backward: the grouped kernel with each expert's operand
+# read transposed in place (dW_e = X_e^T dZ_e: x stored (E, C, K), "tn";
+# dX_e = dZ_e W_e^T: w stored (E, K, N), "nt"), the grouped epilogue
+# backward, and expert_matmul's autograd route end to end.
+# ---------------------------------------------------------------------------
+
+# (E, M, N, K, config or None for the selector's) of the per-expert product:
+# qwen3-moe's training shapes (capacity 160, d_model 2048, expert d_ff 768)
+# at 8 experts, a corner of the menu, stream-K and split-K strips that cross
+# expert boundaries, ragged N and K.
+GROUPED_TRANS_CASES = [
+    (8, 2048, 768, 160, None), (8, 160, 2048, 768, None),
+    (8, 768, 2048, 160, None), (8, 160, 768, 2048, None),
+    (4, 512, 512, 256, TileConfig(256, 256, 64)),
+    (16, 64, 256, 512, TileConfig(64, 128, 64, schedule="stream_k")),
+    (16, 128, 256, 1024, TileConfig(64, 128, 64, split_k=4)),
+    (3, 96, 200, 264, TileConfig(64, 64, 32, group_m=2)),
+]
+
+
+def _grouped_trans(cuda, layout, dtype, E, M, N, K, cfg, seed):
+    """(got, again, want) of one grouped product with an operand stored
+    transposed, launched twice on the kernel, once on the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    a = torch.randn((E, K, M) if layout == "tn" else (E, M, K), generator=g,
+                    device=cuda).to(dtype)
+    b = torch.randn((E, N, K) if layout == "nt" else (E, K, N), generator=g,
+                    device=cuda).to(dtype)
+    kw = dict(out_dtype=dtype, trans_a=layout == "tn",
+              trans_b=layout == "nt")
+    n0 = dict(kmm.tiled_expert_matmul.layout_launches)
+    got = kmm.tiled_expert_matmul(a, b, cfg, **kw)
+    again = kmm.tiled_expert_matmul(a, b, cfg, **kw)
+    want = kmm.expert_matmul_plain(a, b, cfg, **kw)
+    torch.cuda.synchronize()
+    assert kmm.tiled_expert_matmul.layout_launches[layout] == n0[layout] + 2
+    assert got.shape == (E, M, N)
+    return got, again, want
+
+
 @pytest.mark.gpu
-def test_expert_matmul_refuses_autograd_on_card(cuda):
-    """The grouped GEMM has no backward yet: under autograd on the card it
-    raises rather than return an output with no gradient."""
-    x = torch.randn((2, 8, 64), device=cuda).bfloat16().requires_grad_()
-    w = torch.randn((2, 64, 32), device=cuda).bfloat16()
-    with pytest.raises(NotImplementedError, match="A3b"):
-        ops.expert_matmul(x, w)
-    with torch.no_grad():
-        assert ops.expert_matmul(x, w).shape == (2, 8, 32)
+@pytest.mark.parametrize("layout", ["tn", "nt"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("E,M,N,K,cfg", GROUPED_TRANS_CASES, ids=str)
+def test_grouped_transposed_operand_on_card(cuda, layout, dtype, E, M, N, K,
+                                            cfg):
+    from repro_torch.core.selector import select_gemm_config
+    if cfg is None:
+        cfg = select_gemm_config(M, N, K, in_dtype=str(dtype)[6:],
+                                 out_dtype=str(dtype)[6:],
+                                 hw=GPU_H100_LIKE).config
+    got, again, want = _grouped_trans(cuda, layout, dtype, E, M, N, K, cfg,
+                                      seed=M + N + K)
+    assert torch.equal(got, again)
+    assert _flags_down()
+    rtol, atol = _tol(dtype, K)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["tn", "nt"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("bm,bn", MENU_TILES, ids=str)
+def test_grouped_transposed_every_tile_on_card(cuda, layout, dtype, bm, bn):
+    """Each (bm, bn) of the menu with each operand transposed, 3 experts,
+    ragged N and K, a stream-K or split-K fixup."""
+    M, N, K = 208, 332, 472
+    bk = 48 if (bm + bn) % 64 else 64
+    cfg = (TileConfig(bm, bn, bk, schedule="stream_k") if bm <= bn
+           else TileConfig(bm, bn, bk, split_k=2, group_m=2))
+    got, again, want = _grouped_trans(cuda, layout, dtype, 3, M, N, K, cfg,
+                                      seed=bm * 7 + bn)
+    assert torch.equal(got, again)
+    assert _flags_down()
+    rtol, atol = _tol(dtype, K)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["tn", "nt"])
+def test_grouped_transposed_replays_in_a_cuda_graph(cuda, layout):
+    """A grouped split launch with a transposed operand (qwen3's dW / dX of
+    wu at 8 experts, stream-K) replays twice in a CUDA graph with the eager
+    launch's bits."""
+    cfg = TileConfig(64, 128, 64, schedule="stream_k")
+    M, N, K = (2048, 768, 160) if layout == "tn" else (160, 2048, 768)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    a = torch.randn((8, K, M) if layout == "tn" else (8, M, K), generator=g,
+                    device=cuda).bfloat16()
+    b = torch.randn((8, N, K) if layout == "nt" else (8, K, N), generator=g,
+                    device=cuda).bfloat16()
+    kw = dict(out_dtype=torch.bfloat16, trans_a=layout == "tn",
+              trans_b=layout == "nt")
+    eager = kmm.tiled_expert_matmul(a, b, cfg, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kmm.tiled_expert_matmul(a, b, cfg, **kw)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kmm.tiled_expert_matmul(a, b, cfg, **kw)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert _flags_down()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("ep", [
+    Epilogue(activation="swiglu_gate"), Epilogue(activation="gelu"),
+    Epilogue(bias=True), Epilogue(bias=True, activation="silu")], ids=str)
+def test_grouped_epilogue_bwd_on_card(cuda, dtype, ep):
+    """The epilogue backward over (E, C, N), dbias per expert (E, N)."""
+    E, M, N = 16, 160, 768
+    g = torch.Generator(device=cuda).manual_seed(6)
+    dout = torch.randn((E, M, N), generator=g, device=cuda).to(dtype)
+    z = torch.randn((E, M, N), generator=g, device=cuda) * 3
+    gate = (torch.randn((E, M, N), generator=g, device=cuda).to(dtype)
+            if ep.activation == "swiglu_gate" else None)
+    kw = dict(epilogue=ep, gate=gate, dz_dtype=dtype, want_bias=ep.bias)
+    zz = z if ep.activation else None
+    n0 = kmm.epilogue_bwd.grouped_launches
+    got = kmm.epilogue_bwd(dout, zz, **kw)
+    again = kmm.epilogue_bwd(dout, zz, **kw)
+    want = kmm.epilogue_bwd_plain(dout, zz, **kw)
+    torch.cuda.synchronize()
+    assert kmm.epilogue_bwd.grouped_launches == n0 + 2
+    rtol, atol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-2, 1e-2)
+    for x, y, w in zip(got, again, want):
+        assert (x is None) == (w is None)
+        if x is None:
+            continue
+        assert x.shape == w.shape and torch.equal(x, y)
+        torch.testing.assert_close(x.float(), w.float(), rtol=rtol,
+                                   atol=atol * (M if x.dim() == 2 else 1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-370m",
+                                  "zamba2-7b"])
+def test_smoke_family_grads_on_card(cuda, arch):
+    """One f32 loss and gradient of the MoE, SSM and hybrid smoke configs on
+    the kernels (for MoE the grouped GEMM forward and backward) against the
+    same step's plain versions on the CPU: each leaf within 1e-4 relative
+    L2, twice bitwise on the card."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.nn.model import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_items, tree_map
+    cfg = get_config(arch, smoke=True)
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0), dtype=torch.float32)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    opt = AdamW()
+    want_loss, want = make_train_step(cpu, opt).loss_and_grads(
+        params, {"tokens": tokens})
+    gpu = Model(cfg, device=cuda)
+    step = make_train_step(gpu, opt)
+    dev_params = tree_map(lambda t: t.to(cuda), params)
+    n0 = (dict(kmm.tiled_expert_matmul.layout_launches),
+          kmm.epilogue_bwd.grouped_launches)
+    loss, got = step.loss_and_grads(dev_params, {"tokens": tokens})
+    _, again = step.loss_and_grads(dev_params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    if cfg.is_moe:
+        L = cfg.num_layers
+        n = kmm.tiled_expert_matmul.layout_launches
+        assert n["tn"] - n0[0]["tn"] == 2 * 3 * L
+        assert n["nt"] - n0[0]["nt"] == 2 * 3 * L
+        assert kmm.epilogue_bwd.grouped_launches - n0[1] == 2 * L
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(float(want_loss))
+    for (path, x), (_, y), (_, w) in zip(tree_items(got), tree_items(again),
+                                         tree_items(want)):
+        assert torch.equal(x, y), path
+        assert _rel_l2(x.cpu(), w) <= 1e-4, path
 
 
 # ---------------------------------------------------------------------------
@@ -744,12 +922,10 @@ def test_expert_matmul_refuses_autograd_on_card(cuda):
 # timed form.  f32 tolerances as above; every case launched twice, bitwise.
 # ---------------------------------------------------------------------------
 
-F32_TILES = [(bm, bn) for bm in (32, 64, 128, 256) for bn in (32, 64, 128, 256)]
-
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("layout", ["nn", "tn", "nt", "grouped"])
-@pytest.mark.parametrize("bm,bn", F32_TILES, ids=str)
+@pytest.mark.parametrize("bm,bn", MENU_TILES, ids=str)
 def test_f32_gemm_every_tile_and_layout_on_card(cuda, layout, bm, bn):
     """Each (bm, bn) of the menu in each layout, ragged M, N and K, with a
     k-step (48) that is no multiple of 32 on half the tiles (the 16-deep

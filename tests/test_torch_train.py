@@ -1,9 +1,9 @@
 """The port's training path against the JAX package's, on shared numpy
-inputs: the GEMM's and attention's gradients, the loss, train steps with
-and without micro-batches, the schedules and AdamW, the data stream, the
-checkpoint format both ways, the retried step, the serving path's freedom
-from autograd, the families that do not train yet, and the driver's
-resume.
+inputs: the GEMM's and attention's gradients, the loss and train steps of
+every family (dense, MoE, SSM, hybrid), micro-batches, the schedules and
+AdamW, the data stream, the checkpoint format both ways, the retried step,
+the serving path's freedom from autograd, and the driver (a smoke run of
+every family, and the resume).
 
 On this CPU host the port's kernel wrappers run their plain versions,
 forward and backward; the JAX side runs its ``reference`` backend (its
@@ -17,6 +17,7 @@ differ in the last bit).  Micro-batching keeps ``tests/test_models.py``'s
 tolerances (loss rtol 2e-3; wg rtol 2e-2 / atol 2e-3).
 """
 import dataclasses
+import functools
 import math
 import os
 from unittest import mock
@@ -35,6 +36,7 @@ from repro.data import SyntheticLM as JSyntheticLM
 from repro.kernels import ops as jops
 from repro.launch.steps import TrainState as JTrainState
 from repro.launch.steps import make_train_step as jmake_train_step
+from repro.nn import moe as jmoe
 from repro.nn.model import Model as JModel
 from repro.optim import AdamW as JAdamW
 from repro.optim import constant as jconstant
@@ -48,12 +50,15 @@ from repro_torch.kernels import ops, ref
 from repro_torch.launch import train as train_driver
 from repro_torch.launch.steps import (TrainState, make_serve_step,
                                       make_train_step)
+from repro_torch.nn import moe
 from repro_torch.nn.model import Model, params_from_jax
 from repro_torch.optim import AdamW, constant, warmup_cosine
 from repro_torch.optim.adamw import tree_items, tree_map
 from repro_torch.runtime import retry
 
 ARCH = "phi4-mini-3.8b"
+# One smoke config of each family: dense, MoE, SSM, hybrid.
+FAMILY_ARCHS = [ARCH, "qwen3-moe-30b-a3b", "mamba2-370m", "zamba2-7b"]
 
 
 def _rng(seed):
@@ -218,19 +223,25 @@ def test_attention_lse_is_the_rows_logsumexp():
 # The loss and the train step against the JAX package.
 # ---------------------------------------------------------------------------
 
-@pytest.fixture(scope="module")
-def pair():
-    """phi4-mini's smoke config on both sides from the same f32 params."""
-    jcfg = jget_config(ARCH, smoke=True)
+@functools.lru_cache(maxsize=None)
+def _pair(arch):
+    """``arch``'s smoke config on both sides from the same f32 params."""
+    jcfg = jget_config(arch, smoke=True)
     jm = JModel(jcfg)
     jp = jax.tree_util.tree_map(lambda x: x.astype(jnp.float32),
                                 jm.init(jax.random.PRNGKey(0)))
     tree = jax.tree_util.tree_map(np.asarray, jp)
-    m = Model(get_config(ARCH, smoke=True), device="cpu")
+    m = Model(get_config(arch, smoke=True), device="cpu")
     tp = params_from_jax(tree, m.cfg, dtype=torch.float32, device="cpu")
     batch = JSyntheticLM(JDataConfig(vocab_size=jcfg.vocab_size, seq_len=32,
                                      global_batch=4), 0, 1).batch_at(0)
     return {"jm": jm, "jp": jp, "m": m, "tp": tp, "batch": batch}
+
+
+@pytest.fixture(scope="module")
+def pair():
+    """phi4-mini's smoke config on both sides from the same f32 params."""
+    return _pair(ARCH)
 
 
 def _flat_jax(tree):
@@ -241,8 +252,44 @@ def _flat_jax(tree):
             for path, v in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
+def _assert_same_routing(p):
+    """For an MoE model: both sides' forward passes route every token copy
+    of every layer to the same experts (the reference's routing recorded by
+    a debug callback beside its dispatch)."""
+    if not p["m"].cfg.is_moe:
+        return
+    jids, tids = [], []
+    real_j, real_t = jmoe._dispatch_compute, moe._route
+
+    def spy_j(params, flat, cfg):
+        probs = jax.nn.softmax(flat.astype(jnp.float32)
+                               @ params["router"].astype(jnp.float32), -1)
+        ids = jax.lax.top_k(probs, cfg.experts_per_token)[1]
+        jax.debug.callback(lambda i: jids.append(np.asarray(i)), ids,
+                           ordered=True)
+        return real_j(params, flat, cfg)
+
+    def spy_t(flat, router, k):
+        out = real_t(flat, router, k)
+        tids.append(out[2].numpy())
+        return out
+    jb = {"tokens": jnp.asarray(p["batch"]["tokens"])}
+    with mock.patch.object(jmoe, "_dispatch_compute", spy_j):
+        jax.block_until_ready(jax.jit(p["jm"].loss)(p["jp"], jb))
+    jax.effects_barrier()
+    tokens = torch.from_numpy(p["batch"]["tokens"]).long()
+    with mock.patch.object(moe, "_route", spy_t), torch.no_grad():
+        p["m"].loss(p["tp"], {"tokens": tokens})
+    assert len(jids) == len(tids) == p["m"].cfg.num_layers
+    for layer, (a, b) in enumerate(zip(jids, tids)):
+        np.testing.assert_array_equal(b, a, err_msg=f"layer {layer}")
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
 @pytest.mark.parametrize("remat", [False, True])
-def test_lm_loss_matches_jax(pair, remat):
+def test_lm_loss_matches_jax(arch, remat):
+    pair = _pair(arch)
+    _assert_same_routing(pair)
     jm = JModel(dataclasses.replace(pair["jm"].cfg, remat=remat))
     m = Model(dataclasses.replace(pair["m"].cfg, remat=remat), device="cpu")
     jb = {"tokens": jnp.asarray(pair["batch"]["tokens"])}
@@ -257,9 +304,10 @@ def test_lm_loss_matches_jax(pair, remat):
         assert _rel_l2(got[path].numpy(), w) <= 1e-4, path
 
 
-@pytest.fixture(scope="module")
-def jax_steps(pair):
-    """Five JAX train steps (one jit) and their losses."""
+def _jax_steps(arch):
+    """Five JAX train steps (one jit) of ``arch``'s smoke config and their
+    losses."""
+    pair = _pair(arch)
     opt = JAdamW(lr=jwarmup_cosine(1e-3, 2, 5))
     step = jax.jit(jmake_train_step(pair["jm"], opt))
     state = JTrainState(params=pair["jp"], opt=opt.init(pair["jp"]),
@@ -274,8 +322,11 @@ def jax_steps(pair):
     return losses, _flat_jax(state.params)
 
 
-def test_train_steps_match_jax(pair, jax_steps):
-    jlosses, jparams = jax_steps
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_train_steps_match_jax(arch):
+    pair = _pair(arch)
+    _assert_same_routing(pair)
+    jlosses, jparams = _jax_steps(arch)
     m = pair["m"]
     opt = AdamW(lr=warmup_cosine(1e-3, 2, 5))
     params = tree_map(lambda t: t.clone(), pair["tp"])
@@ -539,13 +590,94 @@ def test_serving_builds_no_autograd_node(pair):
         m.forward(params, tokens)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "mamba2-370m",
-                                  "zamba2-7b"])
-def test_other_families_refuse_to_train(arch):
-    m = Model(get_config(arch, smoke=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="A3b") as e:
-        make_train_step(m, AdamW())
-    assert m.cfg.family in str(e.value)
+def test_train_step_refuses_a_family_the_port_lacks():
+    cfg = dataclasses.replace(get_config(ARCH, smoke=True), family="vlm")
+    with pytest.raises(NotImplementedError, match="vlm"):
+        make_train_step(Model(cfg, device="cpu"), AdamW())
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS[1:])
+def test_train_driver_trains_every_family(tmp_path, arch):
+    """``python -m repro_torch.launch.train --smoke --device cpu`` for the
+    MoE, SSM and hybrid families: every step logged with a finite loss and
+    norm, and the loss falls over six steps at lr 1e-2."""
+    import json
+    log = str(tmp_path / "log.jsonl")
+    assert train_driver.main(["--arch", arch, "--smoke", "--device", "cpu",
+                              "--batch", "4", "--seq", "32", "--steps", "6",
+                              "--lr", "1e-2", "--warmup", "0",
+                              "--log", log]) == 0
+    recs = [json.loads(line) for line in open(log)]
+    assert [r["step"] for r in recs] == [1, 2, 3, 4, 5, 6]
+    assert all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in recs)
+    assert recs[-1]["loss"] < recs[0]["loss"]
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_train_reckoning_matches_the_wrapper_calls(arch):
+    """``chip_smoke.py``'s reckoning of a train step's kernel launches
+    (forward; then in the backward pass the remat recompute and the
+    backward) equals the calls each kernel wrapper receives in one step of
+    the smoke config with remat on, here on the CPU, where each call is
+    the kernel's plain version and would be one launch on the card."""
+    calls = {}
+
+    def counting(module, name, key):
+        fn = getattr(module, name)
+
+        def wrapped(*a, **kw):
+            k = key(a, kw)
+            calls[k] = calls.get(k, 0) + 1
+            return fn(*a, **kw)
+        return mock.patch.object(module, name, wrapped)
+
+    def layout(prefix):
+        return lambda a, kw: prefix + ("tn" if kw.get("trans_a") else
+                                       "nt" if kw.get("trans_b") else "nn")
+    cfg = dataclasses.replace(get_config(arch, smoke=True), remat=True)
+    m = Model(cfg, device="cpu")
+    params = m.init(torch.Generator().manual_seed(0), dtype=torch.float32)
+    paths, leaves = zip(*tree_items(params))
+    live = [t.requires_grad_() for t in leaves]
+    from repro_torch.launch.steps import _unflatten
+    tokens = torch.from_numpy(_rng(8).integers(0, cfg.vocab_size, (2, 32)))
+    patches = [
+        counting(kmm, "tiled_matmul", layout("")),
+        counting(kmm, "tiled_expert_matmul", layout("expert_")),
+        counting(kmm, "epilogue_bwd",
+                 lambda a, kw: "epilogue_bwd_grouped" if a[0].dim() == 3
+                 else "epilogue_bwd"),
+        counting(ops.kfa, "flash_attention_kernel", lambda a, kw: "flash"),
+        counting(ops.kfa, "flash_attention_bwd_kernel",
+                 lambda a, kw: "flash_bwd")]
+    for p in patches:
+        p.start()
+    try:
+        loss = m.loss(_unflatten(dict(zip(paths, live))),
+                      {"tokens": tokens.long()})
+        fwd = dict(calls)
+        calls.clear()
+        torch.autograd.grad(loss, live)
+        bwd = dict(calls)
+    finally:
+        for p in reversed(patches):
+            p.stop()
+    want = _chip_smoke()._train_reckoning(cfg)
+    want_bwd = {k: want["recompute"].get(k, 0) + want["backward"].get(k, 0)
+                for k in set(want["recompute"]) | set(want["backward"])}
+    assert fwd == {k: v for k, v in want["forward"].items() if v}
+    assert bwd == {k: v for k, v in want_bwd.items() if v}
 
 
 def test_train_driver_resumes_exactly(tmp_path):
