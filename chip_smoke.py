@@ -83,7 +83,10 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 7. calib    — ``fit_topology(GPU_H100_LIKE, TorchDevice())`` with no
               degraded mode: the probe kernels' sweeps on the card, every
               fitted field beside its preset value with its residual, the
-              static share and the C / C + 1 wave cliff; the artifact is
+              static share and the C / C + 1 wave cliff (the
+              ``calib_constants`` line also gives the latency and wave
+              sweeps' intercepts, whose difference is ``hbm_latency``);
+              the artifact is
               saved under ``experiments/calib/`` and must reload through
               the guarded loader undegraded.
    fidelity — the exhaustive-autotune oracle (pruned, as the reference's
@@ -154,7 +157,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               at full width with 12 of its 81 layers.
     train_times — the training kernels' times at those shapes beside
               their bounds, plain versions and library calls (the grouped
-              backward beside ``torch.bmm``).
+              backward beside ``torch.bmm``, with each product's achieved
+              HBM rate over the bound's bytes and over the bytes its walk
+              reads under ``kmm.l2_reckoning``).
 Each serve phase counts the launches of every kernel inside the model's
 prefills and inside its decode steps apart.  The line before the last is
 the kernels summary (a row's launches are those of its own run and step
@@ -178,6 +183,7 @@ ROOT = Path(__file__).resolve().parent
 
 BF16_PEAK = 989e12          # H100 SXM dense bf16 tensor-core flop/s
 HBM_BW = 3.35e12            # H100 SXM HBM3 bytes/s
+L2_BYTES = 50 * 1024**2      # H100 L2, for kmm.l2_reckoning
 # Prefill logits of the kernel path vs the plain path (relative L2): both
 # are bf16 computations, so the yardstick is the plain path's own distance
 # from its f32 run; two independent roundings of that size differ by ~1.4x.
@@ -1609,6 +1615,8 @@ def calib_phase(torch, dev, kpr):
     """fit_topology on the card, fail-fast; returns (result, reloaded
     topology, artifact path) and the probe kernels' launches in the fit."""
     from repro_torch.calib import TorchDevice, fit_topology
+    from repro_torch.calib.device import latency_windows
+    from repro_torch.calib.fit import theil_sen
     from repro_torch.core.hardware import GPU_H100_LIKE as base
     from repro_torch.core.topology import (load_calibrated_topology_guarded,
                                            topology_fingerprint)
@@ -1631,9 +1639,16 @@ def calib_phase(torch, dev, kpr):
                   "residual": res.residuals[k]}
               for k, v in sorted(res.fitted.items())}
     wave = res.probes["wave"].params
+    # hbm_latency = latency intercept - wave intercept - dma_fixed
+    # (calib/fit.py): both intercepts beside it say which side moved.
+    lat_sw, wave_sw = res.probes["latency"], res.probes["wave"]
     emit({"phase": "calib_constants", "device": device.name,
           **{k: res.fitted.get(k) for k in ("hbm_latency", "kernel_launch",
-                                            "dma_fixed")}})
+                                            "dma_fixed")},
+          "latency_intercept": theil_sen(lat_sw.xs(), lat_sw.ys())[1],
+          "wave_intercept": theil_sen(wave_sw.xs(), wave_sw.ys())[1],
+          "latency_windows": [latency_windows(int(x), device.l2_bytes)
+                              for x in lat_sw.xs()]})
     emit({"phase": "calib", "device": device.name, "seconds": seconds,
           "fields": fields, "static_share": res.static_share,
           "wave_cliff": {"units": [wave["cliff_units"],
@@ -2859,6 +2874,15 @@ def train_times_phase(torch, dev, kmm, kfa):
             nbytes, flops = E * nbytes, E * flops
             row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
                                                      BF16_PEAK)
+            # Achieved HBM rates: the bound's bytes (each operand read
+            # once, the output written once) and the bytes the column
+            # walk reads under kmm.l2_reckoning's 50 MB LRU, over the time.
+            walk = kmm.l2_reckoning(
+                kmm.work_plan(M_, N_, K_, cfg, E, kmm._sm_count(dev.index)),
+                L2_BYTES)
+            row["walk_bytes"] = walk["a"] + walk["b"] + walk["out"]
+            row["hbm_tbs"] = nbytes / row["ms"] * 1e-9
+            row["walk_hbm_tbs"] = row["walk_bytes"] / row["ms"] * 1e-9
             rows.append(row)
             for k_ in ("ms", "plain_ms", "library_ms"):
                 tot[k_] += row[k_]
@@ -2869,6 +2893,7 @@ def train_times_phase(torch, dev, kmm, kfa):
         times[key] = {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
                       "library_ms": tot["library_ms"], "bound_ms": b_ms,
                       "bound_by": b_by,
+                      "hbm_tbs": tot["bytes"] / tot["ms"] * 1e-9,
                       "what": f"sum over one qwen3-moe layer's wu, wg, wd "
                               f"{'dX' if layout == 'nt' else 'dW'}, E {E} "
                               f"C {C}"}

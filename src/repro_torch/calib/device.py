@@ -27,6 +27,7 @@ Two implementations:
 from __future__ import annotations
 
 import hashlib
+import itertools
 import time
 from typing import Optional, Protocol, runtime_checkable
 
@@ -115,10 +116,41 @@ class VirtualDevice:
 
 
 # TorchDevice's timing on the card: a CUDA graph of GRAPH_CALLS calls
-# replayed GRAPH_REPS times; its inputs come from generators seeded SEED.
+# replayed GRAPH_REPS times (the probes: at least MARGINAL_CALLS calls, and
+# twice as many, marginal_time); its inputs come from generators seeded
+# SEED.
 GRAPH_CALLS = 5
 GRAPH_REPS = 5
+MARGINAL_CALLS = 20
 SEED = 0
+
+
+def marginal_time(fn, calls: int, reps: int, side=None) -> float:
+    """Device seconds of one ``fn()`` among back-to-back calls: the
+    replay of a graph of ``2 calls`` calls less that of ``calls`` calls
+    (each :func:`graph_time`), over ``calls``.  What a replay costs once,
+    whatever its length, cancels.  Timed by one graph, the wave sweep's
+    intercept, which the fit reads as the launch cost, came out above the
+    latency sweep's on the H100 and the fitted HBM latency below zero
+    (ROADMAP C7; ``tools/probe_intercepts.py`` times both ways)."""
+    once = graph_time(fn, calls, reps, side) * calls
+    twice = graph_time(fn, 2 * calls, reps, side) * 2 * calls
+    return (twice - once) / calls
+
+
+def l2_budget(topo: Topology) -> int:
+    """The budget of the largest cache inside the backing memory (the
+    H100's L2): what ``calib/probes.py::level_windows`` sizes the backing
+    window from."""
+    return max((l.budget() for l in topo.levels[1:]), default=0)
+
+
+def latency_windows(window: int, l2_bytes: int) -> int:
+    """How many distinct ``window``-byte windows the latency sweep rotates
+    through so that at least twice ``l2_bytes`` pass between two reads of
+    one window: every fetch then misses the L2."""
+    window = max(int(window), 1)
+    return -(-2 * int(l2_bytes) // window) + 1
 
 
 def graph_time(fn, calls: int, reps: int, side=None) -> float:
@@ -159,13 +191,27 @@ class TorchDevice:
     On a CUDA device the three probe primitives run the probe kernels of
     ``kernels/probes.py`` (one launch each, the loop on the card) and
     ``gemm_time`` runs the port's GEMM kernel through ``ops.matmul`` under
-    the explicit config.  Each is timed by :func:`graph_time`, a CUDA
-    graph of :data:`GRAPH_CALLS` calls replayed :data:`GRAPH_REPS` times
-    between CUDA events, which takes the host's launch cost out: a GEMM
-    wrapper spends tens of microseconds of host time a call, which events
-    around an eager call would measure instead of the kernel.  So the
+    the explicit config.  Each is timed in CUDA graphs replayed
+    :data:`GRAPH_REPS` times between CUDA events, which takes the host's
+    launch cost out: a GEMM wrapper spends tens of microseconds of host
+    time a call, which events around an eager call would measure instead
+    of the kernel.  The probes take :func:`marginal_time` (graphs of at
+    least :data:`MARGINAL_CALLS` calls and twice as many), so what a
+    replay costs once cancels and every probe carries the same fixed cost
+    a call; the
     ``kernel_launch`` a fit reads from the wave sweep's intercept is the
-    launch gap inside a graph, not the cost of an eager launch.
+    launch gap between kernels inside a graph, not the cost of an eager
+    launch.  ``gemm_time`` takes :func:`graph_time` of one graph.
+
+    A single-pass transfer (the latency sweep: ``n_chunks == 1``,
+    ``window == nbytes``) reads a window of its own in each call:
+    :func:`latency_windows` windows carved from one buffer made before
+    capture, at least twice ``l2_bytes`` (the topology's L2 budget,
+    :func:`l2_budget` of ``GPU_H100_LIKE`` unless given) between two reads
+    of one, taken in turn.  So every fetch comes
+    from HBM, as ``simulate_stream`` prices a first pass; with
+    :data:`GRAPH_CALLS` calls on one window every fetch after the first
+    hit the L2 (ROADMAP C7).
 
     ``device`` defaults to ``"cuda"``; without CUDA the constructor raises
     unless the caller passes ``device="cpu"``.  There the primitives run
@@ -176,7 +222,8 @@ class TorchDevice:
     ``in_dtype``.
     """
 
-    def __init__(self, device: str = "cuda", *, repeat: int = 3):
+    def __init__(self, device: str = "cuda", *, repeat: int = 3,
+                 l2_bytes: Optional[int] = None):
         import torch
         self._torch = torch
         dev = torch.device(device)
@@ -195,7 +242,12 @@ class TorchDevice:
         self.device = dev
         self.repeat = int(repeat)
         self.name = f"torch:{dev.type}:{kind}"
+        if l2_bytes is None:
+            from repro_torch.core.hardware import GPU_H100_LIKE
+            l2_bytes = l2_budget(GPU_H100_LIKE)
+        self.l2_bytes = int(l2_bytes)
         self._windows: dict = {}
+        self._rotation = None
         self._operands: dict = {}
         self._gemm_key = None
         self._gemm_ab = None
@@ -205,7 +257,8 @@ class TorchDevice:
     def _generator(self):
         return self._torch.Generator(device=self.device).manual_seed(SEED)
 
-    def _time(self, fn) -> float:
+    def _time(self, fn, calls: int = GRAPH_CALLS,
+              marginal: bool = True) -> float:
         torch = self._torch
         if self.device.type == "cpu":
             fn()
@@ -216,7 +269,10 @@ class TorchDevice:
                 best = min(best, time.perf_counter() - t0)
             return best
         with torch.cuda.device(self.device):
-            return graph_time(fn, GRAPH_CALLS, GRAPH_REPS, self._side)
+            if marginal:
+                return marginal_time(fn, max(calls, MARGINAL_CALLS),
+                                     GRAPH_REPS, self._side)
+            return graph_time(fn, calls, GRAPH_REPS, self._side)
 
     def _mma_operands(self, dtype: str):
         from repro_torch.kernels import probes
@@ -238,14 +294,36 @@ class TorchDevice:
                 device=self.device)
         return self._slots_buf
 
+    def rotation(self, window: int) -> list:
+        """The latency sweep's :func:`latency_windows` distinct windows of
+        ``window`` bytes, views of one buffer (kept for the next sweep
+        point while it is large enough), each laid out as
+        ``probes.stream_data`` lays out a window."""
+        from repro_torch.kernels import probes
+        n = latency_windows(window, self.l2_bytes)
+        floats = max(int(window) // probes.VEC_BYTES, 1) * 4
+        if self._rotation is None or self._rotation.numel() < n * floats:
+            self._rotation = None               # free the smaller one first
+            self._rotation = probes.stream_data(n * floats * 4, self.device)
+        buf = self._rotation
+        return [buf[i * floats:(i + 1) * floats] for i in range(n)]
+
     def stream_time(self, nbytes: float, window: int,
                     n_chunks: int) -> float:
         from repro_torch.kernels import probes
+        out = self._slots(probes.STREAM_SLOTS_MAX)
+        if n_chunks == 1 and int(nbytes) == int(window):
+            # The latency sweep: call i of the graph reads window i.
+            xs = self.rotation(window)
+            turn = itertools.count()
+            return self._time(
+                lambda: probes.stream_read(xs[next(turn) % len(xs)], nbytes,
+                                           window, 1, out=out),
+                calls=len(xs))
         x = self._windows.get(window)
         if x is None:
             x = self._windows[window] = probes.stream_data(window,
                                                            self.device)
-        out = self._slots(probes.STREAM_SLOTS_MAX)
         return self._time(
             lambda: probes.stream_read(x, nbytes, window, n_chunks, out=out))
 
@@ -283,7 +361,8 @@ class TorchDevice:
         a, b = self._gemm_ab
         out_dtype = getattr(torch, p.out_dtype)
         return self._time(
-            lambda: ops.matmul(a, b, out_dtype=out_dtype, config=t))
+            lambda: ops.matmul(a, b, out_dtype=out_dtype, config=t),
+            marginal=False)
 
 
 def get_device(kind: str, base: Topology, *, noise: float = 0.0,
@@ -301,7 +380,7 @@ def get_device(kind: str, base: Topology, *, noise: float = 0.0,
         device: Device = VirtualDevice(planted or base, noise=noise,
                                        seed=seed)
     elif kind == "torch":
-        device = TorchDevice()
+        device = TorchDevice(l2_bytes=l2_budget(base))
     else:
         raise ValueError(
             f"unknown device kind {kind!r}; choose virtual | torch")

@@ -69,18 +69,43 @@
 //    4-deep ring in 192 KB; one or
 //    two consumer warpgroups issue wgmma.mma_async with the accumulators in
 //    registers (a 256-row tile is held whole by two warpgroups, 128 f32 a
-//    thread).  The epilogue stages 32 columns of a 64-row block at a time
-//    through a small shared-memory buffer per warpgroup, so that one
-//    compact loop with coalesced, batched loads and stores serves every
-//    register of every tile shape: unrolled per register, the epilogue's
-//    code outweighed the mainloop's time.  A 32-row (decode) tile
+//    thread).  The epilogue stores through TMA where it can: a launch
+//    with no gate or residual, on tiles of at most 128 x 128 (one 64-row
+//    block and 64 accumulators a consumer thread), converts its sums,
+//    after the bias and activation, to the output type in a 16 KB staging
+//    tile a warpgroup (64 rows of 256 bytes, in TMA boxes of 128-byte
+//    swizzled rows), fences it for the async proxy, and one thread issues
+//    cp.async.bulk.tensor stores on a 3-D output map (N, M, groups) that
+//    clips ragged rows, columns and groups.  The warpgroup goes straight
+//    on to its next piece, whose slices the producer has already brought
+//    in, and waits for the stores to have read the staging only before it
+//    writes there again.  The staging takes no ring stage from the
+//    backward's tiles (64x128x128 keeps 8, 128x128x128 6).  The other
+//    launches (a gate or residual, whose loads are batched and coalesced;
+//    256-row or 256-wide tiles, whose 128 accumulators left no registers
+//    for it; blocks of fewer than 32 rows, as at decode) stage 32 f32
+//    columns of a 64-row block at a time and store column pairs to global
+//    memory: there the TMA stores measured slower (PERF.md §6).  The
+//    activation is a template argument of the epilogue: chosen at run
+//    time, every branch was evaluated for every output, and the grouped
+//    dW at qwen3's shape (K = 160, a 403 MB output) spent most of its time
+//    there.  A 32-row (decode) tile
 //    runs the 64-row instruction with TMA filling only its 32 rows: at
 //    M = 4 the MMA is idle anyway, and what the decode GEMMs need -- every
 //    SM streaming the weight with several TMA loads in flight -- is what the
 //    scheduler and the ring give.  TMA zero-fills out-of-range rows, columns
-//    and depth (per group: the descriptors are 3-D), so only stores are
-//    guarded.  A 256 x 256 tile is walked as two 256 x 128 passes (registers
-//    cap a thread at 128 accumulators).
+//    and depth (per group: the descriptors are 3-D).  A 256 x 256 tile is
+//    walked as two 256 x 128 passes (registers cap a thread at 128
+//    accumulators).
+//  * The grouped launch (group_m 1, more than one row tile a group) walks
+//    a CTA's whole tiles column by column (Walk): 132 CTAs run on as many
+//    groups at once, so an operand tile that comes back many tiles later
+//    has left the 50 MB L2.  In the column walk a group's B column tile
+//    (an expert's W in dX = dZ W^T) is used by its row tiles one after
+//    another and by the neighbour CTA that shares the group at about the
+//    same time.  The first and last pieces keep their places, so the
+//    fixup's order argument above is unchanged, and every sum is the same:
+//    the outputs are bitwise those of the flattened walk.
 //  * f32 inputs run on the tensor cores too, under the same scheduler,
 //    fixup and CTA shape, with split-TF32 products (tf32x3.cuh): each
 //    operand split into a TF32 hi and lo part, three wgmma products a k8
@@ -95,6 +120,7 @@
 //    registers, loaded from the slab in whichever layout it has.  So every
 //    operand's K-slab of a tile is read from memory once.  Outputs and
 //    epilogue operands may be bf16 or f32 independently of the inputs.
+//    This route keeps its epilogue of paired global stores.
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,6 +138,10 @@ constexpr size_t kMaxSmem = 232448;  // 227 KB opt-in dynamic shared memory
 constexpr int kMaxStages = 8;
 
 enum Act { kActNone = 0, kActGelu = 1, kActSilu = 2, kActSwiglu = 3 };
+template <int A>
+struct ActTag {
+  static constexpr int kAct = A;
+};
 
 struct Params {
   const void* a;
@@ -130,6 +160,7 @@ struct Params {
   int groups;
   int trans_a, trans_b;   // A stored (K, M), B stored (N, K)
   int Tm, Tn;             // output tiles of one group
+  int column_walk;        // walk whole tiles column by column (Walk)
   int steps_per_unit;     // k-steps of bk in one unit
   int units_per_tile;
   int units_per_cta;      // q
@@ -155,19 +186,93 @@ struct Piece {
   int last_cta;  // the CTA holding the tile's last k-step
 };
 
-__device__ __forceinline__ bool next_piece(const Params& p, long long& u,
-                                           long long u_end, Piece& pc) {
-  if (u >= u_end) return false;
-  const long long t = u / p.units_per_tile;
-  const long long tu0 = t * p.units_per_tile, tu1 = tu0 + p.units_per_tile;
-  const long long pe = u_end < tu1 ? u_end : tu1;
-  pc.tile = static_cast<int>(t);
-  pc.s0 = static_cast<int>(u - tu0) * p.steps_per_unit;
-  pc.s1 = static_cast<int>(pe - tu0) * p.steps_per_unit;
-  pc.first = u == tu0;
-  pc.last = pe == tu1;
+// The piece of tile t over units [ua, ub).
+__device__ __forceinline__ Piece make_piece(const Params& p, int t,
+                                            long long ua, long long ub) {
+  const long long tu0 = static_cast<long long>(t) * p.units_per_tile;
+  const long long tu1 = tu0 + p.units_per_tile;
+  Piece pc;
+  pc.tile = t;
+  pc.s0 = static_cast<int>(ua - tu0) * p.steps_per_unit;
+  pc.s1 = static_cast<int>(ub - tu0) * p.steps_per_unit;
+  pc.first = ua == tu0;
+  pc.last = ub == tu1;
   pc.last_cta = static_cast<int>((tu1 - 1) / p.units_per_cta);
-  u = pe;
+  return pc;
+}
+
+// A CTA's walk over its units [u0, u1): its first piece (which may start
+// mid-tile: a partial), then the whole tiles between, then its last piece
+// (which may end mid-tile: its owner waits for later CTAs' partials), so
+// a CTA never waits before it has raised its own flag.  The whole tiles
+// come in the flattened order or, with p.column_walk (WorkPlan.column_walk
+// decides: the grouped launch under group_m 1, more than one row tile a
+// group), column tile by column tile: a column's tiles are the rows r =
+// group * Tm + row of one contiguous range, walked up in even columns and
+// down in odd ones, so that a group's B column tile is used by its row
+// tiles one after another, and by the neighbour CTA that shares the group
+// at about the same time.  kernels/matmul.py::WorkPlan.pieces walks the
+// same way.  The cursor is made opaque to the compiler each step: left
+// visible, it specialised the kernel's loop by the walk's stage, which
+// doubled the code and raised the registers of the mainloop.
+struct Walk {
+  int t_first, t_last;  // the first and last pieces' tiles
+  int i;                // pieces taken
+  int n, r;             // the column walk's next column and row
+};
+
+// This CTA's units [u0, u1).
+__device__ __forceinline__ void cta_units(const Params& p, long long& u0,
+                                          long long& u1) {
+  u0 = static_cast<long long>(blockIdx.x) * p.units_per_cta;
+  u1 = u0 + p.units_per_cta < p.units ? u0 + p.units_per_cta : p.units;
+}
+
+__device__ __forceinline__ void walk_begin(const Params& p, Walk& w) {
+  long long u0, u1;
+  cta_units(p, u0, u1);
+  w.t_first = static_cast<int>(u0 / p.units_per_tile);
+  w.t_last = static_cast<int>((u1 - 1) / p.units_per_tile);
+  w.i = 0;
+  w.n = 0;
+  w.r = (w.t_first + 1 + p.Tn - 1) / p.Tn;  // column 0's first row
+}
+
+// The next whole tile of the column walk over the tiles [t_first + 1,
+// t_last): column n holds the rows r with t_first < r Tn + n < t_last.
+__device__ __forceinline__ int walk_column_tile(const Params& p, Walk& w) {
+  const int lo = w.t_first + 1, hi = w.t_last, tn = p.Tn;
+  for (;;) {
+    const int r_lo = (lo - w.n + tn - 1) / tn;
+    const int r_hi = hi - 1 - w.n >= 0 ? (hi - 1 - w.n) / tn : -1;
+    if (w.r >= r_lo && w.r <= r_hi) break;
+    ++w.n;  // the column is done: the next one from its top or bottom
+    w.r = (w.n & 1) ? (hi - 1 - w.n >= 0 ? (hi - 1 - w.n) / tn : -1)
+                    : (lo - w.n + tn - 1) / tn;
+  }
+  const int t = w.r * tn + w.n;
+  w.r += (w.n & 1) ? -1 : 1;
+  return t;
+}
+
+__device__ __forceinline__ bool next_piece(const Params& p, Walk& w,
+                                           Piece& pc) {
+  asm volatile("" : "+r"(w.i), "+r"(w.n), "+r"(w.r), "+r"(w.t_first),
+               "+r"(w.t_last));
+  const int last = w.t_last - w.t_first;  // the last piece's index
+  if (w.i > last) return false;
+  const long long upt = p.units_per_tile;
+  if (w.i == 0 || w.i == last) {
+    const int t = w.i == 0 ? w.t_first : w.t_last;
+    long long u0, u1;
+    cta_units(p, u0, u1);
+    const long long ta = t * upt, tb = ta + upt;
+    pc = make_piece(p, t, u0 > ta ? u0 : ta, u1 < tb ? u1 : tb);
+  } else {
+    const int t = p.column_walk ? walk_column_tile(p, w) : w.t_first + w.i;
+    pc = make_piece(p, t, t * upt, (t + 1) * upt);
+  }
+  ++w.i;
   return true;
 }
 
@@ -233,15 +338,31 @@ __device__ __forceinline__ float load_ep(const void* p, size_t i, int f32) {
              : __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
 }
 
-// The activation of DESIGN.md §3 (gelu is the tanh form, as jax.nn.gelu);
-// gate is read only by swiglu.
-__device__ __forceinline__ float activate(int act, float x, float gate) {
-  if (act == kActGelu)
+// The activation A of DESIGN.md §3 (gelu is the tanh form, as
+// jax.nn.gelu); gate is read only by swiglu.  A is a template argument:
+// with a run-time one the compiler evaluated every branch for every
+// output (if-conversion) and the epilogue cost more than the mainloop
+// (the grouped dW at qwen3's shape; PERF.md §6).
+template <int A>
+__device__ __forceinline__ float activate(float x, float gate) {
+  if constexpr (A == kActGelu)
     return 0.5f * x *
            (1.0f + tanhf(0.7978845608028654f * (x + 0.044715f * x * x * x)));
-  if (act == kActSilu) return x / (1.0f + expf(-x));
-  if (act == kActSwiglu) return x / (1.0f + expf(-x)) * gate;
+  if constexpr (A == kActSilu) return x / (1.0f + expf(-x));
+  if constexpr (A == kActSwiglu) return x / (1.0f + expf(-x)) * gate;
   return x;
+}
+
+// Calls f(ActTag<A>{}) with the launch's activation A as a compile-time
+// value.
+template <typename F>
+__device__ __forceinline__ void with_act(int act, F&& f) {
+  switch (act) {
+    case kActGelu: f(ActTag<kActGelu>{}); break;
+    case kActSilu: f(ActTag<kActSilu>{}); break;
+    case kActSwiglu: f(ActTag<kActSwiglu>{}); break;
+    default: f(ActTag<kActNone>{}); break;
+  }
 }
 
 // Two neighbouring columns (col even; N is a multiple of 8, so col + 1 < N).
@@ -266,24 +387,55 @@ __device__ __forceinline__ void consumer_sync(int threads) {
   asm volatile("bar.sync 1, %0;\n" ::"r"(threads) : "memory");
 }
 
-// The epilogue's staging buffer: one per consumer warpgroup, 64 rows of
+// The f32 route's epilogue buffer: one per consumer warpgroup, 64 rows of
 // kEpiCols f32; the row stride of 40 floats keeps the fragment writes (8
 // rows x 4 column pairs a half-warp) free of bank conflicts.
 constexpr int kEpiCols = 32;
 constexpr int kEpiStride = kEpiCols + 8;
 constexpr int kEpiBytes = 64 * kEpiStride * 4;
 
+// The bf16 route's output staging: one per consumer warpgroup, 64 rows of
+// 256 bytes (128 bf16 or 64 f32 columns), in TMA boxes of 128-byte rows
+// (64 bf16 or 32 f32 columns; 64-byte rows for 32 bf16 columns), each box
+// in the swizzle its tensor map names; or, for the launches that store
+// without TMA, the f32 buffer of kEpiBytes.
+constexpr int kOutStage = 64 * 256;
+
 __device__ __forceinline__ void warpgroup_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
 }
 
+// Byte offset of 16-byte chunk `chunk16` (plus byte `b` in it) of row r of
+// a box of `rb`-byte rows (128 or 64) in the TMA swizzle of that row width,
+// the box 1024-aligned.
+__device__ __forceinline__ uint32_t swz_at(int r, int rb, int chunk16,
+                                           int b) {
+  const int sw = rb == 128 ? (r & 7) : ((r >> 1) & 3);
+  return r * rb + ((chunk16 ^ sw) << 4) + b;
+}
+
+// Two outputs (x, y) as the output type at column pair c (even) of row r
+// of a staged chunk: boxes of box_cols columns (32 or 64: 1 << lg_cols),
+// 64 rows of rb bytes each.
+__device__ __forceinline__ void stage_pair(unsigned char* stage, int r, int c,
+                                           int lg_cols, int rb, int f32,
+                                           float x, float y) {
+  const int cb = (c & ((1 << lg_cols) - 1)) << (f32 ? 2 : 1);
+  unsigned char* at =
+      stage + (c >> lg_cols) * 64 * rb + swz_at(r, rb, cb >> 4, cb & 15);
+  if (f32)
+    *reinterpret_cast<float2*>(at) = make_float2(x, y);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(at) = __floats2bfloat162_rn(x, y);
+}
+
 // The epilogue of rows x kEpiCols outputs staged in epi (the first rows of
 // a 64-row block starting at row0, columns from col0), by the 128 threads
-// of one warpgroup: thread t takes column pair t % 16 of rows t / 16 + 8 s.
-// Each round issues the gate and residual loads of kBatch rows before their
-// first use, so their latencies overlap.  A 256-row tile keeps 128
-// accumulators live through its epilogue and has no registers to spare
-// for a batch: it takes one row a round.
+// of one warpgroup, stored to global memory: thread t takes column pair t
+// % 16 of rows t / 16 + 8 s.  Each round issues the gate and residual
+// loads of kBatch rows before their first use, so their latencies overlap.
+// A 256-row tile keeps 128 accumulators live through its epilogue and has
+// no registers to spare for a batch: it takes one row a round.
 template <int kBatch>
 __device__ __forceinline__ void epilogue_block(const Params& p,
                                                const float* epi, int g_,
@@ -295,39 +447,42 @@ __device__ __forceinline__ void epilogue_block(const Params& p,
   if (col >= p.N) return;
   float2 bias = make_float2(0.0f, 0.0f);
   if (p.has_bias) bias = load_ep2(p.bias, g * p.sbias + col, p.ep_f32);
+  with_act(p.act, [&](auto tag) {
+    constexpr int A = decltype(tag)::kAct;
 #pragma unroll 1
-  for (int r0 = t / kPairs; r0 < rows; r0 += kBatch * (128 / kPairs)) {
-    float2 v[kBatch], gate[kBatch], res[kBatch];
+    for (int r0 = t / kPairs; r0 < rows; r0 += kBatch * (128 / kPairs)) {
+      float2 v[kBatch], gate[kBatch], res[kBatch];
 #pragma unroll
-    for (int s = 0; s < kBatch; ++s) {
-      const int r = r0 + s * (128 / kPairs);
-      v[s] = gate[s] = res[s] = make_float2(0.0f, 0.0f);
-      if (r >= rows) continue;
-      const size_t idx = static_cast<size_t>(row0 + r) * p.N + col;
-      v[s] = *reinterpret_cast<const float2*>(epi + r * kEpiStride + c);
-      if (p.act == kActSwiglu)
-        gate[s] = load_ep2(p.gate, g * p.sgate + idx, p.ep_f32);
-      if (p.has_res)
-        res[s] = load_ep2(p.residual, g * p.sres + idx, p.ep_f32);
-    }
+      for (int s = 0; s < kBatch; ++s) {
+        const int r = r0 + s * (128 / kPairs);
+        v[s] = gate[s] = res[s] = make_float2(0.0f, 0.0f);
+        if (r >= rows) continue;
+        const size_t idx = static_cast<size_t>(row0 + r) * p.N + col;
+        v[s] = *reinterpret_cast<const float2*>(epi + r * kEpiStride + c);
+        if constexpr (A == kActSwiglu)
+          gate[s] = load_ep2(p.gate, g * p.sgate + idx, p.ep_f32);
+        if (p.has_res)
+          res[s] = load_ep2(p.residual, g * p.sres + idx, p.ep_f32);
+      }
 #pragma unroll
-    for (int s = 0; s < kBatch; ++s) {
-      const int r = r0 + s * (128 / kPairs);
-      if (r >= rows) continue;
-      const float x =
-          activate(p.act, v[s].x + bias.x, gate[s].x) + res[s].x;
-      const float y =
-          activate(p.act, v[s].y + bias.y, gate[s].y) + res[s].y;
-      const size_t o = g * p.so + static_cast<size_t>(row0 + r) * p.N + col;
-      if (p.out_f32) {
-        *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
-            make_float2(x, y);
-      } else {
-        *reinterpret_cast<__nv_bfloat162*>(static_cast<__nv_bfloat16*>(p.out) +
-                                           o) = __floats2bfloat162_rn(x, y);
+      for (int s = 0; s < kBatch; ++s) {
+        const int r = r0 + s * (128 / kPairs);
+        if (r >= rows) continue;
+        const float x = activate<A>(v[s].x + bias.x, gate[s].x) + res[s].x;
+        const float y = activate<A>(v[s].y + bias.y, gate[s].y) + res[s].y;
+        const size_t o =
+            g * p.so + static_cast<size_t>(row0 + r) * p.N + col;
+        if (p.out_f32) {
+          *reinterpret_cast<float2*>(static_cast<float*>(p.out) + o) =
+              make_float2(x, y);
+        } else {
+          *reinterpret_cast<__nv_bfloat162*>(
+              static_cast<__nv_bfloat16*>(p.out) + o) =
+              __floats2bfloat162_rn(x, y);
+        }
       }
     }
-  }
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -354,22 +509,27 @@ struct Sm90 {
   static constexpr int kCW = PN < 64 ? PN : 64;     // B chunk width
   static constexpr int kChunks = PN / kCW;
   static constexpr int kAcc = PN / 2;               // f32 a thread, per block
+  // The TMA-store epilogue (sm90_body) stages outputs straight from the
+  // registers, a 32-column slice copied out at a time: with 128
+  // accumulators (a 256-row tile, or PN 256) that copy spilled.
+  static constexpr bool kRegEpilogue = MB == 1 && kAcc <= 64;
 };
 
 template <int NWG, int MB, int PN, int TA, int TB>
 __device__ __forceinline__ void sm90_body(const CUtensorMap& tma_a,
                                           const CUtensorMap& tma_b,
+                                          const CUtensorMap& tma_o,
                                           const Params& p) {
   using S = Sm90<NWG, MB, PN>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // [stages x (A slice, B chunks)] [NWG epilogue buffers] [mbarriers]
+  // [stages x (A slice, B chunks)] [NWG output stagings] [mbarriers]
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const int ks = p.ks;
   const uint32_t a_bytes = S::kRows * ks * 2;
   const uint32_t b_chunk = ks * S::kCW * 2;
   const uint32_t stage_bytes = a_bytes + S::kChunks * b_chunk;
   const uint32_t epi_at = base + p.stages * stage_bytes;
-  const uint32_t bars = epi_at + NWG * kEpiBytes;
+  const uint32_t bars = epi_at + NWG * kOutStage;
   auto full = [&](int s) { return bars + 8u * s; };
   auto empty = [&](int s) { return bars + 8u * (kMaxStages + s); };
   const int tid = threadIdx.x;
@@ -382,11 +542,6 @@ __device__ __forceinline__ void sm90_body(const CUtensorMap& tma_a,
   }
   __syncthreads();
 
-  const long long u_begin =
-      static_cast<long long>(blockIdx.x) * p.units_per_cta;
-  const long long u_end =
-      u_begin + p.units_per_cta < p.units ? u_begin + p.units_per_cta
-                                          : p.units;
   const int passes = p.bn / PN;
   // The warpgroup index, broadcast from lane 0 so that the compiler sees
   // the role split as warp-uniform; otherwise it serialises every wgmma.
@@ -400,9 +555,10 @@ __device__ __forceinline__ void sm90_body(const CUtensorMap& tma_a,
       const uint32_t tx = (TA ? S::kRows : p.bm) * ks * 2 + PN * ks * 2;
       int stage = 0;
       uint32_t phase = 0;
-      long long u = u_begin;
+      Walk w;
+      walk_begin(p, w);
       Piece pc;
-      while (next_piece(p, u, u_end, pc)) {
+      while (next_piece(p, w, pc)) {
         int g, row0, col0, k_lo, k_hi;
         tile_origin(p, pc.tile, g, row0, col0);
         piece_depth(p, pc, k_lo, k_hi);
@@ -444,14 +600,14 @@ __device__ __forceinline__ void sm90_body(const CUtensorMap& tma_a,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const int warp = __shfl_sync(0xffffffffu, (tid % 128) / 32, 0);
   const int lane = tid % 32;
-  float* epi = reinterpret_cast<float*>(
-      smem_raw + (epi_at - smem_u32(smem_raw)) + wg * kEpiBytes);
+  const bool issuer = tid % 128 == 0;  // issues the warpgroup's TMA stores
   float acc[MB][S::kAcc];
   int stage = 0;
   uint32_t phase = 0;
-  long long u = u_begin;
+  Walk w;
+  walk_begin(p, w);
   Piece pc;
-  while (next_piece(p, u, u_end, pc)) {
+  while (next_piece(p, w, pc)) {
     int g, row0, col0, k_lo, k_hi;
     tile_origin(p, pc.tile, g, row0, col0);
     piece_depth(p, pc, k_lo, k_hi);
@@ -547,57 +703,152 @@ __device__ __forceinline__ void sm90_body(const CUtensorMap& tma_a,
           }
         }
       }
-      // The epilogue, 32 columns of one 64-row block at a time: the
-      // registers go to this warpgroup's staging buffer, then one rolled
-      // loop applies the epilogue with coalesced loads and stores.
-#pragma unroll
-      for (int mb = 0; mb < MB; ++mb) {
-        const int blk = (wg * MB + mb) * 64;
-        const int rows = min(min(64, p.bm - blk), p.M - row0 - blk);
-        if (rows <= 0) continue;
-        // A rolled loop over the chunks, each staged by a case with constant
-        // register indices: one copy of the epilogue code per block.
+      // The epilogue, 32 columns of one 64-row block at a time, picked
+      // from the registers by a rolled loop over cases with constant
+      // register indices (one copy of the epilogue code per block).
+      unsigned char* out_stage =
+          smem_raw + (epi_at - smem_u32(smem_raw)) + wg * kOutStage;
+      const int rows0 = min(min(64, p.bm - wg * MB * 64),
+                            p.M - row0 - wg * MB * 64);
+      if (S::kRegEpilogue && p.act != kActSwiglu && !p.has_res &&
+          rows0 >= 32) {
+        if constexpr (S::kRegEpilogue) {
+          // TMA stores: the bias and activation in registers, the outputs
+          // in the output type straight into this warpgroup's staging, in
+          // the TMA boxes' swizzle (a pass of bf16 outputs fills it once;
+          // f32 outputs of a 128-wide pass take two chunks); then a fence
+          // for the async proxy, and one thread stores the chunk with TMA,
+          // which clips rows, columns and groups at the tensor's bounds.
+          // The warpgroup goes on to its next piece while the stores
+          // drain, and writes the staging again only after they have read
+          // it (bulk_wait_read).  A block of fewer than 32 rows (decode)
+          // takes the loop below, which touches only its rows.
+          int out_f32 = p.out_f32;  // opaque: keeps what derives from it
+          asm volatile("" : "+r"(out_f32));  // out of the mainloop's registers
+          const int ob = out_f32 ? 4 : 2;
+          const int box_cols = min(PN, 128 / ob);  // 128-byte box rows
+          const int lg_cols = box_cols == 64 ? 6 : 5;
+          const int rb = box_cols * ob;            // (64 for 32 bf16)
+          const int chunk_cols = min(PN, 256 / ob);
+          const int blk = wg * 64;
+          const int col_pass = col0 + ps * PN;
 #pragma unroll 1
-        for (int jc = 0; jc < PN / kEpiCols; ++jc) {
+          for (int jc = 0; jc < PN / kEpiCols; ++jc) {
+            const int cc0 = (jc * kEpiCols) % chunk_cols;  // in the chunk
+            if (cc0 == 0) {
+              if (issuer) bulk_wait_read();
+              warpgroup_sync(wg);
+            }
+            float v[kEpiCols / 2];
 #pragma unroll
-          for (int cc = 0; cc < PN / kEpiCols; ++cc) {
-            if (cc != jc) continue;
+            for (int cc = 0; cc < PN / kEpiCols; ++cc) {
+              if (cc != jc) continue;
 #pragma unroll
-            for (int jj = 0; jj < kEpiCols / 8; ++jj) {
-              const int j = cc * (kEpiCols / 8) + jj;
+              for (int i = 0; i < kEpiCols / 2; ++i)
+                v[i] = acc[0][cc * (kEpiCols / 2) + i];
+            }
+            // Fragment j of the slice holds columns 8 j + 2 (lane % 4) +
+            // {0, 1} of rows warp * 16 + lane / 4 + {0, 8}.
+            const int col = col_pass + jc * kEpiCols;
+            with_act(p.act, [&](auto tag) {
+              constexpr int A = decltype(tag)::kAct;
 #pragma unroll
-              for (int h = 0; h < 2; ++h)
-                *reinterpret_cast<float2*>(
-                    epi + (warp * 16 + lane / 4 + 8 * h) * kEpiStride +
-                    jj * 8 + (lane % 4) * 2) =
-                    make_float2(acc[mb][j * 4 + 2 * h],
-                                acc[mb][j * 4 + 2 * h + 1]);
+              for (int j = 0; j < kEpiCols / 8; ++j) {
+                const int c = j * 8 + (lane % 4) * 2;
+                float2 bias = make_float2(0.0f, 0.0f);
+                if (p.has_bias && col + c < p.N)
+                  bias = load_ep2(p.bias, g * p.sbias + col + c, p.ep_f32);
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                  stage_pair(out_stage, warp * 16 + lane / 4 + 8 * h,
+                             cc0 + c, lg_cols, rb, out_f32,
+                             activate<A>(v[j * 4 + 2 * h] + bias.x, 0.0f),
+                             activate<A>(v[j * 4 + 2 * h + 1] + bias.y,
+                                         0.0f));
+              }
+            });
+            if (cc0 + kEpiCols == chunk_cols || jc == PN / kEpiCols - 1) {
+              fence_proxy_async();
+              warpgroup_sync(wg);
+              if (issuer) {
+                const int chunk0 = col - cc0;  // the chunk's first column
+                const uint32_t at = smem_u32(out_stage);
+                for (int b = 0; b * box_cols < cc0 + kEpiCols; ++b) {
+                  if (chunk0 + b * box_cols >= p.N) break;
+                  tma_store_3d(&tma_o, at + b * 64 * rb,
+                               chunk0 + b * box_cols, row0 + blk, g);
+                }
+                bulk_commit();
+              }
             }
           }
+        }
+      } else {
+        // A gate or residual operand, a tile whose 128 accumulators a
+        // thread leave no room for the register path, or a block of a few
+        // rows: the sums go through an f32 buffer in the staging, so that
+        // the operands' loads are coalesced and batched, and the outputs
+        // to global memory in column pairs (the TMA stores' waits for their
+        // staging, one a box, made the first two slower, and staging 64
+        // rows for 4 the third; PERF.md §6).
+        if constexpr (S::kRegEpilogue) {  // earlier TMA stores read it
+          if (issuer) bulk_wait_read();
           warpgroup_sync(wg);
-          epilogue_block<MB == 2 ? 1 : 4>(p, epi, g, row0 + blk, rows,
-                         col0 + ps * PN + jc * kEpiCols, tid % 128);
-          warpgroup_sync(wg);
+        }
+        float* epi = reinterpret_cast<float*>(out_stage);
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) {
+          const int blk = (wg * MB + mb) * 64;
+          const int rows = min(min(64, p.bm - blk), p.M - row0 - blk);
+          if (rows <= 0) continue;
+#pragma unroll 1
+          for (int jc = 0; jc < PN / kEpiCols; ++jc) {
+#pragma unroll
+            for (int cc = 0; cc < PN / kEpiCols; ++cc) {
+              if (cc != jc) continue;
+#pragma unroll
+              for (int jj = 0; jj < kEpiCols / 8; ++jj) {
+                const int j = cc * (kEpiCols / 8) + jj;
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+                  *reinterpret_cast<float2*>(
+                      epi + (warp * 16 + lane / 4 + 8 * h) * kEpiStride +
+                      jj * 8 + (lane % 4) * 2) =
+                      make_float2(acc[mb][j * 4 + 2 * h],
+                                  acc[mb][j * 4 + 2 * h + 1]);
+              }
+            }
+            warpgroup_sync(wg);
+            epilogue_block<MB == 2 ? 1 : 4>(
+                p, epi, g, row0 + blk, rows, col0 + ps * PN + jc * kEpiCols,
+                tid % 128);
+            warpgroup_sync(wg);
+          }
         }
       }
     }
   }
+  // The stores' writes complete with the grid; the staging must outlive
+  // their reads (as CUTLASS's tma_store_wait).
+  if (issuer) bulk_wait_read();
 }
 
 template <int NWG, int MB, int PN, int TA, int TB>
 __global__ void __launch_bounds__(Sm90<NWG, MB, PN>::kThreads, 1)
     gemm_dense_sm90(const __grid_constant__ CUtensorMap tma_a,
                     const __grid_constant__ CUtensorMap tma_b,
+                    const __grid_constant__ CUtensorMap tma_o,
                     const __grid_constant__ Params p) {
-  sm90_body<NWG, MB, PN, TA, TB>(tma_a, tma_b, p);
+  sm90_body<NWG, MB, PN, TA, TB>(tma_a, tma_b, tma_o, p);
 }
 
 template <int NWG, int MB, int PN, int TA, int TB>
 __global__ void __launch_bounds__(Sm90<NWG, MB, PN>::kThreads, 1)
     gemm_grouped_sm90(const __grid_constant__ CUtensorMap tma_a,
                       const __grid_constant__ CUtensorMap tma_b,
+                      const __grid_constant__ CUtensorMap tma_o,
                       const __grid_constant__ Params p) {
-  sm90_body<NWG, MB, PN, TA, TB>(tma_a, tma_b, p);
+  sm90_body<NWG, MB, PN, TA, TB>(tma_a, tma_b, tma_o, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -743,11 +994,6 @@ __device__ __forceinline__ void tf32_body(const CUtensorMap& tma_a,
   }
   __syncthreads();
 
-  const long long u_begin =
-      static_cast<long long>(blockIdx.x) * p.units_per_cta;
-  const long long u_end =
-      u_begin + p.units_per_cta < p.units ? u_begin + p.units_per_cta
-                                          : p.units;
   const int wg = __shfl_sync(0xffffffffu, tid / 128, 0);
 
   if (wg == NWG) {
@@ -758,9 +1004,10 @@ __device__ __forceinline__ void tf32_body(const CUtensorMap& tma_a,
       const uint32_t tx = stage_bytes;
       int stage = 0;
       uint32_t phase = 0;
-      long long u = u_begin;
+      Walk w;
+      walk_begin(p, w);
       Piece pc;
-      while (next_piece(p, u, u_end, pc)) {
+      while (next_piece(p, w, pc)) {
         int g, row0, col0, k_lo, k_hi;
         tile_origin(p, pc.tile, g, row0, col0);
         piece_depth(p, pc, k_lo, k_hi);
@@ -809,9 +1056,10 @@ __device__ __forceinline__ void tf32_body(const CUtensorMap& tma_a,
   float part[S::kAcc];
   int stage = 0;
   uint32_t phase = 0;
-  long long u = u_begin;
+  Walk w;
+  walk_begin(p, w);
   Piece pc;
-  while (next_piece(p, u, u_end, pc)) {
+  while (next_piece(p, w, pc)) {
     int g, row0, col0, k_lo, k_hi;
     tile_origin(p, pc.tile, g, row0, col0);
     piece_depth(p, pc, k_lo, k_hi);
@@ -1057,13 +1305,13 @@ cudaError_t launch_sm90(Params p, cudaStream_t stream) {
   using S = Sm90<NWG, MB, PN>;
   p.ks = p.bk % 64 == 0 ? 64 : (p.bk % 32 == 0 ? 32 : 16);
   const size_t stage = static_cast<size_t>(S::kRows + PN) * p.ks * 2;
-  const size_t fixed = 1024 + NWG * kEpiBytes + 2 * kMaxStages * 8;
+  const size_t fixed = 1024 + NWG * kOutStage + 2 * kMaxStages * 8;
   size_t stages = (kMaxSmem - fixed) / stage;
   if (stages > kMaxStages) stages = kMaxStages;
   if (stages < 2) return cudaErrorInvalidValue;
   p.stages = static_cast<int>(stages);
   const size_t smem = fixed + stages * stage;
-  void (*kernel)(CUtensorMap, CUtensorMap, Params);
+  void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, Params);
   if constexpr (kGrouped)
     kernel = gemm_grouped_sm90<NWG, MB, PN, TA, TB>;
   else
@@ -1083,9 +1331,22 @@ cudaError_t launch_sm90(Params p, cudaStream_t stream) {
   const bool b_ok =
       TB ? encode_cached(&tma_b, false, p.b, K, N, G, gb, p.ks, PN)
          : encode_cached(&tma_b, false, p.b, N, K, G, gb, S::kCW, p.ks);
-  if (!a_ok || !b_ok) return cudaErrorInvalidValue;
+  // The output (N, M, groups) in boxes of a 64-row block (the tile's rows
+  // when it has fewer) by 128 bytes of columns (64 for 32 bf16 columns),
+  // so that a store never reaches a neighbouring tile's rows or columns;
+  // encoded only for the launches that store with TMA (sm90_body).
+  CUtensorMap tma_o = {};
+  bool o_ok = true;
+  if (S::kRegEpilogue && p.act != kActSwiglu && !p.has_res) {
+    const uint64_t go = G > 1 ? p.so : M * N;
+    const uint32_t box_cols = PN < 128 / (p.out_f32 ? 4 : 2)
+                                  ? PN : 128 / (p.out_f32 ? 4 : 2);
+    o_ok = encode_cached(&tma_o, p.out_f32, p.out, N, M, G, go, box_cols,
+                         p.bm < 64 ? p.bm : 64);
+  }
+  if (!a_ok || !b_ok || !o_ok) return cudaErrorInvalidValue;
   return launch_resident(kernel, p.ctas, S::kThreads, smem, stream, tma_a,
-                         tma_b, p);
+                         tma_b, tma_o, p);
 }
 
 template <int NWG, int PN, bool kGrouped, int TA, int TB>
@@ -1205,7 +1466,7 @@ __device__ __forceinline__ void store_ep2(void* p, size_t i, int f32, float x,
 }
 
 // d act(z) / dz (times the gate for swiglu) and, for swiglu, d out / d gate
-// = silu(z); the derivatives of activate() above.
+// = silu(z); the derivatives of activate<>() above.
 __device__ __forceinline__ void act_grad(int act, float z, float gate,
                                          float& dz, float& dgate) {
   dgate = 0.0f;
@@ -1284,7 +1545,8 @@ using namespace repro;
 // strides) or B stored (N, K) (trans_b), not both; a group's operand is
 // then that layout at its own stride.  The plan integers come
 // from kernels/matmul.py::work_plan: k-steps per tile and per unit, units
-// per CTA and the grid; workspace holds ctas slots of max(bm, 64) x
+// per CTA, the grid and the walk of a CTA's whole tiles (column_walk:
+// grouped, group_m 1 only); workspace holds ctas slots of max(bm, 64) x
 // max(bn, 64) f32 when a tile is split, flags one int per CTA, all zero.
 // f32 inputs also take the f32 kernel's ring stages and shared bytes as
 // kernels/matmul.py::f32_tiling planned them (0 for bf16); a launch whose
@@ -1295,12 +1557,14 @@ extern "C" int repro_gemm(
     int M, int N, int K, int bm, int bn, int bk, int group_m, int in_f32,
     int out_f32, int ep_f32, int has_bias, int act, int has_res, int groups,
     int grouped, int trans_a, int trans_b, int steps_per_tile,
-    int steps_per_unit, int units_per_cta, int ctas, int f32_stages,
-    int f32_smem, long long sa,
+    int steps_per_unit, int units_per_cta, int ctas, int column_walk,
+    int f32_stages, int f32_smem, long long sa,
     long long sb, long long so, long long sbias, long long sgate,
     long long sres, void* stream) {
   const int vec = in_f32 ? 4 : 8;
-  if ((trans_a && trans_b) || (!grouped && groups != 1) || (trans_a && M % vec))
+  if ((trans_a && trans_b) || (!grouped && groups != 1) ||
+      (trans_a && M % vec) || column_walk < 0 || column_walk > 1 ||
+      (column_walk && (groups < 2 || group_m != 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0 || K <= 0 || N % vec || K % vec || !tile_ok(bm) ||
       !tile_ok(bn) || bk <= 0 || bk % 16 || group_m < 1 || act < 0 ||
@@ -1336,6 +1600,7 @@ extern "C" int repro_gemm(
   p.trans_b = trans_b;
   p.Tm = (M + bm - 1) / bm;
   p.Tn = (N + bn - 1) / bn;
+  p.column_walk = column_walk;
   p.steps_per_unit = steps_per_unit;
   p.units_per_tile = steps_per_tile / steps_per_unit;
   p.units_per_cta = units_per_cta;

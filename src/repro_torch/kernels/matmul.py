@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import List, Optional, Tuple
 
@@ -140,20 +141,65 @@ class WorkPlan:
         q = self.units_per_cta
         return range(c * q, min((c + 1) * q, self.units))
 
-    def pieces(self, c: int) -> List[Piece]:
+    @property
+    def column_walk(self) -> bool:
+        """Whether a CTA walks its whole tiles column by column: in the
+        grouped launch under ``group_m`` 1, with more than one row tile a
+        group (a single row tile shares its column tile with none).  There
+        the 132 CTAs run on as many groups at once, so an operand tile that
+        comes back many tiles later has left the 50 MB L2.  In the column
+        walk a group's B column tile is used by its row tiles one after
+        another, and a CTA that shares a group with its neighbour (the
+        strips cut groups anywhere) walks that group's columns at the pace
+        its neighbour does.  The dense launch keeps the selected
+        ``group_m`` swizzle; the kernel takes this choice as given."""
+        return self.groups > 1 and self.group_m <= 1 and self.tiles_m > 1
+
+    def _piece(self, t: int, ua: int, ub: int) -> Piece:
+        """The piece of tile ``t`` over units [ua, ub)."""
+        upt = self.units_per_tile
+        tu0, tu1 = t * upt, (t + 1) * upt
+        return Piece(t, (ua - tu0) * self.steps_per_unit,
+                     (ub - tu0) * self.steps_per_unit, ua == tu0, ub == tu1,
+                     (tu1 - 1) // self.units_per_cta)
+
+    def pieces(self, c: int, column_walk: Optional[bool] = None
+               ) -> List[Piece]:
         """CTA ``c``'s pieces in the order it runs them (the kernel's
-        ``next_piece`` walk)."""
-        upt, q = self.units_per_tile, self.units_per_cta
+        ``next_piece`` walk).  Its range's first piece (which may start
+        mid-tile and become a partial) comes first and its last (which may
+        end mid-tile, and whose owner then waits for later CTAs) last, so
+        the fixup's order argument holds in either walk; the whole tiles
+        between them come in the flattened order or, with
+        :attr:`column_walk`, column tile by column tile (``column_walk``
+        overrides the plan's choice, for :func:`l2_reckoning`)."""
+        upt = self.units_per_tile
         r = self.cta_units(c)
-        u, out = r.start, []
-        while u < r.stop:
-            t = u // upt
-            tu0, tu1 = t * upt, (t + 1) * upt
-            pe = min(r.stop, tu1)
-            out.append(Piece(t, (u - tu0) * self.steps_per_unit,
-                             (pe - tu0) * self.steps_per_unit, u == tu0,
-                             pe == tu1, (tu1 - 1) // q))
-            u = pe
+        t0, t1 = r.start // upt, (r.stop - 1) // upt
+        first = self._piece(t0, r.start, min(r.stop, (t0 + 1) * upt))
+        if t1 == t0:
+            return [first]
+        last = self._piece(t1, t1 * upt, r.stop)
+        middle = self.middle_tiles(t0 + 1, t1, column_walk)
+        return [first, *(self._piece(t, t * upt, (t + 1) * upt)
+                         for t in middle), last]
+
+    def middle_tiles(self, lo: int, hi: int,
+                     column_walk: Optional[bool] = None) -> List[int]:
+        """The whole tiles [lo, hi) of a CTA's range in its walk order
+        (``csrc/matmul.cu``'s ``walk_column_tile`` runs the same loops).
+        With :attr:`column_walk` (flattened tile t = r Tn + n for the
+        global row r = group Tm + row): column by column, each column's
+        rows of the range in a serpentine, up in even columns and down in
+        odd ones, so the row tile at a turn is used twice in a row."""
+        if column_walk is None:
+            column_walk = self.column_walk
+        if not column_walk or hi <= lo:
+            return list(range(lo, hi))
+        tn, out = self.tiles_n, []
+        for n in range(tn):
+            rows = range(-(-(lo - n) // tn), (hi - 1 - n) // tn + 1)
+            out += [r * tn + n for r in (rows if n % 2 == 0 else rows[::-1])]
         return out
 
     def tile_coords(self, tile: int) -> Tuple[int, int, int]:
@@ -162,6 +208,56 @@ class WorkPlan:
         return (tile // (self.tiles_m * self.tiles_n),
                 *_swizzle(tile % (self.tiles_m * self.tiles_n),
                           self.tiles_m, self.tiles_n, self.group_m))
+
+
+def l2_reckoning(plan: WorkPlan, l2_bytes: int, *, elem: int = 2,
+                 out_elem: int = 2, column_walk: Optional[bool] = None
+                 ) -> dict:
+    """The HBM bytes a walk of ``plan`` reads, reckoned through an LRU
+    cache of ``l2_bytes`` that every CTA shares: the CTAs advance one
+    piece a step together (CTA order within a step), each piece touches
+    the k-step slices of its tile's A rows and B columns and, when it owns
+    the tile, writes its output tile (which takes L2 room until evicted).
+    Returns the bytes of A and of B read from HBM beside the bytes of each
+    read once (``a_once``, ``b_once``) and the output bytes.  A model of
+    reuse distance, not of the card's L2 (two partitions, its own
+    replacement); ``column_walk`` overrides the plan's walk order."""
+    M, N, K, bm, bn, bk = plan.M, plan.N, plan.K, plan.bm, plan.bn, plan.bk
+    lru, held = OrderedDict(), [0]
+    got = dict.fromkeys(("a", "b", "a_once", "b_once", "out"), 0)
+
+    def touch(key, nbytes, read):
+        if key in lru:
+            lru.move_to_end(key)
+            return
+        if read:
+            got[key[0]] += nbytes
+        lru[key] = nbytes
+        held[0] += nbytes
+        while held[0] > l2_bytes:
+            held[0] -= lru.popitem(last=False)[1]
+
+    walks = [plan.pieces(c, column_walk) for c in range(plan.ctas)]
+    for i in range(max(map(len, walks))):
+        for walk in walks:
+            if i >= len(walk):
+                continue
+            pc = walk[i]
+            g, pm, pn = plan.tile_coords(pc.tile)
+            rows = min(bm, M - pm * bm)
+            cols = min(bn, N - pn * bn)
+            for st in range(pc.s0, pc.s1):
+                depth = min(bk, K - st * bk)
+                if depth <= 0:
+                    break
+                touch(("a", g, pm, st), rows * depth * elem, True)
+                touch(("b", g, pn, st), depth * cols * elem, True)
+            if pc.first:
+                touch(("out", pc.tile), rows * cols * out_elem, False)
+                got["out"] += rows * cols * out_elem
+    got["a_once"] = plan.groups * M * K * elem
+    got["b_once"] = plan.groups * K * N * elem
+    return got
 
 
 def _swizzle(pid: int, Tm: int, Tn: int, group_m: int) -> Tuple[int, int]:
@@ -480,7 +576,7 @@ def _launch_groups(what, a, b, cfg, *, grouped, out_dtype, epilogue, bias,
     lib = build.load("matmul")
     fn = lib.repro_gemm
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 23 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 24 \
             + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
@@ -500,7 +596,7 @@ def _launch_groups(what, a, b, cfg, *, grouped, out_dtype, epilogue, bias,
             int(ep.bias), _ACT_CODES[ep.activation], int(ep.residual),
             G, int(grouped), int(trans_a), int(trans_b),
             plan.steps_per_tile, plan.steps_per_unit,
-            plan.units_per_cta, plan.ctas,
+            plan.units_per_cta, plan.ctas, int(plan.column_walk),
             f32.stages if f32 else 0, f32.smem if f32 else 0,
             stride(a), stride(b), stride(out), stride(ops["bias"]),
             stride(ops["gate"]), stride(ops["residual"]), stream.cuda_stream)

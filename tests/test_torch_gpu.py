@@ -1047,3 +1047,157 @@ def test_probes_timed_form_on_card(cuda):
     probes.mma_chain(a, b, 1000, 7, out=out)
     torch.cuda.synchronize()
     assert torch.equal(out[:28], probes.mma_chain_plain(a, b, 1000, 7))
+
+
+# ---------------------------------------------------------------------------
+# The bf16 route's TMA-store epilogue: every output goes through the
+# warpgroup's staging tile and a TMA store that clips at the tensor's
+# bounds (ragged M, N a multiple of 8 but not of bn, a 32-row tile's box),
+# and the grouped launch's column walk.
+# ---------------------------------------------------------------------------
+
+EPILOGUE_KINDS = [
+    Epilogue(), Epilogue(bias=True), Epilogue(activation="gelu"),
+    Epilogue(bias=True, activation="silu"),
+    Epilogue(activation="swiglu_gate"), Epilogue(residual=True),
+    Epilogue(bias=True, activation="swiglu_gate", residual=True),
+]
+
+
+def _epilogue_operands(g, dev, shape, ep, dtype):
+    """bias (G, N), gate and residual (G, M, N) for a grouped shape (G, M,
+    N), drawn from ``g``."""
+    G, M, N = shape
+
+    def rnd(*s):
+        return torch.randn(s, generator=g, device=dev).to(dtype)
+    kw = {}
+    if ep.bias:
+        kw["bias"] = rnd(G, N)
+    if ep.activation == "swiglu_gate":
+        kw["gate"] = rnd(G, M, N)
+    if ep.residual:
+        kw["residual"] = rnd(G, M, N)
+    return kw
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32],
+                         ids=str)
+@pytest.mark.parametrize("ep", EPILOGUE_KINDS, ids=str)
+@pytest.mark.parametrize("bm,bn", MENU_TILES, ids=str)
+def test_tma_store_epilogue_every_tile_on_card(cuda, bm, bn, ep, out_dtype):
+    """Each (bm, bn) of the menu with each epilogue kind, bf16 inputs and
+    bf16 or f32 outputs: dense at M 333 and grouped (3 groups, A read in
+    place stored (K, M) at M 160, B stored (N, K) or (K, N) at M 333), N
+    200, a stream-K or split-K fixup; within the bf16 GEMM tolerance of
+    the plain version and bitwise over two launches."""
+    K, N = 200, 200
+    cfg = (TileConfig(bm, bn, 64, schedule="stream_k") if bm <= bn
+           else TileConfig(bm, bn, 64, split_k=2, group_m=2))
+    layout = ("nn", "tn", "nt")[(bm + bn // 32) % 3]
+    g = torch.Generator(device=cuda).manual_seed(bm * 13 + bn)
+    bf = torch.bfloat16
+    for grouped in (False, True):
+        G, M = (3, 160 if layout == "tn" else 333) if grouped else (1, 333)
+        ta, tb = grouped and layout == "tn", grouped and layout == "nt"
+        a = torch.randn((G, K, M) if ta else (G, M, K), generator=g,
+                        device=cuda).to(bf)
+        b = torch.randn((G, N, K) if tb else (G, K, N), generator=g,
+                        device=cuda).to(bf)
+        kw = dict(out_dtype=out_dtype, epilogue=ep, trans_a=ta, trans_b=tb,
+                  **_epilogue_operands(g, cuda, (G, M, N), ep, bf))
+        if grouped:
+            got = kmm.tiled_expert_matmul(a, b, cfg, **kw)
+            again = kmm.tiled_expert_matmul(a, b, cfg, **kw)
+            want = kmm.expert_matmul_plain(a, b, cfg, **kw)
+        else:
+            dense = {k: v[0] for k, v in kw.items()
+                     if k in ("bias", "gate", "residual")}
+            kw.update(dense)
+            got = kmm.tiled_matmul(a[0], b[0], cfg, **kw)
+            again = kmm.tiled_matmul(a[0], b[0], cfg, **kw)
+            want = kmm.matmul_plain(a[0], b[0], cfg, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == want.shape
+        assert torch.equal(got, again)
+        assert _flags_down()
+        rtol, atol = _tol(bf, K)
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grouped", [False, True], ids=["dense", "grouped"])
+def test_tma_store_epilogue_replays_in_a_cuda_graph(cuda, grouped):
+    """A split launch with a gate and a residual (the staged path) and one
+    with a bias and gelu (the register path) replay twice in a CUDA graph
+    with the eager launches' bits."""
+    g = torch.Generator(device=cuda).manual_seed(4)
+    bf = torch.bfloat16
+    G, M, N, K = (5, 333, 520, 640) if grouped else (1, 333, 520, 640)
+    cfg = TileConfig(64, 128, 64, schedule="stream_k")
+    a = torch.randn((G, M, K), generator=g, device=cuda).to(bf)
+    b = torch.randn((G, K, N), generator=g, device=cuda).to(bf)
+    calls = []
+    for ep in (Epilogue(bias=True, activation="swiglu_gate", residual=True),
+               Epilogue(bias=True, activation="gelu")):
+        kw = dict(out_dtype=bf, epilogue=ep,
+                  **_epilogue_operands(g, cuda, (G, M, N), ep, bf))
+        if grouped:
+            calls.append(lambda kw=kw: kmm.tiled_expert_matmul(a, b, cfg,
+                                                               **kw))
+        else:
+            kw.update({k: v[0] for k, v in kw.items()
+                       if k in ("bias", "gate", "residual")})
+            calls.append(lambda kw=kw: kmm.tiled_matmul(a[0], b[0], cfg,
+                                                        **kw))
+    eager = [fn() for fn in calls]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn() for fn in calls]
+    for _ in range(2):
+        for o in outs:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o, e in zip(outs, eager):
+            assert torch.equal(o, e)
+    assert _flags_down()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,M,N,K", [
+    ("nt", 160, 2048, 768), ("nt", 160, 768, 2048),
+    ("tn", 2048, 768, 160), ("tn", 768, 2048, 160)], ids=str)
+def test_grouped_backward_at_qwen3_shapes_is_exact_on_card(cuda, layout, M,
+                                                           N, K):
+    """qwen3-moe's expert-GEMM gradients (128 experts of capacity 160) at
+    the selected configs, dX reading W transposed (nt), dW reading X
+    transposed (tn), on integer operands in [-2, 2]: every partial sum is
+    an integer of at most 2^13, exact in f32 in any order, so the kernel's
+    output (its column walk, fixup and TMA stores) must equal the plain
+    version's bits."""
+    from repro_torch.core.selector import select_gemm_config
+    E, bf = 128, torch.bfloat16
+    cfg = select_gemm_config(M, N, K, in_dtype="bfloat16",
+                             out_dtype="bfloat16", hw=GPU_H100_LIKE).config
+    g = torch.Generator(device=cuda).manual_seed(M + N)
+    a = torch.randint(-2, 3, (E, K, M) if layout == "tn" else (E, M, K),
+                      generator=g, device=cuda).to(bf)
+    b = torch.randint(-2, 3, (E, N, K) if layout == "nt" else (E, K, N),
+                      generator=g, device=cuda).to(bf)
+    kw = dict(out_dtype=bf, trans_a=layout == "tn", trans_b=layout == "nt")
+    got = kmm.tiled_expert_matmul(a, b, cfg, **kw)
+    want = kmm.expert_matmul_plain(a, b, cfg, **kw)
+    torch.cuda.synchronize()
+    assert kmm.work_plan(M, N, K, cfg, E,
+                         kmm._sm_count(cuda.index)).column_walk
+    assert torch.equal(got, want)
+    assert _flags_down()

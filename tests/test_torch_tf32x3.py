@@ -32,6 +32,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.kernels import ops as jops
 from repro_torch.calib import device as cdev
+from repro_torch.calib import probes as cprobes
 from repro_torch.core.hardware import GPU_H100_LIKE
 from repro_torch.core.selector import select_gemm_config
 from repro_torch.kernels import flash_attention as kfa
@@ -366,10 +367,11 @@ def test_torch_device_times_the_probes_in_their_timed_form(monkeypatch):
         return fn
     for name in ("stream_read", "mma_chain", "wave_grid"):
         monkeypatch.setattr(probes, name, record(name))
-    dev = cdev.TorchDevice(device="cpu")
+    dev = cdev.TorchDevice(device="cpu", l2_bytes=1 << 20)
     sizes = []
     monkeypatch.setattr(dev, "_slots", lambda n: sizes.append(n) or buf)
-    monkeypatch.setattr(dev, "_time", lambda fn: fn() or 1.0)
+    monkeypatch.setattr(dev, "_time",
+                        lambda fn, calls=cdev.GRAPH_CALLS: fn() or 1.0)
     dev.stream_time(65536.0, 65536, 1)
     dev.compute_time("bfloat16", 1000, 132)
     dev.wave_time(3 * 132, 285, "bfloat16")
@@ -377,3 +379,108 @@ def test_torch_device_times_the_probes_in_their_timed_form(monkeypatch):
     assert sizes == [probes.STREAM_SLOTS_MAX, 132 * probes.CHAINS_PER_CTA,
                      3 * 132]
     assert cdev.TorchDevice(device="cpu")._slots(10) is None
+
+
+# ---------------------------------------------------------------------------
+# C7: every fetch of the latency sweep misses the L2.
+# ---------------------------------------------------------------------------
+
+def test_latency_windows_pass_twice_the_l2_budget_between_reads():
+    """The rotation is sized from the topology's L2 budget (the largest
+    cache inside the backing memory, as ``level_windows`` sizes the HBM
+    window): at least twice it passes between two reads of one window, at
+    every point of the H100 preset's latency sweep."""
+    l2 = cdev.l2_budget(GPU_H100_LIKE)
+    assert l2 == int(0.75 * 50 * 1024**2)
+    assert cdev.TorchDevice(device="cpu").l2_bytes == l2
+    bw = GPU_H100_LIKE.backing.bandwidth
+    for T in cprobes.LATENCY_TARGETS_S:
+        window = int(T * bw)
+        n = cdev.latency_windows(window, l2)
+        assert (n - 1) * window >= 2 * l2 > (n - 2) * window
+    # the sweep's first point: 1.675 MB windows, 48 of them
+    assert cdev.latency_windows(int(0.5e-6 * bw), l2) == 48
+
+
+@pytest.mark.parametrize("window", [4096, 65536, 100000])
+def test_latency_probe_reads_a_window_of_its_own_each_call(monkeypatch,
+                                                           fake_card,
+                                                           window):
+    """``TorchDevice.stream_time`` in the latency form times a graph of
+    one call a window: the windows are pairwise distinct, laid out as
+    ``stream_data`` lays one out, and together at least 2x the L2 budget
+    beyond the one being read; each timed call is still the probe's one
+    launch with no aten op beside it.  The stream and bandwidth sweeps
+    keep one window and ``GRAPH_CALLS`` calls."""
+    l2 = 1 << 20
+    dev = cdev.TorchDevice(device="cpu", l2_bytes=l2)
+    buf = torch.empty(4096, dtype=torch.int64)
+    monkeypatch.setattr(dev, "_slots", lambda n: buf)
+    seen, timed = [], {}
+
+    def fake_time(fn, calls=cdev.GRAPH_CALLS):
+        timed["calls"] = calls
+        for _ in range(3):                      # graph_time's warm-up calls
+            fn()
+        seen.clear()
+        with _AtenOps() as rec:
+            for _ in range(calls):              # the captured calls
+                fn()
+        timed["ops"] = rec.ops
+        return 1.0
+
+    monkeypatch.setattr(dev, "_time", fake_time)
+    real = probes.stream_read
+
+    def spy(x, nbytes, w, n_chunks, *, out=None):
+        seen.append((x.data_ptr(), x.numel()))
+        return real(x, nbytes, w, n_chunks, out=out)
+    spy.launches = 0        # the wrapper counts on its module's name
+    monkeypatch.setattr(probes, "stream_read", spy)
+    dev.stream_time(float(window), window, 1)
+    n = cdev.latency_windows(window, l2)
+    assert timed["calls"] == n == len(seen) == len(set(seen))
+    assert timed["ops"] == []
+    assert fake_card == ["repro_probe_stream"] * (n + 3)
+    floats = window // probes.VEC_BYTES * 4
+    ptrs = sorted(p for p, _ in seen)
+    assert all(numel == floats for _, numel in seen)
+    assert all(b - a >= floats * 4 for a, b in zip(ptrs, ptrs[1:]))
+    assert (n - 1) * window >= 2 * l2
+    for i, x in enumerate(dev.rotation(window)):
+        want = (torch.arange(i * floats, (i + 1) * floats) % 13).float()
+        assert torch.equal(x, want)
+    # The stream sweep's form: one window, GRAPH_CALLS calls.
+    seen.clear()
+    dev.stream_time(4.0 * window, window, 4)
+    assert timed["calls"] == cdev.GRAPH_CALLS
+    assert len(set(seen)) == 1
+
+
+def test_marginal_time_cancels_what_a_replay_costs_once(monkeypatch):
+    """``marginal_time`` times graphs of ``calls`` and ``2 calls`` calls:
+    a fixed cost of each replay cancels, one call's own time remains."""
+    per_call, once = 3.0e-6, 1.7e-6 * 5
+
+    def fake_graph_time(fn, calls, reps, side=None):
+        return (once + calls * per_call) / calls    # graph_time's form
+    monkeypatch.setattr(cdev, "graph_time", fake_graph_time)
+    assert cdev.marginal_time(None, 5, 5) == pytest.approx(per_call)
+    assert cdev.marginal_time(None, 48, 5) == pytest.approx(per_call)
+
+
+def test_probes_take_the_marginal_time_and_gemms_one_graph(monkeypatch):
+    """The probe primitives are timed by ``marginal_time`` (so the latency
+    and wave sweeps carry the same fixed cost a call); ``gemm_time`` by
+    one graph."""
+    dev = cdev.TorchDevice(device="cpu", l2_bytes=1 << 20)
+    seen = []
+    monkeypatch.setattr(dev, "_time", lambda fn, calls=cdev.GRAPH_CALLS,
+                        marginal=True: seen.append(marginal) or 1.0)
+    dev.stream_time(65536.0, 65536, 1)
+    dev.stream_time(4.0 * 65536, 65536, 4)
+    dev.compute_time("bfloat16", 1000, 4)
+    dev.wave_time(264, 285, "bfloat16")
+    from repro_torch.core.latency import GemmProblem, TileConfig
+    dev.gemm_time(GemmProblem(64, 64, 64), TileConfig(32, 32, 32))
+    assert seen == [True, True, True, True, False]

@@ -15,10 +15,12 @@ every candidate: each output must first agree with the plain product
 ``chip_smoke.py``'s ``event_ms`` (CUDA events around back-to-back calls;
 the kernels run far longer than the host takes to issue them), as is
 ``torch.bmm`` on the same operands.  One JSON line a shape goes to standard
-output, with the selected config's time and model rank, the fastest
-config's time and model rank, the library's time, the bytes bound, the
-``--top`` fastest candidates, and the card's ``nvidia-smi`` name and power
-limit.
+output, with the selected config's time, model rank and achieved HBM rate
+(each operand read once and the output written once, over the time), the
+bytes its walk reads under ``kernels/matmul.py::l2_reckoning``, the
+fastest config's time, rank and rate, the library's time and rate, the
+bytes bound, the ``--top`` fastest candidates (config, ms, model rank,
+TB/s), and the card's ``nvidia-smi`` name and power limit.
 """
 from __future__ import annotations
 
@@ -94,18 +96,30 @@ def main(argv=None) -> int:
             order = sorted(times, key=times.get)
             best = order[0]
             nbytes, _ = cs._gemm_bytes_flops(M, N, K, "none")
+            nbytes *= E
+
+            def tbs(ms):   # achieved HBM rate of the bound's bytes
+                return nbytes / ms * 1e-9
+            lib_ms = cs.event_ms(torch, library, calls=5, reps=3)
+            walk = kmm.l2_reckoning(kmm.work_plan(M, N, K, sel, E,
+                                                  kmm._sm_count(0)),
+                                    cs.L2_BYTES)
             print(json.dumps({
                 "gemm": f"{name} {'dX' if layout == 'nt' else 'dW'}",
                 "layout": layout, "experts": E, "M": M, "N": N, "K": K,
                 "candidates": len(ranked), "wrong": wrong,
                 "selected": str(sel), "selected_ms": times.get(sel),
                 "selected_model_rank": ranked.index(sel) + 1,
+                "selected_hbm_tbs": tbs(times[sel]) if sel in times
+                else None,
+                "selected_walk_bytes": walk["a"] + walk["b"] + walk["out"],
                 "best": str(best), "best_ms": times[best],
                 "best_model_rank": ranked.index(best) + 1,
-                "library_ms": cs.event_ms(torch, library, calls=5, reps=3),
-                "bound_ms": E * nbytes / cs.HBM_BW * 1e3,
-                "top": [[str(c), times[c], ranked.index(c) + 1]
-                        for c in order[:args.top]],
+                "best_hbm_tbs": tbs(times[best]),
+                "library_ms": lib_ms, "library_hbm_tbs": tbs(lib_ms),
+                "bound_ms": nbytes / cs.HBM_BW * 1e3,
+                "top": [[str(c), times[c], ranked.index(c) + 1,
+                         tbs(times[c])] for c in order[:args.top]],
                 "nvidia_smi": smi}), flush=True)
             del want
     return 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time the PyTorch port's GEMM wrappers from several checkouts on one card.
 
-    python3 tools/gemm_ab.py ROOT [ROOT ...]
+    python3 tools/gemm_ab.py [--phases decode,moe_dw,...] ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repository, or an unpacked ``git archive``
 of one (a parent commit, or a copy with a changed ``csrc/``).  Name a root
@@ -11,8 +11,12 @@ GEMM source (the build seconds are reported), then times at the selector's
 configuration for each
 
 - phi4-mini-3.8b's seven decode GEMMs (M = 4) and nine prefill GEMMs
-  (M = 512, wk and wv twice), and
+  (M = 512, wk and wv twice),
 - qwen3-moe-30b-a3b's three prefill expert GEMMs (E = 128, C = 40),
+- mamba2-370m's and zamba2-7b's six mamba GEMMs at M = 4 and 474,
+- phi4-mini's seven backward dX (W read transposed) and dW (X read
+  transposed) at T = 2048, and qwen3-moe's three expert dX and dW at its
+  training shape (E = 128, C = 160),
 
 with ``chip_smoke.py``'s ``time_ms`` (device ms a call, from a CUDA graph)
 and ``host_us`` (host microseconds a call, no device sync: the wrapper's
@@ -21,7 +25,9 @@ and ``host_c_us``, the part of it spent in the C entry (``repro_gemm``:
 its checks, tensor-map encoding and launch), timed by calling the entry
 again with the arguments the wrapper passed it.  One JSON line a root goes to standard output, with the card's
 ``nvidia-smi`` name and power limit; a root that fails or hangs is
-reported with its error and the next runs.
+reported with its error and the next runs.  ``--phases`` keeps only the
+named groups (decode, prefill, expert_prefill, ssm_decode, ssm_prefill,
+hybrid_decode, hybrid_prefill, train_dx, moe_dx, train_dw, moe_dw).
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from pathlib import Path
 HERE = Path(__file__).resolve().parents[1]
 ROOT_TIMEOUT_S = 600
 HOST_REPEATS = 5
+PHASES = None   # --phases: the phase names to time (None: all)
 
 
 def measure(root: Path) -> dict:
@@ -62,6 +69,8 @@ def measure(root: Path) -> dict:
     rows, sums = [], {}
 
     def record(phase, name, cfg, kern):
+        if PHASES is not None and phase not in PHASES:
+            return
         row = {"phase": phase, "gemm": name, "config": str(cfg),
                "ms": cs.time_ms(kern),
                "host_us": statistics.median(
@@ -110,6 +119,64 @@ def measure(root: Path) -> dict:
         record("expert_prefill", name, cfg, lambda: kmm._launch_expert_cuda(
             x, w, cfg, out_dtype=bf, epilogue=ep, bias=None,
             gate=kw.get("gate"), residual=None))
+        del x, w, kw
+    for phase, M, gemms in (
+            ("ssm_decode", 4, cs.SSM_GEMMS),
+            ("ssm_prefill", cs.RAGGED_PREFILL_M, cs.SSM_GEMMS),
+            ("hybrid_decode", 4, cs.MAMBA_GEMMS),
+            ("hybrid_prefill", cs.RAGGED_PREFILL_M, cs.MAMBA_GEMMS)):
+        for name, N, K, epn in gemms:
+            a, b, _ = cs._gemm_inputs(torch, dev, M, N, K, eps[epn], bf,
+                                      seed=7)
+            a, b = a * 0.1, b * 0.02
+            cfg = select_gemm_config(M, N, K, in_dtype="bfloat16",
+                                     out_dtype="bfloat16",
+                                     hw=GPU_H100_LIKE).config
+            record(phase, name, cfg, lambda: kmm._launch_cuda(
+                a, b, cfg, out_dtype=bf, epilogue=None, bias=None,
+                gate=None, residual=None))
+    g = torch.Generator(device=dev).manual_seed(31)
+
+    def rnd(*shape, scale):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+    # The backward: dX = dY W^T (W read transposed), dW = X^T dY (X read
+    # transposed), dense at phi4's T and grouped at qwen3's C.
+    T, (E, C) = cs.TRAIN_T, (cs.MOE_E, cs.MOE_C)
+    for layout in ("nt", "tn"):
+        for name, N, K, _ in cs.PATH_GEMMS:
+            M_, N_, K_ = (T, K, N) if layout == "nt" else (K, N, T)
+            a = rnd(T, N, scale=0.1) if layout == "nt" \
+                else rnd(T, K, scale=0.1)
+            b = rnd(K, N, scale=0.02) if layout == "nt" \
+                else rnd(T, N, scale=0.1)
+            cfg = select_gemm_config(M_, N_, K_, in_dtype="bfloat16",
+                                     out_dtype="bfloat16",
+                                     hw=GPU_H100_LIKE).config
+            record(f"train_{'dx' if layout == 'nt' else 'dw'}", name, cfg,
+                   lambda: kmm._launch_cuda(
+                       a, b, cfg, out_dtype=bf, epilogue=None, bias=None,
+                       gate=None, residual=None, trans_a=layout == "tn",
+                       trans_b=layout == "nt"))
+        for name, K_in, N_out in (("wu", cs.MOE_D, cs.MOE_F),
+                                  ("wg", cs.MOE_D, cs.MOE_F),
+                                  ("wd", cs.MOE_F, cs.MOE_D)):
+            if layout == "nt":
+                a, b = rnd(E, C, N_out, scale=0.1), \
+                    rnd(E, K_in, N_out, scale=0.02)
+                M_, N_, K_ = C, K_in, N_out
+            else:
+                a, b = rnd(E, C, K_in, scale=0.1), \
+                    rnd(E, C, N_out, scale=0.1)
+                M_, N_, K_ = K_in, N_out, C
+            cfg = select_gemm_config(M_, N_, K_, in_dtype="bfloat16",
+                                     out_dtype="bfloat16",
+                                     hw=GPU_H100_LIKE).config
+            record(f"moe_{'dx' if layout == 'nt' else 'dw'}", name, cfg,
+                   lambda: kmm._launch_expert_cuda(
+                       a, b, cfg, out_dtype=bf, epilogue=None, bias=None,
+                       gate=None, residual=None, trans_a=layout == "tn",
+                       trans_b=layout == "nt"))
+            del a, b
     return {"nvidia_smi": smi, "build_s": build_s, "sums": sums,
             "rows": rows}
 
@@ -160,4 +227,9 @@ def run_roots(argv, script: str, measure_root, doc: str,
 
 
 if __name__ == "__main__":
-    sys.exit(run_roots(sys.argv[1:], __file__, measure, __doc__))
+    argv = sys.argv[1:]
+    flags = ()
+    if argv and argv[0] == "--phases":
+        PHASES = set(argv[1].split(","))
+        flags, argv = tuple(argv[:2]), argv[2:]
+    sys.exit(run_roots(argv, __file__, measure, __doc__, flags=flags))
