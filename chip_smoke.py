@@ -173,6 +173,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -1842,6 +1843,9 @@ def serve_calibrated_phase(torch, dev, kmm, kfa, calib):
     from repro_torch.kernels import ops
     res, topo, path = calib
     trace_dir = ROOT / "experiments" / "calib" / "serve_trace"
+    # The drift log appends: an earlier run's rows carry another fit's
+    # fingerprint and would not read back.
+    shutil.rmtree(trace_dir, ignore_errors=True)
     try:
         args, model, params, out, launches = _serve(
             torch, dev, kmm, kfa, "phi4-mini-3.8b",

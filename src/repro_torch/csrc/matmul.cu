@@ -69,12 +69,12 @@
 //    4-deep ring in 192 KB; one or
 //    two consumer warpgroups issue wgmma.mma_async with the accumulators in
 //    registers (a 256-row tile is held whole by two warpgroups, 128 f32 a
-//    thread).  The epilogue stores through TMA where it can: a launch
-//    with no gate or residual, on tiles of at most 128 x 128 (one 64-row
-//    block and 64 accumulators a consumer thread), converts its sums,
-//    after the bias and activation, to the output type in a 16 KB staging
-//    tile a warpgroup (64 rows of 256 bytes, in TMA boxes of 128-byte
-//    swizzled rows), fences it for the async proxy, and one thread issues
+//    thread).  The epilogue stores through TMA: a launch with no gate or
+//    residual, on tiles of at most 128 x 128 (one 64-row block and 64
+//    accumulators a consumer thread), converts its sums, after the bias
+//    and activation, to the output type in a 16 KB staging tile a
+//    warpgroup (64 rows of 256 bytes, in TMA boxes of 128-byte swizzled
+//    rows), fences it for the async proxy, and one thread issues
 //    cp.async.bulk.tensor stores on a 3-D output map (N, M, groups) that
 //    clips ragged rows, columns and groups.  The warpgroup goes straight
 //    on to its next piece, whose slices the producer has already brought
@@ -82,14 +82,17 @@
 //    writes there again.  The staging takes no ring stage from the
 //    backward's tiles (64x128x128 keeps 8, 128x128x128 6).  The other
 //    launches (a gate or residual, whose loads are batched and coalesced;
-//    256-row or 256-wide tiles, whose 128 accumulators left no registers
-//    for it; blocks of fewer than 32 rows, as at decode) stage 32 f32
-//    columns of a 64-row block at a time and store column pairs to global
-//    memory: there the TMA stores measured slower (PERF.md §6).  The
-//    activation is a template argument of the epilogue: chosen at run
-//    time, every branch was evaluated for every output, and the grouped
-//    dW at qwen3's shape (K = 160, a 403 MB output) spent most of its time
-//    there.  A 32-row (decode) tile
+//    256-row or 256-wide tiles, whose 128 accumulators leave no registers
+//    for the register path) stage 32 f32 columns of a 64-row block at a
+//    time in half the staging and put their outputs in a TMA box in the
+//    other half, stored the same way.  Blocks of fewer than 32 rows, as at
+//    decode, store their rows from the f32 buffer to global memory in
+//    column pairs, and so do 256-row tiles: there the TMA stores measured
+//    slower (PERF.md §6).  The activation is a template argument of the
+//    epilogue for none and swiglu (gelu and silu share one run-time
+//    copy): chosen at run time, every branch was evaluated for every
+//    output, and the grouped dW at qwen3's shape (K = 160, a 403 MB
+//    output) spent most of its time there.  A 32-row (decode) tile
 //    runs the 64-row instruction with TMA filling only its 32 rows: at
 //    M = 4 the MMA is idle anyway, and what the decode GEMMs need -- every
 //    SM streaming the weight with several TMA loads in flight -- is what the
@@ -205,9 +208,9 @@ __device__ __forceinline__ Piece make_piece(const Params& p, int t,
 // mid-tile: a partial), then the whole tiles between, then its last piece
 // (which may end mid-tile: its owner waits for later CTAs' partials), so
 // a CTA never waits before it has raised its own flag.  The whole tiles
-// come in the flattened order or, with p.column_walk (WorkPlan.column_walk
-// decides: the grouped launch under group_m 1, more than one row tile a
-// group), column tile by column tile: a column's tiles are the rows r =
+// come in the flattened order or, with p.column_walk (as
+// WorkPlan.column_walk: the grouped launch under group_m 1, more than one
+// row tile a group), column tile by column tile: a column's tiles are the rows r =
 // group * Tm + row of one contiguous range, walked up in even columns and
 // down in odd ones, so that a group's B column tile is used by its row
 // tiles one after another, and by the neighbour CTA that shares the group
@@ -339,10 +342,11 @@ __device__ __forceinline__ float load_ep(const void* p, size_t i, int f32) {
 }
 
 // The activation A of DESIGN.md §3 (gelu is the tanh form, as
-// jax.nn.gelu); gate is read only by swiglu.  A is a template argument:
-// with a run-time one the compiler evaluated every branch for every
-// output (if-conversion) and the epilogue cost more than the mainloop
-// (the grouped dW at qwen3's shape; PERF.md §6).
+// jax.nn.gelu); gate is read only by swiglu.  A is a template argument
+// (with_act): with a run-time one the compiler evaluated every branch for
+// every output (if-conversion), and the epilogue of an act-none launch
+// cost more than its mainloop (the grouped dW at qwen3's shape; PERF.md
+// §6).
 template <int A>
 __device__ __forceinline__ float activate(float x, float gate) {
   if constexpr (A == kActGelu)
@@ -353,16 +357,35 @@ __device__ __forceinline__ float activate(float x, float gate) {
   return x;
 }
 
-// Calls f(ActTag<A>{}) with the launch's activation A as a compile-time
-// value.
-template <typename F>
+// Calls f(ActTag<A>{}) with the launch's activation A at compile time
+// where a timed launch needs it -- none, and swiglu where the epilogue
+// takes a gate (kGate) -- and A = kActAny (gelu or silu, chosen at run
+// time) otherwise: each copy of the epilogue is code in every bf16
+// kernel, and with all four in both epilogues the build took 15 % longer
+// (PERF.md §6).
+constexpr int kActAny = -1;
+
+template <bool kGate, typename F>
 __device__ __forceinline__ void with_act(int act, F&& f) {
-  switch (act) {
-    case kActGelu: f(ActTag<kActGelu>{}); break;
-    case kActSilu: f(ActTag<kActSilu>{}); break;
-    case kActSwiglu: f(ActTag<kActSwiglu>{}); break;
-    default: f(ActTag<kActNone>{}); break;
+  if (act == kActNone) {
+    f(ActTag<kActNone>{});
+    return;
   }
+  if constexpr (kGate) {
+    if (act == kActSwiglu) {
+      f(ActTag<kActSwiglu>{});
+      return;
+    }
+  }
+  f(ActTag<kActAny>{});
+}
+
+template <int A>
+__device__ __forceinline__ float activate_any(int act, float x, float gate) {
+  if constexpr (A == kActAny)
+    return act == kActGelu ? activate<kActGelu>(x, gate)
+                           : activate<kActSilu>(x, gate);
+  return activate<A>(x, gate);
 }
 
 // Two neighbouring columns (col even; N is a multiple of 8, so col + 1 < N).
@@ -397,8 +420,8 @@ constexpr int kEpiBytes = 64 * kEpiStride * 4;
 // The bf16 route's output staging: one per consumer warpgroup, 64 rows of
 // 256 bytes (128 bf16 or 64 f32 columns), in TMA boxes of 128-byte rows
 // (64 bf16 or 32 f32 columns; 64-byte rows for 32 bf16 columns), each box
-// in the swizzle its tensor map names; or, for the launches that store
-// without TMA, the f32 buffer of kEpiBytes.
+// in the swizzle its tensor map names; or, for the epilogue that goes
+// through an f32 buffer, one such box and the buffer (kEpiSwzAt).
 constexpr int kOutStage = 64 * 256;
 
 __device__ __forceinline__ void warpgroup_sync(int wg) {
@@ -429,25 +452,40 @@ __device__ __forceinline__ void stage_pair(unsigned char* stage, int r, int c,
     *reinterpret_cast<__nv_bfloat162*>(at) = __floats2bfloat162_rn(x, y);
 }
 
+// The bf16 route's f32 buffer: 64 rows x kEpiCols f32 of 128 bytes in the
+// upper half of the warpgroup's staging, each row's 16-byte chunks XORed
+// with the row (the fragment writes stay free of bank conflicts without
+// the f32 route's padding), so that the lower half holds a TMA box of
+// outputs beside it.
+constexpr int kEpiSwzAt = kOutStage / 2;
+
+__device__ __forceinline__ int epi_swz(int r, int c) {
+  return r * kEpiCols + ((((c >> 2) ^ r) & 7) << 2) + (c & 3);
+}
+
 // The epilogue of rows x kEpiCols outputs staged in epi (the first rows of
-// a 64-row block starting at row0, columns from col0), by the 128 threads
-// of one warpgroup, stored to global memory: thread t takes column pair t
-// % 16 of rows t / 16 + 8 s.  Each round issues the gate and residual
-// loads of kBatch rows before their first use, so their latencies overlap.
-// A 256-row tile keeps 128 accumulators live through its epilogue and has
-// no registers to spare for a batch: it takes one row a round.
-template <int kBatch>
-__device__ __forceinline__ void epilogue_block(const Params& p,
-                                               const float* epi, int g_,
-                                               int row0, int rows, int col0,
-                                               int t) {
+// a 64-row block starting at row0, columns from col0; kSwz: the bf16
+// route's swizzled rows, else rows of kEpiStride), by the 128 threads of
+// one warpgroup: thread t takes column pair t % 16 of rows t / 16 + 8 s.
+// Each round issues the gate and residual loads of kBatch rows before
+// their first use, so their latencies overlap.  A 256-row tile keeps 128
+// accumulators live through its epilogue and has no registers to spare
+// for a batch: it takes one row a round.  The outputs go to `box`, a TMA
+// box of 64 rows of rb bytes (1 << lg_cols columns, this chunk from its
+// column box_c0) in the box's swizzle, or with no box to global memory in
+// column pairs.
+template <int kBatch, bool kSwz>
+__device__ __forceinline__ void epilogue_block(
+    const Params& p, const float* epi, int g_, int row0, int rows, int col0,
+    int t, unsigned char* box = nullptr, int box_c0 = 0, int lg_cols = 0,
+    int rb = 0) {
   constexpr int kPairs = kEpiCols / 2;
   const size_t g = static_cast<size_t>(g_);
   const int c = (t % kPairs) * 2, col = col0 + c;
   if (col >= p.N) return;
   float2 bias = make_float2(0.0f, 0.0f);
   if (p.has_bias) bias = load_ep2(p.bias, g * p.sbias + col, p.ep_f32);
-  with_act(p.act, [&](auto tag) {
+  with_act<true>(p.act, [&](auto tag) {
     constexpr int A = decltype(tag)::kAct;
 #pragma unroll 1
     for (int r0 = t / kPairs; r0 < rows; r0 += kBatch * (128 / kPairs)) {
@@ -458,7 +496,8 @@ __device__ __forceinline__ void epilogue_block(const Params& p,
         v[s] = gate[s] = res[s] = make_float2(0.0f, 0.0f);
         if (r >= rows) continue;
         const size_t idx = static_cast<size_t>(row0 + r) * p.N + col;
-        v[s] = *reinterpret_cast<const float2*>(epi + r * kEpiStride + c);
+        v[s] = *reinterpret_cast<const float2*>(
+            epi + (kSwz ? epi_swz(r, c) : r * kEpiStride + c));
         if constexpr (A == kActSwiglu)
           gate[s] = load_ep2(p.gate, g * p.sgate + idx, p.ep_f32);
         if (p.has_res)
@@ -468,8 +507,14 @@ __device__ __forceinline__ void epilogue_block(const Params& p,
       for (int s = 0; s < kBatch; ++s) {
         const int r = r0 + s * (128 / kPairs);
         if (r >= rows) continue;
-        const float x = activate<A>(v[s].x + bias.x, gate[s].x) + res[s].x;
-        const float y = activate<A>(v[s].y + bias.y, gate[s].y) + res[s].y;
+        const float x =
+            activate_any<A>(p.act, v[s].x + bias.x, gate[s].x) + res[s].x;
+        const float y =
+            activate_any<A>(p.act, v[s].y + bias.y, gate[s].y) + res[s].y;
+        if (box) {
+          stage_pair(box, r, box_c0 + c, lg_cols, rb, p.out_f32, x, y);
+          continue;
+        }
         const size_t o =
             g * p.so + static_cast<size_t>(row0 + r) * p.N + col;
         if (p.out_f32) {
@@ -509,9 +554,10 @@ struct Sm90 {
   static constexpr int kCW = PN < 64 ? PN : 64;     // B chunk width
   static constexpr int kChunks = PN / kCW;
   static constexpr int kAcc = PN / 2;               // f32 a thread, per block
-  // The TMA-store epilogue (sm90_body) stages outputs straight from the
+  // The register epilogue (sm90_body) stages outputs straight from the
   // registers, a 32-column slice copied out at a time: with 128
-  // accumulators (a 256-row tile, or PN 256) that copy spilled.
+  // accumulators (a 256-row tile, or PN 256) that copy spilled, and these
+  // tiles go through the f32 buffer.
   static constexpr bool kRegEpilogue = MB == 1 && kAcc <= 64;
 };
 
@@ -710,8 +756,9 @@ __device__ __forceinline__ void sm90_body(const CUtensorMap& tma_a,
           smem_raw + (epi_at - smem_u32(smem_raw)) + wg * kOutStage;
       const int rows0 = min(min(64, p.bm - wg * MB * 64),
                             p.M - row0 - wg * MB * 64);
-      if (S::kRegEpilogue && p.act != kActSwiglu && !p.has_res &&
-          rows0 >= 32) {
+      const bool reg_path =
+          S::kRegEpilogue && p.act != kActSwiglu && !p.has_res;
+      if (reg_path && rows0 >= 32) {
         if constexpr (S::kRegEpilogue) {
           // TMA stores: the bias and activation in registers, the outputs
           // in the output type straight into this warpgroup's staging, in
@@ -750,7 +797,7 @@ __device__ __forceinline__ void sm90_body(const CUtensorMap& tma_a,
             // Fragment j of the slice holds columns 8 j + 2 (lane % 4) +
             // {0, 1} of rows warp * 16 + lane / 4 + {0, 8}.
             const int col = col_pass + jc * kEpiCols;
-            with_act(p.act, [&](auto tag) {
+            with_act<false>(p.act, [&](auto tag) {
               constexpr int A = decltype(tag)::kAct;
 #pragma unroll
               for (int j = 0; j < kEpiCols / 8; ++j) {
@@ -762,9 +809,11 @@ __device__ __forceinline__ void sm90_body(const CUtensorMap& tma_a,
                 for (int h = 0; h < 2; ++h)
                   stage_pair(out_stage, warp * 16 + lane / 4 + 8 * h,
                              cc0 + c, lg_cols, rb, out_f32,
-                             activate<A>(v[j * 4 + 2 * h] + bias.x, 0.0f),
-                             activate<A>(v[j * 4 + 2 * h + 1] + bias.y,
-                                         0.0f));
+                             activate_any<A>(p.act, v[j * 4 + 2 * h] + bias.x,
+                                             0.0f),
+                             activate_any<A>(p.act,
+                                             v[j * 4 + 2 * h + 1] + bias.y,
+                                             0.0f));
               }
             });
             if (cc0 + kEpiCols == chunk_cols || jc == PN / kEpiCols - 1) {
@@ -784,23 +833,36 @@ __device__ __forceinline__ void sm90_body(const CUtensorMap& tma_a,
           }
         }
       } else {
-        // A gate or residual operand, a tile whose 128 accumulators a
-        // thread leave no room for the register path, or a block of a few
-        // rows: the sums go through an f32 buffer in the staging, so that
-        // the operands' loads are coalesced and batched, and the outputs
-        // to global memory in column pairs (the TMA stores' waits for their
-        // staging, one a box, made the first two slower, and staging 64
-        // rows for 4 the third; PERF.md §6).
-        if constexpr (S::kRegEpilogue) {  // earlier TMA stores read it
+        // A gate or residual operand, or a tile whose 128 accumulators a
+        // thread leave no room for the register path: 32 columns of a
+        // 64-row block at a time go through the f32 buffer in the upper
+        // half of the staging, so that the operands' loads are coalesced
+        // and batched, and their outputs into a TMA box in the lower half,
+        // stored as the register path stores its chunks (a bf16 box of 64
+        // columns takes two of these rounds; the issuer waits for the
+        // previous box's reads before the first).  Stores to global memory
+        // in column pairs stay where the box measured slower (PERF.md §6):
+        // a block of fewer than 32 rows (decode), and a 256-row tile, which
+        // also keeps the f32 route's padded rows: there the swizzle's
+        // per-thread addresses, live beside 128 accumulators, doubled the
+        // spills and slowed its rows.
+        if (reg_path) {  // earlier TMA stores read the whole staging
           if (issuer) bulk_wait_read();
           warpgroup_sync(wg);
         }
-        float* epi = reinterpret_cast<float*>(out_stage);
+        constexpr bool kBox = MB == 1;
+        float* epi =
+            reinterpret_cast<float*>(out_stage + (kBox ? kEpiSwzAt : 0));
+        const int ob = p.out_f32 ? 4 : 2;
+        const int box_cols = min(PN, 128 / ob);  // as the register path's
+        const int lg_cols = box_cols == 64 ? 6 : 5;
+        const int rb = box_cols * ob;
 #pragma unroll
         for (int mb = 0; mb < MB; ++mb) {
           const int blk = (wg * MB + mb) * 64;
           const int rows = min(min(64, p.bm - blk), p.M - row0 - blk);
           if (rows <= 0) continue;
+          const bool tma = kBox && rows >= 32;
 #pragma unroll 1
           for (int jc = 0; jc < PN / kEpiCols; ++jc) {
 #pragma unroll
@@ -810,19 +872,31 @@ __device__ __forceinline__ void sm90_body(const CUtensorMap& tma_a,
               for (int jj = 0; jj < kEpiCols / 8; ++jj) {
                 const int j = cc * (kEpiCols / 8) + jj;
 #pragma unroll
-                for (int h = 0; h < 2; ++h)
+                for (int h = 0; h < 2; ++h) {
+                  const int r = warp * 16 + lane / 4 + 8 * h;
+                  const int c = jj * 8 + (lane % 4) * 2;
                   *reinterpret_cast<float2*>(
-                      epi + (warp * 16 + lane / 4 + 8 * h) * kEpiStride +
-                      jj * 8 + (lane % 4) * 2) =
+                      epi + (kBox ? epi_swz(r, c) : r * kEpiStride + c)) =
                       make_float2(acc[mb][j * 4 + 2 * h],
                                   acc[mb][j * 4 + 2 * h + 1]);
+                }
               }
             }
+            const int bc0 = (jc * kEpiCols) % box_cols;  // in the box
+            const int col = col0 + ps * PN + jc * kEpiCols;
+            if (tma && bc0 == 0 && issuer) bulk_wait_read();
             warpgroup_sync(wg);
-            epilogue_block<MB == 2 ? 1 : 4>(
-                p, epi, g, row0 + blk, rows, col0 + ps * PN + jc * kEpiCols,
-                tid % 128);
+            epilogue_block<kBox ? 4 : 1, kBox>(
+                p, epi, g, row0 + blk, rows, col, tid % 128,
+                tma ? out_stage : nullptr, bc0, lg_cols, rb);
+            const bool store = tma && bc0 + kEpiCols == box_cols;
+            if (store) fence_proxy_async();
             warpgroup_sync(wg);
+            if (store && issuer && col - bc0 < p.N) {
+              tma_store_3d(&tma_o, smem_u32(out_stage), col - bc0,
+                           row0 + blk, g);
+              bulk_commit();
+            }
           }
         }
       }
@@ -1180,8 +1254,8 @@ __device__ __forceinline__ void tf32_body(const CUtensorMap& tma_a,
           }
         }
         warpgroup_sync(wg);
-        epilogue_block<4>(p, epi, g, r0 + blk, out_rows, c0 + jc * kEpiCols,
-                          tid % 128);
+        epilogue_block<4, false>(p, epi, g, r0 + blk, out_rows,
+                                 c0 + jc * kEpiCols, tid % 128);
         warpgroup_sync(wg);
       }
     }
@@ -1333,17 +1407,13 @@ cudaError_t launch_sm90(Params p, cudaStream_t stream) {
          : encode_cached(&tma_b, false, p.b, N, K, G, gb, S::kCW, p.ks);
   // The output (N, M, groups) in boxes of a 64-row block (the tile's rows
   // when it has fewer) by 128 bytes of columns (64 for 32 bf16 columns),
-  // so that a store never reaches a neighbouring tile's rows or columns;
-  // encoded only for the launches that store with TMA (sm90_body).
-  CUtensorMap tma_o = {};
-  bool o_ok = true;
-  if (S::kRegEpilogue && p.act != kActSwiglu && !p.has_res) {
-    const uint64_t go = G > 1 ? p.so : M * N;
-    const uint32_t box_cols = PN < 128 / (p.out_f32 ? 4 : 2)
-                                  ? PN : 128 / (p.out_f32 ? 4 : 2);
-    o_ok = encode_cached(&tma_o, p.out_f32, p.out, N, M, G, go, box_cols,
-                         p.bm < 64 ? p.bm : 64);
-  }
+  // so that a store never reaches a neighbouring tile's rows or columns.
+  CUtensorMap tma_o;
+  const uint64_t go = G > 1 ? p.so : M * N;
+  const uint32_t box_cols = PN < 128 / (p.out_f32 ? 4 : 2)
+                                ? PN : 128 / (p.out_f32 ? 4 : 2);
+  const bool o_ok = encode_cached(&tma_o, p.out_f32, p.out, N, M, G, go,
+                                  box_cols, p.bm < 64 ? p.bm : 64);
   if (!a_ok || !b_ok || !o_ok) return cudaErrorInvalidValue;
   return launch_resident(kernel, p.ctas, S::kThreads, smem, stream, tma_a,
                          tma_b, tma_o, p);
@@ -1545,9 +1615,9 @@ using namespace repro;
 // strides) or B stored (N, K) (trans_b), not both; a group's operand is
 // then that layout at its own stride.  The plan integers come
 // from kernels/matmul.py::work_plan: k-steps per tile and per unit, units
-// per CTA, the grid and the walk of a CTA's whole tiles (column_walk:
-// grouped, group_m 1 only); workspace holds ctas slots of max(bm, 64) x
-// max(bn, 64) f32 when a tile is split, flags one int per CTA, all zero.
+// per CTA and the grid (the walk of a CTA's whole tiles follows from the
+// launch, as WorkPlan.column_walk); workspace holds ctas slots of
+// max(bm, 64) x max(bn, 64) f32 when a tile is split, flags one int per CTA, all zero.
 // f32 inputs also take the f32 kernel's ring stages and shared bytes as
 // kernels/matmul.py::f32_tiling planned them (0 for bf16); a launch whose
 // own differ is refused.
@@ -1557,14 +1627,12 @@ extern "C" int repro_gemm(
     int M, int N, int K, int bm, int bn, int bk, int group_m, int in_f32,
     int out_f32, int ep_f32, int has_bias, int act, int has_res, int groups,
     int grouped, int trans_a, int trans_b, int steps_per_tile,
-    int steps_per_unit, int units_per_cta, int ctas, int column_walk,
-    int f32_stages, int f32_smem, long long sa,
-    long long sb, long long so, long long sbias, long long sgate,
-    long long sres, void* stream) {
+    int steps_per_unit, int units_per_cta, int ctas, int f32_stages,
+    int f32_smem, long long sa, long long sb, long long so,
+    long long sbias, long long sgate, long long sres, void* stream) {
   const int vec = in_f32 ? 4 : 8;
   if ((trans_a && trans_b) || (!grouped && groups != 1) ||
-      (trans_a && M % vec) || column_walk < 0 || column_walk > 1 ||
-      (column_walk && (groups < 2 || group_m != 1)))
+      (trans_a && M % vec))
     return static_cast<int>(cudaErrorInvalidValue);
   if (M <= 0 || N <= 0 || K <= 0 || N % vec || K % vec || !tile_ok(bm) ||
       !tile_ok(bn) || bk <= 0 || bk % 16 || group_m < 1 || act < 0 ||
@@ -1600,7 +1668,7 @@ extern "C" int repro_gemm(
   p.trans_b = trans_b;
   p.Tm = (M + bm - 1) / bm;
   p.Tn = (N + bn - 1) / bn;
-  p.column_walk = column_walk;
+  p.column_walk = groups > 1 && group_m == 1 && p.Tm > 1;  // WorkPlan's
   p.steps_per_unit = steps_per_unit;
   p.units_per_tile = steps_per_tile / steps_per_unit;
   p.units_per_cta = units_per_cta;

@@ -40,7 +40,7 @@ import ctypes
 import functools
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -163,16 +163,14 @@ class WorkPlan:
                      (ub - tu0) * self.steps_per_unit, ua == tu0, ub == tu1,
                      (tu1 - 1) // self.units_per_cta)
 
-    def pieces(self, c: int, column_walk: Optional[bool] = None
-               ) -> List[Piece]:
+    def pieces(self, c: int) -> List[Piece]:
         """CTA ``c``'s pieces in the order it runs them (the kernel's
         ``next_piece`` walk).  Its range's first piece (which may start
         mid-tile and become a partial) comes first and its last (which may
         end mid-tile, and whose owner then waits for later CTAs) last, so
         the fixup's order argument holds in either walk; the whole tiles
         between them come in the flattened order or, with
-        :attr:`column_walk`, column tile by column tile (``column_walk``
-        overrides the plan's choice, for :func:`l2_reckoning`)."""
+        :attr:`column_walk`, column tile by column tile."""
         upt = self.units_per_tile
         r = self.cta_units(c)
         t0, t1 = r.start // upt, (r.stop - 1) // upt
@@ -180,21 +178,17 @@ class WorkPlan:
         if t1 == t0:
             return [first]
         last = self._piece(t1, t1 * upt, r.stop)
-        middle = self.middle_tiles(t0 + 1, t1, column_walk)
         return [first, *(self._piece(t, t * upt, (t + 1) * upt)
-                         for t in middle), last]
+                         for t in self.middle_tiles(t0 + 1, t1)), last]
 
-    def middle_tiles(self, lo: int, hi: int,
-                     column_walk: Optional[bool] = None) -> List[int]:
+    def middle_tiles(self, lo: int, hi: int) -> List[int]:
         """The whole tiles [lo, hi) of a CTA's range in its walk order
         (``csrc/matmul.cu``'s ``walk_column_tile`` runs the same loops).
         With :attr:`column_walk` (flattened tile t = r Tn + n for the
         global row r = group Tm + row): column by column, each column's
         rows of the range in a serpentine, up in even columns and down in
         odd ones, so the row tile at a turn is used twice in a row."""
-        if column_walk is None:
-            column_walk = self.column_walk
-        if not column_walk or hi <= lo:
+        if not self.column_walk or hi <= lo:
             return list(range(lo, hi))
         tn, out = self.tiles_n, []
         for n in range(tn):
@@ -211,8 +205,8 @@ class WorkPlan:
 
 
 def l2_reckoning(plan: WorkPlan, l2_bytes: int, *, elem: int = 2,
-                 out_elem: int = 2, column_walk: Optional[bool] = None
-                 ) -> dict:
+                 out_elem: int = 2,
+                 walks: Optional[Sequence[Sequence[Piece]]] = None) -> dict:
     """The HBM bytes a walk of ``plan`` reads, reckoned through an LRU
     cache of ``l2_bytes`` that every CTA shares: the CTAs advance one
     piece a step together (CTA order within a step), each piece touches
@@ -221,7 +215,8 @@ def l2_reckoning(plan: WorkPlan, l2_bytes: int, *, elem: int = 2,
     Returns the bytes of A and of B read from HBM beside the bytes of each
     read once (``a_once``, ``b_once``) and the output bytes.  A model of
     reuse distance, not of the card's L2 (two partitions, its own
-    replacement); ``column_walk`` overrides the plan's walk order."""
+    replacement).  ``walks`` holds each CTA's pieces in order, the plan's
+    own (:meth:`WorkPlan.pieces`) when not given."""
     M, N, K, bm, bn, bk = plan.M, plan.N, plan.K, plan.bm, plan.bn, plan.bk
     lru, held = OrderedDict(), [0]
     got = dict.fromkeys(("a", "b", "a_once", "b_once", "out"), 0)
@@ -237,7 +232,8 @@ def l2_reckoning(plan: WorkPlan, l2_bytes: int, *, elem: int = 2,
         while held[0] > l2_bytes:
             held[0] -= lru.popitem(last=False)[1]
 
-    walks = [plan.pieces(c, column_walk) for c in range(plan.ctas)]
+    if walks is None:
+        walks = [plan.pieces(c) for c in range(plan.ctas)]
     for i in range(max(map(len, walks))):
         for walk in walks:
             if i >= len(walk):
@@ -576,7 +572,7 @@ def _launch_groups(what, a, b, cfg, *, grouped, out_dtype, epilogue, bias,
     lib = build.load("matmul")
     fn = lib.repro_gemm
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 24 \
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 23 \
             + [ctypes.c_longlong] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
 
@@ -596,7 +592,7 @@ def _launch_groups(what, a, b, cfg, *, grouped, out_dtype, epilogue, bias,
             int(ep.bias), _ACT_CODES[ep.activation], int(ep.residual),
             G, int(grouped), int(trans_a), int(trans_b),
             plan.steps_per_tile, plan.steps_per_unit,
-            plan.units_per_cta, plan.ctas, int(plan.column_walk),
+            plan.units_per_cta, plan.ctas,
             f32.stages if f32 else 0, f32.smem if f32 else 0,
             stride(a), stride(b), stride(out), stride(ops["bias"]),
             stride(ops["gate"]), stride(ops["residual"]), stream.cuda_stream)

@@ -251,6 +251,10 @@ def _flattened_pieces(plan, c):
     return out
 
 
+def _flattened(plan):
+    return [_flattened_pieces(plan, c) for c in range(plan.ctas)]
+
+
 @pytest.mark.parametrize("schedule", SCHEDULES[:2], ids=_ids)
 @pytest.mark.parametrize("shape", SHAPES + QWEN3_BWD, ids=_ids)
 def test_walk_keeps_the_pieces_and_the_boundary_pieces(shape, schedule):
@@ -319,7 +323,7 @@ def test_column_walk_reads_each_experts_w_once_where_the_l2_holds_it():
                                  hw=GPU_H100_LIKE).config
         plan = kmm.work_plan(M, N, K, cfg, G, SMS)
         col = kmm.l2_reckoning(plan, L2_BYTES)
-        row = kmm.l2_reckoning(plan, L2_BYTES, column_walk=False)
+        row = kmm.l2_reckoning(plan, L2_BYTES, walks=_flattened(plan))
         assert col["b_once"] == G * K * N * 2
         got[K] = (SMS * _tile_footprint(plan), col, row)
     fits, col, row = got[768]
@@ -341,6 +345,6 @@ def test_column_walk_reads_fewer_bytes_at_the_grouped_dw(shape):
                              out_dtype="bfloat16", hw=GPU_H100_LIKE).config
     plan = kmm.work_plan(M, N, K, cfg, G, SMS)
     col = kmm.l2_reckoning(plan, L2_BYTES)
-    row = kmm.l2_reckoning(plan, L2_BYTES, column_walk=False)
+    row = kmm.l2_reckoning(plan, L2_BYTES, walks=_flattened(plan))
     assert col["out"] == row["out"] == G * M * N * 2
     assert col["a"] + col["b"] < row["a"] + row["b"]
