@@ -8,7 +8,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
 1. build    — compile every CUDA source (one nvcc each, all at once: the
               GEMM, flash attention and the calibration probes) and record
               the card (``nvidia-smi`` name and power limit); a spill or a
-              wgmma serialisation note of a flash_bwd kernel fails it.
+              wgmma serialisation note of a flash_bwd kernel, the f32 flash
+              forward (flash_fwd_tf32x3) or an f32 GEMM kernel fails it.
 2. gemm     — the GEMM kernel against its plain version on the card: the
               phi4-mini step shapes at M = 4 and 512 with the path's
               epilogues, gelu/silu/bias at one shape each, forced configs
@@ -29,7 +30,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               the model passes it (a transposed view); S = 40, shorter
               than a q block; every pair of the block menu; then every
               head dim d in {16, 32, 64, 112, 128, 160} in bf16 (the wgmma
-              kernel) and f32 (the f32 kernel), causal and not, GQA and
+              kernel) and f32 (the split-TF32 kernel; also d 8 and 256),
+              causal and not, GQA and
               not, and zamba2-7b's served shape (1, 32, 474, 112) with v
               as the model passes it, in both dtypes.  bf16 at atol
               1e-2 + rtol 2e-2, f32 at atol 2e-5 + rtol 1e-4.  Every case
@@ -71,7 +73,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               GEMMs, mamba2-370m's and zamba2-7b's mamba layer GEMMs, the
               latter in bf16 and f32, at decode and prefill M; the
               flash kernel at phi4-mini's, qwen3-moe's and zamba2-7b's
-              largest prompt, zamba2-7b's again in f32): kernel, plain and
+              largest prompt, zamba2-7b's again in f32, on the split-TF32
+              kernel): kernel, plain and
               one-call library times (CUDA graphs and events) and
               the bound max(flop / peak, bytes / 3.35e12); each GEMM row
               also gives its grid (``ctas``), its split tiles, the latency
@@ -115,8 +118,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               nine per shared-block application in a prefill, seven in a
               decode step) and the flash launches 13 a prefill; a trace;
               logits against the plain path; then the same model in f32 (4
-              requests of 4 tokens), whose prefill attention runs the f32
-              flash kernel, its logits against the plain path in f32
+              requests of 4 tokens), whose prefill attention runs the
+              split-TF32 flash kernel, its logits against the plain path in f32
               within ``F32_LOGITS_REL_CAP``.
 10. train_kernels — the training kernels against their plain versions at
               phi4-mini's training shapes (T = B x S = 2048 tokens), each
@@ -139,7 +142,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               kernel route twice, bitwise) and in f32 (each leaf within
               1e-4: the f32 backward kernels' path; launches equal to the
               reckoning; qwen3's experts the same for every token copy on
-              both routes).
+              both routes; the f32 run's forwards are the kernels line's
+              flash_attention_f32@train_grads launches).
     train   — the driver's step functions (loss and gradients under retry,
               then the in-place AdamW commit) on phi4-mini-3.8b at full
               width and depth with remat: 6 steps on one repeated batch of
@@ -159,7 +163,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               their bounds, plain versions and library calls (the grouped
               backward beside ``torch.bmm``, with each product's achieved
               HBM rate over the bound's bytes and over the bytes its walk
-              reads under ``kmm.l2_reckoning``).
+              reads under ``kmm.l2_reckoning``), and the f32 flash forward
+              with lse at train_grads' shape beside the library's f32
+              attention.
 Each serve phase counts the launches of every kernel inside the model's
 prefills and inside its decode steps apart.  The line before the last is
 the kernels summary (a row's launches are those of its own run and step
@@ -199,15 +205,17 @@ LOGITS_REL_CAP = 0.1
 MOE_FULL_REL_CAP = 0.5
 MOE_CUT_LAYERS = 4
 FLASH_ATOL, FLASH_RTOL = 1e-2, 2e-2
-# f32 attention: the kernel computes in full f32 (tests/test_kernels.py's
-# attention tolerance).
+# f32 attention: the kernel takes every product in split TF32, the softmax
+# and the sums in f32 (tests/test_kernels.py's attention tolerance).
 FLASH_F32_ATOL, FLASH_F32_RTOL = 2e-5, 1e-4
 F32_PEAK = 67e12            # H100 SXM f32 flop/s outside the tensor cores
-# The f32 GEMM and the f32 flash backward take every product as three TF32
-# tensor-core products (split TF32): their rate is a third of the TF32 peak.
+# The f32 GEMM and the f32 flash forward and backward take every product as
+# three TF32 tensor-core products (split TF32): their rate is a third of the
+# TF32 peak.
 TF32X3_PEAK = 495e12 / 3
 # The kernels-line rows whose kernel computes in split TF32 ("products").
 TF32X3_ROWS = ("matmul_f32@hybrid_decode", "matmul_f32@hybrid_prefill",
+               "flash_attention_f32@hybrid", "flash_attention_f32@train_grads",
                "flash_attention_bwd_f32@train_grads")
 # The f32 serve's prefill logits, kernel path vs plain path (relative L2):
 # both run in f32 and differ only in summation order (predicted ~1e-5
@@ -299,13 +307,14 @@ def main() -> int:
         lines = [ln.strip() for ln in log.splitlines()
                  if "registers" in ln or "spill" in ln or "C75" in ln]
         summary[name] = {"seconds": round(sec, 2), "ptxas": lines}
-        for marker in ("flash_bwd", "gemm_dense_f32", "gemm_grouped_f32"):
+        for marker in ("flash_bwd", "flash_fwd_tf32x3", "gemm_dense_f32",
+                       "gemm_grouped_f32"):
             faults += ptxas_faults(log, marker)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "sources": summary, "flash_bwd_faults": faults})
     if faults:
-        fail(f"build: ptxas spilled or serialised wgmma in a flash_bwd or "
-             f"f32 GEMM kernel: {faults}")
+        fail(f"build: ptxas spilled or serialised wgmma in a flash_bwd, "
+             f"the f32 flash forward or an f32 GEMM kernel: {faults}")
 
     flash_err = flash_phase(torch, dev, kfa)
     max_err = gemm_phase(torch, dev, kmm)
@@ -363,6 +372,7 @@ def main() -> int:
         "matmul@train_wgrad": train_launches["tn"],
         "flash_attention@train": train_launches["flash"],
         "flash_attention_bwd@train": train_launches["flash_bwd"],
+        "flash_attention_f32@train_grads": grads_launches["flash"],
         "flash_attention_bwd_f32@train_grads": grads_launches["flash_bwd"],
         "epilogue_bwd@train": train_launches["epilogue_bwd"],
         "expert_matmul_bwd@train_moe_dgrad": moe_train_launches["expert_nt"],
@@ -389,6 +399,9 @@ def main() -> int:
                       "src/repro/calib/device.py:181"),
         "wave_grid": ("src/repro_torch/csrc/probes.cu",
                       "src/repro/calib/device.py:208")}
+    idle = [key for key, n in launches.items() if n <= 0]
+    if idle:
+        fail(f"kernels never launched on their main path: {idle}")
     entries = []
     for key in launches:
         source, replaces = sources[key.split("@")[0]]
@@ -633,12 +646,17 @@ FLASH_CASES = [
 
 
 # Every head dim of both registries at full and smoke size on the served
-# path (16, 32, 64, 112, 128, 160) in bf16 and f32, causal and not, GQA and
-# not, v as the model passes it under causal: (..., d, dtype).
+# path (16, 32, 64, 112, 128, 160) in bf16 and f32 (and d 8 and 256 in
+# f32), causal and not, GQA and not, v as the model passes it under causal:
+# (..., d, dtype).
 FLASH_DIMS = (16, 32, 64, 112, 128, 160)
 FLASH_DIM_CASES = [(1, 8, hkv, 300, causal, None, causal, d, dt)
                    for d in FLASH_DIMS for dt in ("bfloat16", "float32")
                    for causal in (True, False) for hkv in (2, 8)] + [
+    # the split-TF32 kernel's ends: one 8-column block, and DP 256 with its
+    # 32-key ring stages
+    (1, 8, hkv, 300, causal, None, causal, d, "float32")
+    for d in (8, 256) for causal in (True, False) for hkv in (2, 8)] + [
     # zamba2-7b's shared attention as served: causal, 32 heads, no GQA
     (1, 32, 32, 474, True, None, True, 112, dt)
     for dt in ("bfloat16", "float32")]
@@ -691,8 +709,9 @@ def flash_phase(torch, dev, kfa):
                      "v_strides": list(v.stride()),
                      "blocks": [bq, bkv] if dtype == "bfloat16" else None,
                      "selected": blocks is None,
-                     "ctas": B * H * -(-S // (bq if dtype == "bfloat16"
-                                              else 16)),
+                     "ctas": (B * H * -(-S // bq) if dtype == "bfloat16"
+                              else kfa.plan_attention_f32(
+                                  S, d, batch=B, heads=H).ctas),
                      "max_abs_err": float(err.max()),
                      "deterministic": det, "ok": ok and det})
         if not ok or not det:
@@ -1098,9 +1117,10 @@ def _kernel_ms(prof):
     """Device time (ms) and launch count of every kernel in a profile,
     grouped by kernel name: the dense GEMM's kernels are gemm_dense_*, the
     grouped GEMM's gemm_grouped_*, the epilogue backward's
-    epilogue_bwd_kernel (csrc/matmul.cu); the flash forward's
-    flash_fwd_kernel*, the backward's flash_bwd_* (csrc/flash_attention.cu;
-    the f32 route's split-TF32 kernels flash_bwd_*_tf32x3 apart)."""
+    epilogue_bwd_kernel (csrc/matmul.cu); the flash forward's flash_fwd_*
+    (bf16 flash_fwd_kernel, f32 flash_fwd_tf32x3), the backward's
+    flash_bwd_* (csrc/flash_attention.cu; the f32 route's split-TF32
+    kernels flash_bwd_*_tf32x3 apart)."""
     import os
     import tempfile
     groups = {"matmul": 0.0, "expert_matmul": 0.0, "flash_attention": 0.0,
@@ -1120,7 +1140,7 @@ def _kernel_ms(prof):
         if str(ev.get("cat", "")).lower() != "kernel":
             continue
         name = ev.get("name", "")
-        key = ("flash_attention" if "flash_fwd_kernel" in name else
+        key = ("flash_attention" if "flash_fwd" in name else
                "flash_attention_bwd_f32" if "flash_bwd" in name
                and "tf32x3" in name else
                "flash_attention_bwd" if "flash_bwd" in name else
@@ -1333,8 +1353,8 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity, moe_edge):
 
     # Prefill attention at each model's largest served prompt, v as the
     # model passes it; every legal pair of the block menu beside the
-    # selected one (bf16); zamba2-7b's shape again in f32 (the f32 kernel,
-    # bound by the card's f32 rate outside the tensor cores).
+    # selected one (bf16); zamba2-7b's shape again in f32 (the split-TF32
+    # kernel, its bound at a third of the TF32 peak).
     attn_rows = {}
     for key, arch, H, Hkv, S, d, dtype in (
             ("flash_attention@prefill", "phi4-mini-3.8b", 24, 8, max(edges),
@@ -1367,13 +1387,18 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity, moe_edge):
                              "ctas_per_sm": priced.ctas_per_sm,
                              "model_ms": priced.predicted * 1e3,
                              "ms": kern(bq, bkv)})
+        if dtype == "float32":       # the split-TF32 kernel's own tiles
+            fp = kfa.plan_attention_f32(S, d, batch=B, heads=H)
+            grid = {"blocks": [fp.q_block, fp.kv_block], "ctas": fp.ctas,
+                    "ctas_per_sm": None, "model_ms": None}
+        else:
+            grid = {"blocks": [plan.block_q, plan.block_kv],
+                    "ctas": plan.ctas, "ctas_per_sm": plan.ctas_per_sm,
+                    "model_ms": plan.predicted * 1e3}
         row = {"phase": "prefill", "kernel": key.split("@")[0],
                "arch": arch, "dtype": dtype,
                "q": [B, H, S, d], "kv": [B, Hkv, S, d],
-               "v_strides": list(v.stride()),
-               "blocks": [plan.block_q, plan.block_kv], "ctas": plan.ctas,
-               "ctas_per_sm": plan.ctas_per_sm,
-               "model_ms": plan.predicted * 1e3,
+               "v_strides": list(v.stride()), **grid,
                "ms": kern(plan.block_q, plan.block_kv),
                "plain_ms": time_ms(lambda: kfa.attention_plain(
                    q, k, v, block_q=plan.block_q, block_kv=plan.block_kv,
@@ -1385,7 +1410,7 @@ def times_phase(torch, dev, kmm, kfa, edges, moe_capacity, moe_edge):
         pairs = S * (S + 1) // 2                # causal (query, key) pairs
         flops = 4.0 * B * H * pairs * d
         nbytes = q.element_size() * d * S * B * (2 * H + 2 * Hkv)
-        peak = BF16_PEAK if dtype == "bfloat16" else F32_PEAK
+        peak = BF16_PEAK if dtype == "bfloat16" else TF32X3_PEAK
         row["bound_ms"] = max(nbytes / HBM_BW, flops / peak) * 1e3
         row["bound_by"] = "bytes" if nbytes / HBM_BW >= flops / peak \
             else "operations"
@@ -2061,6 +2086,7 @@ def train_kernels_phase(torch, dev, kmm, kfa):
     worst = dict.fromkeys(("matmul@train_dgrad", "matmul@train_wgrad",
                            "flash_attention@train",
                            "flash_attention_bwd@train",
+                           "flash_attention_f32@train_grads",
                            "flash_attention_bwd_f32@train_grads",
                            "epilogue_bwd@train",
                            "expert_matmul_bwd@train_moe_dgrad",
@@ -2164,9 +2190,9 @@ def train_kernels_phase(torch, dev, kmm, kfa):
                     else "flash_attention_bwd@train")
             worst[bkey] = max(worst[bkey], float((x.float() - p.float())
                                                  .abs().max()))
-        if not f32_case:
-            worst["flash_attention@train"] = max(
-                worst["flash_attention@train"], float(o_err.max()))
+        fkey = ("flash_attention_f32@train_grads" if f32_case
+                else "flash_attention@train")
+        worst[fkey] = max(worst[fkey], float(o_err.max()))
         plan = kfa.plan_attention_bwd(S, S, d, batch=B, heads=H,
                                       kv_heads=Hkv, in_dtype=dtype)
         ok = ok and plan.route == ("tf32x3" if f32_case else "wgmma")
@@ -2761,9 +2787,11 @@ def train_times_phase(torch, dev, kmm, kfa):
                               f"{'dX' if layout == 'nt' else 'dW'} at "
                               f"T={TRAIN_T}"}
 
-    # Flash: the forward with lse and the backward at the train shape, the
-    # backward in f32 at train_grads' shape.
+    # Flash: the forward with lse and the backward at the train shape, both
+    # again in f32 at train_grads' shape.
     for key, B, dtype in (("flash_attention@train", TRAIN_B, "bfloat16"),
+                          ("flash_attention_f32@train_grads", GRADS_B,
+                           "float32"),
                           ("flash_attention_bwd@train", TRAIN_B, "bfloat16"),
                           ("flash_attention_bwd_f32@train_grads", GRADS_B,
                            "float32")):
@@ -2779,7 +2807,8 @@ def train_times_phase(torch, dev, kmm, kfa):
         pairs = S * (S + 1) // 2
         elem = q.element_size()
         peak = BF16_PEAK if dtype == "bfloat16" else TF32X3_PEAK
-        if key == "flash_attention@train":
+        forward = "_bwd" not in key
+        if forward:
             kern = lambda: kfa._launch_cuda(  # noqa: E731
                 q, k, v, block_q=bq, block_kv=bkv, causal=True, scale=None,
                 return_lse=True)
@@ -2803,16 +2832,19 @@ def train_times_phase(torch, dev, kmm, kfa):
             # recompute S, then dP, dV, dQ, dK: five products
             flops = 10.0 * B * H * pairs * d
             nbytes = elem * d * S * B * (4 * H + 4 * Hkv) + 4 * B * H * S
-        if key != "flash_attention@train":
+        if not forward:
             plan = kfa.plan_attention_bwd(S, S, d, batch=B, heads=H,
                                           kv_heads=Hkv, in_dtype=dtype)
             extra = {"plan": dataclasses.asdict(plan)}
+        elif dtype == "float32":
+            extra = {"plan": dataclasses.asdict(kfa.plan_attention_f32(
+                S, d, batch=B, heads=H))}
         else:
             extra = {"blocks": [bq, bkv]}
         row = {"row": key, "q": [B, H, S, d], "kv": [B, Hkv, S, d],
                "dtype": dtype, **extra, "ms": time_ms(kern),
                "plain_ms": event_ms(torch, plain),
-               "library_ms": (time_ms(library) if key == "flash_attention@train"
+               "library_ms": (time_ms(library) if forward
                               else device_ms(torch, library))}
         row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peak)
         rows.append(row)

@@ -62,13 +62,20 @@
 //    memory (the dead Q tile, in the output map's swizzle) with a TMA
 //    store, which clips rows past Sq.
 //
-// f32 inputs take a second kernel, flash_fwd_kernel_f32, that computes the
-// same function in full f32 on the CUDA cores (tf32 wgmma keeps ten
-// mantissa bits, too few for the f32 tolerance): one CTA of four warps per
-// 16 q rows, a warp per four rows; a 32-key block of K and V staged in
-// shared memory, each lane scoring one key against the warp's rows and
-// owning d / 32 output columns of each row.  It is bound by its f32 FMA
-// rate; it is the plain, right kernel of the f32 models, not a fast one.
+// f32 inputs take a second kernel, flash_fwd_tf32x3 (below), that computes
+// the same function on the tensor cores with every product in split TF32
+// (csrc/tf32x3.cuh: one TF32 product keeps ten mantissa bits, too few for
+// the f32 tolerance; three meet it), on mma.sync.m16n8k8: tf32 wgmma takes
+// B only K-major, and P V's B is V in its [key][d] layout.  One CTA of 8
+// warps per (64 q rows, head, batch), the heaviest causal block first; Q
+// loaded once, (K, V) through a 2-stage cp.async ring of 64 keys (32 past
+// a padded d of 128); two warps share each 16-row group, each taking half
+// of every stage's keys with its own online softmax, and their (m, l, O)
+// are merged in a fixed order at the end.  At zamba2-7b's f32 prefill
+// (causal, 32 heads of 474 x 112) the products are 1.6e9 flop, 0.0098 ms
+// at a third of the 495 TFLOP/s TF32 peak; what bounds the kernel is the
+// longest CTA's chain of 8 dependent kv steps and a grid of 256 CTAs about
+// two deep on the 132 SMs.
 //
 // Both forward kernels can also write the row log-sum-exp of the scaled
 // scores, lse (B, H, Sq) f32 in natural units (+inf for a row with no
@@ -588,167 +595,310 @@ cudaError_t launch_dp(int block_q, int block_kv, const Operands& a,
 }
 
 // ---------------------------------------------------------------------------
-// f32: the same function in full f32 on the CUDA cores.
+// f32 on the tensor cores: split-TF32 products (tf32x3.cuh, mma.sync) over
+// f32 tiles whose rows are the head dim padded to DP + 4 floats (ld % 32 ==
+// 4: fragment loads across rows and across columns are free of bank
+// conflicts), loaded by cp.async, 16 bytes a copy, zero-filled past S and
+// past d.  The forward here, the backward's kernels further down.
 // ---------------------------------------------------------------------------
 
-constexpr int kF32Rows = 16;   // q rows a CTA
-constexpr int kF32Warps = 4;   // a warp owns kF32Rows / kF32Warps rows
-constexpr int kF32Keys = 32;   // keys a block: one a lane
+constexpr int kF32Threads = 256;  // an f32 CTA: 8 warps
+constexpr int kFwdF32Rows = 64;   // q rows an f32 forward CTA
 
-struct F32Params {
+// Rows [r0, r0 + R) of an (S, d) f32 matrix with row stride ss into an
+// [R][DP + 4] tile; rows past S and columns past d are zero-filled.
+template <int DP, int R>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              long long ss, int r0, int S,
+                                              int d) {
+  constexpr int kCpr = DP / 4;
+  for (int c = threadIdx.x; c < R * kCpr; c += kF32Threads) {
+    const int r = c / kCpr, col = (c - r * kCpr) * 4;
+    const bool ok = r0 + r < S && col < d;
+    cp_async16(dst + r * (DP + 4) + col,
+               ok ? src + static_cast<long long>(r0 + r) * ss + col : src,
+               ok);
+  }
+}
+
+// The forward's CTA: 64 q rows, four 16-row groups, each shared by two warps
+// that take the two halves of every ring stage's keys.  A stage holds 64
+// keys of K and of V up to DP 128 and 32 past it, so that the Q tile and two
+// stages fit 227 KB.
+template <int DP>
+struct FwdF32 {
+  static constexpr int kLd = DP + 4;
+  static constexpr int kRows = kFwdF32Rows;
+  static constexpr int kGroups = kRows / 16;
+  static constexpr int kSplits = kF32Threads / 32 / kGroups;
+  static constexpr int kKeys = DP <= 128 ? 64 : 32;
+  static constexpr int kWarpKeys = kKeys / kSplits;
+  static constexpr int kStages = 2;
+  // k8 steps of Q K^T unrolled together (past DP 128 O's accumulators
+  // leave no registers for more); two CTAs an SM where DP 64 lets them.
+  static constexpr int kUnroll = DP <= 128 ? 4 : 1;
+  static constexpr int kMinBlocks = DP <= 64 ? 2 : 1;
+  static constexpr int kStage = 2 * kKeys * kLd;  // K rows, then V rows
+  static constexpr size_t kSmem =
+      sizeof(float) * (kRows * kLd + kStages * kStage);
+  static_assert(DP % 64 == 0 && DP <= kMaxD, "DP: 64, 128, 192 or 256");
+  static_assert(kWarpKeys % 8 == 0, "a warp's keys: whole n8 / k8 blocks");
+  static_assert((kSplits - 1) * kRows <= kStages * 2 * kKeys,
+                "the key halves' merge fits the dead ring");
+  static_assert(kSmem <= 232448, "227 KB a CTA");
+};
+
+struct FwdF32Params {
   int B, H, Hkv, Sq, Skv, kv_len, causal, n_qb, d;
-  float scale;
-  float* lse;  // (B, H, Sq) or null
+  float scale_log2;  // softmax scale * log2(e): exponentials run in base 2
+  float* lse;        // (B, H, Sq) or null
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
 };
 
-template <int DC>
-constexpr size_t f32_smem() {  // Q rows, K (rows padded by one), V
-  return sizeof(float) * (kF32Rows * 32 * DC + kF32Keys * (32 * DC + 1) +
-                          kF32Keys * 32 * DC);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o /= 2)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o /= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// DC output columns a lane (d <= 32 DC).  Lane j scores key k0 + j against
-// the warp's rows (K rows padded to DP + 1 floats: the 32 lanes read 32
-// banks); the online softmax reduces across the warp; then each lane adds
-// P V into its own columns c = 32 cc + lane, P broadcast by shuffles.  The
-// -inf guards and the l = 0 rows are the TPU kernel's, as above.
-template <int DC>
-__global__ void __launch_bounds__(32 * kF32Warps)
-    flash_fwd_kernel_f32(const float* __restrict__ q,
-                         const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ o,
-                         const F32Params p) {
-  constexpr int DP = 32 * DC;
-  constexpr int RPW = kF32Rows / kF32Warps;
-  extern __shared__ float f32_smem_raw[];
-  float* qs = f32_smem_raw;                  // [kF32Rows][DP]
-  float* ks = qs + kF32Rows * DP;            // [kF32Keys][DP + 1]
-  float* vs = ks + kF32Keys * (DP + 1);      // [kF32Keys][DP]
+// One CTA per (64 q rows, head, batch), the heaviest causal block first.
+// Warp w holds q rows 16 (w % 4) .. + 15 and keys (w / 4) KW .. + KW - 1 of
+// every stage, and runs its own online softmax over them: S = Q K^T in
+// split TF32 (Q from the tile loaded once, K as K-major B), the row max and
+// sum across the quad in base 2 (masked only where the warp's keys cross
+// the key end or its rows' causal diagonal), then O = alpha O + P V with P
+// turned from the S accumulator into the A fragment in registers and V's
+// rows as the row-indexed B, into a fresh accumulator added by a rounded
+// f32 add.  At the end the second half's (m, l, O) go through the dead ring
+// and the first half merges them, always in that order: two launches are
+// bitwise equal.  The -inf guards are the TPU kernel's: a row with no valid
+// key keeps m = -inf and alpha = 0; a row whose l stays 0 writes zeros and
+// lse = +inf.
+template <int DP>
+__global__ void __launch_bounds__(kF32Threads, FwdF32<DP>::kMinBlocks)
+    flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     const FwdF32Params p) {
+  using F = FwdF32<DP>;
+  constexpr int LD = F::kLd, KB = F::kKeys, KW = F::kWarpKeys, NK = KW / 8,
+                NC = DP / 8;
+  extern __shared__ __align__(16) unsigned char tf32_smem[];
+  float* q_s = reinterpret_cast<float*>(tf32_smem);
+  float* ring = q_s + F::kRows * LD;
 
   const int heads = p.H * p.B;
   const int step = blockIdx.x / heads, hb = blockIdx.x - step * heads;
   const int qb = p.causal ? p.n_qb - 1 - step : step;
   const int h = hb % p.H, b = hb / p.H;
   const int hk = h / (p.H / p.Hkv);
-  const int q0 = qb * kF32Rows, d = p.d;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const float* qg = q + b * p.q_sb + h * p.q_sh;
-  const float* kg = k + b * p.k_sb + hk * p.k_sh;
-  const float* vg = v + b * p.v_sb + hk * p.v_sh;
-  float* og = o + b * p.o_sb + h * p.o_sh;
-
-  for (int i = tid; i < kF32Rows * DP; i += 32 * kF32Warps) {
-    const int r = i / DP, c = i % DP;
-    qs[i] = q0 + r < p.Sq && c < d
-                ? qg[static_cast<long long>(q0 + r) * p.q_ss + c]
-                : 0.0f;
-  }
+  const int q0 = qb * F::kRows;
   const int kv_lim = min(p.Skv, p.kv_len);
-  int n_blocks = kv_lim > 0 ? (kv_lim + kF32Keys - 1) / kF32Keys : 0;
-  if (p.causal)
-    n_blocks = min(n_blocks, (min(q0 + kF32Rows, p.Sq) - 1) / kF32Keys + 1);
+  int n_kb = kv_lim > 0 ? (kv_lim + KB - 1) / KB : 0;
+  if (p.causal) n_kb = min(n_kb, (min(q0 + F::kRows, p.Sq) - 1) / KB + 1);
 
-  float m[RPW], l[RPW], acc[RPW][DC];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    m[r] = -CUDART_INF_F;
-    l[r] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[r][c] = 0.0f;
-  }
-  const float* qw = qs + warp * RPW * DP;
-  for (int kb = 0; kb < n_blocks; ++kb) {
-    const int k0 = kb * kF32Keys;
-    __syncthreads();  // the previous block's K and V are read
-    for (int i = tid; i < kF32Keys * DP; i += 32 * kF32Warps) {
-      const int j = i / DP, c = i % DP;
-      const bool in = k0 + j < p.Skv && c < d;
-      ks[j * (DP + 1) + c] =
-          in ? kg[static_cast<long long>(k0 + j) * p.k_ss + c] : 0.0f;
-      vs[i] = in ? vg[static_cast<long long>(k0 + j) * p.v_ss + c] : 0.0f;
-    }
-    __syncthreads();
+  const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
+  const int rg = warp % F::kGroups, kh = warp / F::kGroups;
+  const float* kbase = k + b * p.k_sb + hk * p.k_sh;
+  const float* vbase = v + b * p.v_sb + hk * p.v_sh;
+  auto load_step = [&](int kb, int stage) {
+    float* k_s = ring + stage * F::kStage;
+    load_rows_f32<DP, KB>(k_s, kbase, p.k_ss, kb * KB, p.Skv, p.d);
+    load_rows_f32<DP, KB>(k_s + KB * LD, vbase, p.v_ss, kb * KB, p.Skv, p.d);
+  };
+  load_rows_f32<DP, F::kRows>(q_s, q + b * p.q_sb + h * p.q_sh, p.q_ss, q0,
+                              p.Sq, p.d);
+  if (n_kb > 0) load_step(0, 0);
+  cp_async_commit();
 
-    float sc[RPW];
+  const int row0 = q0 + 16 * rg + g;  // the thread's rows row0, row0 + 8
+  const float* qr = q_s + 16 * rg * LD;
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.0f, 0.0f};  // the thread's partial row sums
+  float acc[NC][4];
 #pragma unroll
-    for (int r = 0; r < RPW; ++r) sc[r] = 0.0f;
-    const float* kr = ks + lane * (DP + 1);
-    for (int c = 0; c < d; ++c) {
-      const float kv = kr[c];
+  for (int c = 0; c < NC; ++c)
 #pragma unroll
-      for (int r = 0; r < RPW; ++r) sc[r] = fmaf(qw[r * DP + c], kv, sc[r]);
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+
+  for (int kb = 0; kb < n_kb; ++kb) {
+    cp_async_wait<0>();
+    __syncthreads();  // stage kb has landed; stage kb - 1 is read
+    if (kb + 1 < n_kb) load_step(kb + 1, (kb + 1) % F::kStages);
+    cp_async_commit();
+    const int k0 = kb * KB + kh * KW;  // the warp's first key
+    const float* k_s = ring + (kb % F::kStages) * F::kStage + kh * KW * LD;
+    const float* v_s = k_s + KB * LD;
+
+    // S = Q K^T over the warp's 16 rows and KW keys.
+    float s[NK][4];
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll (F::kUnroll)
+    for (int kk = 0; kk < DP; kk += 8) {
+      if (kk >= p.d) break;
+      FragA fq;
+      load_a_rows(fq, qr + kk, LD, g, t);
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        FragB fb;
+        load_b_rows(fb, k_s + 8 * j * LD + kk, LD, g, t);
+        mma_tf32x3(s[j], fq, fb);
+      }
     }
-    const int key = k0 + lane;
-    float pv[RPW];
+
+    // The online softmax, base 2: P = exp2(S scale log2(e) - m) in place.
+    const bool edge =
+        k0 + KW > kv_lim || (p.causal && k0 + KW - 1 > q0 + 16 * rg);
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-      const int row = q0 + warp * RPW + r;
-      const bool valid = key < kv_lim && (!p.causal || row >= key);
-      const float x = valid ? sc[r] * p.scale : -CUDART_INF_F;
-      const float m_new = fmaxf(m[r], warp_max(x));
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * p.scale_log2;
+        if (edge) {
+          const int key = k0 + 8 * j + 2 * t + (e & 1);
+          if (key >= kv_lim || (p.causal && row0 + 8 * (e >> 1) < key))
+            x = -CUDART_INF_F;
+        }
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
       const float safe = m_new == -CUDART_INF_F ? 0.0f : m_new;
-      const float alpha = m[r] == -CUDART_INF_F ? 0.0f : expf(m[r] - safe);
-      pv[r] = valid ? expf(x - safe) : 0.0f;
-      l[r] = l[r] * alpha + warp_sum(pv[r]);
+      alpha[r] = m[r] == -CUDART_INF_F ? 0.0f : exp2f(m[r] - safe);
       m[r] = m_new;
+      float sum = 0.0f;
 #pragma unroll
-      for (int c = 0; c < DC; ++c) acc[r][c] *= alpha;
+      for (int j = 0; j < NK; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pv = exp2f(s[j][2 * r + e] - safe);  // 0 at -inf
+          s[j][2 * r + e] = pv;
+          sum += pv;
+        }
+      l[r] = l[r] * alpha[r] + sum;
     }
-#pragma unroll 4
-    for (int j = 0; j < kF32Keys; ++j) {
-      float vv[DC];
+
+    // O = alpha O + P V.
+    FragA fa[NK];
 #pragma unroll
-      for (int c = 0; c < DC; ++c) vv[c] = vs[j * DP + 32 * c + lane];
+    for (int j = 0; j < NK; ++j) ka_from_acc(fa[j], s[j]);
 #pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const float pj = __shfl_sync(0xffffffffu, pv[r], j);
+    for (int c = 0; c < NC; ++c) {
+      if (8 * c >= p.d) continue;
+      float part[4];
 #pragma unroll
-        for (int c = 0; c < DC; ++c) acc[r][c] = fmaf(pj, vv[c], acc[r][c]);
+      for (int j = 0; j < NK; ++j) {
+        FragB fb;
+        load_b_cols_pairs(fb, v_s + 8 * j * LD + 8 * c, LD, g, t);
+        if (j == 0)
+          mma_tf32x3_fresh(part, fa[j], fb);
+        else
+          mma_tf32x3(part, fa[j], fb);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[c][e] = acc[c][e] * alpha[e >> 1] + part[e];
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: it takes the merge
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  // Key split kh > 0 leaves its rows' O, m and l (columns DP, DP + 1 of the
+  // padded row) in slot kh - 1 of the ring; split 0 merges the slots in
+  // order.
+  if (kh > 0) {
+    float* slot = ring + (kh - 1) * F::kRows * LD + 16 * rg * LD;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float* row = slot + (g + 8 * r) * LD;
+#pragma unroll
+      for (int c = 0; c < NC; ++c)
+        *reinterpret_cast<float2*>(row + 8 * c + 2 * t) =
+            make_float2(acc[c][2 * r], acc[c][2 * r + 1]);
+      if (t == 0) {
+        row[DP] = m[r];
+        row[DP + 1] = l[r];
       }
     }
   }
+  __syncthreads();
+  if (kh > 0) return;
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int row = q0 + warp * RPW + r;
+  for (int sp = 1; sp < F::kSplits; ++sp) {
+    const float* slot = ring + (sp - 1) * F::kRows * LD + 16 * rg * LD;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float* row = slot + (g + 8 * r) * LD;
+      const float mb = row[DP], lb = row[DP + 1];
+      const float mn = fmaxf(m[r], mb);
+      const float fa = m[r] == -CUDART_INF_F ? 0.0f : exp2f(m[r] - mn);
+      const float fb = mb == -CUDART_INF_F ? 0.0f : exp2f(mb - mn);
+      m[r] = mn;
+      l[r] = l[r] * fa + lb * fb;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        if (8 * c >= p.d) continue;
+        const float2 ob =
+            *reinterpret_cast<const float2*>(row + 8 * c + 2 * t);
+        acc[c][2 * r] = acc[c][2 * r] * fa + ob.x * fb;
+        acc[c][2 * r + 1] = acc[c][2 * r + 1] * fa + ob.y * fb;
+      }
+    }
+  }
+
+  // Divide by l and store two floats a thread a column block; lse = m ln 2
+  // + ln l (m is in base-2 units of the scaled scores).
+  float* og = o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
     if (row >= p.Sq) continue;
-    const float denom = l[r] > 0.0f ? l[r] : 1.0f;
-    if (p.lse != nullptr && lane == 0)
+    const float inv = l[r] > 0.0f ? 1.0f / l[r] : 0.0f;
+    if (p.lse != nullptr && t == 0)
       p.lse[(static_cast<size_t>(b) * p.H + h) * p.Sq + row] =
-          l[r] > 0.0f ? m[r] + logf(l[r]) : CUDART_INF_F;
+          l[r] > 0.0f ? m[r] * kLn2 + logf(l[r]) : CUDART_INF_F;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int col = 32 * c + lane;
-      if (col < d)
-        og[static_cast<long long>(row) * p.o_ss + col] = acc[r][c] / denom;
+    for (int c = 0; c < NC; ++c) {
+      const int col = 8 * c + 2 * t;
+      if (col < p.d)
+        *reinterpret_cast<float2*>(og + row * p.o_ss + col) =
+            make_float2(acc[c][2 * r] * inv, acc[c][2 * r + 1] * inv);
     }
   }
 }
 
-template <int DC>
-cudaError_t launch_f32(const float* q, const float* k, const float* v,
-                       float* o, const F32Params& p, cudaStream_t stream) {
-  constexpr size_t smem = f32_smem<DC>();
-  static const cudaError_t opted = opt_in_smem(flash_fwd_kernel_f32<DC>, smem);
+// The launch at DP; `q_rows`, `kv_rows`, `ctas` and `smem` are the caller's
+// plan and must be this instantiation's.
+template <int DP>
+cudaError_t launch_fwd_tf32x3(const float* q, const float* k, const float* v,
+                              float* o, const FwdF32Params& p, int q_rows,
+                              int kv_rows, long long ctas, long long smem,
+                              cudaStream_t s) {
+  using F = FwdF32<DP>;
+  const long long grid = static_cast<long long>(p.n_qb) * p.H * p.B;
+  if (q_rows != F::kRows || kv_rows != F::kKeys || ctas != grid ||
+      smem != static_cast<long long>(F::kSmem))
+    return cudaErrorInvalidValue;
+  static const cudaError_t opted = opt_in_smem(flash_fwd_tf32x3<DP>, F::kSmem);
   if (opted != cudaSuccess) return opted;
-  const unsigned grid = static_cast<unsigned>(p.n_qb) * p.H * p.B;
-  flash_fwd_kernel_f32<DC><<<grid, 32 * kF32Warps, smem, stream>>>(q, k, v,
-                                                                   o, p);
+  flash_fwd_tf32x3<DP><<<static_cast<unsigned>(grid), kF32Threads, F::kSmem,
+                         s>>>(q, k, v, o, p);
   return cudaGetLastError();
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
 }
 
 bool valid_shape(int B, int H, int Hkv, int Sq, int Skv, int d, int block_q) {
@@ -1308,9 +1458,8 @@ cudaError_t launch_bwd_wgmma(const BwdOperands& a, const BwdTmaParams& p,
 // ---------------------------------------------------------------------------
 // f32 backward on the tensor cores: the bf16 route's structure with every
 // product in split TF32 (tf32x3.cuh, mma.sync) and the sums and the softmax
-// algebra in f32.  Tiles are f32 rows of the head dim padded to DP + 4
-// floats, loaded by cp.async (16-byte copies, zero-filled past S and past
-// d); one [row][d] tile serves as the K-major operand of Q K^T and dO V^T
+// algebra in f32, on the forward's f32 tiles (above); one [row][d] tile
+// serves as the K-major operand of Q K^T and dO V^T
 // (fragment loads across its rows) and as the row-indexed B of P^T dO,
 // dS^T Q and dS K (loads across its columns, k in the paired order of the
 // register A operand): P and dS never leave the registers and no tile is
@@ -1343,7 +1492,7 @@ struct BwdF32 {
   // q rows a dK/dV stage, keys a dQ stage
   static constexpr int kStep = DP <= 128 ? 64 : (DP <= 192 ? 32 : 16);
   static constexpr int kStages = 2;
-  static constexpr int kThreads = 256;
+  static constexpr int kThreads = kF32Threads;
   // k8 steps of a score product unrolled together: past DP 128 the
   // accumulators of the head dim leave no registers for more.
   static constexpr int kUnroll = DP <= 128 ? 4 : 1;
@@ -1360,23 +1509,6 @@ struct BwdF32 {
   static_assert(DP % 64 == 0 && DP <= kMaxD, "DP: 64, 128, 192 or 256");
   static_assert(kKVSmem <= 232448 && kQSmem <= 232448, "227 KB a CTA");
 };
-
-// Rows [r0, r0 + R) of an (S, d) f32 matrix with row stride ss into an
-// [R][DP + 4] tile, 16 bytes a copy; rows past S and columns past d are
-// zero-filled.
-template <int DP, int R>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
-                                              long long ss, int r0, int S,
-                                              int d) {
-  constexpr int kCpr = DP / 4;
-  for (int c = threadIdx.x; c < R * kCpr; c += BwdF32<DP>::kThreads) {
-    const int r = c / kCpr, col = (c - r * kCpr) * 4;
-    const bool ok = r0 + r < S && col < d;
-    cp_async16(dst + r * BwdF32<DP>::kLd + col,
-               ok ? src + static_cast<long long>(r0 + r) * ss + col : src,
-               ok);
-  }
-}
 
 // n floats (a multiple of 4) from global to shared memory.
 __device__ __forceinline__ void load_floats(float* dst, const float* src,
@@ -1837,27 +1969,46 @@ extern "C" int repro_flash_attention(
   return static_cast<int>(err);
 }
 
-// f32 q, k, v and o, element strides with a unit d stride.
+// f32 q, k, v and o on the split-TF32 kernel, element strides with a unit d
+// stride: cp.async reads q, k and v in place (16-byte aligned bases and
+// strides of 4 floats), o is written two floats a store (8-byte aligned
+// base, even strides).  The launch follows the caller's plan
+// (kernels/flash_attention.py::plan_attention_f32): q rows a CTA, keys a
+// ring stage, the grid and the shared bytes, each checked against the
+// instantiation that runs.
 extern "C" int repro_flash_attention_f32(
     const float* q, const float* k, const float* v, float* o, float* lse,
     long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, long long o_ss, int B,
     int H, int Hkv, int Sq, int Skv, int kv_len, int causal, float scale,
-    int d, void* stream) {
-  if (!valid_shape(B, H, Hkv, Sq, Skv, d, kF32Rows))
+    int d, int q_rows, int kv_rows, long long ctas, long long smem,
+    void* stream) {
+  const long long strides[9] = {q_sb, q_sh, q_ss, k_sb, k_sh,
+                                k_ss, v_sb, v_sh, v_ss};
+  bool aligned = reinterpret_cast<uintptr_t>(o) % 8 == 0;
+  for (long long st : strides) aligned = aligned && st >= 0 && st % 4 == 0;
+  for (long long st : {o_sb, o_sh, o_ss})
+    aligned = aligned && st >= 0 && st % 2 == 0;
+  for (const float* ptr : {q, k, v})
+    aligned = aligned && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+  if (!aligned || q_rows != kFwdF32Rows ||
+      !valid_shape(B, H, Hkv, Sq, Skv, d, kFwdF32Rows))
     return static_cast<int>(cudaErrorInvalidValue);
-  const F32Params p{B, H, Hkv, Sq, Skv, kv_len, causal,
-                    (Sq + kF32Rows - 1) / kF32Rows, d, scale, lse,
-                    q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
-                    o_sb, o_sh, o_ss};
+  const FwdF32Params p{B, H, Hkv, Sq, Skv, kv_len, causal,
+                       (Sq + kFwdF32Rows - 1) / kFwdF32Rows, d,
+                       scale * kLog2e, lse,
+                       q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
+                       o_sb, o_sh, o_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((d + 31) / 32) {
-#define REPRO_F32_CASE(DC_) \
-  case DC_: return static_cast<int>(launch_f32<DC_>(q, k, v, o, p, s));
-    REPRO_F32_CASE(1) REPRO_F32_CASE(2) REPRO_F32_CASE(3) REPRO_F32_CASE(4)
-    REPRO_F32_CASE(5) REPRO_F32_CASE(6) REPRO_F32_CASE(7) REPRO_F32_CASE(8)
-#undef REPRO_F32_CASE
+  switch ((d + 63) / 64) {
+#define REPRO_FWD_F32_CASE(N_)                                              \
+  case N_:                                                                  \
+    return static_cast<int>(launch_fwd_tf32x3<64 * N_>(                     \
+        q, k, v, o, p, q_rows, kv_rows, ctas, smem, s));
+    REPRO_FWD_F32_CASE(1) REPRO_FWD_F32_CASE(2) REPRO_FWD_F32_CASE(3)
+    REPRO_FWD_F32_CASE(4)
+#undef REPRO_FWD_F32_CASE
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,5 @@
 // Split-TF32 ("3xTF32") products on the tensor cores, shared by the f32
-// GEMM (csrc/matmul.cu) and the f32 flash-attention backward
+// GEMM (csrc/matmul.cu) and the f32 flash attention, forward and backward
 // (csrc/flash_attention.cu).
 //
 // A TF32 tensor-core product keeps ten mantissa bits of each operand, too
@@ -20,10 +20,10 @@
 // one H100, both summed in one accumulator).  The f32 GEMM runs the
 // products on wgmma (A from registers, B split into K-major hi / lo copies
 // in shared memory: tf32 wgmma takes B only K-major and no transpose),
-// the f32 flash backward on mma.sync.m16n8k8, whose fragments load from
-// shared memory in any layout: the backward's row operands of P^T dO,
+// the f32 flash forward and backward on mma.sync.m16n8k8, whose fragments
+// load from shared memory in any layout: the row operands of P V, P^T dO,
 // dS^T Q and dS K are MN-major, and P and dS start in registers.  Both
-// load their A fragments (the backward also its B fragments) with 32-bit
+// load their A fragments (flash also its B fragments) with 32-bit
 // shared-memory loads and split them in registers.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k8 with .tf32), lane = 4 g + t:

@@ -11,7 +11,9 @@ on the H100 and what its design does about that.
 :func:`flash_attention_kernel` takes the route from the device of q: a CPU
 tensor gets the plain version (``ref.attention_ref``), a CUDA tensor the
 kernel, and anything else raises.  On the card, bf16 q/k/v take the wgmma
-kernel and f32 q/k/v the f32 kernel of the same source, at any head dim in
+kernel and f32 q/k/v the split-TF32 kernel of the same source (route
+"tf32x3", mma.sync; :func:`plan_attention_f32` holds its tiles, grid and
+shared bytes, which the C entry checks), at any head dim in
 :data:`HEAD_DIMS`; any other head dim or dtype raises.  With
 ``return_lse`` it also returns the rows' log-sum-exp, which
 :func:`flash_attention_bwd_kernel` (the backward: the delta, dK/dV and dQ
@@ -263,13 +265,55 @@ def select_attention_blocks(
 ) -> Tuple[int, int]:
     """Analytical (block_q, block_kv) for the Hopper kernel, with zero
     autotuning: :func:`plan_attention`'s pair.  The legal set is the
-    kernel's (:func:`legal_blocks`; the tiles are bf16 whatever
-    ``in_dtype`` prices, and the f32 kernel runs its own fixed tiles);
-    (64, 64) is legal for every d up to 256, so a pair always exists."""
+    bf16 kernel's (:func:`legal_blocks`; the tiles are bf16 whatever
+    ``in_dtype`` prices); (64, 64) is legal for every d up to 256, so a
+    pair always exists.  The f32 kernel ignores the pair and runs the
+    tiles of :func:`plan_attention_f32`."""
     plan = plan_attention(s_q, s_kv, head_dim, batch=batch, heads=heads,
                           kv_heads=kv_heads, in_dtype=in_dtype, hw=hw,
                           causal=causal)
     return plan.block_q, plan.block_kv
+
+
+# The f32 forward (``flash_fwd_tf32x3`` in csrc/flash_attention.cu): split-TF32
+# products on mma.sync over f32 tiles of the head dim padded to DP + 4
+# floats; a CTA of 8 warps per 64 q rows, two warps a 16-row group, each
+# taking half of every ring stage's keys; (K, V) through a 2-stage ring.
+FWD_F32_Q_ROWS = 64       # q rows an f32 forward CTA
+_FWD_F32_STAGES = 2
+
+
+def fwd_f32_kv_rows(head_dim: int) -> int:
+    """Keys a ring stage of the f32 forward (csrc ``FwdF32::kKeys``): 64,
+    and 32 past a padded head dim of 128, so that the Q tile and two stages
+    fit 227 KB."""
+    return 64 if padded_head_dim(head_dim) <= 128 else 32
+
+
+@dataclass(frozen=True)
+class FwdF32Plan:
+    """The f32 forward's launch, every field of which the C entry checks
+    against the instantiation it runs: the route, the CTA's ``q_block`` q
+    rows, a ring stage's ``kv_block`` keys, the grid and the shared bytes."""
+    route: str
+    q_block: int
+    kv_block: int
+    ctas: int
+    smem: int
+
+
+def plan_attention_f32(s_q: int, head_dim: int, *, batch: int = 1,
+                       heads: int = 1) -> FwdF32Plan:
+    """The f32 forward's launch at these shapes: one CTA per (64 q rows,
+    head, batch) whatever the key length and the GQA group; shared memory holds
+    the Q tile and two stages of K and V rows, each row the padded head dim
+    plus 4 floats."""
+    check_head_dim(head_dim)
+    ld = padded_head_dim(head_dim) + 4
+    kv = fwd_f32_kv_rows(head_dim)
+    smem = 4 * (FWD_F32_Q_ROWS + _FWD_F32_STAGES * 2 * kv) * ld
+    return FwdF32Plan("tf32x3", FWD_F32_Q_ROWS, kv,
+                      cdiv(s_q, FWD_F32_Q_ROWS) * batch * heads, smem)
 
 
 # The backward (``flash_bwd_*`` in csrc/flash_attention.cu).  bf16: a dK/dV
@@ -386,7 +430,8 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     (B, H, Sq, d) in q's dtype, and with ``return_lse`` also the rows'
     log-sum-exp of the scaled scores, (B, H, Sq) f32 (+inf where a row sees
     no key).  ``block_q``/``block_kv`` tile the bf16 kernel; the f32 kernel
-    runs 16-row q blocks and 32-key kv blocks."""
+    runs the tiles of :func:`plan_attention_f32` (64-row q blocks, ring
+    stages of 64 keys, 32 past a padded head dim of 128)."""
     if q.device.type == "cpu":
         return attention_plain(q, k, v, block_q=block_q, block_kv=block_kv,
                                causal=causal, scale=scale,
@@ -546,13 +591,12 @@ def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale,
         raise ValueError(f"flash_attention: blocks ({block_q}, {block_kv}) "
                          f"not in {BLOCK_MENU}")
     f32 = q.dtype == torch.float32
-    if not f32:
-        if not legal_blocks(block_q, block_kv, d):
-            raise ValueError(f"flash_attention: blocks ({block_q}, "
-                             f"{block_kv}) exceed the kernel's budgets at "
-                             f"head_dim {d}")
-        # TMA reads q, k and v (any strides, v may be a transposed view).
-        check_tma_operands("flash_attention", q=q, k=k, v=v)
+    if not f32 and not legal_blocks(block_q, block_kv, d):
+        raise ValueError(f"flash_attention: blocks ({block_q}, {block_kv}) "
+                         f"exceed the kernel's budgets at head_dim {d}")
+    # TMA (bf16) and cp.async (f32) read q, k and v in place (v may be a
+    # transposed view).
+    check_tma_operands("flash_attention", q=q, k=k, v=v)
     # Output laid out (B, Sq, H, d): the model's head merge is then a view.
     out = torch.empty((B, Sq, H, d), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
@@ -563,20 +607,26 @@ def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale,
     lib = build.load("flash_attention")
     fn = lib.repro_flash_attention_f32 if f32 else lib.repro_flash_attention
     if fn.argtypes is None:
-        tail = [ctypes.c_int] * 7 + [ctypes.c_float] \
-            + ([ctypes.c_int] if f32 else [ctypes.c_int] * 3) \
-            + [ctypes.c_void_p]
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12 + tail
+        tail = ([ctypes.c_int] * 3 + [ctypes.c_longlong] * 2 if f32
+                else [ctypes.c_int] * 3)
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12 \
+            + [ctypes.c_int] * 7 + [ctypes.c_float] + tail + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    blocks = () if f32 else (block_q, block_kv)
+    if f32:
+        plan = plan_attention_f32(Sq, d, batch=B, heads=H)
+        tiles = (d, plan.q_block, plan.kv_block, plan.ctas, plan.smem)
+        what = f"plan {plan}"
+    else:
+        tiles = (block_q, block_kv, d)
+        what = f"blocks ({block_q}, {block_kv})"
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   lse.data_ptr() if lse is not None else None,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *out.stride()[:3], B, H, Hkv, Sq, Skv, Skv, int(causal),
-                  float(scale), *blocks, d,
+                  float(scale), *tiles,
                   torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, code, f"flash_attention {q.dtype} q{tuple(q.shape)} "
-                           f"k{tuple(k.shape)} blocks ({block_q}, {block_kv})")
+                           f"k{tuple(k.shape)} {what}")
     flash_attention_kernel.launches += 1
     return (out, lse) if return_lse else out

@@ -351,7 +351,9 @@ def test_flash_kernel_on_card(cuda, B, H, Hkv, S, causal, blocks, model_v):
 # Every head dim of both registries at full and smoke size (16, 32, 64, 112,
 # 128, 160) and the rule's ends (8, 256), in bf16 and f32, GQA and not,
 # causal and not.  f32 is held at the attention f32 tolerance (rtol 1e-4,
-# atol 2e-5: the kernel computes in full f32); bf16 as above.
+# atol 2e-5: the kernel takes every product in split TF32, three TF32
+# products of split operands, with the softmax and the sums in f32); bf16
+# as above.
 HEAD_DIM_CASES = [(d, dt, causal, heads)
                   for d in (8, 16, 32, 64, 112, 128, 160, 256)
                   for dt in (torch.bfloat16, torch.float32)
@@ -400,6 +402,50 @@ def test_flash_kernel_every_head_dim_on_card(cuda, d, dtype, causal, heads):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("d", (8, 16, 32, 64, 112, 128, 160, 256))
+@pytest.mark.parametrize("S,causal,heads", [(77, True, (4, 2)),
+                                            (77, False, (4, 4)),
+                                            (40, True, (4, 2))], ids=str)
+def test_flash_f32_ragged_every_head_dim_on_card(cuda, d, S, causal, heads):
+    """The split-TF32 forward at a ragged S (77: no multiple of the 64-row
+    q block or of a ring stage's 64 or 32 keys, the last stage straddling
+    the causal diagonal and the key end; 40: under one block), out and lse
+    against the plain version, two launches bitwise equal."""
+    H, Hkv = heads
+    q, k, v = _attn_case(cuda, 2, H, Hkv, S, d, torch.float32, seed=d + S,
+                         model_v=causal)
+    n0 = kfa.flash_attention_kernel.launches
+    got, lse = kfa.flash_attention_kernel(q, k, v, block_q=64, block_kv=64,
+                                          causal=causal, return_lse=True)
+    again, lse2 = kfa.flash_attention_kernel(q, k, v, block_q=64,
+                                             block_kv=64, causal=causal,
+                                             return_lse=True)
+    want, lse_p = kfa.attention_plain(q, k, v, block_q=64, block_kv=64,
+                                      causal=causal, return_lse=True)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention_kernel.launches == n0 + 2
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+    torch.testing.assert_close(got, want, **_attn_tol(torch.float32))
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_f32_unaligned_view_raises(cuda):
+    """cp.async reads q, k and v in place: a view whose base or strides are
+    not 16-byte multiples raises instead of falling back or copying."""
+    q, k, v = _attn_case(cuda, 1, 4, 4, 64, 64, torch.float32, seed=5)
+    flat = torch.randn(q.numel() + 1, device=cuda)
+    shifted = flat[1:].view(q.shape)            # base 4 bytes off
+    n0 = kfa.flash_attention_kernel.launches
+    with pytest.raises(ValueError, match="not aligned"):
+        kfa.flash_attention_kernel(shifted, k, v, block_q=64, block_kv=64)
+    odd = torch.randn((1, 4, 64, 66), device=cuda)[..., :64]   # row 66 floats
+    with pytest.raises(ValueError, match="not aligned"):
+        kfa.flash_attention_kernel(q, k, odd, block_q=64, block_kv=64)
+    assert kfa.flash_attention_kernel.launches == n0
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("d", [112, 160])
 def test_flash_every_legal_block_pair_at_odd_head_dims(cuda, d):
     """zamba2's (d 112) and stablelm's (d 160) head dims, whose last
@@ -421,8 +467,9 @@ def test_flash_every_legal_block_pair_at_odd_head_dims(cuda, d):
 
 @pytest.mark.gpu
 def test_f32_flash_route_never_reaches_the_plain_version(cuda, monkeypatch):
-    """An f32 model's prefill attention on the card launches the f32
-    kernel: the plain version is not called, and a launch is counted."""
+    """An f32 model's prefill attention on the card launches the
+    split-TF32 kernel: the plain version is not called, and a launch is
+    counted."""
     from repro_torch.kernels import ref
 
     def refuse(*a, **kw):

@@ -1,17 +1,18 @@
 """The f32 routes' split-TF32 products and the calibration probes' timed
 form, on the CPU.
 
-The f32 GEMM (``csrc/matmul.cu``) and the f32 flash-attention backward
-(``csrc/flash_attention.cu``) compute every product as three TF32
-tensor-core products of split operands (``csrc/tf32x3.cuh``).  The
+The f32 GEMM (``csrc/matmul.cu``) and the f32 flash attention, forward and
+backward (``csrc/flash_attention.cu``), compute every product as three
+TF32 tensor-core products of split operands (``csrc/tf32x3.cuh``).  The
 kernels run only on the card; here a plain PyTorch emulation of that
 rounding (a test helper, on no path of the port; for the GEMM also with
 a model of the tensor cores' accumulator, which rounds toward zero
 within a 32-deep slab's products) is held against the JAX package's f32
 reference, so the error budget is shown before the card: the GEMM at
 zamba2-7b's K within ``tests/test_kernels.py``'s f32 GEMM tolerance
-(rtol 1e-5 / atol 1e-4·√K), the attention backward at small widths
-within its f32 attention tolerance (rtol 1e-4 / atol 2e-5).  One TF32
+(rtol 1e-5 / atol 1e-4·√K), the attention forward (out and lse, with the
+kernel's tiles, key halves and -inf guards) and backward at small widths
+within the f32 attention tolerance (rtol 1e-4 / atol 2e-5).  One TF32
 product alone misses the GEMM tolerance, which is why the kernels take
 three, and so does one accumulator over the whole K, which is why they
 add each 32-deep slab's sum to a running f32 sum.
@@ -154,6 +155,109 @@ def test_split_tf32_gemm_meets_the_f32_tolerance_at_zamba2_k(K):
 
 
 # ---------------------------------------------------------------------------
+# The attention forward as the split-TF32 kernel computes it: S = Q K^T in
+# split TF32, scaled into base 2 in f32; each of the CTA's key halves runs
+# its own online softmax over its share of every ring stage (the -inf
+# guards: a row with no valid key keeps m = -inf and alpha = 0), adding
+# alpha O and P V (P split as the A operand) a stage at a time; the halves
+# merge in order, then O / l and lse = m ln 2 + ln l (+inf where l is 0).
+# ---------------------------------------------------------------------------
+
+LOG2E, LN2 = 1.4426950408889634, 0.6931471805599453
+
+
+def _exp2_guarded(x, ref):
+    """exp2(x - ref), 0 where x is -inf (a masked score or an empty row's
+    m) whatever ref is."""
+    safe = torch.where(ref == float("-inf"), torch.zeros_like(ref), ref)
+    return torch.where(x == float("-inf"), torch.zeros_like(x),
+                       torch.exp2(x - safe))
+
+
+def attention_fwd_tf32x3(q, k, v, *, causal, scale, kv_rows, splits=2,
+                         mm=mm_tf32x3):
+    """(o, lse) of the f32 forward kernel: keys in ring stages of
+    ``kv_rows``, each stage's keys split into ``splits`` warp shares;
+    ``mm`` takes both products (``mm_tf32``: one TF32 product each)."""
+    B, H, Sq, d = q.shape
+    Skv = k.shape[2]
+    rep = H // k.shape[1]
+    kk, vv = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
+    scale_log2 = float(np.float32(scale) * np.float32(LOG2E))
+    s = mm(q, kk.transpose(-1, -2)) * scale_log2
+    keep = torch.ones((Sq, Skv), dtype=torch.bool)
+    if causal:
+        keep = torch.tril(keep)
+    s = s.masked_fill(~keep, float("-inf"))
+    kw = kv_rows // splits
+    halves = []
+    for sp in range(splits):
+        m = torch.full((B, H, Sq, 1), float("-inf"))
+        l = torch.zeros((B, H, Sq, 1))
+        o = torch.zeros((B, H, Sq, d))
+        for k0 in range(sp * kw, Skv, kv_rows):
+            blk, vb = s[..., k0:k0 + kw], vv[..., k0:k0 + kw, :]
+            m_new = torch.maximum(m, blk.amax(-1, keepdim=True))
+            alpha = _exp2_guarded(m, m_new)
+            p = _exp2_guarded(blk, m_new)
+            l = l * alpha + p.sum(-1, keepdim=True)
+            o = o * alpha + mm(p, vb)
+            m = m_new
+        halves.append((m, l, o))
+    m, l, o = halves[0]
+    for mb, lb, ob in halves[1:]:
+        mn = torch.maximum(m, mb)
+        fa, fb = _exp2_guarded(m, mn), _exp2_guarded(mb, mn)
+        m, l, o = mn, l * fa + lb * fb, o * fa + ob * fb
+    live = l > 0
+    inv = torch.where(live, 1.0 / torch.where(live, l, torch.ones_like(l)),
+                      torch.zeros_like(l))
+    lse = torch.where(live, m * LN2 + torch.log(torch.where(
+        live, l, torch.ones_like(l))), torch.full_like(l, float("inf")))
+    return o * inv, lse[..., 0]
+
+
+@pytest.mark.parametrize("d", [8, 64, 112, 256])
+@pytest.mark.parametrize("causal,Hkv,S", [(True, 2, 150), (False, 4, 150),
+                                          (True, 2, 77), (False, 2, 40)],
+                         ids=str)
+def test_split_tf32_attention_fwd_meets_the_f32_tolerance(d, causal, Hkv, S):
+    """Out against the JAX reference and lse against a float64 logsumexp
+    of the scaled, masked scores, at the kernel's tiles (64-row q blocks,
+    ring stages of 64 keys, 32 past a padded d of 128): causal with GQA,
+    non-causal, an S that is no multiple of either block (77: the last
+    stage straddles the causal diagonal and the key end), and an S under
+    one block.  Under causal the first rows' second key half sees no key
+    in the first stage: its m stays -inf up to the merge."""
+    B, H = 1, 4
+    r = _rng(d + 10 * Hkv + S)
+    q = r.standard_normal((B, H, S, d)).astype(np.float32)
+    k, v = (r.standard_normal((B, Hkv, S, d)).astype(np.float32)
+            for _ in range(2))
+    plan = kfa.plan_attention_f32(S, d, batch=B, heads=H)
+    assert S % plan.q_block and S % plan.kv_block
+    got, lse = attention_fwd_tf32x3(*(torch.from_numpy(x) for x in (q, k, v)),
+                                    causal=causal, scale=d ** -0.5,
+                                    kv_rows=plan.kv_block)
+    want = np.asarray(jops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        backend="reference"))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=2e-5)
+    # One TF32 product each misses the tolerance: why the kernel takes three.
+    one, _ = attention_fwd_tf32x3(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal=causal,
+        scale=d ** -0.5, kv_rows=plan.kv_block, mm=mm_tf32)
+    assert np.any(np.abs(one.numpy() - want) > 2e-5 + 1e-4 * np.abs(want))
+    kk = np.repeat(k.astype(np.float64), H // Hkv, axis=1)
+    s64 = q.astype(np.float64) @ kk.transpose(0, 1, 3, 2) * d ** -0.5
+    if causal:
+        s64 = np.where(np.tril(np.ones((S, S), bool)), s64, -np.inf)
+    mx = s64.max(-1, keepdims=True)
+    lse64 = (mx + np.log(np.exp(s64 - mx).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), lse64, rtol=1e-4, atol=2e-5)
+
+
+# ---------------------------------------------------------------------------
 # The attention backward at small widths: every product (S, dP, dV, dK, dQ)
 # in split TF32, the softmax algebra in f32, from the f32 forward's o and
 # lse, as the kernels compute it.
@@ -258,6 +362,27 @@ def test_f32_gemm_tiling_covers_the_menu():
                 assert t.smem <= SMEM_MAX
                 assert t.stages == 8 or t.smem + stage > SMEM_MAX
     assert seen == {(1, 32), (1, 64), (1, 128), (2, 32), (2, 64), (2, 128)}
+
+
+@pytest.mark.parametrize("d", kfa.HEAD_DIMS)
+def test_flash_fwd_f32_plan_every_head_dim(d):
+    """The split-TF32 forward's plan at every head dim: 64 q rows a CTA,
+    ring stages of 64 keys up to a padded head dim of 128 and 32 past it,
+    the Q tile and two stages within 227 KB; the grid at zamba2-7b's f32
+    prefill (32 heads, S 474: 8 q blocks) and at the f32 training shape
+    (2 x 24 heads, S 512), and an S under one block."""
+    dp = kfa.padded_head_dim(d)
+    plan = kfa.plan_attention_f32(474, d, batch=1, heads=32)
+    assert (plan.route, plan.q_block, plan.ctas) == ("tf32x3", 64, 256)
+    assert plan.kv_block == kfa.fwd_f32_kv_rows(d) \
+        == {64: 64, 128: 64, 192: 32, 256: 32}[dp]
+    assert plan.smem == 4 * (64 + 2 * 2 * plan.kv_block) * (dp + 4)
+    assert plan.smem <= SMEM_MAX
+    # the merge of the two key halves reuses the dead ring: 64 rows fit
+    assert 2 * 2 * plan.kv_block >= 64
+    assert kfa.plan_attention_f32(512, d, batch=2, heads=24).ctas == 384
+    short = kfa.plan_attention_f32(40, d, batch=2, heads=8)
+    assert short.ctas == 16 and short.smem == plan.smem
 
 
 @pytest.mark.parametrize("d", kfa.HEAD_DIMS)

@@ -13,9 +13,13 @@ and flash attention sources (the build seconds are reported), then times
   decode (M = 4) and at the served prefill M (474), each at the selector's
   f32 configuration, beside one ``torch.matmul`` on the same inputs
   (full f32: TF32 off), and
-- the f32 flash-attention backward at the f32 training shape (causal q
-  (2, 24, 512, 128), k/v (2, 8, 512, 128), v the transposed view), from
-  the plain forward's o and lse, beside the library's backward
+- the f32 flash-attention forward at zamba2-7b's f32 prefill (causal,
+  32 heads of 474 x 112, no GQA) and, with lse, at the f32 training shape
+  (causal q (2, 24, 512, 128), k/v (2, 8, 512, 128)), v the transposed
+  view, each beside one ``F.scaled_dot_product_attention`` in f32, with
+  the forward plan's q rows, stage keys and grid, and
+- the f32 flash-attention backward at the f32 training shape, from the
+  plain forward's o and lse, beside the library's backward
   (``F.scaled_dot_product_attention`` under ``torch.autograd.grad``, its
   kernels' device time under torch.profiler),
 
@@ -79,6 +83,22 @@ def measure(root: Path) -> dict:
             for key in tot:
                 tot[key] += row[key]
 
+    fwd = []
+    for what, B, H, Hkv, S, d, lse in (
+            ("zamba2_prefill", 1, 32, 32, cs.RAGGED_PREFILL_M, 112, False),
+            ("train_grads", 2, 24, 8, 512, 128, True)):
+        q, k, v = cs._attn_inputs(torch, dev, B, H, Hkv, S, True, seed=11,
+                                  d=d, dtype="float32")
+        plan = kfa.plan_attention_f32(S, d, batch=B, heads=H)
+        fwd.append({
+            "shape": what, "q": [B, H, S, d], "kv": [B, Hkv, S, d],
+            "plan": [plan.q_block, plan.kv_block, plan.ctas],
+            "ms": cs.time_ms(lambda: kfa._launch_cuda(
+                q, k, v, block_q=64, block_kv=64, causal=True, scale=None,
+                return_lse=lse)),
+            "library_ms": cs.time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))})
+
     B, H, Hkv, S, d = 2, 24, 8, 512, 128
     q, k, v = cs._attn_inputs(torch, dev, B, H, Hkv, S, True, seed=29, d=d,
                               dtype="float32")
@@ -95,7 +115,7 @@ def measure(root: Path) -> dict:
            "library_ms": cs.device_ms(torch, lambda: torch.autograd.grad(
                out, (ql, kl, vl), do, retain_graph=True))}
     return {"nvidia_smi": smi, "build_s": build_s, "gemm_sums": sums,
-            "gemm_rows": rows, "flash_bwd": bwd}
+            "gemm_rows": rows, "flash_fwd": fwd, "flash_bwd": bwd}
 
 
 if __name__ == "__main__":
