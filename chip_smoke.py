@@ -166,6 +166,29 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               reads under ``kmm.l2_reckoning``), and the f32 flash forward
               with lse at train_grads' shape beside the library's f32
               attention.
+11. The rest of the zoo (after serve_hybrid; train_audio after
+    train_hybrid):
+    flash_window — the bf16 forward with a sliding window against
+              ``chunked_attention``: mixtral-8x22b's prefill (1, 48/8,
+              8192, 128) at window 4096, windows 32, 100 and 128 at S 300
+              and d 64, 128 and 160, each case twice and bitwise equal; a
+              window past S bitwise the causal kernel; a window under
+              autograd and in f32 refused (ROADMAP A4b).
+    serve_zoo — musicgen-large (frame embeddings a request),
+              llava-next-mistral-7b (the 2,880-position image prefix ahead
+              of each text prompt), minitron-8b, stablelm-12b,
+              internlm2-20b whole and mixtral-8x22b at 8 of 56 layers, full
+              width, on phase 4's traffic, each freed before the next:
+              launches equal to the reckoning (``_zoo_launches``) in
+              prefills and decode steps apart, request 0's logits against
+              the plain path at the served depth and, with the f32
+              yardstick, at 2 layers; then mixtral serves one request of
+              8,192 tokens (the window binds in prefill and decode).
+    window_times — the windowed forward at mixtral's shape beside the
+              causal kernel, the plain version and the library's attention
+              with the window as a boolean mask.
+    train_audio — musicgen-large whole, 3 steps of phase 10's train step
+              with frame embeddings in the batch, at lr AUDIO_TRAIN_LR.
 Each serve phase counts the launches of every kernel inside the model's
 prefills and inside its decode steps apart.  The line before the last is
 the kernels summary (a row's launches are those of its own run and step
@@ -317,11 +340,13 @@ def main() -> int:
              f"the f32 flash forward or an f32 GEMM kernel: {faults}")
 
     flash_err = flash_phase(torch, dev, kfa)
+    window_err = flash_window_phase(torch, dev, kfa)
     max_err = gemm_phase(torch, dev, kmm)
     max_err.update({
         "flash_attention@prefill": flash_err[("bfloat16", 128)],
         "flash_attention@hybrid": flash_err[("bfloat16", 112)],
         "flash_attention_f32@hybrid": flash_err[("float32", 112)],
+        "flash_attention@window": window_err,
         "expert_matmul@prefill": expert_gemm_phase(torch, dev, kmm)})
     probe_times = probe_phase(torch, dev, kpr)
     # the probe phase demands checksums equal to the plain versions'
@@ -344,6 +369,8 @@ def main() -> int:
     serve_calibrated_phase(torch, dev, kmm, kfa, calib)
     ssm_launches = serve_ssm_phase(torch, dev, kmm, kfa)
     hybrid_launches, f32_launches = serve_hybrid_phase(torch, dev, kmm, kfa)
+    window_launches = serve_zoo_phase(torch, dev, kmm, kfa)
+    times.update(window_times_phase(torch, dev, kfa))
     max_err.update(train_kernels_phase(torch, dev, kmm, kfa))
     grads_launches = train_grads_phase(torch, dev, kmm, kfa)
     train_grads_phase(torch, dev, kmm, kfa, "qwen3-moe-30b-a3b")
@@ -352,6 +379,11 @@ def main() -> int:
     del model, state, batch
     _free(torch)
     moe_train_launches = train_families_phase(torch, dev, kmm, kfa)
+    model, state, batch, _ = train_phase(
+        torch, dev, kmm, kfa, "musicgen-large", steps=FAMILY_TRAIN_STEPS,
+        phase="train_audio", lr=AUDIO_TRAIN_LR)
+    del model, state, batch
+    _free(torch)
     times.update(train_times_phase(torch, dev, kmm, kfa))
     # Each row's launches: its own run, in its own step kind.
     launches = {
@@ -366,6 +398,7 @@ def main() -> int:
         "flash_attention@prefill": launches["flash_attention@prefill"],
         "flash_attention@hybrid": hybrid_launches["flash_attention@prefill"],
         "flash_attention_f32@hybrid": f32_launches["flash_attention@prefill"],
+        "flash_attention@window": window_launches,
         "expert_matmul@prefill": moe_launches["expert_matmul@prefill"],
         **{f"{k}@calib": n for k, n in probe_launches.items()},
         "matmul@train_dgrad": train_launches["nt"],
@@ -852,21 +885,22 @@ def plain_path(kmm, kfa):
         yield
 
 
-def _serve(torch, dev, kmm, kfa, arch, extra=(), phase=None, params=None):
+def _serve(torch, dev, kmm, kfa, arch, extra=(), phase=None, params=None,
+           cfg=None, base=SERVE_ARGS):
     """Random params from the seed (or ``params``), then ``run_serving`` on
-    the phase's traffic (plus ``extra`` flags) with every launch count
-    zeroed right before and read right after.  Fails unless every request
-    finished with in-vocabulary tokens, with no fallback rung and no launch
-    retry, and unless the dense GEMM and (where the model has attention)
-    the flash kernel launched."""
+    the phase's traffic (``base`` plus ``extra`` flags; ``cfg`` for a model
+    cut in depth) with every launch count zeroed right before and read
+    right after.  Fails unless every request finished with in-vocabulary
+    tokens, with no fallback rung and no launch retry, and unless the dense
+    GEMM and (where the model has attention) the flash kernel launched."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import build_parser, run_serving
     from repro_torch.nn import transformer
     from repro_torch.nn.model import Model
     from repro_torch.obs import metrics as obs_metrics
 
-    args = build_parser().parse_args(["--arch", arch, *SERVE_ARGS, *extra])
-    cfg = get_config(args.arch)
+    args = build_parser().parse_args(["--arch", arch, *base, *extra])
+    cfg = cfg or get_config(args.arch)
     model = Model(cfg, device=dev)
     t0 = time.perf_counter()
     if params is None:
@@ -906,7 +940,7 @@ def _serve(torch, dev, kmm, kfa, arch, extra=(), phase=None, params=None):
                            counted("prefill", transformer.prefill_forward)), \
             mock.patch.object(transformer, "decode_step",
                               counted("decode", transformer.decode_step)):
-        out = run_serving(args, params=params)
+        out = run_serving(args, params=params, cfg=cfg)
     wall = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     for kind, counts in split.items():
@@ -953,17 +987,18 @@ def _serve(torch, dev, kmm, kfa, arch, extra=(), phase=None, params=None):
     return args, model, params, out, launches
 
 
-def _request_tokens(torch, dev, args, cfg, r):
-    """Request ``r``'s prompt as served: right-padded to its bucket edge,
-    with its last real position."""
-    import numpy as np
-    prompts = np.random.default_rng(args.seed).integers(
-        0, cfg.vocab_size, size=(args.requests, args.prompt_len)
-    ).astype(np.int64)
+def _request_inputs(torch, dev, args, cfg, r):
+    """Request ``r``'s prompt as served (``serve.request_queue``):
+    right-padded to its bucket edge, with its last real position and its
+    frontend inputs as the engine hands them to the prefill (or None)."""
+    from repro_torch.launch.engine import _extras_at
+    from repro_torch.launch.serve import request_queue
+    prompt, extras = request_queue(args, cfg, dev)[r.rid]
     tokens = torch.zeros((1, r.padded_len), dtype=torch.int64, device=dev)
-    tokens[0, :r.prompt_len] = torch.from_numpy(
-        prompts[r.rid, :r.prompt_len]).to(dev)
-    return tokens, torch.tensor([r.prompt_len - 1], device=dev)
+    tokens[0, :r.prompt_len] = torch.from_numpy(prompt).to(dev)
+    return (tokens, torch.tensor([r.prompt_len - 1], device=dev),
+            _extras_at(extras, r.padded_len, dev))
+
 
 
 def _rel(torch, x, y) -> float:
@@ -987,7 +1022,7 @@ def _logits_check(torch, dev, kmm, kfa, args, model, params, out, phase,
     are f32 already, and the kernel-vs-plain distance must stay within
     ``F32_LOGITS_REL_CAP``."""
     r0 = out["results"][0]
-    tokens, last = _request_tokens(torch, dev, args, model.cfg, r0)
+    tokens, last, _ = _request_inputs(torch, dev, args, model.cfg, r0)
     with torch.inference_mode():
         got, _ = model.prefill(params, tokens, last)
         with plain_path(kmm, kfa):
@@ -1047,7 +1082,7 @@ def serve_moe_phase(torch, dev, kmm, kfa):
              f"and none in decode")
 
     r0 = out["results"][0]
-    tokens, _ = _request_tokens(torch, dev, args, cfg, r0)
+    tokens, _, _ = _request_inputs(torch, dev, args, cfg, r0)
     tokens = tokens[:, :r0.prompt_len]
     row = {"phase": "serve_moe_logits", "rid": r0.rid,
            "prompt_len": r0.prompt_len}
@@ -2020,6 +2055,11 @@ TRAIN_FLASH_DIMS = (16, 64, 112, 160, 256)
 # depth); mamba2-370m whole.
 FAMILY_TRAIN_STEPS = 3
 MOE_TRAIN_LAYERS = 4
+# musicgen-large (48 pre-layernorm layers) overshoots on AdamW's first,
+# sign-like step at lr 1e-3 and 1e-4 with no warmup (8.006 -> 19.52 ->
+# 8.79 at 1e-4 on the H100), the plain route step for step with the kernel
+# route (tools/train_route_ab.py); at 1e-5 its loss falls.
+AUDIO_TRAIN_LR = 1e-5
 HYBRID_TRAIN_LAYERS = 12
 # The MoE train phase's expert GEMMs: E 128 experts, capacity C = 160 at
 # T = 2048 tokens (2048 x 8 x 1.25 / 128), d_model 2048, expert d_ff 768.
@@ -2458,6 +2498,9 @@ _BLOCK_LAUNCHES = {
     # wu, wg + swiglu gate, wd + residual
     "mlp": ({"nn": 3},
             {"nt": 3, "tn": 3, "nn": 1, "epilogue_bwd": 1}),
+    # w1 + gelu, w2 + residual (layernorm and gelu: musicgen-large)
+    "mlp_gelu": ({"nn": 2},
+                 {"nt": 2, "tn": 2, "nn": 1, "epilogue_bwd": 1}),
     # the experts' wu, wg + swiglu gate, wd, each one grouped launch (the
     # router, dispatch and combine are plain)
     "moe": ({"expert_nn": 3},
@@ -2479,7 +2522,10 @@ def _train_reckoning(cfg):
     the remat recompute (the forward again, with ``cfg.remat``) and the
     backward.  The embedding, the lm_head and the loss are plain."""
     L = cfg.num_layers
-    blocks = {"dense": {"attn": L, "mlp": L}, "moe": {"attn": L, "moe": L},
+    mlp = "mlp" if cfg.activation == "swiglu" else "mlp_gelu"
+    dense = {"attn": L, mlp: L}
+    blocks = {"dense": dense, "audio": dense, "vlm": dense,
+              "moe": {"attn": L, "moe": L},
               "ssm": {"mamba": L},
               "hybrid": {"mamba": L, "attn": L // max(cfg.shared_attn_every,
                                                       1),
@@ -2496,12 +2542,13 @@ def _train_reckoning(cfg):
 
 
 def train_phase(torch, dev, kmm, kfa, arch="phi4-mini-3.8b", layers=None,
-                steps=TRAIN_STEPS, phase="train"):
+                steps=TRAIN_STEPS, phase="train", lr=1e-3):
     """``arch`` at full width (depth ``layers``, or the config's; remat as
     configured), ``steps`` steps of the driver's step functions
     (``launch/steps.py``: the retried loss and gradients, then the in-place
-    AdamW commit) on one repeated SyntheticLM batch of B 4 x S 512,
-    AdamW(lr=1e-3, weight_decay=0.0), no warmup.  Launch counts are zeroed
+    AdamW commit) on one repeated SyntheticLM batch of B 4 x S 512 (plus
+    the frontend's inputs, where the model has a frontend),
+    AdamW(lr=``lr``, weight_decay=0.0), no warmup.  Launch counts are zeroed
     right before the steps; each step's forward (inside ``Model.loss``) and
     backward are counted apart and must equal the reckoning; the loss must
     fall, every grad norm be finite, and no degraded mode fire.  Returns
@@ -2512,6 +2559,7 @@ def train_phase(torch, dev, kmm, kfa, arch="phi4-mini-3.8b", layers=None,
     from repro_torch.core.topology import DegradedModeWarning
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.nn.frontends import synth_frontend_inputs
     from repro_torch.nn.model import Model
     from repro_torch.obs import metrics as obs_metrics
     from repro_torch.optim import AdamW
@@ -2523,13 +2571,17 @@ def train_phase(torch, dev, kmm, kfa, arch="phi4-mini-3.8b", layers=None,
     model = Model(cfg, device=dev)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(0))
-    opt = AdamW(lr=1e-3, weight_decay=0.0)
+    opt = AdamW(lr=lr, weight_decay=0.0)
     state = TrainState(params=params, opt=opt.init(params), step=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                    seq_len=TRAIN_S,
                                    global_batch=TRAIN_B)).batch_at(0)
+    # A frontend's inputs join the batch, drawn as the train driver does.
+    batch.update(synth_frontend_inputs(
+        cfg, torch.Generator(device=dev).manual_seed(1), TRAIN_B, TRAIN_S,
+        device=dev))
     step = make_train_step(model, opt)
 
     fwd = {"n": dict.fromkeys(_counters(kmm, kfa), 0)}
@@ -2570,8 +2622,8 @@ def train_phase(torch, dev, kmm, kfa, arch="phi4-mini-3.8b", layers=None,
     retries = sum(m.value for m in reg.metrics() if m.name == "launch_retries")
     obs_metrics.enable_metrics(prev_metrics)
     with torch.no_grad():
-        final = float(model.loss(state.params, {"tokens": torch.from_numpy(
-            batch["tokens"]).to(dev).long()}))
+        tokens = torch.from_numpy(batch["tokens"]).to(dev).long()
+        final = float(model.loss(state.params, {**batch, "tokens": tokens}))
 
     per_step = {k: v / steps for k, v in launches.items()}
     fwd_step = {k: v / steps for k, v in fwd["n"].items()}
@@ -2592,7 +2644,7 @@ def train_phase(torch, dev, kmm, kfa, arch="phi4-mini-3.8b", layers=None,
     steady = ms[1:]
     row = {"phase": phase, "arch": cfg.name, "family": cfg.family,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
-           "vocab": cfg.vocab_size, "remat": cfg.remat,
+           "vocab": cfg.vocab_size, "remat": cfg.remat, "lr": lr,
            "params": sum(t.numel() for t in _leaves(state.params)),
            "batch": [TRAIN_B, TRAIN_S],
            "steps": steps, "init_s": init_s, "losses": losses,
@@ -2968,6 +3020,284 @@ def train_times_phase(torch, dev, kmm, kfa):
           "torch.profiler); plain: CUDA events over 5 calls, median of 3",
           "rows": rows, "summary": times})
     return times
+
+
+# ---------------------------------------------------------------------------
+# The rest of the zoo: the windowed flash forward, six more architectures
+# served at full width, musicgen-large trained whole.
+# ---------------------------------------------------------------------------
+
+# (B, H, Hkv, S, d, window): mixtral-8x22b's prefill at S 8192 with its
+# 4,096-key window; windows of 32, 100 and 128 at S 300 and d 64, 128 and
+# 160, so that block edges fall inside and on the window's lower edge; and
+# windows no query reaches past (window >= S), which must be bitwise the
+# causal kernel.
+FLASH_WINDOW_CASES = [(1, 48, 8, 8192, 128, 4096)] + [
+    (1, 8, 2, 300, d, w) for d in (64, 128, 160) for w in (32, 100, 128)]
+FLASH_WINDOW_CAUSAL_CASES = [(1, 8, 2, 300, 128, 300),
+                             (1, 48, 8, 474, 128, 4096)]
+MIXTRAL_SHAPE = (1, 48, 8, 8192, 128, 4096)
+
+
+def flash_window_phase(torch, dev, kfa) -> float:
+    """The bf16 forward with a sliding window against its plain version
+    (``nn/attention.py::chunked_attention``) at the selector's blocks, each
+    case launched twice and bitwise equal; a window past S bitwise the
+    causal kernel; a window under autograd and in f32 refused with the
+    ROADMAP item named.  Returns the worst absolute error."""
+    from repro_torch.kernels import ops
+    rows, worst = [], 0.0
+    for i, (B, H, Hkv, S, d, w) in enumerate(FLASH_WINDOW_CASES
+                                             + FLASH_WINDOW_CAUSAL_CASES):
+        q, k, v = _attn_inputs(torch, dev, B, H, Hkv, S, True, 300 + i, d=d)
+        plan = kfa.plan_attention(S, S, d, batch=B, heads=H, kv_heads=Hkv,
+                                  causal=True, window=w)
+        bq, bkv = plan.block_q, plan.block_kv
+        n0 = kfa.flash_attention_kernel.launches
+        got = kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
+                                         causal=True, window=w)
+        again = kfa.flash_attention_kernel(q, k, v, block_q=bq,
+                                           block_kv=bkv, causal=True,
+                                           window=w)
+        launched = kfa.flash_attention_kernel.launches == n0 + 2
+        want = kfa.attention_plain(q, k, v, block_q=bq, block_kv=bkv,
+                                   causal=True, window=w)
+        causal = (kfa.flash_attention_kernel(q, k, v, block_q=bq,
+                                             block_kv=bkv, causal=True)
+                  if w >= S else None)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        ok = bool((err <= FLASH_ATOL + FLASH_RTOL * want.float().abs()).all())
+        ok = ok and bool(torch.isfinite(got).all()) and launched
+        det = bool(torch.equal(got, again))
+        same_causal = None if causal is None else bool(torch.equal(got,
+                                                                   causal))
+        rows.append({"q": [B, H, S, d], "kv": [B, Hkv, S, d], "window": w,
+                     "blocks": [bq, bkv], "max_steps": plan.max_steps,
+                     "max_abs_err": float(err.max()), "deterministic": det,
+                     "equals_causal": same_causal,
+                     "ok": ok and det and same_causal is not False})
+        if not rows[-1]["ok"]:
+            emit({"phase": "flash_window", "cases": rows})
+            fail(f"windowed flash {rows[-1]} disagrees with its plain "
+                 f"version, does not repeat bitwise or differs from the "
+                 f"causal kernel past S")
+        worst = max(worst, float(err.max()))
+        del q, k, v, got, again, want, causal
+    refused = {}
+    q, k, v = _attn_inputs(torch, dev, 1, 8, 2, 128, False, 9, d=64)
+    for what, call in (
+            ("autograd", lambda: ops.flash_attention(
+                q.detach().requires_grad_(), k, v, causal=True, window=32)),
+            ("f32", lambda: ops.flash_attention(
+                q.float(), k.float(), v.float(), causal=True, window=32))):
+        n0 = kfa.flash_attention_kernel.launches
+        try:
+            call()
+            refused[what] = None
+        except NotImplementedError as e:
+            refused[what] = str(e)
+        if refused[what] is None or "ROADMAP A4b" not in refused[what] \
+                or kfa.flash_attention_kernel.launches != n0:
+            fail(f"a windowed flash call ({what}) was not refused: "
+                 f"{refused}")
+    emit({"phase": "flash_window", "tolerance": f"atol {FLASH_ATOL} + rtol "
+          f"{FLASH_RTOL} against chunked_attention (f32 arithmetic)",
+          "deterministic": "two launches bitwise equal", "cases": rows,
+          "refused": refused})
+    return worst
+
+
+# (arch, layers served or None for the whole model, extra serve flags).
+# mixtral-8x22b's 282 GB do not fit the card: 8 of its 56 layers at full
+# width (41 GB of bf16 weights).
+MIXTRAL_LAYERS = 8
+ZOO_SERVE = [("musicgen-large", None, ()),
+             ("llava-next-mistral-7b", None, ()),
+             ("minitron-8b", None, ()),
+             ("stablelm-12b", None, ()),
+             ("internlm2-20b", None, ()),
+             ("mixtral-8x22b", MIXTRAL_LAYERS, ())]
+# mixtral's long request: one prompt of 8,192 tokens, where the window binds
+# in prefill and in every decode step.
+LONG_ARGS = ["--batch", "1", "--prompt-len", "8192", "--gen", "16",
+             "--requests", "1", "--temperature", "0", "--seed", "0",
+             "--quiet"]
+# The logits' f32 yardstick is taken at this depth (views of the served
+# params): an f32 copy of a whole internlm2-20b (79 GB) or of mixtral's 8
+# layers (82 GB) does not fit beside the bf16 weights.
+ZOO_CUT_LAYERS = 2
+
+
+def _zoo_launches(cfg):
+    """(per prefill, per decode step) launches of a dense, audio, vlm or
+    MoE model, reckoned from the code: a layer's wq, wk, wv, wo, its MLP's
+    GEMMs (swiglu wu, wg, wd; gelu w1, w2; an MoE none: the router is a
+    plain product, the experts one grouped launch each of wu, wg, wd in a
+    prefill and plain einsums in decode), in a prefill also wk, wv again
+    for the cache and one flash launch.  The lm_head is a plain product."""
+    L = cfg.num_layers
+    mlp = 0 if cfg.is_moe else (3 if cfg.activation == "swiglu" else 2)
+    prefill = {"matmul": L * (6 + mlp), "flash_attention": L,
+               "expert_matmul": 3 * L if cfg.is_moe else 0}
+    decode = {"matmul": L * (4 + mlp), "flash_attention": 0,
+              "expert_matmul": 0}
+    return prefill, decode
+
+
+def _check_zoo_launches(cfg, out, launches, phase):
+    n, steps = len(out["results"]), out["steps"]
+    per_prefill, per_step = _zoo_launches(cfg)
+    expected = {f"{k}@prefill": v * n for k, v in per_prefill.items()}
+    expected.update({f"{k}@decode": v * steps for k, v in per_step.items()})
+    row = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
+           "prefills": n, "steps": steps, "per_prefill": per_prefill,
+           "per_step": per_step, "expected": expected,
+           "launched": {k: launches[k] for k in expected}}
+    emit(row)
+    if row["launched"] != expected:
+        fail(f"{cfg.name}: kernel launches {row['launched']} differ from "
+             f"the reckoning {expected}")
+
+
+def _zoo_logits_check(torch, dev, kmm, kfa, args, model, params, out, phase):
+    """Request 0's prefill logits (with its frontend inputs, as served):
+    kernel path vs plain path at the served depth, within LOGITS_REL_CAP
+    (MoE: MOE_FULL_REL_CAP, routing flips); then at ZOO_CUT_LAYERS layers,
+    full width, kernel vs plain against the plain path's own distance from
+    its f32 run, as phase 4 does at full depth."""
+    import dataclasses
+    from repro_torch.nn.model import Model
+    cfg = model.cfg
+    r0 = out["results"][0]
+    tokens, last, extras = _request_inputs(torch, dev, args, cfg, r0)
+    full_cap = MOE_FULL_REL_CAP if cfg.is_moe else LOGITS_REL_CAP
+    with torch.inference_mode():
+        got = model.prefill(params, tokens, last, extras=extras)[0]
+        with plain_path(kmm, kfa):
+            want = model.prefill(params, tokens, last, extras=extras)[0]
+        torch.cuda.synchronize()
+        d_full = _rel(torch, got, want)
+        row = {"phase": phase, "arch": cfg.name, "rid": r0.rid,
+               "prompt_len": r0.prompt_len, "padded_len": r0.padded_len,
+               "extras": sorted(extras or {}),
+               "layers": cfg.num_layers, "rel_l2_kernel_vs_plain": d_full,
+               "argmax_equal": int(got.argmax()) == int(want.argmax()),
+               "first_token_matches_served":
+                   int(got.argmax()) == int(r0.tokens[0]),
+               "tolerance": f"finite, relative L2 <= {full_cap}"}
+        full_ok = bool(torch.isfinite(got).all()) and d_full <= full_cap
+        del got, want
+        cut = Model(dataclasses.replace(cfg, num_layers=ZOO_CUT_LAYERS),
+                    device=dev)
+        p_cut = dict(params, layers=_tree_map(
+            params["layers"], lambda t: t[:ZOO_CUT_LAYERS]))
+        got = cut.prefill(p_cut, tokens, last, extras=extras)[0]
+        with plain_path(kmm, kfa):
+            want = cut.prefill(p_cut, tokens, last, extras=extras)[0]
+            p32 = _tree_map(p_cut, lambda t: t.float())
+            ref32 = cut.prefill(p32, tokens, last, extras=extras)[0]
+            del p32
+        torch.cuda.synchronize()
+    d_kp, d_p32 = _rel(torch, got, want), _rel(torch, want, ref32)
+    row.update({"cut_layers": ZOO_CUT_LAYERS,
+                "cut_rel_l2_kernel_vs_plain": d_kp,
+                "cut_rel_l2_plain_bf16_vs_plain_f32": d_p32,
+                "cut_rel_l2_kernel_vs_plain_f32": _rel(torch, got, ref32),
+                "cut_tolerance": f"kernel vs plain relative L2 <= "
+                                 f"{LOGITS_REL_FACTOR} x (plain bf16 vs "
+                                 f"plain f32) and <= {LOGITS_REL_CAP}",
+                "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)})
+    emit(row)
+    if not full_ok:
+        fail(f"{cfg.name} prefill logits disagree with the plain path at "
+             f"{cfg.num_layers} layers (rel {d_full})")
+    if not bool(torch.isfinite(got).all()) or d_kp > LOGITS_REL_CAP \
+            or d_kp > LOGITS_REL_FACTOR * d_p32:
+        fail(f"{cfg.name} {ZOO_CUT_LAYERS}-layer logits disagree with the "
+             f"plain path (rel {d_kp}, bf16 rounding alone {d_p32})")
+
+
+def serve_zoo_phase(torch, dev, kmm, kfa):
+    """Each architecture of ZOO_SERVE at full width on phase 4's traffic
+    (llava with its whole image prefix ahead of each text prompt), one
+    after another, each freed before the next: the launches against the
+    reckoning in prefills and decode steps apart, request 0's logits
+    against the plain path; mixtral-8x22b (8 layers) then serves one
+    request of 8,192 tokens, its window binding.  Returns mixtral's flash
+    launches (every one windowed) over both runs."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    window_launches = 0
+    for arch, layers, extra in ZOO_SERVE:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        args, model, params, out, launches = _serve(
+            torch, dev, kmm, kfa, arch, extra=extra, phase="serve_zoo",
+            cfg=cfg)
+        _check_zoo_launches(cfg, out, launches, "serve_zoo_launches")
+        _zoo_logits_check(torch, dev, kmm, kfa, args, model, params, out,
+                          "serve_zoo_logits")
+        if cfg.sliding_window:
+            window_launches += launches["flash_attention"]
+            args, model, _, out, launches = _serve(
+                torch, dev, kmm, kfa, arch, phase="serve_zoo_long",
+                params=params, cfg=cfg, base=LONG_ARGS)
+            _check_zoo_launches(cfg, out, launches,
+                                "serve_zoo_long_launches")
+            _zoo_logits_check(torch, dev, kmm, kfa, args, model, params,
+                              out, "serve_zoo_long_logits")
+            window_launches += launches["flash_attention"]
+        del model, params
+        _free(torch)
+    return window_launches
+
+
+def window_times_phase(torch, dev, kfa):
+    """The windowed forward at mixtral's prefill shape, beside the causal
+    kernel at the same shape, the plain version and the library's
+    attention with the window as a boolean mask.  The bound counts the
+    (query, key) pairs this window leaves visible."""
+    import torch.nn.functional as F
+    B, H, Hkv, S, d, w = MIXTRAL_SHAPE
+    q, k, v = _attn_inputs(torch, dev, B, H, Hkv, S, True, seed=17, d=d)
+    plan = kfa.plan_attention(S, S, d, batch=B, heads=H, kv_heads=Hkv,
+                              causal=True, window=w)
+    causal = kfa.plan_attention(S, S, d, batch=B, heads=H, kv_heads=Hkv,
+                                causal=True)
+    i = torch.arange(S, device=dev)
+    mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)
+    pairs = int(mask.sum())
+    n0 = kfa.flash_attention_kernel.launches
+    row = {"phase": "prefill", "kernel": "flash_attention", "window": w,
+           "q": [B, H, S, d], "kv": [B, Hkv, S, d],
+           "blocks": [plan.block_q, plan.block_kv], "ctas": plan.ctas,
+           "max_steps": plan.max_steps, "model_ms": plan.predicted * 1e3,
+           "ms": time_ms(lambda: kfa._launch_cuda(
+               q, k, v, block_q=plan.block_q, block_kv=plan.block_kv,
+               causal=True, scale=None, window=w)),
+           "causal_blocks": [causal.block_q, causal.block_kv],
+           "causal_ms": time_ms(lambda: kfa._launch_cuda(
+               q, k, v, block_q=causal.block_q, block_kv=causal.block_kv,
+               causal=True, scale=None)),
+           "causal_model_ms": causal.predicted * 1e3,
+           "plain_ms": event_ms(torch, lambda: kfa.attention_plain(
+               q, k, v, block_q=64, block_kv=64, causal=True, window=w)),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, attn_mask=mask, enable_gqa=True)),
+           "visible_pairs": pairs}
+    kfa.flash_attention_kernel.launches = n0       # timing launches
+    flops = 4.0 * B * H * pairs * d
+    nbytes = q.element_size() * d * S * B * (2 * H + 2 * Hkv)
+    row["bound_ms"] = max(nbytes / HBM_BW, flops / BF16_PEAK) * 1e3
+    row["bound_by"] = "bytes" if nbytes / HBM_BW >= flops / BF16_PEAK \
+        else "operations"
+    emit({"phase": "window_times", "timing": "kernels and the library: CUDA "
+          "graph of 10 calls, median of 5 replays; plain: CUDA events over "
+          "5 calls, median of 3", "rows": [row]})
+    return {"flash_attention@window": {k_: row[k_] for k_ in (
+        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
 
 
 if __name__ == "__main__":

@@ -10,8 +10,11 @@
 //   (B, H, Sq, d) in q's dtype with its own strides.  GQA maps head h to kv
 //   head h / (H / Hkv) with no KV repeat.  Keys at or beyond kv_len are
 //   masked; with causal set, key j is visible to query i iff i >= j
-//   (positions from 0).  Running max m, sum l and the accumulator stay f32,
-//   with the TPU kernel's -inf guards (a row with no valid key yet keeps
+//   (positions from 0); the bf16 kernel also takes a sliding window: with
+//   window > 0, key j is visible to query i only if i - j < window (the
+//   reference's strict test, src/repro/nn/attention.py:80-82).  Running
+//   max m, sum l and the accumulator stay f32, with the TPU kernel's -inf
+//   guards (a row with no valid key yet keeps
 //   m = -inf and alpha = 0; a row whose l stays 0 writes zeros).
 //
 // What bounds it on the H100.  At the served prefill lengths (S <= 474,
@@ -57,10 +60,17 @@
 //    wgmma where DP is a multiple of 128 and as 64-column ones otherwise.
 //  * The softmax runs on the accumulator fragments in base 2 (two rows a
 //    thread, the row max and sum across the four threads of a quad); only
-//    the blocks that straddle the causal diagonal or the key end are
-//    masked.  The epilogue divides by l and writes bf16 through shared
-//    memory (the dead Q tile, in the output map's swizzle) with a TMA
-//    store, which clips rows past Sq.
+//    the blocks that straddle the causal diagonal, the window's lower edge
+//    or the key end are masked.  The epilogue divides by l and writes bf16
+//    through shared memory (the dead Q tile, in the output map's swizzle)
+//    with a TMA store, which clips rows past Sq.
+//  * A sliding window starts each q block's walk at the key block of its
+//    first row's first visible key, (q0 - window + 1) / BKV, as the causal
+//    diagonal ends it: at most ceil((window + BQ - 1) / BKV) + 1 blocks
+//    whatever the sequence length.  Those counts never fall as the q block
+//    moves on, so the grid's reversed q-block order stays the heaviest
+//    first.  The f32 forward and the backwards take no window (the host
+//    raises on one).
 //
 // f32 inputs take a second kernel, flash_fwd_tf32x3 (below), that computes
 // the same function on the tensor cores with every product in split TF32
@@ -149,7 +159,7 @@ constexpr int kStages = 2;      // K/V ring depth
 constexpr int kRowBytes = 128;  // one swizzled row: 64 bf16 of the head dim
 
 struct FlashParams {
-  int B, H, Hkv, Sq, Skv, kv_len, causal, n_qb;
+  int B, H, Hkv, Sq, Skv, kv_len, causal, window, n_qb;
   float scale_log2;  // softmax scale * log2(e): exponentials run in base 2
   float* lse;        // (B, H, Sq) or null
 };
@@ -235,17 +245,19 @@ __device__ __forceinline__ void fence_o(float (&o)[NC][CW / 2]) {
 
 // The online-softmax update of one kv block on a consumer thread's S
 // fragments (rows row0 and row0 + 8, key columns k0 + 8 j + 2 t + e): scale
-// into base 2, mask only where the block crosses the key end or the causal
-// diagonal of the warpgroup's rows, row max across the quad; then S becomes
+// into base 2, mask only where the block crosses the key end, the causal
+// diagonal or the window's lower edge (row - key >= window) of the
+// warpgroup's rows, row max across the quad; then S becomes
 // P = exp2(S - m) in place, l takes alpha and P's row sum, and alpha =
 // exp2(m_old - m_new) is left for O.  The -inf guards are the TPU
 // kernel's: a row with no valid key yet keeps m = -inf and alpha = 0.
 template <int BKV>
 __device__ __forceinline__ void online_softmax(
     float (&s)[BKV / 2], float (&m_run)[2], float (&l_run)[2],
-    float (&alpha)[2], int k0, int kv_lim, int causal, int row0, int wg_row0,
-    int t, float scale_log2) {
-  const bool edge = k0 + BKV > kv_lim || (causal && k0 + BKV - 1 > wg_row0);
+    float (&alpha)[2], int k0, int kv_lim, int causal, int window, int row0,
+    int wg_row0, int t, float scale_log2) {
+  const bool edge = k0 + BKV > kv_lim || (causal && k0 + BKV - 1 > wg_row0) ||
+                    (window > 0 && wg_row0 + 63 - k0 >= window);
   float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
   for (int j = 0; j < BKV / 8; ++j)
@@ -255,7 +267,9 @@ __device__ __forceinline__ void online_softmax(
       if (edge) {
         const int key = k0 + 8 * j + 2 * t + (e & 1);
         const int row = row0 + 8 * (e >> 1);
-        if (key >= kv_lim || (causal && row < key)) x = -CUDART_INF_F;
+        if (key >= kv_lim || (causal && row < key) ||
+            (window > 0 && row - key >= window))
+          x = -CUDART_INF_F;
       }
       s[4 * j + e] = x;
       mx[e >> 1] = fmaxf(mx[e >> 1], x);
@@ -359,6 +373,8 @@ __global__ void __launch_bounds__(Flash<NWG, BKV, DP>::kThreads,
   const int kv_lim = min(p.Skv, p.kv_len);
   int n_blocks = kv_lim > 0 ? (kv_lim + BKV - 1) / BKV : 0;
   if (p.causal) n_blocks = min(n_blocks, (min(q0 + F::kBQ, p.Sq) - 1) / BKV + 1);
+  // Under a window the walk starts at the block of row q0's first key.
+  const int kb0 = p.window > 0 ? max(0, q0 - p.window + 1) / BKV : 0;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -386,7 +402,7 @@ __global__ void __launch_bounds__(Flash<NWG, BKV, DP>::kThreads,
         tma_load_4d(q_at + c * F::kQChunk, &tma_q, q_full, 64 * c, q0, h, b);
       int stage = 0;
       uint32_t phase = 0;
-      for (int kb = 0; kb < n_blocks; ++kb) {
+      for (int kb = kb0; kb < n_blocks; ++kb) {
         mbar_wait(empty(stage), phase ^ 1);
         mbar_expect_tx(k_full(stage), F::kKVBytes);
 #pragma unroll
@@ -431,21 +447,21 @@ __global__ void __launch_bounds__(Flash<NWG, BKV, DP>::kThreads,
   mbar_wait(q_full, 0);
   int stage = 0;
   uint32_t phase = 0;
-  if (n_blocks > 0) {
+  if (kb0 < n_blocks) {
     mbar_wait(k_full(0), 0);
     wgmma_fence();
     qk_product<BKV, DP>(s, q_wg, F::kQChunk, k_at(0), F::kKVChunk);
     wgmma_commit();
     wgmma_wait<0>();
     fence_acc(s);
-    online_softmax<BKV>(s, m_run, l_run, alpha, 0, kv_lim, p.causal, row0,
-                        wg_row0, t, p.scale_log2);
+    online_softmax<BKV>(s, m_run, l_run, alpha, kb0 * BKV, kv_lim, p.causal,
+                        p.window, row0, wg_row0, t, p.scale_log2);
     pack_p<BKV>(pa, s);
   }
-  // Steps 0 .. n - 2: S of block kb + 1 and O += P V of block kb go to the
-  // tensor cores together; block kb + 1's softmax runs while P V does, and
-  // O takes its alpha once P V is done.
-  for (int kb = 0; kb + 1 < n_blocks; ++kb) {
+  // Steps kb0 .. n - 2: S of block kb + 1 and O += P V of block kb go to
+  // the tensor cores together; block kb + 1's softmax runs while P V does,
+  // and O takes its alpha once P V is done.
+  for (int kb = kb0; kb + 1 < n_blocks; ++kb) {
     const int next = stage + 1 == kStages ? 0 : stage + 1;
     const uint32_t next_phase = next == 0 ? phase ^ 1 : phase;
     wgmma_fence();
@@ -459,7 +475,7 @@ __global__ void __launch_bounds__(Flash<NWG, BKV, DP>::kThreads,
     wgmma_wait<1>();  // S of block kb + 1, the older group, is done
     fence_acc(s);
     online_softmax<BKV>(s, m_run, l_run, alpha, (kb + 1) * BKV, kv_lim,
-                        p.causal, row0, wg_row0, t, p.scale_log2);
+                        p.causal, p.window, row0, wg_row0, t, p.scale_log2);
     wgmma_wait<0>();
     fence_o<F::kCW, F::kOChunks>(o);
 #pragma unroll
@@ -478,7 +494,7 @@ __global__ void __launch_bounds__(Flash<NWG, BKV, DP>::kThreads,
     stage = next;
     phase = next_phase;
   }
-  if (n_blocks > 0) {  // the last block's P V
+  if (kb0 < n_blocks) {  // the last block's P V
     wgmma_fence();
     mbar_wait(v_full(stage), phase);
     pv_product<BKV, F::kCW, F::kOChunks>(o, pa, v_at(stage),
@@ -1933,15 +1949,15 @@ cudaError_t launch_bwd_tf32x3(const float* q, const float* k, const float* v,
 
 using namespace repro;
 
-// bf16 q, k, v and o.
+// bf16 q, k, v and o; window 0 for none.
 extern "C" int repro_flash_attention(
     const void* q, const void* k, const void* v, void* o, float* lse,
     long long q_sb,
     long long q_sh, long long q_ss, long long k_sb, long long k_sh,
     long long k_ss, long long v_sb, long long v_sh, long long v_ss,
     long long o_sb, long long o_sh, long long o_ss, int B, int H, int Hkv,
-    int Sq, int Skv, int kv_len, int causal, float scale, int block_q,
-    int block_kv, int d, void* stream) {
+    int Sq, int Skv, int kv_len, int causal, int window, float scale,
+    int block_q, int block_kv, int d, void* stream) {
   // TMA needs 16-byte aligned bases and strides (8 bf16).
   const long long strides[12] = {q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                                  v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
@@ -1950,13 +1966,13 @@ extern "C" int repro_flash_attention(
   for (const void* ptr : {q, k, v, static_cast<const void*>(o)})
     aligned = aligned && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
   if (!aligned || (block_q != 64 && block_q != 128) ||
-      (block_kv != 64 && block_kv != 128) ||
+      (block_kv != 64 && block_kv != 128) || window < 0 ||
       !valid_shape(B, H, Hkv, Sq, Skv, d, block_q))
     return static_cast<int>(cudaErrorInvalidValue);
   const int n_qb = (Sq + block_q - 1) / block_q;
   const Operands a{q, k, v, o, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
                    v_sb, v_sh, v_ss, o_sb, o_sh, o_ss};
-  const FlashParams p{B, H, Hkv, Sq, Skv, kv_len, causal, n_qb,
+  const FlashParams p{B, H, Hkv, Sq, Skv, kv_len, causal, window, n_qb,
                       scale * kLog2e, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;

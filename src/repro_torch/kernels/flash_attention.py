@@ -5,7 +5,10 @@ Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``.  The
 kernel computes online-softmax attention for q (B, H, Sq, d) against k/v
 (B, Hkv, Skv, d) with GQA by index (no KV repeat), the causal block skip,
 the ``k < kv_len`` padding mask and f32 m/l/acc with the TPU kernel's -inf
-guards; the source note in ``csrc/flash_attention.cu`` says what bounds it
+guards; the bf16 kernel also takes a sliding window (``window`` > 0: key j
+is visible to query i only if i - j < window, the reference's strict test,
+``repro/nn/attention.py:80-82``), whose plain version is
+``nn/attention.py::chunked_attention``; the source note in ``csrc/flash_attention.cu`` says what bounds it
 on the H100 and what its design does about that.
 
 :func:`flash_attention_kernel` takes the route from the device of q: a CPU
@@ -24,7 +27,9 @@ kernels at every head dim, f32 the split-TF32 ones ("tf32x3", mma.sync);
 holds its tiles, grids and shared bytes, and the launch passes that plan to
 the C entry, which checks it against the instantiation it runs.
 ``flash_attention_kernel.launches`` counts forward launches of both
-dtypes, ``flash_attention_bwd_kernel.launches`` backward ones.
+dtypes, ``flash_attention_bwd_kernel.launches`` backward ones.  On the
+card a window reaches the bf16 forward only: the f32 forward and the
+backwards raise on one (ROADMAP A4b).
 """
 from __future__ import annotations
 
@@ -40,6 +45,12 @@ from repro_torch.core.hardware import GPU_H100_LIKE
 from repro_torch.core.latency import cdiv
 from repro_torch.core.topology import HardwareSpec, topology_fingerprint
 from repro_torch.kernels import build, ref
+from repro_torch.nn.attention import chunked_attention
+
+# The ROADMAP item that brings the window to the f32 forward and the
+# backwards; the kernels raise on a window until then.
+WINDOW_TODO = ("ROADMAP A4b: the sliding window is in the bf16 flash "
+               "forward only, not yet in the f32 forward or the backwards")
 
 BLOCK_MENU = (64, 128)
 # Head dims the kernels take: multiples of 8 up to 256.  The bf16 kernel is
@@ -109,12 +120,22 @@ def ctas_per_sm(block_q: int, block_kv: int, head_dim: int,
 
 
 def kv_steps(s_q: int, s_kv: int, block_q: int, block_kv: int,
-             causal: bool) -> List[int]:
+             causal: bool, window: int = 0) -> List[int]:
     """The kv blocks each q block walks (q block i first): all of them, or
-    under causal those up to the diagonal of its last row."""
+    under causal those up to the diagonal of its last row; under a window
+    from the block holding its first row's first visible key, (q0 - window
+    + 1) // block_kv, so at most ceil((window + block_q - 1) / block_kv)
+    + 1 blocks.  The counts never fall as i grows: the kernel's reversed
+    q-block order is the heaviest first with a window too."""
     n_kv = cdiv(s_kv, block_kv)
-    return [min(n_kv, (min((i + 1) * block_q, s_q) - 1) // block_kv + 1)
-            if causal else n_kv for i in range(cdiv(s_q, block_q))]
+    steps = []
+    for i in range(cdiv(s_q, block_q)):
+        hi = (min(n_kv, (min((i + 1) * block_q, s_q) - 1) // block_kv + 1)
+              if causal else n_kv)
+        lo = max(0, i * block_q - window + 1) // block_kv if window > 0 \
+            else 0
+        steps.append(max(0, hi - lo))
+    return steps
 
 
 def _makespan(ctas: Sequence[Tuple[float, float]], sms: int,
@@ -159,7 +180,7 @@ def price_attention_blocks(
     s_q: int, s_kv: int, head_dim: int, block_q: int, block_kv: int, *,
     batch: int = 1, heads: int = 1, kv_heads: Optional[int] = None,
     in_dtype: str = "bfloat16", hw: HardwareSpec = GPU_H100_LIKE,
-    causal: bool = False,
+    causal: bool = False, window: int = 0,
 ) -> AttentionPlan:
     """The kernel's time at (block_q, block_kv), analytically.
 
@@ -183,15 +204,16 @@ def price_attention_blocks(
 
     A CTA adds two HBM latencies and its Q, first K/V and O tiles at that
     bandwidth share (the loads before its first step, the store after its
-    last), then walks its own causal kv steps.  The CTAs run longest first
-    (:func:`_makespan`); co-resident CTAs share an SM's tensor cores.  The
+    last), then walks its own kv steps (causal and windowed,
+    :func:`kv_steps`).  The CTAs run longest first (:func:`_makespan`);
+    co-resident CTAs share an SM's tensor cores.  The
     total is that makespan, or the unique q/k/v/o bytes at the HBM rate if
     longer, plus one kernel launch."""
     kv_heads = heads if kv_heads is None else kv_heads
     bi = DTYPE_BYTES[in_dtype]
     sms = hw.total_cores()
     per_sm = ctas_per_sm(block_q, block_kv, head_dim, hw)
-    steps = kv_steps(s_q, s_kv, block_q, block_kv, causal)
+    steps = kv_steps(s_q, s_kv, block_q, block_kv, causal, window)
     ctas = batch * heads * len(steps)
     resident = min(ctas, sms * per_sm)
     nwg = block_q // 64
@@ -223,13 +245,13 @@ _PLANS: Dict[tuple, AttentionPlan] = {}
 def plan_attention(
     s_q: int, s_kv: int, head_dim: int, *, batch: int = 1, heads: int = 1,
     kv_heads: Optional[int] = None, in_dtype: str = "bfloat16",
-    hw: HardwareSpec = GPU_H100_LIKE, causal: bool = False,
+    hw: HardwareSpec = GPU_H100_LIKE, causal: bool = False, window: int = 0,
 ) -> AttentionPlan:
     """The cheapest legal pair of the menu under
     :func:`price_attention_blocks` (ties: more CTAs, then larger blocks);
     memoised per topology, like the GEMM selections."""
     key = (topology_fingerprint(hw), s_q, s_kv, head_dim, batch, heads,
-           kv_heads, in_dtype, bool(causal))
+           kv_heads, in_dtype, bool(causal), int(window))
     plan = _PLANS.get(key)
     if plan is not None:
         return plan
@@ -240,7 +262,8 @@ def plan_attention(
                 continue
             cand = price_attention_blocks(
                 s_q, s_kv, head_dim, bq, bkv, batch=batch, heads=heads,
-                kv_heads=kv_heads, in_dtype=in_dtype, hw=hw, causal=causal)
+                kv_heads=kv_heads, in_dtype=in_dtype, hw=hw, causal=causal,
+                window=window)
             cand_key = (cand.predicted, -cand.ctas, -(bq * bkv))
             if best_key is None or cand_key < best_key:
                 plan, best_key = cand, cand_key
@@ -262,6 +285,7 @@ def select_attention_blocks(
     batch: int = 1,
     heads: int = 1,
     kv_heads: Optional[int] = None,
+    window: int = 0,
 ) -> Tuple[int, int]:
     """Analytical (block_q, block_kv) for the Hopper kernel, with zero
     autotuning: :func:`plan_attention`'s pair.  The legal set is the
@@ -271,7 +295,7 @@ def select_attention_blocks(
     tiles of :func:`plan_attention_f32`."""
     plan = plan_attention(s_q, s_kv, head_dim, batch=batch, heads=heads,
                           kv_heads=kv_heads, in_dtype=in_dtype, hw=hw,
-                          causal=causal)
+                          causal=causal, window=window)
     return plan.block_q, plan.block_kv
 
 
@@ -412,12 +436,19 @@ def plan_attention_bwd(
 
 def attention_plain(q, k, v, *, block_q: int, block_kv: int,
                     causal: bool = False, scale: Optional[float] = None,
-                    return_lse: bool = False):
+                    return_lse: bool = False, window: int = 0):
     """The plain version: what the kernels compute, whatever the blocks,
     at any head dim and dtype (and the rows' lse, f32, with
-    ``return_lse``)."""
+    ``return_lse``).  With a window and no lse it is the reference's
+    chunked online softmax (:func:`chunked_attention`), which holds one
+    512 x 512 score chunk a head where ``ref.attention_ref`` would hold
+    all Sq x Skv."""
     if return_lse:
-        return ref.attention_lse_ref(q, k, v, causal=causal, scale=scale)
+        return ref.attention_lse_ref(q, k, v, causal=causal, scale=scale,
+                                     window=window)
+    if window > 0:
+        return chunked_attention(q, k, v, causal=causal,
+                                 sliding_window=window, scale=scale)
     return ref.attention_ref(q, k, v, causal=causal, scale=scale)
 
 
@@ -425,48 +456,57 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, *, block_q: int, block_kv: int,
                            causal: bool = False,
                            scale: Optional[float] = None,
-                           return_lse: bool = False):
+                           return_lse: bool = False, window: int = 0):
     """Attention of q (B, H, Sq, d) over k/v (B, Hkv, Skv, d); returns
     (B, H, Sq, d) in q's dtype, and with ``return_lse`` also the rows'
     log-sum-exp of the scaled scores, (B, H, Sq) f32 (+inf where a row sees
     no key).  ``block_q``/``block_kv`` tile the bf16 kernel; the f32 kernel
     runs the tiles of :func:`plan_attention_f32` (64-row q blocks, ring
-    stages of 64 keys, 32 past a padded head dim of 128)."""
+    stages of 64 keys, 32 past a padded head dim of 128).  ``window`` > 0
+    hides key j from query i unless i - j < window (bf16 only on the
+    card)."""
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
     if q.device.type == "cpu":
         return attention_plain(q, k, v, block_q=block_q, block_kv=block_kv,
                                causal=causal, scale=scale,
-                               return_lse=return_lse)
+                               return_lse=return_lse, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _launch_cuda(q, k, v, block_q=block_q, block_kv=block_kv,
-                        causal=causal, scale=scale, return_lse=return_lse)
+                        causal=causal, scale=scale, return_lse=return_lse,
+                        window=window)
 
 
 flash_attention_kernel.launches = 0
 
 
 def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,
-                        scale: Optional[float] = None):
+                        scale: Optional[float] = None, window: int = 0):
     """The plain version of the backward: ``ref.attention_bwd_ref``."""
     return ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                 scale=scale)
+                                 scale=scale, window=window)
 
 
 def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, o: torch.Tensor,
                                lse: torch.Tensor, do: torch.Tensor, *,
                                causal: bool = False,
-                               scale: Optional[float] = None
+                               scale: Optional[float] = None,
+                               window: int = 0
                                ) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention_kernel` at q, k, v, its o and
-    lse, and the output gradient do, each in its input's dtype."""
+    lse, and the output gradient do, each in its input's dtype.  A window
+    runs on the CPU only (:data:`WINDOW_TODO`)."""
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
-                                   scale=scale)
+                                   scale=scale, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
+    if window > 0:
+        raise NotImplementedError(f"flash_attention_bwd: {WINDOW_TODO}")
     return _launch_bwd_cuda(q, k, v, o, lse, do, causal=causal, scale=scale)
 
 
@@ -583,7 +623,7 @@ def _launch_bwd_cuda(q, k, v, o, lse, do, *, causal, scale):
 
 
 def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale,
-                 return_lse=False):
+                 return_lse=False, window=0):
     _check_qkv(q, k, v)
     B, H, Sq, d = q.shape
     _, Hkv, Skv, _ = k.shape
@@ -591,6 +631,8 @@ def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale,
         raise ValueError(f"flash_attention: blocks ({block_q}, {block_kv}) "
                          f"not in {BLOCK_MENU}")
     f32 = q.dtype == torch.float32
+    if f32 and window > 0:
+        raise NotImplementedError(f"flash_attention (f32): {WINDOW_TODO}")
     if not f32 and not legal_blocks(block_q, block_kv, d):
         raise ValueError(f"flash_attention: blocks ({block_q}, {block_kv}) "
                          f"exceed the kernel's budgets at head_dim {d}")
@@ -607,23 +649,28 @@ def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale,
     lib = build.load("flash_attention")
     fn = lib.repro_flash_attention_f32 if f32 else lib.repro_flash_attention
     if fn.argtypes is None:
+        # B, H, Hkv, Sq, Skv, kv_len, causal, (bf16: window), scale, then
+        # bf16: block_q, block_kv, d; f32: d, q_rows, kv_rows, ctas, smem.
+        mid = [ctypes.c_int] * (7 if f32 else 8) + [ctypes.c_float]
         tail = ([ctypes.c_int] * 3 + [ctypes.c_longlong] * 2 if f32
                 else [ctypes.c_int] * 3)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12 \
-            + [ctypes.c_int] * 7 + [ctypes.c_float] + tail + [ctypes.c_void_p]
+            + mid + tail + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     if f32:
         plan = plan_attention_f32(Sq, d, batch=B, heads=H)
+        mask = (int(causal),)
         tiles = (d, plan.q_block, plan.kv_block, plan.ctas, plan.smem)
         what = f"plan {plan}"
     else:
+        mask = (int(causal), int(window))
         tiles = (block_q, block_kv, d)
-        what = f"blocks ({block_q}, {block_kv})"
+        what = f"blocks ({block_q}, {block_kv}) window {window}"
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   lse.data_ptr() if lse is not None else None,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                  *out.stride()[:3], B, H, Hkv, Sq, Skv, Skv, int(causal),
+                  *out.stride()[:3], B, H, Hkv, Sq, Skv, Skv, *mask,
                   float(scale), *tiles,
                   torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, code, f"flash_attention {q.dtype} q{tuple(q.shape)} "

@@ -488,21 +488,30 @@ def flash_attention(
     scale: Optional[float] = None,
     hw: Optional[HardwareSpec] = None,
     blocks: Optional[Tuple[int, int]] = None,
+    window: int = 0,
 ) -> torch.Tensor:
-    """Selector-driven attention. q: (B,H,Sq,d), k/v: (B,Hkv,Skv,d)."""
+    """Selector-driven attention. q: (B,H,Sq,d), k/v: (B,Hkv,Skv,d).
+    ``window`` > 0 is a sliding window (key j visible to query i only if
+    i - j < window); on the card it runs in the bf16 forward kernel, and
+    under autograd it raises there (``kfa.WINDOW_TODO``): the backwards
+    have no window yet.  On the CPU autograd runs the plain versions."""
     hw = hw if hw is not None else get_default_hardware()
     B, H, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     if blocks is None:
         blocks = kfa.select_attention_blocks(
             Sq, Skv, d, in_dtype=_dtype_name(q.dtype), hw=hw, causal=causal,
-            batch=B, heads=H, kv_heads=Hkv)
+            batch=B, heads=H, kv_heads=Hkv, window=window)
     bq, bkv = blocks
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        return _FlashAttention.apply(q, k, v, causal, scale, bq, bkv)
+        if window > 0 and q.device.type == "cuda":
+            raise NotImplementedError(
+                f"flash_attention under autograd: {kfa.WINDOW_TODO}")
+        return _FlashAttention.apply(q, k, v, causal, scale, bq, bkv, window)
     return kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
-                                      causal=causal, scale=scale)
+                                      causal=causal, scale=scale,
+                                      window=window)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -511,17 +520,18 @@ class _FlashAttention(torch.autograd.Function):
     the backward kernels."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, bq, bkv):
+    def forward(ctx, q, k, v, causal, scale, bq, bkv, window):
         out, lse = kfa.flash_attention_kernel(
             q, k, v, block_q=bq, block_kv=bkv, causal=causal, scale=scale,
-            return_lse=True)
+            return_lse=True, window=window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.window = causal, scale, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = kfa.flash_attention_bwd_kernel(
-            q, k, v, out, lse, dout, causal=ctx.causal, scale=ctx.scale)
-        return dq, dk, dv, None, None, None, None
+            q, k, v, out, lse, dout, causal=ctx.causal, scale=ctx.scale,
+            window=ctx.window)
+        return dq, dk, dv, None, None, None, None, None

@@ -77,25 +77,20 @@ def attention_ref(
     causal: bool = False,
     scale: Optional[float] = None,
     kv_len: Optional[int] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """Dense softmax attention oracle with GQA head-group broadcast.
 
-    q: (B, H, Sq, d); k, v: (B, Hkv, Skv, d). Returns (B, H, Sq, d)."""
+    q: (B, H, Sq, d); k, v: (B, Hkv, Skv, d). Returns (B, H, Sq, d).
+    ``window`` > 0 also hides key j from query i unless i - j < window
+    (strict, as ``repro/nn/attention.py:80-82``)."""
     B, H, Sq, d = q.shape
-    _, Hkv, Skv, _ = k.shape
+    Hkv = k.shape[1]
     group = H // Hkv
     scale = scale if scale is not None else d ** -0.5
-    qf = q.float()
-    kf = k.float().repeat_interleave(group, dim=1)
+    s, mask = _scores(q, k, causal=causal, scale=scale, kv_len=kv_len,
+                      window=window)
     vf = v.float().repeat_interleave(group, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
-    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
-    k_ids = torch.arange(Skv, device=q.device)
-    if kv_len is not None:
-        mask = mask & (k_ids[None, :] < kv_len)
-    if causal:
-        q_ids = torch.arange(Sq, device=q.device)
-        mask = mask & (q_ids[:, None] >= k_ids[None, :])
     s = s.masked_fill(~mask, float("-inf"))
     # Guard fully-masked rows (padding queries): softmax of all -inf -> 0.
     m = s.amax(dim=-1, keepdim=True)
@@ -171,9 +166,10 @@ def matmul_bwd_ref(
             dout if ep.residual else None)
 
 
-def _scores(q, k, *, causal, scale, kv_len):
+def _scores(q, k, *, causal, scale, kv_len, window=0):
     """f32 scaled scores (B, H, Sq, Skv) with GQA broadcast, and the mask
-    of visible (query, key) pairs (positions from 0, key < kv_len)."""
+    of visible (query, key) pairs (positions from 0, key < kv_len, and
+    query - key < window where ``window`` > 0)."""
     B, H, Sq, d = q.shape
     _, Hkv, Skv, _ = k.shape
     kf = k.float().repeat_interleave(H // Hkv, dim=1)
@@ -182,9 +178,11 @@ def _scores(q, k, *, causal, scale, kv_len):
     mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
     if kv_len is not None:
         mask = mask & (k_ids[None, :] < kv_len)
+    q_ids = torch.arange(Sq, device=q.device)
     if causal:
-        q_ids = torch.arange(Sq, device=q.device)
         mask = mask & (q_ids[:, None] >= k_ids[None, :])
+    if window > 0:
+        mask = mask & (q_ids[:, None] - k_ids[None, :] < window)
     return s, mask
 
 
@@ -196,17 +194,19 @@ def attention_lse_ref(
     causal: bool = False,
     scale: Optional[float] = None,
     kv_len: Optional[int] = None,
+    window: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """:func:`attention_ref` and the row log-sum-exp of its scaled scores,
     lse (B, H, Sq) f32 in natural units, +inf for a row with no visible
     key (so that the backward's exp(s - lse) is 0 there)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    s, mask = _scores(q, k, causal=causal, scale=scale, kv_len=kv_len)
+    s, mask = _scores(q, k, causal=causal, scale=scale, kv_len=kv_len,
+                      window=window)
     lse = torch.logsumexp(s.masked_fill(~mask, float("-inf")), dim=-1)
     lse = torch.where(torch.isfinite(lse), lse,
                       torch.full_like(lse, float("inf")))
     return attention_ref(q, k, v, causal=causal, scale=scale,
-                         kv_len=kv_len), lse
+                         kv_len=kv_len, window=window), lse
 
 
 def attention_bwd_ref(
@@ -220,6 +220,7 @@ def attention_bwd_ref(
     causal: bool = False,
     scale: Optional[float] = None,
     kv_len: Optional[int] = None,
+    window: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of :func:`attention_ref` from q, k, v, the forward's o
     and lse, and do, in f32 and cast to the inputs' dtypes: P = exp(S scale
@@ -230,7 +231,8 @@ def attention_bwd_ref(
     Hkv = k.shape[1]
     group = H // Hkv
     scale = scale if scale is not None else d ** -0.5
-    s, mask = _scores(q, k, causal=causal, scale=scale, kv_len=kv_len)
+    s, mask = _scores(q, k, causal=causal, scale=scale, kv_len=kv_len,
+                      window=window)
     p = torch.exp(s - lse.float()[..., None]).masked_fill(~mask, 0.0)
     dof = do.float()
     vf = v.float().repeat_interleave(group, dim=1)

@@ -17,6 +17,12 @@ slot-reuse decode, on PyTorch tensors (the port of
 * The SSM and hybrid families take no bucket plan: a recurrent state
   would integrate the pad tokens, so their prompts prefill at exact length
   (``repro/launch/engine.py:116-120``).
+* A request may carry its frontend's inputs (``extras``: audio's
+  ``frame_embed`` (1, len, D), vision's ``patch_embed`` (1, P, D) with P
+  <= len), which its prefill takes (``repro/launch/engine.py:309``).
+  Under a bucket plan the frame embeddings are right-padded with zero rows
+  to the bucket edge, as the prompt is with pad tokens; the patch
+  embeddings cover the first positions whatever the edge.
 
 Fail-soft semantics follow the reference: every prefill/decode is
 transient-retried (the fault hook fires before the step touches the cache,
@@ -75,6 +81,7 @@ class Request:
     rid: int
     prompt: np.ndarray                  # (len,) int32 token ids
     max_new_tokens: int                 # tokens to emit (incl. prefill's)
+    extras: Optional[Dict] = None       # frontend inputs, batch axis of 1
 
 
 @dataclass
@@ -141,6 +148,24 @@ class _PrefillClock:
         return self.total
 
 
+def _extras_at(extras: Optional[Dict], padded: int,
+               device: torch.device) -> Optional[Dict]:
+    """A request's frontend inputs on ``device`` for a prefill of
+    ``padded`` positions: ``frame_embed`` right-padded with zero rows to
+    ``padded`` (pad rows sit after the real ones, which causal attention
+    keeps from seeing them), ``patch_embed`` as it is."""
+    if not extras:
+        return None
+    out = {}
+    for name, v in extras.items():
+        t = torch.as_tensor(v, device=device)
+        if name == "frame_embed" and t.shape[1] < padded:
+            t = torch.cat([t, t.new_zeros((t.shape[0], padded - t.shape[1],
+                                           *t.shape[2:]))], dim=1)
+        out[name] = t
+    return out
+
+
 def _insert(full: Dict, part: Dict, b: int) -> None:
     """Write each prefill cache leaf (L, 1, ...) into row ``b`` of the
     matching decode cache leaf (L, B, ...), in place, at offset 0 of every
@@ -204,12 +229,22 @@ class ServingEngine:
 
     # -- queue -------------------------------------------------------------
 
-    def submit(self, prompt, max_new_tokens: int) -> int:
+    def submit(self, prompt, max_new_tokens: int,
+               extras: Optional[Dict] = None) -> int:
         """Enqueue one request; returns its rid.  Validates against the
-        engine's KV budget up front so admission can't overflow the cache."""
+        engine's KV budget up front so admission can't overflow the cache.
+        ``extras`` are the request's frontend inputs (numpy arrays or
+        tensors with a batch axis of 1): ``frame_embed`` one row a prompt
+        token, ``patch_embed`` at most as many."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if prompt.size < 1:
             raise ValueError("empty prompt")
+        for name, v in (extras or {}).items():
+            rows = tuple(v.shape)[1]
+            if (rows != prompt.size if name == "frame_embed"
+                    else rows > prompt.size):
+                raise ValueError(f"{name} has {rows} rows for a prompt of "
+                                 f"{prompt.size} tokens")
         if max_new_tokens < 1:
             raise ValueError(f"max_new_tokens must be >= 1, "
                              f"got {max_new_tokens}")
@@ -222,7 +257,8 @@ class ServingEngine:
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append(Request(rid=rid, prompt=prompt,
-                                   max_new_tokens=int(max_new_tokens)))
+                                   max_new_tokens=int(max_new_tokens),
+                                   extras=extras))
         return rid
 
     # -- warm-up -----------------------------------------------------------
@@ -350,6 +386,7 @@ class ServingEngine:
             prompt_dev = _to_device(prompt, dev)
             last_pos = (_to_device([plen - 1], dev)
                         if padded != plen else None)
+            extras = _extras_at(req.extras, padded, dev)
             mark = prefill_clock.start()
             with (tr.span("prefill", cat="engine", track="engine",
                           args={"rid": req.rid, "slot": b,
@@ -357,7 +394,7 @@ class ServingEngine:
                   if tr is not None else obs_trace.NULL_SPAN):
                 logits, pc = retry(
                     lambda: self.model.prefill(self.params, prompt_dev,
-                                               last_pos),
+                                               last_pos, extras=extras),
                     retries=_STEP_RETRIES, base_delay=_STEP_BASE_DELAY,
                     max_delay=_STEP_MAX_DELAY, on_retry=self._count_retry)
                 _insert(cache, pc, b)

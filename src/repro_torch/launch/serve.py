@@ -17,6 +17,13 @@ uniform requests, on the GPU by default.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b \\
         --batch 4 --prompt-len 512 --gen 16 --ragged --requests 8
 
+    # the audio and vlm families, each request with its frontend inputs
+    # (musicgen-large 4.9 GB; llava-next-mistral-7b 14.5 GB, each prompt its
+    # 2,880-position image ahead of the text)
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llava-next-mistral-7b --batch 4 --prompt-len 512 --gen 16 \\
+        --ragged --requests 8
+
 Requests flow through :class:`repro_torch.launch.engine.ServingEngine`;
 ragged lengths are right-padded to the edges of a model-priced
 :class:`~repro_torch.core.bucketing.BucketPlan`, every bucket edge's step
@@ -28,7 +35,11 @@ plan prices every family's step with ``step_gemms`` (a d_model-wide q
 projection and a d_ff MLP), and MoE prompts are admitted into buckets: pad
 tokens raise the token count and so the expert capacity.  The SSM and
 hybrid families get no plan (a recurrent state would integrate the pad):
-their prompts prefill at exact length.  ``--topology``
+their prompts prefill at exact length.  A model with a frontend (audio,
+vision) gets synthetic frontend inputs a request, at that request's own
+length (:func:`request_queue`; the reference draws them once at
+--prompt-len, ROADMAP's caveat on ragged extras), and the engine pads a
+request's frame embeddings to its bucket edge.  ``--topology``
 loads a calibrated-topology artifact through the guarded loader (corrupt
 artifacts quarantine, serving continues on the stock preset);
 ``--residual`` installs a residual corrector, loaded guarded against the
@@ -43,7 +54,7 @@ from __future__ import annotations
 import argparse
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -59,6 +70,8 @@ from repro_torch.core.simulator import simulate_gemm
 from repro_torch.core.topology import load_calibrated_topology_guarded
 from repro_torch.kernels import ops
 from repro_torch.launch.engine import ServingEngine
+from repro_torch.nn.config import ModelConfig
+from repro_torch.nn.frontends import synth_frontend_inputs
 from repro_torch.nn.model import Model, resolve_device
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -111,12 +124,14 @@ def build_parser() -> argparse.ArgumentParser:
 
 def run_serving(args: argparse.Namespace, *,
                 decode_fault: Optional[Callable[..., None]] = None,
-                params: Optional[Dict] = None) -> Dict:
+                params: Optional[Dict] = None,
+                cfg: Optional[ModelConfig] = None) -> Dict:
     """Serve one request queue end to end; returns the serving stats.
 
     ``decode_fault(step, guard)``, when given, runs at the top of every
     decode step's retried body.  ``params`` serves given weights instead
-    of initialising random ones from ``--seed``.
+    of initialising random ones from ``--seed``; ``cfg`` serves that
+    config instead of --arch's (a model cut in depth to fit one card).
 
     Returns a dict with ``tokens`` (uniform mode: the (batch, steps+1)
     generated array including the prefill token; ragged mode: a list of
@@ -155,7 +170,7 @@ def run_serving(args: argparse.Namespace, *,
         prev_mon = set_drift_monitor(drift_mon)
     try:
         out = _run_serving(args, decode_fault=decode_fault, params=params,
-                           say=say, quiet=quiet)
+                           cfg=cfg, say=say, quiet=quiet)
         if trace_dir:
             _export_telemetry(trace_dir, args)
         return out
@@ -196,9 +211,44 @@ def _export_telemetry(trace_dir: str, args: argparse.Namespace) -> None:
                     kind="serving", arch=args.arch)
 
 
+def request_queue(args: argparse.Namespace, cfg: ModelConfig,
+                  device: torch.device
+                  ) -> List[Tuple[np.ndarray, Optional[Dict]]]:
+    """The run's requests in submission order: (prompt token ids, frontend
+    inputs or None).  Prompts are uniform rows of --prompt-len or, with
+    --ragged, truncations to lengths drawn in [prompt-len/2, prompt-len],
+    both from --seed; a vision model's prompt is its image,
+    ``cfg.frontend_tokens`` patch positions, ahead of that text (the
+    reference's driver lets the patches cover the first
+    min(frontend_tokens, --prompt-len) positions instead).  Each request's
+    frontend inputs are drawn at its own prompt length, one request after
+    another, from a generator on ``device`` seeded --seed."""
+    ragged = bool(getattr(args, "ragged", False))
+    n_req = getattr(args, "requests", None) or (
+        2 * args.batch if ragged else args.batch)
+    prefix = cfg.frontend_tokens if cfg.frontend == "vision" else 0
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(0, cfg.vocab_size,
+                           size=(n_req, prefix + args.prompt_len)
+                           ).astype(np.int32)
+    if ragged:
+        lo = max(args.prompt_len // 2, 4)
+        lens = np.random.default_rng(args.seed).integers(
+            lo, args.prompt_len + 1, size=n_req).tolist()
+    else:
+        lens = [args.prompt_len] * n_req
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    out = []
+    for i in range(n_req):
+        n = prefix + lens[i]
+        extras = synth_frontend_inputs(cfg, gen, 1, n, device=device)
+        out.append((prompts[i, :n], extras or None))
+    return out
+
+
 def _run_serving(args: argparse.Namespace, *,
                  decode_fault: Optional[Callable[..., None]],
-                 params: Optional[Dict],
+                 params: Optional[Dict], cfg: Optional[ModelConfig],
                  say: Callable[[str], None], quiet: bool) -> Dict:
     device = resolve_device(getattr(args, "device", "cuda"))
     n_warm = load_selection_cache()            # $REPRO_SELECTION_CACHE
@@ -243,28 +293,19 @@ def _run_serving(args: argparse.Namespace, *,
                 f"re-pricing, fit on {corr.provenance.get('n_rows', '?')} "
                 f"drift rows)")
 
-    cfg = get_config(args.arch, smoke=args.smoke)
+    cfg = cfg or get_config(args.arch, smoke=args.smoke)
     model = Model(cfg, device=device)
-    max_len = args.prompt_len + args.gen
     ragged = bool(getattr(args, "ragged", False))
-    n_req = getattr(args, "requests", None) or (
-        2 * args.batch if ragged else args.batch)
 
     if params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed)
         params = model.init(gen)
 
-    # Request prompts: uniform rows of prompt-len, or ragged truncations.
-    rng = np.random.default_rng(args.seed)
-    prompts = rng.integers(0, cfg.vocab_size,
-                           size=(n_req, args.prompt_len)).astype(np.int32)
-    if ragged:
-        lo = max(args.prompt_len // 2, 4)
-        lens = np.random.default_rng(args.seed).integers(
-            lo, args.prompt_len + 1, size=n_req).tolist()
-    else:
-        lens = [args.prompt_len] * n_req
+    requests = request_queue(args, cfg, device)
+    n_req = len(requests)
+    lens = [int(p.size) for p, _ in requests]
+    max_len = max(lens) + args.gen
 
     plan = None
     if ragged and not cfg.has_ssm:
@@ -286,8 +327,8 @@ def _run_serving(args: argparse.Namespace, *,
         sync_every=getattr(args, "sync_every", 8),
         decode_fault=decode_fault,
         straggler_window=16, straggler_min_steps=4, quiet=quiet)
-    for i in range(n_req):
-        engine.submit(prompts[i, :lens[i]], max_new_tokens=args.gen)
+    for prompt, extras in requests:
+        engine.submit(prompt, max_new_tokens=args.gen, extras=extras)
 
     t0 = time.time()
     warmed = engine.warm_start()

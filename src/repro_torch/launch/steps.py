@@ -6,7 +6,10 @@ retries whole.  Here the training state is updated in place (at
 phi4-mini's full size a second copy of the 46 GB state does not fit the
 card), so a step has two parts: :meth:`TrainStep.loss_and_grads`, which
 mutates nothing and may be retried, and :meth:`TrainStep.apply`, the
-optimizer's commit, which runs once.
+optimizer's commit, which runs once.  A batch is {"tokens": (B, S)} plus,
+for a model with a frontend, its inputs (``frame_embed`` / ``patch_embed``),
+which travel with the tokens into the loss and into a prefill
+(``repro/launch/steps.py:73-78``).
 """
 from __future__ import annotations
 
@@ -15,7 +18,6 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from repro_torch.nn import transformer as T
 from repro_torch.nn.model import Model
 from repro_torch.optim.adamw import AdamW, OptState, tree_items, tree_map
 
@@ -46,33 +48,40 @@ class TrainStep:
         self.model, self.optimizer = model, optimizer
         self.microbatches = microbatches
 
-    def _tokens(self, batch: Dict) -> torch.Tensor:
-        t = batch["tokens"]
-        if isinstance(t, np.ndarray):
-            t = torch.from_numpy(t)
-        return t.to(device=self.model.device, dtype=torch.int64)
+    def _batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
+        """The batch on the model's device: tokens int64, the frontend's
+        inputs as they are."""
+        out = {}
+        for name, t in batch.items():
+            if isinstance(t, np.ndarray):
+                t = torch.from_numpy(t)
+            out[name] = (t.to(device=self.model.device, dtype=torch.int64)
+                         if name == "tokens" else t.to(self.model.device))
+        return out
 
-    def _value_and_grad(self, params: Dict, tokens: torch.Tensor
+    def _value_and_grad(self, params: Dict, batch: Dict[str, torch.Tensor]
                         ) -> Tuple[torch.Tensor, Dict]:
         paths, leaves = zip(*tree_items(params))
         live = [p.detach().requires_grad_(True) for p in leaves]
-        loss = self.model.loss(_unflatten(dict(zip(paths, live))),
-                               {"tokens": tokens})
+        loss = self.model.loss(_unflatten(dict(zip(paths, live))), batch)
         grads = torch.autograd.grad(loss, live)
         return loss.detach(), _unflatten(dict(zip(paths, grads)))
 
     def loss_and_grads(self, params: Dict, batch: Dict
                        ) -> Tuple[torch.Tensor, Dict]:
         """(the f32 loss, the grads in the param dtype); mutates nothing."""
-        tokens = self._tokens(batch)
+        batch = self._batch(batch)
         n = self.microbatches
         if n == 1:
-            return self._value_and_grad(params, tokens)
-        if tokens.shape[0] % n:
-            raise ValueError(f"batch {tokens.shape[0]} does not split into "
+            return self._value_and_grad(params, batch)
+        rows = batch["tokens"].shape[0]
+        if rows % n:
+            raise ValueError(f"batch {rows} does not split into "
                              f"{n} micro-batches")
         loss_sum, gacc = None, None
-        for micro in tokens.reshape(n, -1, *tokens.shape[1:]):
+        for i in range(n):
+            micro = {name: t.reshape(n, -1, *t.shape[1:])[i]
+                     for name, t in batch.items()}
             loss, g = self._value_and_grad(params, micro)
             loss_sum = loss if loss_sum is None else loss_sum + loss
             if gacc is None:
@@ -100,9 +109,8 @@ class TrainStep:
 
 def make_train_step(model: Model, optimizer: AdamW, microbatches: int = 1
                     ) -> TrainStep:
-    """The train step of a model of any family the port has (dense, MoE,
-    SSM, hybrid); another family raises here."""
-    T._check_family(model.cfg)
+    """The train step of a model of any family (dense, MoE, SSM, hybrid,
+    audio, vlm: ``nn/config.py``'s, all ported)."""
     return TrainStep(model, optimizer, microbatches)
 
 
@@ -116,5 +124,6 @@ def make_serve_step(model: Model) -> Callable:
 def make_prefill_step(model: Model) -> Callable:
     def prefill_step(params: Dict, batch: Dict
                      ) -> Tuple[torch.Tensor, Dict]:
-        return model.prefill(params, batch["tokens"])
+        extras = {k: v for k, v in batch.items() if k != "tokens"}
+        return model.prefill(params, batch["tokens"], extras=extras or None)
     return prefill_step

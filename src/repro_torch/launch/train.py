@@ -18,12 +18,21 @@ On the card every GEMM of the forward pass, of its recompute (``remat``)
 and of the backward runs the hand-written Hopper GEMM (the MoE's expert
 GEMMs and their gradients the grouped one), every attention forward and
 backward the flash kernels.  Every family of the port trains: dense
-(phi4-mini-3.8b), MoE (qwen3-moe-30b-a3b), SSM (mamba2-370m) and hybrid
-(zamba2-7b).  There is no mesh and no ``--compress-dp``: the distributed
-slice brings them.  At full size phi4-mini-3.8b needs about 46 GB of the
-card for its state (bf16 params and grads, f32 AdamW moments) and
-mamba2-370m about 4.4 GB, plus activations; qwen3-moe-30b-a3b (about 366
-GB) and zamba2-7b (about 81 GB) do not fit one card at full depth.
+(phi4-mini-3.8b, minitron-8b, stablelm-12b, internlm2-20b), MoE
+(qwen3-moe-30b-a3b, mixtral-8x22b), SSM (mamba2-370m), hybrid
+(zamba2-7b), audio (musicgen-large) and vlm (llava-next-mistral-7b).  A
+model with a frontend gets synthetic frontend inputs, drawn once from a
+generator seeded 1 (as ``repro/launch/train.py:93-96`` draws them from
+PRNGKey(1)), in every batch.  There is no mesh and no ``--compress-dp``:
+the distributed slice brings them.  At full size (bf16 params and grads,
+f32 AdamW moments: 12 bytes a parameter) phi4-mini-3.8b needs about 46 GB
+of the card for its state, musicgen-large about 29 GB and mamba2-370m
+about 4.4 GB, plus activations; the others do not fit one card at full
+depth (minitron-8b about 119 GB, llava-next-mistral-7b 87 GB,
+stablelm-12b 146 GB, internlm2-20b 238 GB, zamba2-7b 81 GB, qwen3-moe
+366 GB, mixtral-8x22b 1.7 TB; ROADMAP A5).  On the card a sliding window
+(mixtral-8x22b) does not train yet: the flash backward has no window
+(ROADMAP A4b); on the CPU it trains through the plain versions.
 """
 from __future__ import annotations
 
@@ -37,6 +46,7 @@ from repro_torch import checkpoint as ckpt_lib
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.data import DataConfig, Prefetcher, SyntheticLM
 from repro_torch.launch.steps import TrainState, make_train_step
+from repro_torch.nn.frontends import synth_frontend_inputs
 from repro_torch.nn.model import Model
 from repro_torch.optim import AdamW, warmup_cosine
 from repro_torch.runtime import (MetricLogger, PreemptionGuard,
@@ -89,6 +99,9 @@ def run_training(args: argparse.Namespace) -> Dict:
                                   global_batch=args.batch,
                                   seed=args.seed))
     stream = Prefetcher(data.iterate(start_step), depth=2)
+    extras = synth_frontend_inputs(
+        cfg, torch.Generator(device=model.device).manual_seed(1), args.batch,
+        args.seq, device=model.device)
     guard = PreemptionGuard()
     monitor = StragglerMonitor()
     logger = MetricLogger(args.log)
@@ -107,7 +120,7 @@ def run_training(args: argparse.Namespace) -> Dict:
                 save(step)
                 return {"records": records, "state": state,
                         "stopped": True}
-            batch = next(stream)
+            batch = {**next(stream), **extras}
             t0 = time.time()
             loss, grads = retry(train_step.loss_and_grads, state.params,
                                 batch, retries=2)

@@ -185,16 +185,21 @@ def attn_forward(
 ) -> torch.Tensor:
     B, S, D = x.shape
     H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if cfg.sliding_window or cfg.kv_repeat_weights:
+    if cfg.kv_repeat_weights:
         raise NotImplementedError(
-            "sliding-window attention and KV weight repeat are not ported")
+            "KV weight repeat (a distribution knob) is not ported "
+            "(ROADMAP A5/A6)")
     h = norm(x, p["norm"], cfg)
     q = dense(h, p["wq"]).reshape(B, S, H, hd).transpose(1, 2)
     k = dense(h, p["wk"]).reshape(B, S, Hkv, hd).transpose(1, 2)
     v = dense(h, p["wv"]).reshape(B, S, Hkv, hd).transpose(1, 2)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    out = kops.flash_attention(q, k, v, causal=True)
+    # The reference sends any window to its plain chunked_attention
+    # (repro/nn/layers.py:190); here the window rides in the flash kernel
+    # on the card and in its plain version (chunked_attention) on the CPU.
+    out = kops.flash_attention(q, k, v, causal=True,
+                               window=cfg.sliding_window)
     out = out.transpose(1, 2).reshape(B, S, H * hd)
     return dense(out, p["wo"], residual=residual)
 

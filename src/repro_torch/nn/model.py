@@ -64,18 +64,22 @@ class Model:
     # -- entrypoints --------------------------------------------------------
     def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
         """The training loss (``T.lm_loss``) of a batch {"tokens": (B, S)
-        int64 on the model's device}."""
+        int64 on the model's device}, plus the frontend's inputs
+        (``frame_embed`` / ``patch_embed``) where the model has one."""
         return T.lm_loss(params, batch, self.cfg)
 
-    def forward(self, params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, params: Dict, tokens: torch.Tensor,
+                extras: Optional[Dict] = None) -> torch.Tensor:
         """f32 logits (B, S, V) of a full causal pass."""
-        return T.logits(T.forward_hidden(params, tokens, self.cfg), params,
-                        self.cfg)
+        return T.logits(T.forward_hidden(params, tokens, self.cfg, extras),
+                        params, self.cfg)
 
     def prefill(self, params: Dict, tokens: torch.Tensor,
-                last_pos: Optional[torch.Tensor] = None
+                last_pos: Optional[torch.Tensor] = None, *,
+                extras: Optional[Dict] = None
                 ) -> Tuple[torch.Tensor, Dict]:
-        return T.prefill_forward(params, tokens, self.cfg, last_pos=last_pos)
+        return T.prefill_forward(params, tokens, self.cfg, extras=extras,
+                                 last_pos=last_pos)
 
     def decode_step(self, params: Dict, cache: Dict, tokens: torch.Tensor,
                     pos: torch.Tensor) -> Tuple[torch.Tensor, Dict]:

@@ -1,5 +1,5 @@
-"""Decoder-LM assembly on PyTorch tensors, for the dense, MoE, SSM and
-hybrid families.
+"""Decoder-LM assembly on PyTorch tensors, for all six families: dense,
+MoE, SSM, hybrid, audio and vlm.
 
 The param tree keeps the JAX package's layout: layer parameters stacked on
 a leading "layers" axis (``repro/nn/transformer.py:59``).  Where the
@@ -10,7 +10,12 @@ hybrid (zamba2) family runs groups of ``shared_attn_every`` mamba layers,
 each group followed by one application of the *shared* attention + MLP
 block (one weight set reused at every application), then a ragged tail of
 mamba layers; the shared block keeps one KV cache per application.  The
-vlm and audio families are not ported.
+audio (musicgen) and vlm (llava) families run the dense layer over a
+stubbed frontend (``nn/frontends.py``): a full pass and a prefill take
+``extras``, where audio's ``frame_embed`` (B, S, D) is added to the token
+embeddings and vision's ``patch_embed`` (B, P, D) replaces the first P
+positions (``repro/nn/transformer.py:88-101``); a decode step takes none,
+as in the reference.
 
 Training: :func:`lm_loss` is the reference's chunked next-token NLL over
 :func:`forward_hidden`, whose layers run under
@@ -29,16 +34,6 @@ from repro_torch.nn import layers as L
 from repro_torch.nn import mamba2, moe
 from repro_torch.nn.config import ModelConfig
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: only the {', '.join(FAMILIES)} families are "
-            f"ported, not {cfg.family!r}")
-
-
 def layer_defs(cfg: ModelConfig) -> Dict:
     if cfg.has_ssm:
         return {"mamba": mamba2.mamba_defs(cfg)}
@@ -54,7 +49,6 @@ def _stack(defs, n: int):
 
 
 def model_defs(cfg: ModelConfig) -> Dict:
-    _check_family(cfg)
     D, V = cfg.d_model, cfg.vocab_size
     defs = {
         "embed": L.ParamDef((V, D)),
@@ -90,8 +84,20 @@ def _layer(tree, i: int):
             for k, v in tree.items()}
 
 
-def embed_tokens(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens]
+def embed_tokens(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+                 extras: Optional[Dict] = None) -> torch.Tensor:
+    """The token embeddings (B, S, D), with the frontend's inputs where the
+    config has a frontend and ``extras`` holds them: audio's frame
+    embeddings added in, vision's patch embeddings in the first
+    positions."""
+    x = params["embed"][tokens]
+    extras = extras or {}
+    if cfg.frontend == "audio" and "frame_embed" in extras:
+        x = x + extras["frame_embed"].to(x.dtype)
+    if cfg.frontend == "vision" and "patch_embed" in extras:
+        pe = extras["patch_embed"].to(x.dtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    return x
 
 
 def lm_head_weight(params: Dict, cfg: ModelConfig) -> torch.Tensor:
@@ -199,15 +205,15 @@ def _layer_step(lp: Dict, shared: Optional[Dict], x: torch.Tensor,
     return x, x.new_zeros((), dtype=torch.float32)
 
 
-def forward_hidden_aux(params: Dict, tokens: torch.Tensor, cfg: ModelConfig
+def forward_hidden_aux(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+                       extras: Optional[Dict] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(final normed hidden states (B, S, D), the MoE aux loss summed over
     layers) of a full causal pass (``transformer.py:125-165``).  With
     ``cfg.remat`` and autograd recording, each layer runs under a
     non-reentrant checkpoint: its activations are recomputed in the
     backward pass, as the reference's ``jax.checkpoint`` body."""
-    _check_family(cfg)
-    x = embed_tokens(params, tokens)
+    x = embed_tokens(params, tokens, cfg, extras)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = x.new_zeros((), dtype=torch.float32)
@@ -222,10 +228,10 @@ def forward_hidden_aux(params: Dict, tokens: torch.Tensor, cfg: ModelConfig
     return L.norm(x, params["final_norm"], cfg), aux
 
 
-def forward_hidden(params: Dict, tokens: torch.Tensor, cfg: ModelConfig
-                   ) -> torch.Tensor:
+def forward_hidden(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+                   extras: Optional[Dict] = None) -> torch.Tensor:
     """Final normed hidden states (B, S, D) of a full causal pass."""
-    return forward_hidden_aux(params, tokens, cfg)[0]
+    return forward_hidden_aux(params, tokens, cfg, extras)[0]
 
 
 def lm_loss(params: Dict, batch: Dict, cfg: ModelConfig, *,
@@ -234,9 +240,11 @@ def lm_loss(params: Dict, batch: Dict, cfg: ModelConfig, *,
     """Mean next-token NLL over B (S - 1) positions plus ``aux_weight`` x
     the MoE aux loss (``transformer.py:282-324``): the logits are f32 and
     made ``loss_chunk`` positions at a time, never (B, S, V) at once; each
-    chunk's NLL is logsumexp minus the gold logit."""
+    chunk's NLL is logsumexp minus the gold logit.  The batch's other keys
+    are the frontend's inputs (``transformer.py:291``)."""
     tokens = batch["tokens"]
-    hidden, aux = forward_hidden_aux(params, tokens, cfg)
+    extras = {k: v for k, v in batch.items() if k != "tokens"}
+    hidden, aux = forward_hidden_aux(params, tokens, cfg, extras)
     B, S, _ = hidden.shape
     n = S - 1
     c = min(loss_chunk, n)
@@ -255,6 +263,7 @@ def prefill_forward(
     tokens: torch.Tensor,
     cfg: ModelConfig,
     *,
+    extras: Optional[Dict] = None,
     last_pos: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Returns (last-position logits (B, V) f32, decode cache).  The cache
@@ -266,8 +275,7 @@ def prefill_forward(
     ``last_pos`` (B,) reads each row's logits at its own final real
     position — the ragged-admission path: prompts right-padded to a bucket
     edge still read out at their true last token."""
-    _check_family(cfg)
-    x = embed_tokens(params, tokens)
+    x = embed_tokens(params, tokens, cfg, extras)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
     ks, vs, mcs = [], [], []
@@ -308,7 +316,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     ``max_len`` positions: k/v and the conv tails bf16 whatever the param
     dtype, the SSM state f32, as in the reference
     (``transformer.py:327-353``)."""
-    _check_family(cfg)
 
     def kv(n):
         shape = (n, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
@@ -338,8 +345,7 @@ def decode_step(
     held until the last layer has run and then written into the cache,
     one copy per leaf, so a step that fails part-way leaves the recurrent
     state as it was."""
-    _check_family(cfg)
-    x = embed_tokens(params, tokens)[:, None, :]          # (B, 1, D)
+    x = embed_tokens(params, tokens, cfg)[:, None, :]     # (B, 1, D)
     new_mamba = []
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)

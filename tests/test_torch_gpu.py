@@ -1248,3 +1248,91 @@ def test_grouped_backward_at_qwen3_shapes_is_exact_on_card(cuda, layout, M,
                          kmm._sm_count(cuda.index)).column_walk
     assert torch.equal(got, want)
     assert _flags_down()
+
+
+# The sliding window in the bf16 forward (mixtral-8x22b's SWA): (B, H, Hkv,
+# S, d, window).  Windows of 32, 100 and 128 at S 300 put block edges
+# inside and on the window's lower edge (64 and 128 are block sizes); a
+# window past S must equal the causal kernel; mixtral's own shape at
+# S 8192, window 4096, as served.  The plain version is
+# ``nn/attention.py::chunked_attention``.
+WINDOW_CASES = [(1, 8, 2, 300, d, w) for d in (64, 128, 160)
+                for w in (32, 64, 100, 128)] + [
+    (2, 8, 8, 300, 128, 1), (1, 48, 8, 8192, 128, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,Hkv,S,d,window", WINDOW_CASES, ids=str)
+def test_flash_window_matches_chunked_attention(cuda, B, H, Hkv, S, d,
+                                                window):
+    """Every legal block pair (S 300) or the selector's (S 8192) against
+    the plain windowed attention, two launches bitwise equal, v as the
+    model passes it."""
+    q, k, v = _attn_case(cuda, B, H, Hkv, S, d, torch.bfloat16,
+                         seed=S + d + window, model_v=True)
+    pairs = ([(bq, bkv) for bq in kfa.BLOCK_MENU for bkv in kfa.BLOCK_MENU
+              if kfa.legal_blocks(bq, bkv, d)] if S < 1000 else
+             [kfa.select_attention_blocks(S, S, d, causal=True, batch=B,
+                                          heads=H, kv_heads=Hkv,
+                                          window=window)])
+    want = kfa.attention_plain(q, k, v, block_q=64, block_kv=64,
+                               causal=True, window=window)
+    for bq, bkv in pairs:
+        n0 = kfa.flash_attention_kernel.launches
+        got = kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
+                                         causal=True, window=window)
+        again = kfa.flash_attention_kernel(q, k, v, block_q=bq,
+                                           block_kv=bkv, causal=True,
+                                           window=window)
+        torch.cuda.synchronize()
+        assert kfa.flash_attention_kernel.launches == n0 + 2
+        assert torch.equal(got, again), (bq, bkv)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **_attn_tol(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,window", [(300, 300), (300, 5000), (474, 474)])
+def test_flash_window_past_the_sequence_is_causal(cuda, S, window):
+    """A window that no query reaches past (window >= S) is bitwise the
+    causal kernel."""
+    q, k, v = _attn_case(cuda, 1, 8, 2, S, 128, torch.bfloat16, seed=S,
+                         model_v=True)
+    for bq, bkv in ((64, 64), (128, 128)):
+        got = kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
+                                         causal=True, window=window)
+        want = kfa.flash_attention_kernel(q, k, v, block_q=bq,
+                                          block_kv=bkv, causal=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (bq, bkv)
+
+
+@pytest.mark.gpu
+def test_flash_window_refused_where_no_kernel_takes_it(cuda):
+    """On the card a window reaches only the bf16 forward: under autograd
+    and in f32 it raises, naming the ROADMAP item; no launch happens and
+    nothing falls back to the plain version."""
+    q, k, v = _attn_case(cuda, 1, 4, 2, 128, 64, torch.bfloat16, seed=1)
+    n0 = kfa.flash_attention_kernel.launches
+    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
+        ops.flash_attention(q.requires_grad_(), k, v, causal=True,
+                            window=32)
+    q32, k32, v32 = _attn_case(cuda, 1, 4, 2, 128, 64, torch.float32, seed=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
+        ops.flash_attention(q32, k32, v32, causal=True, window=32)
+    o, lse = kfa.flash_attention_kernel(q.detach(), k, v, block_q=64,
+                                        block_kv=64, causal=True,
+                                        return_lse=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
+        kfa.flash_attention_bwd_kernel(q.detach(), k, v, o, lse, o,
+                                       causal=True, window=32)
+    assert kfa.flash_attention_kernel.launches == n0 + 1
+
+
+@pytest.mark.gpu
+def test_flash_head_dim_off_the_rule_raises(cuda):
+    """stablelm-12b's smoke head dim, 20 (40-byte rows: no TMA stride),
+    raises a clear error on the card; the config runs on the CPU only."""
+    q, k, v = _attn_case(cuda, 1, 4, 2, 64, 20, torch.bfloat16, seed=2)
+    with pytest.raises(ValueError, match="head_dim 20 is not taken"):
+        ops.flash_attention(q, k, v, causal=True)

@@ -183,19 +183,22 @@ def test_flash_head_dim_rule_covers_both_registries():
     """Every full-size head dim of the JAX registry and every head dim of
     the port's registry (full and smoke) is one the kernels take (a
     multiple of 8 up to 256); others raise with the rule.  stablelm-12b's
-    smoke config (d 20, not yet ported) is off the rule: its 40-byte rows
-    are no TMA stride.  The legal block pairs are the ones the launcher
-    instantiates: at a padded head dim above 128 only 64-key blocks."""
+    smoke config (d 20) is the one off the rule: its 40-byte rows are no
+    TMA stride, so it runs on the CPU only.  The legal block pairs are the
+    ones the launcher instantiates: at a padded head dim above 128 only
+    64-key blocks."""
     from repro.configs.registry import ARCH_IDS as JARCH_IDS
     from repro.configs.registry import get_config as jget_config
     from repro_torch.configs.registry import ARCH_IDS, get_config
     full = {jget_config(a).head_dim for a in JARCH_IDS} - {0}
     ported = {get_config(a, smoke=s).head_dim for a in ARCH_IDS
               for s in (False, True)} - {0}
-    assert full == {64, 112, 128, 160} and ported == {16, 32, 112, 128}
-    for d in full | ported:
+    assert full == {64, 112, 128, 160}
+    assert ported == {16, 20, 32, 64, 112, 128, 160}
+    for d in full | ported - {20}:
         kfa.check_head_dim(d)
     assert jget_config("stablelm-12b", smoke=True).head_dim == 20
+    assert get_config("stablelm-12b", smoke=True).head_dim == 20
     for bad in (12, 20, 100, 264):
         with pytest.raises(ValueError, match="multiple of 8 up to 256"):
             kfa.check_head_dim(bad)
@@ -208,13 +211,15 @@ def test_flash_head_dim_rule_covers_both_registries():
 
 
 def _registry_head_dims():
+    """The head dims of both registries the kernels take (all but
+    stablelm-12b's smoke 20, a CPU-only config)."""
     from repro.configs.registry import ARCH_IDS as JARCH_IDS
     from repro.configs.registry import get_config as jget_config
     from repro_torch.configs.registry import ARCH_IDS, get_config
     full = {jget_config(a).head_dim for a in JARCH_IDS} - {0}
     ported = {get_config(a, smoke=s).head_dim for a in ARCH_IDS
               for s in (False, True)} - {0}
-    return full | ported
+    return {d for d in full | ported if d in kfa.HEAD_DIMS}
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

@@ -591,9 +591,17 @@ def test_serving_builds_no_autograd_node(pair):
 
 
 def test_train_step_refuses_a_family_the_port_lacks():
-    cfg = dataclasses.replace(get_config(ARCH, smoke=True), family="vlm")
-    with pytest.raises(NotImplementedError, match="vlm"):
-        make_train_step(Model(cfg, device="cpu"), AdamW())
+    """Every family of the JAX package is ported, so a train step takes a
+    model of each; the config refuses a family neither package has, so no
+    model of one reaches a train step."""
+    from repro_torch.configs.registry import ARCH_IDS
+    from repro_torch.nn.config import FAMILIES
+    assert {get_config(a).family for a in ARCH_IDS} == set(FAMILIES)
+    for arch in ARCH_IDS:
+        make_train_step(Model(get_config(arch, smoke=True), device="cpu"),
+                        AdamW())
+    with pytest.raises(AssertionError, match="encoder"):
+        dataclasses.replace(get_config(ARCH, smoke=True), family="encoder")
 
 
 @pytest.mark.parametrize("arch", FAMILY_ARCHS[1:])
