@@ -184,6 +184,23 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               the plain path at the served depth and, with the f32
               yardstick, at 2 layers; then mixtral serves one request of
               8,192 tokens (the window binds in prefill and decode).
+    serve_tp — tensor- and expert-parallel serving (after serve_zoo, its
+              models freed): phi4-mini-3.8b and qwen3-moe-30b-a3b whole
+              and mixtral-8x22b at 8 layers, each on 2 spawned ranks
+              sharing cuda:0 over gloo (collectives staged through the
+              host), weights from ``init_shards`` at seed 0, phase 4's
+              traffic.  Per rank: launches against the reckoning in
+              prefills and decode steps apart, every GEMM at the local
+              shapes, peak memory; request 0's prefill logits against the
+              single-process run's on the same padded tokens (relative L2
+              <= LOGITS_REL_CAP dense, MOE_FULL_REL_CAP MoE) and the
+              served tokens against its tokens (counted).  The gemm phase
+              checks the row-parallel products (f32 out, the residual in
+              rank 0's flush) at phi4's local shapes.
+    serve_tp_f32 — the same three models at 2 layers, full width, in f32
+              (mixtral's window off: it does not bind at these prompts):
+              request 0's prefill logits on 2 ranks against one process,
+              within F32_LOGITS_REL_CAP (summation order only).
     window_times — the windowed forward at mixtral's shape beside the
               causal kernel, the plain version and the library's attention
               with the window as a boolean mask.
@@ -193,7 +210,9 @@ Each serve phase counts the launches of every kernel inside the model's
 prefills and inside its decode steps apart.  The line before the last is
 the kernels summary (a row's launches are those of its own run and step
 kind, its max_abs_err the worst of its own shapes' cases in phases 2 and
-3), after a line with the script's total seconds; the last line is
+3; the dense, flash and grouped rows add ``serve_tp_launches``, each
+rank's launches in serve_tp), after a line with the script's total
+seconds; the last line is
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or run from a
 directory without the repository, it exits non-zero and prints no result.
 """
@@ -352,12 +371,14 @@ def main() -> int:
     # the probe phase demands checksums equal to the plain versions'
     max_err.update(dict.fromkeys(("stream_read@calib", "mma_chain@calib",
                                   "wave_grid@calib"), 0.0))
-    model, params, launches, edges = serve_phase(torch, dev, kmm, kfa)
+    tp_refs = []              # the single-process runs serve_tp is held to
+    model, params, launches, edges = serve_phase(torch, dev, kmm, kfa,
+                                                 tp_refs)
     trace_phase(torch, dev, model, params)
     del model, params
     _free(torch)
     model, params, moe_launches, moe_capacity, moe_edge = serve_moe_phase(
-        torch, dev, kmm, kfa)
+        torch, dev, kmm, kfa, tp_refs)
     trace_phase(torch, dev, model, params, phase="moe_trace")
     del model, params
     _free(torch)
@@ -369,7 +390,9 @@ def main() -> int:
     serve_calibrated_phase(torch, dev, kmm, kfa, calib)
     ssm_launches = serve_ssm_phase(torch, dev, kmm, kfa)
     hybrid_launches, f32_launches = serve_hybrid_phase(torch, dev, kmm, kfa)
-    window_launches = serve_zoo_phase(torch, dev, kmm, kfa)
+    window_launches = serve_zoo_phase(torch, dev, kmm, kfa, tp_refs)
+    tp_launches = serve_tp_phase(torch, tp_refs)
+    serve_tp_f32_phase(torch, tp_refs)
     times.update(window_times_phase(torch, dev, kfa))
     max_err.update(train_kernels_phase(torch, dev, kmm, kfa))
     grads_launches = train_grads_phase(torch, dev, kmm, kfa)
@@ -446,7 +469,9 @@ def main() -> int:
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"],
                         **({"products": "tf32x3"} if key in TF32X3_ROWS
-                           else {})})
+                           else {}),
+                        **({"serve_tp_launches": tp_launches[key]}
+                           if key in tp_launches else {})})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": entries})
@@ -540,6 +565,13 @@ def gemm_phase(torch, dev, kmm):
          TileConfig(64, 64, 32)),
         (512, 3072, 3072, swi, bf, f32, None),
     ]
+    # The tensor-parallel row products (serve_tp, phi4-mini over 2 ranks):
+    # a rank's half of K, f32 out for the all_reduce, the residual (bf16
+    # beside the f32 output) in the first rank's flush only.
+    for M in (4, RAGGED_PREFILL_M):
+        cases += [(M, 3072, 1536, res, bf, f32, None),     # wo, rank 0
+                  (M, 3072, 4096, res, bf, f32, None),     # wd, rank 0
+                  (M, 3072, 4096, none, bf, f32, None)]    # wd, rank 1
     # The SSM and hybrid main paths' GEMMs at their selected configs, at
     # decode M and the longest served prompt, each case under its row (a
     # decode step fuses no residual: the block adds it after the GEMM).
@@ -895,7 +927,6 @@ def _serve(torch, dev, kmm, kfa, arch, extra=(), phase=None, params=None,
     GEMM and (where the model has attention) the flash kernel launched."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import build_parser, run_serving
-    from repro_torch.nn import transformer
     from repro_torch.nn.model import Model
     from repro_torch.obs import metrics as obs_metrics
 
@@ -916,35 +947,11 @@ def _serve(torch, dev, kmm, kfa, arch, extra=(), phase=None, params=None,
 
     prev_metrics = obs_metrics.enable_metrics(True)
     obs_metrics.get_registry().clear()
-    counters = {"matmul": kmm.tiled_matmul,
-                "expert_matmul": kmm.tiled_expert_matmul,
-                "flash_attention": kfa.flash_attention_kernel}
-    split = {"prefill": dict.fromkeys(counters, 0),
-             "decode": dict.fromkeys(counters, 0)}
-
-    def counted(kind, fn):
-        def call(*a, **kw):
-            n0 = {k: c.launches for k, c in counters.items()}
-            try:
-                return fn(*a, **kw)
-            finally:
-                for k, c in counters.items():
-                    split[kind][k] += c.launches - n0[k]
-        return call
-
-    for fn in counters.values():
-        fn.launches = 0
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    with mock.patch.object(transformer, "prefill_forward",
-                           counted("prefill", transformer.prefill_forward)), \
-            mock.patch.object(transformer, "decode_step",
-                              counted("decode", transformer.decode_step)):
-        out = run_serving(args, params=params, cfg=cfg)
+    out, launches = _count_serve(
+        kmm, kfa, lambda: run_serving(args, params=params, cfg=cfg))
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    for kind, counts in split.items():
-        launches.update({f"{k}@{kind}": n for k, n in counts.items()})
     reg = obs_metrics.get_registry()
     fallback = sum(m.value for m in reg.metrics()
                    if m.name == "fallback_rungs")
@@ -987,6 +994,40 @@ def _serve(torch, dev, kmm, kfa, arch, extra=(), phase=None, params=None,
     return args, model, params, out, launches
 
 
+def _count_serve(kmm, kfa, run):
+    """``run()`` with every launch count zeroed right before and read right
+    after: (its result, the launches of each kernel in all, and inside the
+    model's prefills and its decode steps apart)."""
+    from repro_torch.nn import transformer
+    counters = {"matmul": kmm.tiled_matmul,
+                "expert_matmul": kmm.tiled_expert_matmul,
+                "flash_attention": kfa.flash_attention_kernel}
+    split = {"prefill": dict.fromkeys(counters, 0),
+             "decode": dict.fromkeys(counters, 0)}
+
+    def counted(kind, fn):
+        def call(*a, **kw):
+            n0 = {k: c.launches for k, c in counters.items()}
+            try:
+                return fn(*a, **kw)
+            finally:
+                for k, c in counters.items():
+                    split[kind][k] += c.launches - n0[k]
+        return call
+
+    for fn in counters.values():
+        fn.launches = 0
+    with mock.patch.object(transformer, "prefill_forward",
+                           counted("prefill", transformer.prefill_forward)), \
+            mock.patch.object(transformer, "decode_step",
+                              counted("decode", transformer.decode_step)):
+        out = run()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for kind, counts in split.items():
+        launches.update({f"{k}@{kind}": n for k, n in counts.items()})
+    return out, launches
+
+
 def _request_inputs(torch, dev, args, cfg, r):
     """Request ``r``'s prompt as served (``serve.request_queue``):
     right-padded to its bucket edge, with its last real position and its
@@ -1006,11 +1047,13 @@ def _rel(torch, x, y) -> float:
                  / torch.linalg.vector_norm(y))
 
 
-def serve_phase(torch, dev, kmm, kfa):
+def serve_phase(torch, dev, kmm, kfa, tp_refs):
     args, model, params, out, launches = _serve(torch, dev, kmm, kfa,
                                                 "phi4-mini-3.8b")
     _logits_check(torch, dev, kmm, kfa, args, model, params, out,
                   "serve_logits")
+    tp_refs.append(_tp_ref(torch, dev, kmm, kfa, args, model, params,
+                           out))
     return model, params, launches, out["edges"]
 
 
@@ -1066,13 +1109,15 @@ def _logits_check(torch, dev, kmm, kfa, args, model, params, out, phase,
 # Phase 5: serve qwen3-moe-30b-a3b at full width and depth.
 # ---------------------------------------------------------------------------
 
-def serve_moe_phase(torch, dev, kmm, kfa):
+def serve_moe_phase(torch, dev, kmm, kfa, tp_refs):
     import dataclasses
     from repro_torch.nn.model import Model
     from repro_torch.nn.moe import _capacity
 
     args, model, params, out, launches = _serve(torch, dev, kmm, kfa,
                                                 "qwen3-moe-30b-a3b")
+    tp_refs.append(_tp_ref(torch, dev, kmm, kfa, args, model, params,
+                           out))
     cfg = model.cfg
     per_prefill = 3 * cfg.num_layers       # wu, wg + gate, wd in each layer
     n_prefills = len(out["results"])
@@ -3218,7 +3263,7 @@ def _zoo_logits_check(torch, dev, kmm, kfa, args, model, params, out, phase):
              f"plain path (rel {d_kp}, bf16 rounding alone {d_p32})")
 
 
-def serve_zoo_phase(torch, dev, kmm, kfa):
+def serve_zoo_phase(torch, dev, kmm, kfa, tp_refs):
     """Each architecture of ZOO_SERVE at full width on phase 4's traffic
     (llava with its whole image prefix ahead of each text prompt), one
     after another, each freed before the next: the launches against the
@@ -3239,6 +3284,9 @@ def serve_zoo_phase(torch, dev, kmm, kfa):
         _check_zoo_launches(cfg, out, launches, "serve_zoo_launches")
         _zoo_logits_check(torch, dev, kmm, kfa, args, model, params, out,
                           "serve_zoo_logits")
+        if arch in TP_SERVE:
+            tp_refs.append(_tp_ref(torch, dev, kmm, kfa, args, model,
+                                   params, out))
         if cfg.sliding_window:
             window_launches += launches["flash_attention"]
             args, model, _, out, launches = _serve(
@@ -3252,6 +3300,343 @@ def serve_zoo_phase(torch, dev, kmm, kfa):
         del model, params
         _free(torch)
     return window_launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 11b: tensor- and expert-parallel serving, 2 ranks on cuda:0.
+# ---------------------------------------------------------------------------
+
+# The archs served over TP_RANKS ranks, each held to its single-process
+# run (phi4-mini and qwen3-moe whole, mixtral-8x22b at MIXTRAL_LAYERS).
+TP_SERVE = ("phi4-mini-3.8b", "qwen3-moe-30b-a3b", "mixtral-8x22b")
+TP_RANKS = 2
+# Each model's ranks must be done within this (spawn, init, serve, check).
+TP_JOIN_TIMEOUT = 420.0
+# serve_tp_f32 holds the TP layers to one process in f32 at this depth.
+TP_F32_LAYERS = 2
+
+
+def _tp_ref(torch, dev, kmm, kfa, args, model, params, out):
+    """What ``serve_tp`` holds a model's ranks to, on the host: request 0
+    as served (padded to its edge), its prefill logits on the kernel path
+    and on the plain path (the yardstick: how far rounding alone moves
+    them), and every request's served tokens."""
+    r0 = out["results"][0]
+    tokens, last, _ = _request_inputs(torch, dev, args, model.cfg, r0)
+    with torch.inference_mode():
+        logits, _ = model.prefill(params, tokens, last)
+        with plain_path(kmm, kfa):
+            plain, _ = model.prefill(params, tokens, last)
+    res = out["results"]
+    return {"arch": args.arch, "layers": model.cfg.num_layers,
+            "tokens": tokens.cpu(), "last": last.cpu(),
+            "logits": logits.float().cpu(), "plain": plain.float().cpu(),
+            "served": {r: res[r].tokens for r in res}}
+
+
+def _tp_local_shapes(cfg, tp):
+    """The (N, K) of every dense GEMM and the (E, K, N) of every grouped
+    GEMM a rank launches at ``tp`` (whole heads, experts, d_ff and
+    vocabulary split as ``tp_shardings`` splits them; every split of the
+    served models divides)."""
+    D, hd = cfg.d_model, cfg.head_dim
+    for n in (cfg.num_heads, cfg.num_kv_heads, cfg.vocab_size,
+              cfg.num_experts or tp, cfg.d_ff):
+        if n % tp:
+            fail(f"serve_tp: {cfg.name} does not split over {tp} ranks")
+    q, kv = cfg.num_heads // tp * hd, cfg.num_kv_heads // tp * hd
+    dense = {(q, D), (kv, D), (D, q)}
+    grouped = set()
+    if cfg.is_moe:
+        e, f = cfg.num_experts // tp, cfg.moe_d_ff
+        grouped = {(e, D, f), (e, f, D)}
+    else:
+        dense |= {(cfg.d_ff // tp, D), (D, cfg.d_ff // tp)}
+    return sorted(dense), sorted(grouped)
+
+
+def _tp_join(rank, world, init_method):
+    """A spawned rank's start: the gloo group with every rank on cuda:0
+    (the shared-card form), the (1, world) mesh installed; (dev, mesh)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import meshctx
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    dev = init_distributed(rank, world, init_method, device="cuda",
+                           shared_card=True)
+    mesh = make_local_mesh(world, device_type="cuda")
+    meshctx.set_mesh(mesh)
+    return dev, mesh
+
+
+def _tp_rank(rank, world, init_method, arch, layers, ref_tokens, ref_last):
+    """One rank of ``serve_tp`` (a spawned process): join the gloo group
+    on cuda:0, draw this rank's shards (``init_shards``, seed 0), serve
+    phase 4's traffic with launches counted in prefills and decode steps
+    apart and every GEMM's shape recorded, then request 0's prefill
+    logits on the same padded tokens as the single-process run."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.launch.serve import build_parser, run_serving
+    from repro_torch.nn.model import Model
+
+    dev, mesh = _tp_join(rank, world, init_method)
+    args = build_parser().parse_args(
+        ["--arch", arch, *SERVE_ARGS, "--tp", str(world), "--shared-card",
+         "--device", str(dev)])
+    cfg = get_config(arch)
+    if layers != cfg.num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = Model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init_shards(
+        torch.Generator(device=dev).manual_seed(args.seed), mesh, rank)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    shapes = {"dense": set(), "grouped": set()}
+
+    def recorded(kind, fn):
+        def call(a, b, *rest, **kw):
+            shapes[kind].add((b.shape[1], b.shape[0]) if kind == "dense"
+                             else tuple(b.shape))
+            return fn(a, b, *rest, **kw)
+        return call
+
+    # Host seconds inside the collectives (gloo returns once the sum is
+    # back on the card), their calls and bytes.
+    coll = {"calls": 0, "bytes": 0, "seconds": 0.0}
+
+    def timed(fn):
+        def call(t, *rest, **kw):
+            t1 = time.perf_counter()
+            try:
+                return fn(t, *rest, **kw)
+            finally:
+                coll["seconds"] += time.perf_counter() - t1
+                coll["calls"] += 1
+                coll["bytes"] += t.numel() * t.element_size()
+        return call
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    with mock.patch.object(kmm, "_launch_cuda",
+                           recorded("dense", kmm._launch_cuda)), \
+            mock.patch.object(kmm, "_launch_expert_cuda",
+                              recorded("grouped", kmm._launch_expert_cuda)), \
+            mock.patch.object(torch.distributed, "all_reduce",
+                              timed(torch.distributed.all_reduce)), \
+            mock.patch.object(torch.distributed, "broadcast",
+                              timed(torch.distributed.broadcast)):
+        out, launches = _count_serve(
+            kmm, kfa, lambda: run_serving(args, params=params, cfg=cfg))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    with torch.inference_mode():
+        logits, _ = model.prefill(params, ref_tokens.to(dev),
+                                  ref_last.to(dev))
+    torch.cuda.synchronize()
+    res = out["results"]
+    return {"rank": rank, "backend": torch.distributed.get_backend(),
+            "local_shapes": {k: sorted(v) for k, v in shapes.items()},
+            "launches": launches, "init_s": init_s, "wall_s": wall,
+            "collectives": coll,
+            "peak_mem_bytes": peak,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in _leaves(params)),
+            "steps": out["steps"], "edges": out["edges"],
+            "tokens_per_s": out["tokens_per_s"],
+            "t_prefill_s": out["t_prefill_s"],
+            "decode_ms_per_step": out["device_step_s_mean"] * 1e3,
+            "dispatch_ms_per_step": out["dispatch_s_mean"] * 1e3,
+            "served": {r: res[r].tokens for r in res},
+            "finished": all(r.finished for r in res.values()),
+            "logits": logits.float().cpu() if rank == 0 else None}
+
+
+def _tp_f32_config(arch):
+    """``arch`` at TP_F32_LAYERS layers, full width, in f32; mixtral's
+    window off: its 4,096 keys do not bind at these prompts (at most 474
+    tokens), and the f32 flash forward takes no window on the card
+    (ROADMAP A4b)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(arch), num_layers=TP_F32_LAYERS,
+                               dtype="float32", sliding_window=0)
+
+
+def _tp_f32_rank(rank, world, init_method, cases):
+    """One rank of ``serve_tp_f32``: for each (arch, tokens, last), this
+    rank's f32 shards at TP_F32_LAYERS layers (seed 0) and the prefill
+    logits of the tokens (rank 0 keeps them)."""
+    import torch
+    from repro_torch.nn.model import Model
+
+    dev, mesh = _tp_join(rank, world, init_method)
+    out = []
+    for arch, tokens, last in cases:
+        model = Model(_tp_f32_config(arch), device=dev)
+        params = model.init_shards(torch.Generator(device=dev).manual_seed(0),
+                                   mesh, rank)
+        with torch.inference_mode():
+            logits, _ = model.prefill(params, tokens.to(dev), last.to(dev))
+        out.append(logits.cpu() if rank == 0 else None)
+        del params, logits
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_tp_f32_phase(torch, tp_refs):
+    """The TP layers' arithmetic at full width, with no bf16 rounding to
+    hide behind: each model of serve_tp at TP_F32_LAYERS layers in f32,
+    request 0's prefill logits on 2 ranks against one process, both on the
+    kernels (split TF32); they differ only in summation order, so the
+    relative L2 must stay within F32_LOGITS_REL_CAP."""
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.nn.model import Model
+    dev = torch.device("cuda", 0)
+    single = []
+    for ref in tp_refs:
+        model = Model(_tp_f32_config(ref["arch"]), device=dev)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        with torch.inference_mode():
+            logits, _ = model.prefill(params, ref["tokens"].to(dev),
+                                      ref["last"].to(dev))
+        single.append(logits.cpu())
+        del params, logits
+        _free(torch)
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_tp_f32_rank, TP_RANKS,
+                        ([(r["arch"], r["tokens"], r["last"])
+                          for r in tp_refs],), timeout=TP_JOIN_TIMEOUT)
+    rows = []
+    for ref, want, got in zip(tp_refs, single, ranks[0]):
+        d = _rel(torch, got, want)
+        rows.append({"arch": ref["arch"], "layers": TP_F32_LAYERS,
+                     "rel_l2_tp_vs_single": d,
+                     "max_abs_err": float((got - want).abs().max()),
+                     "argmax_equal": int(got.argmax()) == int(want.argmax()),
+                     "ok": bool(torch.isfinite(got).all())
+                     and d <= F32_LOGITS_REL_CAP})
+    emit({"phase": "serve_tp_f32", "world": TP_RANKS,
+          "backend": "gloo", "dtype": "float32", "cases": rows,
+          "tolerance": f"relative L2 <= {F32_LOGITS_REL_CAP} (both f32)",
+          "seconds": time.perf_counter() - t0})
+    bad = [r for r in rows if not r["ok"]]
+    if bad:
+        fail(f"serve_tp_f32: TP logits differ from one process's in f32: "
+             f"{bad}")
+
+
+def serve_tp_phase(torch, tp_refs):
+    """phi4-mini-3.8b and qwen3-moe-30b-a3b whole and mixtral-8x22b at
+    MIXTRAL_LAYERS, each on TP_RANKS ranks sharing cuda:0 over gloo (the
+    collectives staged through the host), each model's ranks spawned after
+    the last's exit: per rank the launches against the reckoning in
+    prefills and decode steps apart and every GEMM at the local shapes;
+    request 0's prefill logits against the single-process run's on the
+    same padded tokens (relative L2, LOGITS_REL_CAP dense,
+    MOE_FULL_REL_CAP MoE); the served tokens against the single-process
+    run's (counted: bf16 may flip near-ties).  Returns the ranks' launches
+    summed over the models, keyed by the kernels line's rows."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import spawn_ranks
+    import dataclasses
+    _free(torch)
+    totals = {}
+    for ref in tp_refs:
+        cfg = dataclasses.replace(get_config(ref["arch"]),
+                                  num_layers=ref["layers"])
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(_tp_rank, TP_RANKS,
+                            (ref["arch"], ref["layers"], ref["tokens"],
+                             ref["last"]), timeout=TP_JOIN_TIMEOUT)
+        wall = time.perf_counter() - t0
+        r0 = ranks[0]
+        per_prefill, per_step = _zoo_launches(cfg)
+        n, steps = len(r0["served"]), r0["steps"]
+        expected = {f"{k}@prefill": v * n for k, v in per_prefill.items()}
+        expected.update({f"{k}@decode": v * steps
+                         for k, v in per_step.items()})
+        dense, grouped = _tp_local_shapes(cfg, TP_RANKS)
+        want = ref["logits"]
+        d = _rel(torch, r0["logits"], want)
+        cap = MOE_FULL_REL_CAP if cfg.is_moe else LOGITS_REL_CAP
+        agree = total = 0
+        diverge = {}
+        for rid, toks in ref["served"].items():
+            got = r0["served"].get(rid, [])
+            total += len(toks)
+            agree += sum(int(a == b) for a, b in zip(got, toks))
+            diverge[rid] = next((i for i, (a, b) in enumerate(zip(got, toks))
+                                 if a != b), None)
+        row = {"phase": "serve_tp", "arch": cfg.name,
+               "layers": cfg.num_layers, "backend": r0["backend"],
+               "world": TP_RANKS, "device": "cuda:0 shared",
+               "collectives": "gloo, host-staged",
+               "expected_launches": expected,
+               "launches": [{k: r["launches"][k] for k in expected}
+                            for r in ranks],
+               "local_shapes": r0["local_shapes"],
+               "expected_local_shapes": {"dense": dense,
+                                         "grouped": grouped},
+               "rel_l2_prefill_logits_vs_single": d,
+               "rel_l2_vs_single_plain": _rel(torch, r0["logits"],
+                                              ref["plain"]),
+               "rel_l2_single_kernel_vs_plain": _rel(torch, want,
+                                                     ref["plain"]),
+               "argmax_equal": int(r0["logits"].argmax())
+               == int(want.argmax()),
+               "logits_tolerance": f"relative L2 <= {cap}",
+               "tokens_agree": agree, "tokens_total": total,
+               "first_divergence": diverge,
+               "edges": r0["edges"], "steps": steps,
+               "tokens_per_s": r0["tokens_per_s"],
+               "prefill_ms_total": r0["t_prefill_s"] * 1e3,
+               "prefill_ms_per_request": r0["t_prefill_s"] * 1e3 / n,
+               "decode_ms_per_step": r0["decode_ms_per_step"],
+               "dispatch_ms_per_step": r0["dispatch_ms_per_step"],
+               "param_bytes_per_rank": [r["param_bytes"] for r in ranks],
+               "peak_mem_gb_per_rank": [r["peak_mem_bytes"] / 1e9
+                                        for r in ranks],
+               "init_s_per_rank": [r["init_s"] for r in ranks],
+               "serve_wall_s_per_rank": [r["wall_s"] for r in ranks],
+               "collectives_per_rank": [r["collectives"] for r in ranks],
+               "collective_share_per_rank": [
+                   r["collectives"]["seconds"] / r["wall_s"]
+                   for r in ranks],
+               "phase_wall_s": wall}
+        emit(row)
+        for r in ranks:
+            if not r["finished"] or len(r["served"]) != n or any(
+                    len(t) != len(ref["served"][rid]) or not (
+                        (t >= 0) & (t < cfg.vocab_size)).all()
+                    for rid, t in r["served"].items()):
+                fail(f"serve_tp {cfg.name} rank {r['rank']}: not every "
+                     f"request finished with in-vocabulary tokens")
+            if {k: r["launches"][k] for k in expected} != expected:
+                fail(f"serve_tp {cfg.name} rank {r['rank']}: launches "
+                     f"{r['launches']} differ from the reckoning {expected}")
+            if r["local_shapes"] != {"dense": dense, "grouped": grouped}:
+                fail(f"serve_tp {cfg.name} rank {r['rank']}: GEMM shapes "
+                     f"{r['local_shapes']} are not the local ones "
+                     f"{dense}, {grouped}")
+        if r0["backend"] != "gloo":
+            fail(f"serve_tp: backend {r0['backend']}, expected gloo")
+        if not bool(torch.isfinite(r0["logits"]).all()) or d > cap:
+            fail(f"serve_tp {cfg.name}: prefill logits differ from the "
+                 f"single-process run's (relative L2 {d} > {cap})")
+        for key in ("matmul@prefill", "matmul@decode",
+                    "flash_attention@prefill", "expert_matmul@prefill"):
+            totals[key] = [a + r["launches"][key] for a, r in
+                           zip(totals.get(key, [0] * TP_RANKS), ranks)]
+    if sorted(ref["arch"] for ref in tp_refs) != sorted(TP_SERVE):
+        fail(f"serve_tp: served {[r['arch'] for r in tp_refs]}, expected "
+             f"{list(TP_SERVE)}")
+    return totals
 
 
 def window_times_phase(torch, dev, kfa):

@@ -1,0 +1,171 @@
+"""Logical-axis -> mesh-axis sharding rules, and the local shards they give
+(the port of ``repro/distributed/sharding.py``).
+
+Every parameter declares logical axis names (``nn/layers.py::ParamDef``);
+:func:`rules_for` and :func:`spec_for` are the reference's, copied with the
+imports rewritten, and map them onto the mesh axes with the same two
+safety rules (a mapping applies only where the dim divides by the mesh-axis
+product; within one array each mesh axis is used once, left to right).  A
+spec is a tuple with one entry a dim: None, a mesh-axis name, or a tuple of
+names, as the reference's ``PartitionSpec``.
+
+The reference hands the specs to GSPMD.  The port runs eagerly on explicit
+local shards: :func:`shard_params` cuts a full param tree into one rank's
+shards, :func:`init_sharded` draws only a rank's shards from the stream
+``init_tree`` draws (so they equal the matching slices of the
+single-process weights), and the layers read their local head counts,
+widths, experts and vocabulary from the shards' shapes.  Two departures
+follow from that, both layouts rather than results:
+
+* :func:`tp_shardings` keeps a "heads" or "kv_heads" split only where it
+  gives each rank whole heads.  ``spec_for`` splits the flattened width
+  (H·hd), so for example 2 kv heads of 16 split four ways would give each
+  rank half a head, which GSPMD reshards around and eager local attention
+  cannot compute.  Where the kv split drops, each rank computes the kv
+  heads its own q heads read (``nn/layers.py::kv_heads_read``).
+* the decode cache is sharded by kv head (``nn/transformer.py::
+  init_cache``); the reference shards it on sequence (``cache_shardings``).
+
+Only the "model" axis shards here: a mesh whose data axes exceed 1 (FSDP,
+the batch axis, the grouped MoE dispatch) raises ``NotImplementedError``
+naming ROADMAP A5b.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.nn import layers as L
+from repro_torch.nn.config import ModelConfig
+
+Spec = Tuple[Any, ...]
+
+
+def rules_for(cfg: ModelConfig) -> Dict[str, Any]:
+    return {
+        "vocab": "model",
+        "heads": "model",
+        "kv_heads": "model",
+        "mlp": "model",
+        "experts": "model",
+        "ssm_inner": "model",
+        "ssm_heads": "model",
+        "state": None,
+        "embed": "data" if cfg.fsdp else None,
+        "embed_novar": None,          # embed/lm_head d_model: never FSDP
+        "expert_embed": "data" if cfg.fsdp else None,
+        "expert_mlp": "model",
+        "layers": None,
+        "experts_in": None,
+    }
+
+
+def spec_for(shape: Sequence[int], axes: Optional[Sequence[Optional[str]]],
+             rules: Dict[str, Any], mesh) -> Spec:
+    axes = axes if axes is not None else [None] * len(shape)
+    used: set = set()
+    parts = []
+    for dim, name in zip(shape, axes):
+        target = rules.get(name) if name else None
+        if target is None:
+            parts.append(None)
+            continue
+        cand = target if isinstance(target, tuple) else (target,)
+        sel = [a for a in cand if a in mesh.shape and a not in used]
+        total = math.prod(mesh.shape[a] for a in sel)
+        if sel and dim % total == 0:
+            parts.append(tuple(sel) if len(sel) > 1 else sel[0])
+            used.update(sel)
+        else:
+            parts.append(None)
+    return tuple(parts)
+
+
+def _map2(fn, a, b):
+    return {k: (_map2(fn, v, b[k]) if isinstance(v, dict) else fn(v, b[k]))
+            for k, v in a.items()}
+
+
+def param_shardings(model, mesh) -> Dict:
+    """The spec of every param leaf (``repro/distributed/sharding.py:
+    83-92``): ``model`` has ``abstract_params()`` and ``param_axes()``."""
+    rules = rules_for(model.cfg)
+    return _map2(lambda a, ax: spec_for(tuple(a.shape), ax, rules, mesh),
+                 model.abstract_params(), model.param_axes())
+
+
+def _axis_product(part, mesh) -> int:
+    return math.prod(mesh.shape[a] for a in
+                     (part if isinstance(part, tuple) else (part,)))
+
+
+def tp_shardings(model, mesh) -> Dict:
+    """:func:`param_shardings` with a "heads" / "kv_heads" split kept only
+    where each rank gets whole heads: the layout the port's layers run."""
+    cfg = model.cfg
+    heads = {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads}
+
+    def align(spec, axes):
+        return tuple(
+            None if name in heads and part is not None
+            and heads[name] % _axis_product(part, mesh) else part
+            for part, name in zip(spec, axes or (None,) * len(spec)))
+
+    return _map2(align, param_shardings(model, mesh), model.param_axes())
+
+
+def mesh_coords(mesh, rank: int) -> Dict[str, int]:
+    """This rank's coordinate on each mesh axis (row-major over the axes in
+    ``mesh.shape``'s order, as ``make_local_mesh`` lays them out)."""
+    busy = [a for a, n in mesh.shape.items() if a != "model" and n > 1]
+    if busy:
+        raise NotImplementedError(
+            f"a mesh with {busy} > 1 (data parallelism, FSDP, the grouped "
+            f"MoE dispatch) is ROADMAP A5b; this slice shards on 'model' "
+            f"only")
+    coords, r = {}, rank
+    for a, n in reversed(list(mesh.shape.items())):
+        r, coords[a] = divmod(r, n)
+    return coords
+
+
+def local_index(shape: Sequence[int], spec: Spec, mesh, rank: int
+                ) -> Tuple[slice, ...]:
+    """The block of a ``shape`` leaf that ``rank`` holds under ``spec``."""
+    coords = mesh_coords(mesh, rank)
+    idx = []
+    for n, part in zip(shape, spec):
+        if part is None:
+            idx.append(slice(0, n))
+            continue
+        names = part if isinstance(part, tuple) else (part,)
+        k, c = 1, 0
+        for a in names:                    # row-major over the part's axes
+            k *= mesh.shape[a]
+            c = c * mesh.shape[a] + coords[a]
+        w = n // k
+        idx.append(slice(c * w, (c + 1) * w))
+    return tuple(idx)
+
+
+def shard_params(tree: Dict, specs: Dict, mesh, rank: int) -> Dict:
+    """``rank``'s shard of every leaf of a full param tree (contiguous
+    copies: the full tree can be freed after)."""
+    return _map2(lambda t, s: t[local_index(t.shape, s, mesh, rank)].clone(),
+                 tree, specs)
+
+
+def init_sharded(defs: Dict, generator: torch.Generator, specs: Dict, mesh,
+                 rank: int, *, dtype: torch.dtype, device) -> Dict:
+    """``rank``'s shards of ``L.init_tree(defs, generator, ...)``, drawn
+    from the same stream: every leaf, every slice of axis 0, is drawn as
+    ``init_tree`` draws it and only the local block is kept, so no rank
+    holds more of a leaf than one draw slice and the shards equal
+    ``shard_params`` of the single-process weights bit for bit."""
+    def index(d, s):
+        return local_index(d.shape, s, mesh, rank)
+
+    return L.init_tree(defs, generator, dtype=dtype, device=device,
+                       index=_map2(index, defs, specs))

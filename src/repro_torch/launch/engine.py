@@ -40,6 +40,14 @@ until the boundary, where the
 :class:`~repro_torch.runtime.fault_tolerance.StragglerMonitor` records the
 device-step time alongside the host dispatch time.
 
+Tensor parallelism (a mesh installed in ``meshctx``, ``serve --tp``): every
+rank runs the same engine over the same queue in lockstep, each on its own
+shards, the model's collectives inside each prefill and decode step.  The
+tokens rank 0 samples are broadcast over the "model" axis after every
+prefill and decode step, so the ranks never disagree on a token whatever
+the last bits of their sums; ``warm_start`` prices the GEMM shapes this
+rank launches (:func:`serving_gemms`).
+
 With a :class:`~repro_torch.obs.drift.DriftMonitor` installed, ``warm_start``
 records one ``warm_gemm`` row per warm selection (its priced latency
 against the event simulator, with config and topology fingerprint: the
@@ -56,12 +64,15 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import meshctx
 from repro_torch.core.bucketing import BucketPlan, step_gemms
 from repro_torch.core.selector import (get_residual_corrector,
                                        select_gemm_config_batch)
 from repro_torch.core.simulator import simulate_gemm
 from repro_torch.core.topology import topology_fingerprint
 from repro_torch.kernels import ops
+from repro_torch.nn import layers as L
+from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.model import Model
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -105,6 +116,40 @@ class _Slot:
     @property
     def active(self) -> bool:
         return self.rid >= 0
+
+
+def serving_gemms(cfg: ModelConfig) -> List[Tuple[int, int]]:
+    """The (N, K) of one decoder step's GEMMs as ``step_gemms`` prices
+    them (a d_model-wide q projection, one d_ff MLP, the head), each at
+    the extent this rank launches under the installed mesh: the local q
+    and kv heads, the local d_ff and the local vocabulary (a width whose
+    split the rules drop stays whole); with no mesh, ``step_gemms``."""
+    swiglu = cfg.activation == "swiglu"
+    kv = L.local_kv_heads(cfg) * cfg.head_dim
+    ax = meshctx.model_axis()
+    if ax is None:
+        return step_gemms(cfg.d_model, cfg.d_ff, kv_dim=kv,
+                          vocab=cfg.vocab_size, swiglu=swiglu)
+    n, D = ax.size, cfg.d_model
+
+    def local(width: int, split: bool) -> int:
+        return width // n if split and width % n == 0 else width
+
+    q = local(D, cfg.num_heads % n == 0)
+    f = local(cfg.d_ff, True)
+    return [(q + 2 * kv, D), (D, q), ((2 if swiglu else 1) * f, D),
+            (D, f), (local(cfg.vocab_size, True), D)]
+
+
+def _agree(tokens: torch.Tensor) -> torch.Tensor:
+    """``tokens`` as the "model" axis's first rank sampled them, on every
+    rank of the axis (in place; a no-op with no mesh)."""
+    ax = meshctx.model_axis()
+    if ax is not None:
+        import torch.distributed as dist
+        dist.broadcast(tokens, src=dist.get_global_rank(ax.group, 0),
+                       group=ax.group)
+    return tokens
 
 
 def _to_device(values, device: torch.device) -> torch.Tensor:
@@ -270,11 +315,7 @@ class ServingEngine:
         cfg = self.model.cfg
         if cfg.family == "ssm":
             return 0                          # no attention-step GEMM grid
-        gemms = step_gemms(
-            cfg.d_model, cfg.d_ff,
-            kv_dim=cfg.num_kv_heads * cfg.head_dim,
-            vocab=cfg.vocab_size,
-            swiglu=cfg.activation == "swiglu")
+        gemms = serving_gemms(cfg)
         ms = set(self.plan.edges if self.plan
                  else {int(r.prompt.size) for r in self._queue})
         ms.add(self.max_batch)                # the decode step's M extent
@@ -398,7 +439,7 @@ class ServingEngine:
                     retries=_STEP_RETRIES, base_delay=_STEP_BASE_DELAY,
                     max_delay=_STEP_MAX_DELAY, on_retry=self._count_retry)
                 _insert(cache, pc, b)
-                tok = torch.argmax(logits, dim=-1)             # (1,)
+                tok = _agree(torch.argmax(logits, dim=-1))     # (1,)
                 # Out of place: the step log holds the previous tensor.
                 tokens = tokens.clone()
                 tokens[b] = tok[0]
@@ -455,7 +496,7 @@ class ServingEngine:
                         base_delay=_STEP_BASE_DELAY,
                         max_delay=_STEP_MAX_DELAY,
                         on_retry=self._count_retry)
-                    tokens = self._sample(logits, step)
+                    tokens = _agree(self._sample(logits, step))
                 dispatch_acc.append(time.perf_counter() - td0)
                 tok_log.append(tokens)
                 owners.append(tuple(s.rid for s in slots))

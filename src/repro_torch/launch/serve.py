@@ -46,8 +46,20 @@ artifacts quarantine, serving continues on the stock preset);
 topology actually served; ``--trace-dir`` writes the run's telemetry.
 ``run_serving`` is the library entry point; ``main`` is the CLI shim.
 
-Tensor parallelism (the reference's ``--tp``) comes with the distributed
-slice.
+``--tp N`` serves over a (data 1, model N) mesh (the reference's
+``--tp``, ``repro/launch/serve.py:75, 249-251``): N ranks, each its own
+process, each holding its shards of the weights (``init_sharded``: the
+single-process weights' slices, from the same seed), run the same engine
+in lockstep; only rank 0 prints, exports telemetry and returns the stats.
+The ranks are spawned here, or started by ``torchrun`` (one rank a
+process, ``env://``).  On the card each rank takes a card of its own over
+NCCL; ``--shared-card`` puts every rank on ``cuda:0`` over gloo instead,
+its collectives staged through the host (for a host with one card).  The
+SSM and hybrid families, and a mesh whose data axis exceeds 1, raise
+``NotImplementedError`` (ROADMAP A5b)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
+        --smoke --device cpu --tp 2
 """
 from __future__ import annotations
 
@@ -58,9 +70,11 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch import meshctx
 from repro_torch.configs.registry import ARCH_IDS, get_config
-from repro_torch.core.bucketing import plan_buckets, step_gemms
+from repro_torch.core.bucketing import plan_buckets
 from repro_torch.core.hardware import GPU_H100_LIKE
 from repro_torch.core.selector import (get_residual_corrector,
                                        load_selection_cache,
@@ -68,8 +82,10 @@ from repro_torch.core.selector import (get_residual_corrector,
                                        set_residual_corrector)
 from repro_torch.core.simulator import simulate_gemm
 from repro_torch.core.topology import load_calibrated_topology_guarded
-from repro_torch.kernels import ops
-from repro_torch.launch.engine import ServingEngine
+from repro_torch.kernels import build, ops
+from repro_torch.launch.engine import ServingEngine, serving_gemms
+from repro_torch.launch.mesh import (init_distributed, make_local_mesh,
+                                     spawn_ranks)
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.frontends import synth_frontend_inputs
 from repro_torch.nn.model import Model, resolve_device
@@ -88,6 +104,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.8)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor/expert-parallel ranks (one process each)")
+    ap.add_argument("--shared-card", action="store_true",
+                    help="with --tp on the card: every rank on cuda:0 over "
+                         "gloo (collectives through the host) instead of "
+                         "one card a rank over NCCL")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--topology", default=None, metavar="PATH",
                     help="calibrated-topology artifact to select against "
@@ -145,7 +167,17 @@ def run_serving(args: argparse.Namespace, *,
     ``--trace-dir DIR`` installs the telemetry subsystem for the run and
     writes ``trace.json`` (Perfetto, with the decode-step GEMMs' simulator
     timelines), ``metrics.prom``, ``metrics.jsonl`` and ``drift.jsonl``
-    under DIR.  The stats dict is the same either way."""
+    under DIR.  The stats dict is the same either way.
+
+    ``--tp`` over 1 with no mesh installed runs :func:`serve_tp` (the
+    ranks, then rank 0's stats); a rank calls this with its mesh
+    installed."""
+    tp = int(getattr(args, "tp", 1) or 1)
+    if tp > 1 and meshctx.get_mesh() is None:
+        if params is not None:
+            raise ValueError("--tp draws each rank's shards itself; "
+                             "params cannot be passed in")
+        return serve_tp(args, cfg=cfg)
     quiet = bool(getattr(args, "quiet", False))
     trace_dir = getattr(args, "trace_dir", None)
 
@@ -192,11 +224,7 @@ def _export_telemetry(trace_dir: str, args: argparse.Namespace) -> None:
     hw = ops.get_default_hardware()
     sim_timelines = []
     if cfg.family != "ssm":
-        gemms = step_gemms(cfg.d_model, cfg.d_ff,
-                           kv_dim=cfg.num_kv_heads * cfg.head_dim,
-                           vocab=cfg.vocab_size,
-                           swiglu=cfg.activation == "swiglu")[:3]
-        for (n, k) in gemms:
+        for (n, k) in serving_gemms(cfg)[:3]:
             sel = select_gemm_config(args.batch, n, k, hw=hw)
             ev: list = []
             simulate_gemm(sel.problem, sel.config, hw, events=ev)
@@ -300,7 +328,11 @@ def _run_serving(args: argparse.Namespace, *,
     if params is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(args.seed)
-        params = model.init(gen)
+        mesh = meshctx.get_mesh()
+        if mesh is None:
+            params = model.init(gen)
+        else:
+            params = model.init_shards(gen, mesh, dist.get_rank())
 
     requests = request_queue(args, cfg, device)
     n_req = len(requests)
@@ -309,13 +341,8 @@ def _run_serving(args: argparse.Namespace, *,
 
     plan = None
     if ragged and not cfg.has_ssm:
-        plan = plan_buckets(
-            lens,
-            gemms=step_gemms(cfg.d_model, cfg.d_ff,
-                             kv_dim=cfg.num_kv_heads * cfg.head_dim,
-                             vocab=cfg.vocab_size,
-                             swiglu=cfg.activation == "swiglu"),
-            hw=ops.get_default_hardware(), max_buckets=4)
+        plan = plan_buckets(lens, gemms=serving_gemms(cfg),
+                            hw=ops.get_default_hardware(), max_buckets=4)
         say(f"[serve] priced bucket edges: {list(plan.edges)} "
             f"(modeled step {plan.modeled_total_s * 1e3:.2f}ms, "
             f"pad {plan.pad_fraction * 100:.1f}%)")
@@ -380,6 +407,58 @@ def _run_serving(args: argparse.Namespace, *,
         **topo_info,
         **res_info,
     }
+
+
+# Spawned --tp ranks must be done within this (seconds).
+TP_TIMEOUT_S = 3600.0
+
+
+def check_tp(cfg: ModelConfig, tp: int) -> None:
+    """Refuse what this slice does not serve over ranks (ROADMAP A5b)."""
+    if tp > 1 and cfg.has_ssm:
+        raise NotImplementedError(
+            f"{cfg.name}: --tp for the {cfg.family} family is ROADMAP A5b "
+            f"(the gated RMSNorm spans the whole d_inner)")
+
+
+def _serve_rank(rank: int, world: int, init_method: str,
+                args: argparse.Namespace, cfg: Optional[ModelConfig],
+                shared_card: bool) -> Optional[Dict]:
+    """One rank of ``serve --tp``: join the group, install the (data,
+    model) mesh, serve; rank 0's stats (the others' are None)."""
+    dev = init_distributed(rank, world, init_method,
+                           device=getattr(args, "device", "cuda"),
+                           shared_card=shared_card)
+    meshctx.set_mesh(make_local_mesh(args.tp, device_type=dev.type))
+    try:
+        rank_args = argparse.Namespace(**vars(args))
+        rank_args.device = str(dev)
+        if rank != 0:
+            rank_args.quiet, rank_args.trace_dir = True, None
+        out = run_serving(rank_args, cfg=cfg)
+    finally:
+        meshctx.set_mesh(None)
+        dist.destroy_process_group()
+    return out if rank == 0 else None
+
+
+def serve_tp(args: argparse.Namespace, *,
+             cfg: Optional[ModelConfig] = None) -> Dict:
+    """``--tp`` ranks serving one queue: spawned here (all done within
+    ``TP_TIMEOUT_S`` or all killed; on the card the kernels are built here
+    first, once), or this process is one rank under ``torchrun`` (``RANK``
+    / ``WORLD_SIZE`` set).  Returns rank 0's stats (None on the other
+    ranks under torchrun)."""
+    check_tp(cfg or get_config(args.arch, smoke=args.smoke), args.tp)
+    shared = bool(getattr(args, "shared_card", False))
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        return _serve_rank(int(os.environ["RANK"]),
+                           int(os.environ["WORLD_SIZE"]), "env://", args,
+                           cfg, shared)
+    if resolve_device(getattr(args, "device", "cuda")).type == "cuda":
+        build.build(("matmul", "flash_attention"))   # once, not once a rank
+    return spawn_ranks(_serve_rank, args.tp, (args, cfg, shared),
+                       timeout=TP_TIMEOUT_S)[0]
 
 
 def main() -> int:

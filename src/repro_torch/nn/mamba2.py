@@ -100,22 +100,22 @@ def mamba_defs(cfg: ModelConfig) -> Dict:
     f32 = torch.float32
     return {
         "norm": norm_defs(cfg),
-        "in_z": ParamDef((D, di)),
-        "in_x": ParamDef((D, di)),
-        "in_b": ParamDef((D, ns)),
-        "in_c": ParamDef((D, ns)),
-        "in_dt": ParamDef((D, nh)),
-        "conv_x": ParamDef((w, di), scale=0.1),
-        "conv_xb": ParamDef((di,), "zeros"),
-        "conv_b": ParamDef((w, ns), scale=0.1),
-        "conv_bb": ParamDef((ns,), "zeros"),
-        "conv_c": ParamDef((w, ns), scale=0.1),
-        "conv_cb": ParamDef((ns,), "zeros"),
-        "A_log": ParamDef((nh,), "ssm_a", f32),
-        "D": ParamDef((nh,), "ones", f32),
-        "dt_bias": ParamDef((nh,), "ssm_dt", f32),
-        "gate_norm": ParamDef((di,), "ones"),
-        "out_proj": ParamDef((di, D)),
+        "in_z": ParamDef((D, di), ("embed", "ssm_inner")),
+        "in_x": ParamDef((D, di), ("embed", "ssm_inner")),
+        "in_b": ParamDef((D, ns), ("embed", "state")),
+        "in_c": ParamDef((D, ns), ("embed", "state")),
+        "in_dt": ParamDef((D, nh), ("embed", "ssm_heads")),
+        "conv_x": ParamDef((w, di), (None, "ssm_inner"), scale=0.1),
+        "conv_xb": ParamDef((di,), ("ssm_inner",), "zeros"),
+        "conv_b": ParamDef((w, ns), (None, "state"), scale=0.1),
+        "conv_bb": ParamDef((ns,), ("state",), "zeros"),
+        "conv_c": ParamDef((w, ns), (None, "state"), scale=0.1),
+        "conv_cb": ParamDef((ns,), ("state",), "zeros"),
+        "A_log": ParamDef((nh,), ("ssm_heads",), "ssm_a", f32),
+        "D": ParamDef((nh,), ("ssm_heads",), "ones", f32),
+        "dt_bias": ParamDef((nh,), ("ssm_heads",), "ssm_dt", f32),
+        "gate_norm": ParamDef((di,), ("ssm_inner",), "ones"),
+        "out_proj": ParamDef((di, D), ("ssm_inner", "embed")),
     }
 
 

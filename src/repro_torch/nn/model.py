@@ -8,6 +8,7 @@ from typing import Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import init_sharded, tp_shardings
 from repro_torch.nn import layers as L
 from repro_torch.nn import transformer as T
 from repro_torch.nn.config import ModelConfig
@@ -50,6 +51,22 @@ class Model:
         return L.init_tree(self.defs(), generator,
                            dtype=dtype or _DTYPES[self.cfg.dtype],
                            device=self.device)
+
+    def init_shards(self, generator: torch.Generator, mesh, rank: int,
+                    dtype: Optional[torch.dtype] = None) -> Dict:
+        """This rank's shards of :meth:`init`'s params under ``mesh``
+        (``distributed/sharding.py``: ``tp_shardings`` and
+        ``init_sharded``): the same stream, so each shard equals the
+        matching slice of the single-process params bit for bit."""
+        return init_sharded(self.defs(), generator, tp_shardings(self, mesh),
+                            mesh, rank,
+                            dtype=dtype or _DTYPES[self.cfg.dtype],
+                            device=self.device)
+
+    def param_axes(self) -> Dict:
+        """The logical axis names of every param leaf (the reference's
+        ``Model.param_axes``), read by ``distributed/sharding.py``."""
+        return L.axes_tree(self.defs())
 
     def abstract_params(self) -> Dict:
         """The param tree as storage-free ("meta") tensors of the right

@@ -19,6 +19,18 @@ are gathered from a token-major (T·K, D) expansion by the sort's
 permutation (each token's K copy gradients are summed by the expansion's
 reduction), and the experts' outputs go back to their copies' rows by
 ``index_copy_`` (whose backward is a gather), a dropped copy's row zero.
+
+Expert parallelism (a "model" mesh axis over 1, ``meshctx``): the router
+is replicated and the dispatch plan is computed whole on every rank.  The
+experts are split over the axis where their count divides by it, and each
+rank runs the grouped GEMMs on its own experts' rows of the (E, C, D)
+buffer; otherwise every rank holds every expert's d_ff shard, and its wd
+product is a partial sum (in f32).  Either way a rank's copies of the other
+experts (or of the other d_ff shards) count as zeros, each rank's weighted
+combine is a partial sum, and one f32 ``all_reduce`` adds them.  Decode
+does the same: a rank gathers weights among its local experts only, the
+gate of every selected expert it does not hold is 0, and one f32
+``all_reduce`` adds the ranks' sums.
 """
 from __future__ import annotations
 
@@ -27,6 +39,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import meshctx
+from repro_torch.distributed.collectives import all_reduce_f32
 from repro_torch.kernels import ops as kops
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.layers import ParamDef, norm, norm_defs
@@ -34,12 +48,13 @@ from repro_torch.nn.layers import ParamDef, norm, norm_defs
 
 def moe_defs(cfg: ModelConfig) -> Dict:
     D, E, Fd = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    up = ("experts", "expert_embed", "expert_mlp")
     return {
         "norm": norm_defs(cfg),
-        "router": ParamDef((D, E)),
-        "wg": ParamDef((E, D, Fd)),
-        "wu": ParamDef((E, D, Fd)),
-        "wd": ParamDef((E, Fd, D)),
+        "router": ParamDef((D, E), ("embed_novar", "experts_in")),
+        "wg": ParamDef((E, D, Fd), up),
+        "wu": ParamDef((E, D, Fd), up),
+        "wd": ParamDef((E, Fd, D), ("experts", "expert_mlp", "expert_embed")),
     }
 
 
@@ -83,6 +98,14 @@ def dispatch_plan(gate_ids: torch.Tensor, num_experts: int, capacity: int
     return order, keep, slot
 
 
+def _local_experts(w: torch.Tensor, cfg: ModelConfig) -> int:
+    """The first global expert of this rank's stacked expert weights
+    ``w`` (E_local, ...): 0 unless the experts are split over ranks."""
+    if w.shape[0] == cfg.num_experts:
+        return 0
+    return meshctx.model_axis().coord * w.shape[0]
+
+
 def _dispatch_compute(p: Dict, flat: torch.Tensor, cfg: ModelConfig
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-based capacity dispatch + expert GEMMs for (T, D) tokens;
@@ -90,6 +113,7 @@ def _dispatch_compute(p: Dict, flat: torch.Tensor, cfg: ModelConfig
     T, D = flat.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     C = _capacity(cfg, T)
+    ax = meshctx.model_axis()
 
     probs, gate_vals, gate_ids = _route(flat, p["router"], K)
     # Load-balancing auxiliary loss (Switch Transformer eq. 4).
@@ -104,38 +128,55 @@ def _dispatch_compute(p: Dict, flat: torch.Tensor, cfg: ModelConfig
     # overflow row E·C, which is cut off before the GEMMs.
     buf = torch.zeros((E * C + 1, D), dtype=flat.dtype, device=flat.device)
     buf.index_copy_(0, slot, copies)
-    xe = buf[:-1].view(E, C, D)
+    # This rank's experts (all of them unless the experts are split).
+    e0, n_e = _local_experts(p["wu"], cfg), p["wu"].shape[0]
+    xe = buf[:-1].view(E, C, D)[e0:e0 + n_e]
 
+    # A d_ff shard's wd product is a partial sum: keep it in f32.
+    partial = p["wd"].shape[1] != cfg.moe_d_ff
     u = kops.expert_matmul(xe, p["wu"])
     act = kops.expert_matmul(xe, p["wg"], epilogue="swiglu_gate", gate=u)
-    ye = kops.expert_matmul(act, p["wd"])
+    ye = kops.expert_matmul(act, p["wd"],
+                            out_dtype=torch.float32 if partial else None)
 
     # Each slot's output goes back to the token-major row of the copy that
     # owns it (an empty slot to the row T·K, cut off); a dropped copy's row
-    # stays zero, so its gate weight multiplies nothing.
+    # stays zero, so its gate weight multiplies nothing, and so does the
+    # row of a copy another rank's experts hold.
     owner = torch.full((E * C + 1,), T * K, dtype=order.dtype,
                        device=order.device)
     owner.index_copy_(0, slot, order)
     ys = torch.zeros((T * K + 1, D), dtype=ye.dtype, device=ye.device)
-    ys.index_copy_(0, owner[:-1], ye.reshape(E * C, D))
-    y = (ys[:-1].view(T, K, D) * gate_vals[..., None].to(ys.dtype)
-         ).to(flat.dtype).sum(1)
-    return y, aux
+    ys.index_copy_(0, owner[e0 * C:(e0 + n_e) * C], ye.reshape(n_e * C, D))
+    yk = ys[:-1].view(T, K, D) * gate_vals[..., None].to(ys.dtype)
+    if ax is None:
+        return yk.to(flat.dtype).sum(1), aux
+    return all_reduce_f32(yk.float().sum(1), ax.group).to(flat.dtype), aux
 
 
 def moe_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y, aux_loss).  Tokens over capacity are dropped
-    (Switch/GShard semantics; capacity_factor sets the rate)."""
-    if cfg.moe_local_dispatch:
-        return _moe_forward_grouped(p, x, cfg)
+    (Switch/GShard semantics; capacity_factor sets the rate).
+
+    ``cfg.moe_local_dispatch`` takes the per-data-shard dispatch only under
+    an installed mesh whose data axes exceed 1 and divide the tokens, as in
+    the reference (``repro/nn/moe.py:62-69``); otherwise the flat one."""
+    mesh = meshctx.get_mesh()
+    if cfg.moe_local_dispatch and mesh is not None:
+        dp = 1
+        for a in ("pod", "data"):
+            dp *= mesh.shape.get(a, 1)
+        if (x.shape[0] * x.shape[1]) % dp == 0 and dp > 1:
+            return _moe_forward_grouped(p, x, cfg, dp)
     return _moe_forward_flat(p, x, cfg)
 
 
-def _moe_forward_grouped(p: Dict, x: torch.Tensor, cfg: ModelConfig):
+def _moe_forward_grouped(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                         dp: int):
     raise NotImplementedError(
-        f"{cfg.name}: moe_local_dispatch (per-data-shard dispatch) needs a "
-        f"device mesh; the distributed path is not ported")
+        f"{cfg.name}: moe_local_dispatch over {dp} data shards (the "
+        f"per-data-shard dispatch) is ROADMAP A5b")
 
 
 def _moe_forward_flat(p: Dict, x: torch.Tensor, cfg: ModelConfig
@@ -151,9 +192,14 @@ def moe_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
     Default: gather the K selected experts' weights per token (B·K·D·F
     bytes copied per weight).  ``cfg.moe_dense_decode``: run every expert
-    on every token and mask the sum with the gates."""
+    on every token and mask the sum with the gates.  Under expert
+    parallelism a rank gathers among its own experts only (a selected
+    expert another rank holds is gathered as the rank's first, under a
+    gate of 0) and the ranks' sums are added in f32."""
     B, _, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
+    ax = meshctx.model_axis()
+    e0, n_e = _local_experts(p["wg"], cfg), p["wg"].shape[0]
     h = norm(x, p["norm"], cfg).reshape(B, D)
     _, gate_vals, gate_ids = _route(h, p["router"], K)
 
@@ -163,14 +209,21 @@ def moe_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         g = torch.einsum("bd,edf->ebf", h, p["wg"])
         u = torch.einsum("bd,edf->ebf", h, p["wu"])
         ye = torch.einsum("ebf,efd->ebd", F.silu(g) * u, p["wd"])
-        y = torch.einsum("ebd,be->bd", ye, gates.to(ye.dtype))
-        return y.reshape(B, 1, D).to(x.dtype)
-
-    wg = p["wg"][gate_ids]                    # (B, K, D, F) gather
-    wu = p["wu"][gate_ids]
-    wd = p["wd"][gate_ids]
-    g = torch.einsum("bd,bkdf->bkf", h, wg)
-    u = torch.einsum("bd,bkdf->bkf", h, wu)
-    y = torch.einsum("bkf,bkfd->bkd", F.silu(g) * u, wd)
-    y = torch.einsum("bkd,bk->bd", y, gate_vals.to(y.dtype))
+        y = torch.einsum("ebd,be->bd", ye,
+                         gates[:, e0:e0 + n_e].to(ye.dtype))
+    else:
+        if ax is not None:
+            local = gate_ids - e0
+            mine = (local >= 0) & (local < n_e)
+            gate_ids = torch.where(mine, local, 0)
+            gate_vals = torch.where(mine, gate_vals, 0.0)
+        wg = p["wg"][gate_ids]                # (B, K, D, F) gather
+        wu = p["wu"][gate_ids]
+        wd = p["wd"][gate_ids]
+        g = torch.einsum("bd,bkdf->bkf", h, wg)
+        u = torch.einsum("bd,bkdf->bkf", h, wu)
+        y = torch.einsum("bkf,bkfd->bkd", F.silu(g) * u, wd)
+        y = torch.einsum("bkd,bk->bd", y, gate_vals.to(y.dtype))
+    if ax is not None:
+        y = all_reduce_f32(y, ax.group)
     return y.reshape(B, 1, D).to(x.dtype)

@@ -17,6 +17,16 @@ embeddings and vision's ``patch_embed`` (B, P, D) replaces the first P
 positions (``repro/nn/transformer.py:88-101``); a decode step takes none,
 as in the reference.
 
+Tensor parallelism (a "model" mesh axis over 1, ``meshctx``): the layers
+run on this rank's shards (``nn/layers.py``, ``nn/moe.py``); the
+embedding and the head are vocab-parallel.  Each rank looks up the tokens
+in its own rows of the embedding, zeros elsewhere, and one f32
+``all_reduce`` sums the rows (exact: one term is not zero); the head gives
+this rank's (..., V/n) f32 logits, written into zeros of the full V and
+summed the same way.  The decode cache holds this rank's kv heads.  The SSM
+and hybrid families raise under tensor parallelism: their gated RMSNorm
+spans the whole d_inner and needs its own reduction (ROADMAP A5b).
+
 Training: :func:`lm_loss` is the reference's chunked next-token NLL over
 :func:`forward_hidden`, whose layers run under
 ``torch.utils.checkpoint.checkpoint`` when ``cfg.remat`` is set and
@@ -30,6 +40,8 @@ from typing import Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import meshctx
+from repro_torch.distributed.collectives import all_reduce_f32
 from repro_torch.nn import layers as L
 from repro_torch.nn import mamba2, moe
 from repro_torch.nn.config import ModelConfig
@@ -44,19 +56,20 @@ def layer_defs(cfg: ModelConfig) -> Dict:
 
 def _stack(defs, n: int):
     return {k: (_stack(d, n) if isinstance(d, dict)
-                else d._replace(shape=(n, *d.shape)))
+                else d._replace(shape=(n, *d.shape),
+                                axes=("layers", *d.axes)))
             for k, d in defs.items()}
 
 
 def model_defs(cfg: ModelConfig) -> Dict:
     D, V = cfg.d_model, cfg.vocab_size
     defs = {
-        "embed": L.ParamDef((V, D)),
+        "embed": L.ParamDef((V, D), ("vocab", "embed_novar")),
         "layers": _stack(layer_defs(cfg), cfg.num_layers),
         "final_norm": L.norm_defs(cfg),
     }
     if not cfg.tie_embeddings:
-        defs["lm_head"] = L.ParamDef((D, V))
+        defs["lm_head"] = L.ParamDef((D, V), ("embed_novar", "vocab"))
     if cfg.family == "hybrid":
         defs["shared"] = {"attn": L.attn_defs(cfg), "mlp": L.mlp_defs(cfg)}
     return defs
@@ -84,13 +97,39 @@ def _layer(tree, i: int):
             for k, v in tree.items()}
 
 
+def _check_tp(cfg: ModelConfig) -> None:
+    if cfg.has_ssm and meshctx.model_axis() is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism for the {cfg.family} family is "
+            f"ROADMAP A5b (the gated RMSNorm spans the whole d_inner and "
+            f"needs its own reduction)")
+
+
+def _vocab_offset(local: int, cfg: ModelConfig) -> Optional[int]:
+    """The first vocabulary row of this rank's shard of ``local`` rows, or
+    None when the vocabulary is whole on every rank."""
+    if local == cfg.vocab_size:
+        return None
+    return meshctx.model_axis().coord * local
+
+
 def embed_tokens(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
                  extras: Optional[Dict] = None) -> torch.Tensor:
     """The token embeddings (B, S, D), with the frontend's inputs where the
     config has a frontend and ``extras`` holds them: audio's frame
     embeddings added in, vision's patch embeddings in the first
     positions."""
-    x = params["embed"][tokens]
+    emb = params["embed"]
+    lo = _vocab_offset(emb.shape[0], cfg)
+    if lo is None:
+        x = emb[tokens]
+    else:
+        local = tokens - lo
+        mine = (local >= 0) & (local < emb.shape[0])
+        x = torch.where(mine[..., None],
+                        emb[local.clamp(0, emb.shape[0] - 1)],
+                        emb.new_zeros(()))
+        x = all_reduce_f32(x, meshctx.model_axis().group).to(emb.dtype)
     extras = extras or {}
     if cfg.frontend == "audio" and "frame_embed" in extras:
         x = x + extras["frame_embed"].to(x.dtype)
@@ -111,13 +150,20 @@ def logits(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
     f32 without an f32 copy of the (V, D) weight on the card; under autograd
     it runs as :class:`_LmHead`."""
     w = lm_head_weight(params, cfg)
+    lo = _vocab_offset(w.shape[1], cfg)
     if x.dtype == w.dtype == torch.float32:
-        return torch.matmul(x, w)
-    if x.device.type == "cuda":
-        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-            return _LmHead.apply(x, w)
-        return _head_f32(x, w)
-    return torch.matmul(x.float(), w.float())
+        out = torch.matmul(x, w)
+    elif x.device.type != "cuda":
+        out = torch.matmul(x.float(), w.float())
+    elif torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        out = _LmHead.apply(x, w)
+    else:
+        out = _head_f32(x, w)
+    if lo is None:
+        return out
+    full = out.new_zeros((*out.shape[:-1], cfg.vocab_size))
+    full[..., lo:lo + w.shape[1]] = out
+    return all_reduce_f32(full, meshctx.model_axis().group)
 
 
 def _head_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -151,10 +197,12 @@ def _kv_for_cache(attn_p, h, positions, cfg):
     """The prefill cache entry of one layer; recomputes wk/wv on the
     block input exactly as the reference does (``transformer.py:111``)."""
     B, S, _ = h.shape
-    Hkv, hd = cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    wk, wv = L.kv_weights(attn_p, cfg)
+    Hkv = wk.shape[-1] // hd
     hn = L.norm(h, attn_p["norm"], cfg)
-    k = L.dense(hn, attn_p["wk"]).reshape(B, S, Hkv, hd).transpose(1, 2)
-    v = L.dense(hn, attn_p["wv"]).reshape(B, S, Hkv, hd).transpose(1, 2)
+    k = L.dense(hn, wk).reshape(B, S, Hkv, hd).transpose(1, 2)
+    v = L.dense(hn, wv).reshape(B, S, Hkv, hd).transpose(1, 2)
     k = L.rope(k, positions, cfg.rope_theta)
     return k, v
 
@@ -213,6 +261,7 @@ def forward_hidden_aux(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     ``cfg.remat`` and autograd recording, each layer runs under a
     non-reentrant checkpoint: its activations are recomputed in the
     backward pass, as the reference's ``jax.checkpoint`` body."""
+    _check_tp(cfg)
     x = embed_tokens(params, tokens, cfg, extras)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -275,6 +324,7 @@ def prefill_forward(
     ``last_pos`` (B,) reads each row's logits at its own final real
     position — the ragged-admission path: prompts right-padded to a bucket
     edge still read out at their true last token."""
+    _check_tp(cfg)
     x = embed_tokens(params, tokens, cfg, extras)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
@@ -315,10 +365,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     """The decode cache, shaped as :func:`prefill_forward`'s with
     ``max_len`` positions: k/v and the conv tails bf16 whatever the param
     dtype, the SSM state f32, as in the reference
-    (``transformer.py:327-353``)."""
+    (``transformer.py:327-353``).  Under tensor parallelism k/v hold this
+    rank's kv heads (``L.local_kv_heads``); the reference shards its cache
+    on the sequence instead (``repro/distributed/sharding.py:121-164``)."""
+    _check_tp(cfg)
 
     def kv(n):
-        shape = (n, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+        shape = (n, batch, L.local_kv_heads(cfg), max_len, cfg.head_dim)
         return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
                 "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
 
@@ -345,6 +398,7 @@ def decode_step(
     held until the last layer has run and then written into the cache,
     one copy per leaf, so a step that fails part-way leaves the recurrent
     state as it was."""
+    _check_tp(cfg)
     x = embed_tokens(params, tokens, cfg)[:, None, :]     # (B, 1, D)
     new_mamba = []
     for i in range(cfg.num_layers):

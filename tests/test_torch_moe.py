@@ -18,6 +18,7 @@ atol 3e-2 (the GEMM bound of 0.3·√K would pass anything of this size).
 """
 import dataclasses
 import math
+import types
 import warnings
 
 import jax
@@ -32,6 +33,7 @@ from repro.core.hardware import GPU_H100_LIKE as JGPU_H100_LIKE
 from repro.kernels import ops as jops
 from repro.nn import moe as jmoe
 from repro.nn.layers import norm as jnorm
+from repro_torch import meshctx
 from repro_torch.configs.registry import get_config
 from repro_torch.core.hardware import GPU_H100_LIKE
 from repro_torch.core.latency import Epilogue
@@ -375,9 +377,23 @@ def test_moe_decode_branches_agree():
 
 
 def test_moe_forward_grouped_raises():
-    _, cfg = _configs(moe_local_dispatch=True)
+    """``moe_local_dispatch`` takes the grouped (per-data-shard) dispatch
+    only under a mesh whose data axis exceeds 1, as the reference does
+    (``repro/nn/moe.py:62-69``): with no mesh the flat dispatch runs and
+    gives the reference's output; under a data axis of 2 the grouped path,
+    ROADMAP A5b, raises."""
+    jcfg, cfg = _configs(moe_local_dispatch=True)
     tree = _moe_params(cfg)
-    x = np.zeros((2, 4, cfg.d_model), np.float32)
-    _, tp, _, tx = _both(tree, x, "f32")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        moe.moe_forward(tp, tx, cfg)
+    x = np.random.default_rng(2).standard_normal(
+        (2, 4, cfg.d_model)).astype(np.float32)
+    jp, tp, jx, tx = _both(tree, x, "f32")
+    jy, jaux = jmoe.moe_forward(jp, jx, jcfg)
+    ty, taux = moe.moe_forward(tp, tx, cfg)
+    _close(ty, jy, "f32", cfg.d_model)
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
+    meshctx.set_mesh(types.SimpleNamespace(shape={"data": 2, "model": 1}))
+    try:
+        with pytest.raises(NotImplementedError, match="A5b"):
+            moe.moe_forward(tp, tx, cfg)
+    finally:
+        meshctx.set_mesh(None)
