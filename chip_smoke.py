@@ -136,14 +136,21 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               case of each, and the grouped epilogue backward (dbias an
               expert).  The bf16 backward must take the wgmma route.
     train_grads — phi4-mini, then qwen3-moe-30b-a3b, at full width with 2
-              layers, B 2 x S 512: one loss and gradient on the kernel route
-              against the plain route on the card, in bf16 (within 2x the
-              plain bf16 route's distance from the plain f32 route; the
-              kernel route twice, bitwise) and in f32 (each leaf within
+              layers, B 2 x S 512: one loss and gradient on the kernel
+              route against the plain route on the card, in bf16 (the
+              loss, each position's NLL as one vector and each leaf within
+              2x the plain bf16 route's distance from the plain f32 route;
+              the kernel route twice, bitwise) and in f32 (each leaf within
               1e-4: the f32 backward kernels' path; launches equal to the
-              reckoning; qwen3's experts the same for every token copy on
-              both routes; the f32 run's forwards are the kernels line's
-              flash_attention_f32@train_grads launches).
+              reckoning; the MoE's experts the same for every token copy
+              on both routes; the f32 run's forwards and backwards are the
+              kernels line's flash_attention_f32@train_grads launches).
+    train_grads_f32 — mixtral-8x22b at one layer on one row of 4,608
+              tokens (its 4,096-key window binding): train_grads' f32 half
+              alone, the kernels line's flash_attention_f32@window and
+              flash_attention_bwd_f32@window launches.  Its bf16 half is
+              no phase: its loss scalar misses the 2x criterion at this
+              seed (ROADMAP C10).
     train   — the driver's step functions (loss and gradients under retry,
               then the in-place AdamW commit) on phi4-mini-3.8b at full
               width and depth with remat: 6 steps on one repeated batch of
@@ -168,12 +175,14 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               attention.
 11. The rest of the zoo (after serve_hybrid; train_audio after
     train_hybrid):
-    flash_window — the bf16 forward with a sliding window against
-              ``chunked_attention``: mixtral-8x22b's prefill (1, 48/8,
+    flash_window — every flash kernel with a sliding window, in bf16
+              and f32, against its plain version: the forward against
+              ``chunked_attention`` (and its lse), the backward against
+              ``attention_bwd_ref`` (a kv head's group at a time) with
+              train_kernels' criteria; mixtral-8x22b's prefill (1, 48/8,
               8192, 128) at window 4096, windows 32, 100 and 128 at S 300
-              and d 64, 128 and 160, each case twice and bitwise equal; a
-              window past S bitwise the causal kernel; a window under
-              autograd and in f32 refused (ROADMAP A4b).
+              and d 64, 128 and 160, each kernel twice and bitwise equal; a
+              window past S bitwise the causal kernels.
     serve_zoo — musicgen-large (frame embeddings a request),
               llava-next-mistral-7b (the 2,880-position image prefix ahead
               of each text prompt), minitron-8b, stablelm-12b,
@@ -198,14 +207,25 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               checks the row-parallel products (f32 out, the residual in
               rank 0's flush) at phi4's local shapes.
     serve_tp_f32 — the same three models at 2 layers, full width, in f32
-              (mixtral's window off: it does not bind at these prompts):
+              (mixtral with its window, which does not bind at these
+              prompts):
               request 0's prefill logits on 2 ranks against one process,
               within F32_LOGITS_REL_CAP (summation order only).
-    window_times — the windowed forward at mixtral's shape beside the
-              causal kernel, the plain version and the library's attention
-              with the window as a boolean mask.
+    window_times — the windowed forwards and backwards, bf16 and f32, at
+              mixtral's shape beside the causal kernels, the plain
+              versions and the library's attention with the window as a
+              boolean mask (its backward: forward and backward less its
+              forward); the library's causal attention beside the bf16
+              causal kernel.
     train_audio — musicgen-large whole, 3 steps of phase 10's train step
               with frame embeddings in the batch, at lr AUDIO_TRAIN_LR.
+    train_zoo — the train phase, 3 steps each, for minitron-8b (6 layers),
+              stablelm-12b (8), internlm2-20b (6), llava-next-mistral-7b
+              (8; rows of its 2,880 patch positions and 512 text tokens) at
+              B 4 x S 512, and mixtral-8x22b (1 layer) at B 1 x S 8192,
+              where its window binds; full width, each under 45 GB of
+              state, lr ZOO_TRAIN_LR; launches equal to the reckoning, the
+              loss falls.
 Each serve phase counts the launches of every kernel inside the model's
 prefills and inside its decode steps apart.  The line before the last is
 the kernels summary (a row's launches are those of its own run and step
@@ -258,7 +278,8 @@ TF32X3_PEAK = 495e12 / 3
 # The kernels-line rows whose kernel computes in split TF32 ("products").
 TF32X3_ROWS = ("matmul_f32@hybrid_decode", "matmul_f32@hybrid_prefill",
                "flash_attention_f32@hybrid", "flash_attention_f32@train_grads",
-               "flash_attention_bwd_f32@train_grads")
+               "flash_attention_bwd_f32@train_grads",
+               "flash_attention_f32@window", "flash_attention_bwd_f32@window")
 # The f32 serve's prefill logits, kernel path vs plain path (relative L2):
 # both run in f32 and differ only in summation order (predicted ~1e-5
 # after 81 layers; a kernel that rounds to tf32 or bf16 gives > 1e-2).
@@ -361,11 +382,11 @@ def main() -> int:
     flash_err = flash_phase(torch, dev, kfa)
     window_err = flash_window_phase(torch, dev, kfa)
     max_err = gemm_phase(torch, dev, kmm)
+    max_err.update(window_err)
     max_err.update({
         "flash_attention@prefill": flash_err[("bfloat16", 128)],
         "flash_attention@hybrid": flash_err[("bfloat16", 112)],
         "flash_attention_f32@hybrid": flash_err[("float32", 112)],
-        "flash_attention@window": window_err,
         "expert_matmul@prefill": expert_gemm_phase(torch, dev, kmm)})
     probe_times = probe_phase(torch, dev, kpr)
     # the probe phase demands checksums equal to the plain versions'
@@ -397,6 +418,9 @@ def main() -> int:
     max_err.update(train_kernels_phase(torch, dev, kmm, kfa))
     grads_launches = train_grads_phase(torch, dev, kmm, kfa)
     train_grads_phase(torch, dev, kmm, kfa, "qwen3-moe-30b-a3b")
+    # mixtral at one layer on a row past its window: the windowed f32 flash
+    # forward and backward on a model's path.
+    window_grads = train_grads_f32_phase(torch, dev, kmm, kfa)
     model, state, batch, train_launches = train_phase(torch, dev, kmm, kfa)
     train_trace_phase(torch, dev, model, state, batch)
     del model, state, batch
@@ -407,6 +431,7 @@ def main() -> int:
         phase="train_audio", lr=AUDIO_TRAIN_LR)
     del model, state, batch
     _free(torch)
+    zoo_window_launches = train_zoo_phase(torch, dev, kmm, kfa)
     times.update(train_times_phase(torch, dev, kmm, kfa))
     # Each row's launches: its own run, in its own step kind.
     launches = {
@@ -430,6 +455,9 @@ def main() -> int:
         "flash_attention_bwd@train": train_launches["flash_bwd"],
         "flash_attention_f32@train_grads": grads_launches["flash"],
         "flash_attention_bwd_f32@train_grads": grads_launches["flash_bwd"],
+        "flash_attention_f32@window": window_grads["flash"],
+        "flash_attention_bwd@window": zoo_window_launches["flash_bwd"],
+        "flash_attention_bwd_f32@window": window_grads["flash_bwd"],
         "epilogue_bwd@train": train_launches["epilogue_bwd"],
         "expert_matmul_bwd@train_moe_dgrad": moe_train_launches["expert_nt"],
         "expert_matmul_bwd@train_moe_wgrad": moe_train_launches["expert_tn"],
@@ -2422,21 +2450,96 @@ def _grad_rel(torch, got, want):
             for (path, x), (_, w) in zip(tree_items(got), tree_items(want))}
 
 
+def _token_nll(torch, model, params, batch, dev):
+    """Each position's next-token NLL, (B, S - 1) f32, of one full pass
+    without autograd: ``lm_loss`` taken apart by token (less the MoE aux
+    loss)."""
+    from repro_torch.nn import transformer
+    cfg = model.cfg
+    tokens = torch.from_numpy(batch["tokens"]).to(dev).long()
+    extras = {k: v for k, v in batch.items() if k != "tokens"}
+    n, out = tokens.shape[1] - 1, []
+    with torch.no_grad():
+        hidden = transformer.forward_hidden(params, tokens, cfg, extras)
+        for j in range(0, n, 1024):
+            lg = transformer.logits(hidden[:, j:min(j + 1024, n)], params,
+                                    cfg)
+            gold = tokens[:, j + 1:min(j + 1024, n) + 1]
+            out.append(torch.logsumexp(lg, dim=-1)
+                       - lg.gather(-1, gold[..., None])[..., 0])
+    return torch.cat(out, dim=1)
+
+
+def _f32_grads(torch, kmm, kfa, step, p32, batch):
+    """The plain route's and then the kernel route's f32 loss and gradient
+    of ``p32`` on ``batch``, this run's launches counted and, for an MoE
+    model, every layer's expert ids recorded on both (the forward's; the
+    remat recompute routes again in the backward pass).  Each leaf must lie
+    within GRADS_F32_REL_CAP of the plain route, the loss within 1e-5
+    relative, the launches must equal the reckoning, and an MoE model must
+    route every token copy of every layer to the same experts on both.
+    Returns (the plain route's loss and gradient, the kernel route's loss,
+    the row's other f32 fields, the failed criteria, the launches)."""
+    from repro_torch.nn import moe
+    cfg = step.model.cfg
+    routes = {}
+    real_route = moe._route
+
+    @contextlib.contextmanager
+    def recording(name):
+        ids = routes[name] = []
+
+        def spy(flat, router, k):
+            out = real_route(flat, router, k)
+            ids.append(out[2])
+            return out
+        with mock.patch.object(moe, "_route", spy):
+            yield
+
+    with plain_path(kmm, kfa), recording("plain_f32"):
+        loss_p32, g_p32 = step.loss_and_grads(p32, batch)
+    _zero_counts(kmm, kfa)
+    with recording("kernel_f32"):
+        loss_k32, g_k32 = step.loss_and_grads(p32, batch)
+    torch.cuda.synchronize()
+    launches = _read_counts(kmm, kfa)
+    want = _train_reckoning(cfg)
+    expected = {k: sum(want[part].get(k, 0) for part in want)
+                for k in launches}
+    same_routes = len(routes["kernel_f32"]) == len(routes["plain_f32"]) \
+        and all(torch.equal(a, b) for a, b in zip(routes["kernel_f32"],
+                                                   routes["plain_f32"]))
+    rel = _grad_rel(torch, g_k32, g_p32)
+    del g_k32
+    fields = {"grad_rel_l2_f32_kernel_vs_plain": rel,
+              "f32_launches": launches, "f32_expected": expected,
+              **({"f32_same_experts_every_copy": same_routes,
+                  "f32_routed_layers": len(routes["kernel_f32"])}
+                 if cfg.is_moe else {})}
+    bad = [f"{p} (f32)" for p in rel if not rel[p] <= GRADS_F32_REL_CAP]
+    if not abs(float(loss_k32) - float(loss_p32)) \
+            <= 1e-5 * abs(float(loss_p32)):
+        bad.append("loss (f32)")
+    if cfg.is_moe and not same_routes:
+        bad.append("the f32 routes chose other experts")
+    if launches != expected:
+        bad.append(f"the f32 launches {launches} differ from the "
+                   f"reckoning {expected}")
+    return (loss_p32, g_p32), loss_k32, fields, bad, launches
+
+
 def train_grads_phase(torch, dev, kmm, kfa, arch="phi4-mini-3.8b"):
     """``arch`` at full width with GRADS_LAYERS layers (remat on), B 2 x S
     512: one loss and gradient on the kernel route against the plain route
     on the card, in bf16 (within GRADS_REL_FACTOR x the plain bf16 route's
-    distance from the plain f32 route, the loss and each leaf; the kernel
-    route twice, bitwise) and in f32 (each leaf within GRADS_F32_REL_CAP of
-    the plain f32 route; this run puts the f32 backward kernels on a path,
-    its launches must equal the reckoning, and an MoE model must route
-    every token copy of every layer to the same experts on both routes).
+    distance from the plain f32 route: the loss, each position's NLL as
+    one vector, and each leaf; the kernel route twice, bitwise) and in f32
+    (``_f32_grads``: this run puts the f32 backward kernels on a path).
     Returns the f32 run's launches."""
     import dataclasses
     from repro_torch.configs.registry import get_config
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch.steps import make_train_step
-    from repro_torch.nn import moe
     from repro_torch.nn.model import Model
     from repro_torch.optim import AdamW
 
@@ -2447,21 +2550,6 @@ def train_grads_phase(torch, dev, kmm, kfa, arch="phi4-mini-3.8b"):
                                    seq_len=TRAIN_S,
                                    global_batch=GRADS_B)).batch_at(0)
     step = make_train_step(model, AdamW())
-    routes = {}
-    real_route = moe._route
-
-    @contextlib.contextmanager
-    def recording(name):
-        """Record every MoE layer's expert ids (the forward's; the remat
-        recompute routes again in the backward pass)."""
-        ids = routes[name] = []
-
-        def spy(flat, router, k):
-            out = real_route(flat, router, k)
-            ids.append(out[2])
-            return out
-        with mock.patch.object(moe, "_route", spy):
-            yield
 
     t0 = time.perf_counter()
     loss_k, g_k = step.loss_and_grads(params, batch)
@@ -2472,21 +2560,17 @@ def train_grads_phase(torch, dev, kmm, kfa, arch="phi4-mini-3.8b"):
     p32 = _tree_map(params, lambda t: t.float())
     with plain_path(kmm, kfa):
         loss_p, g_p = step.loss_and_grads(params, batch)
-        with recording("plain_f32"):
-            loss_p32, g_p32 = step.loss_and_grads(p32, batch)
-    _zero_counts(kmm, kfa)
-    with recording("kernel_f32"):
-        loss_k32, g_k32 = step.loss_and_grads(p32, batch)
-    torch.cuda.synchronize()
-    launches32 = _read_counts(kmm, kfa)
-    want = _train_reckoning(cfg)
-    expected32 = {k: sum(want[part].get(k, 0) for part in want)
-                  for k in launches32}
-    same_routes = len(routes["kernel_f32"]) == len(routes["plain_f32"]) \
-        and all(torch.equal(a, b) for a, b in zip(routes["kernel_f32"],
-                                                   routes["plain_f32"]))
+    (loss_p32, g_p32), loss_k32, f32_fields, bad, launches32 = _f32_grads(
+        torch, kmm, kfa, step, p32, batch)
     rel_kp, rel_p32 = _grad_rel(torch, g_k, g_p), _grad_rel(torch, g_p, g_p32)
-    rel_f32 = _grad_rel(torch, g_k32, g_p32)
+    del g_k, g_p, g_p32
+    nll = {"kernel": _token_nll(torch, model, params, batch, dev)}
+    with plain_path(kmm, kfa):
+        nll["plain"] = _token_nll(torch, model, params, batch, dev)
+        nll["plain_f32"] = _token_nll(torch, model, p32, batch, dev)
+    nll_kp = _rel(torch, nll["kernel"], nll["plain"])
+    nll_p32 = _rel(torch, nll["plain"], nll["plain_f32"])
+    del nll
     d_loss_kp = abs(float(loss_k) - float(loss_p))
     d_loss_p32 = abs(float(loss_p) - float(loss_p32))
     row = {"phase": "train_grads", "arch": cfg.name, "layers": cfg.num_layers,
@@ -2497,37 +2581,78 @@ def train_grads_phase(torch, dev, kmm, kfa, arch="phi4-mini-3.8b"):
                     "kernel_f32": float(loss_k32)},
            "loss_abs_diff_kernel_vs_plain": d_loss_kp,
            "loss_abs_diff_plain_vs_plain_f32": d_loss_p32,
+           "token_nll_rel_l2_kernel_vs_plain": nll_kp,
+           "token_nll_rel_l2_plain_vs_plain_f32": nll_p32,
            "grad_rel_l2_kernel_vs_plain": rel_kp,
            "grad_rel_l2_plain_vs_plain_f32": rel_p32,
-           "grad_rel_l2_f32_kernel_vs_plain": rel_f32,
            "kernel_route_bitwise_over_two_runs": repeat_ok,
-           "f32_launches": launches32, "f32_expected": expected32,
-           **({"f32_same_experts_every_copy": same_routes,
-               "f32_routed_layers": len(routes["kernel_f32"])}
-              if cfg.is_moe else {}),
-           "tolerance": f"bf16: loss and each leaf kernel-vs-plain <= "
-                        f"{GRADS_REL_FACTOR} x plain-vs-plain-f32; f32: each "
-                        f"leaf <= {GRADS_F32_REL_CAP}, loss <= 1e-5 relative",
+           **f32_fields,
+           "tolerance": f"bf16: loss, token NLLs and each leaf "
+                        f"kernel-vs-plain <= {GRADS_REL_FACTOR} x "
+                        f"plain-vs-plain-f32; f32: each leaf <= "
+                        f"{GRADS_F32_REL_CAP}, loss <= 1e-5 relative",
            "seconds": time.perf_counter() - t0}
     emit(row)
-    bad = [p for p in rel_kp if not rel_kp[p] <= GRADS_REL_FACTOR * rel_p32[p]]
-    bad += [f"{p} (f32)" for p in rel_f32
-            if not rel_f32[p] <= GRADS_F32_REL_CAP]
+    bad += [p for p in rel_kp
+            if not rel_kp[p] <= GRADS_REL_FACTOR * rel_p32[p]]
     if not d_loss_kp <= GRADS_REL_FACTOR * d_loss_p32:
         bad.append("loss")
-    if not abs(float(loss_k32) - float(loss_p32)) \
-            <= 1e-5 * abs(float(loss_p32)):
-        bad.append("loss (f32)")
+    if not nll_kp <= GRADS_REL_FACTOR * nll_p32:
+        bad.append("loss by token")
     if not repeat_ok:
         bad.append("the kernel route's gradient differs between two runs")
-    if cfg.is_moe and not same_routes:
-        bad.append("the f32 routes chose other experts")
-    if bad or launches32 != expected32:
-        fail(f"train_grads {cfg.name}: {bad} outside tolerance, or the f32 "
-             f"launches {launches32} differ from the reckoning {expected32}")
-    del params, p32, g_k, g_p, g_p32, g_k32
+    if bad:
+        fail(f"train_grads {cfg.name}: {bad}")
+    del params, p32
     _free(torch)
     return launches32
+
+
+def train_grads_f32_phase(torch, dev, kmm, kfa):
+    """mixtral-8x22b at full width, MIXTRAL_TRAIN_LAYERS layer (remat on),
+    on one row of MIXTRAL_GRADS_S tokens, past its 4,096-key window: one
+    f32 loss and gradient on the kernel route against the plain route
+    (``_f32_grads``), which puts the windowed f32 flash forward and
+    backward on a model's path.  Its bf16 half is not a phase: at this
+    seed its loss scalar misses ``train_grads``' criterion (ROADMAP C10).
+    Returns the kernel run's launches."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.nn.model import Model
+    from repro_torch.optim import AdamW
+
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"),
+                              num_layers=MIXTRAL_TRAIN_LAYERS)
+    model = Model(cfg, device=dev)
+    p32 = _tree_map(model.init(torch.Generator(device=dev).manual_seed(5)),
+                    lambda t: t.float())
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=MIXTRAL_GRADS_S,
+                                   global_batch=1)).batch_at(0)
+    step = make_train_step(model, AdamW())
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+    (loss_p32, g_p32), loss_k32, fields, bad, launches = _f32_grads(
+        torch, kmm, kfa, step, p32, batch)
+    del g_p32
+    emit({"phase": "train_grads_f32", "arch": cfg.name,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "vocab": cfg.vocab_size, "batch": [1, MIXTRAL_GRADS_S],
+          "remat": cfg.remat, "window": cfg.sliding_window,
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+          "loss": {"plain_f32": float(loss_p32),
+                   "kernel_f32": float(loss_k32)},
+          **fields,
+          "tolerance": f"each leaf <= {GRADS_F32_REL_CAP}, loss <= 1e-5 "
+                       f"relative",
+          "seconds": time.perf_counter() - t0})
+    if bad:
+        fail(f"train_grads_f32 {cfg.name}: {bad}")
+    del model, p32
+    _free(torch)
+    return launches
 
 
 # The launches of one block's forward and backward, reckoned from the code.
@@ -2587,12 +2712,14 @@ def _train_reckoning(cfg):
 
 
 def train_phase(torch, dev, kmm, kfa, arch="phi4-mini-3.8b", layers=None,
-                steps=TRAIN_STEPS, phase="train", lr=1e-3):
+                steps=TRAIN_STEPS, phase="train", lr=1e-3,
+                batch_dims=(TRAIN_B, TRAIN_S)):
     """``arch`` at full width (depth ``layers``, or the config's; remat as
     configured), ``steps`` steps of the driver's step functions
     (``launch/steps.py``: the retried loss and gradients, then the in-place
-    AdamW commit) on one repeated SyntheticLM batch of B 4 x S 512 (plus
-    the frontend's inputs, where the model has a frontend),
+    AdamW commit) on one repeated SyntheticLM batch of ``batch_dims`` (B,
+    S) tokens, B 4 x S 512 by default (plus the frontend's inputs, where
+    the model has a frontend),
     AdamW(lr=``lr``, weight_decay=0.0), no warmup.  Launch counts are zeroed
     right before the steps; each step's forward (inside ``Model.loss``) and
     backward are counted apart and must equal the reckoning; the loss must
@@ -2620,13 +2747,12 @@ def train_phase(torch, dev, kmm, kfa, arch="phi4-mini-3.8b", layers=None,
     state = TrainState(params=params, opt=opt.init(params), step=0)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
-                                   seq_len=TRAIN_S,
-                                   global_batch=TRAIN_B)).batch_at(0)
+    B, S = batch_dims
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                   global_batch=B)).batch_at(0)
     # A frontend's inputs join the batch, drawn as the train driver does.
     batch.update(synth_frontend_inputs(
-        cfg, torch.Generator(device=dev).manual_seed(1), TRAIN_B, TRAIN_S,
-        device=dev))
+        cfg, torch.Generator(device=dev).manual_seed(1), B, S, device=dev))
     step = make_train_step(model, opt)
 
     fwd = {"n": dict.fromkeys(_counters(kmm, kfa), 0)}
@@ -2691,12 +2817,12 @@ def train_phase(torch, dev, kmm, kfa, arch="phi4-mini-3.8b", layers=None,
            "layers": cfg.num_layers, "d_model": cfg.d_model,
            "vocab": cfg.vocab_size, "remat": cfg.remat, "lr": lr,
            "params": sum(t.numel() for t in _leaves(state.params)),
-           "batch": [TRAIN_B, TRAIN_S],
+           "batch": [B, S], "window": cfg.sliding_window,
            "steps": steps, "init_s": init_s, "losses": losses,
            "loss_after_last_step": final, "grad_norms": gnorms,
            "ms_per_step": ms,
            "ms_per_step_mean_after_first": sum(steady) / len(steady),
-           "train_tokens_per_s": TRAIN_T * len(steady) / (sum(steady) / 1e3),
+           "train_tokens_per_s": B * S * len(steady) / (sum(steady) / 1e3),
            "peak_mem_bytes": peak, "launches": launches,
            "launches_per_step": measured, "expected_per_step": expected,
            "fallback_rungs": fallback, "launch_retries": retries,
@@ -2738,6 +2864,54 @@ def train_families_phase(torch, dev, kmm, kfa):
         del model, state, batch
         _free(torch)
     return moe_launches
+
+
+# train_zoo: the zoo members no other phase trains, each at full width and
+# a cut depth whose state (12 bytes a parameter: bf16 params and grads, f32
+# AdamW moments) stays under TRAIN_ZOO_STATE_CAP, FAMILY_TRAIN_STEPS steps
+# each; (arch, layers, (B, S)).  llava's rows hold its 2,880 patch
+# positions ahead of 512 text tokens.  mixtral-8x22b trains at one layer on
+# one row of 8,192 tokens, so that its 4,096-key window binds in the
+# forward, the remat recompute and the backward (at S 512 it never would).
+MIXTRAL_TRAIN_LAYERS = 1
+TRAIN_ZOO = [("minitron-8b", 6, (TRAIN_B, TRAIN_S)),
+             ("stablelm-12b", 8, (TRAIN_B, TRAIN_S)),
+             ("internlm2-20b", 6, (TRAIN_B, TRAIN_S)),
+             ("llava-next-mistral-7b", 8, (TRAIN_B, 2880 + TRAIN_S)),
+             ("mixtral-8x22b", MIXTRAL_TRAIN_LAYERS, (1, 8192))]
+TRAIN_ZOO_STATE_CAP = 45e9
+# At lr 1e-3 stablelm-12b (8 layers) memorises the repeated batch in two
+# AdamW steps and the third overshoots: 12.55, 4.52, 0.46 -> 19.34 on the
+# H100, the plain route 12.55, 4.52, 0.48 -> 14.22 (tools/train_route_ab.py),
+# so the optimizer's step, not a kernel; minitron-8b bounced 0.0096 ->
+# 0.23.  At 1e-4 each zoo member's loss falls below 0.2 in 3 steps.
+ZOO_TRAIN_LR = 1e-4
+# mixtral's train_grads_f32: one row just past the window, so that its last 512
+# queries lose keys to it; the plain route's dense scores are (1, 6, S, S)
+# f32 a kv head's group at a time.
+MIXTRAL_GRADS_S = 4608
+
+
+def train_zoo_phase(torch, dev, kmm, kfa):
+    """The train phase for each model of TRAIN_ZOO, one after another, each
+    freed before the next: launches a step equal to the reckoning, the loss
+    after the last step below the first step's; ms a step, tokens/s and
+    peak memory.  Returns the launches of the model with a window."""
+    window_launches = None
+    for arch, layers, dims in TRAIN_ZOO:
+        model, state, batch, launches = train_phase(
+            torch, dev, kmm, kfa, arch, layers=layers,
+            steps=FAMILY_TRAIN_STEPS, phase="train_zoo", lr=ZOO_TRAIN_LR,
+            batch_dims=dims)
+        w = model.cfg.sliding_window
+        if w:
+            if not dims[1] > w:
+                fail(f"train_zoo {arch}: rows of {dims[1]} tokens do not "
+                     f"reach past the {w}-key window")
+            window_launches = launches
+        del model, state, batch
+        _free(torch)
+    return window_launches
 
 
 def train_trace_phase(torch, dev, model, state, batch, phase="train_trace"):
@@ -2831,10 +3005,6 @@ def train_times_phase(torch, dev, kmm, kfa):
     def rnd(*shape, dt=bf, scale=1.0):
         return (torch.randn(shape, generator=g, device=dev) * scale).to(dt)
 
-    def bound(nbytes, flops, peak):
-        t_b, t_f = nbytes / HBM_BW, flops / peak
-        return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
-
     times, rows = {}, []
     n0 = (kmm.tiled_matmul.launches, dict(kmm.tiled_matmul.layout_launches),
           kfa.flash_attention_kernel.launches,
@@ -2869,14 +3039,14 @@ def train_times_phase(torch, dev, kmm, kfa):
                        lambda: torch.matmul(a, b.t())) if layout == "nt"
                        else (lambda: torch.matmul(a.t(), b)))}
             nbytes, flops = _gemm_bytes_flops(M_, N_, K_, "none")
-            row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
-                                                     BF16_PEAK)
+            row["bound_ms"], row["bound_by"] = _bound(nbytes, flops,
+                                                      BF16_PEAK)
             rows.append(row)
             for k_ in ("ms", "plain_ms", "library_ms"):
                 tot[k_] += row[k_]
             tot["bytes"] += nbytes
             tot["flops"] += flops
-        b_ms, b_by = bound(tot["bytes"], tot["flops"], BF16_PEAK)
+        b_ms, b_by = _bound(tot["bytes"], tot["flops"], BF16_PEAK)
         times[key] = {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
                       "library_ms": tot["library_ms"], "bound_ms": b_ms,
                       "bound_by": b_by,
@@ -2943,7 +3113,7 @@ def train_times_phase(torch, dev, kmm, kfa):
                "plain_ms": event_ms(torch, plain),
                "library_ms": (time_ms(library) if forward
                               else device_ms(torch, library))}
-        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, peak)
+        row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, peak)
         rows.append(row)
         times[key] = {k_: row[k_] for k_ in ("ms", "plain_ms", "library_ms",
                                               "bound_ms", "bound_by")}
@@ -2962,8 +3132,8 @@ def train_times_phase(torch, dev, kmm, kfa):
            "plain_ms": event_ms(torch, lambda: kmm.epilogue_bwd_plain(
                dout, z, **kw)),
            "library_ms": None}
-    row["bound_ms"], row["bound_by"] = bound((2 + 4 + 2 + 2 + 2) * M * N,
-                                             20.0 * M * N, F32_PEAK)
+    row["bound_ms"], row["bound_by"] = _bound((2 + 4 + 2 + 2 + 2) * M * N,
+                                              20.0 * M * N, F32_PEAK)
     rows.append(row)
     times["epilogue_bwd@train"] = {k_: row[k_] for k_ in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
@@ -3005,8 +3175,8 @@ def train_times_phase(torch, dev, kmm, kfa):
                    "library_ms": time_ms(library)}
             nbytes, flops = _gemm_bytes_flops(M_, N_, K_, "none")
             nbytes, flops = E * nbytes, E * flops
-            row["bound_ms"], row["bound_by"] = bound(nbytes, flops,
-                                                     BF16_PEAK)
+            row["bound_ms"], row["bound_by"] = _bound(nbytes, flops,
+                                                      BF16_PEAK)
             # Achieved HBM rates: the bound's bytes (each operand read
             # once, the output written once) and the bytes the column
             # walk reads under kmm.l2_reckoning's 50 MB LRU, over the time.
@@ -3022,7 +3192,7 @@ def train_times_phase(torch, dev, kmm, kfa):
             tot["bytes"] += nbytes
             tot["flops"] += flops
             del x, w, dz, a, b
-        b_ms, b_by = bound(tot["bytes"], tot["flops"], BF16_PEAK)
+        b_ms, b_by = _bound(tot["bytes"], tot["flops"], BF16_PEAK)
         times[key] = {"ms": tot["ms"], "plain_ms": tot["plain_ms"],
                       "library_ms": tot["library_ms"], "bound_ms": b_ms,
                       "bound_by": b_by,
@@ -3045,8 +3215,8 @@ def train_times_phase(torch, dev, kmm, kfa):
            "plain_ms": event_ms(torch, lambda: kmm.epilogue_bwd_plain(
                dout, z, **kw)),
            "library_ms": None}
-    row["bound_ms"], row["bound_by"] = bound((2 + 4 + 2 + 2 + 2) * n_el,
-                                             20.0 * n_el, F32_PEAK)
+    row["bound_ms"], row["bound_by"] = _bound((2 + 4 + 2 + 2 + 2) * n_el,
+                                              20.0 * n_el, F32_PEAK)
     rows.append(row)
     times["epilogue_bwd_grouped@train_moe"] = {k_: row[k_] for k_ in (
         "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
@@ -3084,72 +3254,145 @@ FLASH_WINDOW_CAUSAL_CASES = [(1, 8, 2, 300, 128, 300),
 MIXTRAL_SHAPE = (1, 48, 8, 8192, 128, 4096)
 
 
-def flash_window_phase(torch, dev, kfa) -> float:
-    """The bf16 forward with a sliding window against its plain version
-    (``nn/attention.py::chunked_attention``) at the selector's blocks, each
-    case launched twice and bitwise equal; a window past S bitwise the
-    causal kernel; a window under autograd and in f32 refused with the
-    ROADMAP item named.  Returns the worst absolute error."""
-    from repro_torch.kernels import ops
-    rows, worst = [], 0.0
+# The windowed rows of the kernels line, keyed by (dtype, forward or not).
+WINDOW_ROWS = {("bfloat16", True): "flash_attention@window",
+               ("float32", True): "flash_attention_f32@window",
+               ("bfloat16", False): "flash_attention_bwd@window",
+               ("float32", False): "flash_attention_bwd_f32@window"}
+
+
+def _window_case(torch, dev, kfa, B, H, Hkv, S, d, w, dtype, seed):
+    """One flash_window case: (forward row, backward row, worst forward
+    error, worst backward error); see :func:`flash_window_phase`."""
+    f32 = dtype == "float32"
+    q, k, v = _attn_inputs(torch, dev, B, H, Hkv, S, True, seed, d=d,
+                           dtype=dtype)
+    do = _attn_inputs(torch, dev, B, H, Hkv, S, False, seed + 1, d=d,
+                      dtype=dtype)[0]
+    plan = kfa.plan_attention(S, S, d, batch=B, heads=H, kv_heads=Hkv,
+                              causal=True, window=w)
+    bq, bkv = plan.block_q, plan.block_kv
+    fwd_n0 = kfa.flash_attention_kernel.launches
+    bwd_n0 = kfa.flash_attention_bwd_kernel.launches
+
+    def fwd(window=w, **kw):
+        return kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
+                                          causal=True, window=window, **kw)
+
+    def bwd(window=w):
+        return kfa.flash_attention_bwd_kernel(q, k, v, o_p, lse_p, do,
+                                              causal=True, window=window)
+    got, again = fwd(), fwd()
+    o_l, lse = fwd(return_lse=True)
+    want = kfa.attention_plain(q, k, v, block_q=bq, block_kv=bkv,
+                               causal=True, window=w)
+    o_p, lse_p = kfa.attention_plain(q, k, v, block_q=bq, block_kv=bkv,
+                                     causal=True, return_lse=True, window=w)
+    grads, grads2 = bwd(), bwd()
+    launched = (kfa.flash_attention_kernel.launches == fwd_n0 + 3
+                and kfa.flash_attention_bwd_kernel.launches == bwd_n0 + 2)
+    past = w >= S
+    causal_fwd = fwd(window=0) if past else None
+    causal_bwd = bwd(window=0) if past else None
+    plain = kfa.attention_bwd_plain(q, k, v, o_p, lse_p, do, causal=True,
+                                    window=w)
+    ref32 = None
+    if not f32:
+        q32, k32, v32 = q.float(), k.float(), v.float()
+        o32, lse32 = kfa.attention_plain(q32, k32, v32, block_q=bq,
+                                         block_kv=bkv, causal=True,
+                                         return_lse=True, window=w)
+        ref32 = kfa.attention_bwd_plain(q32, k32, v32, o32, lse32,
+                                        do.float(), causal=True, window=w)
+        del q32, k32, v32, o32, lse32
+    torch.cuda.synchronize()
+    atol, rtol = ((FLASH_F32_ATOL, FLASH_F32_RTOL) if f32
+                  else (FLASH_ATOL, FLASH_RTOL))
+    err = torch.maximum((got.float() - want.float()).abs(),
+                        (o_l.float() - want.float()).abs())
+    lse_err = (lse - lse_p).abs()
+    shape = {"q": [B, H, S, d], "kv": [B, Hkv, S, d], "window": w,
+             "dtype": dtype}
+    fwd_row = {**shape, "kernel": "forward",
+               "blocks": None if f32 else [bq, bkv],
+               "max_steps": None if f32 else plan.max_steps,
+               "max_abs_err": float(err.max()),
+               "lse_max_abs_err": float(lse_err.max()),
+               "deterministic": bool(torch.equal(got, again)),
+               "with_lse_equal": bool(torch.equal(got, o_l)),
+               "equals_causal": (None if causal_fwd is None
+                                 else bool(torch.equal(got, causal_fwd)))}
+    fwd_row["ok"] = bool((err <= atol + rtol * want.float().abs()).all()) \
+        and bool((lse_err <= 1e-4 + 1e-5 * lse_p.abs()).all()) \
+        and bool(torch.isfinite(got).all()) and launched \
+        and fwd_row["deterministic"] and fwd_row["equals_causal"] is not False
+    dist, bwd_err, ok = {}, 0.0, launched
+    for i, name in enumerate(("dq", "dk", "dv")):
+        x, p = grads[i], plain[i]
+        dist[name] = {"kernel_vs_plain": _rel(torch, x.float(), p.float())}
+        if ref32 is not None:
+            dist[name]["kernel_vs_plain_f32"] = _rel(torch, x.float(),
+                                                     ref32[i])
+            dist[name]["plain_vs_plain_f32"] = _rel(torch, p.float(),
+                                                    ref32[i])
+            ok = ok and dist[name]["kernel_vs_plain_f32"] \
+                <= BWD_REL_FACTOR * dist[name]["plain_vs_plain_f32"]
+        else:
+            ok = ok and dist[name]["kernel_vs_plain"] <= BWD_F32_REL_CAP
+        ok = ok and torch.equal(x, grads2[i]) \
+            and bool(torch.isfinite(x).all()) and x.dtype == q.dtype
+        bwd_err = max(bwd_err, float((x.float() - p.float()).abs().max()))
+    same_causal = None if causal_bwd is None else all(
+        torch.equal(x, y) for x, y in zip(grads, causal_bwd))
+    bwd_row = {**shape, "kernel": "backward",
+               "route": kfa.plan_attention_bwd(
+                   S, S, d, batch=B, heads=H, kv_heads=Hkv,
+                   in_dtype=dtype).route,
+               "max_abs_err": bwd_err, "rel_l2": dist,
+               "deterministic": all(torch.equal(x, y)
+                                    for x, y in zip(grads, grads2)),
+               "equals_causal": same_causal,
+               "ok": ok and same_causal is not False}
+    return fwd_row, bwd_row, float(err.max()), bwd_err
+
+
+def flash_window_phase(torch, dev, kfa):
+    """The sliding window in every flash kernel, each case in bf16 and
+    f32, against its plain version: the forward (``chunked_attention``,
+    and with its lse ``attention_lse_ref``) at the selector's blocks (bf16)
+    or the f32 plan, out within the flash phase's tolerance and lse within
+    1e-4 + 1e-5 relative; the backward (``attention_bwd_ref``, one kv head's
+    group at a time) from the plain forward's o and lse, bf16 within
+    BWD_REL_FACTOR x the plain bf16 backward's distance from the plain f32
+    one and f32 within BWD_F32_REL_CAP relative L2 (train_kernels'
+    criteria).  Every kernel is launched twice and must repeat bitwise; a
+    window no query reaches past (window >= S) must be bitwise the causal
+    kernel, forward and backward.  Returns the worst absolute error of
+    each row of WINDOW_ROWS."""
+    rows, worst = [], dict.fromkeys(WINDOW_ROWS.values(), 0.0)
     for i, (B, H, Hkv, S, d, w) in enumerate(FLASH_WINDOW_CASES
                                              + FLASH_WINDOW_CAUSAL_CASES):
-        q, k, v = _attn_inputs(torch, dev, B, H, Hkv, S, True, 300 + i, d=d)
-        plan = kfa.plan_attention(S, S, d, batch=B, heads=H, kv_heads=Hkv,
-                                  causal=True, window=w)
-        bq, bkv = plan.block_q, plan.block_kv
-        n0 = kfa.flash_attention_kernel.launches
-        got = kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
-                                         causal=True, window=w)
-        again = kfa.flash_attention_kernel(q, k, v, block_q=bq,
-                                           block_kv=bkv, causal=True,
-                                           window=w)
-        launched = kfa.flash_attention_kernel.launches == n0 + 2
-        want = kfa.attention_plain(q, k, v, block_q=bq, block_kv=bkv,
-                                   causal=True, window=w)
-        causal = (kfa.flash_attention_kernel(q, k, v, block_q=bq,
-                                             block_kv=bkv, causal=True)
-                  if w >= S else None)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        ok = bool((err <= FLASH_ATOL + FLASH_RTOL * want.float().abs()).all())
-        ok = ok and bool(torch.isfinite(got).all()) and launched
-        det = bool(torch.equal(got, again))
-        same_causal = None if causal is None else bool(torch.equal(got,
-                                                                   causal))
-        rows.append({"q": [B, H, S, d], "kv": [B, Hkv, S, d], "window": w,
-                     "blocks": [bq, bkv], "max_steps": plan.max_steps,
-                     "max_abs_err": float(err.max()), "deterministic": det,
-                     "equals_causal": same_causal,
-                     "ok": ok and det and same_causal is not False})
-        if not rows[-1]["ok"]:
-            emit({"phase": "flash_window", "cases": rows})
-            fail(f"windowed flash {rows[-1]} disagrees with its plain "
-                 f"version, does not repeat bitwise or differs from the "
-                 f"causal kernel past S")
-        worst = max(worst, float(err.max()))
-        del q, k, v, got, again, want, causal
-    refused = {}
-    q, k, v = _attn_inputs(torch, dev, 1, 8, 2, 128, False, 9, d=64)
-    for what, call in (
-            ("autograd", lambda: ops.flash_attention(
-                q.detach().requires_grad_(), k, v, causal=True, window=32)),
-            ("f32", lambda: ops.flash_attention(
-                q.float(), k.float(), v.float(), causal=True, window=32))):
-        n0 = kfa.flash_attention_kernel.launches
-        try:
-            call()
-            refused[what] = None
-        except NotImplementedError as e:
-            refused[what] = str(e)
-        if refused[what] is None or "ROADMAP A4b" not in refused[what] \
-                or kfa.flash_attention_kernel.launches != n0:
-            fail(f"a windowed flash call ({what}) was not refused: "
-                 f"{refused}")
-    emit({"phase": "flash_window", "tolerance": f"atol {FLASH_ATOL} + rtol "
-          f"{FLASH_RTOL} against chunked_attention (f32 arithmetic)",
-          "deterministic": "two launches bitwise equal", "cases": rows,
-          "refused": refused})
+        for dtype in ("bfloat16", "float32"):
+            fwd_row, bwd_row, fwd_err, bwd_err = _window_case(
+                torch, dev, kfa, B, H, Hkv, S, d, w, dtype, 300 + 2 * i)
+            rows += [fwd_row, bwd_row]
+            worst[WINDOW_ROWS[dtype, True]] = max(
+                worst[WINDOW_ROWS[dtype, True]], fwd_err)
+            worst[WINDOW_ROWS[dtype, False]] = max(
+                worst[WINDOW_ROWS[dtype, False]], bwd_err)
+            _free(torch)
+            if not (fwd_row["ok"] and bwd_row["ok"]):
+                emit({"phase": "flash_window", "cases": rows})
+                fail(f"windowed flash {fwd_row} / {bwd_row} disagrees with "
+                     f"its plain version, does not repeat bitwise or "
+                     f"differs from the causal kernel past S")
+    emit({"phase": "flash_window", "tolerance": f"forward: bf16 atol "
+          f"{FLASH_ATOL} + rtol {FLASH_RTOL}, f32 atol {FLASH_F32_ATOL} + "
+          f"rtol {FLASH_F32_RTOL} against chunked_attention, lse 1e-4 + 1e-5 "
+          f"relative; backward: bf16 relative L2 to the plain f32 backward "
+          f"<= {BWD_REL_FACTOR} x the plain bf16 backward's, f32 <= "
+          f"{BWD_F32_REL_CAP} to the plain f32 backward",
+          "deterministic": "two launches bitwise equal", "cases": rows})
     return worst
 
 
@@ -3458,14 +3701,13 @@ def _tp_rank(rank, world, init_method, arch, layers, ref_tokens, ref_last):
 
 
 def _tp_f32_config(arch):
-    """``arch`` at TP_F32_LAYERS layers, full width, in f32; mixtral's
-    window off: its 4,096 keys do not bind at these prompts (at most 474
-    tokens), and the f32 flash forward takes no window on the card
-    (ROADMAP A4b)."""
+    """``arch`` at TP_F32_LAYERS layers, full width, in f32 (mixtral with
+    its window, which the f32 flash forward takes; at these prompts, at
+    most 474 tokens, it does not bind)."""
     import dataclasses
     from repro_torch.configs.registry import get_config
     return dataclasses.replace(get_config(arch), num_layers=TP_F32_LAYERS,
-                               dtype="float32", sliding_window=0)
+                               dtype="float32")
 
 
 def _tp_f32_rank(rank, world, init_method, cases):
@@ -3640,49 +3882,116 @@ def serve_tp_phase(torch, tp_refs):
 
 
 def window_times_phase(torch, dev, kfa):
-    """The windowed forward at mixtral's prefill shape, beside the causal
-    kernel at the same shape, the plain version and the library's
-    attention with the window as a boolean mask.  The bound counts the
-    (query, key) pairs this window leaves visible."""
+    """The windowed kernels at mixtral's prefill shape, each beside the
+    causal kernel at the same shape, its plain version and the library: the
+    bf16 and f32 forwards beside the library's attention with the window as
+    a boolean mask (and the bf16 causal kernel beside the library's causal
+    attention), the bf16 and f32 backwards (from the plain forward's o and
+    lse) beside the library's backward of that masked attention, its
+    kernels' device time (``device_ms``): its forward and backward less its
+    forward.  The bounds count the (query, key) pairs this window leaves
+    visible: the forward 4 pairs d H flop, the backward 10 (S recomputed,
+    then dP, dV, dQ, dK), at the bf16 peak or, in f32, a third of the
+    TF32 peak (three TF32 products a product); bytes each input read once
+    and each output written once."""
+    import dataclasses
     import torch.nn.functional as F
     B, H, Hkv, S, d, w = MIXTRAL_SHAPE
-    q, k, v = _attn_inputs(torch, dev, B, H, Hkv, S, True, seed=17, d=d)
-    plan = kfa.plan_attention(S, S, d, batch=B, heads=H, kv_heads=Hkv,
-                              causal=True, window=w)
-    causal = kfa.plan_attention(S, S, d, batch=B, heads=H, kv_heads=Hkv,
-                                causal=True)
     i = torch.arange(S, device=dev)
     mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < w)
     pairs = int(mask.sum())
-    n0 = kfa.flash_attention_kernel.launches
-    row = {"phase": "prefill", "kernel": "flash_attention", "window": w,
-           "q": [B, H, S, d], "kv": [B, Hkv, S, d],
-           "blocks": [plan.block_q, plan.block_kv], "ctas": plan.ctas,
-           "max_steps": plan.max_steps, "model_ms": plan.predicted * 1e3,
-           "ms": time_ms(lambda: kfa._launch_cuda(
-               q, k, v, block_q=plan.block_q, block_kv=plan.block_kv,
-               causal=True, scale=None, window=w)),
-           "causal_blocks": [causal.block_q, causal.block_kv],
-           "causal_ms": time_ms(lambda: kfa._launch_cuda(
-               q, k, v, block_q=causal.block_q, block_kv=causal.block_kv,
-               causal=True, scale=None)),
-           "causal_model_ms": causal.predicted * 1e3,
-           "plain_ms": event_ms(torch, lambda: kfa.attention_plain(
-               q, k, v, block_q=64, block_kv=64, causal=True, window=w)),
-           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-               q, k, v, attn_mask=mask, enable_gqa=True)),
-           "visible_pairs": pairs}
-    kfa.flash_attention_kernel.launches = n0       # timing launches
-    flops = 4.0 * B * H * pairs * d
-    nbytes = q.element_size() * d * S * B * (2 * H + 2 * Hkv)
-    row["bound_ms"] = max(nbytes / HBM_BW, flops / BF16_PEAK) * 1e3
-    row["bound_by"] = "bytes" if nbytes / HBM_BW >= flops / BF16_PEAK \
-        else "operations"
-    emit({"phase": "window_times", "timing": "kernels and the library: CUDA "
-          "graph of 10 calls, median of 5 replays; plain: CUDA events over "
-          "5 calls, median of 3", "rows": [row]})
-    return {"flash_attention@window": {k_: row[k_] for k_ in (
-        "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+    counts = (kfa.flash_attention_kernel.launches,
+              kfa.flash_attention_bwd_kernel.launches)
+    rows, times = [], {}
+    for dtype in ("bfloat16", "float32"):
+        q, k, v = _attn_inputs(torch, dev, B, H, Hkv, S, True, seed=17, d=d,
+                               dtype=dtype)
+        do = _attn_inputs(torch, dev, B, H, Hkv, S, False, seed=18, d=d,
+                          dtype=dtype)[0]
+        f32 = dtype == "float32"
+        elem, peak = q.element_size(), TF32X3_PEAK if f32 else BF16_PEAK
+        plan = kfa.plan_attention(S, S, d, batch=B, heads=H, kv_heads=Hkv,
+                                  causal=True, window=w)
+        causal = kfa.plan_attention(S, S, d, batch=B, heads=H, kv_heads=Hkv,
+                                    causal=True)
+        qkv = elem * d * S * B * (H + 2 * Hkv)
+        # The forward: q, k, v read, o written.
+        row = {"kernel": "flash_attention", "dtype": dtype, "window": w,
+               "q": [B, H, S, d], "kv": [B, Hkv, S, d],
+               "visible_pairs": pairs,
+               "ms": time_ms(lambda: kfa._launch_cuda(
+                   q, k, v, block_q=plan.block_q, block_kv=plan.block_kv,
+                   causal=True, scale=None, window=w)),
+               "causal_ms": time_ms(lambda: kfa._launch_cuda(
+                   q, k, v, block_q=causal.block_q,
+                   block_kv=causal.block_kv, causal=True, scale=None)),
+               "plain_ms": event_ms(torch, lambda: kfa.attention_plain(
+                   q, k, v, block_q=64, block_kv=64, causal=True, window=w)),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=mask, enable_gqa=True))}
+        if f32:
+            row["plan"] = dataclasses.asdict(kfa.plan_attention_f32(
+                S, d, batch=B, heads=H))
+        else:
+            row.update({
+                "blocks": [plan.block_q, plan.block_kv], "ctas": plan.ctas,
+                "max_steps": plan.max_steps,
+                "model_ms": plan.predicted * 1e3,
+                "causal_blocks": [causal.block_q, causal.block_kv],
+                "causal_model_ms": causal.predicted * 1e3,
+                # C11: the library's causal attention beside the causal
+                # kernel (no window: no library call takes one but a mask)
+                "causal_library_ms": time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=True, enable_gqa=True))})
+        row["bound_ms"], row["bound_by"] = _bound(
+            qkv + elem * d * S * B * H, 4.0 * B * H * pairs * d, peak)
+        rows.append(row)
+        times[WINDOW_ROWS[dtype, True]] = row
+        # The backward: q, k, v, o, dO and lse read, dq, dk, dv written.
+        o, lse = kfa.attention_plain(q, k, v, block_q=64, block_kv=64,
+                                     causal=True, return_lse=True, window=w)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
+                                             enable_gqa=True)
+        row = {"kernel": "flash_attention_bwd", "dtype": dtype, "window": w,
+               "q": [B, H, S, d], "kv": [B, Hkv, S, d],
+               "visible_pairs": pairs,
+               "plan": dataclasses.asdict(kfa.plan_attention_bwd(
+                   S, S, d, batch=B, heads=H, kv_heads=Hkv,
+                   in_dtype=dtype)),
+               "ms": time_ms(lambda: kfa._launch_bwd_cuda(
+                   q, k, v, o, lse, do, causal=True, scale=None, window=w)),
+               "causal_ms": time_ms(lambda: kfa._launch_bwd_cuda(
+                   q, k, v, o, lse, do, causal=True, scale=None)),
+               "plain_ms": event_ms(torch, lambda: kfa.attention_bwd_plain(
+                   q, k, v, o, lse, do, causal=True, window=w)),
+               "library_ms": device_ms(torch, lambda: torch.autograd.grad(
+                   out, (ql, kl, vl), do, retain_graph=True))}
+        row["bound_ms"], row["bound_by"] = _bound(
+            2 * qkv + 2 * elem * d * S * B * H + 4 * B * H * S,
+            10.0 * B * H * pairs * d, peak)
+        rows.append(row)
+        times[WINDOW_ROWS[dtype, False]] = row
+        del q, k, v, do, o, lse, ql, kl, vl, out
+        _free(torch)
+    (kfa.flash_attention_kernel.launches,
+     kfa.flash_attention_bwd_kernel.launches) = counts   # timing launches
+    emit({"phase": "window_times", "timing": "kernels and the library's "
+          "forward: CUDA graph of 10 calls, median of 5 replays; the "
+          "library's backward: its kernels' device time over 5 calls under "
+          "torch.profiler; plain: CUDA events over 5 calls, median of 3",
+          "rows": rows})
+    return {key: {k_: row[k_] for k_ in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")}
+            for key, row in times.items()}
+
+
+def _bound(nbytes, flops, peak):
+    """(the least ms the card could take, what bounds it): the bytes at
+    HBM_BW or the flops at ``peak``, whichever is longer."""
+    t_b, t_f = nbytes / HBM_BW, flops / peak
+    return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
 
 
 if __name__ == "__main__":

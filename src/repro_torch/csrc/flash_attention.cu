@@ -10,9 +10,10 @@
 //   (B, H, Sq, d) in q's dtype with its own strides.  GQA maps head h to kv
 //   head h / (H / Hkv) with no KV repeat.  Keys at or beyond kv_len are
 //   masked; with causal set, key j is visible to query i iff i >= j
-//   (positions from 0); the bf16 kernel also takes a sliding window: with
-//   window > 0, key j is visible to query i only if i - j < window (the
-//   reference's strict test, src/repro/nn/attention.py:80-82).  Running
+//   (positions from 0); every kernel here, forward and backward, also takes
+//   a sliding window: with window > 0, key j is visible to query i only if
+//   i - j < window (the reference's strict test,
+//   src/repro/nn/attention.py:80-82).  Running
 //   max m, sum l and the accumulator stay f32, with the TPU kernel's -inf
 //   guards (a row with no valid key yet keeps
 //   m = -inf and alpha = 0; a row whose l stays 0 writes zeros).
@@ -67,10 +68,18 @@
 //  * A sliding window starts each q block's walk at the key block of its
 //    first row's first visible key, (q0 - window + 1) / BKV, as the causal
 //    diagonal ends it: at most ceil((window + BQ - 1) / BKV) + 1 blocks
-//    whatever the sequence length.  Those counts never fall as the q block
-//    moves on, so the grid's reversed q-block order stays the heaviest
-//    first.  The f32 forward and the backwards take no window (the host
-//    raises on one).
+//    whatever the sequence length.  Only the blocks that straddle the
+//    window's lower edge are masked for it.  The f32 forward and the dQ
+//    kernels of the backward walk the same way; a dK/dV CTA ends its walk
+//    at the last q block that still sees one of its 64 keys, (k0 + 63 +
+//    window - 1) / QR with QR q rows a step.  Under causal with a window a
+//    q block's kv-block count never falls as q0 grows and a kv block's
+//    q-block count never rises as k0 grows, so the launch orders stay the
+//    heaviest CTA first: q blocks reversed, kv block 0 first.  In the f32
+//    forward and in the backward kernels the window is a template flag,
+//    WIN, set where window > 0: without one they compile to the causal
+//    code, with no window term in their loops (a runtime test slowed the
+//    causal bf16 backward by 14 % on an H100, tools/flash_ab.py --bwd).
 //
 // f32 inputs take a second kernel, flash_fwd_tf32x3 (below), that computes
 // the same function on the tensor cores with every product in split TF32
@@ -665,7 +674,7 @@ struct FwdF32 {
 };
 
 struct FwdF32Params {
-  int B, H, Hkv, Sq, Skv, kv_len, causal, n_qb, d;
+  int B, H, Hkv, Sq, Skv, kv_len, causal, window, n_qb, d;
   float scale_log2;  // softmax scale * log2(e): exponentials run in base 2
   float* lse;        // (B, H, Sq) or null
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
@@ -677,15 +686,17 @@ struct FwdF32Params {
 // every stage, and runs its own online softmax over them: S = Q K^T in
 // split TF32 (Q from the tile loaded once, K as K-major B), the row max and
 // sum across the quad in base 2 (masked only where the warp's keys cross
-// the key end or its rows' causal diagonal), then O = alpha O + P V with P
-// turned from the S accumulator into the A fragment in registers and V's
-// rows as the row-indexed B, into a fresh accumulator added by a rounded
-// f32 add.  At the end the second half's (m, l, O) go through the dead ring
-// and the first half merges them, always in that order: two launches are
-// bitwise equal.  The -inf guards are the TPU kernel's: a row with no valid
-// key keeps m = -inf and alpha = 0; a row whose l stays 0 writes zeros and
-// lse = +inf.
-template <int DP>
+// the key end, its rows' causal diagonal or the window's lower edge), then
+// O = alpha O + P V with P turned from the S accumulator into the A
+// fragment in registers and V's rows as the row-indexed B, into a fresh
+// accumulator added by a rounded f32 add.  At the end the second half's
+// (m, l, O) go through the dead ring and the first half merges them, always
+// in that order: two launches are bitwise equal.  Under a window the walk
+// starts at the stage holding row q0's first visible key, and the mask
+// also covers the window's lower edge.  The -inf guards are the TPU
+// kernel's: a row with no valid key keeps m = -inf and alpha = 0; a row
+// whose l stays 0 writes zeros and lse = +inf.
+template <int DP, bool WIN>
 __global__ void __launch_bounds__(kF32Threads, FwdF32<DP>::kMinBlocks)
     flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
@@ -706,6 +717,8 @@ __global__ void __launch_bounds__(kF32Threads, FwdF32<DP>::kMinBlocks)
   const int kv_lim = min(p.Skv, p.kv_len);
   int n_kb = kv_lim > 0 ? (kv_lim + KB - 1) / KB : 0;
   if (p.causal) n_kb = min(n_kb, (min(q0 + F::kRows, p.Sq) - 1) / KB + 1);
+  // Under a window the walk starts at the block of row q0's first key.
+  const int kb0 = WIN ? max(0, q0 - p.window + 1) / KB : 0;
 
   const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
@@ -719,7 +732,7 @@ __global__ void __launch_bounds__(kF32Threads, FwdF32<DP>::kMinBlocks)
   };
   load_rows_f32<DP, F::kRows>(q_s, q + b * p.q_sb + h * p.q_sh, p.q_ss, q0,
                               p.Sq, p.d);
-  if (n_kb > 0) load_step(0, 0);
+  if (kb0 < n_kb) load_step(kb0, kb0 % F::kStages);
   cp_async_commit();
 
   const int row0 = q0 + 16 * rg + g;  // the thread's rows row0, row0 + 8
@@ -732,7 +745,7 @@ __global__ void __launch_bounds__(kF32Threads, FwdF32<DP>::kMinBlocks)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
 
-  for (int kb = 0; kb < n_kb; ++kb) {
+  for (int kb = kb0; kb < n_kb; ++kb) {
     cp_async_wait<0>();
     __syncthreads();  // stage kb has landed; stage kb - 1 is read
     if (kb + 1 < n_kb) load_step(kb + 1, (kb + 1) % F::kStages);
@@ -762,7 +775,8 @@ __global__ void __launch_bounds__(kF32Threads, FwdF32<DP>::kMinBlocks)
 
     // The online softmax, base 2: P = exp2(S scale log2(e) - m) in place.
     const bool edge =
-        k0 + KW > kv_lim || (p.causal && k0 + KW - 1 > q0 + 16 * rg);
+        k0 + KW > kv_lim || (p.causal && k0 + KW - 1 > q0 + 16 * rg) ||
+        (WIN && q0 + 16 * rg + 15 - k0 >= p.window);
     float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
     for (int j = 0; j < NK; ++j)
@@ -771,7 +785,9 @@ __global__ void __launch_bounds__(kF32Threads, FwdF32<DP>::kMinBlocks)
         float x = s[j][e] * p.scale_log2;
         if (edge) {
           const int key = k0 + 8 * j + 2 * t + (e & 1);
-          if (key >= kv_lim || (p.causal && row0 + 8 * (e >> 1) < key))
+          const int row = row0 + 8 * (e >> 1);
+          if (key >= kv_lim || (p.causal && row < key) ||
+              (WIN && row - key >= p.window))
             x = -CUDART_INF_F;
         }
         s[j][e] = x;
@@ -894,7 +910,7 @@ __global__ void __launch_bounds__(kF32Threads, FwdF32<DP>::kMinBlocks)
 
 // The launch at DP; `q_rows`, `kv_rows`, `ctas` and `smem` are the caller's
 // plan and must be this instantiation's.
-template <int DP>
+template <int DP, bool WIN>
 cudaError_t launch_fwd_tf32x3(const float* q, const float* k, const float* v,
                               float* o, const FwdF32Params& p, int q_rows,
                               int kv_rows, long long ctas, long long smem,
@@ -904,10 +920,11 @@ cudaError_t launch_fwd_tf32x3(const float* q, const float* k, const float* v,
   if (q_rows != F::kRows || kv_rows != F::kKeys || ctas != grid ||
       smem != static_cast<long long>(F::kSmem))
     return cudaErrorInvalidValue;
-  static const cudaError_t opted = opt_in_smem(flash_fwd_tf32x3<DP>, F::kSmem);
+  static const cudaError_t opted =
+      opt_in_smem(flash_fwd_tf32x3<DP, WIN>, F::kSmem);
   if (opted != cudaSuccess) return opted;
-  flash_fwd_tf32x3<DP><<<static_cast<unsigned>(grid), kF32Threads, F::kSmem,
-                         s>>>(q, k, v, o, p);
+  flash_fwd_tf32x3<DP, WIN><<<static_cast<unsigned>(grid), kF32Threads,
+                              F::kSmem, s>>>(q, k, v, o, p);
   return cudaGetLastError();
 }
 
@@ -936,7 +953,7 @@ constexpr int kBwdKeys = 64;                      // keys a dQ ring stage
 constexpr uint32_t kStatBytes = 2 * kBwdQRows * 4;  // a q block's lse2, delta
 
 struct BwdParams {
-  int B, H, Hkv, Sq, Skv, kv_len, causal, d;
+  int B, H, Hkv, Sq, Skv, kv_len, causal, window, d;
   int sq_pad;  // rows a (b, h) of delta / lse2: Sq padded to 64
   float scale, scale_log2;
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
@@ -986,7 +1003,7 @@ __global__ void __launch_bounds__(256)
 // ---------------------------------------------------------------------------
 
 struct BwdTmaParams {
-  int B, H, Hkv, Sq, Skv, kv_len, causal, sq_pad;
+  int B, H, Hkv, Sq, Skv, kv_len, causal, window, sq_pad;
   float scale, scale_log2;
   const float* lse2;   // (B, H, sq_pad): lse log2(e), +inf past Sq
   const float* delta;  // (B, H, sq_pad): 0 past Sq
@@ -1049,10 +1066,11 @@ enum BwdRole { kRoleDV, kRoleDK };
 // at columns 8 j + 2 t + e -- converted to bf16 in place (the register-A
 // layout), then dV += P^T dO and dK += dS^T Q with dO and Q as MN-major B
 // operands (the same [row][d] tiles).  Only tiles that cross the causal
-// diagonal or the key end are masked; q rows past Sq carry lse2 = +inf.
-// At the end dK takes the softmax scale and is stored by TMA through the
-// dead K tile, dV through the dead V tile (rows past Skv clipped).
-template <int DP, int ROLE>
+// diagonal, the window's lower edge or the key end are masked; q rows past
+// Sq carry lse2 = +inf.  At the end dK takes the softmax scale and is
+// stored by TMA through the dead K tile, dV through the dead V tile (rows
+// past Skv clipped).
+template <int DP, int ROLE, bool WIN>
 __device__ __forceinline__ void dkdv_consumer(
     const BwdTmaParams& p, const CUtensorMap* tma_dk,
     const CUtensorMap* tma_dv, uint32_t base, const unsigned char* gbase,
@@ -1094,7 +1112,8 @@ __device__ __forceinline__ void dkdv_consumer(
     if constexpr (kDK) fence_acc(dp);
     const float* st = reinterpret_cast<const float*>(
         gbase + F::kStatAt + stage * kStatBytes);
-    const bool edge = (p.causal && q0 < k0 + 63) || k0 + 64 > kv_lim;
+    const bool edge = (p.causal && q0 < k0 + 63) || k0 + 64 > kv_lim ||
+                      (WIN && q0 + 63 - k0 >= p.window);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const float2 l2 = *reinterpret_cast<const float2*>(st + 8 * j + 2 * t);
@@ -1106,7 +1125,9 @@ __device__ __forceinline__ void dkdv_consumer(
         if (edge) {
           const int key = k0 + warp * 16 + g + 8 * (e >> 1);
           const int qi = q0 + 8 * j + 2 * t + (e & 1);
-          if (key >= kv_lim || (p.causal && qi < key)) x = -CUDART_INF_F;
+          if (key >= kv_lim || (p.causal && qi < key) ||
+              (WIN && qi - key >= p.window))
+            x = -CUDART_INF_F;
         }
         const float pv = exp2f(x);
         s[4 * j + e] = pv;
@@ -1148,8 +1169,9 @@ __device__ __forceinline__ void dkdv_consumer(
 
 // One CTA per (kv block, kv head, batch), kv block 0 first: under causal
 // it walks the most q blocks.  The CTA walks the q heads of its GQA group
-// and their q blocks, under causal from its own diagonal.
-template <int DP>
+// and their q blocks, under causal from its own diagonal, under a window
+// up to the last q block that still sees one of its keys.
+template <int DP, bool WIN>
 __global__ void __launch_bounds__(BwdKV<DP>::kThreads, 1)
     flash_bwd_dkdv_wgmma(const __grid_constant__ CUtensorMap tma_q,
                          const __grid_constant__ CUtensorMap tma_k,
@@ -1174,7 +1196,13 @@ __global__ void __launch_bounds__(BwdKV<DP>::kThreads, 1)
   const int n_qb = (p.Sq + kBwdQRows - 1) / kBwdQRows;
   // Under causal, query i sees key j iff i >= j: q blocks from k0's.
   const int qb0 = p.causal ? min(k0 / kBwdQRows, n_qb) : 0;
-  const int per_head = k0 < min(p.Skv, p.kv_len) ? n_qb - qb0 : 0;
+  // Under a window, query i sees key j only if i - j < window: q blocks up
+  // to the one holding query k0 + 63 + window - 1.
+  const int qb_end =
+      WIN ? min(n_qb, (k0 + 63 + p.window - 1) / kBwdQRows + 1)
+                   : n_qb;
+  const int per_head =
+      k0 < min(p.Skv, p.kv_len) ? max(0, qb_end - qb0) : 0;
   const int n_steps = group * per_head;
 
   const int tid = threadIdx.x;
@@ -1234,19 +1262,20 @@ __global__ void __launch_bounds__(BwdKV<DP>::kThreads, 1)
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   const unsigned char* gbase = smem_raw + (base - raw);
   if (wg == 0)
-    dkdv_consumer<DP, kRoleDV>(p, &tma_dk, &tma_dv, base, gbase, wg, b, hk,
-                               k0, qb0, per_head, n_steps);
+    dkdv_consumer<DP, kRoleDV, WIN>(p, &tma_dk, &tma_dv, base, gbase, wg, b,
+                                    hk, k0, qb0, per_head, n_steps);
   else
-    dkdv_consumer<DP, kRoleDK>(p, &tma_dk, &tma_dv, base, gbase, wg, b, hk,
-                               k0, qb0, per_head, n_steps);
+    dkdv_consumer<DP, kRoleDK, WIN>(p, &tma_dk, &tma_dv, base, gbase, wg, b,
+                                    hk, k0, qb0, per_head, n_steps);
 }
 
 // One CTA per (64-row q block, head, batch), the heaviest causal q block
-// first.  Per kv block: S = Q K^T and dP = dO V^T (K-major), P and dS on
-// the fragments (row-indexed lse2 and delta, two rows a thread, in
+// first; under a window its walk starts at the key block of row q0's first
+// visible key.  Per kv block: S = Q K^T and dP = dO V^T (K-major), P and dS
+// on the fragments (row-indexed lse2 and delta, two rows a thread, in
 // registers), dQ += dS K with K as an MN-major B.  dQ takes the softmax
 // scale once and is stored by TMA through the dead Q tile.
-template <int DP>
+template <int DP, bool WIN>
 __global__ void __launch_bounds__(BwdQ<DP>::kThreads, BwdQ<DP>::kMinBlocks)
     flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap tma_q,
                        const __grid_constant__ CUtensorMap tma_k,
@@ -1275,6 +1304,8 @@ __global__ void __launch_bounds__(BwdQ<DP>::kThreads, BwdQ<DP>::kMinBlocks)
   int n_kb = kv_lim > 0 ? (kv_lim + kBwdKeys - 1) / kBwdKeys : 0;
   if (p.causal)
     n_kb = min(n_kb, (min(q0 + kBwdQRows, p.Sq) - 1) / kBwdKeys + 1);
+  // Under a window the walk starts at the block of row q0's first key.
+  const int kb0 = WIN ? max(0, q0 - p.window + 1) / kBwdKeys : 0;
 
   const int tid = threadIdx.x;
   if (tid == 0) {
@@ -1301,7 +1332,7 @@ __global__ void __launch_bounds__(BwdQ<DP>::kThreads, BwdQ<DP>::kMinBlocks)
       }
       int stage = 0;
       uint32_t phase = 0;
-      for (int kb = 0; kb < n_kb; ++kb) {
+      for (int kb = kb0; kb < n_kb; ++kb) {
         mbar_wait(empty(stage), phase ^ 1);
         mbar_expect_tx(full(stage), 2 * F::kKVBytes);
 #pragma unroll
@@ -1344,7 +1375,7 @@ __global__ void __launch_bounds__(BwdQ<DP>::kThreads, BwdQ<DP>::kMinBlocks)
   mbar_wait(q_full, 0);
   int stage = 0;
   uint32_t phase = 0;
-  for (int kb = 0; kb < n_kb; ++kb) {
+  for (int kb = kb0; kb < n_kb; ++kb) {
     const int k0 = kb * kBwdKeys;
     mbar_wait(full(stage), phase);
     wgmma_fence();
@@ -1355,7 +1386,8 @@ __global__ void __launch_bounds__(BwdQ<DP>::kThreads, BwdQ<DP>::kMinBlocks)
     fence_acc(s);
     fence_acc(dp);
     const bool edge =
-        k0 + kBwdKeys > kv_lim || (p.causal && k0 + kBwdKeys - 1 > q0);
+        k0 + kBwdKeys > kv_lim || (p.causal && k0 + kBwdKeys - 1 > q0) ||
+        (WIN && q0 + 63 - k0 >= p.window);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
@@ -1364,7 +1396,9 @@ __global__ void __launch_bounds__(BwdQ<DP>::kThreads, BwdQ<DP>::kMinBlocks)
         float x = s[4 * j + e] * p.scale_log2 - lse2[r];
         if (edge) {
           const int key = k0 + 8 * j + 2 * t + (e & 1);
-          if (key >= kv_lim || (p.causal && row0 + 8 * r < key))
+          const int row = row0 + 8 * r;
+          if (key >= kv_lim || (p.causal && row < key) ||
+              (WIN && row - key >= p.window))
             x = -CUDART_INF_F;
         }
         dp[4 * j + e] = exp2f(x) * (dp[4 * j + e] - dl[r]);
@@ -1401,7 +1435,7 @@ struct BwdOperands {
 
 // The dK/dV launch at DP; `smem` and `ctas` are the caller's plan of its
 // shared memory and grid and must be this instantiation's.
-template <int DP>
+template <int DP, bool WIN>
 cudaError_t launch_dkdv(const BwdOperands& a, const BwdTmaParams& p, int d,
                         long long smem, long long ctas, cudaStream_t stream) {
   using F = BwdKV<DP>;
@@ -1410,7 +1444,7 @@ cudaError_t launch_dkdv(const BwdOperands& a, const BwdTmaParams& p, int d,
   if (smem != static_cast<long long>(F::kSmem) || ctas != grid)
     return cudaErrorInvalidValue;
   static const cudaError_t opted =
-      opt_in_smem(flash_bwd_dkdv_wgmma<DP>, F::kSmem);
+      opt_in_smem(flash_bwd_dkdv_wgmma<DP, WIN>, F::kSmem);
   if (opted != cudaSuccess) return opted;
   const long long dd = d, kv_head = static_cast<long long>(p.Skv) * d;
   CUtensorMap tq, tk, tv, tg, tdk, tdv;
@@ -1427,12 +1461,13 @@ cudaError_t launch_dkdv(const BwdOperands& a, const BwdTmaParams& p, int d,
       !encode_4d(&tdv, a.dv, d, p.Skv, p.Hkv, p.B, dd, kv_head,
                  kv_head * p.Hkv, 64))
     return cudaErrorInvalidValue;
-  flash_bwd_dkdv_wgmma<DP><<<static_cast<unsigned>(grid), F::kThreads,
-                             F::kSmem, stream>>>(tq, tk, tv, tg, tdk, tdv, p);
+  flash_bwd_dkdv_wgmma<DP, WIN><<<static_cast<unsigned>(grid), F::kThreads,
+                                  F::kSmem, stream>>>(tq, tk, tv, tg, tdk,
+                                                      tdv, p);
   return cudaGetLastError();
 }
 
-template <int DP>
+template <int DP, bool WIN>
 cudaError_t launch_dq(const BwdOperands& a, const BwdTmaParams& p, int d,
                       long long smem, long long ctas, cudaStream_t stream) {
   using F = BwdQ<DP>;
@@ -1440,7 +1475,7 @@ cudaError_t launch_dq(const BwdOperands& a, const BwdTmaParams& p, int d,
       static_cast<long long>(p.sq_pad / kBwdQRows) * p.H * p.B;
   if (smem != static_cast<long long>(F::kSmem) || ctas != grid)
     return cudaErrorInvalidValue;
-  static const cudaError_t opted = opt_in_smem(flash_bwd_dq_wgmma<DP>,
+  static const cudaError_t opted = opt_in_smem(flash_bwd_dq_wgmma<DP, WIN>,
                                                F::kSmem);
   if (opted != cudaSuccess) return opted;
   const long long dd = d, q_head = static_cast<long long>(p.Sq) * d;
@@ -1455,20 +1490,20 @@ cudaError_t launch_dq(const BwdOperands& a, const BwdTmaParams& p, int d,
                  kBwdQRows) ||
       !encode_4d(&tdq, a.dq, d, p.Sq, p.H, p.B, dd, q_head, q_head * p.H, 64))
     return cudaErrorInvalidValue;
-  flash_bwd_dq_wgmma<DP><<<static_cast<unsigned>(grid), F::kThreads,
-                           F::kSmem, stream>>>(tq, tk, tv, tg, tdq, p);
+  flash_bwd_dq_wgmma<DP, WIN><<<static_cast<unsigned>(grid), F::kThreads,
+                                F::kSmem, stream>>>(tq, tk, tv, tg, tdq, p);
   return cudaGetLastError();
 }
 
 // dK/dV, then dQ, at DP.
-template <int DP>
+template <int DP, bool WIN>
 cudaError_t launch_bwd_wgmma(const BwdOperands& a, const BwdTmaParams& p,
                              int d, long long kv_smem, long long q_smem,
                              long long kv_ctas, long long q_ctas,
                              cudaStream_t s) {
-  const cudaError_t err = launch_dkdv<DP>(a, p, d, kv_smem, kv_ctas, s);
+  const cudaError_t err = launch_dkdv<DP, WIN>(a, p, d, kv_smem, kv_ctas, s);
   if (err != cudaSuccess) return err;
-  return launch_dq<DP>(a, p, d, q_smem, q_ctas, s);
+  return launch_dq<DP, WIN>(a, p, d, q_smem, q_ctas, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -1533,7 +1568,7 @@ __device__ __forceinline__ void load_floats(float* dst, const float* src,
     cp_async16(dst + c, src + c, true);
 }
 
-template <int DP>
+template <int DP, bool WIN>
 __global__ void __launch_bounds__(BwdF32<DP>::kThreads, 1)
     flash_bwd_dkdv_tf32x3(const float* __restrict__ q,
                           const float* __restrict__ k,
@@ -1557,9 +1592,12 @@ __global__ void __launch_bounds__(BwdF32<DP>::kThreads, 1)
   const int k0 = kvb * F::kRows;
   const int kv_lim = min(p.Skv, p.kv_len);
   const int n_qb = (p.Sq + QR - 1) / QR;
-  // Under causal, query i sees key j iff i >= j: q blocks from k0's.
+  // Under causal, query i sees key j iff i >= j: q blocks from k0's; under
+  // a window up to the one holding query k0 + 63 + window - 1.
   const int qb0 = p.causal ? min(k0 / QR, n_qb) : 0;
-  const int n_steps = k0 < kv_lim ? n_qb - qb0 : 0;
+  const int qb_end =
+      WIN ? min(n_qb, (k0 + 63 + p.window - 1) / QR + 1) : n_qb;
+  const int n_steps = k0 < kv_lim ? max(0, qb_end - qb0) : 0;
 
   const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
@@ -1631,7 +1669,8 @@ __global__ void __launch_bounds__(BwdF32<DP>::kThreads, 1)
     // memory (each thread's own fragment positions); the dK warp:
     // dS^T = P^T o (dP^T - delta).
     if (!kDK) {
-      const bool edge = (p.causal && q0 < k0 + 63) || k0 + 64 > kv_lim;
+      const bool edge = (p.causal && q0 < k0 + 63) || k0 + 64 > kv_lim ||
+                        (WIN && q0 + QR - 1 - k0 >= p.window);
 #pragma unroll
       for (int j = 0; j < NQ; ++j)
 #pragma unroll
@@ -1640,7 +1679,8 @@ __global__ void __launch_bounds__(BwdF32<DP>::kThreads, 1)
           float x = s[j][e] * p.scale_log2 - st[qc];
           if (edge) {
             const int key = k0 + 16 * rg + g + 8 * (e >> 1);
-            if (key >= kv_lim || (p.causal && q0 + qc < key))
+            if (key >= kv_lim || (p.causal && q0 + qc < key) ||
+                (WIN && q0 + qc - key >= p.window))
               x = -CUDART_INF_F;
           }
           s[j][e] = exp2f(x);
@@ -1704,7 +1744,7 @@ __global__ void __launch_bounds__(BwdF32<DP>::kThreads, 1)
   }
 }
 
-template <int DP>
+template <int DP, bool WIN>
 __global__ void __launch_bounds__(BwdF32<DP>::kThreads, 1)
     flash_bwd_dq_tf32x3(const float* __restrict__ q,
                         const float* __restrict__ k,
@@ -1730,6 +1770,8 @@ __global__ void __launch_bounds__(BwdF32<DP>::kThreads, 1)
   const int kv_lim = min(p.Skv, p.kv_len);
   int n_kb = kv_lim > 0 ? (kv_lim + KB - 1) / KB : 0;
   if (p.causal) n_kb = min(n_kb, (min(q0 + F::kRows, p.Sq) - 1) / KB + 1);
+  // Under a window the walk starts at the stage of row q0's first key.
+  const int kb0 = WIN ? max(0, q0 - p.window + 1) / KB : 0;
 
   const int tid = threadIdx.x, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int warp = __shfl_sync(0xffffffffu, tid / 32, 0);
@@ -1745,7 +1787,7 @@ __global__ void __launch_bounds__(BwdF32<DP>::kThreads, 1)
                         p.d);
   load_rows_f32<DP, 64>(do_s, dout + b * p.g_sb + h * p.g_sh, p.g_ss, q0,
                         p.Sq, p.d);
-  if (n_kb > 0) load_step(0, 0);
+  if (kb0 < n_kb) load_step(kb0, kb0 % F::kStages);
   cp_async_commit();
 
   // The thread's two q rows (the scratch is padded to sq_pad rows).
@@ -1766,7 +1808,7 @@ __global__ void __launch_bounds__(BwdF32<DP>::kThreads, 1)
   const float* qr = q_s + 16 * rg * LD;
   const float* gr = do_s + 16 * rg * LD;
 
-  for (int kb = 0; kb < n_kb; ++kb) {
+  for (int kb = kb0; kb < n_kb; ++kb) {
     cp_async_wait<0>();
     __syncthreads();
     if (kb + 1 < n_kb) load_step(kb + 1, (kb + 1) % F::kStages);
@@ -1796,7 +1838,9 @@ __global__ void __launch_bounds__(BwdF32<DP>::kThreads, 1)
         mma_tf32x3(dp[j], fo, fb);
       }
     }
-    const bool edge = k0 + KB / 2 > kv_lim || (p.causal && k0 + KB / 2 - 1 > q0);
+    const bool edge =
+        k0 + KB / 2 > kv_lim || (p.causal && k0 + KB / 2 - 1 > q0) ||
+        (WIN && q0 + 16 * rg + 15 - k0 >= p.window);
 #pragma unroll
     for (int j = 0; j < NK; ++j)
 #pragma unroll
@@ -1805,7 +1849,9 @@ __global__ void __launch_bounds__(BwdF32<DP>::kThreads, 1)
         float x = s[j][e] * p.scale_log2 - l2[r];
         if (edge) {
           const int key = k0 + 8 * j + 2 * t + (e & 1);
-          if (key >= kv_lim || (p.causal && row0 + 8 * r < key))
+          const int row = row0 + 8 * r;
+          if (key >= kv_lim || (p.causal && row < key) ||
+              (WIN && row - key >= p.window))
             x = -CUDART_INF_F;
         }
         dp[j][e] = exp2f(x) * (dp[j][e] - dl[r]);
@@ -1900,7 +1946,7 @@ __global__ void __launch_bounds__(256)
 // delta and lse2, then dK/dV (and under GQA the group sum), then dQ at DP;
 // `kv_smem`, `q_smem` and the grids are the caller's plan and must be this
 // instantiation's.
-template <int DP>
+template <int DP, bool WIN>
 cudaError_t launch_bwd_tf32x3(const float* q, const float* k, const float* v,
                               const float* dout, const float* lse2,
                               const float* delta, float* dq, float* dk,
@@ -1919,14 +1965,15 @@ cudaError_t launch_bwd_tf32x3(const float* q, const float* k, const float* v,
     return cudaErrorInvalidValue;
   static const cudaError_t opted = [] {
     const cudaError_t e =
-        opt_in_smem(flash_bwd_dkdv_tf32x3<DP>, F::kKVSmem);
-    return e != cudaSuccess ? e
-                            : opt_in_smem(flash_bwd_dq_tf32x3<DP>, F::kQSmem);
+        opt_in_smem(flash_bwd_dkdv_tf32x3<DP, WIN>, F::kKVSmem);
+    return e != cudaSuccess
+               ? e
+               : opt_in_smem(flash_bwd_dq_tf32x3<DP, WIN>, F::kQSmem);
   }();
   if (opted != cudaSuccess) return opted;
-  flash_bwd_dkdv_tf32x3<DP><<<static_cast<unsigned>(kv_grid), F::kThreads,
-                              F::kKVSmem, s>>>(q, k, v, dout, lse2, delta, dk,
-                                               dv, part, p);
+  flash_bwd_dkdv_tf32x3<DP, WIN><<<static_cast<unsigned>(kv_grid),
+                                   F::kThreads, F::kKVSmem, s>>>(
+      q, k, v, dout, lse2, delta, dk, dv, part, p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (part != nullptr) {
@@ -1938,9 +1985,9 @@ cudaError_t launch_bwd_tf32x3(const float* q, const float* k, const float* v,
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  flash_bwd_dq_tf32x3<DP><<<static_cast<unsigned>(q_grid), F::kThreads,
-                            F::kQSmem, s>>>(q, k, v, dout, lse2, delta, dq,
-                                            p);
+  flash_bwd_dq_tf32x3<DP, WIN><<<static_cast<unsigned>(q_grid), F::kThreads,
+                                 F::kQSmem, s>>>(q, k, v, dout, lse2, delta,
+                                                 dq, p);
   return cudaGetLastError();
 }
 
@@ -1997,9 +2044,9 @@ extern "C" int repro_flash_attention_f32(
     long long q_sb, long long q_sh, long long q_ss, long long k_sb,
     long long k_sh, long long k_ss, long long v_sb, long long v_sh,
     long long v_ss, long long o_sb, long long o_sh, long long o_ss, int B,
-    int H, int Hkv, int Sq, int Skv, int kv_len, int causal, float scale,
-    int d, int q_rows, int kv_rows, long long ctas, long long smem,
-    void* stream) {
+    int H, int Hkv, int Sq, int Skv, int kv_len, int causal, int window,
+    float scale, int d, int q_rows, int kv_rows, long long ctas,
+    long long smem, void* stream) {
   const long long strides[9] = {q_sb, q_sh, q_ss, k_sb, k_sh,
                                 k_ss, v_sb, v_sh, v_ss};
   bool aligned = reinterpret_cast<uintptr_t>(o) % 8 == 0;
@@ -2008,10 +2055,10 @@ extern "C" int repro_flash_attention_f32(
     aligned = aligned && st >= 0 && st % 2 == 0;
   for (const float* ptr : {q, k, v})
     aligned = aligned && reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
-  if (!aligned || q_rows != kFwdF32Rows ||
+  if (!aligned || q_rows != kFwdF32Rows || window < 0 ||
       !valid_shape(B, H, Hkv, Sq, Skv, d, kFwdF32Rows))
     return static_cast<int>(cudaErrorInvalidValue);
-  const FwdF32Params p{B, H, Hkv, Sq, Skv, kv_len, causal,
+  const FwdF32Params p{B, H, Hkv, Sq, Skv, kv_len, causal, window,
                        (Sq + kFwdF32Rows - 1) / kFwdF32Rows, d,
                        scale * kLog2e, lse,
                        q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
@@ -2020,8 +2067,11 @@ extern "C" int repro_flash_attention_f32(
   switch ((d + 63) / 64) {
 #define REPRO_FWD_F32_CASE(N_)                                              \
   case N_:                                                                  \
-    return static_cast<int>(launch_fwd_tf32x3<64 * N_>(                     \
-        q, k, v, o, p, q_rows, kv_rows, ctas, smem, s));
+    return static_cast<int>(                                                \
+        p.window > 0 ? launch_fwd_tf32x3<64 * N_, true>(                    \
+                           q, k, v, o, p, q_rows, kv_rows, ctas, smem, s)   \
+                     : launch_fwd_tf32x3<64 * N_, false>(                   \
+                           q, k, v, o, p, q_rows, kv_rows, ctas, smem, s));
     REPRO_FWD_F32_CASE(1) REPRO_FWD_F32_CASE(2) REPRO_FWD_F32_CASE(3)
     REPRO_FWD_F32_CASE(4)
 #undef REPRO_FWD_F32_CASE
@@ -2048,17 +2098,18 @@ extern "C" int repro_flash_attention_bwd(
     long long k_sb, long long k_sh, long long k_ss, long long v_sb,
     long long v_sh, long long v_ss, long long o_sb, long long o_sh,
     long long o_ss, long long g_sb, long long g_sh, long long g_ss, int B,
-    int H, int Hkv, int Sq, int Skv, int kv_len, int causal, float scale,
-    int d, int f32, int kv_block, int q_block, int sq_pad, long long kv_ctas,
-    long long q_ctas, long long kv_smem, long long q_smem, void* stream) {
-  const BwdParams p{B, H, Hkv, Sq, Skv, kv_len, causal, d, sq_pad, scale,
-                    scale * kLog2e,
+    int H, int Hkv, int Sq, int Skv, int kv_len, int causal, int window,
+    float scale, int d, int f32, int kv_block, int q_block, int sq_pad,
+    long long kv_ctas, long long q_ctas, long long kv_smem, long long q_smem,
+    void* stream) {
+  const BwdParams p{B, H, Hkv, Sq, Skv, kv_len, causal, window, d, sq_pad,
+                    scale, scale * kLog2e,
                     q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss,
                     o_sb, o_sh, o_ss, g_sb, g_sh, g_ss};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long n_kvb = kv_block > 0 ? (Skv + kv_block - 1) / kv_block : 0;
-  if (!valid_shape(B, H, Hkv, Sq, Skv, d, q_block) || n_kvb * B * Hkv >
-      0x7fffffffLL)
+  if (!valid_shape(B, H, Hkv, Sq, Skv, d, q_block) || window < 0 ||
+      n_kvb * B * Hkv > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const unsigned delta_grid =
       static_cast<unsigned>((static_cast<long long>(B) * H * sq_pad + 7) / 8);
@@ -2093,10 +2144,16 @@ extern "C" int repro_flash_attention_bwd(
     switch ((d + 63) / 64) {
 #define REPRO_BWD_CASE(N_)                                                   \
   case N_:                                                                   \
-    return static_cast<int>(launch_bwd_tf32x3<64 * N_>(                      \
-        fq, fk, fv, fg, lse2, delta, gq, gk, gv,                             \
-        static_cast<float*>(dkv_part), p, kv_smem, q_smem, kv_ctas, q_ctas, \
-        s));
+    return static_cast<int>(                                                  \
+        window > 0                                                            \
+            ? launch_bwd_tf32x3<64 * N_, true>(                               \
+                  fq, fk, fv, fg, lse2, delta, gq, gk, gv,                    \
+                  static_cast<float*>(dkv_part), p, kv_smem, q_smem, kv_ctas, \
+                  q_ctas, s)                                                  \
+            : launch_bwd_tf32x3<64 * N_, false>(                              \
+                  fq, fk, fv, fg, lse2, delta, gq, gk, gv,                    \
+                  static_cast<float*>(dkv_part), p, kv_smem, q_smem, kv_ctas, \
+                  q_ctas, s));
       REPRO_BWD_CASE(1) REPRO_BWD_CASE(2) REPRO_BWD_CASE(3) REPRO_BWD_CASE(4)
 #undef REPRO_BWD_CASE
     }
@@ -2127,13 +2184,18 @@ extern "C" int repro_flash_attention_bwd(
   const BwdOperands a{q,    k,    v,    dout, dq,   dk,   dv,
                       q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,
                       v_sh, v_ss, g_sb, g_sh, g_ss};
-  const BwdTmaParams tp{B,     H,     Hkv,           Sq,   Skv,  kv_len,
-                        causal, sq_pad, scale, scale * kLog2e, lse2, delta};
+  const BwdTmaParams tp{B,      H,      Hkv,   Sq,
+                        Skv,    kv_len, causal, window,
+                        sq_pad, scale,  scale * kLog2e, lse2,
+                        delta};
   switch ((d + 63) / 64) {
 #define REPRO_BWD_CASE(N_)                                                  \
   case N_:                                                                  \
-    return static_cast<int>(launch_bwd_wgmma<64 * N_>(                      \
-        a, tp, d, kv_smem, q_smem, kv_ctas, q_ctas, s));
+    return static_cast<int>(                                                \
+        window > 0 ? launch_bwd_wgmma<64 * N_, true>(                       \
+                         a, tp, d, kv_smem, q_smem, kv_ctas, q_ctas, s)     \
+                   : launch_bwd_wgmma<64 * N_, false>(                      \
+                         a, tp, d, kv_smem, q_smem, kv_ctas, q_ctas, s));
     REPRO_BWD_CASE(1) REPRO_BWD_CASE(2) REPRO_BWD_CASE(3) REPRO_BWD_CASE(4)
 #undef REPRO_BWD_CASE
   }

@@ -5,11 +5,13 @@ Replaces ``repro/kernels/flash_attention.py::flash_attention_pallas``.  The
 kernel computes online-softmax attention for q (B, H, Sq, d) against k/v
 (B, Hkv, Skv, d) with GQA by index (no KV repeat), the causal block skip,
 the ``k < kv_len`` padding mask and f32 m/l/acc with the TPU kernel's -inf
-guards; the bf16 kernel also takes a sliding window (``window`` > 0: key j
-is visible to query i only if i - j < window, the reference's strict test,
-``repro/nn/attention.py:80-82``), whose plain version is
-``nn/attention.py::chunked_attention``; the source note in ``csrc/flash_attention.cu`` says what bounds it
-on the H100 and what its design does about that.
+guards; every kernel, forward and backward in both dtypes, also takes a
+sliding window (``window`` > 0: key j is visible to query i only if
+i - j < window, the reference's strict test,
+``repro/nn/attention.py:80-82``), whose plain versions are
+``nn/attention.py::chunked_attention``, ``ref.attention_lse_ref`` and
+``ref.attention_bwd_ref``; the source note in ``csrc/flash_attention.cu``
+says what bounds it on the H100 and what its design does about that.
 
 :func:`flash_attention_kernel` takes the route from the device of q: a CPU
 tensor gets the plain version (``ref.attention_ref``), a CUDA tensor the
@@ -27,9 +29,8 @@ kernels at every head dim, f32 the split-TF32 ones ("tf32x3", mma.sync);
 holds its tiles, grids and shared bytes, and the launch passes that plan to
 the C entry, which checks it against the instantiation it runs.
 ``flash_attention_kernel.launches`` counts forward launches of both
-dtypes, ``flash_attention_bwd_kernel.launches`` backward ones.  On the
-card a window reaches the bf16 forward only: the f32 forward and the
-backwards raise on one (ROADMAP A4b).
+dtypes, ``flash_attention_bwd_kernel.launches`` backward ones.  A window
+changes no plan: it shortens each CTA's walk, not the grid.
 """
 from __future__ import annotations
 
@@ -46,11 +47,6 @@ from repro_torch.core.latency import cdiv
 from repro_torch.core.topology import HardwareSpec, topology_fingerprint
 from repro_torch.kernels import build, ref
 from repro_torch.nn.attention import chunked_attention
-
-# The ROADMAP item that brings the window to the f32 forward and the
-# backwards; the kernels raise on a window until then.
-WINDOW_TODO = ("ROADMAP A4b: the sliding window is in the bf16 flash "
-               "forward only, not yet in the f32 forward or the backwards")
 
 BLOCK_MENU = (64, 128)
 # Head dims the kernels take: multiples of 8 up to 256.  The bf16 kernel is
@@ -119,23 +115,28 @@ def ctas_per_sm(block_q: int, block_kv: int, head_dim: int,
     return max(1, min(by_smem, _ctas_per_sm_at_launch(block_q)))
 
 
+def kv_walk(i: int, s_q: int, s_kv: int, block_q: int, block_kv: int,
+            causal: bool, window: int = 0) -> Tuple[int, int]:
+    """The kv blocks [lo, hi) that q block i walks in the forward kernels
+    and the backward's dQ kernels: all of them, or under causal those up
+    to the diagonal of its last row; under a window from the block holding
+    its first row's first visible key, (q0 - window + 1) // block_kv."""
+    n_kv = cdiv(s_kv, block_kv)
+    hi = (min(n_kv, (min((i + 1) * block_q, s_q) - 1) // block_kv + 1)
+          if causal else n_kv)
+    lo = max(0, i * block_q - window + 1) // block_kv if window > 0 else 0
+    return lo, max(lo, hi)
+
+
 def kv_steps(s_q: int, s_kv: int, block_q: int, block_kv: int,
              causal: bool, window: int = 0) -> List[int]:
-    """The kv blocks each q block walks (q block i first): all of them, or
-    under causal those up to the diagonal of its last row; under a window
-    from the block holding its first row's first visible key, (q0 - window
-    + 1) // block_kv, so at most ceil((window + block_q - 1) / block_kv)
-    + 1 blocks.  The counts never fall as i grows: the kernel's reversed
-    q-block order is the heaviest first with a window too."""
-    n_kv = cdiv(s_kv, block_kv)
-    steps = []
-    for i in range(cdiv(s_q, block_q)):
-        hi = (min(n_kv, (min((i + 1) * block_q, s_q) - 1) // block_kv + 1)
-              if causal else n_kv)
-        lo = max(0, i * block_q - window + 1) // block_kv if window > 0 \
-            else 0
-        steps.append(max(0, hi - lo))
-    return steps
+    """The number of kv blocks each q block walks (q block i first,
+    :func:`kv_walk`): under a window at most ceil((window + block_q - 1) /
+    block_kv) + 1.  The counts never fall as i grows: the kernel's
+    reversed q-block order is the heaviest first with a window too."""
+    return [hi - lo for lo, hi in
+            (kv_walk(i, s_q, s_kv, block_q, block_kv, causal, window)
+             for i in range(cdiv(s_q, block_q)))]
 
 
 def _makespan(ctas: Sequence[Tuple[float, float]], sms: int,
@@ -434,18 +435,36 @@ def plan_attention_bwd(
                    _bwd_q_smem(head_dim))
 
 
+def _by_kv_head(fn, q, k, v, *per_q):
+    """``fn(q, k, v, *per_q)`` computed one kv head's GQA group at a time
+    (``per_q``: tensors laid out as q, sliced with it), each output
+    concatenated along its head axis: the same function, with the dense
+    (Sq, Skv) scores of one group alive at a time instead of every head's
+    (at S 8192 and 48 heads, 1.6 GB a tensor instead of 12.9)."""
+    hkv = k.shape[1]
+    if hkv == 1:
+        return fn(q, k, v, *per_q)
+    g = q.shape[1] // hkv
+    parts = [fn(q[:, i * g:(i + 1) * g], k[:, i:i + 1], v[:, i:i + 1],
+                *(t[:, i * g:(i + 1) * g] for t in per_q))
+             for i in range(hkv)]
+    return tuple(torch.cat(xs, dim=1) for xs in zip(*parts))
+
+
 def attention_plain(q, k, v, *, block_q: int, block_kv: int,
                     causal: bool = False, scale: Optional[float] = None,
                     return_lse: bool = False, window: int = 0):
     """The plain version: what the kernels compute, whatever the blocks,
     at any head dim and dtype (and the rows' lse, f32, with
-    ``return_lse``).  With a window and no lse it is the reference's
-    chunked online softmax (:func:`chunked_attention`), which holds one
-    512 x 512 score chunk a head where ``ref.attention_ref`` would hold
-    all Sq x Skv."""
+    ``return_lse``, one kv head's group at a time).  With a window and no
+    lse it is the reference's chunked online softmax
+    (:func:`chunked_attention`), which holds one 512 x 512 score chunk a
+    head where ``ref.attention_ref`` would hold all Sq x Skv."""
     if return_lse:
-        return ref.attention_lse_ref(q, k, v, causal=causal, scale=scale,
-                                     window=window)
+        return _by_kv_head(
+            lambda q_, k_, v_: ref.attention_lse_ref(
+                q_, k_, v_, causal=causal, scale=scale, window=window),
+            q, k, v)
     if window > 0:
         return chunked_attention(q, k, v, causal=causal,
                                  sliding_window=window, scale=scale)
@@ -463,8 +482,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     no key).  ``block_q``/``block_kv`` tile the bf16 kernel; the f32 kernel
     runs the tiles of :func:`plan_attention_f32` (64-row q blocks, ring
     stages of 64 keys, 32 past a padded head dim of 128).  ``window`` > 0
-    hides key j from query i unless i - j < window (bf16 only on the
-    card)."""
+    hides key j from query i unless i - j < window."""
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
     if q.device.type == "cpu":
@@ -483,9 +501,13 @@ flash_attention_kernel.launches = 0
 
 def attention_bwd_plain(q, k, v, o, lse, do, *, causal: bool = False,
                         scale: Optional[float] = None, window: int = 0):
-    """The plain version of the backward: ``ref.attention_bwd_ref``."""
-    return ref.attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
-                                 scale=scale, window=window)
+    """The plain version of the backward: ``ref.attention_bwd_ref``, one kv
+    head's GQA group at a time."""
+    return _by_kv_head(
+        lambda q_, k_, v_, o_, lse_, do_: ref.attention_bwd_ref(
+            q_, k_, v_, o_, lse_, do_, causal=causal, scale=scale,
+            window=window),
+        q, k, v, o, lse, do)
 
 
 def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
@@ -497,17 +519,18 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
                                ) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """(dq, dk, dv) of :func:`flash_attention_kernel` at q, k, v, its o and
-    lse, and the output gradient do, each in its input's dtype.  A window
-    runs on the CPU only (:data:`WINDOW_TODO`)."""
+    lse, and the output gradient do, each in its input's dtype, under the
+    same causal mask and ``window``."""
+    if window < 0:
+        raise ValueError(f"flash_attention_bwd: window {window} < 0")
     if q.device.type == "cpu":
         return attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                    scale=scale, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device "
                          f"{q.device}")
-    if window > 0:
-        raise NotImplementedError(f"flash_attention_bwd: {WINDOW_TODO}")
-    return _launch_bwd_cuda(q, k, v, o, lse, do, causal=causal, scale=scale)
+    return _launch_bwd_cuda(q, k, v, o, lse, do, causal=causal, scale=scale,
+                            window=window)
 
 
 flash_attention_bwd_kernel.launches = 0
@@ -558,7 +581,7 @@ def check_tma_operands(what: str, **tensors: torch.Tensor) -> None:
                              f"aligned for the kernel")
 
 
-def _launch_bwd_cuda(q, k, v, o, lse, do, *, causal, scale):
+def _launch_bwd_cuda(q, k, v, o, lse, do, *, causal, scale, window=0):
     """The backward's three kernels (delta, dK/dV, dQ) in one call, on the
     route, tiles and grids of :func:`plan_attention_bwd`."""
     _check_qkv(q, k, v, "flash_attention_bwd")
@@ -601,7 +624,7 @@ def _launch_bwd_cuda(q, k, v, o, lse, do, *, causal, scale):
     fn = lib.repro_flash_attention_bwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 15 \
-            + [ctypes.c_int] * 7 + [ctypes.c_float] + [ctypes.c_int] * 5 \
+            + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_int] * 5 \
             + [ctypes.c_longlong] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     with torch.cuda.device(q.device):
@@ -612,12 +635,12 @@ def _launch_bwd_cuda(q, k, v, o, lse, do, *, causal, scale):
                   part.data_ptr() if part is not None else None,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
                   *o.stride()[:3], *do.stride()[:3], B, H, Hkv, Sq, Skv,
-                  Skv, int(causal), float(scale), d, int(f32),
+                  Skv, int(causal), int(window), float(scale), d, int(f32),
                   plan.kv_block, plan.q_block, plan.sq_pad, plan.kv_ctas,
                   plan.q_ctas, plan.kv_smem, plan.q_smem,
                   torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, code, f"flash_attention_bwd {q.dtype} q{tuple(q.shape)} "
-                           f"k{tuple(k.shape)} plan {plan}")
+                           f"k{tuple(k.shape)} window {window} plan {plan}")
     flash_attention_bwd_kernel.launches += 1
     return dq, dk, dv
 
@@ -631,8 +654,6 @@ def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale,
         raise ValueError(f"flash_attention: blocks ({block_q}, {block_kv}) "
                          f"not in {BLOCK_MENU}")
     f32 = q.dtype == torch.float32
-    if f32 and window > 0:
-        raise NotImplementedError(f"flash_attention (f32): {WINDOW_TODO}")
     if not f32 and not legal_blocks(block_q, block_kv, d):
         raise ValueError(f"flash_attention: blocks ({block_q}, {block_kv}) "
                          f"exceed the kernel's budgets at head_dim {d}")
@@ -649,9 +670,9 @@ def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale,
     lib = build.load("flash_attention")
     fn = lib.repro_flash_attention_f32 if f32 else lib.repro_flash_attention
     if fn.argtypes is None:
-        # B, H, Hkv, Sq, Skv, kv_len, causal, (bf16: window), scale, then
+        # B, H, Hkv, Sq, Skv, kv_len, causal, window, scale, then
         # bf16: block_q, block_kv, d; f32: d, q_rows, kv_rows, ctas, smem.
-        mid = [ctypes.c_int] * (7 if f32 else 8) + [ctypes.c_float]
+        mid = [ctypes.c_int] * 8 + [ctypes.c_float]
         tail = ([ctypes.c_int] * 3 + [ctypes.c_longlong] * 2 if f32
                 else [ctypes.c_int] * 3)
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 12 \
@@ -659,19 +680,17 @@ def _launch_cuda(q, k, v, *, block_q, block_kv, causal, scale,
         fn.restype = ctypes.c_int
     if f32:
         plan = plan_attention_f32(Sq, d, batch=B, heads=H)
-        mask = (int(causal),)
         tiles = (d, plan.q_block, plan.kv_block, plan.ctas, plan.smem)
-        what = f"plan {plan}"
+        what = f"plan {plan} window {window}"
     else:
-        mask = (int(causal), int(window))
         tiles = (block_q, block_kv, d)
         what = f"blocks ({block_q}, {block_kv}) window {window}"
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   lse.data_ptr() if lse is not None else None,
                   *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                  *out.stride()[:3], B, H, Hkv, Sq, Skv, Skv, *mask,
-                  float(scale), *tiles,
+                  *out.stride()[:3], B, H, Hkv, Sq, Skv, Skv, int(causal),
+                  int(window), float(scale), *tiles,
                   torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, code, f"flash_attention {q.dtype} q{tuple(q.shape)} "
                            f"k{tuple(k.shape)} {what}")

@@ -492,9 +492,9 @@ def flash_attention(
 ) -> torch.Tensor:
     """Selector-driven attention. q: (B,H,Sq,d), k/v: (B,Hkv,Skv,d).
     ``window`` > 0 is a sliding window (key j visible to query i only if
-    i - j < window); on the card it runs in the bf16 forward kernel, and
-    under autograd it raises there (``kfa.WINDOW_TODO``): the backwards
-    have no window yet.  On the CPU autograd runs the plain versions."""
+    i - j < window); on the card the forward and, under autograd, the
+    backward kernels take it in both dtypes.  On the CPU autograd runs the
+    plain versions."""
     hw = hw if hw is not None else get_default_hardware()
     B, H, Sq, d = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -505,9 +505,6 @@ def flash_attention(
     bq, bkv = blocks
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        if window > 0 and q.device.type == "cuda":
-            raise NotImplementedError(
-                f"flash_attention under autograd: {kfa.WINDOW_TODO}")
         return _FlashAttention.apply(q, k, v, causal, scale, bq, bkv, window)
     return kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
                                       causal=causal, scale=scale,

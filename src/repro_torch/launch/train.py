@@ -30,9 +30,10 @@ of the card for its state, musicgen-large about 29 GB and mamba2-370m
 about 4.4 GB, plus activations; the others do not fit one card at full
 depth (minitron-8b about 119 GB, llava-next-mistral-7b 87 GB,
 stablelm-12b 146 GB, internlm2-20b 238 GB, zamba2-7b 81 GB, qwen3-moe
-366 GB, mixtral-8x22b 1.7 TB; ROADMAP A5).  On the card a sliding window
-(mixtral-8x22b) does not train yet: the flash backward has no window
-(ROADMAP A4b); on the CPU it trains through the plain versions.
+366 GB, mixtral-8x22b 1.7 TB; ROADMAP A5).  A sliding window
+(mixtral-8x22b) trains on the card too: the flash forward and backward
+kernels take it in both dtypes; on the CPU it trains through the plain
+versions.
 """
 from __future__ import annotations
 

@@ -662,14 +662,15 @@ def _rel_l2(x, y):
 
 
 def _check_flash_bwd(cuda, dtype, B, H, Hkv, S, d, causal, seed,
-                     do_view=False):
+                     do_view=False, window=0):
     """The forward's lse and the backward against the plain versions: f32
     within 1e-4 relative L2; bf16 within 2x the plain bf16 backward's
     distance from the plain f32 backward (the kernel rounds P and dS to
     bf16 before the wgmma products, the plain version keeps them f32).
     Two launches must be bitwise equal.  ``do_view``: dO as the transposed
     view of a (B, S, H, d) tensor, the layout autograd hands back through
-    the model's head merge."""
+    the model's head merge; ``window``: a sliding window in the forward
+    and the backward."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=cuda).manual_seed(seed)
     q32 = torch.randn((B, H, S, d), generator=g, device=cuda)
@@ -681,21 +682,27 @@ def _check_flash_bwd(cuda, dtype, B, H, Hkv, S, d, causal, seed,
     q, k, v, do = (t.to(dt) for t in (q32, k32, v32, do32))
     assert do.is_contiguous() != do_view
     bq, bkv = kfa.select_attention_blocks(S, S, d, causal=causal, batch=B,
-                                          heads=H, kv_heads=Hkv)
+                                          heads=H, kv_heads=Hkv,
+                                          window=window)
     o, lse = kfa.flash_attention_kernel(q, k, v, block_q=bq, block_kv=bkv,
-                                        causal=causal, return_lse=True)
+                                        causal=causal, return_lse=True,
+                                        window=window)
     o_p, lse_p = kfa.attention_plain(q, k, v, block_q=bq, block_kv=bkv,
-                                     causal=causal, return_lse=True)
+                                     causal=causal, return_lse=True,
+                                     window=window)
     torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
     n0 = kfa.flash_attention_bwd_kernel.launches
     got, again = (kfa.flash_attention_bwd_kernel(
-        q, k, v, o_p, lse_p, do, causal=causal) for _ in range(2))
-    plain = kfa.attention_bwd_plain(q, k, v, o_p, lse_p, do, causal=causal)
+        q, k, v, o_p, lse_p, do, causal=causal, window=window)
+        for _ in range(2))
+    plain = kfa.attention_bwd_plain(q, k, v, o_p, lse_p, do, causal=causal,
+                                    window=window)
     o32, lse32 = kfa.attention_plain(q.float(), k.float(), v.float(),
                                      block_q=bq, block_kv=bkv, causal=causal,
-                                     return_lse=True)
+                                     return_lse=True, window=window)
     ref32 = kfa.attention_bwd_plain(q.float(), k.float(), v.float(), o32,
-                                    lse32, do.float(), causal=causal)
+                                    lse32, do.float(), causal=causal,
+                                    window=window)
     torch.cuda.synchronize()
     assert kfa.flash_attention_bwd_kernel.launches == n0 + 2
     plan = kfa.plan_attention_bwd(S, S, d, batch=B, heads=H, kv_heads=Hkv,
@@ -1308,25 +1315,140 @@ def test_flash_window_past_the_sequence_is_causal(cuda, S, window):
 
 
 @pytest.mark.gpu
-def test_flash_window_refused_where_no_kernel_takes_it(cuda):
-    """On the card a window reaches only the bf16 forward: under autograd
-    and in f32 it raises, naming the ROADMAP item; no launch happens and
-    nothing falls back to the plain version."""
-    q, k, v = _attn_case(cuda, 1, 4, 2, 128, 64, torch.bfloat16, seed=1)
+@pytest.mark.parametrize("B,H,Hkv,S,d,window", WINDOW_CASES, ids=str)
+def test_flash_window_f32_matches_chunked_attention(cuda, B, H, Hkv, S, d,
+                                                    window):
+    """The split-TF32 forward with a window against the plain windowed
+    attention at the f32 tolerance, its lse against the plain lse, two
+    launches bitwise equal, v as the model passes it."""
+    q, k, v = _attn_case(cuda, B, H, Hkv, S, d, torch.float32,
+                         seed=S + d + window, model_v=True)
+    want = kfa.attention_plain(q, k, v, block_q=64, block_kv=64,
+                               causal=True, window=window)
+    _, lse_p = kfa.attention_plain(q, k, v, block_q=64, block_kv=64,
+                                   causal=True, return_lse=True,
+                                   window=window)
     n0 = kfa.flash_attention_kernel.launches
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        ops.flash_attention(q.requires_grad_(), k, v, causal=True,
-                            window=32)
-    q32, k32, v32 = _attn_case(cuda, 1, 4, 2, 128, 64, torch.float32, seed=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        ops.flash_attention(q32, k32, v32, causal=True, window=32)
-    o, lse = kfa.flash_attention_kernel(q.detach(), k, v, block_q=64,
-                                        block_kv=64, causal=True,
-                                        return_lse=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        kfa.flash_attention_bwd_kernel(q.detach(), k, v, o, lse, o,
-                                       causal=True, window=32)
-    assert kfa.flash_attention_kernel.launches == n0 + 1
+    got, lse = kfa.flash_attention_kernel(q, k, v, block_q=64, block_kv=64,
+                                          causal=True, return_lse=True,
+                                          window=window)
+    again = kfa.flash_attention_kernel(q, k, v, block_q=64, block_kv=64,
+                                       causal=True, window=window)
+    torch.cuda.synchronize()
+    assert kfa.flash_attention_kernel.launches == n0 + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, **_attn_tol(torch.float32))
+    torch.testing.assert_close(lse, lse_p, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,H,Hkv,S,d,window",
+                         [c for c in WINDOW_CASES if c[-1] > 1], ids=str)
+def test_flash_window_bwd_on_card(cuda, dtype, B, H, Hkv, S, d, window):
+    """The backward with a window, bf16 (wgmma) and f32 (split TF32),
+    against the plain windowed backward (one kv head's group at a time at
+    S 8192): see :func:`_check_flash_bwd`.  Window 1 has a test of its
+    own."""
+    _check_flash_bwd(cuda, dtype, B, H, Hkv, S, d, True, S + d + window,
+                     do_view=True, window=window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+def test_flash_window_one_bwd_on_card(cuda, dtype):
+    """At window 1 each query sees only its own key: P is 1 on the
+    diagonal, so o = v, dv = dO and dS = P (dP - delta) = dO.v - dO.o is 0
+    but for rounding, and so are dq and dk.  A relative distance between
+    two roundings of 0 says nothing, so dv is held to the plain backward
+    (f32 within 1e-4 relative L2, bf16 within 2x the plain bf16
+    backward's distance from the plain f32 one) and dq, dk to 1e-5 of
+    dv's largest value; two launches bitwise equal."""
+    q, k, v = _attn_case(cuda, 2, 8, 8, 300, 128, dtype, seed=11,
+                         model_v=True)
+    do = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda).manual_seed(12), device=cuda).to(dtype)
+    o, lse = kfa.attention_plain(q, k, v, block_q=64, block_kv=64,
+                                 causal=True, return_lse=True, window=1)
+    got, again = (kfa.flash_attention_bwd_kernel(q, k, v, o, lse, do,
+                                                 causal=True, window=1)
+                  for _ in range(2))
+    plain = kfa.attention_bwd_plain(q, k, v, o, lse, do, causal=True,
+                                    window=1)
+    o32, lse32 = kfa.attention_plain(q.float(), k.float(), v.float(),
+                                     block_q=64, block_kv=64, causal=True,
+                                     return_lse=True, window=1)
+    ref32 = kfa.attention_bwd_plain(q.float(), k.float(), v.float(), o32,
+                                    lse32, do.float(), causal=True, window=1)
+    torch.cuda.synchronize()
+    for x, y in zip(got, again):
+        assert torch.equal(x, y) and bool(torch.isfinite(x).all())
+    dv = got[2].float()
+    if dtype == torch.float32:
+        assert _rel_l2(dv, plain[2]) <= 1e-4
+    else:
+        assert _rel_l2(dv, ref32[2]) <= 2 * _rel_l2(plain[2], ref32[2])
+    for x in got[:2]:
+        assert float(x.float().abs().max()) <= 1e-5 * float(dv.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=str)
+@pytest.mark.parametrize("S,window", [(300, 300), (300, 5000), (474, 474)])
+def test_flash_window_past_the_sequence_is_causal_fwd_and_bwd(cuda, dtype, S,
+                                                              window):
+    """A window that no query reaches past (window >= S) is bitwise the
+    causal kernel: the f32 forward and the backward in both dtypes."""
+    q, k, v = _attn_case(cuda, 1, 8, 2, S, 128, dtype, seed=S + 1,
+                         model_v=True)
+    do = torch.randn(q.shape, generator=torch.Generator(
+        device=cuda).manual_seed(S), device=cuda).to(dtype)
+    o, lse = kfa.flash_attention_kernel(q, k, v, block_q=64, block_kv=64,
+                                        causal=True, return_lse=True)
+    if dtype == torch.float32:
+        got = kfa.flash_attention_kernel(q, k, v, block_q=64, block_kv=64,
+                                         causal=True, window=window)
+        assert torch.equal(got, o)
+    got = kfa.flash_attention_bwd_kernel(q, k, v, o, lse, do, causal=True,
+                                         window=window)
+    want = kfa.flash_attention_bwd_kernel(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_windowed_autograd_launches_the_kernels(cuda):
+    """``ops.flash_attention`` with a window under autograd, in bf16 and
+    f32, runs the forward and backward kernels (their counters move) and
+    its gradients match the plain backward's: f32 within 1e-4 relative L2,
+    bf16 within 2x the plain bf16 backward's distance from the plain f32
+    backward."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _attn_case(cuda, 1, 4, 2, 200, 64, dtype, seed=3)
+        ql, kl, vl = (t.requires_grad_() for t in (q, k, v))
+        n0 = (kfa.flash_attention_kernel.launches,
+              kfa.flash_attention_bwd_kernel.launches)
+        out = ops.flash_attention(ql, kl, vl, causal=True, window=32)
+        dq, dk, dv = torch.autograd.grad(out.float().sum(), (ql, kl, vl))
+        torch.cuda.synchronize()
+        assert (kfa.flash_attention_kernel.launches,
+                kfa.flash_attention_bwd_kernel.launches) == (n0[0] + 1,
+                                                             n0[1] + 1)
+        def plain(*qkv):
+            o, lse = kfa.attention_plain(*qkv, block_q=64, block_kv=64,
+                                         causal=True, return_lse=True,
+                                         window=32)
+            return kfa.attention_bwd_plain(*qkv, o, lse, torch.ones_like(o),
+                                           causal=True, window=32)
+        qkv = [t.detach() for t in (q, k, v)]
+        want, ref32 = plain(*qkv), plain(*(t.float() for t in qkv))
+        for x, w, r in zip((dq, dk, dv), want, ref32):
+            if dtype == torch.float32:
+                assert _rel_l2(x, w) <= 1e-4
+            else:
+                assert _rel_l2(x, r) <= 2 * _rel_l2(w, r)
 
 
 @pytest.mark.gpu

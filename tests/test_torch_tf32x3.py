@@ -32,6 +32,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.kernels import ops as jops
+from repro.nn import attention as jattention
 from repro_torch.calib import device as cdev
 from repro_torch.calib import probes as cprobes
 from repro_torch.core.hardware import GPU_H100_LIKE
@@ -174,47 +175,72 @@ def _exp2_guarded(x, ref):
                        torch.exp2(x - safe))
 
 
+def _visible(Sq, Skv, causal, window):
+    """The (query, key) pairs the kernels see: key j of query i iff j <= i
+    under causal and i - j < window where window > 0."""
+    i, j = torch.arange(Sq)[:, None], torch.arange(Skv)[None, :]
+    keep = torch.ones((Sq, Skv), dtype=torch.bool)
+    if causal:
+        keep &= j <= i
+    if window > 0:
+        keep &= i - j < window
+    return keep
+
+
 def attention_fwd_tf32x3(q, k, v, *, causal, scale, kv_rows, splits=2,
-                         mm=mm_tf32x3):
-    """(o, lse) of the f32 forward kernel: keys in ring stages of
-    ``kv_rows``, each stage's keys split into ``splits`` warp shares;
-    ``mm`` takes both products (``mm_tf32``: one TF32 product each)."""
+                         mm=mm_tf32x3, window=0):
+    """(o, lse) of the f32 forward kernel: a CTA a 64-row q block walking
+    the ring stages of ``kv_rows`` keys from ``kfa.kv_walk`` (the first
+    holds its first row's first visible key under a window; the last its
+    last row's diagonal under causal), each stage's keys split into
+    ``splits`` warp shares; ``mm`` takes both products (``mm_tf32``: one
+    TF32 product each)."""
     B, H, Sq, d = q.shape
     Skv = k.shape[2]
     rep = H // k.shape[1]
     kk, vv = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
     scale_log2 = float(np.float32(scale) * np.float32(LOG2E))
     s = mm(q, kk.transpose(-1, -2)) * scale_log2
-    keep = torch.ones((Sq, Skv), dtype=torch.bool)
-    if causal:
-        keep = torch.tril(keep)
-    s = s.masked_fill(~keep, float("-inf"))
+    s = s.masked_fill(~_visible(Sq, Skv, causal, window), float("-inf"))
     kw = kv_rows // splits
-    halves = []
-    for sp in range(splits):
-        m = torch.full((B, H, Sq, 1), float("-inf"))
-        l = torch.zeros((B, H, Sq, 1))
-        o = torch.zeros((B, H, Sq, d))
-        for k0 in range(sp * kw, Skv, kv_rows):
-            blk, vb = s[..., k0:k0 + kw], vv[..., k0:k0 + kw, :]
-            m_new = torch.maximum(m, blk.amax(-1, keepdim=True))
-            alpha = _exp2_guarded(m, m_new)
-            p = _exp2_guarded(blk, m_new)
-            l = l * alpha + p.sum(-1, keepdim=True)
-            o = o * alpha + mm(p, vb)
-            m = m_new
-        halves.append((m, l, o))
-    m, l, o = halves[0]
-    for mb, lb, ob in halves[1:]:
-        mn = torch.maximum(m, mb)
-        fa, fb = _exp2_guarded(m, mn), _exp2_guarded(mb, mn)
-        m, l, o = mn, l * fa + lb * fb, o * fa + ob * fb
-    live = l > 0
-    inv = torch.where(live, 1.0 / torch.where(live, l, torch.ones_like(l)),
-                      torch.zeros_like(l))
-    lse = torch.where(live, m * LN2 + torch.log(torch.where(
-        live, l, torch.ones_like(l))), torch.full_like(l, float("inf")))
-    return o * inv, lse[..., 0]
+    rows = kfa.FWD_F32_Q_ROWS
+    outs, lses = [], []
+    for i in range(-(-Sq // rows)):
+        qs = slice(i * rows, min((i + 1) * rows, Sq))
+        lo, hi = kfa.kv_walk(i, Sq, Skv, rows, kv_rows, causal, window)
+        halves = []
+        for sp in range(splits):
+            n = qs.stop - qs.start
+            m = torch.full((B, H, n, 1), float("-inf"))
+            l = torch.zeros((B, H, n, 1))
+            o = torch.zeros((B, H, n, d))
+            for kb in range(lo, hi):
+                k0 = kb * kv_rows + sp * kw
+                if k0 >= Skv:      # past the key end: masked, adds nothing
+                    continue
+                blk = s[..., qs, k0:k0 + kw]
+                vb = vv[..., k0:k0 + kw, :]
+                m_new = torch.maximum(m, blk.amax(-1, keepdim=True))
+                alpha = _exp2_guarded(m, m_new)
+                p = _exp2_guarded(blk, m_new)
+                l = l * alpha + p.sum(-1, keepdim=True)
+                o = o * alpha + mm(p, vb)
+                m = m_new
+            halves.append((m, l, o))
+        m, l, o = halves[0]
+        for mb, lb, ob in halves[1:]:
+            mn = torch.maximum(m, mb)
+            fa, fb = _exp2_guarded(m, mn), _exp2_guarded(mb, mn)
+            m, l, o = mn, l * fa + lb * fb, o * fa + ob * fb
+        live = l > 0
+        inv = torch.where(live,
+                          1.0 / torch.where(live, l, torch.ones_like(l)),
+                          torch.zeros_like(l))
+        lse = torch.where(live, m * LN2 + torch.log(torch.where(
+            live, l, torch.ones_like(l))), torch.full_like(l, float("inf")))
+        outs.append(o * inv)
+        lses.append(lse[..., 0])
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
 
 
 @pytest.mark.parametrize("d", [8, 64, 112, 256])
@@ -263,13 +289,11 @@ def test_split_tf32_attention_fwd_meets_the_f32_tolerance(d, causal, Hkv, S):
 # lse, as the kernels compute it.
 # ---------------------------------------------------------------------------
 
-def attention_bwd_tf32x3(q, k, v, do, *, causal, scale):
+def attention_bwd_tf32x3(q, k, v, do, *, causal, scale, window=0):
     B, H, S, d = q.shape
     rep = H // k.shape[1]
     kk, vv = k.repeat_interleave(rep, 1), v.repeat_interleave(rep, 1)
-    keep = torch.ones((S, S), dtype=torch.bool)
-    if causal:
-        keep = torch.tril(keep)
+    keep = _visible(S, S, causal, window)
     s32 = (q @ kk.transpose(-1, -2)) * scale
     s32 = s32.masked_fill(~keep, float("-inf"))
     lse = torch.logsumexp(s32, dim=-1, keepdim=True)
@@ -309,6 +333,118 @@ def test_split_tf32_attention_bwd_meets_the_f32_tolerance(d, causal, Hkv):
     for name, x, w in zip("qkv", got, want):
         np.testing.assert_allclose(x.numpy(), np.asarray(w), rtol=1e-4,
                                    atol=2e-5, err_msg=f"d{name}")
+
+
+# ---------------------------------------------------------------------------
+# The sliding window (mixtral-8x22b's SWA) in the f32 forward and backward:
+# windows around the 64-row block edges, held to the reference's
+# ``chunked_attention(..., sliding_window=w)`` and its vjp.
+# ---------------------------------------------------------------------------
+
+WINDOWS = (1, 7, 31, 32, 33, 64)
+
+
+def _window_inputs(d, Hkv, S, seed):
+    r = _rng(seed)
+    q, cot = (r.standard_normal((1, 4, S, d)).astype(np.float32)
+              for _ in range(2))
+    k, v = (r.standard_normal((1, Hkv, S, d)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v, cot
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("d,Hkv", [(64, 2), (64, 4), (160, 2)], ids=str)
+def test_split_tf32_windowed_fwd_meets_the_f32_tolerance(window, d, Hkv):
+    """Out against the JAX reference's ``chunked_attention`` with the
+    window and lse against a float64 logsumexp of the windowed scores, at
+    S 150 (three 64-row q blocks, the last ragged), under GQA and MHA, and
+    at a padded head dim past 128 (ring stages of 32 keys); the emulated
+    walk skips the stages before each q block's first visible key, as the
+    kernel does."""
+    S = 150
+    q, k, v, _ = _window_inputs(d, Hkv, S, d + Hkv + window)
+    plan = kfa.plan_attention_f32(S, d, batch=1, heads=4)
+    got, lse = attention_fwd_tf32x3(*(torch.from_numpy(x) for x in (q, k, v)),
+                                    causal=True, scale=d ** -0.5,
+                                    kv_rows=plan.kv_block, window=window)
+    want = np.asarray(jattention.chunked_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        sliding_window=window))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-4, atol=2e-5)
+    kk = np.repeat(k.astype(np.float64), 4 // Hkv, axis=1)
+    s64 = q.astype(np.float64) @ kk.transpose(0, 1, 3, 2) * d ** -0.5
+    s64 = np.where(_visible(S, S, True, window).numpy(), s64, -np.inf)
+    mx = s64.max(-1, keepdims=True)
+    lse64 = (mx + np.log(np.exp(s64 - mx).sum(-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), lse64, rtol=1e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+@pytest.mark.parametrize("Hkv", [2, 4])
+def test_split_tf32_windowed_bwd_meets_the_f32_tolerance(window, Hkv):
+    """dq, dk, dv against ``jax.vjp`` of the reference's windowed
+    ``chunked_attention`` at S 150, under GQA and MHA."""
+    d, S = 64, 150
+    q, k, v, cot = _window_inputs(d, Hkv, S, 7 * window + Hkv)
+    _, vjp = jax.vjp(lambda q_, k_, v_: jattention.chunked_attention(
+        q_, k_, v_, causal=True, sliding_window=window),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(cot))
+    got = attention_bwd_tf32x3(*(torch.from_numpy(x) for x in (q, k, v, cot)),
+                               causal=True, scale=d ** -0.5, window=window)
+    for name, x, w in zip("qkv", got, want):
+        np.testing.assert_allclose(x.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=2e-5, err_msg=f"d{name}")
+
+
+def q_walk(j, s_q, block_kv, block_q, causal, window):
+    """The q blocks [lo, hi) the dK/dV kernels' CTA of kv block j walks, as
+    ``flash_bwd_dkdv_wgmma`` and ``flash_bwd_dkdv_tf32x3`` compute them:
+    from the block of its first key under causal, up to the block of query
+    k0 + block_kv - 1 + window - 1 under a window."""
+    n_qb = -(-s_q // block_q)
+    k0 = j * block_kv
+    lo = min(k0 // block_q, n_qb) if causal else 0
+    hi = (min(n_qb, (k0 + block_kv - 1 + window - 1) // block_q + 1)
+          if window > 0 else n_qb)
+    return lo, max(lo, hi)
+
+
+@pytest.mark.parametrize("S", [64, 150, 300, 512])
+@pytest.mark.parametrize("window", (0,) + WINDOWS + (100, 128, 4096))
+def test_windowed_walks_cover_exactly_the_visible_blocks(S, window):
+    """For every (q block, kv block) pair of every kernel's tiling, the
+    walk covers it iff the pair holds a visible (query, key) pair: the
+    forward's and the dQ kernels' kv walk (``kfa.kv_walk``: the bf16
+    forward's menu, the f32 forward's 64 q rows over stages of 64 or 32
+    keys, the dQ kernels' 64 q rows over 64 keys or the f32 stages of 32
+    and 16) and the dK/dV kernels' q walk (64 kv rows over 64-row q blocks,
+    or the f32 stages of 32 and 16 rows)."""
+    vis = _visible(S, S, True, window)
+    tilings = {(bq, bkv) for bq in kfa.BLOCK_MENU for bkv in kfa.BLOCK_MENU}
+    tilings |= {(64, 64), (64, 32), (64, 16)}
+    for bq, bkv in sorted(tilings):
+        for i in range(-(-S // bq)):
+            lo, hi = kfa.kv_walk(i, S, S, bq, bkv, True, window)
+            for j in range(-(-S // bkv)):
+                seen = bool(vis[i * bq:(i + 1) * bq,
+                                j * bkv:(j + 1) * bkv].any())
+                assert (lo <= j < hi) == seen, (bq, bkv, i, j, lo, hi)
+    for qr in (64, 32, 16):
+        for j in range(-(-S // 64)):
+            lo, hi = q_walk(j, S, 64, qr, True, window)
+            for i in range(-(-S // qr)):
+                seen = bool(vis[i * qr:(i + 1) * qr,
+                                j * 64:(j + 1) * 64].any())
+                assert (lo <= i < hi) == seen, (qr, i, j, lo, hi)
+    # Heaviest first: under the window a q block's kv count never falls as
+    # it moves on, and a kv block's q count never rises.
+    steps = kfa.kv_steps(S, S, 64, 64, True, window)
+    assert steps == sorted(steps)
+    counts = [hi - lo for lo, hi in (q_walk(j, S, 64, 64, True, window)
+                                     for j in range(-(-S // 64)))]
+    assert counts == sorted(counts, reverse=True)
 
 
 # ---------------------------------------------------------------------------

@@ -163,13 +163,9 @@ def _chip_smoke():
     return mod
 
 
-@pytest.mark.parametrize("arch", ["musicgen-large", "llava-next-mistral-7b",
-                                  "mixtral-8x22b"])
-def test_train_reckoning_matches_the_wrapper_calls(arch):
-    """``chip_smoke.py``'s reckoning of a train step (forward; then the
-    remat recompute and the backward) equals the calls each kernel wrapper
-    receives in one step of the smoke config with remat on: the gelu MLP
-    (musicgen), the vlm family and the windowed MoE."""
+def _wrapper_calls(cfg):
+    """The calls each kernel wrapper receives in one train step of
+    ``cfg`` on the CPU (B 2): (the forward's, the backward pass's)."""
     calls = {}
 
     def counting(module, name, key):
@@ -184,7 +180,6 @@ def test_train_reckoning_matches_the_wrapper_calls(arch):
     def layout(prefix):
         return lambda a, kw: prefix + ("tn" if kw.get("trans_a") else
                                        "nt" if kw.get("trans_b") else "nn")
-    cfg = dataclasses.replace(get_config(arch, smoke=True), remat=True)
     m = Model(cfg, device="cpu")
     params = m.init(torch.Generator().manual_seed(0), dtype=torch.float32)
     paths, leaves = zip(*tree_items(params))
@@ -211,8 +206,76 @@ def test_train_reckoning_matches_the_wrapper_calls(arch):
     finally:
         for p in reversed(patches):
             p.stop()
-    want = _chip_smoke()._train_reckoning(cfg)
+    return fwd, bwd
+
+
+def _assert_reckoned(calls, want):
+    fwd, bwd = calls
     want_bwd = {k: want["recompute"].get(k, 0) + want["backward"].get(k, 0)
                 for k in set(want["recompute"]) | set(want["backward"])}
     assert fwd == {k: v for k, v in want["forward"].items() if v}
     assert bwd == {k: v for k, v in want_bwd.items() if v}
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "llava-next-mistral-7b",
+                                  "mixtral-8x22b"])
+def test_train_reckoning_matches_the_wrapper_calls(arch):
+    """``chip_smoke.py``'s reckoning of a train step (forward; then the
+    remat recompute and the backward) equals the calls each kernel wrapper
+    receives in one step of the smoke config with remat on: the gelu MLP
+    (musicgen), the vlm family and the windowed MoE."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), remat=True)
+    _assert_reckoned(_wrapper_calls(cfg), _chip_smoke()._train_reckoning(cfg))
+
+
+TRAIN_ZOO = ["minitron-8b", "stablelm-12b", "internlm2-20b",
+             "llava-next-mistral-7b", "mixtral-8x22b"]
+
+
+def _train_zoo_entry(arch):
+    """(full config at ``chip_smoke.TRAIN_ZOO``'s cut depth, (B, S))."""
+    cs = _chip_smoke()
+    (layers, dims), = [(n, d) for a, n, d in cs.TRAIN_ZOO if a == arch]
+    return dataclasses.replace(get_config(arch), num_layers=layers), dims
+
+
+def test_train_zoo_is_the_five_untrained_members():
+    """``train_zoo`` trains exactly the zoo members no other train phase
+    trains."""
+    assert [a for a, _, _ in _chip_smoke().TRAIN_ZOO] == TRAIN_ZOO
+
+
+@pytest.mark.parametrize("arch", TRAIN_ZOO)
+def test_train_zoo_reckoning_matches_the_wrapper_calls(arch):
+    """The reckoning of a ``train_zoo`` step at its cut depth equals the
+    wrapper calls of one step of the smoke widths at that depth with the
+    full config's remat: the counts follow the depth, the family, the
+    activation and remat, which the two configs share (the widths change
+    no count)."""
+    full, _ = _train_zoo_entry(arch)
+    small = dataclasses.replace(get_config(arch, smoke=True),
+                                num_layers=full.num_layers,
+                                remat=full.remat)
+    for field in ("family", "activation", "is_moe", "frontend", "norm"):
+        assert getattr(small, field) == getattr(full, field), field
+    assert bool(small.sliding_window) == bool(full.sliding_window)
+    want = _chip_smoke()._train_reckoning(full)
+    assert want == _chip_smoke()._train_reckoning(small)
+    _assert_reckoned(_wrapper_calls(small), want)
+
+
+@pytest.mark.parametrize("arch", TRAIN_ZOO)
+def test_train_zoo_state_fits_the_cap(arch):
+    """Each ``train_zoo`` model's state at its cut depth, 12 bytes a
+    parameter (bf16 params and grads, f32 AdamW moments), stays under
+    ``TRAIN_ZOO_STATE_CAP`` (45 GB of the card's 80); mixtral's row
+    reaches past its window, the others' are B 4 x (512 text tokens, after
+    llava's 2,880 patch positions)."""
+    cs = _chip_smoke()
+    full, (B, S) = _train_zoo_entry(arch)
+    assert 12 * full.param_count() < cs.TRAIN_ZOO_STATE_CAP
+    if full.sliding_window:
+        assert (B, S) == (1, 8192) and S > full.sliding_window
+        assert cs.MIXTRAL_GRADS_S > full.sliding_window
+    else:
+        assert (B, S) == (cs.TRAIN_B, full.frontend_tokens + cs.TRAIN_S)
