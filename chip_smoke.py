@@ -226,12 +226,40 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               where its window binds; full width, each under 45 GB of
               state, lr ZOO_TRAIN_LR; launches equal to the reckoning, the
               loss falls.
+    Last, after train_times:
+    train_dp_f32 — data-parallel, FSDP and tensor-parallel training on
+              ranks sharing cuda:0 over gloo (``--shared-card``'s mode,
+              collectives staged through the host): qwen3-moe-30b-a3b at
+              full width, 2 layers, f32, on a (data 2, model 2) mesh with
+              its FSDP and the default (global) MoE dispatch, and
+              phi4-mini-3.8b at 2 layers on (2, 1), weights from
+              ``init_shards`` (seed 5), each rank its rows of a 2 x 512
+              batch.  The one-process step on the card runs first and is
+              freed; its loss, gradients and updated params go to a file
+              each rank reads memory-mapped.  One step on the ranks: every
+              leaf (gradients and updated params, each rank's blocks, the
+              sums of squares added over the shard axes) within 1e-4
+              relative L2, the loss within 1e-5; each rank's launches equal
+              to the reckoning and its GEMMs at the local shapes (rows,
+              heads, experts; FSDP weights gathered whole over data).
+    train_dp — qwen3-moe-30b-a3b in bf16 on (2, 2) at the depth a printed
+              reckoning of the bytes a rank and of the checkpoint allows
+              (DP_RANK_BUDGET, DP_CKPT_BUDGET), 3
+              steps on a 4 x 512 batch: ms a step, global tokens/s, peak
+              GB a rank, host seconds and share of each collective
+              (``all_reduce_``, ``all_gather_dim``, ``reduce_scatter_dim``),
+              launches against the reckoning, the loss falling; then the
+              state saved with its shardings (gathered whole, written once)
+              and restored on (1, 2) by 2 other ranks: the (2, 2) blocks of
+              every leaf, hashed after the restore, equal the shards' own
+              hashes (bit for bit).
 Each serve phase counts the launches of every kernel inside the model's
 prefills and inside its decode steps apart.  The line before the last is
 the kernels summary (a row's launches are those of its own run and step
 kind, its max_abs_err the worst of its own shapes' cases in phases 2 and
 3; the dense, flash and grouped rows add ``serve_tp_launches``, each
-rank's launches in serve_tp), after a line with the script's total
+rank's launches in serve_tp, and the training rows ``train_dp_launches``,
+each rank's in train_dp), after a line with the script's total
 seconds; the last line is
 ``{"ok": true, "device": {...}}``.  With no CUDA device, or run from a
 directory without the repository, it exits non-zero and prints no result.
@@ -433,6 +461,9 @@ def main() -> int:
     _free(torch)
     zoo_window_launches = train_zoo_phase(torch, dev, kmm, kfa)
     times.update(train_times_phase(torch, dev, kmm, kfa))
+    # Last: when train_times ran after these phases on an H100,
+    # torch.profiler recorded no device kernel in this process.
+    dp_launches = train_dp_phases(torch, dev, kmm, kfa)
     # Each row's launches: its own run, in its own step kind.
     launches = {
         "matmul@decode": launches["matmul@decode"],
@@ -499,7 +530,9 @@ def main() -> int:
                         **({"products": "tf32x3"} if key in TF32X3_ROWS
                            else {}),
                         **({"serve_tp_launches": tp_launches[key]}
-                           if key in tp_launches else {})})
+                           if key in tp_launches else {}),
+                        **({"train_dp_launches": dp_launches[key]}
+                           if key in dp_launches else {})})
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)
     emit({"kernels": entries})
@@ -3879,6 +3912,639 @@ def serve_tp_phase(torch, tp_refs):
         fail(f"serve_tp: served {[r['arch'] for r in tp_refs]}, expected "
              f"{list(TP_SERVE)}")
     return totals
+
+
+# ---------------------------------------------------------------------------
+# train_dp_f32 and train_dp: data-parallel, FSDP and tensor-parallel
+# training, the ranks sharing cuda:0 over gloo.
+# ---------------------------------------------------------------------------
+
+DP_F32_LAYERS = 2
+# (arch, (data, model)) of train_dp_f32, at DP_F32_LAYERS layers in f32.
+DP_F32 = [("qwen3-moe-30b-a3b", (2, 2)), ("phi4-mini-3.8b", (2, 1))]
+DP_F32_B = 2                       # train_dp_f32's global batch: B x TRAIN_S
+DP_ARCH, DP_MESH = "qwen3-moe-30b-a3b", (2, 2)
+DP_RESTORE_MESH = (1, 2)           # train_dp's checkpoint restores here
+DP_B = 4                           # train_dp's global batch: B x TRAIN_S
+DP_STEPS = 3
+# train_dp's depth: the deepest (up to MOE_TRAIN_LAYERS) whose reckoned
+# bytes a rank (bf16 params and grads, f32 moments, the FSDP-gathered
+# weights of every layer, which live through the backward pass with remat
+# off) stay under this: four ranks share the card's 80 GB with their CUDA
+# contexts and activations.
+DP_RANK_BUDGET = 10e9
+# ... and whose checkpoint (whole bf16 params and f32 moments, 10 bytes a
+# parameter) stays under this: it crosses host-staged gloo into one rank
+# (0.2-0.8 GB/s a rank on an H100 host with four ranks sharing the card)
+# and is read back whole by each restoring rank.
+DP_CKPT_BUDGET = 15e9
+DP_JOIN_TIMEOUT = 900.0
+DP_DIR = ROOT / "build" / "train_dp"
+# The collectives a rank times (``distributed/collectives.py``).
+DP_COLLECTIVES = ("all_reduce_", "all_gather_dim", "reduce_scatter_dim")
+
+
+def _dp_config(arch, layers, dtype):
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(arch), num_layers=layers,
+                               dtype=dtype)
+
+
+def _dp_batch(cfg, rows):
+    from repro_torch.data import DataConfig, SyntheticLM
+    return SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_S,
+                                  global_batch=rows)).batch_at(0)
+
+
+def _dp_reference(torch, dev, arch, path):
+    """train_dp_f32's yardstick, in this process before any rank starts:
+    ``arch`` at DP_F32_LAYERS layers in f32, one step of the train step
+    (no mesh) on the global batch, the loss, every gradient and every
+    updated param written to ``path`` (read back memory-mapped by the
+    ranks); everything freed after."""
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.nn.model import Model
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import tree_items
+    cfg = _dp_config(arch, DP_F32_LAYERS, "float32")
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(5))
+    opt = AdamW(lr=1e-3, weight_decay=0.0)
+    step = make_train_step(model, opt)
+    t0 = time.perf_counter()
+    loss, grads = step.loss_and_grads(params, _dp_batch(cfg, DP_F32_B))
+    out = {"loss": torch.tensor(float(loss))}
+    out.update({f"grads/{k}": g.cpu() for k, g in tree_items(grads)})
+    state = TrainState(params=params, opt=opt.init(params), step=0)
+    state, met = step.apply(state, loss, grads)
+    del grads
+    out.update({f"params/{k}": p.cpu() for k, p in tree_items(state.params)})
+    out["grad_norm"] = torch.tensor(float(met["grad_norm"]))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    del state, params, met
+    _free(torch)
+    torch.save(out, path)
+    return {"arch": arch, "loss": float(out["loss"]),
+            "grad_norm": float(out["grad_norm"]), "seconds": secs}
+
+
+def _dp_join(rank, world, init_method, tp):
+    """A spawned rank on cuda:0 over gloo with the (world // tp, tp)
+    mesh installed; (dev, mesh)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch import meshctx
+    from repro_torch.launch.mesh import init_distributed, make_local_mesh
+    dev = init_distributed(rank, world, init_method, device="cuda",
+                           shared_card=True)
+    mesh = make_local_mesh(tp, device_type="cuda")
+    meshctx.set_mesh(mesh)
+    return dev, mesh
+
+
+def _dp_remesh(tp):
+    from repro_torch import meshctx
+    from repro_torch.launch.mesh import make_local_mesh
+    mesh = make_local_mesh(tp, device_type="cuda")
+    meshctx.set_mesh(mesh)
+    return mesh
+
+
+@contextlib.contextmanager
+def _dp_instruments(kmm):
+    """Inside: the host seconds, calls and bytes of each collective (the
+    outermost call only: gloo's reduce-scatter is an ``all_reduce``), and
+    the (M, N, K) of every dense and the (E, K, N) of every grouped GEMM
+    launched in the "nn" layout (the forward products, their recompute)."""
+    from repro_torch.distributed import collectives as coll
+    stats = {k: {"calls": 0, "bytes": 0, "seconds": 0.0}
+             for k in DP_COLLECTIVES}
+    shapes = {"dense": set(), "grouped": set()}
+    depth = [0]
+
+    def timed(name, fn):
+        def call(t, *rest, **kw):
+            depth[0] += 1
+            t1 = time.perf_counter()
+            try:
+                return fn(t, *rest, **kw)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    st = stats[name]
+                    st["seconds"] += time.perf_counter() - t1
+                    st["calls"] += 1
+                    st["bytes"] += t.numel() * t.element_size()
+        return call
+
+    def recorded(kind, fn):
+        def call(a, b, *rest, **kw):
+            if not kw.get("trans_a") and not kw.get("trans_b"):
+                shapes[kind].add((a.shape[0], b.shape[1], b.shape[0])
+                                 if kind == "dense" else tuple(b.shape))
+            return fn(a, b, *rest, **kw)
+        return call
+
+    with contextlib.ExitStack() as stack:
+        for name in DP_COLLECTIVES:
+            real = getattr(coll, name)
+            wrapped = timed(name, real)
+            # every module of the port that bound the function by name
+            for mod in [m for k, m in list(sys.modules.items())
+                        if k.startswith("repro_torch")]:
+                if getattr(mod, name, None) is real:
+                    stack.enter_context(mock.patch.object(mod, name,
+                                                          wrapped))
+        stack.enter_context(mock.patch.object(
+            kmm, "_launch_cuda", recorded("dense", kmm._launch_cuda)))
+        stack.enter_context(mock.patch.object(
+            kmm, "_launch_expert_cuda",
+            recorded("grouped", kmm._launch_expert_cuda)))
+        yield stats, shapes
+
+
+def _dp_rel(torch, tree, ref, prefix, mesh, rank, specs, dev):
+    """{leaf: relative L2 of the whole leaf against ``ref[prefix + leaf]``},
+    each rank comparing its own block and the sums of squares added over
+    the axes the leaf is sharded on (a replicated leaf counted once)."""
+    from repro_torch.distributed.collectives import all_reduce_
+    from repro_torch.distributed.sharding import local_index, spec_axes
+    from repro_torch.optim.adamw import tree_items
+    flat = dict(tree_items(specs))
+    sums, groups = {}, {}
+    for path, t in tree_items(tree):
+        w = ref[prefix + path]
+        want = w[local_index(tuple(w.shape), flat[path], mesh, rank)]
+        want = want.to(dev, torch.float64)
+        got = t.detach().to(torch.float64)
+        sums[path] = torch.stack([(got - want).square().sum(),
+                                  want.square().sum()])
+        axes = tuple(a for a in spec_axes(flat[path]) if mesh.shape[a] > 1)
+        groups.setdefault(axes, []).append(path)
+    out = {}
+    for axes, paths in sorted(groups.items()):
+        block = torch.stack([sums[p] for p in paths])
+        for a in axes:
+            block = all_reduce_(block, mesh.group(a))
+        for p, (d2, r2) in zip(paths, block.tolist()):
+            out[p] = math.sqrt(d2 / r2) if r2 > 0 else math.sqrt(d2)
+    return out
+
+
+def _dp_f32_case(rank, dev, mesh, arch, ref_path):
+    """One train_dp_f32 case on this rank: its shards (``init_shards``,
+    seed 5, f32) and rows of the global batch, one step's loss and
+    gradients (launches counted, GEMM shapes and collectives recorded) and
+    the in-place commit; every gradient and updated param, block by block,
+    against the one-process step's."""
+    import torch
+    from repro_torch.distributed.sharding import local_batch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.nn.model import Model
+    from repro_torch.optim import AdamW
+    cfg = _dp_config(arch, DP_F32_LAYERS, "float32")
+    model = Model(cfg, device=dev)
+    params = model.init_shards(torch.Generator(device=dev).manual_seed(5),
+                               mesh, rank)
+    batch = local_batch(_dp_batch(cfg, DP_F32_B), mesh, rank)
+    opt = AdamW(lr=1e-3, weight_decay=0.0)
+    step = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    _zero_counts(kmm, kfa)
+    t0 = time.perf_counter()
+    with _dp_instruments(kmm) as (coll, shapes):
+        loss, grads = step.loss_and_grads(params, batch)
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = _read_counts(kmm, kfa)
+    ref = torch.load(ref_path, mmap=True)
+    rel_g = _dp_rel(torch, grads, ref, "grads/", mesh, rank, step.specs,
+                    dev)
+    state = TrainState(params=params, opt=opt.init(params), step=0)
+    state, met = step.apply(state, loss, grads)
+    rel_p = _dp_rel(torch, state.params, ref, "params/", mesh, rank,
+                    step.specs, dev)
+    out = {"arch": arch, "mesh": dict(mesh.shape), "rank": rank,
+           "loss": float(loss), "ref_loss": float(ref["loss"]),
+           "grad_norm": float(met["grad_norm"]),
+           "ref_grad_norm": float(ref["grad_norm"]),
+           "grad_rel_l2": rel_g, "param_rel_l2": rel_p,
+           "launches": launches,
+           "local_shapes": {k: sorted(v) for k, v in shapes.items()},
+           "collectives": coll, "step_s": secs,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+    del ref, state, grads, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sha(t) -> str:
+    """The sha256 of a tensor's raw bytes on the host (bf16 as its
+    bits)."""
+    import hashlib
+    import numpy as np
+    from repro_torch.checkpoint.checkpoint import _to_numpy
+    return hashlib.sha256(np.ascontiguousarray(_to_numpy(t)[0]).tobytes()
+                          ).hexdigest()
+
+
+def _dp_state_specs(model, mesh):
+    from repro_torch.distributed.sharding import opt_shardings, tp_shardings
+    from repro_torch.launch.steps import TrainState
+    specs = tp_shardings(model, mesh)
+    return TrainState(params=specs, opt=opt_shardings(specs), step=())
+
+
+def _dp_train_case(rank, dev, mesh, layers, ckpt_dir):
+    """train_dp on this rank: qwen3-moe at ``layers`` layers in bf16, its
+    shards (seed 0), DP_STEPS steps (AdamW lr 1e-3, no decay) on its rows
+    of one repeated global batch of DP_B x TRAIN_S tokens, each step timed
+    between synchronisations, launches and collectives counted; the loss
+    after the last step; then the state saved with its shardings and each
+    leaf's shard hashed (the restore on another mesh is held to these)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.checkpoint.checkpoint import _items
+    from repro_torch.distributed.collectives import data_mean
+    from repro_torch import meshctx
+    from repro_torch.distributed.sharding import local_batch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import matmul as kmm
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.nn.model import Model
+    from repro_torch.optim import AdamW
+    cfg = _dp_config(DP_ARCH, layers, "bfloat16")
+    model = Model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init_shards(torch.Generator(device=dev).manual_seed(0),
+                               mesh, rank)
+    opt = AdamW(lr=1e-3, weight_decay=0.0)
+    state = TrainState(params=params, opt=opt.init(params), step=0)
+    step = make_train_step(model, opt)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = local_batch(_dp_batch(cfg, DP_B), mesh, rank)
+    losses, norms, ms = [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts(kmm, kfa)
+    wall0 = time.perf_counter()
+    with _dp_instruments(kmm) as (coll, shapes):
+        for _ in range(DP_STEPS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss, grads = step.loss_and_grads(state.params, batch)
+            state, met = step.apply(state, loss, grads)
+            del grads
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t1) * 1e3)
+    wall = time.perf_counter() - wall0
+    launches = _read_counts(kmm, kfa)
+    peak = torch.cuda.max_memory_allocated(dev)
+    with torch.no_grad():
+        tokens = torch.from_numpy(batch["tokens"]).to(dev).long()
+        final = model.loss(state.params, {"tokens": tokens})
+        final = float(data_mean(final, meshctx.data_axis().group,
+                                meshctx.data_axis().size))
+    t1 = time.perf_counter()
+    ckpt.save(str(ckpt_dir), DP_STEPS, state, extra_meta={"arch": cfg.name},
+              shardings=_dp_state_specs(model, mesh), mesh=mesh)
+    save_s = time.perf_counter() - t1
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        hashes = {k: pool.submit(_sha, v.cpu()) for k, v in _items(state)
+                  if not isinstance(v, int)}
+        hashes = {k: f.result() for k, f in hashes.items()}
+    out = {"rank": rank, "layers": layers, "init_s": init_s,
+           "losses": losses, "loss_after_last_step": final,
+           "grad_norms": norms, "ms_per_step": ms, "wall_s": wall,
+           "launches": launches, "collectives": coll,
+           "local_shapes": {k: sorted(v) for k, v in shapes.items()},
+           "peak_mem_bytes": peak, "save_s": save_s, "shard_sha": hashes,
+           "count": state.opt.count,
+           "param_bytes": sum(t.numel() * t.element_size()
+                              for _, t in _items(state.params))}
+    del state
+    dist.barrier()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_restore_case(rank, dev, mesh, layers, ckpt_dir):
+    """The train_dp checkpoint restored on this mesh (``restore`` with the
+    shardings: this rank's blocks), and the hash of each train_dp mesh
+    block that lies inside this rank's block of a leaf (every such block
+    lies inside some rank's: the restore mesh splits only on "model")."""
+    import torch
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.checkpoint.checkpoint import _items
+    from repro_torch.distributed.sharding import local_index
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.nn.model import Model
+    from repro_torch.optim import AdamW
+    cfg = _dp_config(DP_ARCH, layers, "bfloat16")
+    model = Model(cfg, device=dev)
+    params = model.abstract_params()
+    template = TrainState(params=params, opt=AdamW().init(params), step=0)
+    sh = _dp_state_specs(model, mesh)
+    t0 = time.perf_counter()
+    step, state = ckpt.restore(str(ckpt_dir), template, device=dev,
+                               shardings=sh, mesh=mesh, rank=rank)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    old = _shape_mesh(DP_MESH)
+    old_specs = dict(_items(_dp_state_specs(model, old), specs=True))
+    specs = dict(_items(sh, specs=True))
+    from concurrent.futures import ThreadPoolExecutor
+    whole = dict(_items(template))
+    hashes = {}
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        for key, leaf in _items(state):
+            if isinstance(leaf, int):
+                continue
+            shape = tuple(whole[key].shape)
+            mine = local_index(shape, specs[key], mesh, rank)
+            for r in range(DP_MESH[0] * DP_MESH[1]):
+                blk = local_index(shape, old_specs[key], old, r)
+                if all(m.start <= b.start and b.stop <= m.stop
+                       for b, m in zip(blk, mine)):
+                    rel = tuple(slice(b.start - m.start, b.stop - m.start)
+                                for b, m in zip(blk, mine))
+                    hashes.setdefault(key, {})[r] = pool.submit(
+                        _sha, leaf[rel].cpu())
+    hashes = {k: {r: f.result() for r, f in v.items()}
+              for k, v in hashes.items()}
+    out = {"rank": rank, "step": step, "count": state.opt.count,
+           "restore_s": restore_s, "block_sha": hashes,
+           "hash_s": time.perf_counter() - t0 - restore_s,
+           "local_wq": tuple(state.params["layers"]["attn"]["wq"].shape)}
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _shape_mesh(shape):
+    """A shape-only mesh of (data, model) = ``shape``."""
+    import types
+    return types.SimpleNamespace(shape={"data": shape[0], "model": shape[1]})
+
+
+def _dp_rank_a(rank, world, init_method, ref_path, layers, ckpt_dir):
+    """Spawn A, 4 ranks on (2, 2): train_dp_f32's qwen3-moe case, then
+    train_dp with its checkpoint."""
+    dev, mesh = _dp_join(rank, world, init_method, DP_MESH[1])
+    f32 = _dp_f32_case(rank, dev, mesh, DP_F32[0][0], ref_path)
+    return {"f32": f32, "train": _dp_train_case(rank, dev, mesh, layers,
+                                                 ckpt_dir)}
+
+
+def _dp_rank_b(rank, world, init_method, ref_path, layers, ckpt_dir):
+    """Spawn B, 2 ranks: train_dp_f32's phi4-mini case on (2, 1), then
+    train_dp's checkpoint restored on (1, 2)."""
+    dev, mesh = _dp_join(rank, world, init_method, DP_F32[1][1][1])
+    f32 = _dp_f32_case(rank, dev, mesh, DP_F32[1][0], ref_path)
+    mesh = _dp_remesh(DP_RESTORE_MESH[1])
+    return {"f32": f32, "restore": _dp_restore_case(rank, dev, mesh, layers,
+                                                     ckpt_dir)}
+
+
+def dp_reckoning(layers):
+    """train_dp's bytes a rank at ``layers`` layers on DP_MESH (the rank
+    with the most): bf16 params and grads and f32 moments of its shards,
+    and the FSDP-gathered bf16 weights of every layer (the model axis's
+    block, whole over data)."""
+    from repro_torch.distributed.sharding import (local_index,
+                                                  tp_shardings)
+    from repro_torch.nn.model import Model
+    from repro_torch.optim.adamw import tree_items
+    cfg = _dp_config(DP_ARCH, layers, "bfloat16")
+    model = Model(cfg, device="cpu")
+    mesh = _shape_mesh(DP_MESH)
+    specs = dict(tree_items(tp_shardings(model, mesh)))
+    nmodel = _shape_mesh((1, DP_MESH[1]))
+    mspecs = dict(tree_items(tp_shardings(model, nmodel)))
+    best = None
+    for rank in range(DP_MESH[0] * DP_MESH[1]):
+        state = gathered = 0
+        for path, a in tree_items(model.abstract_params()):
+            idx = local_index(tuple(a.shape), specs[path], mesh, rank)
+            n = math.prod(s.stop - s.start for s in idx)
+            state += n * (2 + 2 + 8)
+            if path.startswith("layers/") and "data" in str(specs[path]):
+                midx = local_index(tuple(a.shape), mspecs[path], nmodel,
+                                   rank % DP_MESH[1])
+                gathered += 2 * math.prod(s.stop - s.start for s in midx)
+        row = {"layers": layers, "state_bytes": state,
+               "gathered_bytes": gathered, "total": state + gathered}
+        best = row if best is None or row["total"] > best["total"] else best
+    best["checkpoint_bytes"] = 10 * sum(
+        a.numel() for _, a in tree_items(model.abstract_params()))
+    return best
+
+
+def train_dp_phases(torch, dev, kmm, kfa):
+    """train_dp_f32 and train_dp (module docstring): the one-process f32
+    references first, each freed; then spawn A (4 ranks, (2, 2)) and spawn
+    B (2 ranks, (2, 1) then (1, 2)).  Returns train_dp's launches per rank
+    keyed by the kernels line's rows."""
+    from repro_torch.launch.mesh import spawn_ranks
+    _free(torch)
+    if DP_DIR.exists():
+        shutil.rmtree(DP_DIR)
+    DP_DIR.mkdir(parents=True)
+    t0 = time.perf_counter()
+    refs = [DP_DIR / f"ref_{i}.pt" for i in range(len(DP_F32))]
+    ref_rows = [_dp_reference(torch, dev, arch, path)
+                for (arch, _), path in zip(DP_F32, refs)]
+    ref_s = time.perf_counter() - t0
+    reckoning = [dp_reckoning(n) for n in range(1, MOE_TRAIN_LAYERS + 1)]
+    fits = [r["layers"] for r in reckoning if r["total"] <= DP_RANK_BUDGET
+            and r["checkpoint_bytes"] <= DP_CKPT_BUDGET]
+    if not fits:
+        fail(f"train_dp: no depth fits {DP_RANK_BUDGET} bytes a rank and a "
+             f"checkpoint of {DP_CKPT_BUDGET}: {reckoning}")
+    layers = max(fits)
+    emit({"phase": "train_dp_reckoning", "arch": DP_ARCH,
+          "mesh": list(DP_MESH), "budget_bytes_per_rank": DP_RANK_BUDGET,
+          "budget_checkpoint_bytes": DP_CKPT_BUDGET,
+          "per_rank": reckoning, "layers": layers})
+    ckpt_dir = DP_DIR / "ckpt"
+    t1 = time.perf_counter()
+    a = spawn_ranks(_dp_rank_a, DP_MESH[0] * DP_MESH[1],
+                    (str(refs[0]), layers, str(ckpt_dir)),
+                    timeout=DP_JOIN_TIMEOUT)
+    t2 = time.perf_counter()
+    b = spawn_ranks(_dp_rank_b, 2, (str(refs[1]), layers, str(ckpt_dir)),
+                    timeout=DP_JOIN_TIMEOUT)
+    walls = {"references_s": ref_s, "spawn_a_s": t2 - t1,
+             "spawn_b_s": time.perf_counter() - t2,
+             "total_s": time.perf_counter() - t0}
+    shutil.rmtree(DP_DIR)
+    _dp_f32_report(torch, [a, b], ref_rows)
+    return _dp_train_report(a, b, layers, walls)
+
+
+def _dp_f32_report(torch, spawns, ref_rows):
+    """train_dp_f32's row and checks: each case's every leaf within
+    GRADS_F32_REL_CAP (gradients and updated params), the loss within 1e-5
+    relative, every rank's launches equal to the reckoning and its GEMMs
+    at the local shapes."""
+    rows, bad = [], []
+    for ranks, ref, (arch, (data, model)) in zip(spawns, ref_rows, DP_F32):
+        cfg = _dp_config(arch, DP_F32_LAYERS, "float32")
+        want = _train_reckoning(cfg)
+        expected = {k: sum(want[part].get(k, 0) for part in want)
+                    for k in ranks[0]["f32"]["launches"]}
+        dense, grouped = _tp_local_shapes(cfg, model)
+        rows_local = DP_F32_B // data * TRAIN_S
+        r0 = ranks[0]["f32"]
+        worst_g = max(r0["grad_rel_l2"].values())
+        worst_p = max(r0["param_rel_l2"].values())
+        d_loss = abs(r0["loss"] - ref["loss"])
+        row = {"arch": arch, "layers": DP_F32_LAYERS, "mesh": [data, model],
+               "batch": [DP_F32_B, TRAIN_S], "loss": r0["loss"],
+               "loss_one_process": ref["loss"], "loss_abs_diff": d_loss,
+               "grad_norm": r0["grad_norm"],
+               "grad_norm_one_process": ref["grad_norm"],
+               "worst_grad_rel_l2": worst_g, "worst_param_rel_l2": worst_p,
+               "grad_rel_l2": r0["grad_rel_l2"],
+               "expected_launches": expected,
+               "launches_per_rank": [r["f32"]["launches"] for r in ranks],
+               "local_shapes": r0["local_shapes"],
+               "expected_local_nk": {"dense": dense, "grouped": grouped},
+               "dense_rows": rows_local,
+               "step_s_per_rank": [r["f32"]["step_s"] for r in ranks],
+               "collectives_rank0": r0["collectives"],
+               "peak_gb_per_rank": [r["f32"]["peak_mem_bytes"] / 1e9
+                                    for r in ranks],
+               "one_process_s": ref["seconds"]}
+        rows.append(row)
+        if not worst_g <= GRADS_F32_REL_CAP or not worst_p <= \
+                GRADS_F32_REL_CAP:
+            bad.append(f"{arch}: a leaf off by {worst_g} (grads), "
+                       f"{worst_p} (params)")
+        if not d_loss <= 1e-5 * abs(ref["loss"]):
+            bad.append(f"{arch}: loss {r0['loss']} vs {ref['loss']}")
+        for r in ranks:
+            f = r["f32"]
+            if f["launches"] != expected:
+                bad.append(f"{arch} rank {f['rank']}: launches "
+                           f"{f['launches']} differ from {expected}")
+            got_dense = sorted({(n, k) for _, n, k in
+                                f["local_shapes"]["dense"]})
+            got_rows = {m for m, _, _ in f["local_shapes"]["dense"]}
+            got_grouped = sorted({(e, k, n) for e, k, n in
+                                  f["local_shapes"]["grouped"]})
+            if got_dense != dense or got_grouped != grouped \
+                    or got_rows != {rows_local}:
+                bad.append(f"{arch} rank {f['rank']}: GEMMs at "
+                           f"{f['local_shapes']}, expected (N, K) {dense}, "
+                           f"grouped {grouped}, M {rows_local}")
+    emit({"phase": "train_dp_f32", "backend": "gloo",
+          "device": "cuda:0 shared", "cases": rows,
+          "tolerance": f"each leaf (gradients, updated params) <= "
+                       f"{GRADS_F32_REL_CAP} relative L2, loss <= 1e-5 "
+                       f"relative, against the one-process step"})
+    if bad:
+        fail(f"train_dp_f32: {bad}")
+
+
+def _dp_train_report(a, b, layers, walls):
+    """train_dp's row and checks: the loss falls, the norms are finite,
+    the launches equal the reckoning a step, and every leaf of the
+    restored state comes back bit for bit (the blocks of the train mesh
+    hashed after the restore on the other mesh equal the shards' own
+    hashes)."""
+    cfg = _dp_config(DP_ARCH, layers, "bfloat16")
+    want = _train_reckoning(cfg)
+    per_step = {k: sum(want[part].get(k, 0) for part in want)
+                for k in a[0]["train"]["launches"]}
+    expected = {k: v * DP_STEPS for k, v in per_step.items()}
+    r0 = a[0]["train"]
+    steady = r0["ms_per_step"][1:]
+    step_ms = max(sum(r["train"]["ms_per_step"][1:]) / len(steady)
+                  for r in a)
+    tokens = DP_B * TRAIN_S
+    shards = {}
+    for r in a:
+        for key, h in r["train"]["shard_sha"].items():
+            shards.setdefault(key, [None] * len(a))[r["train"]["rank"]] = h
+    blocks = {}
+    for r in b:
+        for key, h in r["restore"]["block_sha"].items():
+            blocks.setdefault(key, {}).update(h)
+    bitwise = sorted(shards) == sorted(blocks) and all(
+        [blocks[k].get(r) for r in range(len(a))] == shards[k]
+        for k in shards)
+    colls = []
+    for r in a:
+        t = r["train"]
+        colls.append({k: {**v, "share_of_wall": v["seconds"] / t["wall_s"]}
+                      for k, v in t["collectives"].items()})
+    row = {"phase": "train_dp", "arch": cfg.name, "layers": layers,
+           "mesh": list(DP_MESH), "backend": "gloo",
+           "device": "cuda:0 shared", "collectives": "gloo, host-staged",
+           "batch": [DP_B, TRAIN_S], "steps": DP_STEPS,
+           "losses": r0["losses"],
+           "loss_after_last_step": r0["loss_after_last_step"],
+           "grad_norms": r0["grad_norms"],
+           "ms_per_step_per_rank": [r["train"]["ms_per_step"] for r in a],
+           "ms_per_step_after_first": step_ms,
+           "global_tokens_per_s": tokens / (step_ms / 1e3),
+           "peak_gb_per_rank": [r["train"]["peak_mem_bytes"] / 1e9
+                                for r in a],
+           "state_param_bytes_per_rank": [r["train"]["param_bytes"]
+                                          for r in a],
+           "reckoned_bytes_per_rank": dp_reckoning(layers),
+           "init_s_per_rank": [r["train"]["init_s"] for r in a],
+           "steps_wall_s_per_rank": [r["train"]["wall_s"] for r in a],
+           "collectives_per_rank": colls,
+           "expected_launches": expected,
+           "launches_per_rank": [r["train"]["launches"] for r in a],
+           "local_shapes_rank0": r0["local_shapes"],
+           "checkpoint": {"saved_on": list(DP_MESH),
+                          "restored_on": list(DP_RESTORE_MESH),
+                          "save_s": r0["save_s"],
+                          "restore_s": [r["restore"]["restore_s"]
+                                        for r in b],
+                          "hash_s_after_restore": [r["restore"]["hash_s"]
+                                                   for r in b],
+                          "leaves": len(shards), "bitwise": bitwise,
+                          "step": b[0]["restore"]["step"],
+                          "count": b[0]["restore"]["count"],
+                          "restored_local_wq": b[0]["restore"]["local_wq"]},
+           "phase_walls": walls}
+    emit(row)
+    for r in a:
+        if r["train"]["launches"] != expected:
+            fail(f"train_dp rank {r['train']['rank']}: launches "
+                 f"{r['train']['launches']} differ from the reckoning "
+                 f"{expected}")
+    losses = r0["losses"]
+    if not all(math.isfinite(x) for x in losses + r0["grad_norms"]) \
+            or not r0["loss_after_last_step"] < losses[0]:
+        fail(f"train_dp: the loss did not fall ({losses} -> "
+             f"{r0['loss_after_last_step']}) or a norm is not finite")
+    if not bitwise or b[0]["restore"]["step"] != DP_STEPS \
+            or b[0]["restore"]["count"] != DP_STEPS:
+        fail("train_dp: the state restored on (1, 2) differs from the one "
+             "saved on (2, 2)")
+    keys = {"matmul@train_dgrad": "nt", "matmul@train_wgrad": "tn",
+            "flash_attention@train": "flash",
+            "flash_attention_bwd@train": "flash_bwd",
+            "expert_matmul_bwd@train_moe_dgrad": "expert_nt",
+            "expert_matmul_bwd@train_moe_wgrad": "expert_tn",
+            "epilogue_bwd_grouped@train_moe": "epilogue_bwd_grouped"}
+    return {row: [r["train"]["launches"][k] for r in a]
+            for row, k in keys.items()}
 
 
 def window_times_phase(torch, dev, kfa):

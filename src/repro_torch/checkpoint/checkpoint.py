@@ -12,8 +12,11 @@ package's on-disk format (the port of ``repro/checkpoint/checkpoint.py``).
   step, the optimizer's count) is stored as an int32 scalar, as the
   reference keeps them.
 
-Restoring onto a device mesh (the reference's elastic restore) waits for
-the distributed slice: :func:`restore` puts every leaf on one device.
+* Elastic: a checkpoint holds whole leaves.  On a mesh, :func:`save`
+  gathers each leaf whole from the ranks' shards and one rank writes, and
+  :func:`restore` with ``shardings`` cuts this rank's block of each leaf,
+  so a checkpoint written on one mesh (or by the JAX package, or by one
+  process) restores on any other.
 """
 from __future__ import annotations
 
@@ -30,19 +33,22 @@ _NAMES = {torch.float32: "float32", torch.float16: "float16",
           torch.int32: "int32", torch.int64: "int64"}
 
 
-def _items(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
-    """(path, leaf) of a tree of named tuples, dicts, lists and leaves."""
+def _items(tree: Any, prefix: str = "", *, specs: bool = False
+           ) -> List[Tuple[str, Any]]:
+    """(path, leaf) of a tree of named tuples, dicts, lists and leaves;
+    ``specs``: a tree of specs, whose plain tuples are leaves."""
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         out = []
         for name in tree._fields:
-            out += _items(getattr(tree, name), f"{prefix}{name}/")
+            out += _items(getattr(tree, name), f"{prefix}{name}/",
+                          specs=specs)
         return out
     if isinstance(tree, dict):
         out = []
         for k in sorted(tree):
-            out += _items(tree[k], f"{prefix}{k}/")
+            out += _items(tree[k], f"{prefix}{k}/", specs=specs)
         return out
-    if isinstance(tree, (list, tuple)):
+    if isinstance(tree, (list, tuple)) and not specs:
         out = []
         for i, v in enumerate(tree):
             out += _items(v, f"{prefix}{i}/")
@@ -60,12 +66,29 @@ def _to_numpy(leaf: Union[torch.Tensor, int]) -> Tuple[np.ndarray, str]:
     return t.numpy(), _NAMES[t.dtype]
 
 
+def _shas(arrays: Dict[str, np.ndarray]) -> Dict[str, str]:
+    """{key: sha256} of every array, hashed on threads (hashlib releases
+    the interpreter lock on large buffers)."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=min(8, os.cpu_count() or 1)) as ex:
+        return dict(zip(arrays, ex.map(_sha, arrays.values())))
+
+
 def _sha(a: np.ndarray) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
 def save(ckpt_dir: str, step: int, tree: Any,
-         extra_meta: Optional[Dict] = None) -> str:
+         extra_meta: Optional[Dict] = None, *, shardings: Any = None,
+         mesh=None) -> str:
+    """Write ``tree`` as step ``step``.  ``shardings`` (a tree like
+    ``tree`` of specs, an int leaf's spec ignored): ``tree`` holds this
+    rank's shards on ``mesh``; every rank of the mesh calls this, each leaf
+    is gathered whole, and the rank whose global rank is 0 writes while the
+    others wait for it.  Returns the checkpoint's path."""
+    if shardings is not None:
+        return _save_sharded(ckpt_dir, step, tree, extra_meta, shardings,
+                             mesh)
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:09d}")
     tmp = final + ".tmp"
@@ -78,7 +101,7 @@ def save(ckpt_dir: str, step: int, tree: Any,
     np.savez(os.path.join(tmp, "arrays.npz"), **arrays)
     manifest = {
         "step": step,
-        "hashes": {k: _sha(v) for k, v in arrays.items()},
+        "hashes": _shas(arrays),
         "shapes": {k: list(v.shape) for k, v in arrays.items()},
         "dtypes": dtypes,
         "meta": extra_meta or {},
@@ -89,6 +112,24 @@ def save(ckpt_dir: str, step: int, tree: Any,
         shutil.rmtree(final)
     os.replace(tmp, final)
     return final
+
+
+def _save_sharded(ckpt_dir, step, tree, extra_meta, shardings, mesh) -> str:
+    """Gather each leaf whole on rank 0's host (each distinct block sent
+    once), which writes; the other ranks wait for it."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import gather_leaf
+    specs = dict(_items(shardings, specs=True))
+    rank = dist.get_rank()
+    whole = {key: leaf if isinstance(leaf, int)
+             else gather_leaf(leaf, specs[key], mesh, rank)
+             for key, leaf in _items(tree)}
+    path = os.path.join(ckpt_dir, f"step_{step:09d}")
+    if rank == 0:
+        path = save(ckpt_dir, step, _rebuild(tree, whole), extra_meta)
+    del whole
+    dist.barrier()
+    return path
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -114,10 +155,19 @@ def _rebuild(template: Any, leaves: Dict[str, Any], prefix: str = ""):
 
 
 def restore(ckpt_dir: str, template: Any, step: Optional[int] = None, *,
-            device: Union[str, torch.device] = "cpu") -> Tuple[int, Any]:
+            device: Union[str, torch.device] = "cpu", shardings: Any = None,
+            mesh=None, rank: Optional[int] = None) -> Tuple[int, Any]:
     """Restore into the structure of ``template`` (tensors, which may be
     storage-free "meta" tensors, and ints) on ``device``: each tensor leaf
-    takes its template's dtype, and its shape must match."""
+    takes its template's dtype, and its shape must match.
+
+    ``shardings`` (a tree like ``template`` of specs) with ``mesh`` and
+    ``rank``: the elastic restore; ``template`` holds whole leaves and
+    each comes back as ``rank``'s block under its spec (the mesh need not
+    be the writer's)."""
+    from repro_torch.distributed.sharding import local_index
+    specs = dict(_items(shardings, specs=True)) \
+        if shardings is not None else {}
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -138,6 +188,8 @@ def restore(ckpt_dir: str, template: Any, step: Optional[int] = None, *,
                 raise ValueError(f"checkpoint leaf {key}: shape {a.shape}, "
                                  f"template {tuple(leaf.shape)}")
             dtype = manifest["dtypes"].get(key, str(a.dtype))
+            if key in specs:
+                a = a[local_index(a.shape, specs[key], mesh, rank)]
             t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)
                                  ).view(torch.bfloat16) \
                 if dtype == "bfloat16" else torch.from_numpy(np.array(a))

@@ -24,11 +24,16 @@ follow from that, both layouts rather than results:
   cannot compute.  Where the kv split drops, each rank computes the kv
   heads its own q heads read (``nn/layers.py::kv_heads_read``).
 * the decode cache is sharded by kv head (``nn/transformer.py::
-  init_cache``); the reference shards it on sequence (``cache_shardings``).
+  init_cache``); the reference shards it on sequence (``cache_shardings``,
+  which only its dry-run and memory tools read; not ported).
 
-Only the "model" axis shards here: a mesh whose data axes exceed 1 (FSDP,
-the batch axis, the grouped MoE dispatch) raises ``NotImplementedError``
-naming ROADMAP A5b.
+Every axis of the mesh shards: "model" (heads, d_ff, experts, the
+vocabulary) and "data" (FSDP: with ``cfg.fsdp`` the "embed" and
+"expert_embed" dims; the batch's rows).  The model gathers a layer's FSDP
+leaves at use (``nn/transformer.py``).  :func:`opt_shardings` and
+:func:`batch_shardings` are the reference's spec trees, :func:`local_batch`
+cuts a rank's rows, and :func:`gather_leaf` puts a leaf back together on
+one rank (the checkpoint's save).
 """
 from __future__ import annotations
 
@@ -37,6 +42,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.meshctx import DATA_AXES
 from repro_torch.nn import layers as L
 from repro_torch.nn.config import ModelConfig
 
@@ -116,19 +122,97 @@ def tp_shardings(model, mesh) -> Dict:
     return _map2(align, param_shardings(model, mesh), model.param_axes())
 
 
+def opt_shardings(param_sh: Dict):
+    """The AdamW state's specs: the moments mirror the params', the count
+    is replicated (``repro/distributed/sharding.py:98-101``)."""
+    from repro_torch.optim.adamw import OptState
+    return OptState(m=param_sh, v=param_sh, count=())
+
+
+def batch_shardings(specs: Dict, mesh) -> Dict[str, Spec]:
+    """The spec of each batch leaf (anything with ``.shape``: tokens
+    (B, S), frame_embed (B, S, D), patch_embed (B, P, D), decode tokens
+    (B,), a position scalar): the rows over the mesh's ("pod", "data")
+    axes where they divide, else replicated; a scalar replicated
+    (``repro/distributed/sharding.py:104-118``)."""
+    out = {}
+    for name, s in specs.items():
+        shape = tuple(s.shape)
+        if not shape:
+            out[name] = ()
+            continue
+        batch_axes = [a for a in DATA_AXES if a in mesh.shape]
+        total = math.prod(mesh.shape[a] for a in batch_axes) or 1
+        first = None
+        if batch_axes and shape[0] % total == 0:
+            first = (tuple(batch_axes) if len(batch_axes) > 1
+                     else batch_axes[0])
+        out[name] = (first,) + (None,) * (len(shape) - 1)
+    return out
+
+
+def local_batch(batch: Dict, mesh, rank: int) -> Dict:
+    """``rank``'s block of each batch leaf under :func:`batch_shardings`
+    (numpy arrays or tensors, sliced as they are).  Rows that do not divide
+    over the data axes would be replicated, and every data rank would then
+    train on the whole batch as if it were its own: refused."""
+    specs = batch_shardings(batch, mesh)
+    dp = math.prod(mesh.shape.get(a, 1) for a in DATA_AXES)
+    out = {}
+    for name, leaf in batch.items():
+        spec = specs[name]
+        if dp > 1 and spec and spec[0] is None:
+            raise ValueError(f"batch leaf {name}: {tuple(leaf.shape)[0]} "
+                             f"rows do not split over {dp} data ranks")
+        out[name] = leaf[local_index(tuple(leaf.shape), spec, mesh, rank)]
+    return out
+
+
 def mesh_coords(mesh, rank: int) -> Dict[str, int]:
     """This rank's coordinate on each mesh axis (row-major over the axes in
     ``mesh.shape``'s order, as ``make_local_mesh`` lays them out)."""
-    busy = [a for a, n in mesh.shape.items() if a != "model" and n > 1]
-    if busy:
-        raise NotImplementedError(
-            f"a mesh with {busy} > 1 (data parallelism, FSDP, the grouped "
-            f"MoE dispatch) is ROADMAP A5b; this slice shards on 'model' "
-            f"only")
     coords, r = {}, rank
     for a, n in reversed(list(mesh.shape.items())):
         r, coords[a] = divmod(r, n)
     return coords
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """The mesh axes a spec shards on, in order."""
+    out = []
+    for part in spec:
+        if part is not None:
+            out += list(part if isinstance(part, tuple) else (part,))
+    return tuple(out)
+
+
+def gather_leaf(t: torch.Tensor, spec: Spec, mesh, rank: int,
+                dst: int = 0) -> Optional[torch.Tensor]:
+    """The whole leaf of which ``t`` is ``rank``'s block under ``spec``, on
+    the host of rank ``dst`` (None on every other rank): each distinct
+    block is sent once, by the rank holding it whose coordinate is 0 on
+    every axis the leaf is not sharded on.  A collective: every rank of
+    the mesh calls it with its block of the same leaf."""
+    from repro_torch.distributed.collectives import recv_, send_
+    axes = spec_axes(spec)
+    shape = list(t.shape)
+    for dim, part in enumerate(spec):
+        for a in (part if isinstance(part, tuple) else
+                  (part,) if part is not None else ()):
+            shape[dim] *= mesh.shape[a]
+    world = math.prod(mesh.shape.values())
+    owners = [r for r in range(world)
+              if all(c == 0 for a, c in mesh_coords(mesh, r).items()
+                     if a not in axes)]
+    if rank != dst:
+        if rank in owners:
+            send_(t, dst)
+        return None
+    whole = torch.empty(shape, dtype=t.dtype)
+    for r in owners:
+        block = t.cpu() if r == rank else recv_(t.shape, t.dtype, r)
+        whole[local_index(shape, spec, mesh, r)] = block
+    return whole
 
 
 def local_index(shape: Sequence[int], spec: Spec, mesh, rank: int

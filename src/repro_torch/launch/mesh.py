@@ -11,8 +11,11 @@ backend follows the devices:
 * several ranks sharing ``cuda:0`` (``shared_card=True``, which the caller
   asks for by name; nothing falls back to it): gloo, whose CUDA path stages
   each collective through the host.  NCCL refuses two ranks on one card.
-  The serving path uses two collectives, ``all_reduce`` and ``broadcast``,
-  which every backend takes on CUDA tensors.
+  gloo takes ``all_reduce`` and ``broadcast`` of CUDA tensors itself (the
+  serving path's two collectives); ``distributed/collectives.py`` runs
+  training's all-gather (FSDP, the MoE's routing) and reduce-scatter
+  through gloo's ``all_reduce``, and the checkpoint's point-to-point
+  sends through the host.
 
 :func:`spawn_ranks` runs a function in ``world`` spawned processes that
 meet through a file store in a temporary directory (no port to pick), with
@@ -82,9 +85,22 @@ def init_distributed(rank: int, world: int, init_method: str, *,
     return dev
 
 
+def check_tp(cfg, tp: int) -> None:
+    """Refuse what the port does not run over a "model" axis (ROADMAP
+    A5b): tensor parallelism for the SSM and hybrid families."""
+    if tp > 1 and cfg.has_ssm:
+        raise NotImplementedError(
+            f"{cfg.name}: --tp for the {cfg.family} family is ROADMAP A5b "
+            f"(the gated RMSNorm spans the whole d_inner)")
+
+
 def make_local_mesh(tp: int = 1, *, device_type: str = "cuda") -> LocalMesh:
     """The ("data", "model") mesh of shape (world // tp, tp) over the
-    default process group (``repro/launch/mesh.py:17-21``)."""
+    default process group (``repro/launch/mesh.py:17-21``), row-major:
+    rank r holds data coordinate r // tp and model coordinate r % tp.
+    ``group("data")`` is the ranks that share this rank's model
+    coordinate, ``group("model")`` those that share its data
+    coordinate."""
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     n = dist.get_world_size()

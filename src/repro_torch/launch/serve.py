@@ -55,8 +55,9 @@ The ranks are spawned here, or started by ``torchrun`` (one rank a
 process, ``env://``).  On the card each rank takes a card of its own over
 NCCL; ``--shared-card`` puts every rank on ``cuda:0`` over gloo instead,
 its collectives staged through the host (for a host with one card).  The
-SSM and hybrid families, and a mesh whose data axis exceeds 1, raise
-``NotImplementedError`` (ROADMAP A5b)::
+mesh is (data 1, model N): every rank serves the whole queue.  The SSM and
+hybrid families raise ``NotImplementedError`` under ``--tp`` (ROADMAP
+A5b)::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
         --smoke --device cpu --tp 2
@@ -84,8 +85,8 @@ from repro_torch.core.simulator import simulate_gemm
 from repro_torch.core.topology import load_calibrated_topology_guarded
 from repro_torch.kernels import build, ops
 from repro_torch.launch.engine import ServingEngine, serving_gemms
-from repro_torch.launch.mesh import (init_distributed, make_local_mesh,
-                                     spawn_ranks)
+from repro_torch.launch.mesh import (check_tp, init_distributed,
+                                     make_local_mesh, spawn_ranks)
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.frontends import synth_frontend_inputs
 from repro_torch.nn.model import Model, resolve_device
@@ -411,14 +412,6 @@ def _run_serving(args: argparse.Namespace, *,
 
 # Spawned --tp ranks must be done within this (seconds).
 TP_TIMEOUT_S = 3600.0
-
-
-def check_tp(cfg: ModelConfig, tp: int) -> None:
-    """Refuse what this slice does not serve over ranks (ROADMAP A5b)."""
-    if tp > 1 and cfg.has_ssm:
-        raise NotImplementedError(
-            f"{cfg.name}: --tp for the {cfg.family} family is ROADMAP A5b "
-            f"(the gated RMSNorm spans the whole d_inner)")
 
 
 def _serve_rank(rank: int, world: int, init_method: str,

@@ -10,6 +10,17 @@ optimizer's commit, which runs once.  A batch is {"tokens": (B, S)} plus,
 for a model with a frontend, its inputs (``frame_embed`` / ``patch_embed``),
 which travel with the tokens into the loss and into a prefill
 (``repro/launch/steps.py:73-78``).
+
+On a mesh (installed in ``meshctx`` before the step is built) the params,
+grads and moments are this rank's shards (``tp_shardings``) and the batch
+is its rows.  Each rank's loss is the mean over its rows, and the ranks
+hold equal rows, so the global loss is the mean of the ranks' losses:
+:meth:`TrainStep.loss_and_grads` returns that mean and the gradients of
+it.  A leaf replicated over data gets the mean of the ranks' gradients
+(one ``all_reduce`` a leaf, in the gradient's dtype, as the reference's
+psum); an FSDP leaf's gradient is already the ranks' sum (the gather's
+reduce-scatter) and is divided by the data size.  The optimizer's norm
+is taken over every rank's shards.
 """
 from __future__ import annotations
 
@@ -18,6 +29,9 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from repro_torch import meshctx
+from repro_torch.distributed.collectives import all_reduce_, data_mean
+from repro_torch.distributed.sharding import spec_axes, tp_shardings
 from repro_torch.nn.model import Model
 from repro_torch.optim.adamw import AdamW, OptState, tree_items, tree_map
 
@@ -42,11 +56,30 @@ def _unflatten(flat: Dict[str, torch.Tensor]) -> Dict:
 class TrainStep:
     """One training step of ``model`` under ``optimizer``; ``microbatches``
     > 1 accumulates each micro-batch's gradients (in the param dtype) into
-    an f32 buffer, as ``steps.py:38-56``."""
+    an f32 buffer, as ``steps.py:38-56`` (on a data axis, micro-batch i is
+    each rank's i-th block of its rows)."""
 
     def __init__(self, model: Model, optimizer: AdamW, microbatches: int = 1):
         self.model, self.optimizer = model, optimizer
         self.microbatches = microbatches
+        mesh = meshctx.get_mesh()
+        self.specs = tp_shardings(model, mesh) if mesh is not None else None
+
+    def _data_mean(self, loss: torch.Tensor, grads: Dict
+                   ) -> Tuple[torch.Tensor, Dict]:
+        """The loss and the gradients averaged over the data axis (module
+        docstring); as they are with no data axis."""
+        ax = meshctx.data_axis()
+        if ax is None:
+            return loss, grads
+        specs = dict(tree_items(self.specs))
+        out = {}
+        for path, g in tree_items(grads):
+            if "data" in spec_axes(specs[path]):
+                out[path] = g.div(ax.size)
+            else:
+                out[path] = all_reduce_(g, ax.group).div_(ax.size)
+        return data_mean(loss, ax.group, ax.size), _unflatten(out)
 
     def _batch(self, batch: Dict) -> Dict[str, torch.Tensor]:
         """The batch on the model's device: tokens int64, the frontend's
@@ -73,7 +106,7 @@ class TrainStep:
         batch = self._batch(batch)
         n = self.microbatches
         if n == 1:
-            return self._value_and_grad(params, batch)
+            return self._data_mean(*self._value_and_grad(params, batch))
         rows = batch["tokens"].shape[0]
         if rows % n:
             raise ValueError(f"batch {rows} does not split into "
@@ -93,12 +126,13 @@ class TrainStep:
             path: (a / n).to(p.dtype)
             for (path, a), (_, p) in zip(tree_items(gacc),
                                          tree_items(params))})
-        return loss_sum / n, grads
+        return self._data_mean(loss_sum / n, grads)
 
     def apply(self, state: TrainState, loss: torch.Tensor, grads: Dict
               ) -> Tuple[TrainState, Dict]:
         """The optimizer's commit, in place on the params and moments."""
-        opt, om = self.optimizer.update(grads, state.opt, state.params)
+        opt, om = self.optimizer.update(grads, state.opt, state.params,
+                                        self.specs)
         return (TrainState(params=state.params, opt=opt, step=state.step + 1),
                 {"loss": loss, **om})
 

@@ -15,7 +15,11 @@ f32 plus one f32 ``all_reduce``, the residual added once, in the first
 rank's flush (``distributed/collectives.py::tp_matmul``).  Where the kv
 heads could not be split into whole heads, each rank computes the kv heads
 its own q heads read (:func:`kv_heads_read`).  With no mesh every layer
-runs as before.
+runs as before.  Under autograd the column-parallel products' input passes
+through the model axis's "copy" (its gradient, each rank's partial, is
+summed over the axis) and so do replicated wk / wv whose columns a rank
+selects; the row-parallel sum passes the gradient through to every rank
+(``collectives.copy_to_group``, ``all_reduce_f32``).
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import meshctx
-from repro_torch.distributed.collectives import tp_matmul
+from repro_torch.distributed.collectives import copy_to_group, tp_matmul
 from repro_torch.kernels import ops as kops
 from repro_torch.nn import attention as attn_lib
 from repro_torch.nn.config import ModelConfig
@@ -258,10 +262,23 @@ def kv_weights(p: Dict, cfg: ModelConfig
     h = p["wq"].shape[-1] // hd
     if h == cfg.num_heads or wk.shape[-1] < cfg.num_kv_heads * hd:
         return wk, wv
-    heads = kv_heads_read(cfg, meshctx.model_axis().coord * h, h)
+    ax = meshctx.model_axis()
+    heads = kv_heads_read(cfg, ax.coord * h, h)
     cols = (torch.tensor(heads, device=wk.device)[:, None] * hd
             + torch.arange(hd, device=wk.device)).reshape(-1)
+    # Every rank holds wk / wv whole and reads its own columns: the
+    # gradient of each is the sum of the ranks' partials.
+    wk, wv = copy_to_group(wk, ax.group), copy_to_group(wv, ax.group)
     return wk.index_select(-1, cols), wv.index_select(-1, cols)
+
+
+def column_input(h: torch.Tensor, w: torch.Tensor, full_n: int
+                 ) -> torch.Tensor:
+    """``h`` as the input of a product with ``w``: when ``w``'s columns are
+    this rank's shard of ``full_n``, through the model axis's "copy"."""
+    if w.shape[-1] == full_n:
+        return h
+    return copy_to_group(h, meshctx.model_axis().group)
 
 
 def row_parallel(x: torch.Tensor, w: torch.Tensor, full_k: int,
@@ -303,7 +320,7 @@ def attn_forward(
         wk = _repeat_kv_weight(wk, Hkv, hd, group)
         wv = _repeat_kv_weight(wv, Hkv, hd, group)
         Hkv = H
-    h = norm(x, p["norm"], cfg)
+    h = column_input(norm(x, p["norm"], cfg), p["wq"], cfg.num_heads * hd)
     q = dense(h, p["wq"]).reshape(B, S, H, hd).transpose(1, 2)
     k = dense(h, wk).reshape(B, S, Hkv, hd).transpose(1, 2)
     v = dense(h, wv).reshape(B, S, Hkv, hd).transpose(1, 2)
@@ -370,7 +387,8 @@ def mlp_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused MLP: activations run in the GEMM epilogues; the block's
     residual add (when given) fuses into the down-projection's flush."""
-    h = norm(x, p["norm"], cfg)
+    w_in = p["wu"] if cfg.activation == "swiglu" else p["w1"]
+    h = column_input(norm(x, p["norm"], cfg), w_in, cfg.d_ff)
     if cfg.activation == "swiglu":
         u = dense(h, p["wu"])
         a = dense(h, p["wg"], epilogue="swiglu_gate", gate=u)

@@ -30,7 +30,24 @@ experts (or of the other d_ff shards) count as zeros, each rank's weighted
 combine is a partial sum, and one f32 ``all_reduce`` adds them.  Decode
 does the same: a rank gathers weights among its local experts only, the
 gate of every selected expert it does not hold is 0, and one f32
-``all_reduce`` adds the ranks' sums.
+``all_reduce`` adds the ranks' sums.  Under autograd that sum passes the
+gradient through, and the dispatched tokens and the gates pass the model
+axis's "copy" (``distributed/collectives.py``): each rank's gradient of
+them is a partial over its experts.
+
+Data parallelism (a data axis over 1, ``meshctx.data_axis``): each rank
+routes its own tokens.  The default (flat) dispatch is the reference's on
+the GLOBAL batch, as GSPMD computes it (``repro/nn/moe.py:55-61``): the
+capacity is C = ceil(T_global k cf / E) and a token of one shard can drop
+because of another shard's tokens.  The ranks all-gather the expert ids
+(small), every rank computes every copy's slot in the global plan and
+writes its own copies into the (E, C, D) buffer, one ``all_reduce`` over
+data sums the disjoint rows, the experts run on the whole buffer, and each
+rank combines its own copies.  The aux loss takes the global means
+(``data_mean``).  With ``cfg.moe_local_dispatch`` each data rank
+dispatches its own tokens with C from the local T and the aux loss is the
+mean of the ranks' (``_moe_forward_grouped``, the reference's vmap over
+data shards).
 """
 from __future__ import annotations
 
@@ -40,7 +57,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import meshctx
-from repro_torch.distributed.collectives import all_reduce_f32
+from repro_torch.distributed.collectives import (all_gather_dim,
+                                                 all_reduce_f32,
+                                                 copy_to_group, data_mean,
+                                                 sum_disjoint)
 from repro_torch.kernels import ops as kops
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.layers import ParamDef, norm, norm_defs
@@ -106,31 +126,70 @@ def _local_experts(w: torch.Tensor, cfg: ModelConfig) -> int:
     return meshctx.model_axis().coord * w.shape[0]
 
 
-def _dispatch_compute(p: Dict, flat: torch.Tensor, cfg: ModelConfig
+def _sharded(p: Dict, cfg: ModelConfig) -> bool:
+    """Whether this rank's experts are a part of the whole: split experts
+    or a d_ff shard of every expert."""
+    return (p["wu"].shape[0] != cfg.num_experts
+            or p["wu"].shape[-1] != cfg.moe_d_ff)
+
+
+def _mine(order: torch.Tensor, lo: int, n: int) -> torch.Tensor:
+    """The positions in ``order`` (a permutation of the global copies) of
+    the copies [lo, lo + n), in order, without a host sync."""
+    other = (order < lo) | (order >= lo + n)
+    return torch.sort(other.to(torch.uint8), stable=True)[1][:n]
+
+
+def _dispatch_compute(p: Dict, flat: torch.Tensor, cfg: ModelConfig,
+                      global_data: bool = False
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sort-based capacity dispatch + expert GEMMs for (T, D) tokens;
-    returns (y (T, D) in flat's dtype, aux loss)."""
+    returns (y (T, D) in flat's dtype, aux loss).  ``global_data``: the
+    tokens are this rank's shard of the data axis's global batch, which is
+    dispatched as one (module docstring)."""
     T, D = flat.shape
     E, K = cfg.num_experts, cfg.experts_per_token
-    C = _capacity(cfg, T)
-    ax = meshctx.model_axis()
+    ax = meshctx.model_axis() if _sharded(p, cfg) else None
+    dax = meshctx.data_axis() if global_data else None
+    n_data = dax.size if dax is not None else 1
+    C = _capacity(cfg, T * n_data)
 
     probs, gate_vals, gate_ids = _route(flat, p["router"], K)
-    # Load-balancing auxiliary loss (Switch Transformer eq. 4).
+    # Load-balancing auxiliary loss (Switch Transformer eq. 4), over the
+    # global tokens (each shard holds T of them).
     me = probs.mean(0)
     ce = F.one_hot(gate_ids, E).float().sum(1).mean(0)
+    if dax is not None:
+        me = data_mean(me, dax.group, n_data)
+        ce = data_mean(ce, dax.group, n_data)
     aux = E * (me * ce).sum()
 
-    order, _, slot = dispatch_plan(gate_ids, E, C)
+    if dax is None:
+        order, _, slot = dispatch_plan(gate_ids, E, C)
+    else:
+        # The global plan; this rank keeps its own copies (token-major
+        # rows lo .. lo + T·K of the global expansion), in plan order.
+        ids = all_gather_dim(gate_ids, 0, dax.group)
+        order, _, slot = dispatch_plan(ids, E, C)
+        lo = dax.coord * T * K
+        sel = _mine(order, lo, T * K)
+        order, slot = order[sel] - lo, slot[sel]
+    if ax is not None:
+        flat = copy_to_group(flat, ax.group)
+        gate_vals = copy_to_group(gate_vals, ax.group)
     copies = flat[:, None, :].expand(T, K, D).reshape(T * K, D)[order]
 
     # Every kept copy owns its slot; dropped copies all land in the
     # overflow row E·C, which is cut off before the GEMMs.
     buf = torch.zeros((E * C + 1, D), dtype=flat.dtype, device=flat.device)
     buf.index_copy_(0, slot, copies)
+    xe = buf[:-1]
+    if dax is not None:
+        # The data ranks' copies hold disjoint slots: their sum is exact.
+        xe = sum_disjoint(xe, dax.group)
     # This rank's experts (all of them unless the experts are split).
     e0, n_e = _local_experts(p["wu"], cfg), p["wu"].shape[0]
-    xe = buf[:-1].view(E, C, D)[e0:e0 + n_e]
+    xe = xe.view(E, C, D)[e0:e0 + n_e]
 
     # A d_ff shard's wd product is a partial sum: keep it in f32.
     partial = p["wd"].shape[1] != cfg.moe_d_ff
@@ -140,9 +199,10 @@ def _dispatch_compute(p: Dict, flat: torch.Tensor, cfg: ModelConfig
                             out_dtype=torch.float32 if partial else None)
 
     # Each slot's output goes back to the token-major row of the copy that
-    # owns it (an empty slot to the row T·K, cut off); a dropped copy's row
-    # stays zero, so its gate weight multiplies nothing, and so does the
-    # row of a copy another rank's experts hold.
+    # owns it (an empty slot, or one of another data rank's copies, to the
+    # row T·K, cut off); a dropped copy's row stays zero, so its gate
+    # weight multiplies nothing, and so does the row of a copy another
+    # rank's experts hold.
     owner = torch.full((E * C + 1,), T * K, dtype=order.dtype,
                        device=order.device)
     owner.index_copy_(0, slot, order)
@@ -160,30 +220,50 @@ def moe_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig
     (Switch/GShard semantics; capacity_factor sets the rate).
 
     ``cfg.moe_local_dispatch`` takes the per-data-shard dispatch only under
-    an installed mesh whose data axes exceed 1 and divide the tokens, as in
-    the reference (``repro/nn/moe.py:62-69``); otherwise the flat one."""
+    an installed mesh whose data axes exceed 1 and divide the global
+    tokens, as in the reference (``repro/nn/moe.py:62-69``); otherwise the
+    flat one, over the global batch."""
     mesh = meshctx.get_mesh()
     if cfg.moe_local_dispatch and mesh is not None:
         dp = 1
-        for a in ("pod", "data"):
+        for a in meshctx.DATA_AXES:
             dp *= mesh.shape.get(a, 1)
-        if (x.shape[0] * x.shape[1]) % dp == 0 and dp > 1:
+        dax = meshctx.data_axis()
+        tokens = x.shape[0] * x.shape[1] * (dax.size if dax else 1)
+        if tokens % dp == 0 and dp > 1:
             return _moe_forward_grouped(p, x, cfg, dp)
     return _moe_forward_flat(p, x, cfg)
 
 
 def _moe_forward_grouped(p: Dict, x: torch.Tensor, cfg: ModelConfig,
-                         dp: int):
-    raise NotImplementedError(
-        f"{cfg.name}: moe_local_dispatch over {dp} data shards (the "
-        f"per-data-shard dispatch) is ROADMAP A5b")
+                         dp: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's per-data-shard dispatch (``repro/nn/moe.py:73-84``):
+    the global tokens in ``dp`` groups, each dispatched on its own (C from
+    its own token count), the aux loss the groups' mean.  Under a data
+    axis of ``dp`` ranks each rank's tokens are its group and the mean is
+    taken over the axis; otherwise ``x``'s tokens are split into ``dp``
+    groups here."""
+    B, S, D = x.shape
+    h = norm(x, p["norm"], cfg)
+    flat = h.reshape(B * S, D)
+    dax = meshctx.data_axis()
+    if dax is not None and dax.size == dp:
+        y, aux = _dispatch_compute(p, flat, cfg)
+        aux = data_mean(aux, dax.group, dp)
+    else:
+        outs = [_dispatch_compute(p, g, cfg)
+                for g in flat.reshape(dp, (B * S) // dp, D)]
+        y = torch.cat([o[0] for o in outs])
+        aux = torch.stack([o[1] for o in outs]).mean()
+    return y.reshape(B, S, D).to(x.dtype), aux
 
 
 def _moe_forward_flat(p: Dict, x: torch.Tensor, cfg: ModelConfig
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     B, S, D = x.shape
     h = norm(x, p["norm"], cfg)
-    y, aux = _dispatch_compute(p, h.reshape(B * S, D), cfg)
+    y, aux = _dispatch_compute(p, h.reshape(B * S, D), cfg,
+                               global_data=True)
     return y.reshape(B, S, D).to(x.dtype), aux
 
 
@@ -198,7 +278,7 @@ def moe_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     gate of 0) and the ranks' sums are added in f32."""
     B, _, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
-    ax = meshctx.model_axis()
+    ax = meshctx.model_axis() if _sharded(p, cfg) else None
     e0, n_e = _local_experts(p["wg"], cfg), p["wg"].shape[0]
     h = norm(x, p["norm"], cfg).reshape(B, D)
     _, gate_vals, gate_ids = _route(h, p["router"], K)

@@ -23,9 +23,19 @@ embedding and the head are vocab-parallel.  Each rank looks up the tokens
 in its own rows of the embedding, zeros elsewhere, and one f32
 ``all_reduce`` sums the rows (exact: one term is not zero); the head gives
 this rank's (..., V/n) f32 logits, written into zeros of the full V and
-summed the same way.  The decode cache holds this rank's kv heads.  The SSM
-and hybrid families raise under tensor parallelism: their gated RMSNorm
-spans the whole d_inner and needs its own reduction (ROADMAP A5b).
+summed the same way; under autograd the sums pass the gradient through
+and the head's input passes the "copy" (``distributed/collectives.py``).
+The decode cache holds this rank's kv heads.  The SSM and hybrid families
+raise under tensor parallelism: their gated RMSNorm spans the whole
+d_inner and needs its own reduction (ROADMAP A5b).
+
+Data parallelism (a data axis over 1, ``meshctx.data_axis``): each rank
+runs its own rows of the batch.  A leaf FSDP shards ("embed" ->
+"data", ``cfg.fsdp``) is gathered over the data axis where it is used:
+each layer's inside :func:`_layer_step`, so under ``cfg.remat`` the
+gathered weights live for one layer and are gathered again in the
+recompute (ZeRO-3); the final norm's before it runs.  The gather's
+backward reduce-scatters the gradient's sum back to the shards.
 
 Training: :func:`lm_loss` is the reference's chunked next-token NLL over
 :func:`forward_hidden`, whose layers run under
@@ -38,10 +48,12 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import meshctx
-from repro_torch.distributed.collectives import all_reduce_f32
+from repro_torch.distributed.collectives import (all_reduce_f32,
+                                                 copy_to_group, gather_along)
 from repro_torch.nn import layers as L
 from repro_torch.nn import mamba2, moe
 from repro_torch.nn.config import ModelConfig
@@ -95,6 +107,29 @@ def _shared_after(cfg: ModelConfig, i: int) -> int:
 def _layer(tree, i: int):
     return {k: (_layer(v, i) if isinstance(v, dict) else v[i])
             for k, v in tree.items()}
+
+
+def _fsdp_gather(tree: Dict, defs: Dict, cfg: ModelConfig) -> Dict:
+    """``tree`` (a layer's, the shared block's or the final norm's params,
+    ``defs`` their defs) with every leaf FSDP shards gathered whole over
+    the data axis: each dim whose logical axis the rules map to "data" and
+    whose size is below its def's.  The tree itself with no data axis."""
+    ax = meshctx.data_axis()
+    if ax is None:
+        return tree
+    from repro_torch.distributed.sharding import rules_for
+    data_axes = {a for a, t in rules_for(cfg).items() if t == "data"}
+    out = {}
+    for k, v in tree.items():
+        d = defs[k]
+        if isinstance(v, dict):
+            out[k] = _fsdp_gather(v, d, cfg)
+            continue
+        for dim, (n, name) in enumerate(zip(d.shape, d.axes or ())):
+            if name in data_axes and v.shape[dim] != n:
+                v = gather_along(v, dim, ax.group)
+        out[k] = v
+    return out
 
 
 def _check_tp(cfg: ModelConfig) -> None:
@@ -151,6 +186,8 @@ def logits(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
     it runs as :class:`_LmHead`."""
     w = lm_head_weight(params, cfg)
     lo = _vocab_offset(w.shape[1], cfg)
+    if lo is not None:
+        x = copy_to_group(x, meshctx.model_axis().group)
     if x.dtype == w.dtype == torch.float32:
         out = torch.matmul(x, w)
     elif x.device.type != "cuda":
@@ -161,8 +198,7 @@ def logits(x: torch.Tensor, params: Dict, cfg: ModelConfig) -> torch.Tensor:
         out = _head_f32(x, w)
     if lo is None:
         return out
-    full = out.new_zeros((*out.shape[:-1], cfg.vocab_size))
-    full[..., lo:lo + w.shape[1]] = out
+    full = F.pad(out, (lo, cfg.vocab_size - lo - w.shape[1]))
     return all_reduce_f32(full, meshctx.model_axis().group)
 
 
@@ -244,11 +280,14 @@ def _layer_step(lp: Dict, shared: Optional[Dict], x: torch.Tensor,
                 positions: torch.Tensor, cfg: ModelConfig, i: int
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Layer ``i`` of a full pass (the hybrid's shared block after it where
-    one follows): (x, the layer's MoE aux loss or 0)."""
+    one follows): (x, the layer's MoE aux loss or 0).  FSDP leaves are
+    gathered here, inside the layer's checkpoint."""
+    lp = _fsdp_gather(lp, layer_defs(cfg), cfg)
     if not cfg.has_ssm:
         return _block(lp, x, positions, cfg)
     x = x + mamba2.mamba_forward(lp["mamba"], x, cfg)
     if _shared_after(cfg, i) >= 0:
+        shared = _fsdp_gather(shared, model_defs(cfg)["shared"], cfg)
         x = _shared_block(shared, x, positions, cfg)
     return x, x.new_zeros((), dtype=torch.float32)
 
@@ -274,7 +313,8 @@ def forward_hidden_aux(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
         else:
             x, a = _layer_step(lp, shared, x, positions, cfg, i)
         aux = aux + a
-    return L.norm(x, params["final_norm"], cfg), aux
+    final = _fsdp_gather(params["final_norm"], L.norm_defs(cfg), cfg)
+    return L.norm(x, final, cfg), aux
 
 
 def forward_hidden(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,

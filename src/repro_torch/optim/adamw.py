@@ -7,14 +7,20 @@ the training state: at phi4-mini's full size the state is 46 GB of the
 card's 80.  The arithmetic and its order are the reference's
 (``adamw.py:43-76``); the leaves are visited in the reference's order
 (sorted keys, as ``jax.tree_util`` flattens a dict).
+
+On a mesh each rank updates its own shards (the moments mirror the params'
+specs, ``opt_shardings``): the update is elementwise, and only the
+clipping norm needs every rank's leaves (:func:`global_norm` with
+``specs``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator, NamedTuple, Tuple, Union
+from typing import Dict, Iterator, NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from repro_torch import meshctx
 from repro_torch.optim.schedule import Schedule
 
 
@@ -39,13 +45,37 @@ def tree_map(fn, tree: Dict) -> Dict:
             for k, v in tree.items()}
 
 
-def global_norm(tree: Dict) -> torch.Tensor:
+def global_norm(tree: Dict, specs: Optional[Dict] = None) -> torch.Tensor:
     """sqrt of the sum over leaves (in order) of each leaf's f32 sum of
-    squares; a 0-dim f32 tensor."""
-    total = None
-    for _, x in tree_items(tree):
+    squares; a 0-dim f32 tensor.
+
+    ``specs`` (a tree like ``tree``): the leaves are this rank's shards on
+    the installed mesh.  Each shard's sum of squares
+    is summed over the axes its leaf is sharded on (one ``all_reduce`` a
+    set of axes, leaves grouped by it); a replicated leaf counts once.
+    Every rank gets the same norm."""
+    if specs is None:
+        total = None
+        for _, x in tree_items(tree):
+            s = torch.sum(torch.square(x.float()))
+            total = s if total is None else total + s
+        return torch.sqrt(total)
+    from repro_torch.distributed.collectives import all_reduce_
+    from repro_torch.distributed.sharding import spec_axes
+    mesh = meshctx.get_mesh()
+    flat_specs = dict(tree_items(specs))
+    parts: Dict[Tuple[str, ...], torch.Tensor] = {}
+    for path, x in tree_items(tree):
+        axes = tuple(a for a in spec_axes(flat_specs[path])
+                     if mesh.shape[a] > 1)
         s = torch.sum(torch.square(x.float()))
-        total = s if total is None else total + s
+        parts[axes] = s if axes not in parts else parts[axes] + s
+    total = None
+    for axes in sorted(parts):
+        s = parts[axes].reshape(1)
+        for a in axes:
+            s = all_reduce_(s, mesh.group(a))
+        total = s[0] if total is None else total + s[0]
     return torch.sqrt(total)
 
 
@@ -64,12 +94,14 @@ class AdamW:
                                   device=p.device), t)
         return OptState(m=zeros(params), v=zeros(params), count=0)
 
-    def update(self, grads: Dict, state: OptState, params: Dict
-               ) -> Tuple[OptState, Dict]:
+    def update(self, grads: Dict, state: OptState, params: Dict,
+               specs: Optional[Dict] = None) -> Tuple[OptState, Dict]:
         """Apply one step in place to ``params`` and the moments of
-        ``state``; returns (the new state, metrics {"grad_norm", "lr"})."""
+        ``state``; returns (the new state, metrics {"grad_norm", "lr"}).
+        ``specs``: the leaves are this rank's shards under the installed
+        mesh (the norm is taken over every rank's)."""
         count = state.count + 1
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, specs)
         if self.clip_norm > 0:
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-12), max=1.0)
         else:

@@ -2,8 +2,9 @@
 and the training driver's metric logger."""
 from repro_torch.runtime.fault_tolerance import (Heartbeat, PreemptionGuard,
                                                  StragglerMonitor,
+                                                 elastic_reshard,
                                                  is_transient, retry)
 from repro_torch.runtime.metrics import MetricLogger
 
 __all__ = ["Heartbeat", "PreemptionGuard", "StragglerMonitor",
-           "is_transient", "retry", "MetricLogger"]
+           "elastic_reshard", "is_transient", "retry", "MetricLogger"]

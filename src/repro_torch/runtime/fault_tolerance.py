@@ -11,6 +11,8 @@
 * ``Heartbeat`` — liveness file another process/agent can watch; writes
   are atomic (temp file + ``os.replace``) so a reader never observes an
   empty or partial file.
+* ``elastic_reshard`` — a state tree's whole leaves cut to this rank's
+  shards under new specs (a mesh that may differ from the writer's).
 """
 from __future__ import annotations
 
@@ -194,3 +196,23 @@ class Heartbeat:
     def close(self):
         self._stop.set()
 
+
+def elastic_reshard(tree: Any, new_shardings: Any, mesh, rank: int) -> Any:
+    """``rank``'s shards of ``tree`` (named tuples, dicts and whole
+    tensors; an int leaf kept as it is) under ``new_shardings`` (a tree
+    like it of specs) on ``mesh``: the reference's re-placement onto new
+    shardings (``repro/runtime/fault_tolerance.py:203-206``), each block a
+    contiguous copy."""
+    from repro_torch.distributed.sharding import local_index
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(elastic_reshard(getattr(tree, f),
+                                            getattr(new_shardings, f),
+                                            mesh, rank)
+                            for f in tree._fields))
+    if isinstance(tree, dict):
+        return {k: elastic_reshard(v, new_shardings[k], mesh, rank)
+                for k, v in tree.items()}
+    if isinstance(tree, int):
+        return tree
+    return tree[local_index(tuple(tree.shape), new_shardings, mesh,
+                            rank)].clone()

@@ -49,6 +49,7 @@ from repro_torch.core import hardware as thw
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed import sharding as sh
 from repro_torch.launch import serve as serve_driver
+from repro_torch.launch import train as train_driver
 from repro_torch.launch.engine import serving_gemms
 from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.nn import layers as L
@@ -204,21 +205,35 @@ def test_local_index_tiles_each_leaf():
 
 
 def test_data_axis_and_ssm_raise_a5b():
-    """A mesh whose data axis exceeds 1, and ``serve --tp`` for the SSM
-    and hybrid families, are ROADMAP A5b."""
-    model = Model(get_config("phi4-mini-3.8b", smoke=True), device="cpu")
+    """A mesh whose data axis exceeds 1 shards (FSDP's "embed" dims over
+    "data", the rest over "model"), while ``--tp`` for the SSM and hybrid
+    families, serving or training, is ROADMAP A5b."""
+    cfg = dataclasses.replace(get_config("phi4-mini-3.8b", smoke=True),
+                              fsdp=True)
+    model = Model(cfg, device="cpu")
     mesh = _mesh(2, 2)
     specs = sh.tp_shardings(model, mesh)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        sh.shard_params(model.init(torch.Generator().manual_seed(0)), specs,
-                        mesh, 0)
-    with pytest.raises(NotImplementedError, match="A5b"):
-        model.init_shards(torch.Generator().manual_seed(0), mesh, 1)
+    assert specs["layers"]["attn"]["wq"] == (None, "data", "model")
+    full = model.init(torch.Generator().manual_seed(0))
+    wq = full["layers"]["attn"]["wq"]
+    L_, D, F = wq.shape
+    for rank in range(4):
+        d, m = divmod(rank, 2)
+        got = sh.shard_params(full, specs, mesh, rank)["layers"]["attn"]["wq"]
+        assert torch.equal(got, wq[:, d * D // 2:(d + 1) * D // 2,
+                                   m * F // 2:(m + 1) * F // 2])
+        assert torch.equal(
+            model.init_shards(torch.Generator().manual_seed(0), mesh,
+                              rank)["layers"]["attn"]["wq"], got)
     for arch in ("mamba2-370m", "zamba2-7b"):
         args = serve_driver.build_parser().parse_args(
             ["--arch", arch, "--smoke", "--device", "cpu", "--tp", "2"])
         with pytest.raises(NotImplementedError, match="A5b"):
             serve_driver.run_serving(args)
+        targs = train_driver.build_parser().parse_args(
+            ["--arch", arch, "--smoke", "--device", "cpu", "--tp", "2"])
+        with pytest.raises(NotImplementedError, match="A5b"):
+            train_driver.run_training(targs)
 
 
 class _AxisMesh(types.SimpleNamespace):

@@ -18,7 +18,6 @@ atol 3e-2 (the GEMM bound of 0.3·√K would pass anything of this size).
 """
 import dataclasses
 import math
-import types
 import warnings
 
 import jax
@@ -33,7 +32,6 @@ from repro.core.hardware import GPU_H100_LIKE as JGPU_H100_LIKE
 from repro.kernels import ops as jops
 from repro.nn import moe as jmoe
 from repro.nn.layers import norm as jnorm
-from repro_torch import meshctx
 from repro_torch.configs.registry import get_config
 from repro_torch.core.hardware import GPU_H100_LIKE
 from repro_torch.core.latency import Epilogue
@@ -380,8 +378,10 @@ def test_moe_forward_grouped_raises():
     """``moe_local_dispatch`` takes the grouped (per-data-shard) dispatch
     only under a mesh whose data axis exceeds 1, as the reference does
     (``repro/nn/moe.py:62-69``): with no mesh the flat dispatch runs and
-    gives the reference's output; under a data axis of 2 the grouped path,
-    ROADMAP A5b, raises."""
+    gives the reference's output.  The grouped path no longer raises (it
+    was ROADMAP A5b): with ``dp`` groups it equals the reference's
+    ``_moe_forward_grouped`` on the same tokens (on real data ranks in
+    ``tests/test_torch_dp.py``)."""
     jcfg, cfg = _configs(moe_local_dispatch=True)
     tree = _moe_params(cfg)
     x = np.random.default_rng(2).standard_normal(
@@ -391,9 +391,8 @@ def test_moe_forward_grouped_raises():
     ty, taux = moe.moe_forward(tp, tx, cfg)
     _close(ty, jy, "f32", cfg.d_model)
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
-    meshctx.set_mesh(types.SimpleNamespace(shape={"data": 2, "model": 1}))
-    try:
-        with pytest.raises(NotImplementedError, match="A5b"):
-            moe.moe_forward(tp, tx, cfg)
-    finally:
-        meshctx.set_mesh(None)
+    for dp in (2, 4):
+        jy, jaux = jmoe._moe_forward_grouped(jp, jx, jcfg, dp)
+        ty, taux = moe._moe_forward_grouped(tp, tx, cfg, dp)
+        _close(ty, jy, "f32", cfg.d_model)
+        np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)
