@@ -172,7 +172,8 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               HBM rate over the bound's bytes and over the bytes its walk
               reads under ``kmm.l2_reckoning``), and the f32 flash forward
               with lse at train_grads' shape beside the library's f32
-              attention.
+              attention; the library's attention backward alone is
+              captured in a CUDA graph too (``backward_ms``).
 11. The rest of the zoo (after serve_hybrid; train_audio after
     train_hybrid):
     flash_window — every flash kernel with a sliding window, in bf16
@@ -194,11 +195,15 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               yardstick, at 2 layers; then mixtral serves one request of
               8,192 tokens (the window binds in prefill and decode).
     serve_tp — tensor- and expert-parallel serving (after serve_zoo, its
-              models freed): phi4-mini-3.8b and qwen3-moe-30b-a3b whole
-              and mixtral-8x22b at 8 layers, each on 2 spawned ranks
+              models freed): phi4-mini-3.8b, qwen3-moe-30b-a3b,
+              mamba2-370m and zamba2-7b whole (the SSM heads split over
+              the ranks, the gated norm's sum of squares summed over
+              them) and mixtral-8x22b at 8 layers, each on 2 spawned ranks
               sharing cuda:0 over gloo (collectives staged through the
               host), weights from ``init_shards`` at seed 0, phase 4's
-              traffic.  Per rank: launches against the reckoning in
+              8 requests in two waves with 4 tokens each (TP_TRAFFIC,
+              which keeps the script in its time).  Per rank: every
+              request served whole, launches against the reckoning in
               prefills and decode steps apart, every GEMM at the local
               shapes, peak memory; request 0's prefill logits against the
               single-process run's on the same padded tokens (relative L2
@@ -206,16 +211,16 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               served tokens against its tokens (counted).  The gemm phase
               checks the row-parallel products (f32 out, the residual in
               rank 0's flush) at phi4's local shapes.
-    serve_tp_f32 — the same three models at 2 layers, full width, in f32
-              (mixtral with its window, which does not bind at these
-              prompts):
-              request 0's prefill logits on 2 ranks against one process,
-              within F32_LOGITS_REL_CAP (summation order only).
+    serve_tp_f32 — the same five models at 2 layers (zamba2-7b at 6, the
+              least depth at which its shared block runs), full width, in
+              f32 (mixtral with its window, which does not bind at these
+              prompts): request 0's prefill logits on 2 ranks against one
+              process, within TP_F32_REL_CAP (summation order only).
     window_times — the windowed forwards and backwards, bf16 and f32, at
               mixtral's shape beside the causal kernels, the plain
               versions and the library's attention with the window as a
-              boolean mask (its backward: forward and backward less its
-              forward); the library's causal attention beside the bf16
+              boolean mask (its backward alone in a CUDA graph,
+              ``backward_ms``); the library's causal attention beside the bf16
               causal kernel.
     train_audio — musicgen-large whole, 3 steps of phase 10's train step
               with frame embeddings in the batch, at lr AUDIO_TRAIN_LR.
@@ -231,17 +236,22 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               ranks sharing cuda:0 over gloo (``--shared-card``'s mode,
               collectives staged through the host): qwen3-moe-30b-a3b at
               full width, 2 layers, f32, on a (data 2, model 2) mesh with
-              its FSDP and the default (global) MoE dispatch, and
-              phi4-mini-3.8b at 2 layers on (2, 1), weights from
-              ``init_shards`` (seed 5), each rank its rows of a 2 x 512
-              batch.  The one-process step on the card runs first and is
-              freed; its loss, gradients and updated params go to a file
-              each rank reads memory-mapped.  One step on the ranks: every
-              leaf (gradients and updated params, each rank's blocks, the
-              sums of squares added over the shard axes) within 1e-4
-              relative L2, the loss within 1e-5; each rank's launches equal
-              to the reckoning and its GEMMs at the local shapes (rows,
-              heads, experts; FSDP weights gathered whole over data).
+              its FSDP and the default (global) MoE dispatch, zamba2-7b at
+              6 layers on (2, 2) with its FSDP, phi4-mini-3.8b at 2 layers
+              on (2, 1) and mamba2-370m at 2 layers on (1, 2), weights
+              from ``init_shards`` (seed 5), each rank its rows of a
+              2 x 512 batch.  The one-process step on the card runs first
+              and is freed; its loss, gradients and updated params go to a
+              file each rank reads memory-mapped.  One step on the ranks:
+              every leaf (gradients and updated params, each rank's blocks,
+              the sums of squares added over the shard axes; the SSM
+              block's whole in_b, in_c and B / C convs among them) within
+              1e-4 relative L2 (the SSM and hybrid cases' gradients; their
+              updated params are reported beside the gradients' sign
+              flips, ``_dp_f32_report``), the loss within 1e-5; each
+              rank's launches equal to the reckoning and its GEMMs at the
+              local shapes (rows, heads, SSM heads, experts; FSDP weights
+              gathered whole over data).
     train_dp — qwen3-moe-30b-a3b in bf16 on (2, 2) at the depth a printed
               reckoning of the bytes a rank and of the checkpoint allows
               (DP_RANK_BUDGET, DP_CKPT_BUDGET), 3
@@ -253,6 +263,13 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               and restored on (1, 2) by 2 other ranks: the (2, 2) blocks of
               every leaf, hashed after the restore, equal the shards' own
               hashes (bit for bit).
+    dryrun — the port's dry-run (``launch/dryrun.py``) on a (1, 1) mesh, on
+              the host, at the train phase's phi4-mini cell (B 4 x S 512)
+              and the serve phase's decode step: the estimated GB beside the
+              measured peak, the counted FLOPs beside ``model_flops``,
+              ``roofline_s`` beside the measured ms a step; its GEMM calls
+              and FLOPs must equal the reckoning of the launches those
+              phases check.
 Each serve phase counts the launches of every kernel inside the model's
 prefills and inside its decode steps apart.  The line before the last is
 the kernels summary (a row's launches are those of its own run and step
@@ -277,6 +294,8 @@ from pathlib import Path
 from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
+# Rows of the serve and train phases the dryrun phase reads, by phase.
+MEASURED = {}
 
 BF16_PEAK = 989e12          # H100 SXM dense bf16 tensor-core flop/s
 HBM_BW = 3.35e12            # H100 SXM HBM3 bytes/s
@@ -437,8 +456,9 @@ def main() -> int:
     memo = fidelity_phase(torch, dev, kmm, calib)
     residual_phase(memo, calib)
     serve_calibrated_phase(torch, dev, kmm, kfa, calib)
-    ssm_launches = serve_ssm_phase(torch, dev, kmm, kfa)
-    hybrid_launches, f32_launches = serve_hybrid_phase(torch, dev, kmm, kfa)
+    ssm_launches = serve_ssm_phase(torch, dev, kmm, kfa, tp_refs)
+    hybrid_launches, f32_launches = serve_hybrid_phase(torch, dev, kmm, kfa,
+                                                       tp_refs)
     window_launches = serve_zoo_phase(torch, dev, kmm, kfa, tp_refs)
     tp_launches = serve_tp_phase(torch, tp_refs)
     serve_tp_f32_phase(torch, tp_refs)
@@ -464,6 +484,7 @@ def main() -> int:
     # Last: when train_times ran after these phases on an H100,
     # torch.profiler recorded no device kernel in this process.
     dp_launches = train_dp_phases(torch, dev, kmm, kfa)
+    dryrun_phase()
     # Each row's launches: its own run, in its own step kind.
     launches = {
         "matmul@decode": launches["matmul@decode"],
@@ -1020,7 +1041,12 @@ def _serve(torch, dev, kmm, kfa, arch, extra=(), phase=None, params=None,
                   if m.name == "launch_retries")
     obs_metrics.enable_metrics(prev_metrics)
     results = out["results"]
-    emit({"phase": phase or ("serve" if not cfg.is_moe else "serve_moe"),
+    phase = phase or ("serve" if not cfg.is_moe else "serve_moe")
+    MEASURED[phase] = {"peak_mem_bytes": torch.cuda.max_memory_allocated(dev),
+                       "decode_ms_per_step": out["device_step_s_mean"] * 1e3,
+                       "max_len": args.prompt_len + args.gen,
+                       "batch": args.batch}
+    emit({"phase": phase,
           "arch": cfg.name, "layers": cfg.num_layers,
           "d_model": cfg.d_model, "requests": len(results),
           "edges": out["edges"], "bucket_hits": out["bucket_hits"],
@@ -2092,9 +2118,10 @@ def _check_mamba_launches(cfg, out, launches, phase):
              f"reckoning {row}")
 
 
-def serve_ssm_phase(torch, dev, kmm, kfa):
+def serve_ssm_phase(torch, dev, kmm, kfa, tp_refs):
     """mamba2-370m on phase 4's traffic (no bucket plan: prompts prefill at
-    their exact lengths), its logits against the plain path, a trace."""
+    their exact lengths), its logits against the plain path, a trace; the
+    run is one that serve_tp holds its ranks to."""
     args, model, params, out, launches = _serve(
         torch, dev, kmm, kfa, "mamba2-370m", phase="serve_ssm")
     if out["edges"]:
@@ -2102,23 +2129,26 @@ def serve_ssm_phase(torch, dev, kmm, kfa):
     _check_mamba_launches(model.cfg, out, launches, "serve_ssm_launches")
     _logits_check(torch, dev, kmm, kfa, args, model, params, out,
                   "serve_ssm_logits")
+    tp_refs.append(_tp_ref(torch, dev, kmm, kfa, args, model, params, out))
     trace_phase(torch, dev, model, params, phase="ssm_trace")
     del model, params
     _free(torch)
     return launches
 
 
-def serve_hybrid_phase(torch, dev, kmm, kfa):
+def serve_hybrid_phase(torch, dev, kmm, kfa, tp_refs):
     """zamba2-7b at full width and depth on phase 4's traffic: 13 flash
     launches a prefill at head dim 112, the launch reckoning, its logits
-    against the plain path and a trace; then the same model in f32 (4
-    requests of 4 tokens) through the f32 flash kernel and the f32 GEMM,
-    its logits against the plain path in f32."""
+    against the plain path and a trace (the run serve_tp holds its ranks
+    to); then the same model in f32 (4 requests of 4 tokens) through the
+    f32 flash kernel and the f32 GEMM, its logits against the plain path
+    in f32."""
     args, model, params, out, launches = _serve(
         torch, dev, kmm, kfa, "zamba2-7b", phase="serve_hybrid")
     if out["edges"]:
         fail(f"a hybrid model was served on bucket edges {out['edges']}")
     _check_mamba_launches(model.cfg, out, launches, "serve_hybrid_launches")
+    tp_refs.append(_tp_ref(torch, dev, kmm, kfa, args, model, params, out))
     trace_phase(torch, dev, model, params, phase="hybrid_trace")
     params32 = _tree_map(params, lambda t: t.float())
     _logits_check(torch, dev, kmm, kfa, args, model, params, out,
@@ -2861,6 +2891,7 @@ def train_phase(torch, dev, kmm, kfa, arch="phi4-mini-3.8b", layers=None,
            "fallback_rungs": fallback, "launch_retries": retries,
            "fixup_flags_down": _flags_down(kmm)}
     emit(row)
+    MEASURED[phase] = row
     if measured != expected:
         fail(f"{phase}: launches per step {measured} differ from the "
              f"reckoning {expected}")
@@ -3004,27 +3035,55 @@ def event_ms(torch, fn, calls: int = 5, reps: int = 3) -> float:
     return statistics.median(runs)
 
 
-def device_ms(torch, fn, calls: int = 5) -> float:
-    """Device time of one call: ``calls`` calls under torch.profiler (after
-    two warm-up calls), the summed duration of the kernels they ran divided
-    by ``calls``, so host time between the kernels is not counted: for a
-    library call that a CUDA graph cannot capture (an autograd backward)."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(2):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+def backward_ms(torch, forward, inputs, grad, calls: int = 10,
+                reps: int = 5) -> float:
+    """Device time of one autograd backward of ``forward(*leaves)`` with
+    respect to its leaves (the library's attention backward), the leaves
+    fresh copies of ``inputs`` that require grad: the forward run once on a
+    side stream, ``torch.autograd.grad`` warmed up three times there, then
+    ``calls`` backward calls captured in a CUDA graph on that stream and
+    the graph replayed ``reps`` times between CUDA events, the median
+    replay divided by ``calls``, as ``time_ms`` times the kernels.
+    Autograd runs each backward op, a leaf's gradient node too, on the
+    stream where it was made; so the leaves, the forward and the capture
+    share one stream (a leaf that joined a graph on the default stream
+    would make that stream wait on the capture, which CUDA refuses)."""
+    import statistics
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        leaves = tuple(t.detach().requires_grad_() for t in inputs)
+        out = forward(*leaves)
+
+        def call():
+            return torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+        for _ in range(3):
+            call()
+    side.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sum(_kernel_ms(prof)[0].values()) / calls
+            call()
+    graph.replay()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        runs.append(a.elapsed_time(b) / calls)
+    del graph, out, leaves
+    return statistics.median(runs)
 
 
 def train_times_phase(torch, dev, kmm, kfa):
     """Times of the training kernels at phi4-mini's training shapes: the
     kernel and the library call (a CUDA graph, as the times phase; the
-    library's attention backward by its kernels' device time, ``device_ms``),
-    the plain version (CUDA events), and the bound max(flop / peak, bytes /
+    library's attention backward too, ``backward_ms``), the plain version (CUDA events), and the bound max(flop / peak, bytes /
     3.35e12).  Returns the kernels-line numbers keyed by row."""
     import dataclasses
     import torch.nn.functional as F
@@ -3108,6 +3167,8 @@ def train_times_phase(torch, dev, kmm, kfa):
         elem = q.element_size()
         peak = BF16_PEAK if dtype == "bfloat16" else TF32X3_PEAK
         forward = "_bwd" not in key
+        sdpa = lambda a, b, c: F.scaled_dot_product_attention(  # noqa: E731
+            a, b, c, is_causal=True, enable_gqa=True)
         if forward:
             kern = lambda: kfa._launch_cuda(  # noqa: E731
                 q, k, v, block_q=bq, block_kv=bkv, causal=True, scale=None,
@@ -3115,8 +3176,6 @@ def train_times_phase(torch, dev, kmm, kfa):
             plain = lambda: kfa.attention_plain(  # noqa: E731
                 q, k, v, block_q=bq, block_kv=bkv, causal=True,
                 return_lse=True)
-            library = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                q, k, v, is_causal=True, enable_gqa=True)
             flops = 4.0 * B * H * pairs * d
             nbytes = elem * d * S * B * (2 * H + 2 * Hkv) + 4 * B * H * S
         else:
@@ -3124,11 +3183,6 @@ def train_times_phase(torch, dev, kmm, kfa):
                 q, k, v, o, lse, do, causal=True, scale=None)
             plain = lambda: kfa.attention_bwd_plain(  # noqa: E731
                 q, k, v, o, lse, do, causal=True)
-            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-            out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
-                                                 enable_gqa=True)
-            library = lambda: torch.autograd.grad(  # noqa: E731
-                out, (ql, kl, vl), do, retain_graph=True)
             # recompute S, then dP, dV, dQ, dK: five products
             flops = 10.0 * B * H * pairs * d
             nbytes = elem * d * S * B * (4 * H + 4 * Hkv) + 4 * B * H * S
@@ -3144,8 +3198,9 @@ def train_times_phase(torch, dev, kmm, kfa):
         row = {"row": key, "q": [B, H, S, d], "kv": [B, Hkv, S, d],
                "dtype": dtype, **extra, "ms": time_ms(kern),
                "plain_ms": event_ms(torch, plain),
-               "library_ms": (time_ms(library) if forward
-                              else device_ms(torch, library))}
+               # the backward rows: the library's backward alone
+               "library_ms": (time_ms(lambda: sdpa(q, k, v)) if forward
+                              else backward_ms(torch, sdpa, (q, k, v), do))}
         row["bound_ms"], row["bound_by"] = _bound(nbytes, flops, peak)
         rows.append(row)
         times[key] = {k_: row[k_] for k_ in ("ms", "plain_ms", "library_ms",
@@ -3264,8 +3319,8 @@ def train_times_phase(torch, dev, kmm, kfa):
     kmm.epilogue_bwd.grouped_launches = n0[7]
     emit({"phase": "train_times", "timing": "kernels and library calls: CUDA "
           "graph of 10 calls, median of 5 replays (the library's attention "
-          "backward: its kernels' device time over 5 calls under "
-          "torch.profiler); plain: CUDA events over 5 calls, median of 3",
+          "backward alone, backward_ms); plain: CUDA events over 5 calls, "
+          "median of 3",
           "rows": rows, "summary": times})
     return times
 
@@ -3583,13 +3638,36 @@ def serve_zoo_phase(torch, dev, kmm, kfa, tp_refs):
 # ---------------------------------------------------------------------------
 
 # The archs served over TP_RANKS ranks, each held to its single-process
-# run (phi4-mini and qwen3-moe whole, mixtral-8x22b at MIXTRAL_LAYERS).
-TP_SERVE = ("phi4-mini-3.8b", "qwen3-moe-30b-a3b", "mixtral-8x22b")
+# run (phi4-mini, qwen3-moe, mamba2-370m and zamba2-7b whole, mixtral-8x22b
+# at MIXTRAL_LAYERS).
+TP_SERVE = ("phi4-mini-3.8b", "qwen3-moe-30b-a3b", "mamba2-370m",
+            "zamba2-7b", "mixtral-8x22b")
 TP_RANKS = 2
+# serve_tp's traffic: phase 4's 8 requests (the same prompts, two waves
+# through the 4 slots, the second admitted into freed slots in lockstep)
+# with TP_GEN tokens each, a prefix of the one-process run's: 25
+# host-staged collectives a layer-step would otherwise make the five
+# models' ranks most of the script's time.
+TP_GEN = 4
+TP_TRAFFIC = ["--gen", str(TP_GEN)]
 # Each model's ranks must be done within this (spawn, init, serve, check).
 TP_JOIN_TIMEOUT = 420.0
-# serve_tp_f32 holds the TP layers to one process in f32 at this depth.
+# serve_tp_f32 holds the TP layers to one process in f32 at this depth
+# (``_f32_depth``) within this relative L2: both sides run the kernels and
+# differ only in the order of the row-parallel sums and of the gated
+# norm's sum of squares (the f32 gaps measured: 3e-7 to 2e-6).
 TP_F32_LAYERS = 2
+TP_F32_REL_CAP = 1e-5
+
+
+def _f32_depth(arch, layers):
+    """``layers``, or for a hybrid model the least depth at which its shared
+    block runs (one group of ``nn/transformer.py::_hybrid_split``)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.nn.transformer import _hybrid_split
+    cfg = get_config(arch)
+    return max(layers, _hybrid_split(cfg)[1]) if cfg.family == "hybrid" \
+        else layers
 
 
 def _tp_ref(torch, dev, kmm, kfa, args, model, params, out):
@@ -3612,23 +3690,45 @@ def _tp_ref(torch, dev, kmm, kfa, args, model, params, out):
 
 def _tp_local_shapes(cfg, tp):
     """The (N, K) of every dense GEMM and the (E, K, N) of every grouped
-    GEMM a rank launches at ``tp`` (whole heads, experts, d_ff and
-    vocabulary split as ``tp_shardings`` splits them; every split of the
-    served models divides)."""
+    GEMM a rank launches at ``tp`` (whole heads, SSM heads, experts, d_ff
+    and vocabulary split as ``tp_shardings`` splits them; every split of
+    the served models divides): a mamba layer's in_z / in_x, in_b / in_c
+    (whole), in_dt and out_proj; attention's wq, wk / wv and wo; the MLP's
+    or the experts' products."""
     D, hd = cfg.d_model, cfg.head_dim
     for n in (cfg.num_heads, cfg.num_kv_heads, cfg.vocab_size,
-              cfg.num_experts or tp, cfg.d_ff):
+              cfg.num_experts or tp, cfg.d_ff,
+              cfg.ssm_heads if cfg.has_ssm else tp):
         if n % tp:
             fail(f"serve_tp: {cfg.name} does not split over {tp} ranks")
+    dense, grouped = set(), set()
+    if cfg.has_ssm:
+        nh = cfg.ssm_heads // tp
+        di = nh * cfg.ssm_head_dim
+        dense |= {(di, D), (cfg.ssm_state, D), (nh, D), (D, di)}
+    if cfg.family == "ssm":
+        return sorted(dense), []
     q, kv = cfg.num_heads // tp * hd, cfg.num_kv_heads // tp * hd
-    dense = {(q, D), (kv, D), (D, q)}
-    grouped = set()
+    dense |= {(q, D), (kv, D), (D, q)}
     if cfg.is_moe:
         e, f = cfg.num_experts // tp, cfg.moe_d_ff
         grouped = {(e, D, f), (e, f, D)}
     else:
         dense |= {(cfg.d_ff // tp, D), (D, cfg.d_ff // tp)}
     return sorted(dense), sorted(grouped)
+
+
+def _tp_launches(cfg):
+    """(per prefill, per decode step) launches of one rank of serve_tp:
+    the one-process reckoning (a rank launches what one process launches,
+    at local shapes): ``_mamba_launches`` for the SSM and hybrid families,
+    ``_zoo_launches`` for the rest."""
+    if not cfg.has_ssm:
+        return _zoo_launches(cfg)
+    prefill, step, flash = _mamba_launches(cfg)
+    return ({"matmul": prefill, "flash_attention": flash,
+             "expert_matmul": 0},
+            {"matmul": step, "flash_attention": 0, "expert_matmul": 0})
 
 
 def _tp_join(rank, world, init_method):
@@ -3649,7 +3749,8 @@ def _tp_join(rank, world, init_method):
 def _tp_rank(rank, world, init_method, arch, layers, ref_tokens, ref_last):
     """One rank of ``serve_tp`` (a spawned process): join the gloo group
     on cuda:0, draw this rank's shards (``init_shards``, seed 0), serve
-    phase 4's traffic with launches counted in prefills and decode steps
+    TP_TRAFFIC (phase 4's requests, fewer tokens) with launches counted in
+    prefills and decode steps
     apart and every GEMM's shape recorded, then request 0's prefill
     logits on the same padded tokens as the single-process run."""
     import dataclasses
@@ -3662,8 +3763,8 @@ def _tp_rank(rank, world, init_method, arch, layers, ref_tokens, ref_last):
 
     dev, mesh = _tp_join(rank, world, init_method)
     args = build_parser().parse_args(
-        ["--arch", arch, *SERVE_ARGS, "--tp", str(world), "--shared-card",
-         "--device", str(dev)])
+        ["--arch", arch, *SERVE_ARGS, *TP_TRAFFIC, "--tp", str(world),
+         "--shared-card", "--device", str(dev)])
     cfg = get_config(arch)
     if layers != cfg.num_layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
@@ -3734,18 +3835,20 @@ def _tp_rank(rank, world, init_method, arch, layers, ref_tokens, ref_last):
 
 
 def _tp_f32_config(arch):
-    """``arch`` at TP_F32_LAYERS layers, full width, in f32 (mixtral with
-    its window, which the f32 flash forward takes; at these prompts, at
-    most 474 tokens, it does not bind)."""
+    """``arch`` at TP_F32_LAYERS layers (``_f32_depth``), full width, in
+    f32 (mixtral with its window, which the f32 flash
+    forward takes; at these prompts, at most 474 tokens, it does not
+    bind)."""
     import dataclasses
     from repro_torch.configs.registry import get_config
-    return dataclasses.replace(get_config(arch), num_layers=TP_F32_LAYERS,
-                               dtype="float32")
+    return dataclasses.replace(
+        get_config(arch), num_layers=_f32_depth(arch, TP_F32_LAYERS),
+        dtype="float32")
 
 
 def _tp_f32_rank(rank, world, init_method, cases):
     """One rank of ``serve_tp_f32``: for each (arch, tokens, last), this
-    rank's f32 shards at TP_F32_LAYERS layers (seed 0) and the prefill
+    rank's f32 shards at ``_tp_f32_config``'s depth (seed 0) and the prefill
     logits of the tokens (rank 0 keeps them)."""
     import torch
     from repro_torch.nn.model import Model
@@ -3766,10 +3869,11 @@ def _tp_f32_rank(rank, world, init_method, cases):
 
 def serve_tp_f32_phase(torch, tp_refs):
     """The TP layers' arithmetic at full width, with no bf16 rounding to
-    hide behind: each model of serve_tp at TP_F32_LAYERS layers in f32,
-    request 0's prefill logits on 2 ranks against one process, both on the
-    kernels (split TF32); they differ only in summation order, so the
-    relative L2 must stay within F32_LOGITS_REL_CAP."""
+    hide behind: each model of serve_tp at TP_F32_LAYERS layers in f32
+    (zamba2-7b at 6), request 0's prefill logits on 2 ranks against one
+    process, both on the kernels (split TF32); they differ only in
+    summation order, so the relative L2 must stay within
+    TP_F32_REL_CAP."""
     from repro_torch.launch.mesh import spawn_ranks
     from repro_torch.nn.model import Model
     dev = torch.device("cuda", 0)
@@ -3790,15 +3894,16 @@ def serve_tp_f32_phase(torch, tp_refs):
     rows = []
     for ref, want, got in zip(tp_refs, single, ranks[0]):
         d = _rel(torch, got, want)
-        rows.append({"arch": ref["arch"], "layers": TP_F32_LAYERS,
+        rows.append({"arch": ref["arch"],
+                     "layers": _tp_f32_config(ref["arch"]).num_layers,
                      "rel_l2_tp_vs_single": d,
                      "max_abs_err": float((got - want).abs().max()),
                      "argmax_equal": int(got.argmax()) == int(want.argmax()),
                      "ok": bool(torch.isfinite(got).all())
-                     and d <= F32_LOGITS_REL_CAP})
+                     and d <= TP_F32_REL_CAP})
     emit({"phase": "serve_tp_f32", "world": TP_RANKS,
           "backend": "gloo", "dtype": "float32", "cases": rows,
-          "tolerance": f"relative L2 <= {F32_LOGITS_REL_CAP} (both f32)",
+          "tolerance": f"relative L2 <= {TP_F32_REL_CAP} (both f32)",
           "seconds": time.perf_counter() - t0})
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -3807,16 +3912,18 @@ def serve_tp_f32_phase(torch, tp_refs):
 
 
 def serve_tp_phase(torch, tp_refs):
-    """phi4-mini-3.8b and qwen3-moe-30b-a3b whole and mixtral-8x22b at
-    MIXTRAL_LAYERS, each on TP_RANKS ranks sharing cuda:0 over gloo (the
-    collectives staged through the host), each model's ranks spawned after
-    the last's exit: per rank the launches against the reckoning in
+    """phi4-mini-3.8b, qwen3-moe-30b-a3b, mamba2-370m and zamba2-7b whole
+    and mixtral-8x22b at MIXTRAL_LAYERS, each on TP_RANKS ranks sharing
+    cuda:0 over gloo (the collectives staged through the host), each
+    model's ranks spawned after the last's exit: per rank the launches
+    against the reckoning (``_tp_launches``) in
     prefills and decode steps apart and every GEMM at the local shapes;
     request 0's prefill logits against the single-process run's on the
     same padded tokens (relative L2, LOGITS_REL_CAP dense,
-    MOE_FULL_REL_CAP MoE); the served tokens against the single-process
-    run's (counted: bf16 may flip near-ties).  Returns the ranks' launches
-    summed over the models, keyed by the kernels line's rows."""
+    MOE_FULL_REL_CAP MoE); every request served with TP_GEN tokens and
+    those against the single-process run's first tokens of the same
+    request (counted: bf16 may flip near-ties).  Returns the ranks'
+    launches summed over the models, keyed by the kernels line's rows."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.mesh import spawn_ranks
     import dataclasses
@@ -3831,7 +3938,7 @@ def serve_tp_phase(torch, tp_refs):
                              ref["last"]), timeout=TP_JOIN_TIMEOUT)
         wall = time.perf_counter() - t0
         r0 = ranks[0]
-        per_prefill, per_step = _zoo_launches(cfg)
+        per_prefill, per_step = _tp_launches(cfg)
         n, steps = len(r0["served"]), r0["steps"]
         expected = {f"{k}@prefill": v * n for k, v in per_prefill.items()}
         expected.update({f"{k}@decode": v * steps
@@ -3842,8 +3949,9 @@ def serve_tp_phase(torch, tp_refs):
         cap = MOE_FULL_REL_CAP if cfg.is_moe else LOGITS_REL_CAP
         agree = total = 0
         diverge = {}
-        for rid, toks in ref["served"].items():
+        for rid, want_toks in ref["served"].items():
             got = r0["served"].get(rid, [])
+            toks = want_toks[:TP_GEN]                # the same prompt
             total += len(toks)
             agree += sum(int(a == b) for a, b in zip(got, toks))
             diverge[rid] = next((i for i, (a, b) in enumerate(zip(got, toks))
@@ -3886,10 +3994,10 @@ def serve_tp_phase(torch, tp_refs):
                "phase_wall_s": wall}
         emit(row)
         for r in ranks:
-            if not r["finished"] or len(r["served"]) != n or any(
-                    len(t) != len(ref["served"][rid]) or not (
+            if not r["finished"] or set(r["served"]) != set(ref["served"]) \
+                    or any(len(t) != TP_GEN or not (
                         (t >= 0) & (t < cfg.vocab_size)).all()
-                    for rid, t in r["served"].items()):
+                        for t in r["served"].values()):
                 fail(f"serve_tp {cfg.name} rank {r['rank']}: not every "
                      f"request finished with in-vocabulary tokens")
             if {k: r["launches"][k] for k in expected} != expected:
@@ -3920,9 +4028,13 @@ def serve_tp_phase(torch, tp_refs):
 # ---------------------------------------------------------------------------
 
 DP_F32_LAYERS = 2
-# (arch, (data, model)) of train_dp_f32, at DP_F32_LAYERS layers in f32.
-DP_F32 = [("qwen3-moe-30b-a3b", (2, 2)), ("phi4-mini-3.8b", (2, 1))]
+# (arch, (data, model)) of train_dp_f32, at DP_F32_LAYERS layers in f32
+# (``_f32_depth``: zamba2-7b at 6): spawn A runs
+# the (2, 2) cases, spawn B the (2, 1) case, then the (1, 2) one.
+DP_F32 = [("qwen3-moe-30b-a3b", (2, 2)), ("zamba2-7b", (2, 2)),
+          ("phi4-mini-3.8b", (2, 1)), ("mamba2-370m", (1, 2))]
 DP_F32_B = 2                       # train_dp_f32's global batch: B x TRAIN_S
+DP_NORM_REL_CAP = 1e-5             # train_dp_f32: the gradient norm's gap
 DP_ARCH, DP_MESH = "qwen3-moe-30b-a3b", (2, 2)
 DP_RESTORE_MESH = (1, 2)           # train_dp's checkpoint restores here
 DP_B = 4                           # train_dp's global batch: B x TRAIN_S
@@ -3951,6 +4063,10 @@ def _dp_config(arch, layers, dtype):
                                dtype=dtype)
 
 
+def _dp_f32_config(arch):
+    return _dp_config(arch, _f32_depth(arch, DP_F32_LAYERS), "float32")
+
+
 def _dp_batch(cfg, rows):
     from repro_torch.data import DataConfig, SyntheticLM
     return SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
@@ -3960,17 +4076,19 @@ def _dp_batch(cfg, rows):
 
 def _dp_reference(torch, dev, arch, path):
     """train_dp_f32's yardstick, in this process before any rank starts:
-    ``arch`` at DP_F32_LAYERS layers in f32, one step of the train step
+    ``arch`` at its train_dp_f32 depth in f32, one step of the train step
     (no mesh) on the global batch, the loss, every gradient and every
     updated param written to ``path`` (read back memory-mapped by the
-    ranks); everything freed after."""
+    ranks), and the leaves that are all zeros at init; everything freed
+    after."""
     from repro_torch.launch.steps import TrainState, make_train_step
     from repro_torch.nn.model import Model
     from repro_torch.optim import AdamW
     from repro_torch.optim.adamw import tree_items
-    cfg = _dp_config(arch, DP_F32_LAYERS, "float32")
+    cfg = _dp_f32_config(arch)
     model = Model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(5))
+    zero_init = sorted(k for k, p in tree_items(params) if not p.any())
     opt = AdamW(lr=1e-3, weight_decay=0.0)
     step = make_train_step(model, opt)
     t0 = time.perf_counter()
@@ -3988,7 +4106,8 @@ def _dp_reference(torch, dev, arch, path):
     _free(torch)
     torch.save(out, path)
     return {"arch": arch, "loss": float(out["loss"]),
-            "grad_norm": float(out["grad_norm"]), "seconds": secs}
+            "grad_norm": float(out["grad_norm"]), "zero_init": zero_init,
+            "seconds": secs}
 
 
 def _dp_join(rank, world, init_method, tp):
@@ -4068,9 +4187,10 @@ def _dp_instruments(kmm):
 
 
 def _dp_rel(torch, tree, ref, prefix, mesh, rank, specs, dev):
-    """{leaf: relative L2 of the whole leaf against ``ref[prefix + leaf]``},
-    each rank comparing its own block and the sums of squares added over
-    the axes the leaf is sharded on (a replicated leaf counted once)."""
+    """({leaf: relative L2 of the whole leaf against ``ref[prefix +
+    leaf]``}, {leaf: elements whose sign differs from the reference's}),
+    each rank comparing its own block and the sums added over the axes the
+    leaf is sharded on (a replicated leaf counted once)."""
     from repro_torch.distributed.collectives import all_reduce_
     from repro_torch.distributed.sharding import local_index, spec_axes
     from repro_torch.optim.adamw import tree_items
@@ -4082,17 +4202,20 @@ def _dp_rel(torch, tree, ref, prefix, mesh, rank, specs, dev):
         want = want.to(dev, torch.float64)
         got = t.detach().to(torch.float64)
         sums[path] = torch.stack([(got - want).square().sum(),
-                                  want.square().sum()])
+                                  want.square().sum(),
+                                  (got.sign() != want.sign()).sum()
+                                  .to(torch.float64)])
         axes = tuple(a for a in spec_axes(flat[path]) if mesh.shape[a] > 1)
         groups.setdefault(axes, []).append(path)
-    out = {}
+    out, flips = {}, {}
     for axes, paths in sorted(groups.items()):
         block = torch.stack([sums[p] for p in paths])
         for a in axes:
             block = all_reduce_(block, mesh.group(a))
-        for p, (d2, r2) in zip(paths, block.tolist()):
+        for p, (d2, r2, f) in zip(paths, block.tolist()):
             out[p] = math.sqrt(d2 / r2) if r2 > 0 else math.sqrt(d2)
-    return out
+            flips[p] = int(f)
+    return out, flips
 
 
 def _dp_f32_case(rank, dev, mesh, arch, ref_path):
@@ -4108,7 +4231,7 @@ def _dp_f32_case(rank, dev, mesh, arch, ref_path):
     from repro_torch.launch.steps import TrainState, make_train_step
     from repro_torch.nn.model import Model
     from repro_torch.optim import AdamW
-    cfg = _dp_config(arch, DP_F32_LAYERS, "float32")
+    cfg = _dp_f32_config(arch)
     model = Model(cfg, device=dev)
     params = model.init_shards(torch.Generator(device=dev).manual_seed(5),
                                mesh, rank)
@@ -4124,17 +4247,18 @@ def _dp_f32_case(rank, dev, mesh, arch, ref_path):
     secs = time.perf_counter() - t0
     launches = _read_counts(kmm, kfa)
     ref = torch.load(ref_path, mmap=True)
-    rel_g = _dp_rel(torch, grads, ref, "grads/", mesh, rank, step.specs,
-                    dev)
+    rel_g, flips = _dp_rel(torch, grads, ref, "grads/", mesh, rank,
+                           step.specs, dev)
     state = TrainState(params=params, opt=opt.init(params), step=0)
     state, met = step.apply(state, loss, grads)
-    rel_p = _dp_rel(torch, state.params, ref, "params/", mesh, rank,
-                    step.specs, dev)
+    rel_p, _ = _dp_rel(torch, state.params, ref, "params/", mesh, rank,
+                       step.specs, dev)
     out = {"arch": arch, "mesh": dict(mesh.shape), "rank": rank,
            "loss": float(loss), "ref_loss": float(ref["loss"]),
            "grad_norm": float(met["grad_norm"]),
            "ref_grad_norm": float(ref["grad_norm"]),
            "grad_rel_l2": rel_g, "param_rel_l2": rel_p,
+           "grad_sign_flips": flips,
            "launches": launches,
            "local_shapes": {k: sorted(v) for k, v in shapes.items()},
            "collectives": coll, "step_s": secs,
@@ -4297,21 +4421,24 @@ def _shape_mesh(shape):
     return types.SimpleNamespace(shape={"data": shape[0], "model": shape[1]})
 
 
-def _dp_rank_a(rank, world, init_method, ref_path, layers, ckpt_dir):
-    """Spawn A, 4 ranks on (2, 2): train_dp_f32's qwen3-moe case, then
-    train_dp with its checkpoint."""
+def _dp_rank_a(rank, world, init_method, ref_paths, layers, ckpt_dir):
+    """Spawn A, 4 ranks on (2, 2): train_dp_f32's qwen3-moe and zamba2
+    cases, then train_dp with its checkpoint."""
     dev, mesh = _dp_join(rank, world, init_method, DP_MESH[1])
-    f32 = _dp_f32_case(rank, dev, mesh, DP_F32[0][0], ref_path)
+    f32 = [_dp_f32_case(rank, dev, mesh, DP_F32[i][0], ref_paths[i])
+           for i in (0, 1)]
     return {"f32": f32, "train": _dp_train_case(rank, dev, mesh, layers,
                                                  ckpt_dir)}
 
 
-def _dp_rank_b(rank, world, init_method, ref_path, layers, ckpt_dir):
-    """Spawn B, 2 ranks: train_dp_f32's phi4-mini case on (2, 1), then
-    train_dp's checkpoint restored on (1, 2)."""
-    dev, mesh = _dp_join(rank, world, init_method, DP_F32[1][1][1])
-    f32 = _dp_f32_case(rank, dev, mesh, DP_F32[1][0], ref_path)
+def _dp_rank_b(rank, world, init_method, ref_paths, layers, ckpt_dir):
+    """Spawn B, 2 ranks: train_dp_f32's phi4-mini case on (2, 1), its
+    mamba2 case on (1, 2), then train_dp's checkpoint restored on
+    (1, 2)."""
+    dev, mesh = _dp_join(rank, world, init_method, DP_F32[2][1][1])
+    f32 = [_dp_f32_case(rank, dev, mesh, DP_F32[2][0], ref_paths[2])]
     mesh = _dp_remesh(DP_RESTORE_MESH[1])
+    f32.append(_dp_f32_case(rank, dev, mesh, DP_F32[3][0], ref_paths[3]))
     return {"f32": f32, "restore": _dp_restore_case(rank, dev, mesh, layers,
                                                      ckpt_dir)}
 
@@ -4378,11 +4505,11 @@ def train_dp_phases(torch, dev, kmm, kfa):
           "per_rank": reckoning, "layers": layers})
     ckpt_dir = DP_DIR / "ckpt"
     t1 = time.perf_counter()
+    paths = [str(p) for p in refs]
     a = spawn_ranks(_dp_rank_a, DP_MESH[0] * DP_MESH[1],
-                    (str(refs[0]), layers, str(ckpt_dir)),
-                    timeout=DP_JOIN_TIMEOUT)
+                    (paths, layers, str(ckpt_dir)), timeout=DP_JOIN_TIMEOUT)
     t2 = time.perf_counter()
-    b = spawn_ranks(_dp_rank_b, 2, (str(refs[1]), layers, str(ckpt_dir)),
+    b = spawn_ranks(_dp_rank_b, 2, (paths, layers, str(ckpt_dir)),
                     timeout=DP_JOIN_TIMEOUT)
     walls = {"references_s": ref_s, "spawn_a_s": t2 - t1,
              "spawn_b_s": time.perf_counter() - t2,
@@ -4393,48 +4520,73 @@ def train_dp_phases(torch, dev, kmm, kfa):
 
 
 def _dp_f32_report(torch, spawns, ref_rows):
-    """train_dp_f32's row and checks: each case's every leaf within
-    GRADS_F32_REL_CAP (gradients and updated params), the loss within 1e-5
-    relative, every rank's launches equal to the reckoning and its GEMMs
-    at the local shapes."""
+    """train_dp_f32's row and checks: each case's every gradient leaf
+    within GRADS_F32_REL_CAP, and every updated param leaf too but those
+    all zeros at init; the loss within 1e-5 relative and the global
+    gradient norm (the clip's input, taken over the shards) within
+    DP_NORM_REL_CAP of the one-process step's; every
+    rank's launches equal to the reckoning and its GEMMs at the local
+    shapes.  AdamW's first step divides every element by its own size
+    (m / sqrt(v) = g / (|g| + eps)), so each element's relative error
+    passes into the update in full, where the gradient's relative L2
+    weights it by its size; a zero-initialised leaf is that update alone
+    (the SSM conv biases: conv_xb's 1.88e-4 with every gradient within
+    2.08e-5, PERF.md section 6).  Such a leaf's gradient stays gated; its
+    param is reported beside each leaf's gradient elements of the other
+    sign."""
     rows, bad = [], []
-    for ranks, ref, (arch, (data, model)) in zip(spawns, ref_rows, DP_F32):
-        cfg = _dp_config(arch, DP_F32_LAYERS, "float32")
+    # each spawn's cases in DP_F32's order, each a list of the ranks' rows
+    cases = [[r["f32"][j] for r in ranks] for ranks in spawns
+             for j in range(len(ranks[0]["f32"]))]
+    for ranks, ref, (arch, (data, model)) in zip(cases, ref_rows, DP_F32):
+        cfg = _dp_f32_config(arch)
         want = _train_reckoning(cfg)
         expected = {k: sum(want[part].get(k, 0) for part in want)
-                    for k in ranks[0]["f32"]["launches"]}
+                    for k in ranks[0]["launches"]}
         dense, grouped = _tp_local_shapes(cfg, model)
         rows_local = DP_F32_B // data * TRAIN_S
-        r0 = ranks[0]["f32"]
+        r0 = ranks[0]
         worst_g = max(r0["grad_rel_l2"].values())
-        worst_p = max(r0["param_rel_l2"].values())
+        gated = {k: v for k, v in r0["param_rel_l2"].items()
+                 if k not in ref["zero_init"]}
+        worst_leaf = max(gated, key=gated.get)
+        worst_p = gated[worst_leaf]
         d_loss = abs(r0["loss"] - ref["loss"])
-        row = {"arch": arch, "layers": DP_F32_LAYERS, "mesh": [data, model],
+        d_norm = abs(r0["grad_norm"] - ref["grad_norm"])
+        row = {"arch": arch, "layers": cfg.num_layers, "mesh": [data, model],
                "batch": [DP_F32_B, TRAIN_S], "loss": r0["loss"],
                "loss_one_process": ref["loss"], "loss_abs_diff": d_loss,
                "grad_norm": r0["grad_norm"],
                "grad_norm_one_process": ref["grad_norm"],
                "worst_grad_rel_l2": worst_g, "worst_param_rel_l2": worst_p,
+               "worst_param_leaf": worst_leaf,
+               "params_not_gated": {k: r0["param_rel_l2"][k]
+                                    for k in ref["zero_init"]},
                "grad_rel_l2": r0["grad_rel_l2"],
+               "param_rel_l2": r0["param_rel_l2"],
+               "grad_sign_flips": {k: v for k, v in
+                                   r0["grad_sign_flips"].items() if v},
                "expected_launches": expected,
-               "launches_per_rank": [r["f32"]["launches"] for r in ranks],
+               "launches_per_rank": [r["launches"] for r in ranks],
                "local_shapes": r0["local_shapes"],
                "expected_local_nk": {"dense": dense, "grouped": grouped},
                "dense_rows": rows_local,
-               "step_s_per_rank": [r["f32"]["step_s"] for r in ranks],
+               "step_s_per_rank": [r["step_s"] for r in ranks],
                "collectives_rank0": r0["collectives"],
-               "peak_gb_per_rank": [r["f32"]["peak_mem_bytes"] / 1e9
+               "peak_gb_per_rank": [r["peak_mem_bytes"] / 1e9
                                     for r in ranks],
                "one_process_s": ref["seconds"]}
         rows.append(row)
-        if not worst_g <= GRADS_F32_REL_CAP or not worst_p <= \
-                GRADS_F32_REL_CAP:
+        if not worst_g <= GRADS_F32_REL_CAP \
+                or not worst_p <= GRADS_F32_REL_CAP:
             bad.append(f"{arch}: a leaf off by {worst_g} (grads), "
-                       f"{worst_p} (params)")
+                       f"{worst_p} (params, {worst_leaf})")
         if not d_loss <= 1e-5 * abs(ref["loss"]):
             bad.append(f"{arch}: loss {r0['loss']} vs {ref['loss']}")
-        for r in ranks:
-            f = r["f32"]
+        if not d_norm <= DP_NORM_REL_CAP * ref["grad_norm"]:
+            bad.append(f"{arch}: gradient norm {r0['grad_norm']} vs "
+                       f"{ref['grad_norm']}")
+        for f in ranks:
             if f["launches"] != expected:
                 bad.append(f"{arch} rank {f['rank']}: launches "
                            f"{f['launches']} differ from {expected}")
@@ -4450,9 +4602,11 @@ def _dp_f32_report(torch, spawns, ref_rows):
                            f"grouped {grouped}, M {rows_local}")
     emit({"phase": "train_dp_f32", "backend": "gloo",
           "device": "cuda:0 shared", "cases": rows,
-          "tolerance": f"each leaf (gradients, updated params) <= "
-                       f"{GRADS_F32_REL_CAP} relative L2, loss <= 1e-5 "
-                       f"relative, against the one-process step"})
+          "tolerance": f"each leaf (gradients; updated params but those "
+                       f"zero at init) <= {GRADS_F32_REL_CAP} relative L2, "
+                       f"loss <= 1e-5 relative, gradient norm <= "
+                       f"{DP_NORM_REL_CAP} relative, against the "
+                       f"one-process step"})
     if bad:
         fail(f"train_dp_f32: {bad}")
 
@@ -4617,9 +4771,6 @@ def window_times_phase(torch, dev, kfa):
         # The backward: q, k, v, o, dO and lse read, dq, dk, dv written.
         o, lse = kfa.attention_plain(q, k, v, block_q=64, block_kv=64,
                                      causal=True, return_lse=True, window=w)
-        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask,
-                                             enable_gqa=True)
         row = {"kernel": "flash_attention_bwd", "dtype": dtype, "window": w,
                "q": [B, H, S, d], "kv": [B, Hkv, S, d],
                "visible_pairs": pairs,
@@ -4632,25 +4783,120 @@ def window_times_phase(torch, dev, kfa):
                    q, k, v, o, lse, do, causal=True, scale=None)),
                "plain_ms": event_ms(torch, lambda: kfa.attention_bwd_plain(
                    q, k, v, o, lse, do, causal=True, window=w)),
-               "library_ms": device_ms(torch, lambda: torch.autograd.grad(
-                   out, (ql, kl, vl), do, retain_graph=True))}
+               "library_ms": backward_ms(
+                   torch, lambda a, b, c: F.scaled_dot_product_attention(
+                       a, b, c, attn_mask=mask, enable_gqa=True),
+                   (q, k, v), do)}
         row["bound_ms"], row["bound_by"] = _bound(
             2 * qkv + 2 * elem * d * S * B * H + 4 * B * H * S,
             10.0 * B * H * pairs * d, peak)
         rows.append(row)
         times[WINDOW_ROWS[dtype, False]] = row
-        del q, k, v, do, o, lse, ql, kl, vl, out
+        del q, k, v, do, o, lse
         _free(torch)
     (kfa.flash_attention_kernel.launches,
      kfa.flash_attention_bwd_kernel.launches) = counts   # timing launches
-    emit({"phase": "window_times", "timing": "kernels and the library's "
-          "forward: CUDA graph of 10 calls, median of 5 replays; the "
-          "library's backward: its kernels' device time over 5 calls under "
-          "torch.profiler; plain: CUDA events over 5 calls, median of 3",
+    emit({"phase": "window_times", "timing": "kernels and the library "
+          "(its backward alone, backward_ms): CUDA graph of 10 calls, "
+          "median of 5 replays; plain: CUDA events over 5 calls, median "
+          "of 3",
           "rows": rows})
     return {key: {k_: row[k_] for k_ in ("ms", "plain_ms", "library_ms",
                                          "bound_ms", "bound_by")}
             for key, row in times.items()}
+
+
+# ---------------------------------------------------------------------------
+# dryrun: the port's dry-run (``launch/dryrun.py``) beside the card.
+# ---------------------------------------------------------------------------
+
+DRYRUN_MESH = {"data": 1, "model": 1}
+DRYRUN_ARCH = "phi4-mini-3.8b"
+
+
+def _layer_gemm_flops(cfg, tokens):
+    """The FLOPs of one dense swiglu layer's forward GEMMs at ``tokens``
+    rows: wq, wk, wv, wo and wu, wg, wd (2·M·N·K each)."""
+    D, hd, F = cfg.d_model, cfg.head_dim, cfg.d_ff
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    return 2 * tokens * (D * q + 2 * D * kv + q * D + 3 * D * F)
+
+
+def _dry_reckoning(cfg, kind, tokens):
+    """(GEMM calls by layout, GEMM FLOPs) of one step of a dense swiglu
+    model, reckoned from the code: a train step is ``_train_reckoning``'s
+    launches, its FLOPs the forward, the remat recompute, dX and dW of
+    every product (each the product's FLOPs) and each MLP's swiglu
+    pre-activation once more (wg's); a decode step ``_zoo_launches``', the
+    forward's FLOPs."""
+    L, fwd = cfg.num_layers, _layer_gemm_flops(cfg, tokens)
+    if kind == "train":
+        want = _train_reckoning(cfg)
+        calls = {k: sum(want[part].get(k, 0) for part in want)
+                 for k in ("nn", "nt", "tn")}
+        wg = 2 * tokens * cfg.d_model * cfg.d_ff
+        return calls, L * ((4 if cfg.remat else 3) * fwd + wg)
+    return ({"nn": _zoo_launches(cfg)[1]["matmul"], "nt": 0, "tn": 0},
+            L * fwd)
+
+
+def dryrun_phase():
+    """The port's dry-run on a (1, 1) mesh, on the host (meta tensors, no
+    kernel), at the train phase's phi4-mini cell (B 4 x S 512) and at the
+    serve phase's decode step (batch 4, the cache at prompt + generated
+    length): the estimated GB beside the measured peak, the counted FLOPs
+    beside ``model_flops``, ``roofline_s`` beside the measured ms a step.
+    Fails only if the dry-run raises or its GEMM calls or GEMM FLOPs differ
+    from the reckoning of the launches the train and serve phases
+    check."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.nn.config import ShapeSpec
+    cfg = get_config(DRYRUN_ARCH)
+    serve = MEASURED["serve"]
+    cells = [("train", ShapeSpec("train_b4_s512", "train", TRAIN_S, TRAIN_B),
+              MEASURED["train"]["peak_mem_bytes"],
+              MEASURED["train"]["ms_per_step_mean_after_first"]),
+             ("decode", ShapeSpec("decode_b4", "decode", serve["max_len"],
+                                  serve["batch"]),
+              serve["peak_mem_bytes"], serve["decode_ms_per_step"])]
+    rows, bad = [], []
+    for kind, shape, peak, ms in cells:
+        t0 = time.perf_counter()
+        rec = dryrun.run_cell(DRYRUN_ARCH, shape.name, False, out_dir=None,
+                              verbose=False, mesh_shape=DRYRUN_MESH,
+                              shape=shape)
+        cost, roof = rec["cost_module"], rec["roofline"]
+        tokens = shape.global_batch * (shape.seq_len if kind == "train"
+                                       else 1)
+        calls, flops = _dry_reckoning(cfg, kind, tokens)
+        row = {"cell": shape.name, "kind": kind, "mesh": DRYRUN_MESH,
+               "batch": shape.global_batch, "seq_len": shape.seq_len,
+               "estimated_gb": rec["memory_analytic_gib"]["total_gib"]
+               * 2**30 / 1e9,
+               "estimate_gib": rec["memory_analytic_gib"],
+               "measured_peak_gb": peak / 1e9,
+               "counted_flops": cost["flops"],
+               "model_flops": roof["model_flops"],
+               "gemm_flops": cost["gemm_flops"],
+               "gemm_flops_reckoned": flops,
+               "gemm_calls": cost["gemm_calls"], "gemm_calls_reckoned": calls,
+               "hbm_bytes_analytic": rec["hbm_bytes_analytic"]["total"],
+               "roofline_ms": roof["roofline_s"] * 1e3,
+               "roofline_bound": roof["bottleneck"],
+               "measured_ms_per_step": ms,
+               "dry_step_s": time.perf_counter() - t0}
+        rows.append(row)
+        if cost["gemm_calls"] != calls or cost["gemm_flops"] != flops:
+            bad.append(f"{kind}: GEMM calls {cost['gemm_calls']} and FLOPs "
+                       f"{cost['gemm_flops']} against the reckoning "
+                       f"{calls}, {flops}")
+    emit({"phase": "dryrun", "arch": DRYRUN_ARCH,
+          "topology": "gpu_h100_like", "rows": rows,
+          "note": "the dry-run counts on the host; the measured numbers are "
+                  "the train and serve phases' on this card"})
+    if bad:
+        fail(f"dryrun: {bad}")
 
 
 def _bound(nbytes, flops, peak):

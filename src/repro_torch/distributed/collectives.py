@@ -48,6 +48,13 @@ Point-to-point sends of a CUDA tensor go through the host.  Nothing
 switches backend.  Every collective the model issues goes through
 :func:`all_reduce_`, :func:`all_gather_dim` and :func:`reduce_scatter_dim`,
 where a profiler can time it.
+
+On a :class:`DryGroup` (a group of the dry-run's mesh, ``launch/mesh.py::
+DryMesh``) nothing moves: each of the three gives a "meta" tensor of its
+result's shape (the all-reduce its input, as it sums in place) and adds
+its result bytes to the mesh's tally by kind, the counterpart of the
+reference's per-device collective bytes of the partitioned HLO
+(``repro/core/roofline.py::parse_collective_bytes``).
 """
 from __future__ import annotations
 
@@ -111,6 +118,22 @@ def choose_gemm_layout(M: int, N: int, K: int, n_chips: int,
     return min(cands, key=lambda c: c.predicted_s)
 
 
+class DryGroup:
+    """A process group of ``size`` ranks in which this one is ``rank``,
+    whose collectives move nothing and add their result bytes to
+    ``tally`` (kind -> bytes, shared by the groups of one dry mesh)."""
+
+    def __init__(self, size: int, rank: int, tally: dict):
+        self.size, self.rank, self.tally = size, rank, tally
+
+    def count(self, kind: str, shape, dtype: torch.dtype) -> torch.Tensor:
+        """A meta tensor of the result, its bytes tallied under ``kind``."""
+        out = torch.empty(shape, dtype=dtype, device="meta")
+        self.tally[kind] = self.tally.get(kind, 0) + \
+            out.numel() * out.element_size()
+        return out
+
+
 def _backend(group) -> str:
     import torch.distributed as dist
     return dist.get_backend(group)
@@ -118,6 +141,8 @@ def _backend(group) -> str:
 
 def group_rank(group) -> int:
     """This process's rank within ``group``."""
+    if isinstance(group, DryGroup):
+        return group.rank
     import torch.distributed as dist
     return dist.get_group_rank(group, dist.get_rank())
 
@@ -125,6 +150,9 @@ def group_rank(group) -> int:
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place (every backend takes it natively;
     gloo stages a CUDA tensor through the host itself)."""
+    if isinstance(group, DryGroup):
+        group.count("all-reduce", t.shape, t.dtype)
+        return t
     import torch.distributed as dist
     dist.all_reduce(t, group=group)
     return t
@@ -137,6 +165,10 @@ def _gloo(group) -> bool:
 def all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The group members' ``t`` (equal shapes) concatenated along ``dim``
     in group-rank order."""
+    if isinstance(group, DryGroup):
+        shape = list(t.shape)
+        shape[dim] *= group.size
+        return group.count("all-gather", shape, t.dtype)
     import torch.distributed as dist
     n, r = dist.get_world_size(group), group_rank(group)
     src = t.movedim(dim, 0).contiguous()
@@ -154,6 +186,10 @@ def all_gather_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
 def reduce_scatter_dim(t: torch.Tensor, dim: int, group) -> torch.Tensor:
     """This member's block along ``dim`` (``t.shape[dim]`` / the group's
     size) of the sum of the members' ``t``, in ``t``'s dtype."""
+    if isinstance(group, DryGroup):
+        shape = list(t.shape)
+        shape[dim] //= group.size
+        return group.count("reduce-scatter", shape, t.dtype)
     import torch.distributed as dist
     n = dist.get_world_size(group)
     w = t.shape[dim] // n

@@ -23,9 +23,11 @@ follow from that, both layouts rather than results:
   rank half a head, which GSPMD reshards around and eager local attention
   cannot compute.  Where the kv split drops, each rank computes the kv
   heads its own q heads read (``nn/layers.py::kv_heads_read``).
-* the decode cache is sharded by kv head (``nn/transformer.py::
-  init_cache``); the reference shards it on sequence (``cache_shardings``,
-  which only its dry-run and memory tools read; not ported).
+* the decode cache is sharded by kv head and the SSM cache by SSM head
+  (``nn/transformer.py::init_cache``); the reference shards k/v on the
+  sequence and the SSM caches on their widest dividing dim
+  (:func:`cache_shardings`, which only the dry-run and memory tools
+  read, here as there).
 
 Every axis of the mesh shards: "model" (heads, d_ff, experts, the
 vocabulary) and "data" (FSDP: with ``cfg.fsdp`` the "embed" and
@@ -109,9 +111,13 @@ def _axis_product(part, mesh) -> int:
 
 def tp_shardings(model, mesh) -> Dict:
     """:func:`param_shardings` with a "heads" / "kv_heads" split kept only
-    where each rank gets whole heads: the layout the port's layers run."""
+    where each rank gets whole heads, and an "ssm_inner" / "ssm_heads"
+    split only where each rank gets whole SSM heads (then rank r's d_inner
+    block is exactly the channels of its heads): the layout the port's
+    layers run."""
     cfg = model.cfg
-    heads = {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads}
+    heads = {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+             "ssm_inner": cfg.ssm_heads, "ssm_heads": cfg.ssm_heads}
 
     def align(spec, axes):
         return tuple(
@@ -213,6 +219,54 @@ def gather_leaf(t: torch.Tensor, spec: Spec, mesh, rank: int,
         block = t.cpu() if r == rank else recv_(t.shape, t.dtype, r)
         whole[local_index(shape, spec, mesh, r)] = block
     return whole
+
+
+# The decode cache's sequence axes, for batches too small to split
+# (``repro/distributed/sharding.py:31``).
+SEQ_AXES = ("pod", "data", "model")
+
+
+def cache_shardings(cache_specs: Dict, mesh, cfg: ModelConfig) -> Dict:
+    """The reference's decode-cache layout as a spec tree (``repro/
+    distributed/sharding.py:121-164``): the batch over ("pod", "data")
+    where it divides; k/v (L, B, Hkv, S, d) with the sequence over the
+    "model" axis and whatever batch axes are idle; each mamba cache
+    (L, B, ...) with its widest dim that divides over "model".  Only the
+    dry-run and memory tools read it: the engine keeps its own layout
+    (k/v by kv head, the SSM cache by SSM head, ``nn/transformer.py::
+    init_cache``).  ``cache_specs`` is a tree of anything with ``.shape``
+    (``Model.cache_specs``); ``cfg`` is unused, as in the reference."""
+    batch_axes = [a for a in DATA_AXES if a in mesh.shape]
+    bt = math.prod(mesh.shape[a] for a in batch_axes) or 1
+
+    def one(name: str, shape: Tuple[int, ...]) -> Spec:
+        used: set = set()
+        parts: list = [None] * len(shape)
+        if batch_axes and shape[1] % bt == 0:
+            parts[1] = tuple(batch_axes)
+            used.update(batch_axes)
+        if name.endswith("k") or name.endswith("v"):      # (L, B, Hkv, S, d)
+            seq_axes = [a for a in SEQ_AXES
+                        if a in mesh.shape and a not in used]
+            st = math.prod(mesh.shape[a] for a in seq_axes) or 1
+            if seq_axes and shape[3] % st == 0:
+                parts[3] = tuple(seq_axes) if len(seq_axes) > 1 \
+                    else seq_axes[0]
+            return tuple(parts)
+        if "model" in mesh.shape:
+            m = mesh.shape["model"]
+            for i in sorted(range(2, len(shape)), key=lambda i: -shape[i]):
+                if shape[i] % m == 0:
+                    parts[i] = "model"
+                    break
+        return tuple(parts)
+
+    def walk(tree, path):
+        return {k: (walk(v, f"{path}{k}/") if isinstance(v, dict)
+                    else one(path + k, tuple(v.shape)))
+                for k, v in tree.items()}
+
+    return walk(cache_specs, "")
 
 
 def local_index(shape: Sequence[int], spec: Spec, mesh, rank: int

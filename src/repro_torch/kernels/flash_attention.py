@@ -485,7 +485,7 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     hides key j from query i unless i - j < window."""
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
-    if q.device.type == "cpu":
+    if q.device.type in ref.PLAIN_DEVICES:
         return attention_plain(q, k, v, block_q=block_q, block_kv=block_kv,
                                causal=causal, scale=scale,
                                return_lse=return_lse, window=window)
@@ -523,7 +523,7 @@ def flash_attention_bwd_kernel(q: torch.Tensor, k: torch.Tensor,
     same causal mask and ``window``."""
     if window < 0:
         raise ValueError(f"flash_attention_bwd: window {window} < 0")
-    if q.device.type == "cpu":
+    if q.device.type in ref.PLAIN_DEVICES:
         return attention_bwd_plain(q, k, v, o, lse, do, causal=causal,
                                    scale=scale, window=window)
     if q.device.type != "cuda":

@@ -352,7 +352,7 @@ def tiled_matmul(a: torch.Tensor, b: torch.Tensor, cfg: TileConfig, *,
     """C = epilogue(A @ B) (M, N); bias (N,), gate/residual (M, N).  A is
     ``a`` (M, K), or ``a.t()`` for a stored (K, M) with ``trans_a``; B is
     ``b`` (K, N), or ``b.t()`` for b stored (N, K) with ``trans_b``."""
-    if a.device.type == "cpu":
+    if a.device.type in ref.PLAIN_DEVICES:
         return matmul_plain(a, b, cfg, out_dtype=out_dtype,
                             epilogue=epilogue, bias=bias, gate=gate,
                             residual=residual, trans_a=trans_a,
@@ -400,7 +400,7 @@ def tiled_expert_matmul(x: torch.Tensor, w: torch.Tensor, cfg: TileConfig,
     One launch for all E experts."""
     kw = dict(out_dtype=out_dtype, epilogue=epilogue, bias=bias, gate=gate,
               residual=residual, trans_a=trans_a, trans_b=trans_b)
-    if x.device.type == "cpu":
+    if x.device.type in ref.PLAIN_DEVICES:
         return expert_matmul_plain(x, w, cfg, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"tiled_expert_matmul: unsupported device "
@@ -638,7 +638,7 @@ def epilogue_bwd(dout: torch.Tensor, z: Optional[torch.Tensor], *,
     ``want_bias``.  Grouped (the grouped GEMM's backward), every operand is
     (E, M, N) and dbias (E, N), each expert's rows summed apart.  The
     residual's gradient is dout and needs no kernel."""
-    if dout.device.type == "cpu":
+    if dout.device.type in ref.PLAIN_DEVICES:
         return epilogue_bwd_plain(dout, z, epilogue=epilogue, gate=gate,
                                   dz_dtype=dz_dtype, want_bias=want_bias)
     if dout.device.type != "cuda":

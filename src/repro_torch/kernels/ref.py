@@ -1,8 +1,9 @@
 """Plain PyTorch versions of every kernel (the port of ``repro.kernels.ref``).
 
 They define what the CUDA kernels compute.  The kernel wrappers use them
-for CPU tensors only; on the card they are what ``chip_smoke.py`` holds
-each kernel against.  The backward versions (``epilogue_bwd_ref``,
+for tensors on a device of :data:`PLAIN_DEVICES` only (the CPU, and
+"meta", which the dry-run runs a step on to count its FLOPs); on the card
+they are what ``chip_smoke.py`` holds each kernel against.  The backward versions (``epilogue_bwd_ref``,
 ``matmul_bwd_ref``, ``attention_bwd_ref``) are the gradients that JAX
 derives through the reference's forward functions, written out in f32.
 """
@@ -14,6 +15,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.latency import EPILOGUE_NONE, Epilogue
+
+# The devices whose tensors take each kernel's plain version; a CUDA tensor
+# launches the kernel or raises.
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 def apply_epilogue_ref(

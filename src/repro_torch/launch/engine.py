@@ -13,7 +13,8 @@ slot-reuse decode, on PyTorch tensors (the port of
   offset.  Finished rows free their slot mid-flight.
 * **Warm-up**: every bucket edge's step GEMMs are selected in ONE
   ``select_gemm_config_batch`` call before serving (none for the SSM
-  family, which has no attention-step GEMM grid).
+  family on one device, which has no attention-step GEMM grid; under
+  ``--tp`` its mamba projections at local shapes).
 * The SSM and hybrid families take no bucket plan: a recurrent state
   would integrate the pad tokens, so their prompts prefill at exact length
   (``repro/launch/engine.py:116-120``).
@@ -73,6 +74,7 @@ from repro_torch.core.topology import topology_fingerprint
 from repro_torch.kernels import ops
 from repro_torch.nn import layers as L
 from repro_torch.nn.config import ModelConfig
+from repro_torch.nn.mamba2 import local_ssm_heads
 from repro_torch.nn.model import Model
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -123,7 +125,16 @@ def serving_gemms(cfg: ModelConfig) -> List[Tuple[int, int]]:
     them (a d_model-wide q projection, one d_ff MLP, the head), each at
     the extent this rank launches under the installed mesh: the local q
     and kv heads, the local d_ff and the local vocabulary (a width whose
-    split the rules drop stays whole); with no mesh, ``step_gemms``."""
+    split the rules drop stays whole); with no mesh, ``step_gemms``.
+    Under a mesh an SSM or hybrid model's list starts with its mamba
+    layer's six projections at this rank's SSM heads (in_z, in_x, in_b,
+    in_c, in_dt, out_proj); an SSM model has no attention or MLP.
+
+    With no mesh the list stays the JAX engine's (``step_gemms``, and no
+    warm-up for the SSM family): the one-process engine primes and prices
+    what the reference engine does, row for row
+    (``tests/test_torch_engine.py``'s drift parity).  A rank has no
+    reference engine to match, so it primes the shapes it launches."""
     swiglu = cfg.activation == "swiglu"
     kv = L.local_kv_heads(cfg) * cfg.head_dim
     ax = meshctx.model_axis()
@@ -135,10 +146,19 @@ def serving_gemms(cfg: ModelConfig) -> List[Tuple[int, int]]:
     def local(width: int, split: bool) -> int:
         return width // n if split and width % n == 0 else width
 
+    head = [(local(cfg.vocab_size, True), D)]
+    mamba = []
+    if cfg.has_ssm:
+        nh = local_ssm_heads(cfg)
+        di = nh * cfg.ssm_head_dim
+        ns = cfg.ssm_state
+        mamba = [(di, D), (di, D), (ns, D), (ns, D), (nh, D), (D, di)]
+    if cfg.family == "ssm":
+        return mamba + head
     q = local(D, cfg.num_heads % n == 0)
     f = local(cfg.d_ff, True)
-    return [(q + 2 * kv, D), (D, q), ((2 if swiglu else 1) * f, D),
-            (D, f), (local(cfg.vocab_size, True), D)]
+    return mamba + [(q + 2 * kv, D), (D, q), ((2 if swiglu else 1) * f, D),
+                    (D, f)] + head
 
 
 def _agree(tokens: torch.Tensor) -> torch.Tensor:
@@ -313,8 +333,8 @@ class ServingEngine:
         each bucket edge's (or queued length's) step GEMMs plus the decode
         batch's, in ONE batched selection call.  Returns shapes primed."""
         cfg = self.model.cfg
-        if cfg.family == "ssm":
-            return 0                          # no attention-step GEMM grid
+        if cfg.family == "ssm" and meshctx.model_axis() is None:
+            return 0           # as the reference engine (serving_gemms)
         gemms = serving_gemms(cfg)
         ms = set(self.plan.edges if self.plan
                  else {int(r.prompt.size) for r in self._queue})

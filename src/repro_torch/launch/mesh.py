@@ -1,7 +1,8 @@
 """Process groups, the ("data", "model") mesh, and spawned ranks (the port
 of ``repro/launch/mesh.py``).
 
-Nothing here runs at import.  A rank joins its process group with
+Nothing here runs at import.  :class:`DryMesh` is a mesh for one rank
+with no peers, whose collectives move nothing (the dry-run's).  A rank joins its process group with
 :func:`init_distributed`, builds the mesh over it with
 :func:`make_local_mesh` and installs it with ``meshctx.set_mesh``.  The
 backend follows the devices:
@@ -52,6 +53,34 @@ class LocalMesh:
         return self.device_mesh.get_local_rank(axis)
 
 
+class DryMesh:
+    """A mesh of ``shape`` ({axis name: size}) for one rank with no peers:
+    the dry-run's (``launch/dryrun.py``).  ``coord(axis)`` is ``rank``'s
+    coordinate (row-major, as :func:`make_local_mesh` lays ranks out);
+    ``group(axis)`` (an axis name or a tuple of them, as
+    ``meshctx.data_axis`` asks) is a ``collectives.DryGroup`` whose
+    collectives move nothing and add their result bytes to
+    :attr:`tally`."""
+
+    def __init__(self, shape: Dict[str, int], rank: int = 0):
+        from repro_torch.distributed.sharding import mesh_coords
+        self.shape = dict(shape)
+        self.coords = mesh_coords(self, rank)
+        self.tally: Dict[str, int] = {}
+
+    def coord(self, axis: str) -> int:
+        return self.coords[axis]
+
+    def group(self, axis):
+        from repro_torch.distributed.collectives import DryGroup
+        names = axis if isinstance(axis, tuple) else (axis,)
+        size, coord = 1, 0
+        for a in names:
+            size *= self.shape[a]
+            coord = coord * self.shape[a] + self.coords[a]
+        return DryGroup(size, coord, self.tally)
+
+
 def init_distributed(rank: int, world: int, init_method: str, *,
                      device: str = "cuda", shared_card: bool = False
                      ) -> torch.device:
@@ -86,12 +115,14 @@ def init_distributed(rank: int, world: int, init_method: str, *,
 
 
 def check_tp(cfg, tp: int) -> None:
-    """Refuse what the port does not run over a "model" axis (ROADMAP
-    A5b): tensor parallelism for the SSM and hybrid families."""
-    if tp > 1 and cfg.has_ssm:
-        raise NotImplementedError(
-            f"{cfg.name}: --tp for the {cfg.family} family is ROADMAP A5b "
-            f"(the gated RMSNorm spans the whole d_inner)")
+    """Refuse a "model" axis the model cannot split over: an SSM or hybrid
+    model's SSM heads must split into whole heads (``tp_shardings`` keeps
+    the d_inner split only then; a rank's gated RMSNorm, conv channels and
+    SSM state are its heads')."""
+    if tp > 1 and cfg.has_ssm and cfg.ssm_heads % tp:
+        raise ValueError(
+            f"{cfg.name}: --tp {tp} does not divide its {cfg.ssm_heads} SSM "
+            f"heads ({cfg.ssm_heads} % {tp} = {cfg.ssm_heads % tp})")
 
 
 def make_local_mesh(tp: int = 1, *, device_type: str = "cuda") -> LocalMesh:

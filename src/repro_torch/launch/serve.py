@@ -55,9 +55,10 @@ The ranks are spawned here, or started by ``torchrun`` (one rank a
 process, ``env://``).  On the card each rank takes a card of its own over
 NCCL; ``--shared-card`` puts every rank on ``cuda:0`` over gloo instead,
 its collectives staged through the host (for a host with one card).  The
-mesh is (data 1, model N): every rank serves the whole queue.  The SSM and
-hybrid families raise ``NotImplementedError`` under ``--tp`` (ROADMAP
-A5b)::
+mesh is (data 1, model N): every rank serves the whole queue.  Every
+family serves under ``--tp``; an SSM or hybrid model's SSM heads must
+divide by N (``launch/mesh.py::check_tp``), and each rank caches its own
+SSM heads::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch phi4-mini-3.8b \\
         --smoke --device cpu --tp 2

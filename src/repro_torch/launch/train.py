@@ -32,8 +32,9 @@ backward the flash kernels, each rank at its local shapes.  Every family
 of the port trains: dense (phi4-mini-3.8b, minitron-8b, stablelm-12b,
 internlm2-20b), MoE (qwen3-moe-30b-a3b, mixtral-8x22b), SSM (mamba2-370m),
 hybrid (zamba2-7b), audio (musicgen-large) and vlm
-(llava-next-mistral-7b); the SSM and hybrid families take no ``--tp``
-(ROADMAP A5b) but do take a data axis.  A model with a frontend gets
+(llava-next-mistral-7b), every one over both axes (the SSM and hybrid
+families split their SSM heads over "model", ``--tp`` dividing them,
+``launch/mesh.py::check_tp``).  A model with a frontend gets
 synthetic frontend inputs, drawn once from a generator seeded 1 (as
 ``repro/launch/train.py:93-96`` draws them from PRNGKey(1)), in every
 batch, each rank its rows.  There is no ``--compress-dp``: the reference

@@ -13,6 +13,19 @@ is f32.  The causal conv is the reference's windowed sum (an einsum over
 the window), not ``F.conv1d``, which cuDNN runs in TF32 by default.
 
 Shapes: x (B, S, D); internal heads (B, S, nh, hd); state (B, nh, hd, ns).
+
+Tensor parallelism (a "model" mesh axis over 1, ``meshctx``): a rank holds
+whole SSM heads (``distributed/sharding.py::tp_shardings``) and runs the
+block on them, reading its head count from ``A_log``'s shard.  in_z, in_x
+and in_dt are column-parallel and out_proj row-parallel
+(``layers.row_parallel``: the f32 sum of every rank's partial product,
+cast to the input dtype; the block's residual is added after it, as one
+process adds it).  in_b, in_c and the B / C convs stay whole on every rank
+(the reference's "state" axis); each rank's gradient of them, and of the
+block input, comes from its own heads only, so they pass the model axis's
+"copy", whose backward sums over the ranks.  The gated RMSNorm spans the
+whole d_inner: each rank's f32 sum of squares of its channels is summed
+over the axis (:func:`gated_rmsnorm`).
 """
 from __future__ import annotations
 
@@ -21,8 +34,11 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import meshctx
+from repro_torch.distributed.collectives import all_reduce_f32, copy_to_group
 from repro_torch.nn.config import ModelConfig
-from repro_torch.nn.layers import ParamDef, dense, norm, norm_defs, rmsnorm
+from repro_torch.nn.layers import (ParamDef, dense, norm, norm_defs,
+                                   rmsnorm, row_parallel)
 
 NEG_INF = float("-inf")
 
@@ -119,10 +135,51 @@ def mamba_defs(cfg: ModelConfig) -> Dict:
     }
 
 
-def _project(p: Dict, h: torch.Tensor, cfg: ModelConfig):
-    """h -> (z, x, B, C, dt) via the five separate projections."""
+def _tp_group(p: Dict, cfg: ModelConfig):
+    """The "model" axis's group when ``p`` holds this rank's share of the
+    SSM heads, else None (the block runs as on one device)."""
+    if p["A_log"].shape[-1] == cfg.ssm_heads:
+        return None
+    return meshctx.model_axis().group
+
+
+# The leaves every rank holds whole under tensor parallelism.
+_WHOLE = ("in_b", "in_c", "conv_b", "conv_bb", "conv_c", "conv_cb")
+
+
+def _whole(p: Dict, group) -> Dict:
+    """``p`` with the leaves every rank holds whole (in_b, in_c, the B / C
+    convs) through the model axis's "copy" under tensor parallelism."""
+    if group is None:
+        return p
+    return {k: (copy_to_group(v, group) if k in _WHOLE else v)
+            for k, v in p.items()}
+
+
+def _project(p: Dict, h: torch.Tensor, cfg: ModelConfig, group=None):
+    """h -> (z, x, B, C, dt) via the five separate projections (with
+    ``group``, h through the model axis's "copy")."""
+    if group is not None:
+        h = copy_to_group(h, group)
     return (dense(h, p["in_z"]), dense(h, p["in_x"]), dense(h, p["in_b"]),
             dense(h, p["in_c"]), dense(h, p["in_dt"]))
+
+
+def gated_rmsnorm(y: torch.Tensor, z: torch.Tensor, w: torch.Tensor,
+                  d_inner: int, group=None, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    """rmsnorm(y · silu(z)) scaled by ``w``, over the whole ``d_inner``
+    (``layers.rmsnorm``'s order of operations and dtypes).  With ``group``
+    y, z and w hold this rank's channels: its f32 sum of squares is summed
+    over the model axis, and the sum's gradient too (every rank's channels
+    read it), then divided by the full ``d_inner``."""
+    g = y * F.silu(z)
+    if group is None:
+        return rmsnorm(g, w, eps)
+    x32 = g.float()
+    ss = x32.square().sum(dim=-1, keepdim=True)
+    var = copy_to_group(all_reduce_f32(ss, group), group) / d_inner
+    return (x32 * torch.rsqrt(var + eps)).to(g.dtype) * w
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
@@ -141,9 +198,12 @@ def mamba_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     """Block forward.  With ``return_cache`` also returns the decode state
     (conv window tails + final SSM state) computed in the same pass."""
     B, S, D = x.shape
-    di, nh, hd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    group = _tp_group(p, cfg)
+    p = _whole(p, group)
+    nh, hd = p["A_log"].shape[-1], cfg.ssm_head_dim
+    di = nh * hd
     h = norm(x, p["norm"], cfg)
-    z, xs, Bm, Cm, dt = _project(p, h, cfg)
+    z, xs, Bm, Cm, dt = _project(p, h, cfg, group)
 
     w = cfg.ssm_conv_width
     bf16 = torch.bfloat16
@@ -174,8 +234,8 @@ def mamba_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     y = y[:, :S]
     y = y + p["D"].to(y.dtype)[None, None, :, None] * xh
     y = y.reshape(B, S, di)
-    y = rmsnorm(y * F.silu(z), p["gate_norm"])
-    out = dense(y, p["out_proj"])
+    y = gated_rmsnorm(y, z, p["gate_norm"], cfg.d_inner, group)
+    out = row_parallel(y, p["out_proj"], cfg.d_inner)
     if return_cache:
         return out, {**conv_tail, "ssm": final_state}
     return out
@@ -185,11 +245,23 @@ def mamba_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig,
 # O(1) recurrent decode step.
 # ---------------------------------------------------------------------------
 
-def mamba_cache_defs(cfg: ModelConfig, batch: int) -> Dict:
+def local_ssm_heads(cfg: ModelConfig) -> int:
+    """The SSM heads this rank holds under the installed mesh
+    (``tp_shardings``' rule: split only into whole heads)."""
+    ax = meshctx.model_axis()
+    if ax is None or cfg.ssm_heads % ax.size:
+        return cfg.ssm_heads
+    return cfg.ssm_heads // ax.size
+
+
+def mamba_cache_defs(cfg: ModelConfig, batch: int,
+                     heads: Optional[int] = None) -> Dict:
     """(shape, dtype) of each decode-cache leaf of one layer: bf16 conv
-    tails and an f32 SSM state, whatever the param dtype."""
-    di, ns, nh, hd = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, \
-        cfg.ssm_head_dim
+    tails and an f32 SSM state, whatever the param dtype; ``heads`` SSM
+    heads (default all), conv_x holding their channels."""
+    nh = cfg.ssm_heads if heads is None else heads
+    ns, hd = cfg.ssm_state, cfg.ssm_head_dim
+    di = nh * hd
     w = cfg.ssm_conv_width
     return {"conv_x": ((batch, w - 1, di), torch.bfloat16),
             "conv_b": ((batch, w - 1, ns), torch.bfloat16),
@@ -212,9 +284,12 @@ def mamba_decode(p: Dict, x: torch.Tensor, cache: Dict, cfg: ModelConfig
     output and the layer's new cache as new tensors, the given ones
     untouched (a retried step replays the same state)."""
     B = x.shape[0]
-    di, nh, hd = cfg.d_inner, cfg.ssm_heads, cfg.ssm_head_dim
+    group = _tp_group(p, cfg)
+    p = _whole(p, group)
+    nh, hd = p["A_log"].shape[-1], cfg.ssm_head_dim
+    di = nh * hd
     h = norm(x, p["norm"], cfg)
-    z, xs, Bm, Cm, dt = (t[:, 0] for t in _project(p, h, cfg))
+    z, xs, Bm, Cm, dt = (t[:, 0] for t in _project(p, h, cfg, group))
 
     xs, new_cx = _conv_step(xs, cache["conv_x"], p["conv_x"], p["conv_xb"])
     Bm, new_cb = _conv_step(Bm, cache["conv_b"], p["conv_b"], p["conv_bb"])
@@ -229,6 +304,6 @@ def mamba_decode(p: Dict, x: torch.Tensor, cache: Dict, cfg: ModelConfig
     y = torch.einsum("bhpn,bn->bhp", state, Cm.float())
     y = y + p["D"][None, :, None] * xs.reshape(B, nh, hd).float()
     y = y.reshape(B, di).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["gate_norm"])
-    return dense(y, p["out_proj"])[:, None], {
+    y = gated_rmsnorm(y, z, p["gate_norm"], cfg.d_inner, group)
+    return row_parallel(y, p["out_proj"], cfg.d_inner)[:, None], {
         "conv_x": new_cx, "conv_b": new_cb, "conv_c": new_cc, "ssm": state}

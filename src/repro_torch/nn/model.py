@@ -1,5 +1,8 @@
 """Model facade: config, device, params and the entry points (train loss,
-prefill, decode) — the public API of the port's launchers and tests."""
+prefill, decode) — the public API of the port's launchers and tests — and
+the dry-run's stand-ins (``param_count``, ``cache_specs``, ``input_specs``,
+``model_flops``: ``repro/nn/model.py:33-86``), tensors on the "meta"
+device with the reference's shapes and dtypes."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -9,9 +12,10 @@ import numpy as np
 import torch
 
 from repro_torch.distributed.sharding import init_sharded, tp_shardings
+from repro_torch.nn import frontends
 from repro_torch.nn import layers as L
 from repro_torch.nn import transformer as T
-from repro_torch.nn.config import ModelConfig
+from repro_torch.nn.config import ModelConfig, ShapeSpec
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -19,14 +23,15 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
     """The entry points' device rule: CUDA unless the caller asks for the
     CPU, and a clear error when CUDA was asked for and is absent — nothing
-    falls back to the CPU on its own."""
+    falls back to the CPU on its own.  "meta" (no storage) is the
+    dry-run's device."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available on this host; the port runs on the GPU "
             "by default — pass device='cpu' (--device cpu) to run the plain "
             "PyTorch versions on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
 
@@ -78,6 +83,9 @@ class Model:
                     for k, d in defs.items()}
         return build(self.defs())
 
+    def param_count(self) -> int:
+        return self.cfg.param_count()
+
     # -- entrypoints --------------------------------------------------------
     def loss(self, params: Dict, batch: Dict) -> torch.Tensor:
         """The training loss (``T.lm_loss``) of a batch {"tokens": (B, S)
@@ -104,6 +112,41 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int) -> Dict:
         return T.init_cache(self.cfg, batch, max_len, device=self.device)
+
+    def cache_specs(self, batch: int, max_len: int) -> Dict:
+        """The whole decode cache as meta tensors (the reference's
+        ``init_cache_specs``; :meth:`init_cache` holds a rank's block)."""
+        return T.init_cache_specs(self.cfg, batch, max_len)
+
+    # -- dry-run inputs -----------------------------------------------------
+    def input_specs(self, shape: ShapeSpec) -> Dict:
+        """Meta stand-ins for every model input of this cell: int32 tokens
+        (B, S), or (B,) and a position scalar for a decode step, plus the
+        frontend's inputs."""
+        B, S = shape.global_batch, shape.seq_len
+
+        def meta(shape_, dtype):
+            return torch.empty(shape_, dtype=dtype, device="meta")
+
+        if shape.kind == "decode":
+            return {"tokens": meta((B,), torch.int32),
+                    "pos": meta((), torch.int32)}
+        specs = {"tokens": meta((B, S), torch.int32)}
+        specs.update({name: meta(s, dt) for name, (s, dt) in
+                      frontends.frontend_input_specs(self.cfg, B,
+                                                     S).items()})
+        return specs
+
+    def model_flops(self, shape: ShapeSpec) -> float:
+        """MODEL_FLOPS for the roofline: 6·N·D per trained token (fwd+bwd),
+        2·N·D per inference token; MoE counts active params only."""
+        n = self.cfg.active_param_count()
+        tokens = shape.global_batch * shape.seq_len
+        if shape.kind == "train":
+            return 6.0 * n * tokens
+        if shape.kind == "prefill":
+            return 2.0 * n * tokens
+        return 2.0 * n * shape.global_batch       # decode: one token/seq
 
 
 def params_from_jax(tree: Dict, cfg: ModelConfig, *, dtype: torch.dtype,

@@ -25,17 +25,19 @@ in its own rows of the embedding, zeros elsewhere, and one f32
 this rank's (..., V/n) f32 logits, written into zeros of the full V and
 summed the same way; under autograd the sums pass the gradient through
 and the head's input passes the "copy" (``distributed/collectives.py``).
-The decode cache holds this rank's kv heads.  The SSM and hybrid families
-raise under tensor parallelism: their gated RMSNorm spans the whole
-d_inner and needs its own reduction (ROADMAP A5b).
+The decode cache holds this rank's kv heads and SSM heads.  A mamba layer
+runs on this rank's SSM heads (``nn/mamba2.py``: its gated RMSNorm sums
+the squares over the "model" axis); the hybrid's shared block runs the TP
+attention and MLP.
 
 Data parallelism (a data axis over 1, ``meshctx.data_axis``): each rank
 runs its own rows of the batch.  A leaf FSDP shards ("embed" ->
 "data", ``cfg.fsdp``) is gathered over the data axis where it is used:
 each layer's inside :func:`_layer_step`, so under ``cfg.remat`` the
 gathered weights live for one layer and are gathered again in the
-recompute (ZeRO-3); the final norm's before it runs.  The gather's
-backward reduce-scatters the gradient's sum back to the shards.
+recompute (ZeRO-3); the final norm's before it runs; in a prefill or a
+decode step each layer's at its turn and the shared block's once.  The
+gather's backward reduce-scatters the gradient's sum back to the shards.
 
 Training: :func:`lm_loss` is the reference's chunked next-token NLL over
 :func:`forward_hidden`, whose layers run under
@@ -132,12 +134,16 @@ def _fsdp_gather(tree: Dict, defs: Dict, cfg: ModelConfig) -> Dict:
     return out
 
 
-def _check_tp(cfg: ModelConfig) -> None:
-    if cfg.has_ssm and meshctx.model_axis() is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism for the {cfg.family} family is "
-            f"ROADMAP A5b (the gated RMSNorm spans the whole d_inner and "
-            f"needs its own reduction)")
+def _serving_params(params: Dict, cfg: ModelConfig):
+    """(layer i's params, the hybrid's shared block's or None) for a
+    prefill or a decode step, FSDP leaves gathered over the data axis
+    (each layer's at its turn, the shared block's once a step)."""
+    ldefs = layer_defs(cfg)
+    shared = params.get("shared")
+    if shared is not None:
+        shared = _fsdp_gather(shared, model_defs(cfg)["shared"], cfg)
+    return (lambda i: _fsdp_gather(_layer(params["layers"], i), ldefs, cfg),
+            shared)
 
 
 def _vocab_offset(local: int, cfg: ModelConfig) -> Optional[int]:
@@ -300,7 +306,6 @@ def forward_hidden_aux(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
     ``cfg.remat`` and autograd recording, each layer runs under a
     non-reentrant checkpoint: its activations are recomputed in the
     backward pass, as the reference's ``jax.checkpoint`` body."""
-    _check_tp(cfg)
     x = embed_tokens(params, tokens, cfg, extras)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -363,31 +368,32 @@ def prefill_forward(
 
     ``last_pos`` (B,) reads each row's logits at its own final real
     position — the ragged-admission path: prompts right-padded to a bucket
-    edge still read out at their true last token."""
-    _check_tp(cfg)
+    edge still read out at their true last token.  FSDP leaves are
+    gathered over the data axis where they are used, as in a full pass."""
     x = embed_tokens(params, tokens, cfg, extras)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
     ks, vs, mcs = [], [], []
+    layer, shared = _serving_params(params, cfg)
     for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
+        lp = layer(i)
         if cfg.has_ssm:
             y, mc = mamba2.mamba_forward(lp["mamba"], x, cfg,
                                          return_cache=True)
             x = x + y
             mcs.append(mc)
             if _shared_after(cfg, i) >= 0:
-                k, v = _kv_for_cache(params["shared"]["attn"], x, positions,
-                                     cfg)
+                k, v = _kv_for_cache(shared["attn"], x, positions, cfg)
                 ks.append(k)
                 vs.append(v)
-                x = _shared_block(params["shared"], x, positions, cfg)
+                x = _shared_block(shared, x, positions, cfg)
             continue
         k, v = _kv_for_cache(lp["attn"], x, positions, cfg)
         ks.append(k)
         vs.append(v)
         x, _ = _block(lp, x, positions, cfg)
-    x = L.norm(x, params["final_norm"], cfg)
+    x = L.norm(x, _fsdp_gather(params["final_norm"], L.norm_defs(cfg), cfg),
+               cfg)
     last = (x[:, -1] if last_pos is None
             else x[torch.arange(B, device=x.device), last_pos])
     kv = {"k": torch.stack(ks), "v": torch.stack(vs)} if ks else {}
@@ -400,29 +406,49 @@ def prefill_forward(
     return logits(last, params, cfg), cache
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
-               device: torch.device) -> Dict:
-    """The decode cache, shaped as :func:`prefill_forward`'s with
-    ``max_len`` positions: k/v and the conv tails bf16 whatever the param
-    dtype, the SSM state f32, as in the reference
-    (``transformer.py:327-353``).  Under tensor parallelism k/v hold this
-    rank's kv heads (``L.local_kv_heads``); the reference shards its cache
-    on the sequence instead (``repro/distributed/sharding.py:121-164``)."""
-    _check_tp(cfg)
+def init_cache_specs(cfg: ModelConfig, batch: int, max_len: int, *,
+                     local: bool = False) -> Dict:
+    """The decode cache as storage-free ("meta") tensors, shaped as
+    :func:`prefill_forward`'s with ``max_len`` positions: k/v (n, B, Hkv,
+    S, d) and the conv tails bf16 whatever the param dtype, the SSM state
+    f32 (``transformer.py:327-353``).  ``local``: this rank's blocks under
+    the installed mesh, the engine's layout (:func:`init_cache`)."""
+    hkv = L.local_kv_heads(cfg) if local else cfg.num_kv_heads
+    nh = mamba2.local_ssm_heads(cfg) if local else cfg.ssm_heads
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
 
     def kv(n):
-        shape = (n, batch, L.local_kv_heads(cfg), max_len, cfg.head_dim)
-        return {"k": torch.zeros(shape, dtype=torch.bfloat16, device=device),
-                "v": torch.zeros(shape, dtype=torch.bfloat16, device=device)}
+        shape = (n, batch, hkv, max_len, cfg.head_dim)
+        return {"k": meta(shape, torch.bfloat16),
+                "v": meta(shape, torch.bfloat16)}
 
     if not cfg.has_ssm:
         return kv(cfg.num_layers)
     cache = {"mamba": {
-        name: torch.zeros((cfg.num_layers, *shape), dtype=dt, device=device)
-        for name, (shape, dt) in mamba2.mamba_cache_defs(cfg, batch).items()}}
+        name: meta((cfg.num_layers, *shape), dt)
+        for name, (shape, dt) in mamba2.mamba_cache_defs(cfg, batch,
+                                                         nh).items()}}
     if cfg.family == "hybrid":
         cache["attn"] = kv(_hybrid_split(cfg)[0])
     return cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
+               device: torch.device) -> Dict:
+    """The decode cache of :func:`init_cache_specs`, zeros on ``device``.
+    Under tensor parallelism k/v hold this rank's kv heads
+    (``L.local_kv_heads``) and the SSM leaves its SSM heads
+    (``mamba2.local_ssm_heads``: conv_x their channels, ssm their states;
+    conv_b / conv_c whole); the reference shards its cache on the sequence
+    and the widest dims instead (``distributed/sharding.py::
+    cache_shardings``)."""
+    def zeros(tree):
+        return {k: (zeros(v) if isinstance(v, dict) else torch.zeros(
+                    v.shape, dtype=v.dtype, device=device))
+                for k, v in tree.items()}
+    return zeros(init_cache_specs(cfg, batch, max_len, local=True))
 
 
 def decode_step(
@@ -438,11 +464,11 @@ def decode_step(
     held until the last layer has run and then written into the cache,
     one copy per leaf, so a step that fails part-way leaves the recurrent
     state as it was."""
-    _check_tp(cfg)
     x = embed_tokens(params, tokens, cfg)[:, None, :]     # (B, 1, D)
     new_mamba = []
+    layer, shared = _serving_params(params, cfg)
     for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
+        lp = layer(i)
         if cfg.has_ssm:
             y, mc = mamba2.mamba_decode(lp["mamba"], x,
                                         _layer(cache["mamba"], i), cfg)
@@ -450,7 +476,6 @@ def decode_step(
             x = x + y
             a = _shared_after(cfg, i)
             if a >= 0:
-                shared = params["shared"]
                 x = x + L.attn_decode(shared["attn"], x,
                                       _layer(cache["attn"], a), cfg, pos=pos)
                 x = x + L.mlp_forward(shared["mlp"], x, cfg)
@@ -461,7 +486,8 @@ def decode_step(
             x = x + moe.moe_decode(lp["moe"], x, cfg)
         else:
             x = x + L.mlp_forward(lp["mlp"], x, cfg)
-    x = L.norm(x, params["final_norm"], cfg)
+    x = L.norm(x, _fsdp_gather(params["final_norm"], L.norm_defs(cfg), cfg),
+               cfg)
     out = logits(x[:, 0], params, cfg)
     for name, leaf in (cache["mamba"].items() if new_mamba else ()):
         torch.stack([mc[name] for mc in new_mamba], out=leaf)

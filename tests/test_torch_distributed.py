@@ -51,7 +51,7 @@ from repro_torch.distributed import sharding as sh
 from repro_torch.launch import serve as serve_driver
 from repro_torch.launch import train as train_driver
 from repro_torch.launch.engine import serving_gemms
-from repro_torch.launch.mesh import spawn_ranks
+from repro_torch.launch.mesh import check_tp, spawn_ranks
 from repro_torch.nn import layers as L
 from repro_torch.nn.frontends import frontend_input_specs
 from repro_torch.nn.model import Model, params_from_jax
@@ -123,13 +123,16 @@ def test_param_shardings_match_reference(arch, smoke, mesh):
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_tp_shardings_keep_whole_heads(arch, smoke, tp):
     """``tp_shardings`` is ``param_shardings`` except that a heads or kv
-    heads split is kept only where it gives every rank whole heads."""
+    heads split is kept only where it gives every rank whole heads, and an
+    SSM d_inner or SSM heads split only where it gives every rank whole
+    SSM heads."""
     model = Model(get_config(arch, smoke=smoke), device="cpu")
     cfg, mesh = model.cfg, _mesh(1, tp)
     specs = _flat(sh.param_shardings(model, mesh))
     aligned = _flat(sh.tp_shardings(model, mesh))
     axes, abst = _flat(model.param_axes()), _flat(model.abstract_params())
-    heads = {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads}
+    heads = {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+             "ssm_inner": cfg.ssm_heads, "ssm_heads": cfg.ssm_heads}
     for k, spec in specs.items():
         for part, got, name, n in zip(spec, aligned[k], axes[k] or (),
                                       abst[k].shape):
@@ -206,8 +209,10 @@ def test_local_index_tiles_each_leaf():
 
 def test_data_axis_and_ssm_raise_a5b():
     """A mesh whose data axis exceeds 1 shards (FSDP's "embed" dims over
-    "data", the rest over "model"), while ``--tp`` for the SSM and hybrid
-    families, serving or training, is ROADMAP A5b."""
+    "data", the rest over "model"); ``--tp 2`` serves and trains the SSM
+    and hybrid families on the CPU (their SSM heads split over "model"),
+    and ``check_tp`` refuses a ``--tp`` that does not divide the SSM
+    heads, naming the division."""
     cfg = dataclasses.replace(get_config("phi4-mini-3.8b", smoke=True),
                               fsdp=True)
     model = Model(cfg, device="cpu")
@@ -226,14 +231,27 @@ def test_data_axis_and_ssm_raise_a5b():
             model.init_shards(torch.Generator().manual_seed(0), mesh,
                               rank)["layers"]["attn"]["wq"], got)
     for arch in ("mamba2-370m", "zamba2-7b"):
+        scfg = get_config(arch, smoke=True)
+        specs = sh.tp_shardings(Model(scfg, device="cpu"), _mesh(1, 2))
+        assert specs["layers"]["mamba"]["in_x"] == (None, None, "model")
+        assert specs["layers"]["mamba"]["in_b"] == (None, None, None)
         args = serve_driver.build_parser().parse_args(
-            ["--arch", arch, "--smoke", "--device", "cpu", "--tp", "2"])
-        with pytest.raises(NotImplementedError, match="A5b"):
-            serve_driver.run_serving(args)
+            ["--arch", arch, "--smoke", "--device", "cpu", "--tp", "2",
+             "--requests", "2", "--gen", "3", "--quiet"])
+        res = serve_driver.run_serving(args)["results"]
+        assert len(res) == 2 and all(r.finished for r in res.values())
+        for r in res.values():
+            assert len(r.tokens) == 3
+            assert ((r.tokens >= 0) & (r.tokens < scfg.vocab_size)).all()
         targs = train_driver.build_parser().parse_args(
-            ["--arch", arch, "--smoke", "--device", "cpu", "--tp", "2"])
-        with pytest.raises(NotImplementedError, match="A5b"):
-            train_driver.run_training(targs)
+            ["--arch", arch, "--smoke", "--device", "cpu", "--tp", "2",
+             "--steps", "2"])
+        recs = train_driver.run_training(targs)["records"]
+        assert len(recs) == 2 and all(math.isfinite(r["loss"])
+                                      for r in recs)
+        with pytest.raises(ValueError, match=r"does not divide its 4 SSM "
+                                             r"heads \(4 % 3 = 1\)"):
+            check_tp(scfg, 3)
 
 
 class _AxisMesh(types.SimpleNamespace):

@@ -72,8 +72,8 @@ TRAIN_CASES = [("phi4", "phi4-mini-3.8b", {"fsdp": True}),
                ("qwen3", "qwen3-moe-30b-a3b", {"fsdp": True}),
                ("qwen3_local", "qwen3-moe-30b-a3b",
                 {"fsdp": True, "moe_local_dispatch": True})]
-# The SSM and hybrid families take a data axis (no "model" axis yet,
-# ROADMAP A5b): their gradients at (2, 1) with FSDP.
+# The SSM and hybrid families over a data axis: their gradients at (2, 1)
+# with FSDP (their "model" axis: tests/test_torch_ssm_tp.py).
 SSM_CASES = [("mamba2", "mamba2-370m", {"fsdp": True}),
              ("zamba2", "zamba2-7b", {"fsdp": True})]
 STEPS, BATCH, SEQ = 5, 4, 32

@@ -388,20 +388,41 @@ def test_cpu_last_rung_serves_plain_version(metrics):
 
 def test_last_rung_raises_off_cpu():
     """Off the CPU the ladder ends in an error, never in the plain version:
-    meta tensors reach no kernel, so every tiled rung fails."""
-    a = torch.empty((40, 64), device="meta")
-    b = torch.empty((64, 96), device="meta")
+    the ladder driven for a CUDA device with every tiled rung failing
+    raises (no card is here, so the launch is a stand-in that fails).
+    Meta tensors take the plain versions (the dry-run's device), so they
+    are no stand-in for the card: a meta product is a meta tensor of the
+    product's shape."""
+    sel = select_gemm_config(40, 96, 64, hw=GPU_H100_LIKE)
+
+    def launch(cfg):
+        raise RuntimeError("every tiled launch fails")
+
+    def reference():
+        raise AssertionError("the plain version was served off the CPU")
+
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DegradedModeWarning)
         with pytest.raises(RuntimeError, match="never serves the plain"):
-            ops.matmul(a, b)
+            ops._launch_fail_soft(launch, reference, sel.config, sel,
+                                  GPU_H100_LIKE, (40, 96, 64),
+                                  torch.device("cuda", 0))
+    a = torch.empty((40, 64), device="meta")
+    b = torch.empty((64, 96), device="meta")
+    out = ops.matmul(a, b)
+    assert out.device.type == "meta" and tuple(out.shape) == (40, 96)
+
+
+class _Elsewhere:
+    """A tensor stand-in on a device no wrapper takes: neither a device
+    of the plain versions (the CPU, meta) nor CUDA."""
+    device = torch.device("xpu")
 
 
 def test_wrappers_refuse_other_devices():
-    a = torch.empty((4, 8), device="meta")
+    a = _Elsewhere()
     with pytest.raises(ValueError, match="unsupported device"):
-        kmm.tiled_matmul(a, a.t(), TileConfig(32, 32, 32),
+        kmm.tiled_matmul(a, a, TileConfig(32, 32, 32),
                          out_dtype=torch.float32)
-    q = torch.empty((1, 2, 4, 64), device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
-        kfa.flash_attention_kernel(q, q, q, block_q=64, block_kv=64)
+        kfa.flash_attention_kernel(a, a, a, block_q=64, block_kv=64)

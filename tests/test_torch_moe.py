@@ -223,18 +223,41 @@ def test_expert_cpu_last_rung_serves_plain_version(metrics):
     assert _count(metrics, "fallback_rungs", rung="reference") == 1
 
 
+class _Elsewhere:
+    """A tensor stand-in on a device no wrapper takes: neither a device
+    of the plain versions (the CPU, meta) nor CUDA."""
+    device = torch.device("xpu")
+
+
 def test_expert_last_rung_raises_off_cpu():
-    x = torch.empty((4, 24, 64), device="meta")
-    w = torch.empty((4, 64, 96), device="meta")
+    """Off the CPU the grouped GEMM's ladder ends in an error, never in
+    the plain version: driven for a CUDA device with every tiled rung
+    failing (no card is here), it raises.  Meta tensors take the plain
+    versions (the dry-run's device): a meta grouped product is a meta
+    tensor of its shape.  A device neither plain nor CUDA is refused."""
+    sel = select_gemm_config(24, 96, 64, in_dtype="float32",
+                             out_dtype="float32", epilogue=Epilogue(),
+                             hw=GPU_H100_LIKE)
+
+    def launch(cfg):
+        raise RuntimeError("every tiled launch fails")
+
+    def reference():
+        raise AssertionError("the plain version was served off the CPU")
+
     with warnings.catch_warnings():
         warnings.simplefilter("ignore", DegradedModeWarning)
         with pytest.raises(RuntimeError, match="never serves the plain"):
-            ops.expert_matmul(x, w)
+            ops._launch_fail_soft(launch, reference, sel.config, sel,
+                                  GPU_H100_LIKE, (24, 96, 64),
+                                  torch.device("cuda", 0))
+    x = torch.empty((4, 24, 64), device="meta")
+    w = torch.empty((4, 64, 96), device="meta")
+    out = ops.expert_matmul(x, w)
+    assert out.device.type == "meta" and tuple(out.shape) == (4, 24, 96)
     with pytest.raises(ValueError, match="unsupported device"):
-        kmm.tiled_expert_matmul(x, w, select_gemm_config(
-            24, 96, 64, in_dtype="float32", out_dtype="float32",
-            epilogue=Epilogue(), hw=GPU_H100_LIKE).config,
-            out_dtype=torch.float32)
+        kmm.tiled_expert_matmul(_Elsewhere(), _Elsewhere(), sel.config,
+                                out_dtype=torch.float32)
 
 
 # ---------------------------------------------------------------------------

@@ -84,7 +84,7 @@ def _profiler_check(torch) -> dict:
 
     out = {"start": seen()}
     cs.DP_DIR.mkdir(parents=True, exist_ok=True)
-    cs._dp_reference(torch, dev, cs.DP_F32[1][0], cs.DP_DIR / "ref.pt")
+    cs._dp_reference(torch, dev, "phi4-mini-3.8b", cs.DP_DIR / "ref.pt")
     out["after_reference"] = seen()
     spawn_ranks(_rank_collective, 2, timeout=300)
     out["after_gloo_ranks"] = seen()
