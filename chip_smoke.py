@@ -10,6 +10,18 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               the card (``nvidia-smi`` name and power limit); a spill or a
               wgmma serialisation note of a flash_bwd kernel, the f32 flash
               forward (flash_fwd_tf32x3) or an f32 GEMM kernel fails it.
+   examples — the example scripts' port twins as subprocesses
+              (``PYTHONPATH=src``, the built kernels reused):
+              ``examples/quickstart_torch.py`` (the selected config on the
+              GEMM kernel, within 0.3 sqrt(K) of the plain product) and
+              ``serve_lm_torch.py --gen 8`` for phi4-mini-3.8b,
+              qwen3-moe-30b-a3b, mamba2-370m, zamba2-7b, musicgen-large and
+              llava-next-mistral-7b (smoke size) together, then
+              ``train_lm_torch.py --d-model 768 --layers 12 --steps 100``
+              (about 106 M params; its loss must fall) alone; each must
+              exit 0, and the phase end within 120 s.  One row: each
+              run's seconds, quickstart's max |err|, train_lm's first and
+              last loss and tokens/s, each serve run's tokens/s.
 2. gemm     — the GEMM kernel against its plain version on the card: the
               phi4-mini step shapes at M = 4 and 512 with the path's
               epilogues, gelu/silu/bias at one shape each, forced configs
@@ -341,14 +353,6 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def gemm_tol(dtype, K):
-    """tests/test_kernels.py:26-27."""
-    import torch
-    if dtype == torch.float32:
-        return 1e-5, 1e-4 * math.sqrt(K)
-    return 3e-2, 0.3 * math.sqrt(K)
-
-
 def ptxas_faults(log: str, marker: str):
     """The ``-Xptxas -v`` lines that fault a kernel whose (mangled) name
     holds ``marker``: a note that ptxas serialised its wgmma (C7514: an
@@ -426,6 +430,7 @@ def main() -> int:
         fail(f"build: ptxas spilled or serialised wgmma in a flash_bwd, "
              f"the f32 flash forward or an f32 GEMM kernel: {faults}")
 
+    examples_phase()
     flash_err = flash_phase(torch, dev, kfa)
     window_err = flash_window_phase(torch, dev, kfa)
     max_err = gemm_phase(torch, dev, kmm)
@@ -453,7 +458,7 @@ def main() -> int:
     times = times_phase(torch, dev, kmm, kfa, edges, moe_capacity, moe_edge)
     calib, probe_launches = calib_phase(torch, dev, kpr)
     times.update(probe_times)
-    memo = fidelity_phase(torch, dev, kmm, calib)
+    memo = fidelity_phase(calib)
     residual_phase(memo, calib)
     serve_calibrated_phase(torch, dev, kmm, kfa, calib)
     ssm_launches = serve_ssm_phase(torch, dev, kmm, kfa, tp_refs)
@@ -571,6 +576,88 @@ def _free(torch) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The examples phase: the example scripts' port twins on the card.
+# ---------------------------------------------------------------------------
+
+EXAMPLE_SERVE_ARCHS = ("phi4-mini-3.8b", "qwen3-moe-30b-a3b", "mamba2-370m",
+                       "zamba2-7b", "musicgen-large", "llava-next-mistral-7b")
+EXAMPLE_TRAIN_ARGS = ["--d-model", "768", "--layers", "12", "--steps", "100"]
+# The quickstart and the six serve runs start together (each is host-bound
+# and small); the training run follows on its own, so its tokens/s is its
+# own.
+EXAMPLE_RUNS = [
+    [("quickstart", ["quickstart_torch.py"])]
+    + [(f"serve_lm {arch}", ["serve_lm_torch.py", "--arch", arch, "--gen",
+                             "8"]) for arch in EXAMPLE_SERVE_ARCHS],
+    [("train_lm", ["train_lm_torch.py", *EXAMPLE_TRAIN_ARGS])]]
+EXAMPLE_TIMEOUT_S = 300
+EXAMPLES_BUDGET_S = 120.0   # the most the phase may add to the script
+
+
+def examples_phase() -> None:
+    """Run ``examples/{quickstart,serve_lm,train_lm}_torch.py`` as
+    subprocesses (``PYTHONPATH=src``) on the card, after the build (the
+    kernels' hashed libraries are reused, nothing rebuilds): each must exit
+    0.  One row: each run's seconds, quickstart's max |err| (its own assert
+    holds it under 0.3 sqrt(K)), train_lm's first and last loss (its own
+    assert: the last below the first) and tokens/s, each serve run's
+    tokens/s.  The phase fails past ``EXAMPLES_BUDGET_S``."""
+    import os
+    import re
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p])}
+    t0 = time.perf_counter()
+    runs = {}
+    for wave in EXAMPLE_RUNS:
+        procs = [(name, time.perf_counter(), subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / argv[0]), *argv[1:]],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)) for name, argv in wave]
+        for name, start, proc in procs:
+            try:
+                out, err = proc.communicate(timeout=EXAMPLE_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                out, err = proc.communicate()
+            runs[name] = {"rc": proc.returncode, "out": out, "err": err,
+                          "seconds": time.perf_counter() - start}
+    row = {"phase": "examples", "seconds": time.perf_counter() - t0,
+           "budget_s": EXAMPLES_BUDGET_S,
+           "runs": {name: {"rc": r["rc"], "seconds": r["seconds"]}
+                    for name, r in runs.items()}}
+    bad = {name: r["err"][-800:] or r["out"][-800:]
+           for name, r in runs.items() if r["rc"] != 0}
+    if bad:
+        emit(row)
+        fail(f"examples: non-zero exit: {bad}")
+
+    def grab(name, pattern):
+        found = re.findall(pattern, runs[name]["out"])
+        if not found:
+            emit(row)
+            fail(f"examples: {name} printed no {pattern!r}")
+        return found[-1]
+    row["quickstart_max_abs_err"] = float(grab("quickstart",
+                                               r"max \|err\| = (\S+)"))
+    first, last = grab("train_lm", r"loss (\S+) -> (\S+) over")
+    row["train_lm"] = {
+        "args": EXAMPLE_TRAIN_ARGS,
+        "params": grab("train_lm", r"params: (\S+)"),
+        "first_loss": float(first), "last_loss": float(last),
+        "tokens_per_s": float(grab(
+            "train_lm", r"loss \S+ +([\d,.]+) tok/s").replace(",", ""))}
+    row["serve_lm_tokens_per_s"] = {
+        arch: float(grab(f"serve_lm {arch}",
+                         r"at ([\d.]+) tok/s total"))
+        for arch in EXAMPLE_SERVE_ARCHS}
+    emit(row)
+    if row["seconds"] > EXAMPLES_BUDGET_S:
+        fail(f"examples: {row['seconds']:.1f} s, over the phase's budget "
+             f"of {EXAMPLES_BUDGET_S} s")
+
+
+# ---------------------------------------------------------------------------
 # Phase 2: the GEMM kernel against its plain version.
 # ---------------------------------------------------------------------------
 
@@ -603,6 +690,7 @@ def gemm_phase(torch, dev, kmm):
     from repro_torch.core.latency import Epilogue, TileConfig
     from repro_torch.core.selector import select_gemm_config
     from repro_torch.kernels.ops import _dtype_name, _model_dtype_name
+    from repro_torch.kernels.ref import gemm_tolerance
 
     bf, f32 = torch.bfloat16, torch.float32
     none, res = Epilogue(), Epilogue(residual=True)
@@ -681,7 +769,7 @@ def gemm_phase(torch, dev, kmm):
         again = kmm.tiled_matmul(a, b, cfg, out_dtype=odt, epilogue=ep, **kw)
         want = kmm.matmul_plain(a, b, cfg, out_dtype=odt, epilogue=ep, **kw)
         torch.cuda.synchronize()
-        rtol, atol = gemm_tol(dt, K)
+        rtol, atol = gemm_tolerance(dt, K)
         err = (got.float() - want.float()).abs()
         bound = atol + rtol * want.float().abs()
         det = _deterministic(torch, dev, kmm, got, again)
@@ -899,6 +987,7 @@ def expert_gemm_phase(torch, dev, kmm) -> float:
     from repro_torch.core.latency import Epilogue, TileConfig
     from repro_torch.core.selector import select_gemm_config
     from repro_torch.kernels.ops import _dtype_name, _model_dtype_name
+    from repro_torch.kernels.ref import gemm_tolerance
 
     bf, f32 = torch.bfloat16, torch.float32
     none, swi = Epilogue(), Epilogue(activation="swiglu_gate")
@@ -945,7 +1034,7 @@ def expert_gemm_phase(torch, dev, kmm) -> float:
         want = kmm.expert_matmul_plain(x, w, cfg, out_dtype=odt,
                                        epilogue=ep, **kw)
         torch.cuda.synchronize()
-        rtol, atol = gemm_tol(dt, K)
+        rtol, atol = gemm_tolerance(dt, K)
         err = (got.float() - want.float()).abs()
         bound = atol + rtol * want.float().abs()
         det = _deterministic(torch, dev, kmm, got, again)
@@ -1873,73 +1962,44 @@ FIDELITY_SHAPES = [(f"phi4/M{M}/{N}x{K}", M, N, K) for M in (4, 512)
                    for N, K in ((3072, 3072), (8192, 3072), (3072, 8192))]
 
 
-class _CheckedDevice:
-    """The card's TorchDevice with ``gemm_time`` memoised by (problem,
-    config): before a candidate's first timing its output is held to one
-    plain product of the shape (tests/test_kernels.py:26-27).  A candidate
-    that fails to launch is recorded, and fails the phase."""
-
-    def __init__(self, torch, dev, kmm, inner):
-        self.torch, self.dev, self.kmm, self.inner = torch, dev, kmm, inner
-        self.name = inner.name
-        self.times = {}
-        self.errors = []
-        self.checked = 0
-        self.worst_err = 0.0
-        self._ref = None
-
-    def gemm_time(self, p, t):
-        key = (p, t)
-        if key not in self.times:
-            try:
-                self._check(p, t)
-                self.times[key] = self.inner.gemm_time(p, t)
-            except RuntimeError as e:
-                self.errors.append(f"{p.M}x{p.N}x{p.K} {t}: {e}")
-                raise
-        return self.times[key]
-
-    def _check(self, p, t):
-        from repro_torch.kernels import ops
-        torch = self.torch
-        if self._ref is None or self._ref[0] != p:
-            g = torch.Generator(device=self.dev).manual_seed(17)
-            a, b = (torch.randn(shape, generator=g, device=self.dev).to(
-                getattr(torch, p.in_dtype)) for shape in ((p.M, p.K),
-                                                          (p.K, p.N)))
-            want = self.kmm.matmul_plain(
-                a, b, t, out_dtype=getattr(torch, p.out_dtype)).float()
-            self._ref = (p, a, b, want)
-        _, a, b, want = self._ref
-        n0 = self.kmm.tiled_matmul.launches
-        got = ops.matmul(a, b, out_dtype=getattr(torch, p.out_dtype),
-                         config=t)
-        self.kmm.tiled_matmul.launches = n0      # checks do not count
-        rtol, atol = gemm_tol(a.dtype, p.K)
-        err = (got.float() - want).abs()
-        if not bool(torch.isfinite(got).all()) or \
-                not bool((err <= atol + rtol * want.abs()).all()):
-            emit({"phase": "fidelity", "failed_candidate": str(t),
-                  "shape": [p.M, p.N, p.K], "max_abs_err": float(err.max())})
-            fail(f"candidate {t} at {p.M}x{p.N}x{p.K} disagrees with the "
-                 f"plain product (max abs err {float(err.max())})")
-        self.checked += 1
-        self.worst_err = max(self.worst_err, float(err.max()))
-
-
-def fidelity_phase(torch, dev, kmm, calib):
+def fidelity_phase(calib):
     """The pruned exhaustive oracle on the served shapes: the preset's and
-    the calibrated selection against the measured argmin."""
+    the calibrated selection against the measured argmin.  Every candidate
+    is held to the plain product before it is timed (``CheckedDevice``)."""
+    from repro_torch.calib import (CandidateMismatch, CheckedDevice,
+                                   TorchDevice)
+    _, topo, _ = calib
+    memo = CheckedDevice(TorchDevice())
+    memo.oracle = {}
+    t_all = time.perf_counter()
+    try:
+        rows = _fidelity_rows(memo, topo)
+    except CandidateMismatch as e:
+        p = e.problem
+        emit({"phase": "fidelity", "failed_candidate": str(e.config),
+              "shape": [p.M, p.N, p.K], "max_abs_err": e.max_abs_err})
+        fail(f"fidelity: {e}")
+    emit({"phase": "fidelity", "device": memo.name, "prune": True,
+          "timing": "TorchDevice: a CUDA graph of 5 calls after 3 warm-up "
+          "calls, median of 5 replays, per call (calib/device.py)",
+          "checked_candidates": memo.checked,
+          "worst_abs_err": memo.worst_err,
+          "tolerance": "tests/test_kernels.py:26-27 (bf16 in: rtol 3e-2, "
+          "atol 0.3*sqrt(K)) against one plain product a shape",
+          "rows": rows, "seconds": time.perf_counter() - t_all})
+    if memo.errors:
+        fail(f"candidates failed to launch: {memo.errors[:5]}")
+    return memo
+
+
+def _fidelity_rows(memo, topo):
+    """fidelity_phase's rows, one a shape of FIDELITY_SHAPES."""
     import numpy as np
-    from repro_torch.calib import TorchDevice, fidelity_row, oracle_best
+    from repro_torch.calib import fidelity_row, oracle_best
     from repro_torch.core.hardware import GPU_H100_LIKE as base
     from repro_torch.core.latency import GemmProblem, score_candidates
     from repro_torch.core.selector import candidate_tiles, select_gemm_config
-    res, topo, _ = calib
-    memo = _CheckedDevice(torch, dev, kmm, TorchDevice())
-    memo.oracle = {}
     rows = []
-    t_all = time.perf_counter()
     for name, M, N, K in FIDELITY_SHAPES:
         t0 = time.perf_counter()
         row = fidelity_row(base, name, M, N, K, memo, prune=True)
@@ -1970,17 +2030,7 @@ def fidelity_phase(torch, dev, kmm, calib):
             "calibrated_fidelity": row.oracle_s / cs,
             "calibrated_oracle_rank": crank,
             "seconds": time.perf_counter() - t0})
-    emit({"phase": "fidelity", "device": memo.name, "prune": True,
-          "timing": "TorchDevice: a CUDA graph of 5 calls after 3 warm-up "
-          "calls, median of 5 replays, per call (calib/device.py)",
-          "checked_candidates": memo.checked,
-          "worst_abs_err": memo.worst_err,
-          "tolerance": "tests/test_kernels.py:26-27 (bf16 in: rtol 3e-2, "
-          "atol 0.3*sqrt(K)) against one plain product a shape",
-          "rows": rows, "seconds": time.perf_counter() - t_all})
-    if memo.errors:
-        fail(f"candidates failed to launch: {memo.errors[:5]}")
-    return memo
+    return rows
 
 
 def residual_phase(memo, calib):
@@ -2257,6 +2307,7 @@ def train_kernels_phase(torch, dev, kmm, kfa):
     from repro_torch.core.hardware import GPU_H100_LIKE
     from repro_torch.core.latency import Epilogue
     from repro_torch.core.selector import select_gemm_config
+    from repro_torch.kernels.ref import gemm_tolerance
 
     bf, f32 = torch.bfloat16, torch.float32
     worst = dict.fromkeys(("matmul@train_dgrad", "matmul@train_wgrad",
@@ -2293,7 +2344,7 @@ def train_kernels_phase(torch, dev, kmm, kfa):
         again = kmm.tiled_matmul(a, b, cfg, **kw)
         want = kmm.matmul_plain(a, b, cfg, **kw)
         torch.cuda.synchronize()
-        rtol, atol = gemm_tol(dt, K)
+        rtol, atol = gemm_tolerance(dt, K)
         err = (got.float() - want.float()).abs()
         ok = bool((err <= atol + rtol * want.float().abs()).all()) \
             and bool(torch.isfinite(got).all()) \
@@ -2448,7 +2499,7 @@ def train_kernels_phase(torch, dev, kmm, kfa):
         again = kmm.tiled_expert_matmul(a, b, cfg, **kw)
         want = kmm.expert_matmul_plain(a, b, cfg, **kw)
         torch.cuda.synchronize()
-        rtol, atol = gemm_tol(dt, K)
+        rtol, atol = gemm_tolerance(dt, K)
         err = (got.float() - want.float()).abs()
         ok = bool((err <= atol + rtol * want.float().abs()).all()) \
             and bool(torch.isfinite(got).all()) \

@@ -18,7 +18,8 @@ Entry points: ``repro_torch.core.hardware.calibrate(base, device=...)``,
 ``tools/fit_topology_torch.py`` and ``tools/fit_residual_torch.py``
 (CLIs).
 """
-from repro_torch.calib.device import (Device, TorchDevice, VirtualDevice,
+from repro_torch.calib.device import (CandidateMismatch, CheckedDevice,
+                                      Device, TorchDevice, VirtualDevice,
                                       get_device)
 from repro_torch.calib.faults import (FaultPlan, FaultyDevice,
                                 InjectedCompileError,
@@ -39,7 +40,8 @@ from repro_torch.calib.residual import (RESIDUAL_SCHEMA, ResidualCorrector,
                                   rows_from_drift, rows_from_sweep)
 
 __all__ = [
-    "Device", "TorchDevice", "VirtualDevice", "get_device",
+    "CandidateMismatch", "CheckedDevice", "Device", "TorchDevice",
+    "VirtualDevice", "get_device",
     "FaultPlan", "FaultyDevice", "InjectedCompileError",
     "InjectedTransientError", "corrupt_cache_entry", "decode_injector",
     "launch_injector", "scripted_injector", "tamper_artifact_fingerprint",

@@ -365,6 +365,74 @@ class TorchDevice:
             marginal=False)
 
 
+class CandidateMismatch(Exception):
+    """A GEMM candidate whose output disagrees with the plain product: a
+    correctness fault, never a slow measurement.  Not a RuntimeError, so the
+    oracle's loop (which skips candidates that fail to launch) lets it
+    through."""
+
+    def __init__(self, p: GemmProblem, t: TileConfig, max_abs_err: float):
+        super().__init__(f"candidate {t} at {p.M}x{p.N}x{p.K} disagrees "
+                         f"with the plain product (max abs err "
+                         f"{max_abs_err})")
+        self.problem, self.config, self.max_abs_err = p, t, max_abs_err
+
+
+class CheckedDevice:
+    """A :class:`TorchDevice` whose ``gemm_time`` is memoised by (problem,
+    config) and, before a candidate's first timing, holds its output to one
+    plain product of the problem (``kernels/ref.py::gemm_check``): a
+    wrong config that ran fast would otherwise win the oracle's argmin.  A
+    disagreement raises :class:`CandidateMismatch`; a candidate that fails
+    to launch is recorded in ``errors`` and its RuntimeError re-raised.
+    The check's launch is not counted in ``tiled_matmul.launches``."""
+
+    def __init__(self, inner: "TorchDevice"):
+        self.inner, self.name = inner, inner.name
+        self.times: dict = {}
+        self.errors: list = []
+        self.checked = 0
+        self.worst_err = 0.0
+        self._ref = None
+
+    def gemm_time(self, p: GemmProblem, t: TileConfig) -> float:
+        key = (p, t)
+        if key not in self.times:
+            try:
+                self._check(p, t)
+                self.times[key] = self.inner.gemm_time(p, t)
+            except RuntimeError as e:
+                self.errors.append(f"{p.M}x{p.N}x{p.K} {t}: {e}")
+                raise
+        return self.times[key]
+
+    def _check(self, p: GemmProblem, t: TileConfig) -> None:
+        import torch
+        from repro_torch.kernels import matmul as kmm
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.ref import gemm_check
+        dev = self.inner.device
+        if self._ref is None or self._ref[0] != p:
+            self._ref = None                    # free the last shape's first
+            g = torch.Generator(device=dev).manual_seed(17)
+            a, b = (torch.randn(shape, generator=g, device=dev).to(
+                getattr(torch, p.in_dtype)) for shape in ((p.M, p.K),
+                                                          (p.K, p.N)))
+            want = kmm.matmul_plain(
+                a, b, t, out_dtype=getattr(torch, p.out_dtype)).float()
+            self._ref = (p, a, b, want)
+        _, a, b, want = self._ref
+        n0 = kmm.tiled_matmul.launches
+        got = ops.matmul(a, b, out_dtype=getattr(torch, p.out_dtype),
+                         config=t)
+        kmm.tiled_matmul.launches = n0          # checks do not count
+        ok, worst, _ = gemm_check(got, want, a.dtype, p.K)
+        if not ok:
+            raise CandidateMismatch(p, t, worst)
+        self.checked += 1
+        self.worst_err = max(self.worst_err, worst)
+
+
 def get_device(kind: str, base: Topology, *, noise: float = 0.0,
                seed: int = 0, planted: Optional[Topology] = None,
                fault_plan=None) -> Device:

@@ -21,6 +21,41 @@ from repro_torch.core.latency import EPILOGUE_NONE, Epilogue
 PLAIN_DEVICES = ("cpu", "meta")
 
 
+def gemm_tolerance(dtype: torch.dtype, K: int) -> Tuple[float, float]:
+    """(rtol, atol) of a GEMM with ``dtype`` operands and reduction length
+    ``K`` against its plain product (``tests/test_kernels.py:26-27``)."""
+    if dtype == torch.float32:
+        return 1e-5, 1e-4 * K ** 0.5
+    return 3e-2, 0.3 * K ** 0.5
+
+
+# The relative L2 error a GEMM may show against its plain product, by
+# operand dtype.  Rounding and summation order give about 1e-4 in bf16 and
+# 1e-6 in f32 (split TF32); a zeroed tile or a dropped split-K slice gives
+# 1e-1 or more whatever the operands' scale, where the absolute tolerance
+# above assumes unit-normal operands.
+GEMM_REL_L2_CAP = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+
+
+def gemm_check(got: torch.Tensor, want: torch.Tensor, dtype: torch.dtype,
+               K: int) -> Tuple[bool, float, float]:
+    """Whether a GEMM's output ``got`` agrees with its plain product
+    ``want`` (``dtype``: the operands'; ``K``: the reduction length):
+    finite, every element within :func:`gemm_tolerance`, and the relative
+    L2 error within :data:`GEMM_REL_L2_CAP`.  Returns (agrees, max abs
+    error, relative L2 error)."""
+    got, want = got.float(), want.float()
+    rtol, atol = gemm_tolerance(dtype, K)
+    diff = got - want
+    err = diff.abs()
+    rel = float(torch.linalg.vector_norm(diff)
+                / torch.linalg.vector_norm(want).clamp_min(1e-30))
+    ok = (bool(torch.isfinite(got).all())
+          and bool((err <= atol + rtol * want.abs()).all())
+          and rel <= GEMM_REL_L2_CAP.get(dtype, 1e-2))
+    return ok, float(err.max()), rel
+
+
 def apply_epilogue_ref(
     acc: torch.Tensor,
     ep: Epilogue,

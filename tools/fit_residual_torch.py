@@ -5,7 +5,7 @@
         [--device torch | virtual] \
         [--drift experiments/obs/drift.jsonl ...] [--oracle-sweep] \
         [--scale 8] [--smoke] [--out experiments/calib/<preset>.residual.json] \
-        [--check-against-oracle]
+        [--check-against-oracle] [--topology experiments/calib/<preset>.topo.json]
 
 Training rows come from either (or both) of:
 
@@ -19,6 +19,9 @@ Training rows come from either (or both) of:
   corrector re-prices at selection time: ``--device torch`` (the default)
   times them with the port's GEMM kernel on the CUDA card and refuses to
   run without one, ``--device virtual`` prices them with the simulator.
+  On the card every candidate's output is first held to one plain product
+  of its shape (``calib/device.py::CheckedDevice``): a wrong config that
+  ran fast would win the argmin, so a disagreement stops the tool.
 
 The fit is written as a ``repro/residual/v1`` artifact (fingerprint +
 model digest + provenance) loadable with ``load_residual_guarded``.
@@ -36,14 +39,18 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), os.pardir, "src"))
 
-from repro_torch.calib.device import get_device              # noqa: E402
+from repro_torch.calib.device import (CandidateMismatch,     # noqa: E402
+                                      CheckedDevice, get_device)
 from repro_torch.calib.oracle import (fidelity_sweep,        # noqa: E402
                                       scaled_llama3_shapes)
 from repro_torch.calib.residual import (MIN_FIT_ROWS,        # noqa: E402
                                         fit_residual, rows_from_drift,
                                         rows_from_sweep)
 from repro_torch.core.hardware import PRESETS, get_hardware  # noqa: E402
-from repro_torch.core.topology import topology_fingerprint   # noqa: E402
+from repro_torch.core.latency import GemmProblem             # noqa: E402
+from repro_torch.core.selector import select_gemm_config     # noqa: E402
+from repro_torch.core.topology import (                      # noqa: E402
+    load_calibrated_topology, topology_fingerprint)
 
 DEFAULT_OUT_DIR = os.path.join(os.path.dirname(__file__), os.pardir,
                                "experiments", "calib")
@@ -53,7 +60,7 @@ TRAIN_TOKENS = (1024,)
 HELDOUT_TOKENS = (512,)
 
 
-def main() -> int:
+def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="gpu_h100_like",
                     choices=sorted(PRESETS))
@@ -78,7 +85,11 @@ def main() -> int:
     ap.add_argument("--check-against-oracle", action="store_true",
                     help="held-out fidelity report; fail if the corrected "
                          "selection underperforms the analytical baseline")
-    args = ap.parse_args()
+    ap.add_argument("--topology", default=None, metavar="PATH",
+                    help="a calibrated-topology artifact (tools/"
+                         "fit_topology_torch.py's): the held-out report "
+                         "also prices its selection against the oracle")
+    args = ap.parse_args(argv)
     if args.smoke:
         args.scale = max(args.scale, 8)
         args.oracle_sweep = True
@@ -86,6 +97,20 @@ def main() -> int:
     hw = get_hardware(args.preset)
     fp = topology_fingerprint(hw)
     device = get_device(args.device, hw)
+    if args.device == "torch":
+        device = CheckedDevice(device)
+    topo = None
+    if args.topology:
+        with open(args.topology) as f:
+            topo, _ = load_calibrated_topology(f.read())
+    try:
+        return _run(args, hw, fp, device, topo)
+    except CandidateMismatch as e:
+        print(f"[residual] FAIL: {e}")
+        return 1
+
+
+def _run(args, hw, fp, device, topo) -> int:
 
     rows, sources, stats = [], [], {}
     for path in args.drift:
@@ -141,6 +166,23 @@ def main() -> int:
         "worst_fidelity": worst_a, "worst_corrected_fidelity": worst_c,
         "rows": [r.as_list() for r in orows],
     }
+    if topo is not None:
+        # The calibrated topology's selection, timed on the same device
+        # against the same oracle (the card's device memoises candidates).
+        cal = []
+        for r in orows:
+            pick = select_gemm_config(r.M, r.N, r.K, hw=topo).config
+            s = device.gemm_time(GemmProblem(M=r.M, N=r.N, K=r.K), pick)
+            cal.append({"gemm": r.gemm, "selected": str(pick),
+                        "selected_s": s, "fidelity": r.oracle_s / s})
+        report.update(
+            calibrated=args.topology, calibrated_rows=cal,
+            mean_calibrated_fidelity=sum(c["fidelity"] for c in cal)
+            / len(cal),
+            worst_calibrated_fidelity=min(c["fidelity"] for c in cal))
+        print(f"[residual] held-out, calibrated selection ({topo.name}): "
+              f"{100*report['mean_calibrated_fidelity']:.2f}% mean / "
+              f"{100*report['worst_calibrated_fidelity']:.2f}% worst")
     base = os.path.join(os.path.dirname(os.path.abspath(out)),
                         f"residual_report_{hw.name}")
     with open(base + ".json", "w") as f:
@@ -157,6 +199,10 @@ def main() -> int:
           f"{100*mean_a:.2f}% mean / {100*worst_a:.2f}% worst; corrected "
           f"{100*mean_c:.2f}% mean / {100*worst_c:.2f}% worst "
           f"-> {base}.{{json,md}}")
+    if isinstance(device, CheckedDevice):
+        print(f"[residual] {device.checked} candidates held to the plain "
+              f"product first (worst |err| {device.worst_err:.4g}); "
+              f"{len(device.errors)} failed to launch")
     # The corrector must help on average and never sink the worst row
     # (small tolerance: held-out noise must not flake CI).
     if mean_c < mean_a - 0.005 or worst_c < worst_a - 0.005:
