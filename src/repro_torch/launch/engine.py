@@ -36,10 +36,20 @@ from a pre-split seed table, so a retry or drain never shifts the stream.
 The serving loop never waits on the device between ``sync_every``
 boundaries: sampled tokens stay on the device (one stack at end of run),
 prompts and positions go up by non-blocking copies from pinned memory,
-prefill is timed by CUDA events, and nothing reads a device value back
-until the boundary, where the
+each prefill and decode step is timed by CUDA events
+(:class:`~repro_torch.obs.trace.EventTimer`), and nothing reads a device
+value back until the boundary, where the
 :class:`~repro_torch.runtime.fault_tolerance.StragglerMonitor` records the
-device-step time alongside the host dispatch time.
+sync window's wall time a step alongside the host dispatch time.
+``tokens_per_s`` is the tokens over the serving loop's wall time.
+
+With a tracer installed (``obs/trace.py``, looked up at each span), the
+engine's track holds per request a ``queue`` span (submit to its
+prefill's device start), a device-timed ``prefill`` and a ``request``
+span (submit to its last token's device end, ``first_token`` the
+prefill's device end), all with its ``rid``; per decode step a
+device-timed ``decode_step`` with a host ``sample`` inside; and ``sync``
+around each sync boundary, where the tracer's device marks are settled.
 
 Tensor parallelism (a mesh installed in ``meshctx``, ``serve --tp``): every
 rank runs the same engine over the same queue in lockstep, each on its own
@@ -95,6 +105,10 @@ class Request:
     prompt: np.ndarray                  # (len,) int32 token ids
     max_new_tokens: int                 # tokens to emit (incl. prefill's)
     extras: Optional[Dict] = None       # frontend inputs, batch axis of 1
+    # (tracer, its "queue" span, its "request" span) when a tracer was
+    # installed at submit()
+    spans: Optional[Tuple[obs_trace.Tracer, obs_trace.Span,
+                          obs_trace.Span]] = None
 
 
 @dataclass
@@ -178,39 +192,6 @@ def _to_device(values, device: torch.device) -> torch.Tensor:
     if device.type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t
-
-
-class _PrefillClock:
-    """Prefill time with no host sync: CUDA events around each prefill on
-    the card, read only once the engine syncs anyway; the host clock on the
-    CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-        self.total = 0.0                 # seconds settled so far
-        self._pending: List[Tuple] = []
-
-    def start(self):
-        if not self.cuda:
-            return time.perf_counter()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
-
-    def stop(self, mark) -> None:
-        if not self.cuda:
-            self.total += time.perf_counter() - mark
-            return
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        self._pending.append((mark, ev))
-
-    def settle(self) -> float:
-        """Seconds of prefill so far; call only after a device sync."""
-        for s, e in self._pending:
-            self.total += s.elapsed_time(e) / 1e3
-        self._pending.clear()
-        return self.total
 
 
 def _extras_at(extras: Optional[Dict], padded: int,
@@ -321,9 +302,15 @@ class ServingEngine:
                 f"> max_len {self.max_len}")
         rid = self._next_rid
         self._next_rid += 1
-        self._queue.append(Request(rid=rid, prompt=prompt,
-                                   max_new_tokens=int(max_new_tokens),
-                                   extras=extras))
+        req = Request(rid=rid, prompt=prompt,
+                      max_new_tokens=int(max_new_tokens), extras=extras)
+        tr = obs_trace.get_tracer()
+        if tr is not None:
+            q = tr.open("queue", "engine", "engine", {"rid": rid})
+            life = tr.open("request", "engine", "engine", {"rid": rid})
+            life.start = q.start               # both from the submit
+            req.spans = (tr, q, life)
+        self._queue.append(req)
         return rid
 
     # -- warm-up -----------------------------------------------------------
@@ -427,8 +414,13 @@ class ServingEngine:
         reg = self.run_registry = MetricsRegistry()
         c_real = reg.counter("engine_real_rows")
         c_padded = reg.counter("engine_padded_rows")
-        tr = obs_trace.get_tracer()
-        prefill_clock = _PrefillClock(dev)
+        timer = obs_trace.EventTimer(dev.type == "cuda")
+        pre_marks: List[Tuple] = []        # (start, end) a prefill, unread
+        step_marks: List[Tuple] = []       # (start, end) a decode step
+        step_s: List[float] = []           # each decode step's device s
+        t_prefill = 0.0
+        # rid -> (tracer, "request" span) of requests in flight
+        open_req: Dict[int, Tuple[obs_trace.Tracer, obs_trace.Span]] = {}
         drift_on = (self.predicted_step_s is not None
                     and get_drift_monitor() is not None)
         topo_fp = (topology_fingerprint(ops.get_default_hardware())
@@ -437,22 +429,57 @@ class ServingEngine:
         drained = False
         step = 0
 
+        def sync() -> float:
+            """The sync boundary: the tracer reads the marks it anchored at
+            the last one while the device still runs, then, once synced,
+            the prefill seconds and each decode step's device seconds are
+            read and the tracer anchors its marks.  Returns the wall clock
+            at the sync."""
+            nonlocal t_prefill
+            tr = obs_trace.get_tracer()
+            if tr is not None:
+                tr.read()
+            with obs_trace.span("sync", cat="engine", track="engine"):
+                self._sync()
+                now = time.perf_counter()
+                t_prefill += sum(timer.seconds(a, b) for a, b in pre_marks)
+                step_s.extend(timer.seconds(a, b) for a, b in step_marks)
+                timer.recycle([m for ab in pre_marks + step_marks
+                               for m in ab])
+                pre_marks.clear()
+                step_marks.clear()
+                if tr is not None:
+                    tr.settle()
+            return now
+
+        def close_request(rid: int, tr, mark) -> None:
+            """End a request's span at ``mark``, its last token's device
+            end, if the tracer that opened it is still ``tr``."""
+            tr_sp = open_req.pop(rid, None)
+            if tr_sp is not None and tr_sp[0] is tr:
+                tr.close(tr_sp[1], device_end=mark)
+
         def admit(b: int) -> None:
             nonlocal tokens
             req = self._queue.pop(0)
             plen = int(req.prompt.size)
             padded = (self.plan.bucket_for(plen) if self.plan else plen)
-            prompt = np.zeros((1, padded), np.int64)
-            prompt[0, :plen] = req.prompt
-            prompt_dev = _to_device(prompt, dev)
-            last_pos = (_to_device([plen - 1], dev)
-                        if padded != plen else None)
-            extras = _extras_at(req.extras, padded, dev)
-            mark = prefill_clock.start()
-            with (tr.span("prefill", cat="engine", track="engine",
+            tr = obs_trace.get_tracer()
+            mine = req.spans is not None and req.spans[0] is tr
+            if mine:        # the wait ends where the prefill's work starts
+                tr.close(req.spans[1], device_end=tr.mark())
+            with (tr.span("prefill", "engine", "engine",
                           args={"rid": req.rid, "slot": b,
-                                "prompt_len": plen, "padded_len": padded})
+                                "prompt_len": plen, "padded_len": padded},
+                          device=True)
                   if tr is not None else obs_trace.NULL_SPAN):
+                prompt = np.zeros((1, padded), np.int64)
+                prompt[0, :plen] = req.prompt
+                prompt_dev = _to_device(prompt, dev)
+                last_pos = (_to_device([plen - 1], dev)
+                            if padded != plen else None)
+                extras = _extras_at(req.extras, padded, dev)
+                mark = timer.mark()
                 logits, pc = retry(
                     lambda: self.model.prefill(self.params, prompt_dev,
                                                last_pos, extras=extras),
@@ -463,7 +490,11 @@ class ServingEngine:
                 # Out of place: the step log holds the previous tensor.
                 tokens = tokens.clone()
                 tokens[b] = tok[0]
-            prefill_clock.stop(mark)
+                pre_marks.append((mark, timer.mark()))
+            if mine:
+                first = tr.mark()
+                tr.place(req.spans[2], "first_token", first)
+                open_req[req.rid] = (tr, req.spans[2])
             first_tok[req.rid] = tok
             slots[b].rid = req.rid
             slots[b].pos = plen
@@ -478,6 +509,8 @@ class ServingEngine:
             if slots[b].remaining == 0:       # single-token request
                 finished[req.rid] = step
                 slots[b].rid = -1
+                if mine:
+                    close_request(req.rid, tr, first)
 
         t_run0 = t_sync = time.perf_counter()
         pref_at_sync = 0.0
@@ -494,7 +527,6 @@ class ServingEngine:
                         admit(b)
                 if not any(s.active for s in slots):
                     break
-                pos_dev = _to_device(pos_host, dev)
                 this_step = step
 
                 def body():
@@ -505,21 +537,29 @@ class ServingEngine:
                     return self.model.decode_step(self.params, cache,
                                                   tokens, pos_dev)
 
-                td0 = time.perf_counter()
-                with (tr.span("decode_step", cat="engine", track="engine",
+                tr = obs_trace.get_tracer()
+                with (tr.span("decode_step", "engine", "engine",
                               args={"step": this_step,
                                     "active": sum(1 for s in slots
-                                                  if s.active)})
+                                                  if s.active)},
+                              device=True)
                       if tr is not None else obs_trace.NULL_SPAN):
+                    pos_dev = _to_device(pos_host, dev)
+                    td0 = time.perf_counter()
+                    mark = timer.mark()
                     logits, cache = retry(
                         body, retries=_STEP_RETRIES,
                         base_delay=_STEP_BASE_DELAY,
                         max_delay=_STEP_MAX_DELAY,
                         on_retry=self._count_retry)
-                    tokens = _agree(self._sample(logits, step))
-                dispatch_acc.append(time.perf_counter() - td0)
+                    with obs_trace.span("sample", cat="engine",
+                                        track="engine"):
+                        tokens = _agree(self._sample(logits, step))
+                    step_marks.append((mark, timer.mark()))
+                    dispatch_acc.append(time.perf_counter() - td0)
                 tok_log.append(tokens)
                 owners.append(tuple(s.rid for s in slots))
+                ended = []
                 for b in range(B):
                     s = slots[b]
                     if not s.active:
@@ -529,13 +569,17 @@ class ServingEngine:
                     s.remaining -= 1
                     if s.remaining == 0:
                         finished[s.rid] = step + 1
+                        ended.append(s.rid)
                         s.rid = -1            # slot free: reused next admit
+                if open_req and ended:
+                    tr = obs_trace.get_tracer()
+                    end = tr.mark() if tr is not None else None
+                    for rid in ended:
+                        close_request(rid, tr, end)
                 step += 1
                 if step % self.sync_every == 0:
-                    self._sync()
-                    now = time.perf_counter()
+                    now = sync()
                     # Prefill is its own stat: take it out of the window.
-                    t_prefill = prefill_clock.settle()
                     window = now - t_sync - (t_prefill - pref_at_sync)
                     t_sync, pref_at_sync = now, t_prefill
                     n = min(self.sync_every, len(dispatch_acc))
@@ -563,8 +607,7 @@ class ServingEngine:
                             predicted_s=self.predicted_step_s,
                             measured_s=device_s, topo=topo_fp,
                             step=step, dispatch_s=dispatch_s)
-        self._sync()
-        t_prefill = prefill_clock.settle()
+        wall = sync() - t_run0
         t_decode = time.perf_counter() - t_run0 - t_prefill
         rem = step % self.sync_every
         if rem:                   # tail window shorter than sync_every
@@ -602,7 +645,7 @@ class ServingEngine:
         bucket_hits = {int(dict(m.labels)["edge"]): m.value
                        for m in reg.metrics()
                        if m.name == "engine_bucket_hits"}
-        tokens_per_s = emitted / max(t_decode + t_prefill, 1e-9)
+        tokens_per_s = emitted / max(wall, 1e-9)
         reg.counter("engine_steps").inc(step)
         reg.counter("engine_tokens_emitted").inc(emitted)
         reg.gauge("engine_tokens_per_s").set(tokens_per_s)
@@ -623,9 +666,8 @@ class ServingEngine:
             "pad_fraction": pad_frac,
             "dispatch_s_mean": (sum(dispatch_acc) / len(dispatch_acc)
                                 if dispatch_acc else 0.0),
-            "device_step_s_mean": (sum(self.straggler.times)
-                                   / len(self.straggler.times)
-                                   if self.straggler.times else 0.0),
+            "device_step_s_mean": (sum(step_s) / len(step_s)
+                                   if step_s else 0.0),
             "queued_left": len(self._queue),
             "residual_active": get_residual_corrector() is not None,
         }

@@ -232,6 +232,8 @@ def _export_telemetry(trace_dir: str, args: argparse.Namespace) -> None:
             simulate_gemm(sel.problem, sel.config, hw, events=ev)
             sim_timelines.append((f"gemm {args.batch}x{n}x{k}", ev))
     tracer = obs_trace.get_tracer()
+    if tracer is not None:
+        tracer.read()
     export_chrome_trace(os.path.join(trace_dir, "trace.json"),
                         tracer.spans if tracer is not None else [],
                         sim_timelines)

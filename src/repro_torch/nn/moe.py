@@ -64,6 +64,7 @@ from repro_torch.distributed.collectives import (all_gather_dim,
 from repro_torch.kernels import ops as kops
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.layers import ParamDef, norm, norm_defs
+from repro_torch.obs import trace as obs_trace
 
 
 def moe_defs(cfg: ModelConfig) -> Dict:
@@ -267,6 +268,11 @@ def _moe_forward_flat(p: Dict, x: torch.Tensor, cfg: ModelConfig
     return y.reshape(B, S, D).to(x.dtype), aux
 
 
+def _span(name: str, follows: bool = False):
+    return obs_trace.span(name, cat="model", track="model", device=True,
+                          follows=follows)
+
+
 def moe_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Decode-step MoE for x (B, 1, D), plain einsums as in the reference.
 
@@ -275,7 +281,11 @@ def moe_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     on every token and mask the sum with the gates.  Under expert
     parallelism a rank gathers among its own experts only (a selected
     expert another rank holds is gathered as the rank's first, under a
-    gate of 0) and the ranks' sums are added in f32."""
+    gate of 0) and the ranks' sums are added in f32.
+
+    With a tracer installed, ``moe.gather`` (its ``gathered_bytes`` the
+    gathered tensors' bytes) and ``moe.experts`` time the two parts on
+    the device; the dense path has no gather."""
     B, _, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     ax = meshctx.model_axis() if _sharded(p, cfg) else None
@@ -284,26 +294,32 @@ def moe_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     _, gate_vals, gate_ids = _route(h, p["router"], K)
 
     if cfg.moe_dense_decode:
-        gates = torch.einsum("bke,bk->be",
-                             F.one_hot(gate_ids, E).float(), gate_vals)
-        g = torch.einsum("bd,edf->ebf", h, p["wg"])
-        u = torch.einsum("bd,edf->ebf", h, p["wu"])
-        ye = torch.einsum("ebf,efd->ebd", F.silu(g) * u, p["wd"])
-        y = torch.einsum("ebd,be->bd", ye,
-                         gates[:, e0:e0 + n_e].to(ye.dtype))
+        with _span("moe.experts"):
+            gates = torch.einsum("bke,bk->be",
+                                 F.one_hot(gate_ids, E).float(), gate_vals)
+            g = torch.einsum("bd,edf->ebf", h, p["wg"])
+            u = torch.einsum("bd,edf->ebf", h, p["wu"])
+            ye = torch.einsum("ebf,efd->ebd", F.silu(g) * u, p["wd"])
+            y = torch.einsum("ebd,be->bd", ye,
+                             gates[:, e0:e0 + n_e].to(ye.dtype))
     else:
         if ax is not None:
             local = gate_ids - e0
             mine = (local >= 0) & (local < n_e)
             gate_ids = torch.where(mine, local, 0)
             gate_vals = torch.where(mine, gate_vals, 0.0)
-        wg = p["wg"][gate_ids]                # (B, K, D, F) gather
-        wu = p["wu"][gate_ids]
-        wd = p["wd"][gate_ids]
-        g = torch.einsum("bd,bkdf->bkf", h, wg)
-        u = torch.einsum("bd,bkdf->bkf", h, wu)
-        y = torch.einsum("bkf,bkfd->bkd", F.silu(g) * u, wd)
-        y = torch.einsum("bkd,bk->bd", y, gate_vals.to(y.dtype))
+        with _span("moe.gather") as sp:
+            wg = p["wg"][gate_ids]            # (B, K, D, F) gather
+            wu = p["wu"][gate_ids]
+            wd = p["wd"][gate_ids]
+            if sp is not None:
+                sp.args = {"gathered_bytes":
+                           wg.nbytes + wu.nbytes + wd.nbytes}
+        with _span("moe.experts", follows=True):
+            g = torch.einsum("bd,bkdf->bkf", h, wg)
+            u = torch.einsum("bd,bkdf->bkf", h, wu)
+            y = torch.einsum("bkf,bkfd->bkd", F.silu(g) * u, wd)
+            y = torch.einsum("bkd,bk->bd", y, gate_vals.to(y.dtype))
     if ax is not None:
         y = all_reduce_f32(y, ax.group)
     return y.reshape(B, 1, D).to(x.dtype)

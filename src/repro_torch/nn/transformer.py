@@ -39,6 +39,12 @@ recompute (ZeRO-3); the final norm's before it runs; in a prefill or a
 decode step each layer's at its turn and the shared block's once.  The
 gather's backward reduce-scatters the gradient's sum back to the shards.
 
+With a tracer installed (``obs/trace.py``), a prefill and a decode step
+run under a device-timed ``model.prefill`` / ``model.decode`` span on the
+model's track, and each dense or MoE layer under ``attn`` and ``moe`` (or
+``mlp``) spans, the final norm and the logits under ``head``; a full pass
+records the layers' spans too.
+
 Training: :func:`lm_loss` is the reference's chunked next-token NLL over
 :func:`forward_hidden`, whose layers run under
 ``torch.utils.checkpoint.checkpoint`` when ``cfg.remat`` is set and
@@ -59,6 +65,7 @@ from repro_torch.distributed.collectives import (all_reduce_f32,
 from repro_torch.nn import layers as L
 from repro_torch.nn import mamba2, moe
 from repro_torch.nn.config import ModelConfig
+from repro_torch.obs import trace as obs_trace
 
 def layer_defs(cfg: ModelConfig) -> Dict:
     if cfg.has_ssm:
@@ -249,18 +256,39 @@ def _kv_for_cache(attn_p, h, positions, cfg):
     return k, v
 
 
+def _span(name: str, follows: bool = False):
+    """A device-timed span on the model's track (the shared no-op with no
+    tracer installed); ``follows``: it starts where the span before it
+    ended (``obs_trace.Tracer.span``)."""
+    return obs_trace.span(name, cat="model", track="model", device=True,
+                          follows=follows)
+
+
 def _block(lp: Dict, x: torch.Tensor, positions: torch.Tensor,
            cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer of a full pass: (x, the MoE aux loss or 0).  The attention
     residual fuses into the wo GEMM's flush, a dense MLP's into wd's; the
     MoE output is added after the combine, as in the reference
     (``transformer.py:156-157``)."""
-    x = L.attn_forward(lp["attn"], x, cfg, positions=positions, residual=x)
+    with _span("attn"):
+        x = L.attn_forward(lp["attn"], x, cfg, positions=positions,
+                           residual=x)
+    return _ffn(lp, x, cfg)
+
+
+def _ffn(lp: Dict, x: torch.Tensor, cfg: ModelConfig
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A layer's MoE or MLP half of a full pass or a prefill, under its
+    span, which starts where the attention's ended: (x, the MoE aux loss
+    or 0)."""
     if cfg.is_moe:
-        y, aux = moe.moe_forward(lp["moe"], x, cfg)
-        return x + y, aux
-    return (L.mlp_forward(lp["mlp"], x, cfg, residual=x),
-            x.new_zeros((), dtype=torch.float32))
+        with _span("moe", follows=True):
+            y, aux = moe.moe_forward(lp["moe"], x, cfg)
+            x = x + y
+        return x, aux
+    with _span("mlp", follows=True):
+        x = L.mlp_forward(lp["mlp"], x, cfg, residual=x)
+    return x, x.new_zeros((), dtype=torch.float32)
 
 
 def _shared_block(shared: Dict, x: torch.Tensor, positions: torch.Tensor,
@@ -370,6 +398,13 @@ def prefill_forward(
     position — the ragged-admission path: prompts right-padded to a bucket
     edge still read out at their true last token.  FSDP leaves are
     gathered over the data axis where they are used, as in a full pass."""
+    with _span("model.prefill"):
+        return _prefill(params, tokens, cfg, extras, last_pos)
+
+
+def _prefill(params: Dict, tokens: torch.Tensor, cfg: ModelConfig,
+             extras: Optional[Dict], last_pos: Optional[torch.Tensor]
+             ) -> Tuple[torch.Tensor, Dict]:
     x = embed_tokens(params, tokens, cfg, extras)
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)
@@ -388,22 +423,27 @@ def prefill_forward(
                 vs.append(v)
                 x = _shared_block(shared, x, positions, cfg)
             continue
-        k, v = _kv_for_cache(lp["attn"], x, positions, cfg)
+        with _span("attn", follows=i > 0):
+            k, v = _kv_for_cache(lp["attn"], x, positions, cfg)
+            x = L.attn_forward(lp["attn"], x, cfg, positions=positions,
+                               residual=x)
         ks.append(k)
         vs.append(v)
-        x, _ = _block(lp, x, positions, cfg)
-    x = L.norm(x, _fsdp_gather(params["final_norm"], L.norm_defs(cfg), cfg),
-               cfg)
-    last = (x[:, -1] if last_pos is None
-            else x[torch.arange(B, device=x.device), last_pos])
+        x, _ = _ffn(lp, x, cfg)
+    with _span("head", follows=not cfg.has_ssm):
+        x = L.norm(x, _fsdp_gather(params["final_norm"], L.norm_defs(cfg),
+                                   cfg), cfg)
+        last = (x[:, -1] if last_pos is None
+                else x[torch.arange(B, device=x.device), last_pos])
+        out = logits(last, params, cfg)
     kv = {"k": torch.stack(ks), "v": torch.stack(vs)} if ks else {}
     if not mcs:
-        return logits(last, params, cfg), kv
+        return out, kv
     cache = {"mamba": {name: torch.stack([mc[name] for mc in mcs])
                        for name in mcs[0]}}
     if kv:
         cache["attn"] = kv
-    return logits(last, params, cfg), cache
+    return out, cache
 
 
 def init_cache_specs(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -464,6 +504,12 @@ def decode_step(
     held until the last layer has run and then written into the cache,
     one copy per leaf, so a step that fails part-way leaves the recurrent
     state as it was."""
+    with _span("model.decode"):
+        return _decode(params, cache, tokens, pos, cfg)
+
+
+def _decode(params: Dict, cache: Dict, tokens: torch.Tensor,
+            pos: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict]:
     x = embed_tokens(params, tokens, cfg)[:, None, :]     # (B, 1, D)
     new_mamba = []
     layer, shared = _serving_params(params, cfg)
@@ -481,14 +527,18 @@ def decode_step(
                 x = x + L.mlp_forward(shared["mlp"], x, cfg)
             continue
         c = {"k": cache["k"][i], "v": cache["v"][i]}
-        x = x + L.attn_decode(lp["attn"], x, c, cfg, pos=pos)
+        with _span("attn", follows=i > 0):
+            x = x + L.attn_decode(lp["attn"], x, c, cfg, pos=pos)
         if cfg.is_moe:
-            x = x + moe.moe_decode(lp["moe"], x, cfg)
+            with _span("moe", follows=True):
+                x = x + moe.moe_decode(lp["moe"], x, cfg)
         else:
-            x = x + L.mlp_forward(lp["mlp"], x, cfg)
-    x = L.norm(x, _fsdp_gather(params["final_norm"], L.norm_defs(cfg), cfg),
-               cfg)
-    out = logits(x[:, 0], params, cfg)
+            with _span("mlp", follows=True):
+                x = x + L.mlp_forward(lp["mlp"], x, cfg)
+    with _span("head", follows=not cfg.has_ssm):
+        x = L.norm(x, _fsdp_gather(params["final_norm"], L.norm_defs(cfg),
+                                   cfg), cfg)
+        out = logits(x[:, 0], params, cfg)
     for name, leaf in (cache["mamba"].items() if new_mamba else ()):
         torch.stack([mc[name] for mc in new_mamba], out=leaf)
     return out, cache

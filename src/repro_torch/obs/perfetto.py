@@ -3,13 +3,15 @@
 Converts :class:`repro_torch.obs.trace.Span` lists — and the event simulator's
 ``(track, name, t0, t1, args)`` timeline tuples — into the Chrome Trace
 Event JSON that ``chrome://tracing`` and https://ui.perfetto.dev load
-directly:
+directly (:func:`export_chrome_trace`):
 
 * duration spans   → ``"ph": "X"`` complete events (``ts``/``dur`` in µs),
 * instants         → ``"ph": "i"`` (thread-scoped),
 * counter samples  → ``"ph": "C"``,
 * every distinct (pid, track) pair gets a ``thread_name`` metadata event so
-  Perfetto labels the rows (``selection``, ``engine``, ``core3``, ``dma``…).
+  Perfetto labels the rows (``selection``, ``engine``, ``core3``, ``dma``…),
+* a span with a parent carries its ``sid`` and ``parent`` in its args, and
+  a settled device interval is one more "X" event on ``<track> (device)``.
 
 Measured (tracer) and modeled (simulator) timelines export into one file
 under different pids, so both schedules are inspectable side by side in
@@ -53,47 +55,6 @@ def _meta_events(tids: Dict[Tuple[int, str], int],
     return evs
 
 
-def chrome_trace_events(spans: Sequence[Span],
-                        pid: int = MEASURED_PID) -> List[Dict[str, Any]]:
-    """Tracer spans -> Chrome trace events (no metadata; see
-    :func:`export_chrome_trace` for a complete file)."""
-    spans = sorted_spans(spans)
-    tids = _track_tids([(pid, s.track) for s in spans])
-    out: List[Dict[str, Any]] = []
-    for s in spans:
-        tid = tids[(pid, s.track)]
-        base = {"name": s.name, "cat": s.cat or "repro", "pid": pid,
-                "tid": tid, "ts": s.start * _US}
-        kind = s.kind
-        if kind == "counter":
-            base.update(ph="C", args=s.args or {"value": 0})
-        elif kind == "span":
-            end = s.end if s.end is not None else s.start
-            base.update(ph="X", dur=(end - s.start) * _US,
-                        args=s.args or {})
-        else:
-            base.update(ph="i", s="t", args=s.args or {})
-        out.append(base)
-    return out
-
-
-def simulator_trace_events(events: Sequence[Tuple],
-                           pid: int = MODELED_PID,
-                           label: str = "") -> List[Dict[str, Any]]:
-    """Simulator timeline tuples ``(track, name, t0, t1, args)`` (the
-    ``events`` list ``simulate_gemm`` fills) -> Chrome "X" events, one
-    Perfetto row per core / DMA engine.  ``label`` prefixes event names so
-    several GEMMs can share the modeled pid without colliding."""
-    tids = _track_tids([(pid, tr) for (tr, *_rest) in events])
-    out: List[Dict[str, Any]] = []
-    for (track, name, t0, t1, args) in events:
-        out.append({"name": f"{label}{name}" if label else name,
-                    "cat": "simulator", "ph": "X", "pid": pid,
-                    "tid": tids[(pid, track)], "ts": t0 * _US,
-                    "dur": (t1 - t0) * _US, "args": args or {}})
-    return out
-
-
 def export_chrome_trace(path: str, spans: Sequence[Span] = (),
                         sim_timelines: Optional[Sequence[
                             Tuple[str, Sequence[Tuple]]]] = None,
@@ -103,6 +64,8 @@ def export_chrome_trace(path: str, spans: Sequence[Span] = (),
     pid 2, plus process/thread-name metadata.  Returns the document."""
     spans = sorted_spans(spans)
     tracks: List[Tuple[int, str]] = [(MEASURED_PID, s.track) for s in spans]
+    tracks.extend((MEASURED_PID, s.track + " (device)") for s in spans
+                  if s.device is not None and None not in s.device)
     sim_timelines = list(sim_timelines or [])
     for _label, evs in sim_timelines:
         tracks.extend((MODELED_PID, tr) for (tr, *_rest) in evs)
@@ -119,15 +82,23 @@ def export_chrome_trace(path: str, spans: Sequence[Span] = (),
         tid = tids[(MEASURED_PID, s.track)]
         base = {"name": s.name, "cat": s.cat or "repro", "pid": MEASURED_PID,
                 "tid": tid, "ts": s.start * _US}
+        args = s.args or {}
+        if s.parent is not None:
+            args = {**args, "sid": s.sid, "parent": s.parent}
         kind = s.kind
         if kind == "counter":
             base.update(ph="C", args=s.args or {"value": 0})
         elif kind == "span":
             end = s.end if s.end is not None else s.start
-            base.update(ph="X", dur=(end - s.start) * _US, args=s.args or {})
+            base.update(ph="X", dur=(end - s.start) * _US, args=args)
         else:
-            base.update(ph="i", s="t", args=s.args or {})
+            base.update(ph="i", s="t", args=args)
         trace_events.append(base)
+        if s.device is not None and None not in s.device:
+            a, b = s.device
+            trace_events.append(
+                {**base, "ph": "X", "ts": a * _US, "dur": (b - a) * _US,
+                 "tid": tids[(MEASURED_PID, s.track + " (device)")]})
 
     for label, evs in sim_timelines:
         prefix = f"{label}: " if label else ""

@@ -29,6 +29,7 @@ import repro.obs.drift as jdrift
 import repro_torch.calib as tcalib
 import repro_torch.core.selector as tsel
 import repro_torch.obs.drift as tdrift
+import repro_torch.obs.trace as obs_trace
 from repro.configs.registry import get_config as jget_config
 from repro.core.bucketing import plan_buckets as jplan_buckets
 from repro.core.hardware import GPU_H100_LIKE as JGPU_H100_LIKE
@@ -286,6 +287,84 @@ def test_submit_validation(pair):
         eng.submit(np.zeros(4, np.int32), max_new_tokens=0)
     with pytest.raises(ValueError, match="cache rows"):
         eng.submit(np.zeros(10, np.int32), max_new_tokens=8)
+
+
+def _traced_engine(arch, **kw):
+    cfg = get_config(arch, smoke=True)
+    m = Model(cfg, device="cpu")
+    params = m.init(torch.Generator().manual_seed(0))
+    return cfg, ServingEngine(m, params, temperature=0.0, seed=0,
+                              quiet=True, **kw)
+
+
+@pytest.mark.parametrize("arch", [ARCH, "qwen3-moe-30b-a3b"])
+def test_request_spans_order_and_share_a_rid(arch):
+    """A CPU run under a tracer: each request's queue wait ends at its
+    prefill's device start, its first token at the prefill's device end,
+    its request span at its last token; each prefill and decode step holds
+    its model span, the model's layers under it."""
+    cfg, eng = _traced_engine(arch, max_batch=2, max_len=48, sync_every=2)
+    tr = obs_trace.Tracer()
+    prev = obs_trace.set_tracer(tr)
+    try:
+        rids = [eng.submit(p, max_new_tokens=n) for p, n in
+                zip(_prompts(cfg, [5, 9, 7, 4]), [4, 3, 1, 5])]
+        out = eng.run()
+    finally:
+        obs_trace.set_tracer(prev)
+    assert all(r.finished for r in out["results"].values())
+    by = {}
+    for s in tr.spans:
+        if s.track == "engine" and s.args and "rid" in s.args:
+            by.setdefault(s.args["rid"], {})[s.name] = s
+    assert sorted(by) == rids
+    for rid in rids:
+        q, pre, req = (by[rid][n] for n in ("queue", "prefill", "request"))
+        assert q.start == req.start and q.device[0] == q.start
+        assert q.device[1] <= pre.device[0] <= pre.device[1]
+        assert pre.device[1] <= req.args["first_token"] <= req.device[1]
+        assert req.device[1] <= req.end
+    sid = {s.sid: s for s in tr.spans}
+    steps = [s for s in tr.spans if s.name == "decode_step"]
+    assert [s.args["step"] for s in steps] == list(range(out["steps"]))
+    for name, outer in (("model.prefill", "prefill"),
+                        ("model.decode", "decode_step")):
+        calls = [s for s in tr.spans if s.name == name]
+        assert calls and all(sid[c.parent].name == outer for c in calls)
+        layers = [s for s in tr.spans if s.parent in {c.sid for c in calls}]
+        want = {"attn", "head", "moe" if cfg.is_moe else "mlp"}
+        assert {s.name for s in layers} == want
+    assert all(sid[s.parent].name == "decode_step" for s in tr.spans
+               if s.name == "sample")
+    assert any(s.name == "sync" for s in tr.spans)
+    assert out["device_step_s_mean"] > 0 and out["t_prefill_s"] > 0
+
+
+def test_tracer_installed_between_steps_records_the_next():
+    """The engine looks its tracer up at every span: one installed by the
+    step-1 fault hook (inside step 1's decode span) records step 1's model
+    call and every engine span from step 2 on, and none before."""
+    cfg, eng = _traced_engine(ARCH, max_batch=2, max_len=48)
+    tr = obs_trace.Tracer()
+    prev = obs_trace.get_tracer()
+
+    def hook(step, guard):
+        if step == 1:
+            obs_trace.set_tracer(tr)
+
+    eng.decode_fault = hook
+    try:
+        for p in _prompts(cfg, [5, 6]):
+            eng.submit(p, max_new_tokens=5)
+        out = eng.run()
+    finally:
+        obs_trace.set_tracer(prev)
+    steps = [s.args["step"] for s in tr.spans if s.name == "decode_step"]
+    assert steps == list(range(2, out["steps"]))
+    assert sum(s.name == "model.decode" for s in tr.spans) \
+        == out["steps"] - 1
+    assert not any(s.name in ("prefill", "queue", "request")
+                   for s in tr.spans)
 
 
 STATS_KEYS = {"tokens", "steps", "drained", "retries", "stragglers",

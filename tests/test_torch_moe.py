@@ -397,6 +397,38 @@ def test_moe_decode_branches_agree():
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("dense_decode", [False, True],
+                         ids=["gather", "dense"])
+def test_moe_decode_spans_count_the_gathered_bytes(dense_decode, dt):
+    """Under a tracer the decode MoE's weight gather records B·K·3·D·F
+    items of the weights' size in ``gathered_bytes``, nested under the
+    caller's span beside ``moe.experts``; the dense branch gathers
+    nothing and records no gather."""
+    from repro_torch.obs import trace as obs_trace
+    _, cfg = _configs(moe_dense_decode=dense_decode)
+    B, K = 3, cfg.experts_per_token
+    x = np.random.default_rng(7).standard_normal(
+        (B, 1, cfg.d_model)).astype(np.float32)
+    _, tp, _, tx = _both(_moe_params(cfg, seed=6), x, dt)
+    tr = obs_trace.Tracer()
+    prev = obs_trace.set_tracer(tr)
+    try:
+        with obs_trace.span("moe") as outer:
+            moe.moe_decode(tp, tx, cfg)
+    finally:
+        obs_trace.set_tracer(prev)
+    kids = [s for s in tr.spans if s.parent == outer.sid]
+    gathers = [s for s in kids if s.name == "moe.gather"]
+    assert [s.name for s in kids if s.name != "moe.gather"] \
+        == ["moe.experts"]
+    want = B * K * 3 * cfg.d_model * cfg.moe_d_ff \
+        * torch.empty((), dtype=DTYPES[dt][1]).element_size()
+    assert [s.args["gathered_bytes"] for s in gathers] \
+        == ([] if dense_decode else [want])
+    assert all(None not in s.device for s in kids)
+
+
 def test_moe_forward_grouped_raises():
     """``moe_local_dispatch`` takes the grouped (per-data-shard) dispatch
     only under a mesh whose data axis exceeds 1, as the reference does
