@@ -57,9 +57,18 @@ Phases, each printed as one JSON line; any failure exits non-zero:
    expert_gemm — the grouped GEMM kernel (the same source, the expert axis
               in the work space) against its plain version: qwen3-moe's
               three prefill expert GEMMs at capacity 40 and 32 with their
-              epilogues, bias and residual at one shape each, ragged
+              epilogues, mixtral-8x22b's three decode expert GEMMs at M 16
+              and 4 (8 experts, 6144 -> 16384 with and without the swiglu
+              gate, 16384 -> 6144), bias and residual at one shape each, ragged
               capacity 24, padded ragged K/N, forced corner configs,
               grouped stream-K and split-K, f32; bitwise repeat as above.
+   moe_decode — one MoE layer of mixtral-8x22b at full width (8 experts of
+              6144 x 16384, top 2, bf16 at std 1/sqrt(fan_in)), a decode
+              step of B 16 and of B 4 rows, each on the grouped path
+              (``nn/moe.py::decode_path``): three grouped launches a call,
+              the output against the same code on the plain path and
+              against the gather path, each within the layer tolerance of
+              ``tests/test_torch_moe.py`` (bf16 rtol 3e-2, atol 3e-2).
 4. serve    — ``run_serving`` for phi4-mini-3.8b at full width and depth
               (random weights from a seed), 8 ragged requests of 256-512
               prompt tokens, batch 4, 16 generated tokens each, on the
@@ -75,7 +84,9 @@ Phases, each printed as one JSON line; any failure exits non-zero:
               qwen3-moe-30b-a3b at full width and depth (48 layers, 128
               experts top-8; 61 GB of bf16 random weights from a seed).
               All three kernels must have launched in the run, the grouped
-              GEMM exactly 3 x 48 times per prefill and never in decode;
+              GEMM exactly 3 x 48 times per prefill and, in a decode step,
+              3 x 48 times where ``decode_path`` takes the grouped path at
+              the batch and never where it gathers;
               no fallback rung or retry; every request finishes.  Logits:
               kernel path vs plain path vs plain f32 on the first 4 layers
               (the f32 yardstick as in phase 4), and kernel vs plain at
@@ -440,6 +451,7 @@ def main() -> int:
         "flash_attention@hybrid": flash_err[("bfloat16", 112)],
         "flash_attention_f32@hybrid": flash_err[("float32", 112)],
         "expert_matmul@prefill": expert_gemm_phase(torch, dev, kmm)})
+    moe_decode_phase(torch, dev, kmm, kfa)
     probe_times = probe_phase(torch, dev, kpr)
     # the probe phase demands checksums equal to the plain versions'
     max_err.update(dict.fromkeys(("stream_read@calib", "mma_chain@calib",
@@ -996,6 +1008,10 @@ def expert_gemm_phase(torch, dev, kmm) -> float:
         cases += [(128, C, 768, 2048, none, bf, bf, None),    # wu
                   (128, C, 768, 2048, swi, bf, bf, None),     # wg + gate
                   (128, C, 2048, 768, none, bf, bf, None)]    # wd
+    for M in (16, 4):                 # mixtral-8x22b decode batches
+        cases += [(8, M, 16384, 6144, none, bf, bf, None),    # wu
+                  (8, M, 16384, 6144, swi, bf, bf, None),     # wg + gate
+                  (8, M, 6144, 16384, none, bf, bf, None)]    # wd
     cases += [
         (128, 40, 768, 2048, Epilogue(bias=True), bf, bf, None),
         (128, 32, 2048, 768, Epilogue(residual=True), bf, bf, None),
@@ -1061,6 +1077,63 @@ def expert_gemm_phase(torch, dev, kmm) -> float:
           "0.3*sqrt(K)", "deterministic": "two launches bitwise equal, "
           "every fixup flag down after them", "cases": rows})
     return worst
+
+
+MOE_DECODE_TOL = 3e-2       # tests/test_torch_moe.py's bf16 layer rtol, atol
+
+
+def moe_decode_phase(torch, dev, kmm, kfa):
+    """One mixtral-8x22b MoE layer at full width, a decode step at B 16
+    and 4 on the grouped path: three grouped launches a call, the output
+    against the plain path and against the gather path."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.nn import moe
+
+    cfg = get_config("mixtral-8x22b")
+    cfg = dataclasses.replace(cfg, num_layers=1)
+    D, F, E = cfg.d_model, cfg.moe_d_ff, cfg.num_experts
+    g = torch.Generator(device=dev).manual_seed(61)
+
+    def rnd(*shape, fan_in):
+        return (torch.randn(shape, generator=g, device=dev)
+                / math.sqrt(fan_in)).to(torch.bfloat16)
+    p = {"norm": {"scale": torch.ones(D, device=dev, dtype=torch.bfloat16)},
+         "router": rnd(D, E, fan_in=D), "wg": rnd(E, D, F, fan_in=D),
+         "wu": rnd(E, D, F, fan_in=D), "wd": rnd(E, F, D, fan_in=F)}
+    rows = []
+    for B in (16, 4):
+        x = rnd(B, 1, D, fan_in=1)
+        path = moe.decode_path(cfg, B, E, moe._weight_bytes(p))
+        with torch.inference_mode():
+            n0 = kmm.tiled_expert_matmul.launches
+            got = moe.moe_decode(p, x, cfg).float()
+            launched = kmm.tiled_expert_matmul.launches - n0
+            with plain_path(kmm, kfa):
+                plain = moe.moe_decode(p, x, cfg).float()
+            gather = moe._decode(p, x, cfg, "gather").float()
+        torch.cuda.synchronize()
+        row = {"B": B, "path": path, "grouped_launches": launched}
+        ok = path == "grouped" and launched == 3
+        for name, want in (("plain", plain), ("gather", gather)):
+            err = (got - want).abs()
+            bound = MOE_DECODE_TOL + MOE_DECODE_TOL * want.abs()
+            row[f"max_abs_err_{name}"] = float(err.max())
+            row[f"rel_l2_{name}"] = float(torch.linalg.vector_norm(
+                got - want) / torch.linalg.vector_norm(want))
+            ok = ok and bool((err <= bound).all())
+        ok = ok and bool(torch.isfinite(got).all())
+        rows.append(row)
+        if not ok:
+            emit({"phase": "moe_decode", "rows": rows})
+            fail(f"moe_decode: B {B} took the {path} path with {launched} "
+                 f"grouped launches, or its output left the plain or the "
+                 f"gather path's by more than rtol = atol = "
+                 f"{MOE_DECODE_TOL}: {row}")
+    emit({"phase": "moe_decode", "tolerance": f"rtol {MOE_DECODE_TOL} atol "
+          f"{MOE_DECODE_TOL}", "rows": rows})
+    del p
+    _free(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -1296,11 +1369,13 @@ def serve_moe_phase(torch, dev, kmm, kfa, tp_refs):
                            out))
     cfg = model.cfg
     per_prefill = 3 * cfg.num_layers       # wu, wg + gate, wd in each layer
-    n_prefills = len(out["results"])
-    if launches["expert_matmul"] != per_prefill * n_prefills:
+    per_step = _zoo_launches(cfg, args.batch)[1]["expert_matmul"]
+    n_prefills, steps = len(out["results"]), out["steps"]
+    if launches["expert_matmul"] != per_prefill * n_prefills \
+            + per_step * steps:
         fail(f"grouped GEMM launched {launches['expert_matmul']} times, "
              f"expected {per_prefill} per prefill x {n_prefills} prefills "
-             f"and none in decode")
+             f"and {per_step} per decode step x {steps} steps")
 
     r0 = out["results"][0]
     tokens, _, _ = _request_inputs(torch, dev, args, cfg, r0)
@@ -3556,25 +3631,39 @@ LONG_ARGS = ["--batch", "1", "--prompt-len", "8192", "--gen", "16",
 ZOO_CUT_LAYERS = 2
 
 
-def _zoo_launches(cfg):
+def _zoo_launches(cfg, batch=1, local=None):
     """(per prefill, per decode step) launches of a dense, audio, vlm or
     MoE model, reckoned from the code: a layer's wq, wk, wv, wo, its MLP's
     GEMMs (swiglu wu, wg, wd; gelu w1, w2; an MoE none: the router is a
     plain product, the experts one grouped launch each of wu, wg, wd in a
-    prefill and plain einsums in decode), in a prefill also wk, wv again
-    for the cache and one flash launch.  The lm_head is a plain product."""
+    prefill, and in a decode step of ``batch`` rows the same three where
+    ``nn/moe.py::decode_path`` takes the grouped path on a rank's experts,
+    plain einsums otherwise), in a prefill also wk, wv again for the cache
+    and one flash launch.  ``local``: a rank's (experts, expert d_ff), the
+    whole model's unless given.  The lm_head is a plain product."""
     L = cfg.num_layers
     mlp = 0 if cfg.is_moe else (3 if cfg.activation == "swiglu" else 2)
     prefill = {"matmul": L * (6 + mlp), "flash_attention": L,
                "expert_matmul": 3 * L if cfg.is_moe else 0}
+    grouped = cfg.is_moe and _decode_path(cfg, batch, local) == "grouped"
     decode = {"matmul": L * (4 + mlp), "flash_attention": 0,
-              "expert_matmul": 0}
+              "expert_matmul": 3 * L if grouped else 0}
     return prefill, decode
 
 
-def _check_zoo_launches(cfg, out, launches, phase):
+def _decode_path(cfg, batch, local=None):
+    """``decode_path`` of the MoE's decode at ``batch`` rows on a rank
+    holding ``local`` = (experts, expert d_ff) in the model's dtype."""
+    import torch
+    from repro_torch.nn.moe import decode_path
+    n, f = local or (cfg.num_experts, cfg.moe_d_ff)
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    return decode_path(cfg, batch, n, 3 * n * cfg.d_model * f * item)
+
+
+def _check_zoo_launches(cfg, out, launches, phase, batch):
     n, steps = len(out["results"]), out["steps"]
-    per_prefill, per_step = _zoo_launches(cfg)
+    per_prefill, per_step = _zoo_launches(cfg, batch)
     expected = {f"{k}@prefill": v * n for k, v in per_prefill.items()}
     expected.update({f"{k}@decode": v * steps for k, v in per_step.items()})
     row = {"phase": phase, "arch": cfg.name, "layers": cfg.num_layers,
@@ -3663,7 +3752,8 @@ def serve_zoo_phase(torch, dev, kmm, kfa, tp_refs):
         args, model, params, out, launches = _serve(
             torch, dev, kmm, kfa, arch, extra=extra, phase="serve_zoo",
             cfg=cfg)
-        _check_zoo_launches(cfg, out, launches, "serve_zoo_launches")
+        _check_zoo_launches(cfg, out, launches, "serve_zoo_launches",
+                            args.batch)
         _zoo_logits_check(torch, dev, kmm, kfa, args, model, params, out,
                           "serve_zoo_logits")
         if arch in TP_SERVE:
@@ -3675,7 +3765,7 @@ def serve_zoo_phase(torch, dev, kmm, kfa, tp_refs):
                 torch, dev, kmm, kfa, arch, phase="serve_zoo_long",
                 params=params, cfg=cfg, base=LONG_ARGS)
             _check_zoo_launches(cfg, out, launches,
-                                "serve_zoo_long_launches")
+                                "serve_zoo_long_launches", args.batch)
             _zoo_logits_check(torch, dev, kmm, kfa, args, model, params,
                               out, "serve_zoo_long_logits")
             window_launches += launches["flash_attention"]
@@ -3769,13 +3859,14 @@ def _tp_local_shapes(cfg, tp):
     return sorted(dense), sorted(grouped)
 
 
-def _tp_launches(cfg):
-    """(per prefill, per decode step) launches of one rank of serve_tp:
-    the one-process reckoning (a rank launches what one process launches,
-    at local shapes): ``_mamba_launches`` for the SSM and hybrid families,
-    ``_zoo_launches`` for the rest."""
+def _tp_launches(cfg, batch, local):
+    """(per prefill, per decode step) launches of one rank of serve_tp at
+    a decode batch of ``batch``: the one-process reckoning (a rank
+    launches what one process launches, at local shapes):
+    ``_mamba_launches`` for the SSM and hybrid families, ``_zoo_launches``
+    on the rank's ``local`` (experts, expert d_ff) for the rest."""
     if not cfg.has_ssm:
-        return _zoo_launches(cfg)
+        return _zoo_launches(cfg, batch, local)
     prefill, step, flash = _mamba_launches(cfg)
     return ({"matmul": prefill, "flash_attention": flash,
              "expert_matmul": 0},
@@ -3875,7 +3966,7 @@ def _tp_rank(rank, world, init_method, arch, layers, ref_tokens, ref_last):
             "peak_mem_bytes": peak,
             "param_bytes": sum(t.numel() * t.element_size()
                                for t in _leaves(params)),
-            "steps": out["steps"], "edges": out["edges"],
+            "steps": out["steps"], "edges": out["edges"], "batch": args.batch,
             "tokens_per_s": out["tokens_per_s"],
             "t_prefill_s": out["t_prefill_s"],
             "decode_ms_per_step": out["device_step_s_mean"] * 1e3,
@@ -3989,7 +4080,11 @@ def serve_tp_phase(torch, tp_refs):
                              ref["last"]), timeout=TP_JOIN_TIMEOUT)
         wall = time.perf_counter() - t0
         r0 = ranks[0]
-        per_prefill, per_step = _tp_launches(cfg)
+        # a rank's experts and expert d_ff, from its grouped launches'
+        # (E, K, N) weights (wd's N is d_model)
+        local = next(((e, k) for e, k, n in r0["local_shapes"]["grouped"]
+                      if n == cfg.d_model), None)
+        per_prefill, per_step = _tp_launches(cfg, r0["batch"], local)
         n, steps = len(r0["served"]), r0["steps"]
         expected = {f"{k}@prefill": v * n for k, v in per_prefill.items()}
         expected.update({f"{k}@decode": v * steps

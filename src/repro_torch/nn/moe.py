@@ -5,9 +5,12 @@ Token copies are sorted by expert id, placed into a fixed-capacity
 (E, C, D) buffer, the three expert GEMMs run on that buffer through
 ``kernels.ops.expert_matmul`` (on the card one launch of the grouped Hopper
 GEMM each, the swiglu gate fused into the wg GEMM's flush), and results are
-gathered back with gate weighting.  Decode runs the reference's plain
-einsums: a weight gather of the selected experts, or every expert under
-``cfg.moe_dense_decode``.
+gathered back with gate weighting.  A decode step whose B·K token copies
+would gather more bytes than reading every local expert once costs runs
+the same dispatch and grouped GEMMs (capacity B: nothing drops), reading
+each expert's weights in place once; a smaller step runs the reference's
+einsums on the selected experts' weights gathered per token, and
+``cfg.moe_dense_decode`` every expert on every token (``decode_path``).
 
 Where the port departs from the reference's operations, the result does not
 change: the dispatch buffer is filled by ``index_copy_`` (every kept copy
@@ -28,12 +31,13 @@ buffer; otherwise every rank holds every expert's d_ff shard, and its wd
 product is a partial sum (in f32).  Either way a rank's copies of the other
 experts (or of the other d_ff shards) count as zeros, each rank's weighted
 combine is a partial sum, and one f32 ``all_reduce`` adds them.  Decode
-does the same: a rank gathers weights among its local experts only, the
-gate of every selected expert it does not hold is 0, and one f32
-``all_reduce`` adds the ranks' sums.  Under autograd that sum passes the
-gradient through, and the dispatched tokens and the gates pass the model
-axis's "copy" (``distributed/collectives.py``): each rank's gradient of
-them is a partial over its experts.
+does the same: the grouped path as a prefill, the gather path among the
+rank's own experts only (the gate of every selected expert it does not
+hold is 0), then one f32 ``all_reduce`` of the ranks' sums.  Under
+autograd that sum passes the gradient through, and the dispatched tokens
+and the gates pass the model axis's "copy"
+(``distributed/collectives.py``): each rank's gradient of them is a
+partial over its experts.
 
 Data parallelism (a data axis over 1, ``meshctx.data_axis``): each rank
 routes its own tokens.  The default (flat) dispatch is the reference's on
@@ -51,7 +55,7 @@ data shards).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -64,6 +68,7 @@ from repro_torch.distributed.collectives import (all_gather_dim,
 from repro_torch.kernels import ops as kops
 from repro_torch.nn.config import ModelConfig
 from repro_torch.nn.layers import ParamDef, norm, norm_defs
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 
 
@@ -179,40 +184,55 @@ def _dispatch_compute(p: Dict, flat: torch.Tensor, cfg: ModelConfig,
         flat = copy_to_group(flat, ax.group)
         gate_vals = copy_to_group(gate_vals, ax.group)
     copies = flat[:, None, :].expand(T, K, D).reshape(T * K, D)[order]
+    xe = _dispatch_buffer(copies, slot, E, C, dax)
+    ys = _expert_rows(p, cfg, xe, order, slot)
+    yk = ys.view(T, K, D) * gate_vals[..., None].to(ys.dtype)
+    if ax is None:
+        return yk.to(flat.dtype).sum(1), aux
+    return all_reduce_f32(yk.float().sum(1), ax.group).to(flat.dtype), aux
 
-    # Every kept copy owns its slot; dropped copies all land in the
-    # overflow row E·C, which is cut off before the GEMMs.
-    buf = torch.zeros((E * C + 1, D), dtype=flat.dtype, device=flat.device)
+
+def _dispatch_buffer(copies: torch.Tensor, slot: torch.Tensor, E: int,
+                     C: int, dax=None) -> torch.Tensor:
+    """The (E, C, D) expert buffer: each kept copy (``copies`` in plan
+    order) in its slot, every other row zero.  Dropped copies all land in
+    the overflow row E·C, which is cut off.  ``dax``: the data ranks'
+    copies hold disjoint slots, and their sum is exact."""
+    D = copies.shape[1]
+    buf = torch.zeros((E * C + 1, D), dtype=copies.dtype,
+                      device=copies.device)
     buf.index_copy_(0, slot, copies)
     xe = buf[:-1]
     if dax is not None:
-        # The data ranks' copies hold disjoint slots: their sum is exact.
         xe = sum_disjoint(xe, dax.group)
-    # This rank's experts (all of them unless the experts are split).
-    e0, n_e = _local_experts(p["wu"], cfg), p["wu"].shape[0]
-    xe = xe.view(E, C, D)[e0:e0 + n_e]
+    return xe.view(E, C, D)
 
-    # A d_ff shard's wd product is a partial sum: keep it in f32.
+
+def _expert_rows(p: Dict, cfg: ModelConfig, xe: torch.Tensor,
+                 order: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """The three grouped GEMMs on this rank's experts' rows of the (E, C,
+    D) buffer ``xe``, each slot's output sent back to the token-major row
+    of the copy that owns it: (n, D) for the n = ``order.numel()`` copies,
+    in the GEMMs' output dtype (f32 where wd holds a d_ff shard, whose
+    product is a partial sum).  A dropped copy's row is zero, so its gate
+    weight multiplies nothing, and so is the row of a copy another rank's
+    experts hold; an empty slot, or one of another data rank's copies,
+    goes to the row n, cut off."""
+    E, C, D = xe.shape
+    n = order.numel()
+    e0, n_e = _local_experts(p["wu"], cfg), p["wu"].shape[0]
+    xe = xe[e0:e0 + n_e]
     partial = p["wd"].shape[1] != cfg.moe_d_ff
     u = kops.expert_matmul(xe, p["wu"])
     act = kops.expert_matmul(xe, p["wg"], epilogue="swiglu_gate", gate=u)
     ye = kops.expert_matmul(act, p["wd"],
                             out_dtype=torch.float32 if partial else None)
-
-    # Each slot's output goes back to the token-major row of the copy that
-    # owns it (an empty slot, or one of another data rank's copies, to the
-    # row T·K, cut off); a dropped copy's row stays zero, so its gate
-    # weight multiplies nothing, and so does the row of a copy another
-    # rank's experts hold.
-    owner = torch.full((E * C + 1,), T * K, dtype=order.dtype,
+    owner = torch.full((E * C + 1,), n, dtype=order.dtype,
                        device=order.device)
     owner.index_copy_(0, slot, order)
-    ys = torch.zeros((T * K + 1, D), dtype=ye.dtype, device=ye.device)
+    ys = torch.zeros((n + 1, D), dtype=ye.dtype, device=ye.device)
     ys.index_copy_(0, owner[e0 * C:(e0 + n_e) * C], ye.reshape(n_e * C, D))
-    yk = ys[:-1].view(T, K, D) * gate_vals[..., None].to(ys.dtype)
-    if ax is None:
-        return yk.to(flat.dtype).sum(1), aux
-    return all_reduce_f32(yk.float().sum(1), ax.group).to(flat.dtype), aux
+    return ys[:-1]
 
 
 def moe_forward(p: Dict, x: torch.Tensor, cfg: ModelConfig
@@ -268,32 +288,84 @@ def _moe_forward_flat(p: Dict, x: torch.Tensor, cfg: ModelConfig
     return y.reshape(B, S, D).to(x.dtype), aux
 
 
-def _span(name: str, follows: bool = False):
-    return obs_trace.span(name, cat="model", track="model", device=True,
-                          follows=follows)
+def _span(name: str, follows: bool = False, args: Optional[Dict] = None):
+    return obs_trace.span(name, cat="model", track="model", args=args,
+                          device=True, follows=follows)
+
+
+# The boundary between the decode paths, set from device times measured on
+# an H100 at qwen3-moe's and mixtral's widths (``tools/moe_decode_ab.py``, 25
+# points, each on its faster side, near the middle of the constants that
+# separate them): the gather moves about 0.57 TB/s of gathered weights, the
+# grouped GEMMs read the weights in place several times faster, and the
+# grouped path's sort, buffer and launches cost a fixed 0.1-0.2 ms more, so
+# no ratio of copies to experts alone fits both widths.
+GATHER_COST = 6
+DISPATCH_BYTES = 450e6
+
+
+def decode_path(cfg: ModelConfig, batch: int, n_local: int,
+                weight_bytes: int) -> str:
+    """The path of :func:`moe_decode` for ``batch`` tokens on a rank that
+    holds ``n_local`` experts of ``weight_bytes`` bytes in all (their three
+    weights): ``"dense"`` under ``cfg.moe_dense_decode``; ``"grouped"``
+    where gathering the B·K token copies' weights costs at least reading
+    every local expert's weights once and dispatching (GATHER_COST·B·K
+    experts' bytes >= weight_bytes + DISPATCH_BYTES); else ``"gather"``."""
+    if cfg.moe_dense_decode:
+        return "dense"
+    copies = batch * cfg.experts_per_token
+    if GATHER_COST * copies * weight_bytes / n_local \
+            >= weight_bytes + DISPATCH_BYTES:
+        return "grouped"
+    return "gather"
+
+
+def _weight_bytes(p: Dict) -> int:
+    return sum(p[w].nbytes for w in ("wu", "wg", "wd"))
 
 
 def moe_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Decode-step MoE for x (B, 1, D), plain einsums as in the reference.
+    """Decode-step MoE for x (B, 1, D) on the path that
+    :func:`decode_path` chooses from the batch and the local experts."""
+    path = decode_path(cfg, x.shape[0], p["wg"].shape[0], _weight_bytes(p))
+    return _decode(p, x, cfg, path)
 
-    Default: gather the K selected experts' weights per token (B·K·D·F
-    bytes copied per weight).  ``cfg.moe_dense_decode``: run every expert
-    on every token and mask the sum with the gates.  Under expert
-    parallelism a rank gathers among its own experts only (a selected
-    expert another rank holds is gathered as the rank's first, under a
-    gate of 0) and the ranks' sums are added in f32.
 
-    With a tracer installed, ``moe.gather`` (its ``gathered_bytes`` the
-    gathered tensors' bytes) and ``moe.experts`` time the two parts on
-    the device; the dense path has no gather."""
+def _decode(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+            path: str) -> torch.Tensor:
+    """:func:`moe_decode` on ``path``.
+
+    ``"grouped"``: the B·K token copies are dispatched as a prefill's are,
+    into an (E, B, D) buffer (top-k ids are distinct per token, so no
+    expert takes more than B copies and none drops), the three grouped
+    GEMMs read the local experts' weights in place, and each token sums
+    its K gated copies in f32, rounded to x's dtype once.  ``"gather"``:
+    the reference's einsums on the K selected experts' weights gathered
+    per token (B·K·D·F items copied per weight).  ``"dense"``
+    (``cfg.moe_dense_decode``): every expert on every token, the sum
+    masked by the gates.  Under expert parallelism a rank computes its own
+    experts' copies only (the grouped path leaves the other copies' rows
+    zero; the gather path gathers a selected expert another rank holds as
+    the rank's first, under a gate of 0) and the ranks' sums are added in
+    f32.  Each call counts one ``moe_decode_calls`` (label ``path``).
+
+    With a tracer installed the parts are timed on the device: the
+    grouped path's ``moe.dispatch`` (the sort and the buffer) and
+    ``moe.experts`` (the GEMMs and the combine; args ``path`` and
+    ``weight_bytes``, the local experts' three weights' bytes), the
+    gather path's ``moe.gather`` (``gathered_bytes``, the gathered
+    tensors' bytes) and ``moe.experts``, the dense path's ``moe.experts``
+    alone."""
     B, _, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     ax = meshctx.model_axis() if _sharded(p, cfg) else None
     e0, n_e = _local_experts(p["wg"], cfg), p["wg"].shape[0]
     h = norm(x, p["norm"], cfg).reshape(B, D)
     _, gate_vals, gate_ids = _route(h, p["router"], K)
+    obs_metrics.inc("moe_decode_calls", labels={"path": path})
 
-    if cfg.moe_dense_decode:
+    if path == "dense":
         with _span("moe.experts"):
             gates = torch.einsum("bke,bk->be",
                                  F.one_hot(gate_ids, E).float(), gate_vals)
@@ -302,6 +374,15 @@ def moe_decode(p: Dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
             ye = torch.einsum("ebf,efd->ebd", F.silu(g) * u, p["wd"])
             y = torch.einsum("ebd,be->bd", ye,
                              gates[:, e0:e0 + n_e].to(ye.dtype))
+    elif path == "grouped":
+        with _span("moe.dispatch"):
+            order, _, slot = dispatch_plan(gate_ids, E, B)
+            copies = h[:, None, :].expand(B, K, D).reshape(B * K, D)[order]
+            xe = _dispatch_buffer(copies, slot, E, B)
+        with _span("moe.experts", follows=True,
+                   args={"path": path, "weight_bytes": _weight_bytes(p)}):
+            ys = _expert_rows(p, cfg, xe, order, slot)
+            y = (ys.view(B, K, D).float() * gate_vals[..., None]).sum(1)
     else:
         if ax is not None:
             local = gate_ids - e0

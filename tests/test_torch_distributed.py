@@ -20,7 +20,12 @@ logits within the attention f32 tolerance of ``tests/test_kernels.py``
 (rtol 1e-4, atol 2e-5), greedy tokens equal.  tp 4 drops the kv-head split
 of the smoke configs (2 kv heads: each rank computes the one its q head
 reads), and qwen3-moe with 6 experts drops the expert split there (each
-rank holds a d_ff quarter of every expert).  Cases also run qwen3-moe
+rank holds a d_ff quarter of every expert).  At these widths the MoE's
+decode takes the gather path (``nn/moe.py::decode_path``), so each MoE
+case also runs its first layer's decode on both sparse paths by name,
+the grouped one included, and with 3 experts (a d_ff share of every
+expert at tp 2 and 4) the grouped path's partial wd product too.
+Cases also run qwen3-moe
 with ``moe_dense_decode``, phi4-mini with ``kv_repeat_weights``, and the
 audio and vlm models with their frontend inputs (musicgen's 4 heads are
 whole kv heads at tp 4 too).
@@ -41,6 +46,7 @@ from repro.core import hardware as jhw
 from repro.distributed import collectives as jcoll
 from repro.distributed import sharding as jsh
 from repro.launch.engine import ServingEngine as JEngine
+from repro.nn import moe as jmoe
 from repro.nn.model import Model as JModel
 from repro_torch import meshctx
 from repro_torch.configs.registry import ARCH_IDS, get_config
@@ -72,6 +78,12 @@ TP_CASES = [("phi4", "phi4-mini-3.8b", {}),
             ("musicgen", "musicgen-large", {}),
             ("llava", "llava-next-mistral-7b", {})]
 ENGINE_CASES = ("phi4", "qwen3", "mixtral")
+# (case name, arch, config changes): the first layer's MoE decode on each
+# sparse path at tp 2 and tp 4.
+MOE_CASES = [("qwen3", "qwen3-moe-30b-a3b", {}),
+             ("mixtral", "mixtral-8x22b", {}),
+             ("qwen3_e6", "qwen3-moe-30b-a3b", {"num_experts": 6}),
+             ("qwen3_e3", "qwen3-moe-30b-a3b", {"num_experts": 3})]
 
 
 def _mesh(data, model):
@@ -446,6 +458,14 @@ def reference():
             case.update(requests=reqs, max_len=max_len,
                         tokens=[res[i].tokens for i in range(len(reqs))])
         out[name] = case
+    for name, arch, changes in MOE_CASES:
+        jcfg, jp, cfg, tree = _jax_pair(arch, changes)
+        x = np.random.default_rng(len(out)).standard_normal(
+            (2, 1, cfg.d_model)).astype(np.float32)
+        layer = jax.tree_util.tree_map(lambda a: a[0], jp["layers"]["moe"])
+        out[name + "_moe"] = {
+            "cfg": cfg, "tree": _numpy_tree(tree), "x": x,
+            "want": np.asarray(jmoe.moe_decode(layer, jnp.asarray(x), jcfg))}
     return out
 
 
@@ -459,6 +479,9 @@ def ranks(request, reference):
     res = rng.standard_normal((6, 32)).astype(np.float32)
     cases = [("matmul", "mm", x, w, res)]
     for name, case in reference.items():
+        if "x" in case:
+            cases.append(("moe", name, case["cfg"], case["tree"], case["x"]))
+            continue
         cases.append(("model", name, case["cfg"], case["tree"],
                       case["inputs"]))
         if name in ENGINE_CASES:
@@ -517,6 +540,18 @@ def test_tp_cache_holds_local_kv_heads(ranks, reference, name):
             h = cfg.num_heads // tp
             assert n == len(L.kv_heads_read(cfg, rank * h, h))
         assert o[f"{name}/cache_k"].shape[2] == n
+
+
+@pytest.mark.parametrize("name", [c[0] for c in MOE_CASES])
+def test_tp_moe_decode_paths_match_jax(ranks, reference, name):
+    """Under the model axis both sparse decode paths, grouped and gather,
+    give every rank the unsharded JAX MoE decode, in f32."""
+    want = reference[name + "_moe"]["want"]
+    for o in ranks["outs"]:
+        for path in ("grouped", "gather"):
+            got = o[f"{name}_moe/{path}"]
+            assert got.shape == want.shape
+            np.testing.assert_allclose(got, want, **ATTN32)
 
 
 @pytest.mark.parametrize("name", ENGINE_CASES)

@@ -299,6 +299,59 @@ def test_selected_expert_matmul_launches_the_kernel(cuda):
     torch.testing.assert_close(got.float(), want, rtol=rtol, atol=atol)
 
 
+# The decode MoE at a reduced mixtral width: d_model 1,024, expert d_ff
+# 2,048, 8 experts, top 2; at B 16 and at B 4 the B·K copies reach every
+# expert and the grouped path runs.  Its outputs are O(1) (weights at std
+# 1/√fan_in), so the layer is held at the bf16 rtol above with atol 3e-2,
+# the layer tolerance of ``tests/test_torch_moe.py``.
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [16, 4])
+def test_decode_moe_reads_the_experts_in_place_on_card(cuda, B):
+    """The grouped decode launches the grouped kernel three times a call,
+    gathers no expert weights (no ``moe.gather`` span, and the call's
+    allocations stay under one gathered weight's B·K·D·F items), and
+    matches the gather path."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.nn import moe
+    from repro_torch.obs import trace as obs_trace
+    cfg = dataclasses.replace(get_config("mixtral-8x22b", smoke=True),
+                              d_model=1024, moe_d_ff=2048, num_experts=8,
+                              experts_per_token=2)
+    D, F, E, K = 1024, 2048, 8, 2
+    g = torch.Generator(device=cuda).manual_seed(B)
+
+    def rnd(*shape, fan_in):
+        return (torch.randn(shape, generator=g, device=cuda)
+                / math.sqrt(fan_in)).to(torch.bfloat16)
+    p = {"norm": {"scale": torch.ones(D, device=cuda,
+                                      dtype=torch.bfloat16)},
+         "router": rnd(D, E, fan_in=D), "wg": rnd(E, D, F, fan_in=D),
+         "wu": rnd(E, D, F, fan_in=D), "wd": rnd(E, F, D, fan_in=F)}
+    x = rnd(B, 1, D, fan_in=1)
+    assert moe.decode_path(cfg, B, E, moe._weight_bytes(p)) == "grouped"
+    moe.moe_decode(p, x, cfg)                # selection and workspace
+    torch.cuda.synchronize()
+    n0, d0 = kmm.tiled_expert_matmul.launches, kmm.tiled_matmul.launches
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    tr = obs_trace.Tracer()
+    prev = obs_trace.set_tracer(tr)
+    try:
+        got = moe.moe_decode(p, x, cfg)
+        torch.cuda.synchronize()
+    finally:
+        obs_trace.set_tracer(prev)
+    assert kmm.tiled_expert_matmul.launches == n0 + 3
+    assert kmm.tiled_matmul.launches == d0
+    assert [s.name for s in tr.spans if s.name.startswith("moe.")] \
+        == ["moe.dispatch", "moe.experts"]
+    assert torch.cuda.max_memory_allocated(cuda) - base < B * K * D * F * 2
+    want = moe._decode(p, x, cfg, "gather")
+    torch.testing.assert_close(got.float(), want.float(), rtol=3e-2,
+                               atol=3e-2)
+
+
 # (B, H, Hkv, S, causal, blocks or None for the selector's, v as the model
 # passes it: the transposed view of a (B, S, Hkv, d) tensor).
 FLASH_CASES = [

@@ -368,46 +368,141 @@ def test_moe_forward_drops_the_same_copies(dt):
     _close(ty, jy, dt, cfg.d_model)
 
 
+# The decode paths, each run by itself (``moe._decode``) on the smoke
+# config (8 experts, top 2): grouped at B 4 (the copies reach every
+# expert), gather at B 3, dense by config.
+DECODE_ARMS = {"grouped": 4, "gather": 3, "dense": 3}
+
+# Which sparse decode path ran faster on an H100 (tools/moe_decode_ab.py,
+# device time from CUDA graphs, bf16): (arch, changes to its config, the
+# batches where the gather won, the batches where the grouped path won).
+DECODE_MEASURED = [
+    ("qwen3-moe-30b-a3b", {"num_experts": 128}, (1, 2, 3),
+     (4, 6, 8, 12, 16, 24, 32)),
+    ("qwen3-moe-30b-a3b", {"num_experts": 64}, (1, 2), (4, 8, 16)),
+    ("qwen3-moe-30b-a3b", {"num_experts": 32}, (1,), (2, 4, 8)),
+    ("mixtral-8x22b", {}, (), (1, 2, 3, 4, 8, 16)),
+]
+
+
+@pytest.mark.parametrize("arch,changes,gather,grouped", DECODE_MEASURED,
+                         ids=["qwen3_e128", "qwen3_e64", "qwen3_e32",
+                              "mixtral"])
+def test_decode_path_takes_the_measured_faster_path(arch, changes, gather,
+                                                    grouped):
+    """At the published widths ``decode_path`` chooses, at every measured
+    batch, the path that ran faster on the card (the experts' bf16 weights'
+    bytes, as ``moe_decode`` counts them); ``moe_dense_decode`` is always
+    dense."""
+    cfg = dataclasses.replace(get_config(arch), **changes)
+    E = cfg.num_experts
+    weight_bytes = 3 * E * cfg.d_model * cfg.moe_d_ff * 2
+    for B in gather:
+        assert moe.decode_path(cfg, B, E, weight_bytes) == "gather", B
+    for B in grouped:
+        assert moe.decode_path(cfg, B, E, weight_bytes) == "grouped", B
+    dcfg = dataclasses.replace(cfg, moe_dense_decode=True)
+    assert moe.decode_path(dcfg, max(grouped), E, weight_bytes) == "dense"
+
+
+@pytest.mark.parametrize("B", [1, 4, 16])
+def test_moe_decode_counts_the_path_it_takes(B, metrics):
+    """``moe_decode`` runs ``decode_path``'s choice for its batch and the
+    params' experts and counts one ``moe_decode_calls`` under it: at the
+    smoke width the gather (the grouped path's fixed cost outweighs
+    gathering experts this small), under ``moe_dense_decode`` dense."""
+    for dense in (False, True):
+        _, cfg = _configs(moe_dense_decode=dense)
+        x = np.random.default_rng(7).standard_normal(
+            (B, 1, cfg.d_model)).astype(np.float32)
+        _, tp, _, tx = _both(_moe_params(cfg, seed=6), x, "f32")
+        path = moe.decode_path(cfg, B, cfg.num_experts,
+                               moe._weight_bytes(tp))
+        assert path == ("dense" if dense else "gather")
+        metrics.clear()
+        torch.testing.assert_close(moe.moe_decode(tp, tx, cfg),
+                                   moe._decode(tp, tx, cfg, path))
+        assert _count(metrics, "moe_decode_calls", path=path) == 2
+        assert _count(metrics, "moe_decode_calls") == 2
+
+
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("dense_decode", [False, True],
-                         ids=["gather", "dense"])
-def test_moe_decode_matches_jax(dense_decode, dt):
-    jcfg, cfg = _configs(moe_dense_decode=dense_decode)
+@pytest.mark.parametrize("path", list(DECODE_ARMS))
+def test_moe_decode_matches_jax(path, dt):
+    """Each decode path, run by itself at its own batch, against the
+    reference's decode (the gather, or the dense branch under
+    ``moe_dense_decode``)."""
+    jcfg, cfg = _configs(moe_dense_decode=path == "dense")
+    B = DECODE_ARMS[path]
     tree = _moe_params(cfg, seed=6)
     x = np.random.default_rng(7).standard_normal(
-        (3, 1, cfg.d_model)).astype(np.float32)
+        (B, 1, cfg.d_model)).astype(np.float32)
     jp, tp, jx, tx = _both(tree, x, dt)
     want = jmoe.moe_decode(jp, jx, jcfg)
-    got = moe.moe_decode(tp, tx, cfg)
+    got = moe._decode(tp, tx, cfg, path)
     assert got.dtype == tx.dtype and tuple(got.shape) == x.shape
     _close(got, want, dt, cfg.d_model)
 
 
 def test_moe_decode_branches_agree():
-    """With ample capacity the gather and the dense decode branch compute
-    the same f32 function."""
+    """With ample capacity every decode path computes the same f32
+    function: at B 4 and at B 1, each sparse path taken by itself against
+    the dense branch."""
     _, cfg = _configs()
     _, dcfg = _configs(moe_dense_decode=True)
     tree = _moe_params(cfg, seed=8)
-    x = np.random.default_rng(9).standard_normal(
-        (4, 1, cfg.d_model)).astype(np.float32)
-    _, tp, _, tx = _both(tree, x, "f32")
-    torch.testing.assert_close(moe.moe_decode(tp, tx, cfg),
-                               moe.moe_decode(tp, tx, dcfg),
-                               rtol=1e-5, atol=1e-5)
+    for B in (4, 1):
+        x = np.random.default_rng(9).standard_normal(
+            (B, 1, cfg.d_model)).astype(np.float32)
+        _, tp, _, tx = _both(tree, x, "f32")
+        want = moe.moe_decode(tp, tx, dcfg)
+        for path in ("grouped", "gather"):
+            got = moe._decode(tp, tx, cfg, path)
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("dense_decode", [False, True],
-                         ids=["gather", "dense"])
-def test_moe_decode_spans_count_the_gathered_bytes(dense_decode, dt):
-    """Under a tracer the decode MoE's weight gather records B·K·3·D·F
-    items of the weights' size in ``gathered_bytes``, nested under the
-    caller's span beside ``moe.experts``; the dense branch gathers
-    nothing and records no gather."""
+def test_moe_decode_grouped_drops_nothing(dt):
+    """A router rigged so that every token picks experts 0 and 1: each of
+    the two holds all B copies (a prefill's capacity at B 16 would keep 8),
+    the decode's capacity B keeps every one, and the grouped path equals
+    the gather path (bf16: both round each product once, in another
+    order)."""
+    _, cfg = _configs()
+    B, D, K = 16, cfg.d_model, cfg.experts_per_token
+    assert moe._capacity(cfg, B) < B
+    tree = _moe_params(cfg, seed=10)
+    v = np.ones(D, np.float32) / math.sqrt(D)
+    tree["router"] = np.zeros((D, cfg.num_experts), np.float32)
+    tree["router"][:, 0] = 8 * v
+    tree["router"][:, 1] = 4 * v
+    rng = np.random.default_rng(11)
+    x = (4 * v + 0.1 * rng.standard_normal((B, 1, D))).astype(np.float32)
+    _, tp, _, tx = _both(tree, x, dt)
+    h = moe.norm(tx, tp["norm"], cfg).reshape(B, D)
+    _, _, ids = moe._route(h, tp["router"], K)
+    assert ids.tolist() == [[0, 1]] * B
+    _, keep, _ = moe.dispatch_plan(ids, cfg.num_experts, B)
+    assert bool(keep.all())
+    got = moe._decode(tp, tx, cfg, "grouped")
+    want = moe._decode(tp, tx, cfg, "gather")
+    _close(got, want.float().numpy(), dt, D)
+    assert float(got.float().abs().min()) > 0     # no token's sum is empty
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("path", list(DECODE_ARMS))
+def test_moe_decode_spans_count_the_gathered_bytes(path, dt, metrics):
+    """Under a tracer each path, run at its own batch, nests its spans
+    under the caller's: the gather path's ``moe.gather`` records B·K·3·D·F
+    items of the weights' size in ``gathered_bytes``, beside
+    ``moe.experts``; the grouped path has ``moe.dispatch`` then
+    ``moe.experts`` (``weight_bytes`` E·3·D·F items, no gather); the dense
+    branch ``moe.experts`` alone.  Each call counts one
+    ``moe_decode_calls`` under its path."""
     from repro_torch.obs import trace as obs_trace
-    _, cfg = _configs(moe_dense_decode=dense_decode)
-    B, K = 3, cfg.experts_per_token
+    _, cfg = _configs(moe_dense_decode=path == "dense")
+    B, K = DECODE_ARMS[path], cfg.experts_per_token
     x = np.random.default_rng(7).standard_normal(
         (B, 1, cfg.d_model)).astype(np.float32)
     _, tp, _, tx = _both(_moe_params(cfg, seed=6), x, dt)
@@ -415,18 +510,28 @@ def test_moe_decode_spans_count_the_gathered_bytes(dense_decode, dt):
     prev = obs_trace.set_tracer(tr)
     try:
         with obs_trace.span("moe") as outer:
-            moe.moe_decode(tp, tx, cfg)
+            moe._decode(tp, tx, cfg, path)
+            moe._decode(tp, tx, cfg, path)
     finally:
         obs_trace.set_tracer(prev)
     kids = [s for s in tr.spans if s.parent == outer.sid]
-    gathers = [s for s in kids if s.name == "moe.gather"]
-    assert [s.name for s in kids if s.name != "moe.gather"] \
-        == ["moe.experts"]
-    want = B * K * 3 * cfg.d_model * cfg.moe_d_ff \
-        * torch.empty((), dtype=DTYPES[dt][1]).element_size()
-    assert [s.args["gathered_bytes"] for s in gathers] \
-        == ([] if dense_decode else [want])
+    names = {"grouped": ["moe.dispatch", "moe.experts"],
+             "gather": ["moe.gather", "moe.experts"],
+             "dense": ["moe.experts"]}[path]
+    assert [s.name for s in kids] == names * 2
+    item = torch.empty((), dtype=DTYPES[dt][1]).element_size()
+    weights = 3 * cfg.d_model * cfg.moe_d_ff * item
+    gathers = [s.args["gathered_bytes"] for s in kids
+               if s.name == "moe.gather"]
+    assert gathers == ([B * K * weights] * 2 if path == "gather" else [])
+    experts = [s.args for s in kids if s.name == "moe.experts"]
+    if path == "grouped":
+        assert experts == [{"path": "grouped",
+                            "weight_bytes": cfg.num_experts * weights}] * 2
     assert all(None not in s.device for s in kids)
+    for arm in DECODE_ARMS:
+        assert _count(metrics, "moe_decode_calls", path=arm) \
+            == (2 if arm == path else 0)
 
 
 def test_moe_forward_grouped_raises():

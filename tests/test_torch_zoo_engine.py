@@ -197,7 +197,8 @@ def test_serve_reckoning_matches_the_wrapper_calls(arch):
     """``chip_smoke.py``'s reckoning of a prefill's and a decode step's
     kernel launches (``_zoo_launches``) equals the calls each kernel
     wrapper receives here on the CPU, where each call is the kernel's plain
-    version and would be one launch on the card."""
+    version and would be one launch on the card; decode at 1 row and at
+    4, the MoE's path from ``decode_path`` on both sides."""
     cfg = get_config(arch, smoke=True)
     m = Model(cfg, device="cpu")
     params = m.init(torch.Generator().manual_seed(0))
@@ -218,15 +219,19 @@ def test_serve_reckoning_matches_the_wrapper_calls(arch):
         _, cache = m.prefill(params, torch.from_numpy(prompt)[None].long(),
                              extras=tx or None)
         prefill = dict(calls)
-        calls.clear()
-        full = m.init_cache(1, 48)
-        for name in ("k", "v"):
-            full[name][:, :, :, :40] = cache[name]
-        m.decode_step(params, full, torch.tensor([3]), torch.tensor(40))
-        decode = dict(calls)
-    want_prefill, want_decode = _chip_smoke()._zoo_launches(cfg)
-    assert prefill == {k: v for k, v in want_prefill.items() if v}
-    assert decode == {k: v for k, v in want_decode.items() if v}
+        decode = {}
+        for B in (1, 4):
+            calls.clear()
+            full = m.init_cache(B, 48)
+            for name in ("k", "v"):
+                full[name][:, :, :, :40] = cache[name]
+            m.decode_step(params, full, torch.full((B,), 3),
+                          torch.tensor(40))
+            decode[B] = dict(calls)
+    for B in (1, 4):
+        want_prefill, want_decode = _chip_smoke()._zoo_launches(cfg, B)
+        assert prefill == {k: v for k, v in want_prefill.items() if v}
+        assert decode[B] == {k: v for k, v in want_decode.items() if v}
 
 
 @pytest.mark.parametrize("arch", ["musicgen-large", "llava-next-mistral-7b"])

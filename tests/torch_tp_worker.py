@@ -15,7 +15,9 @@ every case it is given, returning one dict of numpy arrays a rank:
   frontend ``extras``), and decode steps after it at per-slot positions,
   each rank's f32 logits;
 * ``("engine", name, cfg, tree, requests)``: the serving engine's greedy
-  tokens at exact lengths, the params and the decode cache in f32.
+  tokens at exact lengths, the params and the decode cache in f32;
+* ``("moe", name, cfg, tree, x)``: the first layer's MoE decode of x (B, 1,
+  D) on each sparse path (``nn/moe.py::_decode``), in f32.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from repro_torch.distributed.sharding import shard_params, tp_shardings
 from repro_torch.launch.engine import ServingEngine
 from repro_torch.launch.mesh import init_distributed, make_local_mesh
 from repro_torch.nn import layers as L
+from repro_torch.nn import moe
 from repro_torch.nn.model import Model
 
 
@@ -105,6 +108,17 @@ def _engine(rank, mesh, cfg, tree, requests, gen, max_len):
     return {f"tokens_{r}": res[r].tokens for r in sorted(res)}
 
 
+def _moe(rank, mesh, cfg, tree, x):
+    _, params = _shards(cfg, tree, mesh, rank)
+
+    def first(node):
+        return {k: first(v) if isinstance(v, dict) else v[0]
+                for k, v in node.items()}
+    p = first(params["layers"]["moe"])
+    return {path: moe._decode(p, torch.from_numpy(x), cfg, path).numpy()
+            for path in ("grouped", "gather")}
+
+
 def run_cases(rank: int, world: int, init_method: str, cases) -> dict:
     torch.set_num_threads(1)        # the ranks share the host's cores
     init_distributed(rank, world, init_method, device="cpu")
@@ -119,6 +133,8 @@ def run_cases(rank: int, world: int, init_method: str, cases) -> dict:
                     got = _matmul(rank, world, mesh, *case[2:])
                 elif kind == "model":
                     got = _model(rank, mesh, *case[2:])
+                elif kind == "moe":
+                    got = _moe(rank, mesh, *case[2:])
                 else:
                     got = _engine(rank, mesh, *case[2:])
                 out.update({f"{name}/{k}": v for k, v in got.items()})
